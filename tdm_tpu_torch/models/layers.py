@@ -1,0 +1,183 @@
+"""Building blocks of the PixArt denoiser, in PyTorch.
+
+Port of the serving path's part of `tdm_tpu/models/layers.py`. Module and
+parameter names follow the JAX package's tree (to_q/to_k/to_v/to_out,
+linear_1/linear_2, proj, proj_in/proj_out) so the weight carry
+(`io/from_jax.py`) is a mechanical rename. Layouts stay those of the JAX
+package at the public functions: tokens [B, S, D], attention [B, H, S, D],
+images NCHW. Linear layers hold their weights in the model's compute dtype
+(the JAX package casts its fp32 master weights to that dtype at every use,
+which rounds identically).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tdm_tpu_torch.ops.attention import attention as fused_attention
+
+
+def sinusoidal_timestep_embedding(
+    t: torch.Tensor,
+    dim: int,
+    *,
+    max_period: float = 10000.0,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """DDPM sinusoidal embedding (diffusers `Timesteps`); t [B] → [B, dim]
+    fp32. PixArt uses flip_sin_to_cos=True and a shift of 0."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device)
+        / (half - downscale_freq_shift)
+    )
+    args = t.float()[:, None] * freqs[None, :] * scale
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal embedding."""
+
+    def __init__(self, in_dim: int, dim: int, *, dtype, device=None):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim, dtype=dtype, device=device)
+        self.linear_2 = nn.Linear(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+def get_2d_sincos_pos_embed(
+    dim: int, grid_h: int, grid_w: int, *, base_size: Optional[int] = None
+) -> np.ndarray:
+    """Fixed 2D sin-cos position table [grid_h*grid_w, dim] (PixArt/DiT),
+    computed on the host in float64."""
+    h = np.arange(grid_h, dtype=np.float64)
+    w = np.arange(grid_w, dtype=np.float64)
+    if base_size is not None:
+        h = h / (grid_h / base_size)
+        w = w / (grid_w / base_size)
+    gw, gh = np.meshgrid(w, h)
+
+    def embed_1d(pos, d):
+        omega = 1.0 / 10000 ** (np.arange(d // 2, dtype=np.float64) / (d / 2.0))
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    emb_h = embed_1d(gh, dim // 2)
+    emb_w = embed_1d(gw, dim // 2)
+    return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+class PatchEmbed(nn.Module):
+    """[B, C, H, W] → tokens [B, (H/p)(W/p), dim] by a stride-p conv, plus
+    the fixed sin-cos position table."""
+
+    def __init__(
+        self,
+        patch_size: int,
+        in_channels: int,
+        dim: int,
+        *,
+        pos_embed_base_size: Optional[int] = None,
+        dtype,
+        device=None,
+    ):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dim = dim
+        self.base_size = pos_embed_base_size
+        self.proj = nn.Conv2d(
+            in_channels, dim, patch_size, stride=patch_size,
+            dtype=dtype, device=device,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        p = self.patch_size
+        x = self.proj(x).flatten(2).transpose(1, 2)  # [B, gh*gw, dim]
+        pos = get_2d_sincos_pos_embed(self.dim, h // p, w // p, base_size=self.base_size)
+        return x + torch.from_numpy(pos).to(device=x.device, dtype=x.dtype)[None]
+
+
+class Attention(nn.Module):
+    """Multi-head self or cross attention over [B, S, D] tokens through
+    `ops.attention` (the flash kernel on CUDA)."""
+
+    def __init__(
+        self,
+        dim: int,
+        heads: int,
+        head_dim: int,
+        *,
+        dtype,
+        device=None,
+    ):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.to_q = nn.Linear(dim, inner, dtype=dtype, device=device)
+        self.to_k = nn.Linear(dim, inner, dtype=dtype, device=device)
+        self.to_v = nn.Linear(dim, inner, dtype=dtype, device=device)
+        self.to_out = nn.Linear(inner, dim, dtype=dtype, device=device)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        context: Optional[torch.Tensor] = None,
+        key_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        ctx = x if context is None else context
+        b, s, _ = x.shape
+
+        def split(t):
+            return t.reshape(b, -1, self.heads, self.head_dim).transpose(1, 2).contiguous()
+
+        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
+        out = fused_attention(q, k, v, key_mask)
+        out = out.transpose(1, 2).reshape(b, s, self.heads * self.head_dim)
+        return self.to_out(out)
+
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Affine-free LayerNorm computed in fp32, cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mean) / torch.sqrt(var + eps)).to(x.dtype)
+
+
+class FeedForward(nn.Module):
+    """Transformer MLP with the tanh-approximated GELU (PixArt's
+    'gelu-approximate'), mult× expansion."""
+
+    def __init__(self, dim: int, mult: int = 4, *, dtype, device=None):
+        super().__init__()
+        self.proj_in = nn.Linear(dim, dim * mult, dtype=dtype, device=device)
+        self.proj_out = nn.Linear(dim * mult, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+
+
+def unpatchify(
+    tokens: torch.Tensor, grid_h: int, grid_w: int, patch: int, channels: int
+) -> torch.Tensor:
+    """[B, gh*gw, p·p·C] → [B, C, gh·p, gw·p] (the inverse of PatchEmbed)."""
+    b = tokens.shape[0]
+    x = tokens.reshape(b, grid_h, grid_w, patch, patch, channels)
+    x = torch.einsum("bhwpqc->bchpwq", x)
+    return x.reshape(b, channels, grid_h * patch, grid_w * patch)

@@ -1,0 +1,90 @@
+"""Pipeline helpers shared by the families: the output record and the
+diffusers call-convention pieces of `tdm_tpu/pipelines/base.py`.
+
+Noise: with no `latents=`, a pipeline draws its initial noise from a
+`torch.Generator` seeded with `seed` (on the CPU, so a seed gives the same
+noise on every device). JAX's `PRNGKey(seed)` draws different numbers by
+construction: the same seed gives different images in the two packages;
+pass `latents=` to feed both the same noise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import torch
+
+
+@dataclass
+class PipelineOutput:
+    """images: [B, H, W, 3] float32 in [0, 1] (None with output_type='latent');
+    latents: the sampler's final x₀ estimate [B, C, h, w]."""
+
+    images: Any
+    latents: Any = None
+
+
+def check_negative_prompt(
+    negative_prompt: Optional[Sequence[str]], batch_size: int
+) -> Optional[Sequence[str]]:
+    """diffusers' check: a str broadcasts to every prompt; a list must have
+    one entry per prompt."""
+    if negative_prompt is None:
+        return None
+    if isinstance(negative_prompt, str):
+        return [negative_prompt] * batch_size
+    if len(negative_prompt) != batch_size:
+        raise ValueError(
+            f"negative_prompt has {len(negative_prompt)} entries but the "
+            f"prompt batch is {batch_size}; pass one negative prompt per "
+            "prompt (or a single str for all)"
+        )
+    return negative_prompt
+
+
+def repeat_per_prompt(tree: Any, n: int) -> Any:
+    """diffusers' num_images_per_prompt: repeat every batch-axis tensor of a
+    conditioning tuple n times in repeat_interleave order."""
+    if n == 1 or tree is None:
+        return tree
+    if n < 1:
+        raise ValueError(f"num_images_per_prompt must be >= 1, got {n}")
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(repeat_per_prompt(x, n) for x in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() > 0:
+        return tree.repeat_interleave(n, dim=0)
+    return tree
+
+
+def generator_for(seed: Optional[int], generator: Optional[torch.Generator]):
+    """`generator` wins; else a CPU generator seeded with `seed` (0 when
+    None)."""
+    if generator is not None:
+        return generator
+    return torch.Generator().manual_seed(0 if seed is None else int(seed))
+
+
+def initial_noise(
+    latents: Optional[Any],
+    generator: torch.Generator,
+    shape: tuple,
+    device: torch.device,
+) -> torch.Tensor:
+    """The sampler's starting noise in bf16 (as the JAX package rounds it,
+    for every model dtype): caller-given `latents=` win over the generator."""
+    if latents is None:
+        noise = torch.randn(shape, generator=generator, device=generator.device)
+        return noise.to(device=device, dtype=torch.bfloat16)
+    latents = torch.as_tensor(latents).to(device=device, dtype=torch.bfloat16)
+    if tuple(latents.shape) != tuple(shape):
+        raise ValueError(
+            f"latents shape {tuple(latents.shape)} != expected {tuple(shape)}"
+        )
+    return latents
+
+
+def to_images(decoded: torch.Tensor) -> torch.Tensor:
+    """TAESD output [B, 3, H, W] (in [0, 1]) → [B, H, W, 3] float32
+    clipped to [0, 1]."""
+    return decoded.float().clamp(0.0, 1.0).permute(0, 2, 3, 1)
