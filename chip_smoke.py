@@ -18,9 +18,16 @@ Phases, one line each, and any failure exits non-zero:
      weights) written with the port's writer, served over HTTP by
      TDMServer: 6 concurrent requests (two batches of 4, one padded), PNG
      checks, per-seed determinism and the kernel launch count per batch;
-     then one full-width forward with the kernel against plain attention.
-Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.
+     then one full-width forward with the kernel against plain attention;
+  6. train: full-width PixArt-α-512 TDM distillation through the training
+     CLI's main() (seeded weights and embedding cache, batch 4, bf16, dmd,
+     3 steps): seconds per step, peak memory, the idle share of a step,
+     and each training kernel's launches per step (checked).
+Phase 3 also holds the training kernels (the forward with its lse, dQ,
+dK/dV) against their plain versions, and phase 4 one tiny train step on
+the card against the same step on the CPU. Then a JSON line of per-kernel
+numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -32,6 +39,7 @@ import base64
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +61,12 @@ BF16_REL_L2, BF16_ULPS = 1e-2, 4
 # fp32, elementwise |kernel - plain| <= atol + rtol·|plain|: the same sums
 # in another order.
 F32_TOL = (2e-5, 2e-5)
+# the lse of a row with live keys, fp32, kernel against plain: the same
+# logits, exp by __expf or expf, the sums in another order
+LSE_TOL = 1e-4
+# fp32 gradients through the kernels against autograd of plain_attention,
+# relative to each tensor's largest magnitude: the same sums in another order
+GRAD_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -198,7 +212,7 @@ def phase_kernels(torch, seed: int) -> dict:
 
     from tdm_tpu_torch.ops import attention as A
 
-    lib = A._library()
+    fwd, _ = A._entry("tdm_flash_fwd")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -236,9 +250,9 @@ def phase_kernels(torch, seed: int) -> dict:
             continue
         stream = torch.cuda.current_stream().cuda_stream
         args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if bias is None else bias.data_ptr(), out.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(), None,
                 b, h, sq, sk, d, 1, int(d % 8 == 0), stream)
-        ms = time_ms(torch, lambda: lib.tdm_flash_fwd(*args))
+        ms = time_ms(torch, lambda: fwd(*args))
         plain_ms = time_ms(torch, lambda: A.plain_attention(qs, k, v, bias), 20)
         sdpa_mask = None if mask is None else mask.bool()[:, None, None, :]
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -255,6 +269,245 @@ def phase_kernels(torch, seed: int) -> dict:
               f"{plain_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {bound:.5f} "
               f"({by})", flush=True)
     return {"max_abs_err": max_err, "shapes": shapes}
+
+
+def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys):
+    """(bytes, operations) of one training kernel at this run's mask, each
+    input read once and each output written once. `live_keys` is the
+    unmasked keys summed over the batch; K and V are read for those keys
+    only, and the products are counted per (query, unmasked key) pair:
+      fwd_lse: q read, out written, K/V read, bias read, lse written;
+               2 products (S, P·V) = 4·d operations per pair;
+      dq:      q, dO read, dQ written, K/V read, lse and Δ read, bias read;
+               3 products (S, dP, dS·K) = 6·d per pair;
+      dkv:     q, dO read, K/V read, dK and dV written in full, lse and Δ
+               read, bias read; 4 products (S, Pᵀ·dO, dP, dSᵀ·Q) = 8·d."""
+    rows = item_bytes * h * d * b * sq  # one [B,H,Sq,D] tensor
+    kv = item_bytes * h * d * live_keys  # K or V over the unmasked keys
+    full_k = item_bytes * h * d * b * sk
+    row_f32 = 4 * b * h * sq  # lse or Δ
+    bias = 4 * b * sk
+    if kernel == "fwd_lse":
+        return 2 * rows + 2 * kv + bias + row_f32, 4 * h * sq * d * live_keys
+    if kernel == "dq":
+        return 3 * rows + 2 * kv + 2 * row_f32 + bias, 6 * h * sq * d * live_keys
+    if kernel == "dkv":
+        return (2 * rows + 2 * kv + 2 * full_k + 2 * row_f32 + bias,
+                8 * h * sq * d * live_keys)
+    raise ValueError(kernel)
+
+
+def compare_grad(torch, got, ref) -> tuple:
+    """compare() for a gradient: bf16 by the same per-row rule; fp32 with
+    max |kernel - plain| <= GRAD_TOL of the largest |plain| (a gradient is a
+    sum of terms that cancel, so elementwise relative error means little)."""
+    if got.dtype != torch.float32:
+        return compare(torch, got, ref)
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    rel = (diff.norm() / ref.norm().clamp_min(1e-30)).item()
+    top = ref.abs().max().item()
+    if err > GRAD_TOL * top:
+        return err, rel, f"max_abs_err {err:.3e} above {GRAD_TOL} of {top:.3e}"
+    return err, rel, None
+
+
+def compare_lse(torch, got, ref) -> tuple:
+    """(max_abs_err, failure or None) of the kernel's lse against the plain
+    version's: rows of an all-masked batch row hold exactly +1e30, the rest
+    agree to LSE_TOL (fp32 logsumexp of the same logits, __expf and another
+    order of sums)."""
+    masked = ref >= 1e29
+    if bool((got[masked] != ref[masked]).any()):
+        return float("inf"), "an all-masked row's lse is not +1e30"
+    if bool(masked.all()):
+        return 0.0, None
+    err = (got[~masked] - ref[~masked]).abs().max().item()
+    if err > LSE_TOL:
+        return err, f"lse max_abs_err {err:.3e} above {LSE_TOL}"
+    return err, None
+
+
+def phase_kernels_train(torch, seed: int) -> dict:
+    """The training kernels (forward with lse, dQ, dK/dV) against their
+    plain versions at the training shapes and a sweep, the fp32 gradients
+    of FlashAttention against autograd of plain_attention, exact zeros on
+    all-masked rows, and the times of each kernel, its plain version, its
+    bound and SDPA's forward + backward."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("self", PIX_B, PIX_H, PIX_S, PIX_S, PIX_D, bf16, None, True),
+        ("cross", PIX_B, PIX_H, PIX_S, PIX_TXT, PIX_D, bf16, [120, 77, 13, 0], True),
+        ("odd", 2, 3, 1000, 77, 64, f32, [77, 0], False),
+    ]
+    for d in (8, 16, 36, 64, 100, 128):
+        for dtype in (bf16, f32):
+            cases.append((f"sweep_d{d}_{str(dtype).split('.')[-1]}", 2, 2, 130,
+                          70, d, dtype, [70, 33], False))
+    names = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+    recs = {n: {"max_abs_err": 0.0, "shapes": []} for n in names}
+    pair = []
+    for name, b, h, sq, sk, d, dtype, lengths, timed in cases:
+        q, k, v, mask, qs, bias = _attn_inputs(
+            torch, gen, b, h, sq, sk, d, dtype, lengths)
+        dout = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dtype)
+        scale = 1.0 / d ** 0.5
+        before = A.launch_counts()
+        out, lse = A.flash_attention_fwd_lse(qs, k, v, bias)
+        ref_out, ref_lse = A.plain_attention_lse(qs, k, v, bias)
+        # the backward kernels and their plain versions on the same inputs
+        delta = A.attention_delta(dout, ref_out)
+        dq = A.flash_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
+        dk, dv = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, delta)
+        for w in A.WRAPPERS:  # comparison launches do not count
+            w.launches = before[w.__name__]
+        ref_dq = A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
+        ref_dk, ref_dv = A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, delta)
+        torch.cuda.synchronize()
+        dims = f"[{b},{h},{sq},{sk},{d}] {str(dtype).split('.')[-1]}"
+        results = {
+            "flash_fwd_lse": [("out", out, ref_out)],
+            "flash_bwd_dq": [("dq", dq, ref_dq)],
+            "flash_bwd_dkv": [("dk", dk, ref_dk), ("dv", dv, ref_dv)],
+        }
+        lse_err, lse_bad = compare_lse(torch, lse, ref_lse)
+        print(f"[kernels] flash_fwd_lse {name} {dims} lse max_abs_err "
+              f"{lse_err:.3e} (limit {LSE_TOL}; all-masked rows exactly +1e30)",
+              flush=True)
+        check(lse_bad is None, f"flash_fwd_lse {name}: {lse_bad}")
+        for kern, outs in results.items():
+            for label, got, ref in outs:
+                check(bool(torch.isfinite(got).all()),
+                      f"{kern} {name}: non-finite {label}")
+                err, rel, bad = (compare(torch, got, ref) if kern == "flash_fwd_lse"
+                                 else compare_grad(torch, got, ref))
+                print(f"[kernels] {kern} {name} {dims} {label} max_abs_err "
+                      f"{err:.3e} rel_l2 {rel:.3e}", flush=True)
+                check(bad is None, f"{kern} {name} {label}: {bad}")
+                recs[kern]["max_abs_err"] = max(recs[kern]["max_abs_err"], err)
+        recs["flash_fwd_lse"]["max_abs_err"] = max(
+            recs["flash_fwd_lse"]["max_abs_err"], lse_err)
+        if lengths is not None:  # all-masked batch rows: exactly 0
+            for i, n_live in enumerate(lengths):
+                if n_live == 0:
+                    check(not bool(out[i].any()) and not bool(dq[i].any())
+                          and not bool(dk[i].any()) and not bool(dv[i].any()),
+                          f"{name}: batch row {i} has no key but a non-zero "
+                          f"output or gradient")
+                check(not bool(dk[i, :, n_live:].any())
+                      and not bool(dv[i, :, n_live:].any()),
+                      f"{name}: a masked key got a gradient")
+        if not timed:
+            continue
+        live = sk * b if lengths is None else sum(lengths)
+        stream = torch.cuda.current_stream().cuda_stream
+        bp = None if bias is None else bias.data_ptr()
+        vec = int(d % 8 == 0)
+        fwd, _ = A._entry("tdm_flash_fwd")
+        fdq, _ = A._entry("tdm_flash_bwd_dq")
+        fdkv, _ = A._entry("tdm_flash_bwd_dkv")
+        calls = {
+            "flash_fwd_lse": (
+                lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
+                            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, 1,
+                            vec, stream),
+                lambda: A.plain_attention_lse(qs, k, v, bias), "fwd_lse"),
+            "flash_bwd_dq": (
+                lambda: fdq(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
+                            dout.data_ptr(), ref_lse.data_ptr(), delta.data_ptr(),
+                            dq.data_ptr(), b, h, sq, sk, d, scale, 1, vec, stream),
+                lambda: A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_lse,
+                                                 delta, scale), "dq"),
+            "flash_bwd_dkv": (
+                lambda: fdkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
+                             dout.data_ptr(), ref_lse.data_ptr(), delta.data_ptr(),
+                             dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, 1, vec,
+                             stream),
+                lambda: A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse,
+                                                  delta), "dkv"),
+        }
+        times = {}
+        for kern, (kfn, pfn, work) in calls.items():
+            ms = time_ms(torch, kfn)
+            plain_ms = time_ms(torch, pfn, 10, 2)
+            nbytes, ops = attention_bwd_work(work, b, h, sq, sk, d, 2, live)
+            bound, by = bound_ms(nbytes, ops)
+            times[kern] = ms
+            recs[kern]["shapes"].append({
+                "shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "bytes": nbytes, "ops": ops})
+            print(f"[kernels] {kern} {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bound:.5f} ({by})", flush=True)
+        delta_ms = time_ms(torch, lambda: A.attention_delta(dout, out))
+        # the yardstick: SDPA forward + backward on the same inputs (the
+        # port never calls it); its forward alone beside the lse forward
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        sdpa_mask = None if mask is None else mask.bool()[:, None, None, :]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dout)
+
+        sdpa_fwd_ms = time_ms(torch, sdpa_fwd)
+        sdpa_ms = time_ms(torch, sdpa_fwd_bwd)
+        port_ms = sum(times.values()) + delta_ms
+        recs["flash_fwd_lse"]["shapes"][-1]["library_ms"] = sdpa_fwd_ms
+        pair.append({"shape": name, "port_fwd_lse_delta_dq_dkv_ms": port_ms,
+                     "delta_ms": delta_ms, "sdpa_fwd_bwd_ms": sdpa_ms})
+        print(f"[kernels] training attention {name}: port lse forward + delta + "
+              f"dq + dkv {port_ms:.4f} ms (delta {delta_ms:.4f}) vs SDPA "
+              f"forward + backward {sdpa_ms:.4f} ms (forward alone "
+              f"{sdpa_fwd_ms:.4f})", flush=True)
+    grad_check(torch, seed)
+    return {"kernels": recs, "pair": pair}
+
+
+def grad_check(torch, seed: int) -> None:
+    """fp32, small shape: the gradients of q, k and v through
+    FlashAttention (the kernels) against autograd of plain_attention, both
+    on the card, with a ragged and an all-masked batch row. Tolerance
+    GRAD_TOL relative to each gradient's largest magnitude: the same fp32
+    arithmetic in another order; the all-masked row's gradients are exactly
+    0."""
+    from tdm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    b, h, sq, sk, d = 3, 2, 200, 77, 40
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+               for s in (sq, sk, sk))
+    mask = (torch.arange(sk, device="cuda")[None]
+            < torch.tensor([77, 30, 0], device="cuda")[:, None]).int()
+    g = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+    before = A.launch_counts()
+    grads = {}
+    for impl in ("auto", "plain"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = A.attention(*leaves, mask, impl=impl)
+        grads[impl] = (out, *torch.autograd.grad(out, leaves, g))
+    launched = {n: A.launch_counts()[n] - before[n] for n in before}
+    for w in A.WRAPPERS:
+        w.launches = before[w.__name__]
+    check(launched == {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
+                       "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1},
+          f"grad check launches {launched}")
+    worst = 0.0
+    for label, got, ref in zip(("out", "dq", "dk", "dv"), grads["auto"], grads["plain"]):
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        worst = max(worst, err)
+        check(err <= GRAD_TOL, f"grad check {label}: {err:.3e} > {GRAD_TOL}")
+        check(not bool(got[2].any()), f"grad check {label}: all-masked row not 0")
+    print(f"[kernels] fp32 [{b},{h},{sq},{sk},{d}] FlashAttention (kernels) vs "
+          f"autograd of plain_attention: out/dq/dk/dv max error {worst:.3e} of "
+          f"the largest magnitude (limit {GRAD_TOL}); all-masked row exactly 0",
+          flush=True)
 
 
 def check_png(png: bytes, width: int, height: int) -> None:
@@ -498,10 +751,238 @@ def full_forward_check(torch, transformer, seed: int) -> None:
           f"full-width forward disagrees: rel L2 {rel}")
 
 
+def phase_reference_train(torch, seed: int) -> None:
+    """One tiny TDM step (fp32, dmd) on the card (the kernels) against the
+    same step on the CPU (the plain versions), from one state with the same
+    draws and conditioning. Losses and grad norms to 1e-4 relative; the
+    update of each role (new − old params) to 5e-3 in relative L2 and each
+    weight to 25% of lr (Adam ε 1e-4, as tests/test_torch_port_train.py
+    holds the step against JAX: fp32 roundoff in another order; a weight
+    whose gradient is a near-cancelling sum moves by lr·δg/ε, measured up to
+    16% of lr between card and CPU)."""
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    lr = 1e-4
+    runs = {}
+    cpu_params = None
+    for dev in ("cpu", "cuda"):
+        bundle = families.build("pixart", tiny=True, seed=seed, device=dev)
+        if cpu_params is None:
+            cpu_params = bundle.init_params()
+        teacher = {k: v.to(dev) for k, v in cpu_params.items()}
+        gen = torch.Generator(device="cpu").manual_seed(seed + 3)
+        config = tdm.TDMConfig()
+        draws = tdm.make_draws(config, 3, bundle.sample_shape, gen, "cpu")
+        draws = tdm.StepDraws(*(x.to(dev) for x in draws))
+        text = torch.randn(3, bundle.seq_len, bundle.embed_dim, generator=gen).to(dev)
+        mask = (torch.arange(bundle.seq_len)[None]
+                < torch.tensor([[8], [3], [1]])).int().to(dev)
+        uncond = (torch.zeros_like(text), torch.ones_like(mask))
+        tx = topt.make_optimizer(lr, eps=1e-4)
+        state = tdm.init_state(teacher, teacher, tx, tx)
+        start = {r: {k: v.clone() for k, v in getattr(state, r).items()}
+                 for r in ("student", "critic")}
+        step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config,
+                                    tx, tx, sample_shape=bundle.sample_shape)
+        before = A.launch_counts()
+        state, metrics = step(state, draws, (text, mask), uncond)
+        launched = {n: A.launch_counts()[n] - before[n] for n in before}
+        for w in A.WRAPPERS:  # a check, not the main path
+            w.launches = before[w.__name__]
+        runs[dev] = (state, metrics, start, launched)
+    (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
+    # 2 layers x (self, cross): 7 no-grad forwards, 2 with grad
+    want = {"flash_attention_fwd": 28, "flash_attention_fwd_lse": 8,
+            "flash_attention_bwd_dq": 8, "flash_attention_bwd_dkv": 8}
+    check(glaunch == want, f"tiny step launches {glaunch}, expected {want}")
+    worst = {}
+    for name in tdm.StepMetrics._fields:
+        c, g = float(getattr(cm, name)), float(getattr(gm, name))
+        worst[name] = abs(c - g) / max(abs(c), 1e-12)
+        check(math.isfinite(g) and abs(c - g) <= 1e-4 * abs(c) + 1e-7,
+              f"tiny step {name}: card {g} vs cpu {c}")
+    upd = {}
+    for role in ("student", "critic"):
+        d_c = torch.cat([(getattr(cs, role)[k] - cstart[role][k]).flatten()
+                         for k in cstart[role]])
+        d_g = torch.cat([(getattr(gs, role)[k] - gstart[role][k]).cpu().flatten()
+                         for k in cstart[role]])
+        rel = float((d_g - d_c).norm() / d_c.norm())
+        top = float((d_g - d_c).abs().max())
+        upd[role] = (rel, top)
+        check(float(d_c.abs().max()) > 0.5 * lr, f"tiny step: {role} did not move")
+        check(rel <= 5e-3 and top <= 0.25 * lr,
+              f"tiny step {role} update: rel L2 {rel:.3e}, max {top:.3e}")
+    print(f"[reference] tiny TDM step (dmd) cuda (kernels: {glaunch}) vs cpu "
+          f"(plain): metrics max rel err {max(worst.values()):.3e} (limit 1e-4); "
+          f"update rel L2 / max: student {upd['student'][0]:.3e} / "
+          f"{upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} / "
+          f"{upd['critic'][1]:.3e} (limits 5e-3 / {0.25 * lr:.1e})", flush=True)
+
+
+TRAIN_STEPS = 3
+# per step at batch 4, dmd, cfg 4.5, critic_updates 1: 7 forwards without
+# grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B, critic probe) and 2
+# with grad (critic DSM, student loss), each 28 blocks x (self, cross)
+TRAIN_LAUNCHES = {"flash_attention_fwd": 392, "flash_attention_fwd_lse": 112,
+                  "flash_attention_bwd_dq": 112, "flash_attention_bwd_dkv": 112}
+
+
+def phase_train(torch, seed: int, workdir: str) -> dict:
+    """Full-width PixArt-α-512 TDM training through the CLI's main():
+    seeded weights, a seeded full-width embedding cache, batch 4, bf16,
+    dmd, 3 steps. Per step: host and CUDA-event times and the kernels'
+    launches (checked); step 3 under torch.profiler for device busy time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed)
+    lengths = np.array([120, 77, 33, 9, 120, 1, 56, 100])
+    cache = os.path.join(workdir, "train_cache.npz")
+    EmbeddingCache(
+        rng.standard_normal((8, 120, 4096)).astype(np.float16),
+        (np.arange(120)[None] < lengths[:, None]).astype(np.int32),
+        [f"prompt {i}" for i in range(8)],
+        uncond_embed=(0.1 * rng.standard_normal((120, 4096))).astype(np.float16),
+        uncond_mask=(np.arange(120) < 1).astype(np.int32),  # the empty prompt: one token
+    ).save(cache)
+    for var in ("TDM_TINY_MODEL", "TDM_TAESD_DIR"):
+        os.environ.pop(var, None)
+    os.environ["TDM_EMBEDDING_CACHE"] = cache
+    out = os.path.join(workdir, "train")
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    print(f"[train] {free_gb:.0f} GB free for the run's checkpoint", flush=True)
+    steps = []
+    watch = ("blocks.0.attn1.to_q.weight", "blocks.0.ff.proj_out.weight", "proj_out.weight")
+    snap = {}
+
+    def hook(step, run):
+        before = A.launch_counts()
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            if step == TRAIN_STEPS else None
+        if prof is not None:
+            prof.__enter__()
+        t0 = time.monotonic()
+        ev0.record()
+        state, metrics = run()
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        busy_ms = None
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(e.device_time_total for e in kern) / 1e3
+            flash = [e for e in kern if "flash_" in e.key]
+            top = sorted(kern, key=lambda e: -e.device_time_total)[:10]
+            for e in top + [e for e in flash if e not in top]:
+                print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<6d} "
+                      f"{e.key[:90]}", flush=True)
+            print(f"[profile] step {step}: device busy {busy_ms:.1f} ms, the flash "
+                  f"kernels {sum(e.device_time_total for e in flash) / 1e3:.1f} ms, "
+                  f"{sum(e.count for e in kern)} kernel launches", flush=True)
+        rec = {"step": step, "host_s": wall, "event_ms": ev0.elapsed_time(ev1),
+               "busy_ms": busy_ms,
+               "launches": {n: A.launch_counts()[n] - before[n] for n in before},
+               "metrics": {k: float(v) for k, v in metrics._asdict().items()}}
+        if step == 1:
+            snap.update({k: state.student[k].clone() for k in watch})
+        if step == 2:
+            rec["student_changed"] = all(
+                bool((state.student[k] != snap[k]).any()) for k in watch)
+        steps.append(rec)
+        print(f"[train] step {step}: host {wall:.3f}s, CUDA events {rec['event_ms']:.1f} "
+              f"ms, launches {rec['launches']}, {rec['metrics']}", flush=True)
+        return state, metrics
+
+    A.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    train_tdm.main([
+        "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
+        "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
+        "--export_lora_rank", "0", "--seed", str(seed),
+    ], step_hook=hook)
+    total_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    run_dir = out + "_cfg4.5_steps900"
+    ckpt = os.path.join(run_dir, f"checkpoint-{TRAIN_STEPS}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    student_gb = os.path.getsize(os.path.join(run_dir, "student.safetensors")) / 1e9
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps ran")
+    for rec in steps:
+        check(rec["launches"] == TRAIN_LAUNCHES,
+              f"step {rec['step']} launches {rec['launches']}, expected {TRAIN_LAUNCHES}")
+        check(all(math.isfinite(v) for v in rec["metrics"].values()),
+              f"step {rec['step']}: non-finite metrics {rec['metrics']}")
+    check(steps[1]["student_changed"], "the student did not change in step 2")
+    # steps after the first that ran without the profiler (its own cost
+    # inflates the profiled last step's wall time)
+    plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
+    per_step = sum(plain) / len(plain)
+    busy = steps[-1]["busy_ms"]
+    span = steps[1]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    print(f"[train] PixArt-α-512 TDM (dmd, batch 4, bf16, seeded weights): "
+          f"{per_step:.3f} s/step after the first, unprofiled ({3600 / per_step:.0f} "
+          f"iters/hour), first step {steps[0]['host_s']:.3f} s, profiled step "
+          f"{steps[-1]['host_s']:.3f} s, peak memory {peak_gb:.2f} GiB; "
+          f"launches per step {TRAIN_LAUNCHES} (checked); step 2 CUDA-event span "
+          f"{span:.1f} ms, step 3 device busy "
+          + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
+          + f"; main() {total_s:.1f}s incl. a {ckpt_gb:.1f} GB checkpoint and a "
+          f"{student_gb:.2f} GB fp16 student", flush=True)
+    return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
+            "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
+            "idle_share": idle, "busy_ms": busy, "event_span_ms": span,
+            "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
+            "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
+
+
+def kernel_row(name, source, replaces, launches, rec, per) -> dict:
+    """One entry of the `kernels` JSON line: the times of the self and the
+    cross shape summed (one PixArt block), the bound of their summed work."""
+    shapes = rec["shapes"]
+    nbytes = sum(r["bytes"] for r in shapes)
+    ops = sum(r["ops"] for r in shapes)
+    bound, by = bound_ms(nbytes, ops)
+    lib = [r.get("library_ms") for r in shapes]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "ms": sum(r["ms"] for r in shapes),
+        "plain_ms": sum(r["plain_ms"] for r in shapes),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None if None in lib else sum(lib),
+        "per": per,
+        "shapes": [{k: r.get(k) for k in ("shape", "dims", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by")}
+                   for r in shapes],
+    }
+
+
+PHASES = ("kernels", "reference", "serve", "train")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (a subset prints no result line)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"--phases: one or more of {PHASES}")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -512,42 +993,53 @@ def main(argv=None) -> int:
         return 2
     workdir = os.path.join(here, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
+    t_start = time.monotonic()
     try:
         dev = phase_device(torch)
         phase_build()
-        kern = phase_kernels(torch, args.seed)
-        phase_reference(torch, args.seed)
-        serve = phase_serve(torch, args.seed, workdir)
+        if "kernels" in phases:
+            kern = phase_kernels(torch, args.seed)
+            ktrain = phase_kernels_train(torch, args.seed)
+        if "reference" in phases:
+            phase_reference(torch, args.seed)
+            phase_reference_train(torch, args.seed)
+        if "serve" in phases:
+            serve = phase_serve(torch, args.seed, workdir)
+        if "train" in phases:
+            train = phase_train(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        import shutil
-
         shutil.rmtree(workdir, ignore_errors=True)
-    self_, cross = kern["shapes"]
-    nbytes, ops = self_["bytes"] + cross["bytes"], self_["ops"] + cross["ops"]
-    pair_bound, pair_by = bound_ms(nbytes, ops)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "tdm_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "tdm_tpu/ops/attention.py:291",
-        "launches": serve["launches"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": self_["ms"] + cross["ms"],
-        "plain_ms": self_["plain_ms"] + cross["plain_ms"],
-        "bound_ms": pair_bound,
-        "bound_by": pair_by,
-        "library_ms": self_["library_ms"] + cross["library_ms"],
-        "per": "one PixArt block at batch 4: one self-attention call "
-               "[4,16,1024,1024,72] + one cross-attention call "
-               "[4,16,1024,120,72] (bf16); library = SDPA",
-        "shapes": [{k: r[k] for k in ("shape", "dims", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by",
-                                      "max_abs_err", "rel_l2")}
-                   for r in kern["shapes"]],
-    }], "serve": serve}))
+    print(f"[done] {time.monotonic() - t_start:.1f}s", flush=True)
+    if phases != list(PHASES):
+        print(f"chip_smoke: ran only {phases}; no result line", flush=True)
+        return 0
+    per_block = ("one PixArt block at batch 4: one self-attention call "
+                 "[4,16,1024,1024,72] + one cross-attention call "
+                 "[4,16,1024,120,72] (bf16)")
+    no_lib = ("; library null: no one PyTorch call computes it alone (SDPA "
+              "forward + backward against the port's lse forward + delta + dQ "
+              "+ dK/dV: training_attention)")
+    kt, per_step = ktrain["kernels"], train["launches_per_step"]
+    rows = [
+        kernel_row("flash_fwd", "tdm_tpu_torch/csrc/flash_fwd.cu",
+                   "tdm_tpu/ops/attention.py:291", serve["launches"], kern,
+                   per_block + "; library = SDPA forward"),
+        kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
+                   "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
+                   kt["flash_fwd_lse"],
+                   per_block + "; library = SDPA forward on inputs that require grad"),
+        kernel_row("flash_bwd_dq", "tdm_tpu_torch/csrc/flash_bwd_dq.cu",
+                   "tdm_tpu/ops/attention.py:600", train["launches"]["flash_attention_bwd_dq"],
+                   kt["flash_bwd_dq"], per_block + no_lib),
+        kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
+                   "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
+                   kt["flash_bwd_dkv"], per_block + no_lib),
+    ]
+    print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
+                      "serve": serve, "train": train}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -1,0 +1,349 @@
+"""TDM distillation CLI of the port: `python -m tdm_tpu_torch.cli.train_tdm`.
+
+Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
+`:27-817`), with its flag names and defaults (`utils/config.py`):
+
+  schedule tables → student / critic / teacher parameters (seeded, or
+  refused from a checkpoint directory until slice 3) → clip+AdamW → prompt
+  data (an embedding cache from $TDM_EMBEDDING_CACHE, else hash
+  pseudo-embeddings) → the TDM step → loop [step → metrics at step 1 and
+  every 10 → validation grids every --validation_steps when $TDM_TAESD_DIR
+  names a TAESD decoder → checkpoint every --checkpointing_steps] → final
+  checkpoint and `student.safetensors` (fp16, the JAX package's layout).
+
+Runs on CUDA unless `--device cpu` is given; `TDM_TINY_MODEL=1` swaps in the
+tiny config. Refused before the first step, each naming its ROADMAP slice:
+--fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --train_lora_rank > 0 and
+--export_lora_rank > 0 (slice 3: the LoRA export's default is 32, so pass
+--export_lora_rank 0), --push_to_hub (slice 7), --use_8bit_adam and
+--gradient_accumulation_steps > 1 (slice 2 follow-ups), --quant_forwards
+(slice 4), another --model_family (slices 3-5), --moe_experts (slice 6).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import signal
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+def refuse_unported(cfg) -> None:
+    """NotImplementedError for a flag whose path is not ported, before any
+    model is built."""
+    for flag in ("fsdp", "tp", "pp", "sp", "ep"):
+        if getattr(cfg, flag) > 1:
+            raise NotImplementedError(
+                f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
+                "ported yet: ROADMAP.md queue 1, slice 6"
+            )
+    if cfg.train_lora_rank > 0:
+        raise NotImplementedError(
+            "--train_lora_rank > 0 (LoRA training) is not ported yet: "
+            "ROADMAP.md queue 1, slice 3 (lora/)"
+        )
+    if cfg.export_lora_rank > 0:
+        raise NotImplementedError(
+            f"--export_lora_rank {cfg.export_lora_rank}: the kohya-LoRA export "
+            "is not ported yet (ROADMAP.md queue 1, slice 3, lora/); pass "
+            "--export_lora_rank 0"
+        )
+    if cfg.push_to_hub:
+        raise NotImplementedError(
+            "--push_to_hub is not ported yet: ROADMAP.md queue 1, slice 7 (io/hub.py)"
+        )
+
+
+def _load_taesd(vae_dir: str, device):
+    """A TAESD decoder from a tdm_tpu pipeline directory's
+    `vae_decoder.safetensors` (the JAX package's layout)."""
+    import json
+
+    from tdm_tpu_torch.io import from_jax, params as params_io
+    from tdm_tpu_torch.models import vae as vae_lib
+
+    path = os.path.join(vae_dir, "vae_decoder.safetensors")
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            f"$TDM_TAESD_DIR={vae_dir!r} has no vae_decoder.safetensors: only "
+            "a tdm_tpu pipeline directory's TAESD decoder loads here (a "
+            "diffusers TAESD directory waits for ROADMAP.md queue 1, slice 3)"
+        )
+    vcfg = vae_lib.TAESDConfig()
+    conf_path = os.path.join(vae_dir, "pipeline.json")
+    if os.path.exists(conf_path):
+        with open(conf_path) as f:
+            conf = dict(json.load(f).get("vae") or {})
+        conf.pop("dtype", None)
+        vcfg = vae_lib.TAESDConfig(**{k: v for k, v in conf.items()
+                                      if k in vae_lib.TAESDConfig.__dataclass_fields__})
+    dec = vae_lib.TAESDDecoder(vcfg, device=device)
+    dec.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(path), dec))
+    return dec
+
+
+def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = None) -> None:
+    """Train. `step_hook(step, run)`, when given, is called for every step
+    with the step's number and a zero-argument callable that runs it and
+    returns (state, metrics); the hook must call it once and return its
+    result (a caller times or profiles steps this way)."""
+    from tdm_tpu_torch.data import prompts as data_prompts, tokenizer as tok_lib
+    from tdm_tpu_torch.device import resolve_device
+    from tdm_tpu_torch.io import from_jax, params as params_io
+    from tdm_tpu_torch.train import families, optim as topt, tdm, validation
+    from tdm_tpu_torch.utils import checkpoint as ckpt_lib, config as cfg_lib
+    from tdm_tpu_torch.utils import logging as log_lib
+
+    cfg = cfg_lib.parse_args(argv)
+    refuse_unported(cfg)
+    device = resolve_device(cfg.device)
+    out_dir = cfg.resolved_output_dir()
+    logger = log_lib.setup_logging()
+    logger.info("config: %s", cfg)
+    logger.info("device: %s%s", device,
+                f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+    global_batch = local_batch = cfg.train_batch_size  # one device, one process
+
+    tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
+    seed = cfg.seed if cfg.seed is not None else 0
+    if os.path.isdir(cfg.pretrained_model_name_or_path):
+        raise NotImplementedError(
+            f"loading teacher weights from {cfg.pretrained_model_name_or_path!r}: "
+            "diffusers checkpoint directories are not ported yet (ROADMAP.md "
+            "queue 1, slice 3)"
+        )
+    bundle = families.build(
+        cfg.model_family, tiny=tiny, resolution=cfg.resolution,
+        gradient_checkpointing=cfg.gradient_checkpointing,
+        mixed_precision=cfg.mixed_precision, moe_experts=cfg.moe_experts,
+        seed=seed, device=device,
+    )
+    teacher = bundle.init_params()
+    logger.warning(
+        "no local checkpoint at %r — training from RANDOM teacher weights "
+        "(smoke mode; real distillation needs ported weights)",
+        cfg.pretrained_model_name_or_path,
+    )
+    sample_shape, seq_len = bundle.sample_shape, bundle.seq_len
+
+    # ---- data: prompts → (text [B,L,D], mask [B,L]) batches ----
+    uncond_pair = None
+    emb_cache_path = os.environ.get("TDM_EMBEDDING_CACHE", "")
+    if emb_cache_path and os.path.exists(emb_cache_path):
+        cache = data_prompts.EmbeddingCache.load(emb_cache_path)
+        batches = cache.batches(local_batch, seed=seed)
+        get_batch = lambda: next(batches)  # noqa: E731
+        dataset_size = len(cache.prompts)
+        val_rows_fn = lambda: cache.validation_rows(cfg.validation_prompts)  # noqa: E731
+        if cache.uncond_embed is not None:
+            uncond_pair = (np.asarray(cache.uncond_embed, np.float32),
+                           np.asarray(cache.uncond_mask, np.int32))
+        logger.info("streaming %d cached embeddings", len(cache.prompts))
+    else:
+        tok = tok_lib.HashTokenizer()
+        src = cfg.train_data_dir
+        prompt_list = data_prompts.load_prompts(
+            src or list(cfg.validation_prompts) * 8,
+            caption_column=cfg.caption_column, max_samples=cfg.max_train_samples,
+            dataset_config_name=cfg.dataset_config_name,
+        )
+        dataset_size = len(prompt_list)
+        batcher = iter(data_prompts.PromptBatcher(
+            prompt_list, local_batch, tokenizer=tok, max_length=seq_len, seed=seed,
+        ))
+        proj = np.random.default_rng(0).normal(
+            size=(tok.vocab_size, bundle.embed_dim)
+        ).astype(np.float32) * 0.02
+
+        def get_batch():
+            b = next(batcher)
+            return proj[b["input_ids"]], b["attention_mask"]
+
+        def val_rows_fn():
+            ids, m = tok(list(cfg.validation_prompts), max_length=seq_len)
+            return proj[np.asarray(ids)], np.asarray(m), None
+
+        logger.warning(
+            "no TDM_EMBEDDING_CACHE — using hash pseudo-embeddings (smoke mode; "
+            "build a T5 cache for real training)"
+        )
+
+    # ---- optimizers (recipe: README.md:157-178) ----
+    accum = max(cfg.gradient_accumulation_steps, 1)
+    if cfg.max_train_steps and cfg.max_train_steps > 0:
+        n_total_steps = cfg.max_train_steps
+    else:
+        batches_per_epoch = max(dataset_size // global_batch, 1)
+        n_total_steps = cfg.num_train_epochs * max(-(-batches_per_epoch // accum), 1)
+        logger.info("epoch accounting: %d optimizer steps", n_total_steps)
+    lr = topt.make_lr_schedule(
+        cfg.lr_scheduler, cfg.effective_lr(1),
+        warmup_steps=cfg.lr_warmup_steps, total_steps=n_total_steps,
+    )
+
+    def make_tx():
+        return topt.make_optimizer(
+            lr, betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_epsilon,
+            weight_decay=cfg.adam_weight_decay, max_grad_norm=cfg.max_grad_norm,
+            eight_bit=cfg.use_8bit_adam, accumulation_steps=accum,
+        )
+
+    tx_s, tx_c = make_tx(), make_tx()
+    tdm_cfg = tdm.TDMConfig(
+        cfg=cfg.cfg, total_steps=cfg.total_steps, num_steps=cfg.num_steps,
+        use_huber=cfg.use_huber, use_separate=cfg.use_separate,
+        loss_mode=cfg.loss_mode, critic_updates=cfg.critic_updates,
+        quant_forwards=cfg.quant_forwards, ema_decay=0.9999 ** (1.0 / accum),
+    )
+    schedule = bundle.schedule
+    denoise_fn = bundle.denoise_fn
+    step_fn = tdm.build_train_step(
+        denoise_fn, teacher, schedule, tdm_cfg, tx_s, tx_c, sample_shape=sample_shape,
+    )
+    state = tdm.init_state(teacher, teacher, tx_s, tx_c, use_ema=cfg.use_ema)
+
+    # ---- resume ----
+    mgr = ckpt_lib.CheckpointManager(out_dir, total_limit=cfg.checkpoints_total_limit)
+    global_step = 0
+    if cfg.resume_from_checkpoint:
+        step0 = ckpt_lib.resolve_resume_step(out_dir, cfg.resume_from_checkpoint)
+        if step0 is not None:
+            state = mgr.restore(state, step0)
+            global_step = int(step0)
+            logger.info("resumed from checkpoint-%d", global_step)
+        else:
+            logger.info("no checkpoint found; starting fresh")
+
+    metrics_log = log_lib.MetricLogger(
+        os.path.join(out_dir, cfg.logging_dir), report_to=cfg.report_to
+    )
+    timer = log_lib.StepTimer()
+
+    # ---- fixed validation inputs (prompts of --validation_prompts, noise
+    # seed 42), only when a TAESD decoder is given ----
+    decode_fn = val_cond = val_noise = None
+    vae_dir = os.environ.get("TDM_TAESD_DIR", "")
+    if vae_dir:
+        dec = _load_taesd(vae_dir, device)
+        decode_fn = lambda z: dec(z.float() / dec.cfg.scaling_factor)  # noqa: E731
+        gen = torch.Generator(device=device).manual_seed(42)
+        val_noise = torch.randn(
+            (len(cfg.validation_prompts), *sample_shape), generator=gen, device=device
+        )
+        val_text, val_mask, _ = val_rows_fn()
+        val_cond = bundle.cond_of(
+            torch.as_tensor(val_text, dtype=torch.float32, device=device),
+            torch.as_tensor(val_mask, dtype=torch.int32, device=device),
+        )
+
+    # ---- loop ----
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    uncond = None
+    profiler = None
+    stop_signal: dict = {"signum": None}
+
+    def _graceful(signum, frame):
+        stop_signal["signum"] = signum
+        signal.signal(signum, signal.SIG_DFL)
+        logger.warning("signal %d — will checkpoint and exit after this step", signum)
+
+    prev_handlers = {}
+    with contextlib.suppress(ValueError):  # not on the main thread
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev_handlers[sig] = signal.signal(sig, _graceful)
+
+    def to_device(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    while global_step < n_total_steps:
+        text_np, mask_np = get_batch()
+        cond = bundle.cond_of(to_device(text_np, torch.float32), to_device(mask_np, torch.int32))
+        if uncond is None:
+            # the CFG null branch: the cache's empty-prompt embedding, else
+            # zeros under an all-ones mask (smoke mode)
+            if uncond_pair is not None:
+                u_text = np.broadcast_to(uncond_pair[0][None], np.shape(text_np))
+                u_mask = np.broadcast_to(uncond_pair[1][None], np.shape(mask_np))
+            else:
+                u_text, u_mask = np.zeros(np.shape(text_np)), np.ones(np.shape(mask_np))
+            uncond = bundle.cond_of(to_device(u_text, torch.float32),
+                                    to_device(u_mask, torch.int32))
+        draws = tdm.make_draws(tdm_cfg, local_batch, sample_shape, gen, device)
+
+        def run():
+            return step_fn(state, draws, cond, uncond, teacher)
+
+        state, metrics = run() if step_hook is None else step_hook(global_step + 1, run)
+        global_step += 1
+        if cfg.debug_nans and not all(bool(torch.isfinite(v)) for v in metrics):
+            raise FloatingPointError(f"non-finite metrics at step {global_step}: {metrics}")
+
+        dt = timer.tick()
+        if global_step % 10 == 0 or global_step == 1:
+            m = {k: float(v) for k, v in metrics._asdict().items()}
+            if dt:
+                m["steps_per_sec"] = 1.0 / max(dt, 1e-9)
+            metrics_log.log(m, global_step)
+            logger.info("step %d loss_student %.4f loss_critic %.4f",
+                        global_step, m["loss_student"], m["loss_critic"])
+        if decode_fn is not None and global_step % cfg.validation_steps == 0:
+            grids = validation.save_validation_images(
+                denoise_fn, state.ema if cfg.use_ema else state.student, schedule,
+                val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
+                total_steps=cfg.total_steps,
+            )
+            for k_nfe, grid in grids.items():
+                metrics_log.log_image(f"validation/{k_nfe}nfe", grid, global_step)
+        if global_step % cfg.checkpointing_steps == 0:
+            mgr.save(global_step, state)
+            logger.info("saved checkpoint-%d", global_step)
+        if cfg.profile_steps > 0 and global_step == 10:
+            # trace the next N steady-state steps (chrome trace under profile/)
+            profiler = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                *([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda" else []),
+            ])
+            profiler.__enter__()
+        if profiler is not None and global_step >= 10 + cfg.profile_steps:
+            profiler.__exit__(None, None, None)
+            os.makedirs(os.path.join(out_dir, "profile"), exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(out_dir, "profile", "trace.json"))
+            profiler = None
+            logger.info("profile written to %s/profile", out_dir)
+        if stop_signal["signum"] is not None:
+            break
+
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(os.path.join(out_dir, "profile"), exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(out_dir, "profile", "trace.json"))
+    for sig, handler in prev_handlers.items():
+        signal.signal(sig, handler)
+    if mgr.latest_step() != global_step:
+        mgr.save(global_step, state)
+    if stop_signal["signum"] is not None:
+        logger.warning(
+            "preempted by signal %d at step %d — checkpoint saved; resume with "
+            "--resume_from_checkpoint latest", stop_signal["signum"], global_step,
+        )
+        metrics_log.close()
+        return
+
+    # ---- the final student, fp16, in the JAX package's layout ----
+    final = state.ema if cfg.use_ema else state.student
+    flat = from_jax.jax_layout(final, scan_layers=bundle.model.cfg.scan_layers)
+    params_io.save_file(
+        {k: v.astype(np.float16) for k, v in flat.items()},
+        os.path.join(out_dir, "student.safetensors"),
+    )
+    logger.info("exported student.safetensors")
+    metrics_log.close()
+    logger.info("done at step %d", global_step)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

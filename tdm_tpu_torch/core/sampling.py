@@ -95,3 +95,19 @@ def predict_x0(
         return x0_nocfg, x0_nocfg
     mixed = cfg_mix(out_c, denoise_fn(x_t, t, uncond), cfg)
     return sched.predicted_origin(schedule, mixed, t, x_t), x0_nocfg
+
+
+def gather_trajectory_states(
+    traj: Trajectory, timestep_grid: torch.Tensor, seg: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample gather of a trajectory point by segment index: states[seg[b],
+    b] for each sample b, and its noise level. seg = k selects the state
+    entering step k (level grid[k]); seg = K the final x₀ (level 0)."""
+    k_steps = int(timestep_grid.shape[0])
+    seg = seg.to(traj.states.device).long()
+    levels = torch.cat([
+        timestep_grid.to(seg.device).long(),
+        torch.zeros(1, dtype=torch.long, device=seg.device),
+    ])
+    state = traj.states[seg, torch.arange(seg.shape[0], device=seg.device)]
+    return state, levels[seg.clamp(0, k_steps)]

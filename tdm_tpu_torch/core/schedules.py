@@ -1,11 +1,13 @@
 """Diffusion noise schedules as precomputed tables plus pure schedule math.
 
-Port of the serving path's part of `tdm_tpu/core/schedules.py`: the linear-β
-DDPM schedule (reference `src/main.py:132-139`), the forward process and the
-x₀ / ε projections, and the few-step timestep grids. Tables are built on the
-host in float64 (a cumprod of ~1000 terms loses digits in fp32) and stored
-fp32 on the device; every function takes integer timesteps `t` of any
-leading shape and broadcasts the gathered values against the sample.
+Port of `tdm_tpu/core/schedules.py` for the PixArt paths: the linear-β DDPM
+schedule (reference `src/main.py:132-139`), the forward process, the x₀ / ε
+projections, the few-step timestep grids, and the training step's
+inter-timestep transport, mixed noise, SNR and native DSM target. Tables
+are built on the host in float64 (a cumprod of ~1000 terms loses digits in
+fp32) and stored fp32 on the device; every function takes integer
+timesteps `t` of any leading shape and broadcasts the gathered values
+against the sample.
 """
 
 from __future__ import annotations
@@ -117,6 +119,67 @@ def predicted_noise(
     else:
         raise ValueError(f"unknown prediction_type {schedule.prediction_type!r}")
     return eps.to(sample.dtype)
+
+
+def native_target(
+    schedule: NoiseSchedule, x0: torch.Tensor, eps: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """The denoising-score-matching target in the schedule's NATIVE output
+    space, given the clean sample and the true noise: ε (epsilon), α·ε − σ·x₀
+    (v_prediction), ε − x₀ (flow). Finite at zero terminal SNR."""
+    if schedule.prediction_type == EPSILON:
+        return eps
+    a, s = alpha_sigma(schedule, t, x0.dim())
+    x0f, ef = x0.float(), eps.float()
+    if schedule.prediction_type == V_PREDICTION:
+        return a * ef - s * x0f
+    if schedule.prediction_type == FLOW:
+        return ef - x0f
+    raise ValueError(f"unknown prediction_type {schedule.prediction_type!r}")
+
+
+def _transport_coeffs(schedule, t1, t2, ndim):
+    """(α₂/α₁, sqrt(max(σ₂² − (α₂/α₁)²σ₁², 0)), σ₁, σ₂) broadcast to rank
+    `ndim`. The clamp keeps t2 < t1 finite (the reference NaNs there)."""
+    a1, s1 = alpha_sigma(schedule, t1, ndim)
+    a2, s2 = alpha_sigma(schedule, t2, ndim)
+    ratio = a2 / a1
+    return ratio, torch.sqrt(torch.clamp(s2**2 - (ratio * s1) ** 2, min=0.0)), s1, s2
+
+
+def transport(
+    schedule: NoiseSchedule,
+    x_t1: torch.Tensor,
+    noise: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+) -> torch.Tensor:
+    """Move x_{t1} to noise level t2 with fresh noise ε, preserving the
+    forward marginal: x_{t2} = (α₂/α₁)·x_{t1} + sqrt(σ₂² − (α₂/α₁)²σ₁²)·ε
+    (reference `Predictor.add_noise`, `src/predictor.py:76-85`)."""
+    ratio, root, _, _ = _transport_coeffs(schedule, t1, t2, x_t1.dim())
+    return (ratio * x_t1 + root * noise).to(x_t1.dtype)
+
+
+def mixed_noise(
+    schedule: NoiseSchedule,
+    model_noise: torch.Tensor,
+    noise: torch.Tensor,
+    t1: torch.Tensor,
+    t2: torch.Tensor,
+) -> torch.Tensor:
+    """The total noise of `transport`'s output: ε_mix = ((α₂/α₁)σ₁·ε_model +
+    sqrt(σ₂² − (α₂/α₁)²σ₁²)·ε_fresh)/σ₂ (reference
+    `Predictor.obtain_mixed_noise`, `src/predictor.py:87-97`)."""
+    ratio, root, s1, s2 = _transport_coeffs(schedule, t1, t2, model_noise.dim())
+    return ((ratio * s1 * model_noise + root * noise) / s2).to(model_noise.dtype)
+
+
+def snr(schedule: NoiseSchedule, t: torch.Tensor) -> torch.Tensor:
+    """Signal-to-noise ratio (α/σ)² at timestep t, in the shape of t
+    (reference `compute_snr`, `src/utils.py:21-44`)."""
+    t = torch.as_tensor(t, device=schedule.alphas.device).long()
+    return (schedule.alphas[t] / schedule.sigmas[t]) ** 2
 
 
 def fewstep_grid(total_steps: int, num_steps: int) -> torch.Tensor:

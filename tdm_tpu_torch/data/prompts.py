@@ -1,19 +1,98 @@
-"""Offline text-embedding cache and the family conditioning format.
+"""Prompt data: prompt lists, the prompt batcher, the offline
+text-embedding cache and the family conditioning format.
 
-The port's own copy of the serving path's part of `tdm_tpu/data/prompts.py`
-(numpy only): `EmbeddingCache` reads and writes the `.npz` that the JAX
+The port's own copy of `tdm_tpu/data/prompts.py` for the PixArt paths (numpy
+only): `load_prompts` reads .txt / .jsonl files and in-memory lists (an HF
+dataset name raises: slice 7), `PromptBatcher` is the shuffling per-host
+batcher, and `EmbeddingCache` reads and writes the `.npz` that the JAX
 package's `cli/build_cache` builds — embeds [N, L, D], masks [N, L],
-prompts [N], and the empty prompt's `uncond_embed` [L, D] / `uncond_mask`
-[L] for the CFG branch (an SD3 cache's pooled vectors are not read: slice
-3) — and `pack_family_cond` turns cache rows into the conditioning the
-pipeline takes.
+prompts [N], the empty prompt's `uncond_embed` [L, D] / `uncond_mask` [L]
+for the CFG branch, and the dedicated validation rows (val_prompts,
+val_embeds, val_masks). An SD3 cache's pooled vectors are not read (slice
+3). `pack_family_cond` turns cache rows into the conditioning the pipeline
+takes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+
+def load_prompts(
+    source,
+    *,
+    caption_column: str = "prompt",
+    max_samples: Optional[int] = None,
+    dataset_config_name: Optional[str] = None,
+) -> list[str]:
+    """Prompt strings from a list, a .txt file (one prompt a line) or a
+    .jsonl file (the caption column of each row)."""
+    if isinstance(source, (list, tuple)):
+        prompts = [str(p) for p in source]
+    elif os.path.isfile(source) and source.endswith(".txt"):
+        with open(source) as f:
+            prompts = [line.strip() for line in f if line.strip()]
+    elif os.path.isfile(source) and source.endswith(".jsonl"):
+        prompts = []
+        with open(source) as f:
+            for line in f:
+                if line.strip():
+                    prompts.append(str(json.loads(line)[caption_column]))
+    else:
+        raise NotImplementedError(
+            f"prompt source {source!r}: HF datasets and other formats are not "
+            "ported yet (ROADMAP.md queue 1, slice 7); pass a .txt or .jsonl "
+            "file, or an embedding cache"
+        )
+    if max_samples is not None:
+        prompts = prompts[:max_samples]
+    if not prompts:
+        raise ValueError(f"no prompts loaded from {source!r}")
+    return prompts
+
+
+@dataclass
+class PromptBatcher:
+    """Infinite shuffling batcher over a (host-sharded) prompt list: yields
+    dict(prompts, input_ids, attention_mask) with a tokenizer, else the raw
+    prompts; reshuffles each epoch, deterministic under `seed`."""
+
+    prompts: Sequence[str]
+    batch_size: int
+    tokenizer: Optional[object] = None
+    max_length: int = 120
+    seed: int = 0
+    host_index: int = 0
+    host_count: int = 1
+
+    def __post_init__(self):
+        shard = list(self.prompts)[self.host_index :: self.host_count]
+        if not shard:
+            raise ValueError(
+                f"host {self.host_index}/{self.host_count} got an empty shard"
+            )
+        self._shard = shard
+
+    def __iter__(self) -> Iterator[dict]:
+        rng = np.random.default_rng(self.seed + self.host_index)
+        n = len(self._shard)
+        while True:
+            order = rng.permutation(n)
+            for start in range(0, n - self.batch_size + 1, self.batch_size):
+                batch_prompts = [self._shard[i] for i in order[start : start + self.batch_size]]
+                out = {"prompts": batch_prompts}
+                if self.tokenizer is not None:
+                    ids, mask = self.tokenizer(batch_prompts, max_length=self.max_length)
+                    out["input_ids"] = np.asarray(ids)
+                    out["attention_mask"] = np.asarray(mask)
+                yield out
+            if n < self.batch_size:
+                raise ValueError(f"batch_size {self.batch_size} > shard size {n}")
 
 
 def pack_family_cond(family: str, embeds, masks):
@@ -36,18 +115,29 @@ class EmbeddingCache:
         prompts: list[str],
         uncond_embed: Optional[np.ndarray] = None,
         uncond_mask: Optional[np.ndarray] = None,
+        val_prompts: Optional[list[str]] = None,
+        val_embeds: Optional[np.ndarray] = None,
+        val_masks: Optional[np.ndarray] = None,
     ):
         self.embeds = embeds  # [N, L, D]
         self.masks = masks  # [N, L]
         self.prompts = list(prompts)
         self.uncond_embed = uncond_embed  # [L, D] or None
         self.uncond_mask = uncond_mask  # [L] or None
+        # dedicated rows of the fixed validation prompts
+        self.val_prompts = list(val_prompts) if val_prompts else []
+        self.val_embeds = val_embeds  # [V, L, D] or None
+        self.val_masks = val_masks  # [V, L] or None
 
     def save(self, path: str) -> None:
         extra = {}
         if self.uncond_embed is not None:
             extra["uncond_embed"] = self.uncond_embed
             extra["uncond_mask"] = self.uncond_mask
+        if self.val_prompts:
+            extra["val_prompts"] = np.asarray(self.val_prompts, dtype=object)
+            extra["val_embeds"] = self.val_embeds
+            extra["val_masks"] = self.val_masks
         np.savez_compressed(
             path, embeds=self.embeds, masks=self.masks,
             prompts=np.asarray(self.prompts, dtype=object), **extra,
@@ -62,4 +152,46 @@ class EmbeddingCache:
             z["embeds"], z["masks"], [str(p) for p in z["prompts"]],
             uncond_embed=z["uncond_embed"] if "uncond_embed" in z else None,
             uncond_mask=z["uncond_mask"] if "uncond_mask" in z else None,
+            val_prompts=[str(p) for p in z["val_prompts"]] if "val_prompts" in z else None,
+            val_embeds=z["val_embeds"] if "val_embeds" in z else None,
+            val_masks=z["val_masks"] if "val_masks" in z else None,
         )
+
+    def validation_rows(self, prompts: Sequence[str]) -> tuple[np.ndarray, np.ndarray, None]:
+        """(embeds [V,L,D] fp32, masks [V,L] int32, None) of the fixed
+        validation prompts: the dedicated rows first, then the main rows;
+        a prompt in neither raises, since grids must render the same fixed
+        prompts every time (reference src/main.py:416-431)."""
+        e_rows, m_rows, missing = [], [], []
+        for p in prompts:
+            if p in self.val_prompts:
+                i = self.val_prompts.index(p)
+                e_rows.append(self.val_embeds[i])
+                m_rows.append(self.val_masks[i])
+            elif p in self.prompts:
+                i = self.prompts.index(p)
+                e_rows.append(self.embeds[i])
+                m_rows.append(self.masks[i])
+            else:
+                missing.append(p)
+        if missing:
+            raise KeyError(
+                f"validation prompts {missing!r} not in the embedding cache — "
+                "rebuild it with cli/build_cache (it embeds "
+                "--validation_prompts under dedicated keys)"
+            )
+        return (np.stack(e_rows).astype(np.float32),
+                np.stack(m_rows).astype(np.int32), None)
+
+    def batches(
+        self, batch_size: int, *, seed: int = 0, host_index: int = 0, host_count: int = 1
+    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yields shuffled (embeds fp32 [B,L,D], masks [B,L]) batches of this
+        host's rows, forever, reshuffled each epoch."""
+        idx_all = np.arange(len(self.prompts))[host_index::host_count]
+        rng = np.random.default_rng(seed + host_index)
+        while True:
+            order = rng.permutation(len(idx_all))
+            for s in range(0, len(idx_all) - batch_size + 1, batch_size):
+                sel = idx_all[order[s : s + batch_size]]
+                yield self.embeds[sel].astype(np.float32), self.masks[sel]

@@ -10,12 +10,18 @@ and the PixArt layer stack, stored either stacked (`blocks/...` with a
 leading [L] axis, the JAX default `scan_layers=True`) or unrolled
 (`blocks_{i}/...`), becomes `blocks.{i}....`. The check is strict: every
 key of the module is filled and every given key is used.
+
+`train_state_from_jax` carries a whole training state of the JAX package
+(`tdm_tpu.train.tdm.TrainState`): the student, critic and EMA trees and the
+AdamW moments and count inside each optax state, so a test can start the
+port's train step and the JAX one from one state. It reads the JAX objects
+by their attributes and nested mappings only; nothing of JAX is imported.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Iterator, Mapping
+from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -102,3 +108,65 @@ def jax_layout(
     for rest, layers in stacked.items():
         flat[f"blocks/{rest}"] = np.stack([layers[i] for i in sorted(layers)])
     return flat
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested mapping of arrays → flat '/'-joined keys (the JAX package's
+    param-file layout), each leaf a writable numpy copy; bfloat16 leaves
+    widen exactly to float32."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key))
+        else:
+            arr = np.array(v)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            out[key] = arr
+    return out
+
+
+def _adam_state(opt_state: Any) -> Optional[Any]:
+    """The first node of an optax state (nested tuples and named tuples)
+    that carries Adam's `mu`, `nu` and `count`."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(
+    state: Any, module: nn.Module, *, device=None, mu_dtype: Optional[torch.dtype] = None
+):
+    """A JAX `TrainState` → the port's `train.tdm.TrainState` for `module`
+    (the PixArt model whose parameter names the trees take), on `device`.
+    Params and moments become fp32 (the moments in `mu_dtype` when given);
+    an optimizer state without Adam moments raises."""
+    from tdm_tpu_torch.train import optim as topt, tdm
+
+    def tree(t):
+        sd = state_dict_from_jax(flatten_tree(t), module)  # copies of JAX's buffers
+        return {k: v.to(device=device, dtype=torch.float32) for k, v in sd.items()}
+
+    def opt(opt_state):
+        adam = _adam_state(opt_state)
+        if adam is None:
+            raise ValueError("the JAX optimizer state holds no Adam mu/nu/count")
+        mu = tree(adam.mu)
+        if mu_dtype is not None:
+            mu = {k: v.to(mu_dtype) for k, v in mu.items()}
+        return topt.AdamWState(count=int(np.asarray(adam.count)), mu=mu, nu=tree(adam.nu))
+
+    return tdm.TrainState(
+        step=int(np.asarray(state.step)),
+        student=tree(state.student),
+        student_opt=opt(state.student_opt),
+        critic=tree(state.critic),
+        critic_opt=opt(state.critic_opt),
+        ema=None if state.ema is None else tree(state.ema),
+    )

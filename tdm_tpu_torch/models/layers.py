@@ -5,9 +5,10 @@ parameter names follow the JAX package's tree (to_q/to_k/to_v/to_out,
 linear_1/linear_2, proj, proj_in/proj_out) so the weight carry
 (`io/from_jax.py`) is a mechanical rename. Layouts stay those of the JAX
 package at the public functions: tokens [B, S, D], attention [B, H, S, D],
-images NCHW. Linear layers hold their weights in the model's compute dtype
-(the JAX package casts its fp32 master weights to that dtype at every use,
-which rounds identically).
+images NCHW. Dense and convolution layers compute in the model's compute
+dtype and hold their parameters in `param_dtype`: the compute dtype when
+serving, fp32 master weights when training, cast to the compute dtype at
+every use as Flax casts its fp32 parameters to `dtype`.
 """
 
 from __future__ import annotations
@@ -48,13 +49,42 @@ def sinusoidal_timestep_embedding(
     return emb
 
 
+class Dense(nn.Linear):
+    """A linear layer computing in `dtype` on parameters held in
+    `param_dtype` (default: `dtype`), cast at every use."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, dtype, param_dtype=None, device=None):
+        super().__init__(in_dim, out_dim, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """A convolution computing in `dtype` on parameters held in
+    `param_dtype` (default: `dtype`), cast at every use."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
+                 dtype, param_dtype=None, device=None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class TimestepEmbedding(nn.Module):
     """Two-layer SiLU MLP over the sinusoidal embedding."""
 
-    def __init__(self, in_dim: int, dim: int, *, dtype, device=None):
+    def __init__(self, in_dim: int, dim: int, *, dtype, param_dtype=None, device=None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim, dtype=dtype, device=device)
-        self.linear_2 = nn.Linear(dim, dim, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.linear_1 = Dense(in_dim, dim, **kw)
+        self.linear_2 = Dense(dim, dim, **kw)
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(emb)))
@@ -94,15 +124,16 @@ class PatchEmbed(nn.Module):
         *,
         pos_embed_base_size: Optional[int] = None,
         dtype,
+        param_dtype=None,
         device=None,
     ):
         super().__init__()
         self.patch_size = patch_size
         self.dim = dim
         self.base_size = pos_embed_base_size
-        self.proj = nn.Conv2d(
+        self.proj = Conv2d(
             in_channels, dim, patch_size, stride=patch_size,
-            dtype=dtype, device=device,
+            dtype=dtype, param_dtype=param_dtype, device=device,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -124,15 +155,17 @@ class Attention(nn.Module):
         head_dim: int,
         *,
         dtype,
+        param_dtype=None,
         device=None,
     ):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
-        self.to_q = nn.Linear(dim, inner, dtype=dtype, device=device)
-        self.to_k = nn.Linear(dim, inner, dtype=dtype, device=device)
-        self.to_v = nn.Linear(dim, inner, dtype=dtype, device=device)
-        self.to_out = nn.Linear(inner, dim, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.to_q = Dense(dim, inner, **kw)
+        self.to_k = Dense(dim, inner, **kw)
+        self.to_v = Dense(dim, inner, **kw)
+        self.to_out = Dense(inner, dim, **kw)
 
     def forward(
         self,
@@ -164,10 +197,11 @@ class FeedForward(nn.Module):
     """Transformer MLP with the tanh-approximated GELU (PixArt's
     'gelu-approximate'), mult× expansion."""
 
-    def __init__(self, dim: int, mult: int = 4, *, dtype, device=None):
+    def __init__(self, dim: int, mult: int = 4, *, dtype, param_dtype=None, device=None):
         super().__init__()
-        self.proj_in = nn.Linear(dim, dim * mult, dtype=dtype, device=device)
-        self.proj_out = nn.Linear(dim * mult, dim, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.proj_in = Dense(dim, dim * mult, **kw)
+        self.proj_out = Dense(dim * mult, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))

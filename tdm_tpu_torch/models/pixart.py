@@ -1,6 +1,6 @@
 """PixArt-α DiT denoiser in PyTorch (dense blocks).
 
-Port of `tdm_tpu/models/pixart.py` for inference: latent 4×64×64, patch 2 →
+Port of `tdm_tpu/models/pixart.py`: latent 4×64×64, patch 2 →
 1024 tokens, hidden 1152, 28 layers, 16 heads × 72; adaLN-single
 conditioning (one timestep MLP emits 6 modulation vectors, each block adds
 its learned `scale_shift_table`); per block: modulated LayerNorm →
@@ -8,6 +8,12 @@ self-attention → gate, cross-attention to the projected T5 tokens on the
 RAW residual (no pre-norm, a PixArt quirk), modulated LayerNorm → gelu-tanh
 MLP → gate. The output has 8 channels (ε plus learned variance);
 `epsilon()` keeps the first 4.
+
+The model computes in `cfg.dtype`. Serving holds its parameters in that
+dtype; training builds it with `param_dtype=torch.float32` (fp32 master
+weights, cast to the compute dtype inside each layer, as Flax does), and
+`cfg.remat` checkpoints each block (`torch.utils.checkpoint`, recomputed in
+the backward) when autograd records the forward.
 
 The blocks are a ModuleList; the weight carry (`io/from_jax.py`) reads the
 JAX package's stacked `blocks/...` tree and its unrolled `blocks_{i}/...`
@@ -22,6 +28,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
@@ -43,10 +51,12 @@ class PixArtConfig:
     # 'blocks' (what `io/from_jax.jax_layout` writes); the port always holds
     # a ModuleList
     scan_layers: bool = True
-    # training-only (JAX remat) and research (MoE) options of the JAX
-    # config: accepted so its pipeline.json loads, refused when switched on
+    # per-block activation checkpointing (the reference's
+    # --gradient_checkpointing); only 'full' recomputation is ported
     remat: bool = False
     remat_policy: str = "full"
+    # research option of the JAX config: accepted so its pipeline.json
+    # loads, refused when switched on
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -72,14 +82,14 @@ def _table(rows: int, dim: int, device) -> nn.Parameter:
 
 
 class PixArtBlock(nn.Module):
-    def __init__(self, cfg: PixArtConfig, device=None):
+    def __init__(self, cfg: PixArtConfig, device=None, param_dtype=None):
         super().__init__()
         c = cfg
-        kw = dict(dtype=c.dtype, device=device)
+        kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=device)
         self.scale_shift_table = _table(6, c.hidden, device)
         self.attn1 = L.Attention(c.hidden, c.num_heads, c.head_dim, **kw)
         self.attn2 = L.Attention(c.hidden, c.num_heads, c.head_dim, **kw)
-        self.ff = L.FeedForward(c.hidden, c.mlp_ratio, dtype=c.dtype, device=device)
+        self.ff = L.FeedForward(c.hidden, c.mlp_ratio, **kw)
 
     def forward(self, x, text, text_mask, t6):
         """x [B,S,D] tokens, text [B,L,D] projected caption, t6 [B,6,D]."""
@@ -97,13 +107,16 @@ class PixArtBlock(nn.Module):
 
 class PixArtTransformer2D(nn.Module):
     """forward(latent [B,4,H,W], t [B], text [B,L,caption_dim],
-    text_mask [B,L]) → [B,8,H,W] in latent's dtype."""
+    text_mask [B,L]) → [B,8,H,W] in latent's dtype. `param_dtype` is the
+    dtype the Dense/conv parameters are held in (default: cfg.dtype); the
+    modulation tables are fp32 either way."""
 
     def __init__(
         self,
         cfg: Optional[PixArtConfig] = None,
         *,
         device: Optional[Union[str, torch.device]] = None,
+        param_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         c = self.cfg = cfg if cfg is not None else PixArtConfig()
@@ -112,25 +125,27 @@ class PixArtTransformer2D(nn.Module):
                 "PixArt MoE blocks (moe_experts > 0) are not ported yet: "
                 "ROADMAP.md queue 1, slice 6 (multi-GPU, models/moe.py)"
             )
-        if c.remat:
+        if c.remat and c.remat_policy != "full":
             raise NotImplementedError(
-                "remat (activation checkpointing) is a training option, not "
-                "ported yet: ROADMAP.md queue 1, slice 2 (training)"
+                f"remat_policy={c.remat_policy!r} is not ported yet (only "
+                "'full' recomputation is): ROADMAP.md queue 1, known gaps"
             )
         dev = resolve_device(device)
-        dt = c.dtype
+        kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=dev)
         self.pos_embed = L.PatchEmbed(
             c.patch_size, c.in_channels, c.hidden,
-            pos_embed_base_size=c.sample_size // c.patch_size, dtype=dt, device=dev,
+            pos_embed_base_size=c.sample_size // c.patch_size, **kw,
         )
-        self.t_embedder = L.TimestepEmbedding(256, c.hidden, dtype=dt, device=dev)
-        self.t_block = nn.Linear(c.hidden, 6 * c.hidden, dtype=dt, device=dev)
-        self.caption_linear_1 = nn.Linear(c.caption_dim, c.hidden, dtype=dt, device=dev)
-        self.caption_linear_2 = nn.Linear(c.hidden, c.hidden, dtype=dt, device=dev)
-        self.blocks = nn.ModuleList(PixArtBlock(c, dev) for _ in range(c.num_layers))
+        self.t_embedder = L.TimestepEmbedding(256, c.hidden, **kw)
+        self.t_block = L.Dense(c.hidden, 6 * c.hidden, **kw)
+        self.caption_linear_1 = L.Dense(c.caption_dim, c.hidden, **kw)
+        self.caption_linear_2 = L.Dense(c.hidden, c.hidden, **kw)
+        self.blocks = nn.ModuleList(
+            PixArtBlock(c, dev, param_dtype) for _ in range(c.num_layers)
+        )
         self.final_scale_shift_table = _table(2, c.hidden, dev)
-        self.proj_out = nn.Linear(
-            c.hidden, c.patch_size * c.patch_size * c.out_channels, dtype=dt, device=dev
+        self.proj_out = L.Dense(
+            c.hidden, c.patch_size * c.patch_size * c.out_channels, **kw
         )
 
     def forward(self, latent, t, text, text_mask=None):
@@ -145,13 +160,27 @@ class PixArtTransformer2D(nn.Module):
         t6 = self.t_block(F.silu(t_emb)).reshape(b, 6, c.hidden)
         y = self.caption_linear_1(text.to(c.dtype))
         y = self.caption_linear_2(F.gelu(y, approximate="tanh"))
+        remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, y, text_mask, t6)
+            if remat:
+                # the recompute (in the backward, the lse forward included)
+                # runs on the parameters in use now, handed over as inputs:
+                # under torch.func.functional_call the module's own would be
+                # back in place by then
+                params = dict(block.named_parameters())
+                x = checkpoint(_run_block, block, params, x, y, text_mask, t6,
+                               use_reentrant=False)
+            else:
+                x = block(x, y, text_mask, t6)
         mod = self.final_scale_shift_table[None] + t_emb.float()[:, None]
         shift, scale = (m.to(x.dtype) for m in mod.chunk(2, dim=1))
         x = self.proj_out(L.layer_norm(x) * (1 + scale) + shift)
         out = L.unpatchify(x, gh, gw, c.patch_size, c.out_channels)
         return out.to(latent.dtype)
+
+
+def _run_block(block, params, x, y, text_mask, t6):
+    return functional_call(block, params, (x, y, text_mask, t6))
 
 
 def epsilon(model_out: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` into a shared library with a
 plain C interface (`build/tdm_tpu_torch/lib<name>-<hash>.so`, keyed by the
-source's hash and the flags, so an edited source rebuilds and an unchanged
-one loads at once). No PyTorch headers are compiled in: the wrapper passes
+hash of the source, of the shared headers `csrc/*.cuh` and of the flags, so
+an edited source or header rebuilds and an unchanged one loads at once). No PyTorch headers are compiled in: the wrapper passes
 raw pointers and the current stream as integers. The target is Hopper,
 `sm_90a`. Nothing here runs at import time.
 """
@@ -53,8 +53,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

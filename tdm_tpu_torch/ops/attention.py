@@ -1,18 +1,33 @@
-"""Scaled dot-product attention over [B, H, S, D] tensors.
+"""Scaled dot-product attention over [B, H, S, D] tensors, forward and
+backward.
 
-Port of the forward path of `tdm_tpu/ops/attention.py`: the same layout
-(q [B,H,Sq,D], k/v [B,H,Sk,D]) and masking contract (key_mask [B,Sk],
-nonzero = real key; a row whose keys are all masked outputs 0). Two
-versions of one function:
+Port of `tdm_tpu/ops/attention.py`'s flash path: the same layout (q
+[B,H,Sq,D], k/v [B,H,Sk,D]) and masking contract (key_mask [B,Sk], nonzero =
+real key; a row whose keys are all masked outputs 0 and gets no gradient).
+Each hand-written CUDA kernel has a wrapper and a plain PyTorch version of
+the same function beside it; the wrapper takes the plain version only for a
+tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
+`<wrapper>.launches`) or raises:
 
-  * `flash_attention_fwd` — the wrapper of the hand-written CUDA kernel
-    `csrc/flash_fwd.cu` (the port of the Pallas `_flash_fwd_kernel`). On a
-    CUDA tensor it launches the kernel or raises; only a tensor on the CPU
-    takes the plain version.
-  * `plain_attention` — fp32 einsum-softmax-einsum with the same masking,
-    the reference the kernel is held against.
+  * `flash_attention_fwd` — `csrc/flash_fwd.cu` without the logsumexp (the
+    Pallas `_flash_fwd_kernel` with with_lse=False); plain: `plain_attention`.
+  * `flash_attention_fwd_lse` — the same kernel with its [B,H,Sq] fp32 lse
+    output (+1e30 on all-masked rows); plain: `plain_attention_lse`.
+  * `flash_attention_bwd_dq` — `csrc/flash_bwd_dq.cu` (`_flash_bwd_dq_kernel`);
+    plain: `plain_attention_bwd_dq`.
+  * `flash_attention_bwd_dkv` — `csrc/flash_bwd_dkv.cu`
+    (`_flash_bwd_dkv_kernel`); plain: `plain_attention_bwd_dkv`.
 
-`impl="auto"` goes through the kernel's wrapper on every shape: the JAX
+`FlashAttention`, a `torch.autograd.Function`, joins them as the JAX
+package's custom VJP joins its kernels (`attention.py:408-435, 678-687`):
+it pre-scales q itself and saves that q as the residual, so the backward's
+logits match the forward's bit for bit and `scale` enters dQ exactly once,
+inside the kernel. Δ = rowsum(dO∘O) is plain PyTorch (`attention_delta`), as
+the JAX package leaves it to XLA. `attention()` takes that route only when
+autograd records the call; a call under `torch.no_grad()` or
+`torch.inference_mode()` takes the forward without the lse.
+
+`impl="auto"` goes through the kernels' wrappers on every shape: the JAX
 package's v5e-measured switch to XLA at S=1024 is not carried over.
 """
 
@@ -28,6 +43,7 @@ import torch
 from tdm_tpu_torch.ops import _build
 
 _NEG_INF = -1e30  # the key bias of a masked key, as in the TPU kernel
+_LSE_MASKED = 1e30  # the lse of a row with no unmasked key: exp(s - lse) = 0
 IMPLS = ("auto", "plain")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,7 +61,8 @@ def attention(
 
     The query is pre-scaled and rounded back to its dtype before either
     version runs, as the TPU kernel's caller does (`attention.py:424`).
-    impl: 'auto' (the kernel's wrapper) | 'plain'."""
+    impl: 'auto' (the kernels' wrappers; `FlashAttention` when autograd
+    records the call) | 'plain' (differentiated by autograd)."""
     if impl == "splash":
         raise NotImplementedError(
             "impl='splash' (SD3/CogVideoX inference) is not ported yet: "
@@ -55,11 +72,38 @@ def attention(
         raise ValueError(f"unknown attention impl {impl!r} (one of {IMPLS})")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    q_scaled = (q.float() * scale).to(q.dtype)
     bias = None if key_mask is None else key_bias(key_mask)
+    if impl == "auto" and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return FlashAttention.apply(q, k, v, bias, scale)
+    q_scaled = (q.to(_acc(q)) * scale).to(q.dtype)
     if impl == "plain":
         return plain_attention(q_scaled, k, v, bias)
     return flash_attention_fwd(q_scaled, k, v, bias)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the backward kernels: forward(q, k, v, bias,
+    scale) → out; bias is the fp32 [B, Sk] key bias or None. The bias gets
+    no gradient (the JAX package returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        q_scaled = (q.to(_acc(q)) * scale).to(q.dtype)
+        out, lse = flash_attention_fwd_lse(q_scaled, k, v, bias)
+        ctx.save_for_backward(q_scaled, k, v, bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_scaled, k, v, bias, out, lse = ctx.saved_tensors
+        dout = dout.to(q_scaled.dtype).contiguous()
+        delta = attention_delta(dout, out)
+        dq = flash_attention_bwd_dq(q_scaled, k, v, bias, dout, lse, delta, ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q_scaled, k, v, bias, dout, lse, delta)
+        return dq, dk, dv, None, None
 
 
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
@@ -72,30 +116,111 @@ def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' functions in fp32 PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation dtype: fp32, or fp64 for fp64
+    inputs (the tests' exact reference)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _logits(q_scaled, k, bias):
+    f = _acc(q_scaled)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q_scaled.to(f), k.to(f))
+    if bias is not None:
+        logits = logits + bias[:, None, None, :]
+    return logits
+
+
+def _valid_rows(bias, b, device):
+    """[B] bool: the batch row has at least one unmasked key."""
+    if bias is None:
+        return torch.ones(b, dtype=torch.bool, device=device)
+    return (bias > -1e29).any(dim=-1)
+
+
 def plain_attention(
     q_scaled: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: fp32 logits of the
+    """The forward kernel's function in plain PyTorch: fp32 logits of the
     pre-scaled query, key bias, softmax, probabilities rounded to v's dtype,
     fp32 product with v; batch rows whose keys are all masked give 0."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q_scaled.float(), k.float())
-    if bias is not None:
-        logits = logits + bias[:, None, None, :]
+    return plain_attention_lse(q_scaled, k, v, bias)[0]
+
+
+def plain_attention_lse(
+    q_scaled: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`plain_attention` and the fp32 [B, H, Sq] logsumexp of its logits,
+    +1e30 on the rows of a batch row whose keys are all masked."""
+    f = _acc(q_scaled)
+    logits = _logits(q_scaled, k, bias)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float())
-    if bias is not None:
-        valid = (bias > -1e29).any(dim=-1)
-        out = torch.where(valid[:, None, None, None], out, 0.0)
-    return out.to(q_scaled.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(f), v.to(f))
+    valid = _valid_rows(bias, q_scaled.shape[0], q_scaled.device)[:, None, None]
+    out = torch.where(valid[..., None], out, 0.0)
+    lse = torch.where(valid, torch.logsumexp(logits, dim=-1), _LSE_MASKED)
+    return out.to(q_scaled.dtype), lse.contiguous()
 
 
-def _check(q, k, v, bias) -> None:
+def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO ∘ O) in fp32 from the output the forward wrote, [B,H,Sq]
+    (`_bwd_core` `attention.py:718-724`)."""
+    return (dout.to(_acc(out)) * out.to(_acc(out))).sum(dim=-1).contiguous()
+
+
+def _probs_and_ds(q_scaled, k, v, bias, dout, lse, delta):
+    """P = exp(S − lse) and dS = P∘(dO·Vᵀ − Δ), both fp32 [B,H,Sq,Sk]."""
+    f = _acc(q_scaled)
+    p = torch.exp(_logits(q_scaled, k, bias) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.to(f), v.to(f))
+    return p, p * (dp - delta[..., None])
+
+
+def plain_attention_bwd_dq(
+    q_scaled, k, v, bias, dout, lse, delta, scale: float
+) -> torch.Tensor:
+    """The dQ kernel's function: scale·dS·K with dS rounded to q's dtype,
+    fp32 product, the result in q's dtype."""
+    f = _acc(q_scaled)
+    _, ds = _probs_and_ds(q_scaled, k, v, bias, dout, lse, delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q_scaled.dtype).to(f), k.to(f))
+    return (dq * scale).to(q_scaled.dtype)
+
+
+def plain_attention_bwd_dkv(
+    q_scaled, k, v, bias, dout, lse, delta
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's function: dV = Pᵀ·dO (P rounded to dO's dtype) and
+    dK = dSᵀ·Q_scaled (dS rounded to q's dtype), fp32 products."""
+    f = _acc(q_scaled)
+    p, ds = _probs_and_ds(q_scaled, k, v, bias, dout, lse, delta)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).to(f), dout.to(f))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q_scaled.dtype).to(f), q_scaled.to(f))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(q, k, v, bias, *rows) -> None:
+    """Shapes, dtypes, devices and contiguity the kernels take. `rows` are
+    the backward's extra [B,H,Sq,D] (dO) and [B,H,Sq] fp32 (lse, Δ)
+    operands."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
-    b, h, _, d = q.shape
+    b, h, sq, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -108,11 +233,18 @@ def _check(q, k, v, bias) -> None:
             f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
-    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    for r in rows:
+        want = (q.shape, q.dtype) if r.dim() == 4 else ((b, h, sq), torch.float32)
+        if (r.shape, r.dtype) != want:
+            raise ValueError(
+                f"backward operand {r.dtype} {tuple(r.shape)}, expected "
+                f"{want[1]} {tuple(want[0])}"
+            )
+    tensors = (q, k, v, *rows) if bias is None else (q, k, v, bias, *rows)
     if any(t.device != q.device for t in tensors):
-        raise ValueError("q, k, v and the key bias must be on one device")
+        raise ValueError("the flash kernels' operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash kernel needs contiguous q, k, v and bias")
+        raise ValueError("the flash kernels need contiguous operands")
     if bias is not None and (
         bias.dtype != torch.float32 or tuple(bias.shape) != (b, k.shape[2])
     ):
@@ -122,16 +254,74 @@ def _check(q, k, v, bias) -> None:
         )
 
 
+def _on_card(wrapper: str, q: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs); True for a CUDA
+    tensor; raises for any other device."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device} ({wrapper})")
+    return True
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # C entry point -> (its library, argument types)
+    "tdm_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_P]),
+    "tdm_flash_bwd_dq": (
+        "flash_bwd_dq", [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P]),
+    "tdm_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 7 + [_P]),
+}
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (once)."""
-    lib = _build.load("flash_fwd")
-    fn = lib.tdm_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _entry(fn_name: str):
+    """The C entry point, its library built and its signature declared
+    (once)."""
+    lib_name, argtypes = _SIGNATURES[fn_name]
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.tdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdm_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return fn, lib
+
+
+def _launch(fn_name: str, device: torch.device, *args) -> None:
+    fn, lib = _entry(fn_name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn_name} kernel launch failed: "
+            + lib.tdm_cuda_error_string(err).decode()
+        )
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _vec(d: int, *tensors) -> int:
+    """1 when the bf16 kernels may stage rows with 16-byte loads."""
+    return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _fwd(q_scaled, k, v, bias, with_lse: bool):
+    _check(q_scaled, k, v, bias)
+    b, h, sq, d = q_scaled.shape
+    out = torch.empty_like(q_scaled)
+    lse = (
+        torch.empty((b, h, sq), dtype=torch.float32, device=q_scaled.device)
+        if with_lse else None
+    )
+    _launch(
+        "tdm_flash_fwd", q_scaled.device,
+        q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        out.data_ptr(), _ptr(lse), b, h, sq, k.shape[2], d,
+        _DTYPE_CODE[q_scaled.dtype], _vec(d, q_scaled, k, v, out),
+    )
+    return out, lse
 
 
 def flash_attention_fwd(
@@ -140,34 +330,88 @@ def flash_attention_fwd(
     v: torch.Tensor,
     bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """The flash-attention forward kernel's wrapper. A CPU tensor takes
-    `plain_attention`; a CUDA tensor launches `csrc/flash_fwd.cu` on the
-    current stream (counted in `flash_attention_fwd.launches`) or raises."""
-    if q_scaled.device.type == "cpu":
+    """The flash forward without the lse (the inference variant). A CPU
+    tensor takes `plain_attention`; a CUDA tensor launches
+    `csrc/flash_fwd.cu` on the current stream or raises."""
+    if not _on_card("flash_attention_fwd", q_scaled):
         return plain_attention(q_scaled, k, v, bias)
-    if q_scaled.device.type != "cuda":
-        raise ValueError(f"no flash kernel for device {q_scaled.device}")
-    _check(q_scaled, k, v, bias)
-    b, h, sq, d = q_scaled.shape
-    out = torch.empty_like(q_scaled)
-    lib = _library()
-    vec = d % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (q_scaled, k, v, out)
-    )
-    with torch.cuda.device(q_scaled.device):
-        err = lib.tdm_flash_fwd(
-            q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, sq, k.shape[2], d, _DTYPE_CODE[q_scaled.dtype], int(vec),
-            torch.cuda.current_stream(q_scaled.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "flash_fwd kernel launch failed: "
-            + lib.tdm_cuda_error_string(err).decode()
-        )
+    out, _ = _fwd(q_scaled, k, v, bias, with_lse=False)
     flash_attention_fwd.launches += 1
     return out
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_fwd_lse(
+    q_scaled: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward with its [B,H,Sq] fp32 lse (the training forward).
+    A CPU tensor takes `plain_attention_lse`; a CUDA tensor launches
+    `csrc/flash_fwd.cu` with the lse flag or raises."""
+    if not _on_card("flash_attention_fwd_lse", q_scaled):
+        return plain_attention_lse(q_scaled, k, v, bias)
+    out, lse = _fwd(q_scaled, k, v, bias, with_lse=True)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(
+    q_scaled, k, v, bias, dout, lse, delta, scale: float
+) -> torch.Tensor:
+    """dQ (the gradient with respect to the unscaled q). A CPU tensor takes
+    `plain_attention_bwd_dq`; a CUDA tensor launches `csrc/flash_bwd_dq.cu`
+    or raises."""
+    if not _on_card("flash_attention_bwd_dq", q_scaled):
+        return plain_attention_bwd_dq(q_scaled, k, v, bias, dout, lse, delta, scale)
+    _check(q_scaled, k, v, bias, dout, lse, delta)
+    b, h, sq, d = q_scaled.shape
+    dq = torch.empty_like(q_scaled)
+    _launch(
+        "tdm_flash_bwd_dq", q_scaled.device,
+        q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, h, sq, k.shape[2], d, float(scale), _DTYPE_CODE[q_scaled.dtype],
+        _vec(d, q_scaled, k, v, dout, dq),
+    )
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(
+    q_scaled, k, v, bias, dout, lse, delta
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV). A CPU tensor takes `plain_attention_bwd_dkv`; a CUDA tensor
+    launches `csrc/flash_bwd_dkv.cu` or raises."""
+    if not _on_card("flash_attention_bwd_dkv", q_scaled):
+        return plain_attention_bwd_dkv(q_scaled, k, v, bias, dout, lse, delta)
+    _check(q_scaled, k, v, bias, dout, lse, delta)
+    b, h, sq, d = q_scaled.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(
+        "tdm_flash_bwd_dkv", q_scaled.device,
+        q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, sq, k.shape[2], d, _DTYPE_CODE[q_scaled.dtype],
+        _vec(d, q_scaled, k, v, dout, dk, dv),
+    )
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+WRAPPERS = (
+    flash_attention_fwd, flash_attention_fwd_lse,
+    flash_attention_bwd_dq, flash_attention_bwd_dkv,
+)
+for _w in WRAPPERS:
+    _w.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in WRAPPERS}

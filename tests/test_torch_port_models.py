@@ -134,7 +134,7 @@ def test_layer_norm_matches_in_fp32_and_keeps_dtype():
 
 
 def test_pixart_refuses_unported_options():
-    for kw in ({"moe_experts": 4}, {"remat": True}):
+    for kw in ({"moe_experts": 4}, {"remat": True, "remat_policy": "dots"}):
         cfg = dataclasses.replace(tpixart.PixArtConfig.tiny(), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpixart.PixArtTransformer2D(cfg, device="cpu")
