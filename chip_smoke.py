@@ -22,10 +22,20 @@ Phases, one line each, and any failure exits non-zero:
   6. train: full-width PixArt-α-512 TDM distillation through the training
      CLI's main() (seeded weights and embedding cache, batch 4, bf16, dmd,
      3 steps): seconds per step, peak memory, the idle share of a step,
-     and each training kernel's launches per step (checked).
+     and each training kernel's launches per step (checked);
+  7. sd3: a full-width SD3-Medium pipeline (24 layers, 24x64 heads, 1024²,
+     bf16, seeded weights, attn_impl='splash') with a seeded rank-64 kohya
+     LoRA on the default targets, written in the tdm_tpu layout and served
+     over HTTP with --lora_scale 0.125: 8 concurrent requests (two batches
+     of 4), exactly 96 splash-kernel launches and no flash launch per batch,
+     per-seed determinism, a profiled batch, and one full-width forward
+     through the splash kernel against the same forward through the flash
+     kernel.
 Phase 3 also holds the training kernels (the forward with its lse, dQ,
-dK/dV) against their plain versions, and phase 4 one tiny train step on
-the card against the same step on the CPU. Then a JSON line of per-kernel
+dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
+shapes, rows whose logits are all below -20) against their plain versions;
+phase 4 runs one tiny train step and a tiny SD3 pipeline with a merged LoRA
+on the card against the same on the CPU. Then a JSON line of per-kernel
 numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}.
 
@@ -36,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import math
 import os
@@ -51,6 +62,10 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # PixArt-α-512 attention shapes at serving batch 4
 PIX_B, PIX_H, PIX_S, PIX_D, PIX_TXT = 4, 16, 1024, 72, 120
+# SD3-Medium 1024² joint attention at serving batch 4: 4096 image + 333 text
+# tokens (77 CLIP + 256 T5)
+SD3_B, SD3_H, SD3_TXT, SD3_D = 4, 24, 333, 64
+SD3_S = 4096 + SD3_TXT
 # bf16, per batch row (all masked: exactly 0): relative L2 error under
 # BF16_REL_L2 and max |kernel - plain| under BF16_ULPS bf16 ulps of the row's
 # largest |plain|. Both versions round the output to bf16 (half an ulp) and
@@ -153,13 +168,13 @@ def _attn_inputs(torch, gen, b, h, sq, sk, d, dtype, lengths):
     return q, k, v, mask, qs, bias
 
 
-def attention_work(b, h, sq, sk, d, item_bytes, live_keys):
+def attention_work(b, h, sq, sk, d, item_bytes, live_keys, bias=True):
     """(bytes, operations) the function needs at this run's mask: q read and
     the output written once, k and v read once for each unmasked key, the
-    key bias read once; 4·d operations (two multiply-adds) per (query,
-    unmasked key) pair. `live_keys` is the unmasked keys summed over the
-    batch."""
-    nbytes = item_bytes * h * d * (2 * b * sq + 2 * live_keys) + 4 * b * sk
+    key bias read once (when the kernel takes one); 4·d operations (two
+    multiply-adds) per (query, unmasked key) pair. `live_keys` is the
+    unmasked keys summed over the batch."""
+    nbytes = item_bytes * h * d * (2 * b * sq + 2 * live_keys) + (4 * b * sk if bias else 0)
     return nbytes, 4 * h * sq * d * live_keys
 
 
@@ -470,6 +485,89 @@ def phase_kernels_train(torch, seed: int) -> dict:
     return {"kernels": recs, "pair": pair}
 
 
+def phase_kernels_splash(torch, seed: int) -> dict:
+    """The splash kernel (kernel 4) against its plain version: SD3's joint
+    attention [4,24,4429,4429,64] in bf16 (per batch row, as compare()),
+    ragged fp32 shapes at D = 64 and 128, and rows whose real logits all
+    lie below -20 (fp32 and bf16), where the TPU path's pad-key rescale
+    fails. At the SD3 shape: the kernel's time and the flash kernel's (bias
+    all zero) as CUDA-event means over 50 launches, the plain version once,
+    SDPA as the library yardstick, and the bound."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    max_err = 0.0
+
+    def held(name, q, k, v):
+        nonlocal max_err
+        before = A.splash_attention_fwd.launches
+        out = A.splash_attention_fwd(q, k, v)
+        A.splash_attention_fwd.launches = before  # comparison launches do not count
+        ref = A.plain_splash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"splash {name}: non-finite output")
+        err, rel, bad = compare(torch, out, ref)
+        print(f"[kernels] splash_fwd {name} {list(q.shape[:3]) + [k.shape[2], q.shape[3]]} "
+              f"{str(q.dtype).split('.')[-1]} max_abs_err {err:.3e} rel_l2 {rel:.3e}",
+              flush=True)
+        check(bad is None, f"splash {name}: {bad}")
+        max_err = max(max_err, err)
+        return out
+
+    for name, (b, h, sq, sk, d) in (("odd_d64", (2, 3, 1000, 777, 64)),
+                                    ("odd_d128", (2, 3, 1000, 777, 128)),
+                                    ("tail13_d128_bf16", (2, 4, 333, 77, 128))):
+        dtype = bf16 if name.endswith("bf16") else f32
+        q, k, v, _, qs, _ = _attn_inputs(torch, gen, b, h, sq, sk, d, dtype, None)
+        held(name, qs, k, v)
+    # every real logit below -20: keys clustered round u, queries along -u
+    u = torch.randn(64, generator=gen, device="cuda")
+    u = u / u.norm()
+    k = u + 0.05 * torch.randn(2, 3, 4429, 64, generator=gen, device="cuda")
+    q = (-40.0 * u).expand(2, 3, 100, 64).contiguous()
+    v = torch.randn(2, 3, 4429, 64, generator=gen, device="cuda")
+    top = (q @ k.transpose(2, 3)).max().item()
+    check(top < -20, f"negative-logit rows reach {top}")
+    for dtype in (f32, bf16):
+        held(f"logits_below_-20_{str(dtype).split('.')[-1]}", q.to(dtype), k.to(dtype),
+             v.to(dtype))
+    print(f"[kernels] splash_fwd rows with every logit <= {top:.1f}: exact against plain "
+          f"(the TPU path's out / (1 - n_pad*exp(-lse)) is not carried over)", flush=True)
+
+    # the SD3 shape
+    b, h, s, d = SD3_B, SD3_H, SD3_S, SD3_D
+    q, k, v, _, qs, _ = _attn_inputs(torch, gen, b, h, s, s, d, bf16, None)
+    out = held("sd3", qs, k, v)
+    stream = torch.cuda.current_stream().cuda_stream
+    splash, _ = A._entry("tdm_splash_fwd")
+    fwd, _ = A._entry("tdm_flash_fwd")
+    zero_bias = torch.zeros(b, s, dtype=f32, device="cuda")
+    flash_out = torch.empty_like(qs)
+    ms = time_ms(torch, lambda: splash(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       out.data_ptr(), b * h, s, s, d, 1, stream))
+    flash_ms = time_ms(torch, lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          zero_bias.data_ptr(), flash_out.data_ptr(), None,
+                                          b, h, s, s, d, 1, 1, stream))
+    flash_err, _, flash_bad = compare(torch, flash_out, A.plain_splash_attention(qs, k, v))
+    check(flash_bad is None, f"flash kernel at the SD3 shape: {flash_bad}")
+    plain_ms = time_ms(torch, lambda: A.plain_splash_attention(qs, k, v), 1, 0)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    nbytes, ops = attention_work(b, h, s, s, d, 2, s * b, bias=False)
+    bound, by = bound_ms(nbytes, ops)
+    fb_bytes, fb_ops = attention_work(b, h, s, s, d, 2, s * b)
+    flash_bound, _ = bound_ms(fb_bytes, fb_ops)
+    print(f"[kernels] splash_fwd sd3 [{b},{h},{s},{s},{d}] ms {ms:.4f} ({ms / bound:.1f}x "
+          f"bound) | flash_fwd (bias all 0) ms {flash_ms:.4f} (max_abs_err {flash_err:.3e}) | "
+          f"plain_ms {plain_ms:.4f} (once) | sdpa_ms {lib_ms:.4f} | bound_ms {bound:.5f} "
+          f"({by})", flush=True)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "dims": [b, h, s, s, d], "bytes": nbytes,
+            "ops": ops, "flash_ms": flash_ms, "flash_bound_ms": flash_bound}
+
+
 def grad_check(torch, seed: int) -> None:
     """fp32, small shape: the gradients of q, k and v through
     FlashAttention (the kernels) against autograd of plain_attention, both
@@ -496,7 +594,8 @@ def grad_check(torch, seed: int) -> None:
     for w in A.WRAPPERS:
         w.launches = before[w.__name__]
     check(launched == {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-                       "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1},
+                       "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+                       "splash_attention_fwd": 0},
           f"grad check launches {launched}")
     worst = 0.0
     for label, got, ref in zip(("out", "dq", "dk", "dv"), grads["auto"], grads["plain"]):
@@ -687,10 +786,11 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
             "images_per_s": 6 / wall6, "batch_s": solo_batch_s, "profile": prof}
 
 
-def profile_batch(torch, pipe, cond, noise) -> dict:
+def profile_batch(torch, pipe, cond, noise, kernel: str = "flash_fwd") -> dict:
     """Device time of one full batch (4 NFE + decode) by kernel, from
-    torch.profiler's CUDA activity: busy time, the flash kernel's share and
-    the device's idle share of the batch's wall time."""
+    torch.profiler's CUDA activity: busy time, the attention kernel's share
+    (kernels whose name holds `kernel`) and the device's idle share of the
+    batch's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,16 +804,36 @@ def profile_batch(torch, pipe, cond, noise) -> dict:
     if busy_ms == 0:
         print("[profile] no device time in the trace: not measured", flush=True)
         return {}
-    flash_ms = sum(e.device_time_total for e in kernels if "flash_fwd" in e.key) / 1e3
+    attn_ms = sum(e.device_time_total for e in kernels if kernel in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     print(f"[profile] one batch of 4: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
-          f"flash_fwd {flash_ms:.1f} ms ({flash_ms / busy_ms:.3f} of busy), "
+          f"{kernel} {attn_ms:.1f} ms ({attn_ms / busy_ms:.3f} of busy), "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     for e in top:
         print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "flash_ms": flash_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "attention_ms": attn_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "launches": sum(e.count for e in kernels)}
+
+
+@contextlib.contextmanager
+def forced_attention(impl: str):
+    """Every attention call of the models takes the route `impl`, whatever
+    route its module asks for (here only: a comparison, not the main
+    path)."""
+    from tdm_tpu_torch.models import layers
+
+    kernel_attention = layers.fused_attention
+
+    def forced(q, k, v, key_mask=None, **kw):
+        return kernel_attention(q, k, v, key_mask, **{**kw, "impl": impl})
+
+    layers.fused_attention = forced
+    try:
+        yield
+    finally:
+        layers.fused_attention = kernel_attention
 
 
 def full_forward_check(torch, transformer, seed: int) -> None:
@@ -721,11 +841,8 @@ def full_forward_check(torch, transformer, seed: int) -> None:
     the same forward with the plain attention, both on the card: bf16
     activations through 28 layers, so the check is relative (L2 error
     under 2%)."""
-    import functools
-
     import numpy as np
 
-    from tdm_tpu_torch.models import layers
     from tdm_tpu_torch.ops import attention as A
 
     rng = np.random.default_rng(seed + 1)
@@ -734,15 +851,11 @@ def full_forward_check(torch, transformer, seed: int) -> None:
     mask = (torch.arange(120)[None] < torch.tensor([[120], [40], [3], [0]])).int().cuda()
     t = torch.tensor([899, 674, 449, 224], device="cuda")
     before = A.flash_attention_fwd.launches
-    kernel_attention = layers.fused_attention
     with torch.inference_mode():
         out = transformer(lat, t, text, mask).float()
         # the same forward with every Attention's call made plain, here only
-        layers.fused_attention = functools.partial(kernel_attention, impl="plain")
-        try:
+        with forced_attention("plain"):
             ref = transformer(lat, t, text, mask).float()
-        finally:
-            layers.fused_attention = kernel_attention
     A.flash_attention_fwd.launches = before
     rel = ((out - ref).norm() / ref.norm()).item()
     print(f"[check] full-width forward, kernel vs plain attention: rel L2 "
@@ -794,7 +907,8 @@ def phase_reference_train(torch, seed: int) -> None:
     (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
     # 2 layers x (self, cross): 7 no-grad forwards, 2 with grad
     want = {"flash_attention_fwd": 28, "flash_attention_fwd_lse": 8,
-            "flash_attention_bwd_dq": 8, "flash_attention_bwd_dkv": 8}
+            "flash_attention_bwd_dq": 8, "flash_attention_bwd_dkv": 8,
+            "splash_attention_fwd": 0}
     check(glaunch == want, f"tiny step launches {glaunch}, expected {want}")
     worst = {}
     for name in tdm.StepMetrics._fields:
@@ -821,12 +935,227 @@ def phase_reference_train(torch, seed: int) -> None:
           f"{upd['critic'][1]:.3e} (limits 5e-3 / {0.25 * lr:.1e})", flush=True)
 
 
+def seeded_lora(torch, model, rank: int, seed: int):
+    """A LoRA on the default targets with both factors drawn from the seed
+    (peft's init leaves b = 0, which would merge to nothing)."""
+    from tdm_tpu_torch.lora import adapter
+
+    gen = torch.Generator().manual_seed(seed)
+    lora = adapter.init_lora(model, rank, generator=gen)
+    for entry in lora.params.values():
+        entry["b"] = 0.02 * torch.randn(entry["b"].shape, generator=gen)
+    return lora
+
+
+def phase_reference_sd3(torch, seed: int, workdir: str) -> None:
+    """A tiny SD3 pipeline at head dim 64 (fp32, attn_impl='splash': the
+    splash kernel on the card) with a merged kohya LoRA at 0.125, against
+    the same pipeline on the CPU (the plain version): the sampler state is
+    bf16 in both, so the latents agree to one bf16 ulp of their scale and
+    the images to half a PNG step."""
+    import dataclasses
+
+    import numpy as np
+
+    from tdm_tpu_torch.lora import io as lora_io
+    from tdm_tpu_torch.models import mmdit_sd3
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines.sd3 import default_sd3_pipeline
+
+    torch.manual_seed(seed)
+    cfg = dataclasses.replace(mmdit_sd3.MMDiTConfig.tiny(), head_dim=64, attn_impl="splash")
+    cpu = default_sd3_pipeline(cfg=cfg, device="cpu")
+    gpu = default_sd3_pipeline(cfg=cfg, device="cuda")
+    gpu.transformer.load_state_dict(cpu.transformer.state_dict())
+    gpu.vae_decoder.load_state_dict(cpu.vae_decoder.state_dict())
+    lora_file = os.path.join(workdir, "tiny_lora.safetensors")
+    lora_io.save_kohya(seeded_lora(torch, cpu.transformer, 4, seed), lora_file)
+    for pipe in (cpu, gpu):
+        pipe.load_lora_weights(lora_file, adapter_name="tdm")
+        pipe.set_adapters(["tdm"], [0.125])
+    rng = np.random.default_rng(seed)
+    lat = rng.standard_normal((3, 16, 8, 8)).astype(np.float32)
+    ctx = rng.standard_normal((3, 21, cfg.context_dim)).astype(np.float32)
+    pooled = rng.standard_normal((3, cfg.pooled_dim)).astype(np.float32)
+    kw = dict(prompt_embeds=(ctx, pooled), latents=lat, height=64, width=64)
+    ref = cpu(**kw)
+    before = A.launch_counts()
+    got = gpu(**kw)
+    torch.cuda.synchronize()
+    launched = {n: A.launch_counts()[n] - before[n] for n in before}
+    for w in A.WRAPPERS:  # a check, not the main path
+        w.launches = before[w.__name__]
+    dl = (got.latents.float().cpu() - ref.latents.float()).abs()
+    scale = ref.latents.float().abs().max().item()
+    di = (got.images.cpu() - ref.images).abs().max().item()
+    print(f"[reference] tiny SD3 pipeline (head dim 64, LoRA at 0.125) cuda (splash kernel, "
+          f"{launched['splash_attention_fwd']} launches) vs cpu (plain): latents max_abs_err "
+          f"{dl.max().item():.3e} of scale {scale:.3g}, {(dl > 0).float().mean().item():.4f} "
+          f"of elements differ; images max_abs_err {di:.3e}", flush=True)
+    check(launched["splash_attention_fwd"] == cfg.num_layers * 4
+          and launched["flash_attention_fwd"] == 0, f"tiny SD3 launches {launched}")
+    check(dl.max().item() <= 2**-7 * scale, "tiny SD3 latents disagree")
+    check((dl > 0).float().mean().item() < 0.01, "tiny SD3 latents disagree")
+    check(di <= 2e-3, "tiny SD3 images disagree")
+
+
+# per batch of 4 at 4 NFE: one joint attention in each of the 24 blocks
+SD3_LAUNCHES_PER_BATCH = 24 * 4
+
+
+def phase_sd3(torch, seed: int, workdir: str) -> dict:
+    """Full-width SD3-Medium 1024² served over HTTP through the port with
+    the splash kernel and a LoRA at the recipe's scale."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    import urllib.request
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.lora import io as lora_io
+    from tdm_tpu_torch.models import mmdit_sd3
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import save_pretrained
+    from tdm_tpu_torch.pipelines.sd3 import default_sd3_pipeline
+    from tdm_tpu_torch.serve import server as S
+
+    # SD3-Medium (24 layers, hidden 1536, 24x64 heads, context 4096, pooled
+    # 2048, bf16) with weights from the seed, TAESD3, the rank-64 LoRA
+    t0 = time.monotonic()
+    torch.manual_seed(seed)
+    cfg = mmdit_sd3.MMDiTConfig(attn_impl="splash")
+    check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.context_dim,
+           cfg.pooled_dim, cfg.sample_size) == (24, 1536, 24, 64, 4096, 2048, 128),
+          "SD3-Medium widths")
+    pipe = default_sd3_pipeline(cfg=cfg, device="cuda")
+    n_params = sum(p.numel() for p in pipe.transformer.parameters())
+    model_dir = os.path.join(workdir, "sd3_medium")
+    save_pretrained(model_dir, pipe)
+    lora = seeded_lora(torch, pipe.transformer, 64, seed)
+    lora_file = os.path.join(workdir, "sd3_tdm_lora.safetensors")
+    lora_io.save_kohya(lora, lora_file)
+    lora_mb = os.path.getsize(lora_file) / 1e6
+    del pipe
+    torch.cuda.empty_cache()
+    # an embedding cache of 8 prompts: 333 context tokens and a pooled vector
+    rng = np.random.default_rng(seed)
+    prompts = [f"prompt {i}" for i in range(8)]
+    cache = os.path.join(workdir, "sd3_cache.npz")
+    EmbeddingCache(
+        rng.standard_normal((8, SD3_TXT, 4096)).astype(np.float16),
+        np.ones((8, SD3_TXT), np.int32), prompts,
+        pooled=rng.standard_normal((8, 2048)).astype(np.float16),
+    ).save(cache)
+    print(f"[sd3] wrote SD3-Medium ({n_params / 1e6:.1f}M params), a rank-64 kohya LoRA "
+          f"({len(lora.params)} entries, {lora_mb:.0f} MB) and an 8-prompt pooled cache in "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
+
+    t0 = time.monotonic()
+    args = S.parse_args([
+        "--model", model_dir, "--embedding_cache", cache, "--port", "0",
+        "--batch_size", "4", "--max_delay_ms", "1000", "--warmup",
+        "--lora", lora_file, "--lora_scale", "0.125",
+    ])
+    server = S.build_server(args).start()
+    stats = server.batcher.stats
+    pipe = server.batcher.pipe
+    check(pipe.family == "sd3" and pipe.transformer.cfg.attn_impl == "splash"
+          and pipe._active == (("tdm", 0.125),), "the served SD3 pipeline")
+    print(f"[sd3] loaded, merged the LoRA and warmed in {time.monotonic() - t0:.1f}s "
+          f"(warm-up batch {stats.last_batch_latency_s:.3f}s)", flush=True)
+
+    def post(prompt, seed):
+        body = json.dumps({"prompt": prompt, "seed": seed}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        t = time.monotonic()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = json.loads(r.read())
+        return out, time.monotonic() - t
+
+    try:
+        # the main path: counts to 0, 8 concurrent requests (two full
+        # batches), then one request alone for determinism
+        A.reset_launches()
+        b0, pad0 = stats.batches, stats.rows_padded
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(8) as ex:
+            replies = list(ex.map(lambda i: post(prompts[i], 200 + i), range(8)))
+        wall8 = time.monotonic() - t0
+        batches8, padded8 = stats.batches - b0, stats.rows_padded - pad0
+        batch_s = stats.last_batch_latency_s
+        solo, solo_s = post(prompts[0], 200)
+        launches = A.launch_counts()
+        batches = stats.batches - b0
+    finally:
+        server.close()
+    for reply, _ in replies + [(solo, solo_s)]:
+        check(reply.get("format") == "png" and reply.get("shape") == [1024, 1024, 3],
+              f"reply {str(reply)[:200]}")
+        check_png(base64.b64decode(reply["image"]), 1024, 1024)
+    check(batches8 == 2 and padded8 == 0, f"8 requests ran as {batches8} batches")
+    check(solo["image"] == replies[0][0]["image"],
+          "same (prompt, seed) gave different bytes in another batch")
+    check(len({r["image"] for r, _ in replies}) == 8, "distinct seeds gave equal images")
+    check(launches["splash_attention_fwd"] == SD3_LAUNCHES_PER_BATCH * batches
+          and sum(launches.values()) == launches["splash_attention_fwd"],
+          f"launches {launches} over {batches} batches, expected "
+          f"{SD3_LAUNCHES_PER_BATCH} splash and nothing else per batch")
+    lat = [s for _, s in replies]
+    print(f"[sd3] 8 concurrent requests in {wall8:.3f}s as {batches8} batches "
+          f"({8 / wall8:.2f} images/s), request latency {min(lat):.3f}-{max(lat):.3f}s, "
+          f"last batch {batch_s:.3f}s; lone request {solo_s:.3f}s; same (prompt, seed) -> "
+          f"same PNG bytes; launches {launches} = {SD3_LAUNCHES_PER_BATCH} splash x {batches} "
+          f"batches", flush=True)
+    cond = tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
+    prof = profile_batch(torch, pipe, cond, torch.randn(4, 16, 128, 128), kernel="splash_fwd")
+    forward_rel = sd3_forward_check(torch, pipe.transformer, seed)
+    return {"launches": launches["splash_attention_fwd"], "batches": batches,
+            "launches_per_batch": SD3_LAUNCHES_PER_BATCH, "wall8_s": wall8,
+            "images_per_s": 8 / wall8, "batch_s": batch_s, "solo_s": solo_s,
+            "profile": prof, "splash_vs_flash_forward_rel_l2": forward_rel}
+
+
+def sd3_forward_check(torch, transformer, seed: int) -> float:
+    """One full-width SD3 forward (batch 4, the served LoRA merged) through
+    the splash kernel against the same forward through the flash kernel,
+    both bf16 on the card: two kernels' roundings through 24 layers, so the
+    check is relative (L2 error under 2%)."""
+    import numpy as np
+
+    from tdm_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed + 2)
+    lat = torch.from_numpy(rng.standard_normal((4, 16, 128, 128)).astype(np.float32)).cuda()
+    ctx = torch.from_numpy(rng.standard_normal((4, SD3_TXT, 4096)).astype(np.float32)).cuda()
+    pooled = torch.from_numpy(rng.standard_normal((4, 2048)).astype(np.float32)).cuda()
+    t = torch.tensor([1000.0, 750.0, 500.0, 250.0], device="cuda")
+    before = A.launch_counts()
+    with torch.inference_mode():
+        out = transformer(lat, t, ctx, pooled).float()
+        with forced_attention("auto"):
+            ref = transformer(lat, t, ctx, pooled).float()
+    launched = {n: A.launch_counts()[n] - before[n] for n in before}
+    for w in A.WRAPPERS:  # a check, not the main path
+        w.launches = before[w.__name__]
+    rel = ((out - ref).norm() / ref.norm()).item()
+    print(f"[check] full-width SD3 forward, splash kernel vs flash kernel: rel L2 "
+          f"{rel:.3e}, finite {bool(torch.isfinite(out).all())}, launches {launched}",
+          flush=True)
+    check(launched["splash_attention_fwd"] == 24 and launched["flash_attention_fwd"] == 24,
+          f"forward check launches {launched}")
+    check(bool(torch.isfinite(out).all()) and rel < 2e-2,
+          f"full-width SD3 forward disagrees: rel L2 {rel}")
+    return rel
+
+
 TRAIN_STEPS = 3
 # per step at batch 4, dmd, cfg 4.5, critic_updates 1: 7 forwards without
 # grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B, critic probe) and 2
 # with grad (critic DSM, student loss), each 28 blocks x (self, cross)
 TRAIN_LAUNCHES = {"flash_attention_fwd": 392, "flash_attention_fwd_lse": 112,
-                  "flash_attention_bwd_dq": 112, "flash_attention_bwd_dkv": 112}
+                  "flash_attention_bwd_dq": 112, "flash_attention_bwd_dkv": 112,
+                  "splash_attention_fwd": 0}
 
 
 def phase_train(torch, seed: int, workdir: str) -> dict:
@@ -925,6 +1254,7 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
         check(all(math.isfinite(v) for v in rec["metrics"].values()),
               f"step {rec['step']}: non-finite metrics {rec['metrics']}")
     check(steps[1]["student_changed"], "the student did not change in step 2")
+    shutil.rmtree(run_dir, ignore_errors=True)  # the disk for the sd3 phase's weights
     # steps after the first that ran without the profiler (its own cost
     # inflates the profiled last step's wall time)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
@@ -970,7 +1300,7 @@ def kernel_row(name, source, replaces, launches, rec, per) -> dict:
     }
 
 
-PHASES = ("kernels", "reference", "serve", "train")
+PHASES = ("kernels", "reference", "serve", "train", "sd3")
 
 
 def main(argv=None) -> int:
@@ -1000,13 +1330,17 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             kern = phase_kernels(torch, args.seed)
             ktrain = phase_kernels_train(torch, args.seed)
+            ksplash = phase_kernels_splash(torch, args.seed)
         if "reference" in phases:
             phase_reference(torch, args.seed)
             phase_reference_train(torch, args.seed)
+            phase_reference_sd3(torch, args.seed, workdir)
         if "serve" in phases:
             serve = phase_serve(torch, args.seed, workdir)
         if "train" in phases:
             train = phase_train(torch, args.seed, workdir)
+        if "sd3" in phases:
+            sd3 = phase_sd3(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1037,9 +1371,19 @@ def main(argv=None) -> int:
         kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
                    "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
                    kt["flash_bwd_dkv"], per_block + no_lib),
+        {"name": "splash_fwd", "route": "cuda", "source": "tdm_tpu_torch/csrc/splash_fwd.cu",
+         "replaces": "tdm_tpu/ops/attention.py:153", "launches": sd3["launches"],
+         "launches_per_batch": sd3["launches_per_batch"],
+         "max_abs_err": ksplash["max_abs_err"], "ms": ksplash["ms"],
+         "plain_ms": ksplash["plain_ms"], "bound_ms": ksplash["bound_ms"],
+         "bound_by": ksplash["bound_by"], "library_ms": ksplash["library_ms"],
+         "per": ("one SD3-Medium joint attention call at batch 4 [4,24,4429,4429,64] "
+                 "(bf16); library = SDPA forward; flash_ms = the flash kernel (bias "
+                 "all 0) at the same shape"),
+         "flash_ms": ksplash["flash_ms"], "dims": ksplash["dims"]},
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
-                      "serve": serve, "train": train}))
+                      "serve": serve, "train": train, "sd3": sd3}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

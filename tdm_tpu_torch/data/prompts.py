@@ -7,10 +7,10 @@ dataset name raises: slice 7), `PromptBatcher` is the shuffling per-host
 batcher, and `EmbeddingCache` reads and writes the `.npz` that the JAX
 package's `cli/build_cache` builds — embeds [N, L, D], masks [N, L],
 prompts [N], the empty prompt's `uncond_embed` [L, D] / `uncond_mask` [L]
-for the CFG branch, and the dedicated validation rows (val_prompts,
-val_embeds, val_masks). An SD3 cache's pooled vectors are not read (slice
-3). `pack_family_cond` turns cache rows into the conditioning the pipeline
-takes.
+for the CFG branch, the dedicated validation rows (val_prompts,
+val_embeds, val_masks), and an SD3 cache's pooled CLIP vectors (pooled
+[N, P], uncond_pooled [P], val_pooled [V, P]). `pack_family_cond` turns
+cache rows into the conditioning the pipeline takes.
 """
 
 from __future__ import annotations
@@ -95,18 +95,28 @@ class PromptBatcher:
                 raise ValueError(f"batch_size {self.batch_size} > shard size {n}")
 
 
-def pack_family_cond(family: str, embeds, masks):
-    """Cache rows → the family's conditioning: (embeds, mask) for PixArt."""
-    if family in ("sd3", "cogvideox"):
+def pack_family_cond(family: str, embeds, masks, pooled=None, *, error: type = ValueError):
+    """Cache rows → the family's conditioning: (embeds, pooled) for SD3,
+    which needs a cache with pooled vectors (`error` otherwise), (embeds,
+    mask) for PixArt."""
+    if family == "cogvideox":
         raise NotImplementedError(
-            f"{family} conditioning is not ported yet: ROADMAP.md queue 1, "
-            + ("slice 3 (SD3)" if family == "sd3" else "slice 5 (CogVideoX)")
+            "cogvideox conditioning is not ported yet: ROADMAP.md queue 1, "
+            "slice 5 (CogVideoX)"
         )
+    if family == "sd3":
+        if pooled is None:
+            raise error(
+                "SD3 conditioning needs the pooled CLIP vector and this cache "
+                "has none; rebuild it with `build_cache --pipeline <sd3 checkpoint>`"
+            )
+        return (embeds, pooled)
     return (embeds, masks)
 
 
 class EmbeddingCache:
-    """Per-prompt T5 embeddings, encoded once offline."""
+    """Per-prompt text embeddings (T5; CLIP + T5 with pooled vectors for
+    SD3), encoded once offline."""
 
     def __init__(
         self,
@@ -115,29 +125,41 @@ class EmbeddingCache:
         prompts: list[str],
         uncond_embed: Optional[np.ndarray] = None,
         uncond_mask: Optional[np.ndarray] = None,
+        pooled: Optional[np.ndarray] = None,
+        uncond_pooled: Optional[np.ndarray] = None,
         val_prompts: Optional[list[str]] = None,
         val_embeds: Optional[np.ndarray] = None,
         val_masks: Optional[np.ndarray] = None,
+        val_pooled: Optional[np.ndarray] = None,
     ):
         self.embeds = embeds  # [N, L, D]
         self.masks = masks  # [N, L]
         self.prompts = list(prompts)
         self.uncond_embed = uncond_embed  # [L, D] or None
         self.uncond_mask = uncond_mask  # [L] or None
+        self.pooled = pooled  # [N, P] or None (SD3's pooled CLIP)
+        self.uncond_pooled = uncond_pooled  # [P] or None
         # dedicated rows of the fixed validation prompts
         self.val_prompts = list(val_prompts) if val_prompts else []
         self.val_embeds = val_embeds  # [V, L, D] or None
         self.val_masks = val_masks  # [V, L] or None
+        self.val_pooled = val_pooled  # [V, P] or None
 
     def save(self, path: str) -> None:
         extra = {}
         if self.uncond_embed is not None:
             extra["uncond_embed"] = self.uncond_embed
             extra["uncond_mask"] = self.uncond_mask
+        if self.pooled is not None:
+            extra["pooled"] = self.pooled
+            if self.uncond_pooled is not None:
+                extra["uncond_pooled"] = self.uncond_pooled
         if self.val_prompts:
             extra["val_prompts"] = np.asarray(self.val_prompts, dtype=object)
             extra["val_embeds"] = self.val_embeds
             extra["val_masks"] = self.val_masks
+            if self.val_pooled is not None:
+                extra["val_pooled"] = self.val_pooled
         np.savez_compressed(
             path, embeds=self.embeds, masks=self.masks,
             prompts=np.asarray(self.prompts, dtype=object), **extra,
@@ -148,13 +170,17 @@ class EmbeddingCache:
         # the prompts array is a pickled object array: load only caches this
         # project's tools wrote
         z = np.load(path, allow_pickle=True)
+
+        def opt(name):
+            return z[name] if name in z else None
+
         return EmbeddingCache(
             z["embeds"], z["masks"], [str(p) for p in z["prompts"]],
-            uncond_embed=z["uncond_embed"] if "uncond_embed" in z else None,
-            uncond_mask=z["uncond_mask"] if "uncond_mask" in z else None,
+            uncond_embed=opt("uncond_embed"), uncond_mask=opt("uncond_mask"),
+            pooled=opt("pooled"), uncond_pooled=opt("uncond_pooled"),
             val_prompts=[str(p) for p in z["val_prompts"]] if "val_prompts" in z else None,
-            val_embeds=z["val_embeds"] if "val_embeds" in z else None,
-            val_masks=z["val_masks"] if "val_masks" in z else None,
+            val_embeds=opt("val_embeds"), val_masks=opt("val_masks"),
+            val_pooled=opt("val_pooled"),
         )
 
     def validation_rows(self, prompts: Sequence[str]) -> tuple[np.ndarray, np.ndarray, None]:

@@ -6,10 +6,14 @@ The JAX package stores parameters as a flat dict of arrays keyed by
 same names, so the carry is a rename plus two layout changes:
   * Dense `kernel` [in, out] → `weight` [out, in];
   * Conv `kernel` HWIO → `weight` OIHW;
-and the PixArt layer stack, stored either stacked (`blocks/...` with a
-leading [L] axis, the JAX default `scan_layers=True`) or unrolled
-(`blocks_{i}/...`), becomes `blocks.{i}....`. The check is strict: every
-key of the module is filled and every given key is used.
+and the layer stack becomes `blocks.{i}....`. The JAX package stores it
+either unrolled (`blocks_{i}/...`) or, under its default `scan_layers=True`,
+as stacks with a leading [L] axis: PixArt's `blocks/...` holds every block;
+SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
+hold blocks 0..N-2 in that order, and the last block stays unrolled as
+`blocks_{N-1}/...` (`layer_stacks`). The check is strict: every key of the
+module is filled and every given key is used. `jax_name` and `port_key` map
+single names both ways, for the LoRA merge (`lora/adapter.py`).
 
 `train_state_from_jax` carries a whole training state of the JAX package
 (`tdm_tpu.train.tdm.TrainState`): the student, critic and EMA trees and the
@@ -21,13 +25,43 @@ by their attributes and nested mappings only; nothing of JAX is imported.
 from __future__ import annotations
 
 import re
-from typing import Any, Iterator, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 _UNROLLED = re.compile(r"blocks_(\d+)")
+# the JAX package's stacked layer trees, in block order
+STACK_NAMES = ("blocks_dual", "blocks")
+
+Stacks = Sequence[tuple[str, int, int]]  # (tree name, first block, end)
+
+
+def layer_stacks(cfg) -> tuple[tuple[str, int, int], ...]:
+    """The stacked layer trees the JAX package writes for a model config:
+    PixArt under scan_layers: ('blocks', 0, L); SD3 (a config with
+    `dual_attention_layers`) under scan_layers with L > 1: the dual prefix
+    as 'blocks_dual', blocks up to L-1 as 'blocks', the last unrolled;
+    nothing stacked otherwise (and for configs without layers)."""
+    n = getattr(cfg, "num_layers", 0)
+    if not getattr(cfg, "scan_layers", False):
+        return ()
+    if not hasattr(cfg, "dual_attention_layers"):
+        return (("blocks", 0, n),)
+    if n <= 1:
+        return ()
+    n_dual = min(len(cfg.dual_attention_layers), n - 1)
+    return tuple((name, a, b) for name, a, b in
+                 (("blocks_dual", 0, n_dual), ("blocks", n_dual, n - 1)) if b > a)
+
+
+def _stacks_of(flat: Mapping[str, np.ndarray]) -> dict[str, int]:
+    """First block of each stacked tree in a flat JAX param dict: the dual
+    prefix starts at 0 and 'blocks' after it."""
+    n_dual = next((np.shape(a)[0] for p, a in flat.items()
+                   if p.split("/")[0] == "blocks_dual"), 0)
+    return {"blocks_dual": 0, "blocks": n_dual}
 
 
 def _leaf(prefix: list[str], rest: list[str], arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -43,11 +77,13 @@ def _leaf(prefix: list[str], rest: list[str], arr: np.ndarray) -> tuple[str, np.
     return ".".join(prefix + rest[:-1] + [name]), arr
 
 
-def _entries(path: str, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray]]:
+def _entries(
+    path: str, arr: np.ndarray, starts: Mapping[str, int]
+) -> Iterator[tuple[str, np.ndarray]]:
     parts = path.split("/")
-    if parts[0] == "blocks":  # stacked layers: leading [L] axis
+    if parts[0] in STACK_NAMES:  # stacked layers: leading [L] axis
         for i in range(arr.shape[0]):
-            yield _leaf(["blocks", str(i)], parts[1:], arr[i])
+            yield _leaf(["blocks", str(starts[parts[0]] + i)], parts[1:], arr[i])
         return
     m = _UNROLLED.fullmatch(parts[0])
     if m:
@@ -56,15 +92,50 @@ def _entries(path: str, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray]]:
     yield _leaf([], parts, arr)
 
 
+def jax_name(key: str, stacks: Stacks) -> tuple[str, Optional[int]]:
+    """A port state_dict key → (its flat JAX path, its index in a stacked
+    tree or None), e.g. 'blocks.3.to_q.weight' → ('blocks/to_q/kernel', 3)
+    under scan_layers, ('blocks_3/to_q/kernel', None) unrolled."""
+    parts = key.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    if parts[0] != "blocks":
+        return "/".join(parts), None
+    i, rest = int(parts[1]), "/".join(parts[2:])
+    for name, start, end in stacks:
+        if start <= i < end:
+            return f"{name}/{rest}", i - start
+    return f"blocks_{i}/{rest}", None
+
+
+def port_key(path: str, layer: Optional[int], stacks: Stacks) -> str:
+    """The inverse of `jax_name`: a flat JAX path (and its index in a
+    stacked tree) → the port's state_dict key."""
+    parts = path.split("/")
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+    start = {name: a for name, a, _ in stacks}
+    if parts[0] in start and layer is not None:
+        return ".".join(["blocks", str(start[parts[0]] + layer)] + parts[1:])
+    m = _UNROLLED.fullmatch(parts[0])
+    if m and layer is None:
+        return ".".join(["blocks", m.group(1)] + parts[1:])
+    if layer is None and parts[0] not in STACK_NAMES:
+        return ".".join(parts)
+    raise KeyError(f"{path} (layer {layer}) is not in the layout {tuple(stacks)}")
+
+
 def state_dict_from_jax(
     flat: Mapping[str, np.ndarray], module: nn.Module
 ) -> dict[str, torch.Tensor]:
-    """Flat JAX params → a state_dict for `module` (PixArtTransformer2D or
-    TAESDDecoder). Raises KeyError naming every missing and unexpected key,
-    and ValueError on a shape mismatch."""
+    """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
+    SD3Transformer2D or TAESDDecoder), from the stacked or the unrolled
+    layout. Raises KeyError naming every missing and unexpected key, and
+    ValueError on a shape mismatch."""
     out: dict[str, np.ndarray] = {}
+    starts = _stacks_of(flat)
     for path, arr in flat.items():
-        for key, value in _entries(path, np.asarray(arr)):
+        for key, value in _entries(path, np.asarray(arr), starts):
             out[key] = value
     expected = module.state_dict()
     missing = sorted(set(expected) - set(out))
@@ -84,29 +155,31 @@ def state_dict_from_jax(
 
 
 def jax_layout(
-    state_dict: Mapping[str, torch.Tensor], *, scan_layers: bool = True
+    state_dict: Mapping[str, torch.Tensor],
+    *,
+    scan_layers: bool = True,
+    stacks: Optional[Stacks] = None,
 ) -> dict[str, np.ndarray]:
     """The inverse carry: a port state_dict → flat fp32 JAX params, with the
-    layer stack stacked under 'blocks' (scan_layers) or unrolled as
-    'blocks_{i}'."""
+    layer stack stacked as `stacks` says (`layer_stacks(cfg)`); without
+    `stacks`, every block under 'blocks' (scan_layers) or none."""
+    if stacks is None:
+        n = 1 + max((int(k.split(".")[1]) for k in state_dict
+                     if k.startswith("blocks.")), default=-1)
+        stacks = (("blocks", 0, n),) if scan_layers and n else ()
     flat: dict[str, np.ndarray] = {}
     stacked: dict[str, dict[int, np.ndarray]] = {}
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
-        parts = key.split(".")
-        if parts[-1] == "weight":
+        if key.endswith(".weight"):
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
-            parts[-1] = "kernel"
-        if parts[0] == "blocks":
-            i, rest = int(parts[1]), "/".join(parts[2:])
-            if scan_layers:
-                stacked.setdefault(rest, {})[i] = arr
-            else:
-                flat[f"blocks_{i}/{rest}"] = arr
+        path, layer = jax_name(key, stacks)
+        if layer is None:
+            flat[path] = arr
         else:
-            flat["/".join(parts)] = arr
-    for rest, layers in stacked.items():
-        flat[f"blocks/{rest}"] = np.stack([layers[i] for i in sorted(layers)])
+            stacked.setdefault(path, {})[layer] = arr
+    for path, layers in stacked.items():
+        flat[path] = np.stack([layers[i] for i in sorted(layers)])
     return flat
 
 

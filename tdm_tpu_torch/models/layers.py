@@ -1,4 +1,4 @@
-"""Building blocks of the PixArt denoiser, in PyTorch.
+"""Building blocks of the PixArt and SD3 denoisers, in PyTorch.
 
 Port of the serving path's part of `tdm_tpu/models/layers.py`. Module and
 parameter names follow the JAX package's tree (to_q/to_k/to_v/to_out,
@@ -112,9 +112,31 @@ def get_2d_sincos_pos_embed(
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
 
 
+def cropped_sincos_pos_embed(
+    dim: int, max_size: int, grid_h: int, grid_w: int, *, base_size: int
+) -> np.ndarray:
+    """The centre [grid_h, grid_w] crop of the [max_size, max_size] sin-cos
+    table (SD3's PatchEmbed at `pos_embed_max_size`), as [grid_h*grid_w,
+    dim]: the same float64 positions as `get_2d_sincos_pos_embed(dim,
+    max_size, max_size, base_size=base_size)` cut down before the table is
+    built, not after."""
+    top, left = (max_size - grid_h) // 2, (max_size - grid_w) // 2
+    pos = np.arange(max_size, dtype=np.float64) / (max_size / base_size)
+    gw, gh = np.meshgrid(pos[left : left + grid_w], pos[top : top + grid_h])
+
+    def embed_1d(p, d):
+        omega = 1.0 / 10000 ** (np.arange(d // 2, dtype=np.float64) / (d / 2.0))
+        out = np.einsum("m,d->md", p.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    emb = np.concatenate([embed_1d(gh, dim // 2), embed_1d(gw, dim // 2)], axis=1)
+    return emb.astype(np.float32)
+
+
 class PatchEmbed(nn.Module):
     """[B, C, H, W] → tokens [B, (H/p)(W/p), dim] by a stride-p conv, plus
-    the fixed sin-cos position table."""
+    the fixed sin-cos position table unless `add_pos_embed` is False (SD3
+    adds its own cropped table)."""
 
     def __init__(
         self,
@@ -123,6 +145,7 @@ class PatchEmbed(nn.Module):
         dim: int,
         *,
         pos_embed_base_size: Optional[int] = None,
+        add_pos_embed: bool = True,
         dtype,
         param_dtype=None,
         device=None,
@@ -131,6 +154,7 @@ class PatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.dim = dim
         self.base_size = pos_embed_base_size
+        self.add_pos_embed = add_pos_embed
         self.proj = Conv2d(
             in_channels, dim, patch_size, stride=patch_size,
             dtype=dtype, param_dtype=param_dtype, device=device,
@@ -140,13 +164,31 @@ class PatchEmbed(nn.Module):
         b, _, h, w = x.shape
         p = self.patch_size
         x = self.proj(x).flatten(2).transpose(1, 2)  # [B, gh*gw, dim]
+        if not self.add_pos_embed:
+            return x
         pos = get_2d_sincos_pos_embed(self.dim, h // p, w // p, base_size=self.base_size)
         return x + torch.from_numpy(pos).to(device=x.device, dtype=x.dtype)[None]
 
 
+class RMSNorm(nn.Module):
+    """RMS norm over the last axis in fp32 with a learned fp32 `scale`, cast
+    to the compute dtype (the qk norm of SD3.5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, dtype, device=None):
+        super().__init__()
+        self.eps, self.compute_dtype = eps, dtype
+        self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        out = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return (out * self.scale).to(self.compute_dtype)
+
+
 class Attention(nn.Module):
     """Multi-head self or cross attention over [B, S, D] tokens through
-    `ops.attention` (the flash kernel on CUDA)."""
+    `ops.attention` (the kernels on CUDA) with the route `impl` ('auto' or
+    'splash'), and an optional RMS qk norm ('rms')."""
 
     def __init__(
         self,
@@ -154,17 +196,25 @@ class Attention(nn.Module):
         heads: int,
         head_dim: int,
         *,
+        qk_norm: Optional[str] = None,
+        impl: str = "auto",
         dtype,
         param_dtype=None,
         device=None,
     ):
         super().__init__()
         inner = heads * head_dim
-        self.heads, self.head_dim = heads, head_dim
+        self.heads, self.head_dim, self.impl = heads, head_dim, impl
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.to_q = Dense(dim, inner, **kw)
         self.to_k = Dense(dim, inner, **kw)
         self.to_v = Dense(dim, inner, **kw)
+        if qk_norm == "rms":
+            self.norm_q = RMSNorm(head_dim, dtype=dtype, device=device)
+            self.norm_k = RMSNorm(head_dim, dtype=dtype, device=device)
+        elif qk_norm is not None:
+            raise ValueError(f"unknown qk_norm {qk_norm!r} (None or 'rms')")
+        self.qk_norm = qk_norm
         self.to_out = Dense(inner, dim, **kw)
 
     def forward(
@@ -180,7 +230,9 @@ class Attention(nn.Module):
             return t.reshape(b, -1, self.heads, self.head_dim).transpose(1, 2).contiguous()
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
-        out = fused_attention(q, k, v, key_mask)
+        if self.qk_norm == "rms":
+            q, k = self.norm_q(q), self.norm_k(k)
+        out = fused_attention(q, k, v, key_mask, impl=self.impl)
         out = out.transpose(1, 2).reshape(b, s, self.heads * self.head_dim)
         return self.to_out(out)
 

@@ -1,8 +1,9 @@
 """TAESD decoder (AutoencoderTiny) in PyTorch.
 
 Port of `TAESDConfig` and `TAESDDecoder` from `tdm_tpu/models/vae.py`: the
-tiny decoder the PixArt pipeline decodes with (`madebyollin/taesd`). Public
-layout NCHW: z [B, C_lat, h, w] → image [B, 3, 8h, 8w] in [0, 1]. Module
+tiny decoder the PixArt pipeline decodes with (`madebyollin/taesd`), and
+TAESD3 (16 latent channels, shift 0) for SD3; the KL VAE is not ported yet.
+Public layout NCHW: z [B, C_lat, h, w] → image [B, 3, 8h, 8w] in [0, 1]. Module
 names follow the JAX tree (conv_in, stage_{s}_block_{b}/conv_{0,1,2},
 stage_{s}_conv, block_out, conv_out).
 """
@@ -27,8 +28,12 @@ class TAESDConfig:
     num_stages: int = 3  # 8× spatial factor
     blocks_per_stage: int = 3
     scaling_factor: float = 1.0
-    shift_factor: float = 0.0
+    shift_factor: float = 0.0  # the SD3 recipe sets 0.0 for TAESD3
     dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def taesd3() -> "TAESDConfig":
+        return TAESDConfig(latent_channels=16)
 
 
 class _TinyBlock(nn.Module):

@@ -27,8 +27,20 @@ the JAX package leaves it to XLA. `attention()` takes that route only when
 autograd records the call; a call under `torch.no_grad()` or
 `torch.inference_mode()` takes the forward without the lse.
 
+  * `splash_attention_fwd` — `csrc/splash_fwd.cu`, unmasked attention for
+    head dims 64 and 128, no lse (the counterpart of the JAX package's
+    splash kernel, `attention.py:152-263`); plain: `plain_splash_attention`.
+
 `impl="auto"` goes through the kernels' wrappers on every shape: the JAX
 package's v5e-measured switch to XLA at S=1024 is not carried over.
+`impl="splash"` takes the splash kernel when the call has no key mask, its
+head dim is 64 or 128 and autograd does not record it; any other call takes
+the `auto` route, as the JAX package falls back to its flash kernel
+(`attention.py:98-105`; its splash VJP recomputes through the flash kernels,
+`:237-254`). The choice is made on the shapes, before any launch. The ragged
+tails are masked exactly inside the kernel: the TPU path's pad-key rescale
+(`:225-229`), which fails when a row's real logits all lie well below 0, is
+not carried over.
 """
 
 from __future__ import annotations
@@ -44,7 +56,8 @@ from tdm_tpu_torch.ops import _build
 
 _NEG_INF = -1e30  # the key bias of a masked key, as in the TPU kernel
 _LSE_MASKED = 1e30  # the lse of a row with no unmasked key: exp(s - lse) = 0
-IMPLS = ("auto", "plain")
+IMPLS = ("auto", "plain", "splash")
+SPLASH_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,20 +75,22 @@ def attention(
     The query is pre-scaled and rounded back to its dtype before either
     version runs, as the TPU kernel's caller does (`attention.py:424`).
     impl: 'auto' (the kernels' wrappers; `FlashAttention` when autograd
-    records the call) | 'plain' (differentiated by autograd)."""
-    if impl == "splash":
-        raise NotImplementedError(
-            "impl='splash' (SD3/CogVideoX inference) is not ported yet: "
-            "ROADMAP.md queue 2, kernel 4"
-        )
+    records the call) | 'plain' (differentiated by autograd) | 'splash'
+    (the splash kernel where it applies, else 'auto')."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r} (one of {IMPLS})")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    bias = None if key_mask is None else key_bias(key_mask)
-    if impl == "auto" and torch.is_grad_enabled() and (
+    records_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
-    ):
+    )
+    if impl == "splash":
+        if key_mask is None and q.shape[-1] in SPLASH_HEAD_DIMS and not records_grad:
+            q_scaled = (q.to(_acc(q)) * scale).to(q.dtype)
+            return splash_attention_fwd(q_scaled, k.contiguous(), v.contiguous())
+        impl = "auto"
+    bias = None if key_mask is None else key_bias(key_mask)
+    if impl == "auto" and records_grad:
         return FlashAttention.apply(q, k, v, bias, scale)
     q_scaled = (q.to(_acc(q)) * scale).to(q.dtype)
     if impl == "plain":
@@ -172,6 +187,14 @@ def plain_attention_lse(
     return out.to(q_scaled.dtype), lse.contiguous()
 
 
+def plain_splash_attention(
+    q_scaled: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """The splash kernel's function in plain PyTorch: `plain_attention`
+    with no key bias (every key is real, whatever Sk is)."""
+    return plain_attention(q_scaled, k, v, None)
+
+
 def attention_delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Δ = rowsum(dO ∘ O) in fp32 from the output the forward wrote, [B,H,Sq]
     (`_bwd_core` `attention.py:718-724`)."""
@@ -254,6 +277,33 @@ def _check(q, k, v, bias, *rows) -> None:
         )
 
 
+def _check_splash(q, k, v) -> None:
+    """What the splash kernel takes: q [B,H,Sq,D], k/v [B,H,Sk,D] with D in
+    SPLASH_HEAD_DIMS, one dtype (fp32 or bf16), one device, contiguous and
+    16-byte aligned (its tiles are staged with 16-byte copies)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, S, D]")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}"
+        )
+    if d not in SPLASH_HEAD_DIMS:
+        raise ValueError(f"the splash kernel takes head dims {SPLASH_HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"splash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("the splash kernel's operands must be on one device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise ValueError("the splash kernel needs contiguous, 16-byte aligned operands")
+    if b * h > 65535:
+        raise ValueError(f"the splash kernel takes at most 65535 (batch, head) pairs, got {b * h}")
+
+
 def _on_card(wrapper: str, q: torch.Tensor) -> bool:
     """False for a CPU tensor (the plain version runs); True for a CUDA
     tensor; raises for any other device."""
@@ -270,6 +320,7 @@ _SIGNATURES = {  # C entry point -> (its library, argument types)
     "tdm_flash_bwd_dq": (
         "flash_bwd_dq", [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P]),
     "tdm_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 7 + [_P]),
+    "tdm_splash_fwd": ("splash_fwd", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
 
@@ -399,9 +450,29 @@ def flash_attention_bwd_dkv(
     return dk, dv
 
 
+def splash_attention_fwd(
+    q_scaled: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """Unmasked attention of the pre-scaled query for head dims 64 and 128.
+    A CPU tensor takes `plain_splash_attention`; a CUDA tensor launches
+    `csrc/splash_fwd.cu` on the current stream or raises."""
+    if not _on_card("splash_attention_fwd", q_scaled):
+        return plain_splash_attention(q_scaled, k, v)
+    _check_splash(q_scaled, k, v)
+    b, h, sq, d = q_scaled.shape
+    out = torch.empty_like(q_scaled)
+    _launch(
+        "tdm_splash_fwd", q_scaled.device,
+        q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b * h, sq, k.shape[2], d, _DTYPE_CODE[q_scaled.dtype],
+    )
+    splash_attention_fwd.launches += 1
+    return out
+
+
 WRAPPERS = (
     flash_attention_fwd, flash_attention_fwd_lse,
-    flash_attention_bwd_dq, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_bwd_dkv, splash_attention_fwd,
 )
 for _w in WRAPPERS:
     _w.launches = 0

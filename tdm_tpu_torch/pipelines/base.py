@@ -1,5 +1,11 @@
-"""Pipeline helpers shared by the families: the output record and the
-diffusers call-convention pieces of `tdm_tpu/pipelines/base.py`.
+"""Pipeline helpers shared by the families: the output record, the LoRA
+verbs and the diffusers call-convention pieces of
+`tdm_tpu/pipelines/base.py`.
+
+LoRA (`load_lora_weights`, `set_adapters`): adapters merge into the
+transformer's weights in place. The pipeline keeps a pristine copy of every
+weight an adapter touches, and `set_adapters` re-merges the named adapters
+from it, so scale 0 gives back the base (the recipe's teacher baseline).
 
 Noise: with no `latents=`, a pipeline draws its initial noise from a
 `torch.Generator` seeded with `seed` (on the CPU, so a seed gives the same
@@ -15,6 +21,9 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from tdm_tpu_torch.io import from_jax
+from tdm_tpu_torch.lora import adapter as lora_lib, io as lora_io
+
 
 @dataclass
 class PipelineOutput:
@@ -23,6 +32,49 @@ class PipelineOutput:
 
     images: Any
     latents: Any = None
+
+
+class DiffusionPipelineBase:
+    """The LoRA verbs over `self.transformer` (a model with a `cfg`)."""
+
+    family: str = ""
+    transformer: torch.nn.Module
+
+    def __init__(self):
+        self._loras: dict[str, lora_lib.LoRA] = {}
+        self._base: dict[str, torch.Tensor] = {}  # pristine adapted weights
+        self._active: tuple = ()  # ((name, scale), ...)
+
+    def load_lora_weights(self, path: str, adapter_name: str = "default") -> None:
+        """Read a kohya or peft safetensors LoRA and make it the one active
+        adapter at scale 1.0."""
+        lora = lora_io.load_lora(path, model=self.transformer)
+        stacks = from_jax.layer_stacks(self.transformer.cfg)
+        weights = dict(self.transformer.named_parameters())
+        for key in lora_lib.adapted_keys(lora, stacks):
+            if key not in weights:
+                raise KeyError(f"LoRA {path}: the transformer has no weight {key}")
+            if key not in self._base:  # untouched by any adapter so far
+                self._base[key] = weights[key].detach().clone()
+        self._loras[adapter_name] = lora
+        self.set_adapters([adapter_name], [1.0])
+
+    @torch.no_grad()
+    def set_adapters(
+        self, names: Sequence[str], scales: Optional[Sequence[float]] = None
+    ) -> None:
+        """Merge the named adapters at the given scales into the pristine
+        weights; scale 0 leaves an adapter out."""
+        scales = list(scales) if scales is not None else [1.0] * len(names)
+        stacks = from_jax.layer_stacks(self.transformer.cfg)
+        merged = dict(self._base)
+        for name, scale in zip(names, scales):
+            if scale != 0.0:
+                merged = lora_lib.merge(merged, self._loras[name], scale, stacks)
+        weights = dict(self.transformer.named_parameters())
+        for key, value in merged.items():
+            weights[key].copy_(value)
+        self._active = tuple(zip(names, scales))
 
 
 def check_negative_prompt(

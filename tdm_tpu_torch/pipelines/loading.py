@@ -1,12 +1,13 @@
 """`from_pretrained` / `save_pretrained` for the tdm_tpu pipeline layout.
 
-Port of `tdm_tpu/pipelines/loading.py` layout 1, family pixart:
+Port of `tdm_tpu/pipelines/loading.py` layout 1, families pixart and sd3:
 
     my_pipe/
-      pipeline.json               {"family": "pixart", "model": {...},
-                                   "vae": {...}}   (config fields)
+      pipeline.json               {"family": "pixart" | "sd3",
+                                   "model": {...}, "vae": {...}}
+                                   (config fields)
       transformer.safetensors     denoiser params, flat '/'-joined Flax keys
-      vae_decoder.safetensors     optional TAESD decoder params
+      vae_decoder.safetensors     optional TAESD (TAESD3 for sd3) decoder
 
 Both directions go through the weight carry (`io/from_jax.py`), so a
 directory the JAX package's `save_pretrained` wrote loads unchanged, and one
@@ -24,36 +25,32 @@ import torch
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.io import from_jax, params as params_io
-from tdm_tpu_torch.models import pixart, vae as vae_lib
+from tdm_tpu_torch.models import mmdit_sd3, pixart, vae as vae_lib
 from tdm_tpu_torch.pipelines.pixart import PixArtPipeline
+from tdm_tpu_torch.pipelines.sd3 import SD3Pipeline
 
-FAMILIES = ("pixart",)
+FAMILIES = ("pixart", "sd3")
 _NOT_PORTED = {
-    "sd3": "slice 3 (SD3 4-NFE inference)",
     "sd15": "slice 4 (the other image families)",
     "cogvideox": "slice 5 (CogVideoX video)",
 }
-# The JAX package's attention choices. Each of these computes the same
-# function, which the port always runs through `ops.attention` (the flash
-# kernel on a CUDA tensor), so the choice a directory was saved with is read
-# and dropped; 'splash' is a different kernel, not ported yet.
-_JAX_ATTN_IMPLS = ("auto", "pallas", "xla")
 
 
-def _config(cls, conf: dict):
+def _config(cls, conf: dict, default=None):
     """pipeline.json block → config dataclass (dtype names → torch dtypes,
-    lists → tuples, the JAX package's `attn_impl` checked and dropped)."""
+    lists → tuples) over `default` (cls() when None). The JAX package's
+    `attn_impl` is checked; a config that has the field keeps it (SD3:
+    'splash' takes the splash kernel, the other names the flash route), one
+    without it (PixArt, whose attention every name routes alike) drops it."""
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in conf.items()}
     if isinstance(kw.get("dtype"), str):
         kw["dtype"] = getattr(torch, kw["dtype"])
-    impl = kw.pop("attn_impl", "auto")
-    if impl == "splash":
-        raise NotImplementedError(
-            "attn_impl='splash' is not ported yet: ROADMAP.md queue 2, kernel 4"
-        )
-    if impl not in _JAX_ATTN_IMPLS:
+    impl = kw.get("attn_impl", "auto")
+    if impl not in mmdit_sd3.ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} in pipeline.json")
-    return dataclasses.replace(cls(), **kw)
+    if not any(f.name == "attn_impl" for f in dataclasses.fields(cls)):
+        kw.pop("attn_impl", None)
+    return dataclasses.replace(default if default is not None else cls(), **kw)
 
 
 def _config_dict(cfg) -> dict:
@@ -75,7 +72,7 @@ def from_pretrained(
     *,
     device: Optional[Union[str, torch.device]] = None,
     **kwargs,
-) -> PixArtPipeline:
+) -> Union[PixArtPipeline, SD3Pipeline]:
     """Assemble the pipeline of a tdm_tpu-layout directory on `device`
     (CUDA unless the caller passes 'cpu'). Extra kwargs go to the pipeline."""
     dev = resolve_device(device)
@@ -83,7 +80,8 @@ def from_pretrained(
     if not os.path.exists(meta_file):
         raise FileNotFoundError(
             f"{path!r} has no pipeline.json (the tdm_tpu layout); diffusers "
-            "checkpoints are not ported yet: ROADMAP.md queue 1, slice 3"
+            "checkpoints are not ported yet: ROADMAP.md queue 1, slice 3 (its "
+            "remainder: diffusers checkpoints and the KL VAE)"
         )
     with open(meta_file) as f:
         meta = json.load(f)
@@ -95,21 +93,31 @@ def from_pretrained(
         )
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
-    # a bundled text encoder is not loaded (T5 is ROADMAP slice 7): the
-    # pipeline takes prompt_embeds= and the server an embedding cache
-    cfg = _config(pixart.PixArtConfig, meta.get("model", {}))
-    transformer = pixart.PixArtTransformer2D(cfg, device=dev)
+    # a bundled text encoder is not loaded (the encoders are ROADMAP slice
+    # 7): the pipeline takes prompt_embeds= and the server an embedding cache
+    if family == "sd3":
+        cfg = _config(mmdit_sd3.MMDiTConfig, meta.get("model", {}))
+        transformer = mmdit_sd3.SD3Transformer2D(cfg, device=dev)
+        vcfg = _config(vae_lib.TAESDConfig, meta.get("vae", {}), vae_lib.TAESDConfig.taesd3())
+    else:
+        cfg = _config(pixart.PixArtConfig, meta.get("model", {}))
+        transformer = pixart.PixArtTransformer2D(cfg, device=dev)
+        vcfg = _config(vae_lib.TAESDConfig, meta.get("vae", {}))
     transformer.load_state_dict(from_jax.state_dict_from_jax(
         params_io.load_file(os.path.join(path, "transformer.safetensors")),
         transformer,
     ))
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
-    vcfg = _config(vae_lib.TAESDConfig, meta.get("vae", {}))
     if os.path.exists(vae_file):
         vae = vae_lib.TAESDDecoder(vcfg, device=dev)
         vae.load_state_dict(
             from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae)
+        )
+    if family == "sd3":
+        return SD3Pipeline(
+            transformer, vae_decoder=vae, vae_scaling=vcfg.scaling_factor,
+            vae_shift=vcfg.shift_factor, device=dev, **kwargs,
         )
     return PixArtPipeline(
         transformer, vae_decoder=vae, vae_scaling=vcfg.scaling_factor,
@@ -117,9 +125,11 @@ def from_pretrained(
     )
 
 
-def save_pretrained(path: str, pipe: PixArtPipeline) -> None:
+def save_pretrained(path: str, pipe: Union[PixArtPipeline, SD3Pipeline]) -> None:
     """Write `pipe` as a tdm_tpu-layout directory (fp32 weights in the JAX
-    package's tree, stacked or unrolled per the config's scan_layers)."""
+    package's tree, stacked or unrolled per the config's scan_layers). As
+    in the JAX package, the pristine base weights are written: adapter
+    merges are runtime state (load the LoRA file again after loading)."""
     os.makedirs(path, exist_ok=True)
     cfg = pipe.transformer.cfg
     meta = {"family": pipe.family, "model": _config_dict(cfg), "vae": {}}
@@ -128,7 +138,8 @@ def save_pretrained(path: str, pipe: PixArtPipeline) -> None:
     with open(os.path.join(path, "pipeline.json"), "w") as f:
         json.dump(meta, f, indent=1)
     params_io.save_file(
-        from_jax.jax_layout(pipe.transformer.state_dict(), scan_layers=cfg.scan_layers),
+        from_jax.jax_layout({**pipe.transformer.state_dict(), **pipe._base},
+                            stacks=from_jax.layer_stacks(cfg)),
         os.path.join(path, "transformer.safetensors"),
     )
     if pipe.vae_decoder is not None:

@@ -3,7 +3,8 @@
 Port of `tdm_tpu/pipelines/pixart.py` for the serving path: conditioning
 from precomputed T5 embeddings (`prompt_embeds=(embeds, mask)`), the
 deterministic few-step rollout on the reference grid (total_steps=900, K=4
-→ t=[899, 674, 449, 224]) with optional CFG, and the TAESD decode.
+→ t=[899, 674, 449, 224]) with optional CFG, or DPM-Solver++(2M) / UniPC
+on the DDPM grid (`solver="dpm"|"unipc"`), and the TAESD decode.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from typing import Optional, Union
 
 import torch
 
-from tdm_tpu_torch.core import sampling, schedules as sched
+from tdm_tpu_torch.core import sampling, schedules as sched, solvers
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import pixart, vae as vae_lib
 from tdm_tpu_torch.pipelines.base import (
+    DiffusionPipelineBase,
     PipelineOutput,
     check_negative_prompt,
     generator_for,
@@ -25,7 +27,7 @@ from tdm_tpu_torch.pipelines.base import (
 )
 
 
-class PixArtPipeline:
+class PixArtPipeline(DiffusionPipelineBase):
     family = "pixart"
 
     def __init__(
@@ -37,6 +39,7 @@ class PixArtPipeline:
         schedule: Optional[sched.NoiseSchedule] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
+        super().__init__()
         self.device = resolve_device(device)
         self.transformer = transformer.to(self.device).eval()
         self.vae_decoder = (
@@ -81,12 +84,7 @@ class PixArtPipeline:
         total_steps: int = 900,
         output_type: str = "image",
     ) -> PipelineOutput:
-        if solver in ("dpm", "unipc"):
-            raise NotImplementedError(
-                f"solver {solver!r} is not ported yet: ROADMAP.md queue 1, "
-                "slice 3 (core/solvers.py)"
-            )
-        if solver != "fewstep":
+        if solver not in ("fewstep", "dpm", "unipc"):
             raise ValueError(f"unknown solver {solver!r} (fewstep|dpm|unipc)")
         if prompt_embeds is None:
             prompt_embeds = self.encode_prompt(prompt)
@@ -106,11 +104,18 @@ class PixArtPipeline:
             (b, self.transformer.cfg.in_channels, height // 8, width // 8),
             self.device,
         )
-        out = sampling.sample_fewstep(
-            pixart.make_denoise_fn(self.transformer), self.schedule, noise, cond,
-            timestep_grid=sched.fewstep_grid(total_steps, num_inference_steps),
-            uncond=uncond, cfg=guidance_scale if use_cfg else None,
-        )
+        denoise = pixart.make_denoise_fn(self.transformer)
+        cfg = guidance_scale if use_cfg else None
+        if solver == "fewstep":
+            out = sampling.sample_fewstep(
+                denoise, self.schedule, noise, cond,
+                timestep_grid=sched.fewstep_grid(total_steps, num_inference_steps),
+                uncond=uncond, cfg=cfg,
+            )
+        else:
+            sample = solvers.sample_dpm_solver if solver == "dpm" else solvers.sample_unipc
+            out = sample(denoise, solvers.ddpm_grid(self.schedule, num_inference_steps),
+                         noise, cond, uncond=uncond, cfg=cfg)
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling)

@@ -29,14 +29,17 @@ import torch
 
 
 def latent_shape(pipe, call_kwargs: dict) -> tuple[int, ...]:
-    """Per-request (leading-1) latent shape at the server's resolution."""
-    if getattr(pipe, "family", "") != "pixart":
+    """Per-request (leading-1) latent shape at the server's resolution (the
+    family's default: 512² PixArt, 1024² SD3)."""
+    fam = getattr(pipe, "family", "")
+    if fam not in ("pixart", "sd3"):
         raise NotImplementedError(
-            f"serving family {pipe.family!r} is not ported yet (ROADMAP.md queue 1)"
+            f"serving family {fam!r} is not ported yet (ROADMAP.md queue 1)"
         )
     ch = pipe.transformer.cfg.in_channels
-    h = call_kwargs.get("height", 512)
-    w = call_kwargs.get("width", 512)
+    side = 1024 if fam == "sd3" else 512
+    h = call_kwargs.get("height", side)
+    w = call_kwargs.get("width", side)
     return (1, ch, h // 8, w // 8)
 
 
@@ -66,8 +69,9 @@ def _tree_nbytes(tree) -> int:
 
 def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str], Any]:
     """prompt → batch-1 conditioning from an offline embedding cache (the
-    `.npz` of the JAX package's cli/build_cache). The empty prompt falls back
-    to the cache's uncond_* rows (the CFG branch)."""
+    `.npz` of the JAX package's cli/build_cache; SD3 needs its pooled
+    vectors). The empty prompt falls back to the cache's uncond_* rows (the
+    CFG branch)."""
     if embedding_cache is None:
         raise ValueError(
             "the port serves from an embedding cache (T5 encode_prompt is "
@@ -78,6 +82,9 @@ def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str],
 
     cache = EmbeddingCache.load(embedding_cache)
     fam = getattr(pipe, "family", "")
+
+    def f32(rows):
+        return None if rows is None else rows.astype(np.float32)
 
     def lookup(prompt: str):
         try:
@@ -90,7 +97,8 @@ def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str],
                     if cache.uncond_mask is not None
                     else np.ones(e.shape[:2], np.int32)
                 )
-                return pack_family_cond(fam, e, m)
+                p = None if cache.uncond_pooled is None else cache.uncond_pooled[None]
+                return pack_family_cond(fam, e, m, f32(p))
             raise KeyError(
                 f"prompt {prompt!r} not in the embedding cache — rebuild "
                 "with cli/build_cache"
@@ -99,6 +107,7 @@ def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str],
             fam,
             cache.embeds[i : i + 1].astype(np.float32),
             cache.masks[i : i + 1].astype(np.int32),
+            None if cache.pooled is None else f32(cache.pooled[i : i + 1]),
         )
 
     return lookup

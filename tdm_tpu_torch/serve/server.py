@@ -4,6 +4,8 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
 
     python -m tdm_tpu_torch.serve.server --model out/pixart_tdm \\
         --embedding_cache cache.npz --batch_size 4 --port 8000 [--device cpu]
+    python -m tdm_tpu_torch.serve.server --model out/sd3 --lora tdm.safetensors \\
+        --lora_scale 0.125 --embedding_cache sd3_cache.npz   (SD3, 1024²)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
@@ -235,8 +237,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="server-wide negative prompt (CFG > 1 only)")
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
+    p.add_argument("--flow_shift", type=float, default=None,
+                   help="the flow grid's shift (SD3; the pipeline's default 6)")
+    p.add_argument("--lora", default=None,
+                   help="kohya or peft LoRA safetensors merged into the denoiser")
+    p.add_argument("--lora_scale", type=float, default=1.0,
+                   help="its adapter scale (the SD3 recipe: 0.125)")
     p.add_argument("--embedding_cache", default=None,
-                   help="offline T5 embedding cache (.npz from cli/build_cache)")
+                   help="offline text embedding cache (.npz from cli/build_cache; "
+                        "SD3 needs its pooled vectors)")
     p.add_argument("--max_queue", type=int, default=64,
                    help="max pending requests; a full queue answers HTTP 429")
     p.add_argument("--batch_buckets", default=None,
@@ -248,7 +257,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run one discarded batch per bucket before accepting "
                         "traffic; with no PROMPT uses the first cached prompt")
     # options of the JAX server whose modules are not ported yet
-    p.add_argument("--lora", default=None, help="not ported yet (ROADMAP slice 3)")
     p.add_argument("--quant", default=None, choices=(None, "int8"),
                    help="not ported yet (ROADMAP slice 4)")
     p.add_argument("--tp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
@@ -260,7 +268,6 @@ def build_server(args: argparse.Namespace) -> TDMServer:
     """Load the pipeline, make the batcher and bind the socket (before the
     warm-up, so early clients wait in the listen backlog)."""
     for flag, value, where in (
-        ("--lora", args.lora, "slice 3 (LoRA)"),
         ("--quant", args.quant, "slice 4 (int8)"),
         ("--tp", args.tp > 1, "slice 6 (multi-GPU)"),
         ("--dp", args.dp > 1, "slice 6 (multi-GPU)"),
@@ -273,11 +280,16 @@ def build_server(args: argparse.Namespace) -> TDMServer:
     from tdm_tpu_torch.serve.batcher import MicroBatcher
 
     pipe = from_pretrained(args.model, device=args.device)
+    if args.lora:
+        pipe.load_lora_weights(args.lora, adapter_name="tdm")
+        pipe.set_adapters(["tdm"], [args.lora_scale])
     call = {"num_inference_steps": args.num_inference_steps,
             "guidance_scale": args.guidance_scale}
-    for k in ("height", "width"):
+    for k in ("height", "width", "flow_shift"):
         if getattr(args, k) is not None:
             call[k] = getattr(args, k)
+    if "flow_shift" in call and pipe.family != "sd3":
+        raise ValueError(f"--flow_shift applies to the flow models (sd3), not {pipe.family}")
     buckets = None
     if args.batch_buckets:
         buckets = tuple(int(b) for b in args.batch_buckets.split(","))

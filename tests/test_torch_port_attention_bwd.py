@@ -194,7 +194,8 @@ def test_backward_kernels_match_plain_on_card():
         after = tattn.launch_counts()
         assert {n: after[n] - before[n] for n in after} == {
             "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-            "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+            "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+            "splash_attention_fwd": 0}
         ref = {
             "out": out,
             "dq": tattn.plain_attention_bwd_dq(q, k, v, bias, dout, lse, delta, 0.3),

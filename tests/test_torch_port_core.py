@@ -260,8 +260,14 @@ def test_attention_prescales_query_in_its_dtype():
 
 
 def test_attention_rejects_unknown_impl_and_splash():
+    """An unknown impl raises; 'splash' is ported (kernel 4) and computes
+    the plain function, at a head dim it takes (64) and one it routes to
+    the flash path (8)."""
     x = torch.zeros(1, 1, 4, 8)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.attention(x, x, x, impl="xformers")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attention(x, x, x, impl="splash")
+    rng = np.random.default_rng(4)
+    for d in (64, 8):
+        q, k, v = (_t(rng.standard_normal((1, 2, 9, d)).astype(np.float32)) for _ in range(3))
+        torch.testing.assert_close(tattn.attention(q, k, v, impl="splash"),
+                                   tattn.attention(q, k, v, impl="plain"), rtol=0, atol=0)

@@ -95,6 +95,26 @@ def test_kernel_wrapper_has_no_path_for_other_devices():
     q = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="no flash kernel for device meta"):
         tattn.flash_attention_fwd(q, q, q, None)
+    q = torch.zeros(1, 1, 4, 64, device="meta")
+    with pytest.raises(ValueError, match="no flash kernel for device meta"):
+        tattn.splash_attention_fwd(q, q, q)
+
+
+def test_splash_wrapper_checks_what_its_kernel_takes():
+    """The checks the wrapper makes before a launch on the card (here on
+    CPU tensors, which the wrapper itself hands to the plain version)."""
+    q = torch.zeros(1, 2, 5, 64)
+    tattn._check_splash(q, q, q)
+    for bad, err, match in (
+        ((torch.zeros(1, 2, 5, 72),) * 3, ValueError, "head dims"),
+        ((q, q.bfloat16(), q.bfloat16()), TypeError, "one dtype"),
+        ((q.double(),) * 3, TypeError, "float32 or bfloat16"),
+        ((q, torch.zeros(1, 3, 5, 64), torch.zeros(1, 3, 5, 64)), ValueError, "shape mismatch"),
+        ((torch.zeros(1, 2, 64, 5).transpose(2, 3), q, q), ValueError, "contiguous"),
+        ((torch.zeros(1, 2, 5, 65)[..., 1:], q, q), ValueError, "contiguous"),
+    ):
+        with pytest.raises(err, match=match):
+            tattn._check_splash(*bad)
 
 
 # --- safetensors ------------------------------------------------------------
@@ -275,3 +295,44 @@ def test_flash_kernel_matches_plain_on_card():
             ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
             assert (o - r).norm() <= 1e-2 * r.norm()
             assert (o - r).abs().max().item() <= 4 * ulp
+
+
+@pytest.mark.cuda
+def test_splash_kernel_matches_plain_on_card():
+    """The splash kernel against its plain version on the card: SD3's joint
+    attention shape [4,24,4429,4429,64] in bf16 (per batch row, relative L2
+    under 1e-2 and max error under 4 bf16 ulps of the row's largest
+    |plain|), ragged fp32 shapes at D = 64 and 128 (2e-5), and rows whose
+    real logits are all below -20, where the TPU path's pad rescale fails
+    (2e-5 against plain in fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (b, h, sq, sk, d, dtype) in (
+        (4, 24, 4429, 4429, 64, torch.bfloat16),
+        (2, 3, 1000, 777, 64, torch.float32),
+        (2, 3, 1000, 777, 128, torch.float32),
+        (2, 4, 333, 77, 128, torch.bfloat16),
+    ):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+                   for s in (sq, sk, sk))
+        q = (q.float() / math.sqrt(d)).to(dtype)
+        before = tattn.splash_attention_fwd.launches
+        out = tattn.splash_attention_fwd(q, k, v)
+        assert tattn.splash_attention_fwd.launches == before + 1
+        ref = tattn.plain_splash_attention(q, k, v)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+            continue
+        for o, r in zip(out.float(), ref.float()):
+            ulp = 2.0 ** (math.floor(math.log2(r.abs().max().item())) - 7)
+            assert (o - r).norm() <= 1e-2 * r.norm()
+            assert (o - r).abs().max().item() <= 4 * ulp
+    u = torch.randn(64, generator=gen, device="cuda")
+    u = u / u.norm()
+    k = u + 0.05 * torch.randn(1, 2, 77, 64, generator=gen, device="cuda")
+    q = (-40.0 * u).expand(1, 2, 50, 64).contiguous()
+    v = torch.randn(1, 2, 77, 64, generator=gen, device="cuda")
+    assert (q @ k.transpose(2, 3)).max() < -20
+    torch.testing.assert_close(tattn.splash_attention_fwd(q, k, v),
+                               tattn.plain_splash_attention(q, k, v), rtol=2e-5, atol=2e-5)
