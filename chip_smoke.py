@@ -8,10 +8,14 @@ Run from the repository root with no arguments:
 Phases, one line each, and any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel under tdm_tpu_torch/csrc compiled with nvcc for
-     sm_90a, one nvcc per source, all started together;
+     sm_90a, one nvcc per source, all started together; each kernel's
+     registers, spills and shared memory (ptxas) and its HGMMA (wgmma) and
+     HMMA (mma.sync) instructions (cuobjdump -sass), with a check that the
+     bf16 forwards of kernels 1 and 4 run on wgmma and hold no mma.sync;
   3. kernels: each kernel held against its plain PyTorch version on the
      card at the main path's shapes (and a sweep of head dims), with its
-     time, the plain version's, one PyTorch library call's and the bound;
+     time and one PyTorch library call's in turns (6 rounds of 50
+     launches; median, min and max), the plain version's and the bound;
   4. reference: the tiny pipeline on the card (kernel) against the same
      pipeline on the CPU (plain attention);
   5. serve: a full-width PixArt-α-512 pipeline (28 layers, seeded random
@@ -50,7 +54,9 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -116,6 +122,27 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_turns(torch, fns: dict, rounds: int = 6, iters: int = 50) -> dict:
+    """Time each callable of `fns` in turns: `rounds` rounds of `iters`
+    launches each (CUDA-event mean per launch), the order reversed every
+    other round (a, b, b, a, ...), after a warm-up of each. Returns, per
+    name, the median, min and max of the rounds' means: a library call's
+    time moves between calls, so one reading is no yardstick."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    runs = {name: [] for name in fns}
+    for r in range(rounds):
+        for name, fn in (list(fns.items()) if r % 2 == 0 else reversed(list(fns.items()))):
+            runs[name].append(time_ms(torch, fn, iters, 0))
+    return {name: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+            for name, v in runs.items()}
+
+
+def spread(t: dict) -> str:
+    return f"{t['median']:.4f} ms (min {t['min']:.4f}, max {t['max']:.4f})"
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -136,20 +163,104 @@ def phase_device(torch) -> dict:
     return {"smi": smi, "kind": kind}
 
 
-def phase_build() -> None:
+def _short_name(mangled: str) -> str:
+    """`flash_fwd_sm90_kernel<80,1>` from the mangled name of a kernel
+    template instance (its length-prefixed name, then the integer and bool
+    template arguments)."""
+    for m in re.finditer(r"(\d+)([A-Za-z_])", mangled):
+        start, n = m.start(2), int(m.group(1))
+        name = mangled[start:start + n]
+        if name.endswith("_kernel") and mangled[start + n:start + n + 1] == "I":
+            args = mangled[start + n + 1:].split("EE", 1)[0] + "E"
+            return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args))}>"
+    return mangled
+
+
+def _cuobjdump() -> str | None:
+    import importlib.util
+
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    if os.environ.get("CUDA_HOME"):
+        cands.insert(0, os.path.join(os.environ["CUDA_HOME"], "bin", "cuobjdump"))
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        cands.append(os.path.join(spec.submodule_search_locations[0], "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def kernel_resources(libs: dict) -> dict:
+    """Per kernel of each built library: registers, spill bytes and static
+    shared memory from nvcc's -Xptxas -v report (this run's build log), and
+    its HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS that
+    cuobjdump -sass shows."""
+    from tdm_tpu_torch.ops import _build
+
+    tool = _cuobjdump()
+    out = {}
+    for name, path in libs.items():
+        funcs = {}
+        cur = None
+        for ln in _build.build_log.get(name, {}).get("ptxas", "").splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+            if m:
+                cur = funcs.setdefault(_short_name(m.group(1)), {})
+            elif cur is not None and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+                cur.update(spill_stores=int(st), spill_loads=int(ld))
+            elif cur is not None and "registers" in ln:
+                cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+                smem = re.search(r"(\d+) bytes smem", ln)
+                cur["static_smem"] = int(smem.group(1)) if smem else 0
+        if tool:
+            sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                                  text=True, timeout=120).stdout
+            cur = None
+            for ln in sass.splitlines():
+                m = re.search(r"Function : (\w+)", ln)
+                if m:
+                    cur = funcs.setdefault(_short_name(m.group(1)), {})
+                    cur.update(hgmma=0, hmma=0)
+                elif cur is not None:
+                    cur["hgmma"] += "HGMMA." in ln
+                    cur["hmma"] += " HMMA." in ln
+        out[name] = funcs
+    return out
+
+
+def phase_build() -> dict:
+    """Build every kernel; print each kernel's registers, spills, shared
+    memory and wgmma/mma.sync instruction counts; check that the bf16
+    forwards of kernels 1 and 4 run on wgmma and no mma.sync is left in
+    their libraries."""
+    import ctypes
+
     from tdm_tpu_torch.ops import _build
 
     names = _build.kernel_names()
     t0 = time.monotonic()
-    _build.build(names)
+    libs = _build.build(names)
     secs = time.monotonic() - t0
-    regs = []
-    for n in names:
-        log = _build.build_log.get(n, {}).get("ptxas", "")
-        regs += [ln.strip() for ln in log.splitlines() if "registers" in ln]
     print(f"[build] {names} in {secs:.1f}s (nvcc sm_90a)", flush=True)
-    for ln in regs:
-        print(f"[build]   ptxas: {ln}", flush=True)
+    res = kernel_resources(libs)
+    for lib, funcs in res.items():
+        for fn, r in funcs.items():
+            print(f"[build]   {lib}: {fn} registers {r.get('registers', 'n/a')} spill "
+                  f"{r.get('spill_stores', 'n/a')}/{r.get('spill_loads', 'n/a')} B static "
+                  f"smem {r.get('static_smem', 'n/a')} B HGMMA {r.get('hgmma', 'n/a')} "
+                  f"HMMA {r.get('hmma', 'n/a')}", flush=True)
+    smem = {}
+    for lib in ("flash_fwd", "splash_fwd"):
+        fwd = {fn: r for fn, r in res[lib].items() if "sm90_kernel" in fn}
+        check(bool(fwd) and all(r.get("hgmma", 0) > 0 for r in fwd.values()),
+              f"{lib}: a bf16 forward kernel without HGMMA (wgmma) in its SASS: {fwd}")
+        check(all(r.get("hmma", 0) == 0 for r in res[lib].values()),
+              f"{lib}: mma.sync (HMMA) left in the library")
+        fn = ctypes.CDLL(str(libs[lib])).tdm_attn_fwd_smem_bytes
+        smem[lib] = {d: fn(d) for d in ((64, 80, 128) if lib == "flash_fwd" else (64, 128))}
+        print(f"[build]   {lib}: dynamic shared memory per CTA by head dim {smem[lib]} B",
+              flush=True)
+    return {"resources": res, "dynamic_smem": smem}
 
 
 def _attn_inputs(torch, gen, b, h, sq, sk, d, dtype, lengths):
@@ -236,6 +347,8 @@ def phase_kernels(torch, seed: int) -> dict:
         ("cross", PIX_B, PIX_H, PIX_S, PIX_TXT, PIX_D, bf16,
          [120, 77, 13, 0], True),
         ("odd", 2, 3, 1000, 77, 64, f32, [77, 40], False),
+        ("odd_bf16", 2, 3, 1000, 77, 64, bf16, [77, 0], False),
+        ("odd_d72_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 1], False),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -266,23 +379,27 @@ def phase_kernels(torch, seed: int) -> dict:
         stream = torch.cuda.current_stream().cuda_stream
         args = (qs.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(), None,
-                b, h, sq, sk, d, 1, int(d % 8 == 0), stream)
-        ms = time_ms(torch, lambda: fwd(*args))
-        plain_ms = time_ms(torch, lambda: A.plain_attention(qs, k, v, bias), 20)
+                b, h, sq, sk, d, 1, stream)
         sdpa_mask = None if mask is None else mask.bool()[:, None, None, :]
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask), 50)
+        turns = time_turns(torch, {
+            "kernel": lambda: fwd(*args),
+            "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)})
+        ms, lib_ms = turns["kernel"]["median"], turns["sdpa"]["median"]
+        plain_ms = time_ms(torch, lambda: A.plain_attention(qs, k, v, bias), 20)
         live = sk * b if lengths is None else sum(lengths)
         nbytes, ops = attention_work(b, h, sq, sk, d, 2, live)
         bound, by = bound_ms(nbytes, ops)
         rec = {"shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
+               "ms_range": [turns["kernel"]["min"], turns["kernel"]["max"]],
                "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_ms_range": [turns["sdpa"]["min"], turns["sdpa"]["max"]],
                "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                "rel_l2": rel, "bytes": nbytes, "ops": ops}
         shapes.append(rec)
-        print(f"[kernels] flash_fwd {name} ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {bound:.5f} "
-              f"({by})", flush=True)
+        print(f"[kernels] flash_fwd {name} in turns with SDPA: kernel "
+              f"{spread(turns['kernel'])} ({ms / bound:.1f}x bound, {ms / lib_ms:.2f}x "
+              f"SDPA) | sdpa {spread(turns['sdpa'])} | plain_ms {plain_ms:.4f} | "
+              f"bound_ms {bound:.5f} ({by})", flush=True)
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
@@ -359,6 +476,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
         ("self", PIX_B, PIX_H, PIX_S, PIX_S, PIX_D, bf16, None, True),
         ("cross", PIX_B, PIX_H, PIX_S, PIX_TXT, PIX_D, bf16, [120, 77, 13, 0], True),
         ("odd", 2, 3, 1000, 77, 64, f32, [77, 0], False),
+        ("odd_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 0], False),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -379,6 +497,9 @@ def phase_kernels_train(torch, seed: int) -> dict:
         delta = A.attention_delta(dout, ref_out)
         dq = A.flash_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
         dk, dv = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, delta)
+        # ... and driven by the forward kernel's own lse, as in training
+        dq_own = A.flash_attention_bwd_dq(qs, k, v, bias, dout, lse, delta, scale)
+        dk_own, dv_own = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, lse, delta)
         for w in A.WRAPPERS:  # comparison launches do not count
             w.launches = before[w.__name__]
         ref_dq = A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
@@ -387,8 +508,10 @@ def phase_kernels_train(torch, seed: int) -> dict:
         dims = f"[{b},{h},{sq},{sk},{d}] {str(dtype).split('.')[-1]}"
         results = {
             "flash_fwd_lse": [("out", out, ref_out)],
-            "flash_bwd_dq": [("dq", dq, ref_dq)],
-            "flash_bwd_dkv": [("dk", dk, ref_dk), ("dv", dv, ref_dv)],
+            "flash_bwd_dq": [("dq", dq, ref_dq), ("dq from the kernel's lse", dq_own, ref_dq)],
+            "flash_bwd_dkv": [("dk", dk, ref_dk), ("dv", dv, ref_dv),
+                              ("dk from the kernel's lse", dk_own, ref_dk),
+                              ("dv from the kernel's lse", dv_own, ref_dv)],
         }
         lse_err, lse_bad = compare_lse(torch, lse, ref_lse)
         print(f"[kernels] flash_fwd_lse {name} {dims} lse max_abs_err "
@@ -429,8 +552,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
         calls = {
             "flash_fwd_lse": (
                 lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
-                            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, 1,
-                            vec, stream),
+                            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, 1, stream),
                 lambda: A.plain_attention_lse(qs, k, v, bias), "fwd_lse"),
             "flash_bwd_dq": (
                 lambda: fdq(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
@@ -446,41 +568,59 @@ def phase_kernels_train(torch, seed: int) -> dict:
                 lambda: A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse,
                                                   delta), "dkv"),
         }
-        times = {}
-        for kern, (kfn, pfn, work) in calls.items():
-            ms = time_ms(torch, kfn)
-            plain_ms = time_ms(torch, pfn, 10, 2)
-            nbytes, ops = attention_bwd_work(work, b, h, sq, sk, d, 2, live)
-            bound, by = bound_ms(nbytes, ops)
-            times[kern] = ms
-            recs[kern]["shapes"].append({
-                "shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "bytes": nbytes, "ops": ops})
-            print(f"[kernels] {kern} {name} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                  f"bound_ms {bound:.5f} ({by})", flush=True)
-        delta_ms = time_ms(torch, lambda: A.attention_delta(dout, out))
-        # the yardstick: SDPA forward + backward on the same inputs (the
-        # port never calls it); its forward alone beside the lse forward
+        # the yardsticks (the port never calls them), on the same inputs:
+        # SDPA's forward on inputs that require grad beside the lse forward,
+        # its backward alone (retain_graph on one forward) beside dQ + dK/dV,
+        # and forward + backward beside the port's whole training attention
         qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
         sdpa_mask = None if mask is None else mask.bool()[:, None, None, :]
 
         def sdpa_fwd():
             return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=sdpa_mask)
 
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dout)
-
-        sdpa_fwd_ms = time_ms(torch, sdpa_fwd)
-        sdpa_ms = time_ms(torch, sdpa_fwd_bwd)
+        sdpa_out = sdpa_fwd()
+        turns = time_turns(torch, {
+            **{kern: kfn for kern, (kfn, _, _) in calls.items()},
+            "sdpa_fwd": sdpa_fwd,
+            "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                                    retain_graph=True),
+            "sdpa_fwd_bwd": lambda: torch.autograd.grad(sdpa_fwd(), (qg, kg, vg), dout),
+        })
+        times = {}
+        for kern, (_, pfn, work) in calls.items():
+            ms = turns[kern]["median"]
+            plain_ms = time_ms(torch, pfn, 10, 2)
+            nbytes, ops = attention_bwd_work(work, b, h, sq, sk, d, 2, live)
+            bound, by = bound_ms(nbytes, ops)
+            times[kern] = ms
+            recs[kern]["shapes"].append({
+                "shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
+                "ms_range": [turns[kern]["min"], turns[kern]["max"]],
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "bytes": nbytes, "ops": ops})
+            print(f"[kernels] {kern} {name} {spread(turns[kern])} ({ms / bound:.1f}x "
+                  f"bound) plain_ms {plain_ms:.4f} bound_ms {bound:.5f} ({by})", flush=True)
+        delta_ms = time_ms(torch, lambda: A.attention_delta(dout, out))
         port_ms = sum(times.values()) + delta_ms
-        recs["flash_fwd_lse"]["shapes"][-1]["library_ms"] = sdpa_fwd_ms
+        sdpa_fwd_ms = turns["sdpa_fwd"]["median"]
+        rec = recs["flash_fwd_lse"]["shapes"][-1]
+        rec["library_ms"] = sdpa_fwd_ms
+        rec["library_ms_range"] = [turns["sdpa_fwd"]["min"], turns["sdpa_fwd"]["max"]]
         pair.append({"shape": name, "port_fwd_lse_delta_dq_dkv_ms": port_ms,
-                     "delta_ms": delta_ms, "sdpa_fwd_bwd_ms": sdpa_ms})
-        print(f"[kernels] training attention {name}: port lse forward + delta + "
-              f"dq + dkv {port_ms:.4f} ms (delta {delta_ms:.4f}) vs SDPA "
-              f"forward + backward {sdpa_ms:.4f} ms (forward alone "
-              f"{sdpa_fwd_ms:.4f})", flush=True)
+                     "delta_ms": delta_ms,
+                     "dq_plus_dkv_ms": times["flash_bwd_dq"] + times["flash_bwd_dkv"],
+                     "sdpa_bwd_ms": turns["sdpa_bwd"]["median"],
+                     "sdpa_bwd_ms_range": [turns["sdpa_bwd"]["min"], turns["sdpa_bwd"]["max"]],
+                     "sdpa_fwd_bwd_ms": turns["sdpa_fwd_bwd"]["median"],
+                     "sdpa_fwd_bwd_ms_range": [turns["sdpa_fwd_bwd"]["min"],
+                                               turns["sdpa_fwd_bwd"]["max"]]})
+        print(f"[kernels] flash_fwd_lse {name}: {times['flash_fwd_lse'] / sdpa_fwd_ms:.2f}x "
+              f"SDPA's forward (grad) {spread(turns['sdpa_fwd'])}", flush=True)
+        print(f"[kernels] training attention {name}: dq + dkv "
+              f"{pair[-1]['dq_plus_dkv_ms']:.4f} ms vs SDPA backward alone "
+              f"{spread(turns['sdpa_bwd'])}; port lse forward + delta + dq + dkv "
+              f"{port_ms:.4f} ms (delta {delta_ms:.4f}) vs SDPA forward + backward "
+              f"{spread(turns['sdpa_fwd_bwd'])}", flush=True)
     grad_check(torch, seed)
     return {"kernels": recs, "pair": pair}
 
@@ -488,11 +628,11 @@ def phase_kernels_train(torch, seed: int) -> dict:
 def phase_kernels_splash(torch, seed: int) -> dict:
     """The splash kernel (kernel 4) against its plain version: SD3's joint
     attention [4,24,4429,4429,64] in bf16 (per batch row, as compare()),
-    ragged fp32 shapes at D = 64 and 128, and rows whose real logits all
-    lie below -20 (fp32 and bf16), where the TPU path's pad-key rescale
-    fails. At the SD3 shape: the kernel's time and the flash kernel's (bias
-    all zero) as CUDA-event means over 50 launches, the plain version once,
-    SDPA as the library yardstick, and the bound."""
+    ragged shapes at D = 64 and 128 (fp32 and bf16), and rows whose real
+    logits all lie below -32 (fp32 and bf16), where the TPU path's pad-key
+    rescale fails. At the SD3 shape: the kernel's time, the flash kernel's
+    (bias all zero) and SDPA's (the library yardstick) in turns, the plain
+    version once, and the bound."""
     import torch.nn.functional as F
 
     from tdm_tpu_torch.ops import attention as A
@@ -519,20 +659,22 @@ def phase_kernels_splash(torch, seed: int) -> dict:
 
     for name, (b, h, sq, sk, d) in (("odd_d64", (2, 3, 1000, 777, 64)),
                                     ("odd_d128", (2, 3, 1000, 777, 128)),
+                                    ("odd_d64_bf16", (2, 3, 1000, 777, 64)),
+                                    ("odd_d128_bf16", (2, 3, 1000, 777, 128)),
                                     ("tail13_d128_bf16", (2, 4, 333, 77, 128))):
         dtype = bf16 if name.endswith("bf16") else f32
         q, k, v, _, qs, _ = _attn_inputs(torch, gen, b, h, sq, sk, d, dtype, None)
         held(name, qs, k, v)
-    # every real logit below -20: keys clustered round u, queries along -u
+    # every real logit below -32: keys clustered round u, queries along -u
     u = torch.randn(64, generator=gen, device="cuda")
     u = u / u.norm()
     k = u + 0.05 * torch.randn(2, 3, 4429, 64, generator=gen, device="cuda")
-    q = (-40.0 * u).expand(2, 3, 100, 64).contiguous()
+    q = (-50.0 * u).expand(2, 3, 100, 64).contiguous()
     v = torch.randn(2, 3, 4429, 64, generator=gen, device="cuda")
     top = (q @ k.transpose(2, 3)).max().item()
-    check(top < -20, f"negative-logit rows reach {top}")
+    check(top < -32, f"negative-logit rows reach {top}")
     for dtype in (f32, bf16):
-        held(f"logits_below_-20_{str(dtype).split('.')[-1]}", q.to(dtype), k.to(dtype),
+        held(f"logits_below_-32_{str(dtype).split('.')[-1]}", q.to(dtype), k.to(dtype),
              v.to(dtype))
     print(f"[kernels] splash_fwd rows with every logit <= {top:.1f}: exact against plain "
           f"(the TPU path's out / (1 - n_pad*exp(-lse)) is not carried over)", flush=True)
@@ -546,26 +688,34 @@ def phase_kernels_splash(torch, seed: int) -> dict:
     fwd, _ = A._entry("tdm_flash_fwd")
     zero_bias = torch.zeros(b, s, dtype=f32, device="cuda")
     flash_out = torch.empty_like(qs)
-    ms = time_ms(torch, lambda: splash(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                       out.data_ptr(), b * h, s, s, d, 1, stream))
-    flash_ms = time_ms(torch, lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          zero_bias.data_ptr(), flash_out.data_ptr(), None,
-                                          b, h, s, s, d, 1, 1, stream))
+    turns = time_turns(torch, {
+        "splash": lambda: splash(qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 b * h, s, s, d, 1, stream),
+        "flash": lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), zero_bias.data_ptr(),
+                             flash_out.data_ptr(), None, b, h, s, s, d, 1, stream),
+        "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+    ms, flash_ms, lib_ms = (turns[n]["median"] for n in ("splash", "flash", "sdpa"))
     flash_err, _, flash_bad = compare(torch, flash_out, A.plain_splash_attention(qs, k, v))
     check(flash_bad is None, f"flash kernel at the SD3 shape: {flash_bad}")
     plain_ms = time_ms(torch, lambda: A.plain_splash_attention(qs, k, v), 1, 0)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
     nbytes, ops = attention_work(b, h, s, s, d, 2, s * b, bias=False)
     bound, by = bound_ms(nbytes, ops)
     fb_bytes, fb_ops = attention_work(b, h, s, s, d, 2, s * b)
     flash_bound, _ = bound_ms(fb_bytes, fb_ops)
-    print(f"[kernels] splash_fwd sd3 [{b},{h},{s},{s},{d}] ms {ms:.4f} ({ms / bound:.1f}x "
-          f"bound) | flash_fwd (bias all 0) ms {flash_ms:.4f} (max_abs_err {flash_err:.3e}) | "
-          f"plain_ms {plain_ms:.4f} (once) | sdpa_ms {lib_ms:.4f} | bound_ms {bound:.5f} "
+    print(f"[kernels] splash_fwd sd3 [{b},{h},{s},{s},{d}] in turns: splash "
+          f"{spread(turns['splash'])} ({ms / bound:.2f}x bound, {ms / lib_ms:.2f}x SDPA, "
+          f"{ops / ms / 1e9:.0f} TFLOP/s) | flash_fwd (bias all 0) {spread(turns['flash'])} "
+          f"({flash_ms / lib_ms:.2f}x SDPA, max_abs_err {flash_err:.3e}) | sdpa "
+          f"{spread(turns['sdpa'])} | plain_ms {plain_ms:.4f} (once) | bound_ms {bound:.5f} "
           f"({by})", flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    return {"max_abs_err": max_err, "ms": ms,
+            "ms_range": [turns["splash"]["min"], turns["splash"]["max"]],
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_ms_range": [turns["sdpa"]["min"], turns["sdpa"]["max"]],
             "bound_ms": bound, "bound_by": by, "dims": [b, h, s, s, d], "bytes": nbytes,
-            "ops": ops, "flash_ms": flash_ms, "flash_bound_ms": flash_bound}
+            "ops": ops, "flash_ms": flash_ms,
+            "flash_ms_range": [turns["flash"]["min"], turns["flash"]["max"]],
+            "flash_bound_ms": flash_bound}
 
 
 def grad_check(torch, seed: int) -> None:
@@ -1278,9 +1428,10 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
             "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
 
 
-def kernel_row(name, source, replaces, launches, rec, per) -> dict:
+def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
     """One entry of the `kernels` JSON line: the times of the self and the
-    cross shape summed (one PixArt block), the bound of their summed work."""
+    cross shape summed (one PixArt block), the bound of their summed work,
+    and the bf16 kernels' registers, spills and HGMMA/HMMA counts."""
     shapes = rec["shapes"]
     nbytes = sum(r["bytes"] for r in shapes)
     ops = sum(r["ops"] for r in shapes)
@@ -1294,9 +1445,11 @@ def kernel_row(name, source, replaces, launches, rec, per) -> dict:
         "bound_ms": bound, "bound_by": by,
         "library_ms": None if None in lib else sum(lib),
         "per": per,
-        "shapes": [{k: r.get(k) for k in ("shape", "dims", "ms", "plain_ms",
-                                          "library_ms", "bound_ms", "bound_by")}
+        "shapes": [{k: r.get(k) for k in ("shape", "dims", "ms", "ms_range", "plain_ms",
+                                          "library_ms", "library_ms_range", "bound_ms",
+                                          "bound_by")}
                    for r in shapes],
+        "resources": resources,
     }
 
 
@@ -1326,7 +1479,7 @@ def main(argv=None) -> int:
     t_start = time.monotonic()
     try:
         dev = phase_device(torch)
-        phase_build()
+        build = phase_build()
         if "kernels" in phases:
             kern = phase_kernels(torch, args.seed)
             ktrain = phase_kernels_train(torch, args.seed)
@@ -1353,24 +1506,32 @@ def main(argv=None) -> int:
     per_block = ("one PixArt block at batch 4: one self-attention call "
                  "[4,16,1024,1024,72] + one cross-attention call "
                  "[4,16,1024,120,72] (bf16)")
-    no_lib = ("; library null: no one PyTorch call computes it alone (SDPA "
-              "forward + backward against the port's lse forward + delta + dQ "
-              "+ dK/dV: training_attention)")
+    no_lib = ("; library null: no one PyTorch call computes it alone (SDPA's "
+              "backward alone against dQ + dK/dV, and SDPA forward + backward "
+              "against the port's lse forward + delta + dQ + dK/dV: "
+              "training_attention)")
     kt, per_step = ktrain["kernels"], train["launches_per_step"]
+    res = build["resources"]
+
+    def bf16_kernels(lib, suffix=""):
+        return {fn: r for fn, r in res[lib].items()
+                if ("sm90" in fn or "bf16" in fn) and fn.endswith(suffix)}
+
     rows = [
         kernel_row("flash_fwd", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", serve["launches"], kern,
-                   per_block + "; library = SDPA forward"),
+                   per_block + "; library = SDPA forward", bf16_kernels("flash_fwd", ",0>")),
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
                    kt["flash_fwd_lse"],
-                   per_block + "; library = SDPA forward on inputs that require grad"),
+                   per_block + "; library = SDPA forward on inputs that require grad",
+                   bf16_kernels("flash_fwd", ",1>")),
         kernel_row("flash_bwd_dq", "tdm_tpu_torch/csrc/flash_bwd_dq.cu",
                    "tdm_tpu/ops/attention.py:600", train["launches"]["flash_attention_bwd_dq"],
-                   kt["flash_bwd_dq"], per_block + no_lib),
+                   kt["flash_bwd_dq"], per_block + no_lib, bf16_kernels("flash_bwd_dq")),
         kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
                    "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
-                   kt["flash_bwd_dkv"], per_block + no_lib),
+                   kt["flash_bwd_dkv"], per_block + no_lib, bf16_kernels("flash_bwd_dkv")),
         {"name": "splash_fwd", "route": "cuda", "source": "tdm_tpu_torch/csrc/splash_fwd.cu",
          "replaces": "tdm_tpu/ops/attention.py:153", "launches": sd3["launches"],
          "launches_per_batch": sd3["launches_per_batch"],
@@ -1380,7 +1541,10 @@ def main(argv=None) -> int:
          "per": ("one SD3-Medium joint attention call at batch 4 [4,24,4429,4429,64] "
                  "(bf16); library = SDPA forward; flash_ms = the flash kernel (bias "
                  "all 0) at the same shape"),
-         "flash_ms": ksplash["flash_ms"], "dims": ksplash["dims"]},
+         "ms_range": ksplash["ms_range"], "library_ms_range": ksplash["library_ms_range"],
+         "flash_ms": ksplash["flash_ms"], "flash_ms_range": ksplash["flash_ms_range"],
+         "dims": ksplash["dims"], "resources": bf16_kernels("splash_fwd"),
+         "dynamic_smem": build["dynamic_smem"]["splash_fwd"]},
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "sd3": sd3}))

@@ -1,8 +1,9 @@
-// Pieces shared by the flash-attention kernels of this directory
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): the constants of the
-// TPU kernels' masking arithmetic, the bf16 tensor-core instruction
-// (mma.sync m16n8k16, fp32 accumulate) and the shared-memory staging of
-// [rows, D] tiles with D zero-padded to a multiple of 16.
+// Pieces shared by the attention kernels of this directory: the constants
+// of the TPU kernels' masking arithmetic, quad reductions and bf16 packing
+// (all of them, and attn_fwd_sm90.cuh); the bf16 tensor-core instruction of
+// the backward kernels (mma.sync m16n8k16, fp32 accumulate) and their
+// shared-memory staging of [rows, D] tiles with D zero-padded to a multiple
+// of 16; the head-dim dispatch of the fp32 scalar kernels.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4*g + t):
 //   A [16 x 16]: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
@@ -23,7 +24,7 @@ namespace {
 constexpr float kNegInf = -1e30f;    // the TPU kernels' _NEG_INF: key bias of a masked key
 constexpr float kValidMax = -1e29f;  // rows whose running max stayed below are all-masked
 constexpr float kLseMasked = 1e30f;  // lse of an all-masked or padded row: exp(s - lse) = 0
-constexpr int kThreads = 128;        // 4 warps in every kernel
+constexpr int kThreads = 128;        // 4 warps: the backward and fp32 kernels
 
 typedef __nv_bfloat16 bf16;
 

@@ -18,193 +18,57 @@
 //   * PixArt self-attention, B=4 H=16 S=1024 D=72 bf16: 4*B*H*S*S*D = 19.3
 //     GFLOP against 37.7 MB moved -> operations-bound (0.0195 ms vs 0.0113 ms).
 //   * PixArt cross-attention, Sq=1024 Sk=120 (masked T5 tokens): 2.3 GFLOP
-//     against 21.1 MB moved (q and out dominate) -> bytes-bound (0.0063 ms).
+//     against 21.1 MB moved (q and out dominate) -> bytes-bound (0.0059 ms).
 //   The lse adds 4 bytes per query row (0.26 MB at these shapes).
-// The design keeps the Sq x Sk score matrix out of device memory (each q/k/v
-// element is read from HBM once per q-tile, the output written once) and runs
-// both products of the bf16 path on the tensor cores with mma.sync
-// m16n8k16 (fp32 accumulate). The TPU kernel's sequential k grid axis becomes
-// a loop inside the block; its (8,128) tiling and D->128 padding become a
-// 64x64 tile with D zero-padded to a multiple of 16 in shared memory only
-// (72 -> 80). The lse output is a template flag of the same kernel, so the
-// inference variant carries no cost for it. This is the simple first
-// version: one stage, no cp.async/TMA, no wgmma, no warp specialisation.
+// The bf16 path is the warp-specialised wgmma/TMA mainloop of
+// attn_fwd_sm90.cuh (HAS_BIAS, WITH_LSE as a template flag, so the inference
+// variant carries no cost for it): 128 query rows per CTA (192 at D <= 64),
+// 128-key K/V tiles in a TMA ring, both products on wgmma. The TPU kernel's
+// sequential k grid axis is the loop inside the CTA; its D->128 padding
+// becomes D = 72 read as a 64-column and a 16-column panel that TMA
+// zero-fills to 80. The key bias of each tile rides with its K/V tile; keys
+// past Sk get -inf there.
 //
 // Layout: q/out [B,H,Sq,D], k/v [B,H,Sk,D], contiguous; bias [B,Sk] fp32 or
-// null (no mask); lse [B,H,Sq] fp32 or null (not wanted). Any D in [1,128].
-// bf16 goes through the tensor-core kernel; fp32 through a scalar-FMA kernel
-// (fp32 has no tensor-core path at full precision).
+// null (no mask); lse [B,H,Sq] fp32 or null (not wanted). bf16 takes D % 8 ==
+// 0, D <= 128 and 16-byte aligned bases (the wrapper zero-pads D to a
+// multiple of 8); fp32 goes through a scalar-FMA kernel (fp32 has no
+// tensor-core path at full precision) and takes any D in [1,128].
 //
 // C interface (loaded with ctypes): tdm_flash_fwd returns a cudaError_t code
 // (0 on success) after checking cudaGetLastError() right after the launch.
 
-#include "flash_common.cuh"
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel. Block = 64 query rows (16 per warp) of one (b,h);
-// loop over 64-key tiles staged in shared memory.
+// bf16: the wgmma/TMA mainloop with the key bias (0 where bias is null)
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kVS = kBK + 8;  // row stride (elements) of the transposed V tile
-
 template <int DP, bool LSE>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const float* __restrict__ bias,
-                      bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk,
-                      int D, int vec) {
-  constexpr int QS = DP + 8;  // row stride of the Q and K tiles (bank-conflict-free fragments)
-  constexpr int KSTEPS = DP / 16;
-  constexpr int NT = kBK / 8;  // score n-tiles per key tile
-  constexpr int ND = DP / 8;   // output n-tiles
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const bf16* qg = q + (size_t)bh * Sq * D;
-  const bf16* kg = k + (size_t)bh * Sk * D;
-  const bf16* vg = v + (size_t)bh * Sk * D;
-  bf16* og = o + (size_t)bh * Sq * D;
-  const float* bg = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kBQ * QS;
-  bf16* vt = ks + kBK * QS;
-  float* bs = reinterpret_cast<float*>(vt + DP * kVS);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_rows<DP, kBQ>(qs, qg, q0, Sq, D, vec);
-  __syncthreads();
-
-  // this warp's 16 query rows as A fragments, kept in registers
-  uint32_t qf[KSTEPS][4];
-  load_a_frags<DP>(qf, qs + warp * 16 * QS, g, t);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running max of rows g and g+8
-  float l0 = 0.f, l1 = 0.f;          // running sum
-
-  for (int k0 = 0; k0 < Sk; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<DP, kBK>(ks, kg, k0, Sk, D, vec);
-    load_transposed<DP, kBK>(vt, vg, k0, Sk, D, vec);
-    if (threadIdx.x < kBK) {
-      const int j = k0 + threadIdx.x;
-      bs[threadIdx.x] = j < Sk ? (bg ? bg[j] : 0.f) : kNegInf;  // ragged tail masked exactly
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const bf16* kr = ks + (n * 8 + g) * QS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        mma_16816(s[n], qf[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-    }
-
-    // key bias, then the online-softmax update
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float b0 = bs[n * 8 + t * 2], b1 = bs[n * 8 + t * 2 + 1];
-      s[n][0] += b0; s[n][1] += b1; s[n][2] += b0; s[n][3] += b1;
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = __expf(s[n][0] - mn0); s[n][1] = __expf(s[n][1] - mn0);
-      s[n][2] = __expf(s[n][2] - mn1); s[n][3] = __expf(s[n][3] - mn1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = al0 * l0 + quad_sum(rs0);
-    l1 = al1 * l1 + quad_sum(rs1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= al0; acc[n][1] *= al0; acc[n][2] *= al1; acc[n][3] *= al1;
-    }
-
-    // O += P V, P rounded to bf16 as the TPU kernel rounds p to v's dtype
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const bf16* vr = vt + (n * 8 + g) * kVS + kk * 16 + t * 2;
-        mma_16816(acc[n], pa, lds32(vr), lds32(vr + 8));
-      }
-    }
-  }
-
-  // rows that never saw an unmasked key output 0
-  const bool ok0 = m0 > kValidMax, ok1 = m1 > kValidMax;
-  const float inv0 = ok0 ? 1.f / (l0 == 0.f ? 1.f : l0) : 0.f;
-  const float inv1 = ok1 ? 1.f / (l1 == 0.f ? 1.f : l1) : 0.f;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + t * 2;
-    if (r0 < Sq) {
-      if (c < D) og[(size_t)r0 * D + c] = __float2bfloat16(acc[n][0] * inv0);
-      if (c + 1 < D) og[(size_t)r0 * D + c + 1] = __float2bfloat16(acc[n][1] * inv0);
-    }
-    if (r1 < Sq) {
-      if (c < D) og[(size_t)r1 * D + c] = __float2bfloat16(acc[n][2] * inv1);
-      if (c + 1 < D) og[(size_t)r1 * D + c + 1] = __float2bfloat16(acc[n][3] * inv1);
-    }
-  }
-  if (LSE && t == 0) {  // the four lanes of a row hold the same m and l
-    float* lg = lse + (size_t)bh * Sq;
-    if (r0 < Sq) lg[r0] = (ok0 && l0 > 0.f) ? m0 + logf(l0) : kLseMasked;
-    if (r1 < Sq) lg[r1] = (ok1 && l1 > 0.f) ? m1 + logf(l1) : kLseMasked;
-  }
+__global__ void __launch_bounds__(sm90::Layout<DP, sm90::kGroups<DP>>::kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ sm90::AttnMaps maps,
+                      const float* __restrict__ bias, float* __restrict__ lse, int H, int Sq,
+                      int Sk) {
+  sm90::attn_fwd_mainloop<DP, sm90::kGroups<DP>, true, LSE>(maps, bias, lse, H, Sq, Sk);
 }
 
-template <int DP, bool LSE>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias, void* o,
-                        float* lse, int B, int H, int Sq, int Sk, int D, int vec,
-                        cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kBQ * (DP + 8) + kBK * (DP + 8) + DP * kVS) * 2 + kBK * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, LSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_bf16_kernel<DP, LSE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
-      static_cast<bf16*>(o), lse, H, Sq, Sk, D, vec);
-  return cudaGetLastError();
+template <bool LSE>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias,
+                        void* o, float* lse, int B, int H, int Sq, int Sk, int D,
+                        cudaStream_t s) {
+  using sm90::kGroups;
+  if (!sm90::operands_ok(q, k, v, o, B * H, D)) return cudaErrorInvalidValue;
+  if (D <= 64)
+    return sm90::launch<64, kGroups<64>>(flash_fwd_sm90_kernel<64, LSE>, q, k, v, bias, o, lse,
+                                         B * H, H, Sq, Sk, D, s);
+  if (D <= 80)
+    return sm90::launch<80, kGroups<80>>(flash_fwd_sm90_kernel<80, LSE>, q, k, v, bias, o, lse,
+                                         B * H, H, Sq, Sk, D, s);
+  return sm90::launch<128, kGroups<128>>(flash_fwd_sm90_kernel<128, LSE>, q, k, v, bias, o, lse,
+                                         B * H, H, Sq, Sk, D, s);
 }
-
-template <int DP>
-struct LaunchBf16 {
-  static cudaError_t run(const void* q, const void* k, const void* v, const float* bias, void* o,
-                         float* lse, int B, int H, int Sq, int Sk, int D, int vec,
-                         cudaStream_t s) {
-    return lse ? launch_bf16<DP, true>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, vec, s)
-               : launch_bf16<DP, false>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, vec, s);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // fp32: scalar-FMA kernel. Block = 32 query rows of one (b,h), 4 lanes per
@@ -302,7 +166,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int NJ>
 struct LaunchF32 {
   static cudaError_t run(const void* q, const void* k, const void* v, const float* bias, void* o,
-                         float* lse, int B, int H, int Sq, int Sk, int D, int /*vec*/,
+                         float* lse, int B, int H, int Sq, int Sk, int D,
                          cudaStream_t stream) {
     dim3 grid(B * H, (Sq + kFR - 1) / kFR);
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
@@ -322,22 +186,21 @@ struct LaunchF32 {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 when D % 8 == 0 and every pointer
-// is 16-byte aligned (bf16 path only). lse: [B,H,Sq] fp32 output, or null for
+// dtype: 0 = float32, 1 = bfloat16. lse: [B,H,Sq] fp32 output, or null for
 // the inference variant. Returns a cudaError_t code.
 int tdm_flash_fwd(const void* q, const void* k, const void* v, const float* bias, void* out,
-                  float* lse, int batch, int heads, int sq, int sk, int d, int dtype, int vec,
+                  float* lse, int batch, int heads, int sq, int sk, int d, int dtype,
                   void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
       (sq + kFR - 1) / kFR > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)by_padded_dim_bf16<LaunchBf16>(d, q, k, v, bias, out, lse, batch, heads, sq, sk,
-                                               d, vec, s);
+    return (int)(lse ? launch_bf16<true>(q, k, v, bias, out, lse, batch, heads, sq, sk, d, s)
+                     : launch_bf16<false>(q, k, v, bias, out, lse, batch, heads, sq, sk, d, s));
   if (dtype == 0)
-    return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, out, lse, batch, heads, sq, sk, d,
-                                             vec, s);
+    return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, out, lse, batch, heads, sq, sk,
+                                             d, s);
   return (int)cudaErrorInvalidValue;
 }
 

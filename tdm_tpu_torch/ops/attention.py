@@ -11,6 +11,10 @@ tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
 
   * `flash_attention_fwd` — `csrc/flash_fwd.cu` without the logsumexp (the
     Pallas `_flash_fwd_kernel` with with_lse=False); plain: `plain_attention`.
+    In bf16 it runs the wgmma/TMA mainloop of `csrc/attn_fwd_sm90.cuh`,
+    which reads rows of a multiple of 16 bytes: the wrapper zero-pads the
+    head dim to a multiple of 8 (`pad_head_dim`, exact) and slices the
+    output back.
   * `flash_attention_fwd_lse` — the same kernel with its [B,H,Sq] fp32 lse
     output (+1e30 on all-masked rows); plain: `plain_attention_lse`.
   * `flash_attention_bwd_dq` — `csrc/flash_bwd_dq.cu` (`_flash_bwd_dq_kernel`);
@@ -29,7 +33,8 @@ autograd records the call; a call under `torch.no_grad()` or
 
   * `splash_attention_fwd` — `csrc/splash_fwd.cu`, unmasked attention for
     head dims 64 and 128, no lse (the counterpart of the JAX package's
-    splash kernel, `attention.py:152-263`); plain: `plain_splash_attention`.
+    splash kernel, `attention.py:152-263`), the same mainloop without bias
+    or lse; plain: `plain_splash_attention`.
 
 `impl="auto"` goes through the kernels' wrappers on every shape: the JAX
 package's v5e-measured switch to XLA at S=1024 is not carried over.
@@ -280,7 +285,7 @@ def _check(q, k, v, bias, *rows) -> None:
 def _check_splash(q, k, v) -> None:
     """What the splash kernel takes: q [B,H,Sq,D], k/v [B,H,Sk,D] with D in
     SPLASH_HEAD_DIMS, one dtype (fp32 or bf16), one device, contiguous and
-    16-byte aligned (its tiles are staged with 16-byte copies)."""
+    16-byte aligned (TMA reads its tiles), at most 65535 (batch, head) pairs."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
     b, h, _, d = q.shape
@@ -300,8 +305,7 @@ def _check_splash(q, k, v) -> None:
         raise ValueError("the splash kernel's operands must be on one device")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("the splash kernel needs contiguous, 16-byte aligned operands")
-    if b * h > 65535:
-        raise ValueError(f"the splash kernel takes at most 65535 (batch, head) pairs, got {b * h}")
+    _check_pairs(b, h, "splash")
 
 
 def _on_card(wrapper: str, q: torch.Tensor) -> bool:
@@ -316,7 +320,7 @@ def _on_card(wrapper: str, q: torch.Tensor) -> bool:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C entry point -> (its library, argument types)
-    "tdm_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_P]),
+    "tdm_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "tdm_flash_bwd_dq": (
         "flash_bwd_dq", [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P]),
     "tdm_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 7 + [_P]),
@@ -354,14 +358,44 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _vec(d: int, *tensors) -> int:
-    """1 when the bf16 kernels may stage rows with 16-byte loads."""
+    """1 when the backward kernels may stage rows with 16-byte loads."""
     return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def tma_head_dim(d: int) -> int:
+    """The head dim the bf16 forward kernel reads: d rounded up to a
+    multiple of 8, since TMA moves rows of a multiple of 16 bytes."""
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """t itself when its last dim is d and its base is 16-byte aligned (what
+    TMA takes); else a fresh copy zero-padded to d. Zero columns add nothing
+    to the logits and give zero output columns, so the padding is exact."""
+    if t.shape[-1] == d and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(*t.shape[:-1], d)
+    out[..., : t.shape[-1]] = t
+    return out
+
+
+def _check_pairs(b: int, h: int, kernel: str) -> None:
+    """The bf16 forward kernels put the (batch, head) pairs on the grid's y
+    axis, which holds at most 65535."""
+    if b * h > 65535:
+        raise ValueError(
+            f"the {kernel} kernel takes at most 65535 (batch, head) pairs, got {b * h}")
 
 
 def _fwd(q_scaled, k, v, bias, with_lse: bool):
     _check(q_scaled, k, v, bias)
     b, h, sq, d = q_scaled.shape
-    out = torch.empty_like(q_scaled)
+    dk = d
+    if q_scaled.dtype == torch.bfloat16:
+        _check_pairs(b, h, "flash")
+        dk = tma_head_dim(d)
+        q_scaled, k, v = (pad_head_dim(t, dk) for t in (q_scaled, k, v))
+    out = torch.empty((b, h, sq, dk), dtype=q_scaled.dtype, device=q_scaled.device)
     lse = (
         torch.empty((b, h, sq), dtype=torch.float32, device=q_scaled.device)
         if with_lse else None
@@ -369,9 +403,11 @@ def _fwd(q_scaled, k, v, bias, with_lse: bool):
     _launch(
         "tdm_flash_fwd", q_scaled.device,
         q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        out.data_ptr(), _ptr(lse), b, h, sq, k.shape[2], d,
-        _DTYPE_CODE[q_scaled.dtype], _vec(d, q_scaled, k, v, out),
+        out.data_ptr(), _ptr(lse), b, h, sq, k.shape[2], dk,
+        _DTYPE_CODE[q_scaled.dtype],
     )
+    if dk != d:
+        out = out[..., :d].contiguous()
     return out, lse
 
 

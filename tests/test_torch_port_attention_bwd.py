@@ -160,9 +160,10 @@ def test_backward_wrappers_have_no_path_for_other_devices():
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_card():
     """The dQ and dK/dV kernels and the lse forward against their plain
-    versions on the same inputs (lse and Δ from the plain forward), at
-    PixArt's self and cross shapes (bf16) and an odd fp32 shape; runs on a
-    machine with the card. bf16, per batch row: relative L2 under 1e-2 and
+    versions on the same inputs (lse and Δ from the plain forward; dQ and
+    dK/dV once more from the forward kernel's own lse), at PixArt's self and
+    cross shapes (bf16), a ragged bf16 shape and an odd fp32 shape; runs on
+    a machine with the card. bf16, per batch row: relative L2 under 1e-2 and
     max error under 4 bf16 ulps of the row's largest |plain| (both round P
     and dS to bf16 and the result to bf16); fp32: max error under 1e-4 of
     the largest |plain|. A batch row with every key masked is exactly 0."""
@@ -172,6 +173,7 @@ def test_backward_kernels_match_plain_on_card():
     for (b, h, sq, sk, d, dtype, lengths) in (
         (2, 16, 1024, 1024, 72, torch.bfloat16, None),
         (2, 16, 1024, 120, 72, torch.bfloat16, [90, 0]),
+        (3, 2, 333, 200, 72, torch.bfloat16, [200, 129, 0]),
         (2, 3, 1000, 77, 64, torch.float32, [77, 0]),
     ):
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
@@ -196,12 +198,19 @@ def test_backward_kernels_match_plain_on_card():
             "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
             "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
             "splash_attention_fwd": 0}
+        # dQ and dK/dV driven by the forward kernel's own lse, as in training
+        own_lse = tattn.flash_attention_fwd_lse(q, k, v, bias)[1]
+        got["dq_own_lse"] = tattn.flash_attention_bwd_dq(
+            q, k, v, bias, dout, own_lse, delta, 0.3)
+        got["dk_own_lse"], got["dv_own_lse"] = tattn.flash_attention_bwd_dkv(
+            q, k, v, bias, dout, own_lse, delta)
         ref = {
             "out": out,
             "dq": tattn.plain_attention_bwd_dq(q, k, v, bias, dout, lse, delta, 0.3),
             **dict(zip(("dk", "dv"), tattn.plain_attention_bwd_dkv(
                 q, k, v, bias, dout, lse, delta))),
         }
+        ref.update({f"{n}_own_lse": ref[n] for n in ("dq", "dk", "dv")})
         for name in got:
             o, r = got[name].float(), ref[name].float()
             assert torch.isfinite(o).all(), name
