@@ -11,7 +11,9 @@ Phases, one line each, and any failure exits non-zero:
      sm_90a, one nvcc per source, all started together; each kernel's
      registers, spills and shared memory (ptxas) and its HGMMA (wgmma) and
      HMMA (mma.sync) instructions (cuobjdump -sass), with a check that the
-     bf16 forwards of kernels 1 and 4 run on wgmma and hold no mma.sync;
+     bf16 kernels of all four libraries (the forwards of kernels 1 and 4,
+     dQ and dK/dV) run on wgmma and hold no mma.sync, and that the backward
+     ones spill nothing;
   3. kernels: each kernel held against its plain PyTorch version on the
      card at the main path's shapes (and a sweep of head dims), with its
      time and one PyTorch library call's in turns (6 rounds of 50
@@ -35,8 +37,8 @@ Phases, one line each, and any failure exits non-zero:
      per-seed determinism, a profiled batch, and one full-width forward
      through the splash kernel against the same forward through the flash
      kernel.
-Phase 3 also holds the training kernels (the forward with its lse, dQ,
-dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
+Phase 3 also holds the training kernels (the forward with its lse, dQ with
+its fused Δ, dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
 shapes, rows whose logits are all below -20) against their plain versions;
 phase 4 runs one tiny train step and a tiny SD3 pipeline with a merged LoRA
 on the card against the same on the CPU. Then a JSON line of per-kernel
@@ -88,6 +90,9 @@ LSE_TOL = 1e-4
 # fp32 gradients through the kernels against autograd of plain_attention,
 # relative to each tensor's largest magnitude: the same sums in another order
 GRAD_TOL = 1e-4
+# the dQ kernel's Δ = rowsum(dO∘O) against attention_delta, relative to the
+# largest |Δ|: fp32 sums of the same products in another order
+DELTA_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -231,13 +236,15 @@ def kernel_resources(libs: dict) -> dict:
 def phase_build() -> dict:
     """Build every kernel; print each kernel's registers, spills, shared
     memory and wgmma/mma.sync instruction counts; check that the bf16
-    forwards of kernels 1 and 4 run on wgmma and no mma.sync is left in
-    their libraries."""
+    kernels of kernels 1-4 run on wgmma, that no mma.sync is left in their
+    libraries and that the backward's bf16 kernels spill nothing."""
     import ctypes
 
     from tdm_tpu_torch.ops import _build
 
     names = _build.kernel_names()
+    # a fresh build: ptxas reports registers and spills only while compiling
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.monotonic()
     libs = _build.build(names)
     secs = time.monotonic() - t0
@@ -249,16 +256,28 @@ def phase_build() -> dict:
                   f"{r.get('spill_stores', 'n/a')}/{r.get('spill_loads', 'n/a')} B static "
                   f"smem {r.get('static_smem', 'n/a')} B HGMMA {r.get('hgmma', 'n/a')} "
                   f"HMMA {r.get('hmma', 'n/a')}", flush=True)
-    smem = {}
-    for lib in ("flash_fwd", "splash_fwd"):
-        fwd = {fn: r for fn, r in res[lib].items() if "sm90_kernel" in fn}
-        check(bool(fwd) and all(r.get("hgmma", 0) > 0 for r in fwd.values()),
-              f"{lib}: a bf16 forward kernel without HGMMA (wgmma) in its SASS: {fwd}")
+    for lib in ("flash_fwd", "splash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        sm90 = {fn: r for fn, r in res[lib].items() if "sm90_kernel" in fn}
+        check(bool(sm90) and all(r.get("hgmma", 0) > 0 for r in sm90.values()),
+              f"{lib}: a bf16 kernel without HGMMA (wgmma) in its SASS: {sm90}")
         check(all(r.get("hmma", 0) == 0 for r in res[lib].values()),
               f"{lib}: mma.sync (HMMA) left in the library")
-        fn = ctypes.CDLL(str(libs[lib])).tdm_attn_fwd_smem_bytes
-        smem[lib] = {d: fn(d) for d in ((64, 80, 128) if lib == "flash_fwd" else (64, 128))}
-        print(f"[build]   {lib}: dynamic shared memory per CTA by head dim {smem[lib]} B",
+        if lib.startswith("flash_bwd"):
+            check(all("spill_stores" in r and "spill_loads" in r for r in sm90.values()),
+                  f"{lib}: ptxas reported no spills for a bf16 kernel: {sm90}")
+            check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                      for r in sm90.values()), f"{lib}: a bf16 kernel spills: {sm90}")
+    smem = {}
+    for lib, fn_name, keys in (
+            ("flash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (80,), (128,))),
+            ("splash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (128,))),
+            ("flash_bwd_dq", "tdm_flash_bwd_dq_smem_bytes", ((64,), (80,), (128,))),
+            ("flash_bwd_dkv", "tdm_flash_bwd_dkv_smem_bytes",
+             tuple((d, g) for d in (64, 80, 128) for g in (1, 2)))):
+        fn = getattr(ctypes.CDLL(str(libs[lib])), fn_name)
+        smem[lib] = {"/".join(map(str, key)): fn(*key) for key in keys}
+        print(f"[build]   {lib}: dynamic shared memory per CTA by head dim"
+              f"{' / consumer warpgroups' if lib == 'flash_bwd_dkv' else ''} {smem[lib]} B",
               flush=True)
     return {"resources": res, "dynamic_smem": smem}
 
@@ -410,8 +429,9 @@ def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys):
     only, and the products are counted per (query, unmasked key) pair:
       fwd_lse: q read, out written, K/V read, bias read, lse written;
                2 products (S, P·V) = 4·d operations per pair;
-      dq:      q, dO read, dQ written, K/V read, lse and Δ read, bias read;
-               3 products (S, dP, dS·K) = 6·d per pair;
+      dq:      q, dO and O read, dQ written, K/V read, lse read, Δ written,
+               bias read; 3 products (S, dP, dS·K) = 6·d per pair (Δ's
+               d multiply-adds per row are left out);
       dkv:     q, dO read, K/V read, dK and dV written in full, lse and Δ
                read, bias read; 4 products (S, Pᵀ·dO, dP, dSᵀ·Q) = 8·d."""
     rows = item_bytes * h * d * b * sq  # one [B,H,Sq,D] tensor
@@ -422,7 +442,7 @@ def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys):
     if kernel == "fwd_lse":
         return 2 * rows + 2 * kv + bias + row_f32, 4 * h * sq * d * live_keys
     if kernel == "dq":
-        return 3 * rows + 2 * kv + 2 * row_f32 + bias, 6 * h * sq * d * live_keys
+        return 4 * rows + 2 * kv + 2 * row_f32 + bias, 6 * h * sq * d * live_keys
     if kernel == "dkv":
         return (2 * rows + 2 * kv + 2 * full_k + 2 * row_f32 + bias,
                 8 * h * sq * d * live_keys)
@@ -461,11 +481,11 @@ def compare_lse(torch, got, ref) -> tuple:
 
 
 def phase_kernels_train(torch, seed: int) -> dict:
-    """The training kernels (forward with lse, dQ, dK/dV) against their
-    plain versions at the training shapes and a sweep, the fp32 gradients
-    of FlashAttention against autograd of plain_attention, exact zeros on
-    all-masked rows, and the times of each kernel, its plain version, its
-    bound and SDPA's forward + backward."""
+    """The training kernels (forward with lse, dQ with its fused Δ, dK/dV)
+    against their plain versions at the training shapes and a sweep, the fp32
+    gradients of FlashAttention against autograd of plain_attention, exact
+    zeros on all-masked rows, and the times of each kernel, its plain
+    version, its bound and SDPA's forward + backward."""
     import torch.nn.functional as F
 
     from tdm_tpu_torch.ops import attention as A
@@ -494,16 +514,18 @@ def phase_kernels_train(torch, seed: int) -> dict:
         out, lse = A.flash_attention_fwd_lse(qs, k, v, bias)
         ref_out, ref_lse = A.plain_attention_lse(qs, k, v, bias)
         # the backward kernels and their plain versions on the same inputs
-        delta = A.attention_delta(dout, ref_out)
-        dq = A.flash_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
-        dk, dv = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, delta)
-        # ... and driven by the forward kernel's own lse, as in training
-        dq_own = A.flash_attention_bwd_dq(qs, k, v, bias, dout, lse, delta, scale)
-        dk_own, dv_own = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, lse, delta)
+        # (the plain forward's output and lse; dK/dV fed the plain Δ)
+        ref_dq, ref_delta = A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_out, ref_lse,
+                                                     scale)
+        ref_dk, ref_dv = A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, ref_delta)
+        dq, delta = A.flash_attention_bwd_dq(qs, k, v, bias, dout, ref_out, ref_lse, scale)
+        dk, dv = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, ref_delta)
+        # ... and driven by the forward kernel's own output and lse and the
+        # dQ kernel's Δ, as in training
+        dq_own, delta_own = A.flash_attention_bwd_dq(qs, k, v, bias, dout, out, lse, scale)
+        dk_own, dv_own = A.flash_attention_bwd_dkv(qs, k, v, bias, dout, lse, delta_own)
         for w in A.WRAPPERS:  # comparison launches do not count
             w.launches = before[w.__name__]
-        ref_dq = A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_lse, delta, scale)
-        ref_dk, ref_dv = A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse, delta)
         torch.cuda.synchronize()
         dims = f"[{b},{h},{sq},{sk},{d}] {str(dtype).split('.')[-1]}"
         results = {
@@ -518,6 +540,16 @@ def phase_kernels_train(torch, seed: int) -> dict:
               f"{lse_err:.3e} (limit {LSE_TOL}; all-masked rows exactly +1e30)",
               flush=True)
         check(lse_bad is None, f"flash_fwd_lse {name}: {lse_bad}")
+        for label, got, ref in (("delta", delta, ref_delta),
+                                ("delta from the kernel's output", delta_own,
+                                 A.attention_delta(dout, out))):
+            err = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+            print(f"[kernels] flash_bwd_dq {name} {dims} {label}: max_abs_err {err:.3e} of "
+                  f"the largest |Δ| (limit {DELTA_TOL})", flush=True)
+            check(bool(torch.isfinite(got).all()) and err <= DELTA_TOL,
+                  f"flash_bwd_dq {name} {label}: {err:.3e} > {DELTA_TOL}")
+            recs["flash_bwd_dq"]["delta_max_err"] = max(
+                recs["flash_bwd_dq"].get("delta_max_err", 0.0), err)
         for kern, outs in results.items():
             for label, got, ref in outs:
                 check(bool(torch.isfinite(got).all()),
@@ -545,7 +577,6 @@ def phase_kernels_train(torch, seed: int) -> dict:
         live = sk * b if lengths is None else sum(lengths)
         stream = torch.cuda.current_stream().cuda_stream
         bp = None if bias is None else bias.data_ptr()
-        vec = int(d % 8 == 0)
         fwd, _ = A._entry("tdm_flash_fwd")
         fdq, _ = A._entry("tdm_flash_bwd_dq")
         fdkv, _ = A._entry("tdm_flash_bwd_dkv")
@@ -556,17 +587,17 @@ def phase_kernels_train(torch, seed: int) -> dict:
                 lambda: A.plain_attention_lse(qs, k, v, bias), "fwd_lse"),
             "flash_bwd_dq": (
                 lambda: fdq(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
-                            dout.data_ptr(), ref_lse.data_ptr(), delta.data_ptr(),
-                            dq.data_ptr(), b, h, sq, sk, d, scale, 1, vec, stream),
-                lambda: A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_lse,
-                                                 delta, scale), "dq"),
+                            dout.data_ptr(), ref_out.data_ptr(), ref_lse.data_ptr(),
+                            delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d, scale, 1,
+                            stream),
+                lambda: A.plain_attention_bwd_dq(qs, k, v, bias, dout, ref_out, ref_lse,
+                                                 scale), "dq"),
             "flash_bwd_dkv": (
                 lambda: fdkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bp,
-                             dout.data_ptr(), ref_lse.data_ptr(), delta.data_ptr(),
-                             dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, 1, vec,
-                             stream),
+                             dout.data_ptr(), ref_lse.data_ptr(), ref_delta.data_ptr(),
+                             dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, 1, stream),
                 lambda: A.plain_attention_bwd_dkv(qs, k, v, bias, dout, ref_lse,
-                                                  delta), "dkv"),
+                                                  ref_delta), "dkv"),
         }
         # the yardsticks (the port never calls them), on the same inputs:
         # SDPA's forward on inputs that require grad beside the lse forward,
@@ -600,14 +631,12 @@ def phase_kernels_train(torch, seed: int) -> dict:
                 "bytes": nbytes, "ops": ops})
             print(f"[kernels] {kern} {name} {spread(turns[kern])} ({ms / bound:.1f}x "
                   f"bound) plain_ms {plain_ms:.4f} bound_ms {bound:.5f} ({by})", flush=True)
-        delta_ms = time_ms(torch, lambda: A.attention_delta(dout, out))
-        port_ms = sum(times.values()) + delta_ms
+        port_ms = sum(times.values())
         sdpa_fwd_ms = turns["sdpa_fwd"]["median"]
         rec = recs["flash_fwd_lse"]["shapes"][-1]
         rec["library_ms"] = sdpa_fwd_ms
         rec["library_ms_range"] = [turns["sdpa_fwd"]["min"], turns["sdpa_fwd"]["max"]]
-        pair.append({"shape": name, "port_fwd_lse_delta_dq_dkv_ms": port_ms,
-                     "delta_ms": delta_ms,
+        pair.append({"shape": name, "port_fwd_lse_dq_dkv_ms": port_ms,
                      "dq_plus_dkv_ms": times["flash_bwd_dq"] + times["flash_bwd_dkv"],
                      "sdpa_bwd_ms": turns["sdpa_bwd"]["median"],
                      "sdpa_bwd_ms_range": [turns["sdpa_bwd"]["min"], turns["sdpa_bwd"]["max"]],
@@ -618,8 +647,8 @@ def phase_kernels_train(torch, seed: int) -> dict:
               f"SDPA's forward (grad) {spread(turns['sdpa_fwd'])}", flush=True)
         print(f"[kernels] training attention {name}: dq + dkv "
               f"{pair[-1]['dq_plus_dkv_ms']:.4f} ms vs SDPA backward alone "
-              f"{spread(turns['sdpa_bwd'])}; port lse forward + delta + dq + dkv "
-              f"{port_ms:.4f} ms (delta {delta_ms:.4f}) vs SDPA forward + backward "
+              f"{spread(turns['sdpa_bwd'])}; port lse forward + dq (delta fused) + dkv "
+              f"{port_ms:.4f} ms vs SDPA forward + backward "
               f"{spread(turns['sdpa_fwd_bwd'])}", flush=True)
     grad_check(torch, seed)
     return {"kernels": recs, "pair": pair}
@@ -1508,7 +1537,7 @@ def main(argv=None) -> int:
                  "[4,16,1024,120,72] (bf16)")
     no_lib = ("; library null: no one PyTorch call computes it alone (SDPA's "
               "backward alone against dQ + dK/dV, and SDPA forward + backward "
-              "against the port's lse forward + delta + dQ + dK/dV: "
+              "against the port's lse forward + dQ (delta fused) + dK/dV: "
               "training_attention)")
     kt, per_step = ktrain["kernels"], train["launches_per_step"]
     res = build["resources"]

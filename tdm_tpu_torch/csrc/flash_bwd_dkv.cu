@@ -7,202 +7,410 @@
 //   dV[j]   = sum_i P[i,j] dO[i]
 //   dK[j]   = sum_i P[i,j] (dO[i] . v[j] - delta[i]) q_scaled[i]
 // with q the forward's PRE-SCALED q, so dK = dS^T (scale Q) needs no further
-// scale; lse and delta = rowsum(dO * O) as in flash_bwd_dq.cu. P is rounded
-// to dO's dtype before dV and dS to q's dtype before dK, with fp32 sums, as
-// the TPU kernel rounds them. Query rows past Sq read lse = +1e30 (the
-// sentinel the TPU re-pads with, `:709-716`), so they contribute nothing.
-// The key bias gets no gradient.
+// scale; lse the forward's and delta = rowsum(dO * O) the dQ pass's
+// (flash_bwd_dq.cu). P is rounded to dO's dtype before dV and dS to q's
+// dtype before dK, with fp32 sums, as the TPU kernel rounds them. Query
+// rows past Sq read lse = +1e30 and delta = 0 (the sentinel the TPU
+// re-pads with, `:709-716`), so they contribute nothing. The key bias gets
+// no gradient.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
 //   * PixArt self-attention, B=4 H=16 S=1024 D=72: four products per
 //     (query, key) pair (S, dV, dP, dK) = 8*B*H*Sq*Sk*D = 38.7 GFLOP ->
-//     0.0391 ms, operations-bound.
-//   * cross-attention, Sk = 120 masked T5 tokens: 4.6 GFLOP against q and dO
-//     read (9.4 MB each in bf16) -> bytes-bound.
-// Design: the TPU kernel's grid (b·h, k-block, q-block) with dK/dV
-// accumulators carried across the sequential q axis becomes one block per
-// 64 key rows (16 per warp) that loops over 32-query tiles with both
-// accumulators in registers. Each block writes only its own key rows: no
-// atomics, deterministic. K and V stay in registers as A fragments; per
-// query tile, Q and dO are staged row-major (the B operands of S^T = K Q^T and
-// dP^T = V dO^T) and transposed (the B operands of dK += dS^T Q and
-// dV += P^T dO); all four products run on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate). The query tile is 32 rows, not 64, to
-// keep the two [16 x 80] fp32 accumulators plus the score tiles inside the
-// register file. Simple first version: one stage, no cp.async/TMA, no wgmma.
+//     0.0391 ms, operations-bound (57 MB moved -> 0.017 ms).
+//   * cross-attention, Sk = 120 masked T5 tokens (210 live keys over the
+//     batch): 2.0 GFLOP against q and dO read (9.4 MB each in bf16), dK and
+//     dV written -> bytes-bound, 0.0067 ms.
+// Design, the TMA ring and wgmma products of the forward
+// (attn_fwd_sm90.cuh) with the roles of queries and keys exchanged:
+//   * a CTA owns NWG x 64 key rows of one (b,h), one warpgroup per 64 keys
+//     (wgmma's M). The four accumulators (dK, dV, S^T, dP^T) need ~200
+//     registers a thread at D = 80 and ~245 at D = 128. A CTA of two
+//     consumer warpgroups and a producer (warp or warpgroup) is given
+//     registers for three warpgroups, 168 a thread; ptxas kept the consumers
+//     to that even after setmaxnreg (producer 40, consumers 232) and they
+//     spilled, and 288 threads with more registers each did not launch. So
+//     there is no producer warpgroup: warp 0 refills the ring between its
+//     own products, and 128 or 256 threads get up to 255 registers. Two
+//     warpgroups where the grid of 128-key CTAs fills the card; one where it
+//     would not (PixArt's cross shape: 64 pairs x 1 tile), which doubles the
+//     CTAs. No atomics: each CTA writes only its own key rows, so dK and dV
+//     are the same bits run to run;
+//   * TMA brings the K and V tiles once; the key bias of each warpgroup's
+//     rows (log2 units, -inf past Sk) is held in registers;
+//   * 64-query tiles of Q and dO stream through a ring of up to 6 stages
+//     with full/empty mbarriers. At the top of tile j, warp 0 waits until
+//     every warp has released tile j - 1 and refills its stage with tile
+//     j - 1 + stages: lane 0 issues the TMA loads, and the warp writes those
+//     rows' lse (log2 units) and delta, read a tile earlier, into the
+//     stage's slot, with lse = +1e30 and delta = 0 past Sq;
+//   * the scores are computed transposed, so that every product's A operand
+//     is already in registers: S^T = K Q^T and dP^T = V dO^T (SS wgmma, both
+//     K-major, issued together); P^T = exp2(S^T log2e + bias_row -
+//     lse_col log2e) and dS^T = P^T (dP^T - delta_col), rounded to bf16 in
+//     the A-operand layout; dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q
+//     read MN-major through the descriptor's transpose bit). One TMA copy of
+//     each Q and dO tile serves both of its products through two
+//     descriptors; P and dS never go through shared memory;
+//   * the epilogue rounds dK and dV to bf16 into the warpgroup's K and V
+//     rows (by then unused) and stores them with TMA, which clips keys >= Sk
+//     and columns >= D.
+// The (batch, head) pairs and key tiles share grid x, so B*H has no cap
+// below 2^31 / (key tiles).
 //
 // Layout: q/dO [B,H,Sq,D], k/v/dK/dV [B,H,Sk,D], contiguous; bias [B,Sk] fp32
-// or null. bf16 through the tensor-core kernel, fp32 through a scalar-FMA
-// kernel. C interface (ctypes): tdm_flash_bwd_dkv returns a cudaError_t code.
+// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 128 and
+// 16-byte aligned bases (the wrapper zero-pads D); fp32 goes through a
+// scalar-FMA kernel and takes any D in [1,128]. C interface (ctypes):
+// tdm_flash_bwd_dkv returns a cudaError_t code.
+
+#include <math.h>
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kBK = 64;       // key rows per block
-constexpr int kBQ = 32;       // query rows per tile
-constexpr int kQT = kBQ + 8;  // row stride of the transposed Q and dO tiles
+constexpr int kBQ = 64;  // query rows per Q/dO tile
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int H, int Sq, int Sk, int D, int vec) {
-  constexpr int RS = DP + 8;
-  constexpr int KSTEPS = DP / 16;
-  constexpr int NT = kBQ / 8;
-  constexpr int ND = DP / 8;
+// ---------------------------------------------------------------------------
+// bf16: the wgmma/TMA kernel
+// ---------------------------------------------------------------------------
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
-  const bf16* qg = q + (size_t)bh * Sq * D;
-  const bf16* dg = dout + (size_t)bh * Sq * D;
-  const bf16* kg = k + (size_t)bh * Sk * D;
-  const bf16* vg = v + (size_t)bh * Sk * D;
-  const float* lg = lse + (size_t)bh * Sq;
-  const float* dlg = delta + (size_t)bh * Sq;
+// The CTA at padded head dim DP with NWG consumer warpgroups, and its shared
+// memory in bytes from a 1024-aligned base: the K and V tiles [kBM rows],
+// each as panel 0 (64 columns) then panel 1 (W1 columns); per stage a Q and
+// a dO tile [kBQ rows] laid out the same way; per stage the lse and delta
+// slots [kBQ each]; the mbarriers.
+template <int DP, int NWG>
+struct DkvLayout {
+  static_assert(DP == 64 || DP == 80 || DP == 128, "padded head dim is 64, 80 or 128");
+  static_assert(NWG == 1 || NWG == 2, "one or two consumer warpgroups");
+  static constexpr int kBM = NWG * sm90::kWgRows;  // key rows per CTA
+  static constexpr int kThreads = NWG * 128;
+  static constexpr int W1 = DP - 64;
+  static constexpr int kRows = kBM * DP * 2;  // the K or the V tile
+  static constexpr int kP1 = kBM * 64 * 2;    // panel 1 within it
+  static constexpr int kK = 0, kV = kRows;
+  static constexpr int kTile = kBQ * DP * 2;  // one Q or dO tile
+  static constexpr int kStage0 = 2 * kRows;
+  // Up to 6 stages with two warpgroups (one CTA an SM either way); up to 4
+  // with one, so that two CTAs fit an SM (with one, at 6 stages, the self
+  // shape ran 1.6x slower).
+  static constexpr int kFit = (232448 - 2048 - kStage0) / (2 * kTile + 2 * kBQ * 4);
+  static constexpr int kMaxStages = NWG == 2 ? 6 : 4;
+  static constexpr int kStages = kFit > kMaxStages ? kMaxStages : kFit;
+  static_assert(kStages >= 2, "two stages fit");
+  static constexpr int kSlots = kStage0 + kStages * 2 * kTile;
+  static constexpr int kBars = kSlots + kStages * 2 * kBQ * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* kvs = reinterpret_cast<bf16*>(smem_raw);  // [K | V] tiles, read once
-  bf16* qs = kvs + 2 * kBK * RS;
-  bf16* ds_ = qs + kBQ * RS;
-  bf16* qt = ds_ + kBQ * RS;
-  bf16* dt = qt + DP * kQT;
-  float* ls = reinterpret_cast<float*>(dt + DP * kQT);
-  float* dls = ls + kBQ;
+// One 3-D map [D, S, B*H] per head-dim panel, box [64 or W1 columns,
+// kWgRows rows] (kBQ = kWgRows).
+struct DkvMaps {
+  CUtensorMap q[2], dout[2], k[2], v[2], dk[2], dv[2];
+};
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
+template <int DP, int NWG>
+__global__ void __launch_bounds__(DkvLayout<DP, NWG>::kThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __restrict__ bias,
+                          const float* __restrict__ lse, const float* __restrict__ delta, int H,
+                          int Sq, int Sk, int k_tiles) {
+  using namespace sm90;
+  using L = DkvLayout<DP, NWG>;
+  constexpr int W1 = L::W1;
+  constexpr int NST = L::kStages;
+  static_assert(kBQ == kWgRows, "Q/dO tiles and K/V rows share the box height");
 
-  load_rows<DP, kBK>(kvs, kg, k0, Sk, D, vec);
-  load_rows<DP, kBK>(kvs + kBK * RS, vg, k0, Sk, D, vec);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + NST;
+  uint64_t* kv_full = empty + NST;
+  float* slots = reinterpret_cast<float*>(smem + L::kSlots);  // per stage: lse, delta
+  const uint32_t base = smem_u32(smem);
+
+  const int bh = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * L::kBM;
+  const int n_tiles = (Sq + kBQ - 1) / kBQ;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 32);        // warp 0, after the slot
+      mbar_init(&empty[s], 4 * NWG);  // every warp
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
-  load_a_frags<DP>(kf, kvs + warp * 16 * RS, g, t);
-  load_a_frags<DP>(vf, kvs + (kBK + warp * 16) * RS, g, t);
 
-  const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;
-  const float* bg = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
-  const float bj0 = j0 < Sk ? (bg ? bg[j0] : 0.f) : kNegInf;
-  const float bj1 = j1 < Sk ? (bg ? bg[j1] : 0.f) : kNegInf;
-
-  float adk[ND][4], adv[ND][4];
+  // warp 0 reads the lse (log2 units) and delta of query tile j's rows,
+  // lane and lane + 32, into registers, and fills the tile's stage: the TMA
+  // loads of its Q and dO rows (lane 0) and the slot from those registers
+  static_assert(kBQ == 64, "two rows a lane");
+  const float* lrow = lse + (size_t)bh * Sq;
+  const float* drow = delta + (size_t)bh * Sq;
+  auto read_rows = [&](int j, float (&r)[4]) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    adk[n][0] = adk[n][1] = adk[n][2] = adk[n][3] = 0.f;
-    adv[n][0] = adv[n][1] = adv[n][2] = adv[n][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < Sq; q0 += kBQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<DP, kBQ>(qs, qg, q0, Sq, D, vec);
-    load_rows<DP, kBQ>(ds_, dg, q0, Sq, D, vec);
-    load_transposed<DP, kBQ>(qt, qg, q0, Sq, D, vec);
-    load_transposed<DP, kBQ>(dt, dg, q0, Sq, D, vec);
-    if (threadIdx.x < kBQ) {
-      const int i = q0 + threadIdx.x;
-      ls[threadIdx.x] = i < Sq ? lg[i] : kLseMasked;
-      dls[threadIdx.x] = i < Sq ? dlg[i] : 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int row = j * kBQ + lane + 32 * i;
+      r[i] = (row < Sq ? lrow[row] : kLseMasked) * kLog2e;
+      r[2 + i] = row < Sq ? drow[row] : 0.f;
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries each
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      const bf16* qr = qs + (n * 8 + g) * RS + t * 2;
-      const bf16* dr = ds_ + (n * 8 + g) * RS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        mma_16816(s[n], kf[kk], lds32(qr + kk * 16), lds32(qr + kk * 16 + 8));
-        mma_16816(dp[n], vf[kk], lds32(dr + kk * 16), lds32(dr + kk * 16 + 8));
+  };
+  auto fill = [&](int j, const float (&r)[4]) {
+    const int s = j % NST, q0 = j * kBQ;
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * L::kTile);
+      const uint32_t qt = base + L::kStage0 + s * 2 * L::kTile, dt = qt + L::kTile;
+      tma_load_3d(qt, &maps.q[0], &full[s], 0, q0, bh);
+      tma_load_3d(dt, &maps.dout[0], &full[s], 0, q0, bh);
+      if (W1) {
+        tma_load_3d(qt + kBQ * 128, &maps.q[1], &full[s], 64, q0, bh);
+        tma_load_3d(dt + kBQ * 128, &maps.dout[1], &full[s], 64, q0, bh);
       }
     }
-    // P^T (kept in s) and dS^T = P^T * (dP^T - delta) (kept in dp); the key
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      slots[s * 2 * kBQ + lane + 32 * i] = r[i];
+      slots[s * 2 * kBQ + kBQ + lane + 32 * i] = r[2 + i];
+    }
+    mbar_arrive(&full[s]);
+  };
+  float ahead[4];  // warp 0: the rows of the next tile it refills, read a tile early
+  if (threadIdx.x < 32) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kRows);
+      for (int w = 0; w < NWG; ++w) {
+        const int row = k0 + w * kWgRows;
+        tma_load_3d(base + L::kK + w * kWgRows * 128, &maps.k[0], kv_full, 0, row, bh);
+        tma_load_3d(base + L::kV + w * kWgRows * 128, &maps.v[0], kv_full, 0, row, bh);
+        if (W1) {
+          tma_load_3d(base + L::kK + L::kP1 + w * kWgRows * W1 * 2, &maps.k[1], kv_full, 64,
+                      row, bh);
+          tma_load_3d(base + L::kV + L::kP1 + w * kWgRows * W1 * 2, &maps.v[1], kv_full, 64,
+                      row, bh);
+        }
+      }
+    }
+    for (int j = 0; j < NST && j < n_tiles; ++j) {
+      read_rows(j, ahead);
+      fill(j, ahead);
+    }
+    if (NST < n_tiles) read_rows(NST, ahead);
+  }
+
+  // ---------------- consumers: 64 key rows per warpgroup ----------------
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // rows within this warpgroup's 64
+  const int key0 = k0 + wg * kWgRows + r0, key1 = key0 + 8;
+  const float* brow = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
+  const float b2_0 = key0 < Sk ? (brow ? brow[key0] * kLog2e : 0.f) : -INFINITY;
+  const float b2_1 = key1 < Sk ? (brow ? brow[key1] * kLog2e : 0.f) : -INFINITY;
+  const uint32_t k_p0 = base + L::kK + wg * kWgRows * 128;
+  const uint32_t k_p1 = base + L::kK + L::kP1 + wg * kWgRows * W1 * 2;
+  const uint32_t v_p0 = base + L::kV + wg * kWgRows * 128;
+  const uint32_t v_p1 = base + L::kV + L::kP1 + wg * kWgRows * W1 * 2;
+
+  float dk0[32], dv0[32];
+  float dk1[W1 ? W1 / 2 : 1], dv1[W1 ? W1 / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk0[i] = dv0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (W1 ? W1 / 2 : 1); ++i) dk1[i] = dv1[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (threadIdx.x < 32 && j >= 1 && j - 1 + NST < n_tiles) {
+      // every warp has released tile j - 1: its stage takes tile j - 1 + NST
+      mbar_wait(&empty[(j - 1) % NST], ((j - 1) / NST) & 1);
+      fill(j - 1 + NST, ahead);
+      if (j + NST < n_tiles) read_rows(j + NST, ahead);
+    }
+    __syncwarp();
+    const int s = j % NST;
+    mbar_wait(&full[s], (j / NST) & 1);
+    const uint32_t qt = base + L::kStage0 + s * 2 * L::kTile, dt = qt + L::kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, one commit group
+    float st[32], dpt[32];
+    wgmma_fence();
+    product_abt<DP>(st, k_p0, k_p1, qt);
+    product_abt<DP>(dpt, v_p0, v_p1, dt);
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      fence_operand(st[i]);
+      fence_operand(dpt[i]);
+    }
+
+    // P^T (kept in st) and dS^T = P^T (dP^T - delta) (kept in dpt): the key
     // bias runs along the rows here, lse and delta along the columns
+    const float* l2 = slots + s * 2 * kBQ;
+    const float* dl = l2 + kBQ;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < 8; ++n) {
       const int c = n * 8 + t * 2;
-      const float la = ls[c], lb = ls[c + 1], da = dls[c], db = dls[c + 1];
-      s[n][0] = __expf(s[n][0] + bj0 - la);
-      s[n][1] = __expf(s[n][1] + bj0 - lb);
-      s[n][2] = __expf(s[n][2] + bj1 - la);
-      s[n][3] = __expf(s[n][3] + bj1 - lb);
-      dp[n][0] = s[n][0] * (dp[n][0] - da);
-      dp[n][1] = s[n][1] * (dp[n][1] - db);
-      dp[n][2] = s[n][2] * (dp[n][2] - da);
-      dp[n][3] = s[n][3] * (dp[n][3] - db);
+      const float2 la = *reinterpret_cast<const float2*>(&l2[c]);
+      const float2 da = *reinterpret_cast<const float2*>(&dl[c]);
+      st[4 * n + 0] = exp2_approx(fmaf(st[4 * n + 0], kLog2e, b2_0 - la.x));
+      st[4 * n + 1] = exp2_approx(fmaf(st[4 * n + 1], kLog2e, b2_0 - la.y));
+      st[4 * n + 2] = exp2_approx(fmaf(st[4 * n + 2], kLog2e, b2_1 - la.x));
+      st[4 * n + 3] = exp2_approx(fmaf(st[4 * n + 3], kLog2e, b2_1 - la.y));
+      dpt[4 * n + 0] = st[4 * n + 0] * (dpt[4 * n + 0] - da.x);
+      dpt[4 * n + 1] = st[4 * n + 1] * (dpt[4 * n + 1] - da.y);
+      dpt[4 * n + 2] = st[4 * n + 2] * (dpt[4 * n + 2] - da.x);
+      dpt[4 * n + 3] = st[4 * n + 3] * (dpt[4 * n + 3] - da.y);
     }
-    // dV += P^T dO and dK += dS^T Q_scaled (P, dS rounded to bf16)
+    // P^T and dS^T rounded to bf16 in the A-operand layout (two adjacent
+    // 8-query column blocks form one 16-query step)
+    uint32_t pa[4][4], sa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const bf16* dr = dt + (n * 8 + g) * kQT + kk * 16 + t * 2;
-        const bf16* qr = qt + (n * 8 + g) * kQT + kk * 16 + t * 2;
-        mma_16816(adv[n], pa, lds32(dr), lds32(dr + 8));
-        mma_16816(adk[n], sa, lds32(qr), lds32(qr + 8));
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+        sa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
       }
     }
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      fence_operand(dk0[i]);
+      fence_operand(dv0[i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n64(dv0, pa[kk], panel_desc<64>(dt + kk * 16 * 128));
+      wgmma_rs_n64(dk0, sa[kk], panel_desc<64>(qt + kk * 16 * 128));
+      if constexpr (W1 == 16) {
+        wgmma_rs_n16(dv1, pa[kk], panel_desc<16>(dt + kBQ * 128 + kk * 16 * 32));
+        wgmma_rs_n16(dk1, sa[kk], panel_desc<16>(qt + kBQ * 128 + kk * 16 * 32));
+      } else if constexpr (W1 == 64) {
+        wgmma_rs_n64(dv1, pa[kk], panel_desc<64>(dt + kBQ * 128 + kk * 16 * 128));
+        wgmma_rs_n64(dk1, sa[kk], panel_desc<64>(qt + kBQ * 128 + kk * 16 * 128));
+      }
+    }
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(pa[kk][e]);
+        fence_operand(sa[kk][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      fence_operand(dk0[i]);
+      fence_operand(dv0[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
 
-  bf16* kog = dk + (size_t)bh * Sk * D;
-  bf16* vog = dv + (size_t)bh * Sk * D;
+  // epilogue: bf16 dK and dV into this warpgroup's K and V rows (its last
+  // products have completed) in the swizzled layout of the output maps
+  unsigned char* ks0 = smem + L::kK + wg * kWgRows * 128;
+  unsigned char* vs0 = smem + L::kV + wg * kWgRows * 128;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + t * 2;
-    if (j0 < Sk) {
-      if (c < D) {
-        kog[(size_t)j0 * D + c] = __float2bfloat16(adk[n][0]);
-        vog[(size_t)j0 * D + c] = __float2bfloat16(adv[n][0]);
-      }
-      if (c + 1 < D) {
-        kog[(size_t)j0 * D + c + 1] = __float2bfloat16(adk[n][1]);
-        vog[(size_t)j0 * D + c + 1] = __float2bfloat16(adv[n][1]);
-      }
+    *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r0, c)) = pack_bf16(dk0[4 * n], dk0[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r1, c)) =
+        pack_bf16(dk0[4 * n + 2], dk0[4 * n + 3]);
+    *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r0, c)) = pack_bf16(dv0[4 * n], dv0[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r1, c)) =
+        pack_bf16(dv0[4 * n + 2], dv0[4 * n + 3]);
+  }
+  if constexpr (W1 != 0) {
+    unsigned char* ks1 = smem + L::kK + L::kP1 + wg * kWgRows * W1 * 2;
+    unsigned char* vs1 = smem + L::kV + L::kP1 + wg * kWgRows * W1 * 2;
+#pragma unroll
+    for (int n = 0; n < W1 / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r0, c)) =
+          pack_bf16(dk1[4 * n], dk1[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r1, c)) =
+          pack_bf16(dk1[4 * n + 2], dk1[4 * n + 3]);
+      *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r0, c)) =
+          pack_bf16(dv1[4 * n], dv1[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r1, c)) =
+          pack_bf16(dv1[4 * n + 2], dv1[4 * n + 3]);
     }
-    if (j1 < Sk) {
-      if (c < D) {
-        kog[(size_t)j1 * D + c] = __float2bfloat16(adk[n][2]);
-        vog[(size_t)j1 * D + c] = __float2bfloat16(adv[n][2]);
-      }
-      if (c + 1 < D) {
-        kog[(size_t)j1 * D + c + 1] = __float2bfloat16(adk[n][3]);
-        vog[(size_t)j1 * D + c + 1] = __float2bfloat16(adv[n][3]);
-      }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+  if (warp == 0 && lane == 0) {
+    const int row = k0 + wg * kWgRows;
+    tma_store_3d(&maps.dk[0], k_p0, 0, row, bh);
+    tma_store_3d(&maps.dv[0], v_p0, 0, row, bh);
+    if (W1) {
+      tma_store_3d(&maps.dk[1], k_p1, 64, row, bh);
+      tma_store_3d(&maps.dv[1], v_p1, 64, row, bh);
     }
+    tma_store_commit_and_wait();
   }
 }
 
-template <int DP>
-struct LaunchBf16 {
-  static cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
-                         const void* dout, const float* lse, const float* delta, void* dk,
-                         void* dv, int B, int H, int Sq, int Sk, int D, int vec,
-                         cudaStream_t stream) {
-    const size_t smem = (size_t)((2 * kBK + 2 * kBQ) * (DP + 8) + 2 * DP * kQT) * 2 +
-                        2 * kBQ * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(B * H, (Sk + kBK - 1) / kBK);
-    flash_bwd_dkv_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        bias, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, Sq, Sk, D, vec);
-    return cudaGetLastError();
+template <int DP, int NWG>
+cudaError_t launch_bf16_groups(const void* q, const void* k, const void* v, const float* bias,
+                               const void* dout, const float* lse, const float* delta, void* dk,
+                               void* dv, int BH, int H, int Sq, int Sk, int D,
+                               cudaStream_t stream) {
+  using L = DkvLayout<DP, NWG>;
+  using sm90::encode_panel, sm90::kWgRows;
+  const int k_tiles = (Sk + L::kBM - 1) / L::kBM;
+  if ((long long)BH * k_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t err = sm90::bind_current_device();
+  if (err != cudaSuccess) return err;
+  DkvMaps maps;
+  bool ok = true;
+  for (int p = 0; p < (L::W1 ? 2 : 1); ++p) {
+    const int w = p == 0 ? 64 : L::W1;
+    ok = ok && encode_panel(&maps.q[p], q, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.dout[p], dout, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.k[p], k, D, Sk, BH, w, kWgRows) &&
+         encode_panel(&maps.v[p], v, D, Sk, BH, w, kWgRows) &&
+         encode_panel(&maps.dk[p], dk, D, Sk, BH, w, kWgRows) &&
+         encode_panel(&maps.dv[p], dv, D, Sk, BH, w, kWgRows);
   }
-};
+  if (!ok) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<DP, NWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_sm90_kernel<DP, NWG><<<BH * k_tiles, L::kThreads, L::kAlloc, stream>>>(
+      maps, bias, lse, delta, H, Sq, Sk, k_tiles);
+  return cudaGetLastError();
+}
 
+// Two warpgroups when the grid of 128-key CTAs covers the card's SMs, else
+// one (twice the CTAs, each with half the keys).
+template <int DP>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias,
+                        const void* dout, const float* lse, const float* delta, void* dk, void* dv,
+                        int BH, int H, int Sq, int Sk, int D, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if ((long long)BH * ((Sk + 127) / 128) >= sms)
+    return launch_bf16_groups<DP, 2>(q, k, v, bias, dout, lse, delta, dk, dv, BH, H, Sq, Sk, D,
+                                     stream);
+  return launch_bf16_groups<DP, 1>(q, k, v, bias, dout, lse, delta, dk, dv, BH, H, Sq, Sk, D,
+                                   stream);
+}
+
+// ---------------------------------------------------------------------------
 // fp32: scalar-FMA kernel. Block = 32 key rows of one (b,h), 4 lanes per
 // row (lane t owns columns t, t+4, ...); loop over 32-query tiles.
+// ---------------------------------------------------------------------------
+
 constexpr int kFR = 32;
 constexpr int kFQ = 32;
 
@@ -286,8 +494,7 @@ template <int NJ>
 struct LaunchF32 {
   static cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
                          const void* dout, const float* lse, const float* delta, void* dk,
-                         void* dv, int B, int H, int Sq, int Sk, int D, int /*vec*/,
-                         cudaStream_t stream) {
+                         void* dv, int B, int H, int Sq, int Sk, int D, cudaStream_t stream) {
     dim3 grid(B * H, (Sk + kFR - 1) / kFR);
     flash_bwd_dkv_f32_kernel<NJ><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -301,23 +508,45 @@ struct LaunchF32 {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 when D % 8 == 0 and every bf16
-// pointer is 16-byte aligned. Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16. delta: the [B,H,Sq] fp32 rowsum(dO * O)
+// that tdm_flash_bwd_dq wrote. Returns a cudaError_t code.
 int tdm_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                       const void* dout, const float* lse, const float* delta, void* dk, void* dv,
-                      int batch, int heads, int sq, int sk, int d, int dtype, int vec,
-                      void* stream) {
+                      int batch, int heads, int sq, int sk, int d, int dtype, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
-      (sk + kFR - 1) / kFR > 65535)
+      (long long)batch * heads > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)by_padded_dim_bf16<LaunchBf16>(d, q, k, v, bias, dout, lse, delta, dk, dv, batch,
-                                               heads, sq, sk, d, vec, s);
-  if (dtype == 0)
+  const int bh = batch * heads;
+  if (dtype == 1) {
+    if (d % 8 != 0 || !sm90::aligned16({q, k, v, dout, dk, dv}))
+      return (int)cudaErrorInvalidValue;
+    if (d <= 64)
+      return (int)launch_bf16<64>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
+                                  s);
+    if (d <= 80)
+      return (int)launch_bf16<80>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
+                                  s);
+    return (int)launch_bf16<128>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
+                                 s);
+  }
+  if (dtype == 0) {
+    if ((sk + kFR - 1) / kFR > 65535) return (int)cudaErrorInvalidValue;
     return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, dout, lse, delta, dk, dv, batch,
-                                             heads, sq, sk, d, vec, s);
+                                             heads, sq, sk, d, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+// Dynamic shared memory of one bf16 CTA at head dim d with `groups` (1 or
+// 2) consumer warpgroups (the -Xptxas -v report counts static shared
+// memory only).
+extern "C" int tdm_flash_bwd_dkv_smem_bytes(int d, int groups) {
+  if (groups == 2)
+    return d <= 64 ? DkvLayout<64, 2>::kAlloc : d <= 80 ? DkvLayout<80, 2>::kAlloc
+                                                          : DkvLayout<128, 2>::kAlloc;
+  return d <= 64 ? DkvLayout<64, 1>::kAlloc : d <= 80 ? DkvLayout<80, 1>::kAlloc
+                                                        : DkvLayout<128, 1>::kAlloc;
+}

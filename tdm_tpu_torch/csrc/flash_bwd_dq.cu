@@ -1,178 +1,383 @@
-// Flash-attention backward, the dQ pass, for Hopper (sm_90a).
+// Flash-attention backward, the dQ pass with Δ fused, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_bwd_dq_kernel`
-// (tdm_tpu/ops/attention.py:600-632, `pallas_call` :744 in `_bwd_core`).
+// (tdm_tpu/ops/attention.py:600-632, `pallas_call` :744 in `_bwd_core`) and
+// the XLA sum that feeds it, Δ = rowsum(dO ∘ O) (`_bwd_core` :718-724).
 // Same function, per (b,h) and query row i:
-//   P[i,j]  = exp(q_scaled[i] . k[j] + bias[j] - lse[i])
-//   dS[i,j] = P[i,j] * (dO[i] . v[j] - delta[i])
-//   dQ[i]   = scale * sum_j dS[i,j] k[j]
-// with q the forward's PRE-SCALED q (so the logits match the forward's
-// bit for bit and P renormalises exactly against its lse), lse the forward's
-// [B,H,Sq] fp32 output (+1e30 on all-masked rows, so their P and dQ are 0),
-// and delta = rowsum(dO * O) [B,H,Sq] fp32, computed outside (the JAX package
-// leaves it to XLA, `:718-724`). dS is rounded to q's dtype before the
-// product with K and every sum is fp32, as on the TPU; `scale` is applied
-// once, here, which makes dQ the gradient with respect to the unscaled q.
+//   delta[i] = sum_d dO[i,d] O[i,d]                   (fp32, written out)
+//   P[i,j]   = exp(q_scaled[i] . k[j] + bias[j] - lse[i])
+//   dS[i,j]  = P[i,j] * (dO[i] . v[j] - delta[i])
+//   dQ[i]    = scale * sum_j dS[i,j] k[j]
+// with q the forward's PRE-SCALED q (so the logits match the forward's bit
+// for bit and P renormalises against its lse), O and lse the forward's
+// outputs (lse +1e30 on all-masked rows, so their P and dQ are 0). dS is
+// rounded to q's dtype before the product with K and every sum is fp32, as
+// on the TPU; `scale` is applied once, here, which makes dQ the gradient
+// with respect to the unscaled q. The dK/dV pass (flash_bwd_dkv.cu) reads
+// the delta this pass writes.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
 //   * PixArt self-attention, B=4 H=16 S=1024 D=72: three products per
 //     (query, key) pair (S, dP, dQ) = 6*B*H*Sq*Sk*D = 29.0 GFLOP -> 0.0293 ms,
-//     operations-bound (q, k, v, dO, dQ, lse, delta: 47 MB -> 0.014 ms).
-//   * cross-attention, Sk = 120 masked T5 tokens: 3.5 GFLOP against q, dO,
-//     dQ (9.4 MB each in bf16) -> bytes-bound.
-// Design: the TPU kernel's grid (b·h, q-block, k-block) with an accumulator
-// carried across the sequential k axis becomes one block per 64 query rows
-// that loops over 64-key tiles with the dQ accumulator in registers. Each
-// block writes only its own rows: no atomics, and dQ is the same bits run to
-// run. Q and dO stay in registers as A fragments; per key tile, K is staged
-// twice (row-major for S = Q K^T, transposed for dQ += dS K) and V row-major
-// for dP = dO V^T, D zero-padded to a multiple of 16 in shared memory only
-// (72 -> 80); all three products run on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate). Ragged keys get the -1e30 bias and
-// zero K/V rows; query rows past Sq read lse = +1e30 and are not written.
-// Simple first version: one stage, no cp.async/TMA, no wgmma.
+//     operations-bound (q, dO, O, k, v read, dQ written: 57 MB -> 0.017 ms).
+//   * cross-attention, Sk = 120 masked T5 tokens (210 live keys over the
+//     batch): 1.5 GFLOP against q, dO and O read and dQ written (9.4 MB each
+//     in bf16) -> bytes-bound, 0.0117 ms.
+// Design, the warp-specialised shape of the forward (attn_fwd_sm90.cuh):
+//   * a CTA owns 128 query rows of one (b,h): two consumer warpgroups of 64
+//     rows (wgmma's M) and a producer warpgroup, one warp of which issues
+//     TMA; setmaxnreg moves registers from the producer (24) to the
+//     consumers (240). No atomics: each CTA writes only its own rows, so dQ
+//     and delta are the same bits run to run;
+//   * TMA brings the Q, dO and O tiles once; the prologue computes delta for
+//     the CTA's rows from O and dO in shared memory, stores it and keeps it
+//     in registers beside the rows' lse, so no separate pass reads O;
+//   * K/V tiles of kBN keys stream through a ring of up to 4 stages with
+//     full/empty mbarriers; the producer warp writes each tile's key bias
+//     (in log2 units, -inf past Sk) into a per-stage slot;
+//   * per tile, S = Q K^T and dP = dO V^T are SS wgmma (both operands
+//     K-major), issued together; P = exp2(S log2e + bias - lse log2e) and
+//     dS = P (dP - delta) are formed in registers and rounded to bf16 in the
+//     A-operand layout of dQ += dS K, an RS wgmma that reads the same K tile
+//     MN-major through the descriptor's transpose bit (the forward reads V
+//     so): K is staged once;
+//   * the head dim lives in panels (64 columns with the 128-byte swizzle, 16
+//     with the 32-byte swizzle for D = 72 -> 80, or a second 64); TMA
+//     zero-fills past D and past S;
+//   * the epilogue scales dQ, rounds it to bf16 into the warpgroup's Q rows
+//     (by then unused) and stores it with TMA, which clips rows >= Sq and
+//     columns >= D.
+// The (batch, head) pairs and query tiles share grid x, so B*H has no cap
+// below 2^31 / (query tiles).
 //
-// Layout: q/dO/dQ [B,H,Sq,D], k/v [B,H,Sk,D], contiguous; bias [B,Sk] fp32 or
-// null. bf16 through the tensor-core kernel, fp32 through a scalar-FMA kernel.
-// C interface (ctypes): tdm_flash_bwd_dq returns a cudaError_t code.
+// Layout: q/dO/O/dQ [B,H,Sq,D], k/v [B,H,Sk,D], contiguous; bias [B,Sk] fp32
+// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 128 and
+// 16-byte aligned bases (the wrapper zero-pads D); fp32 goes through a
+// scalar-FMA kernel that fuses delta the same way and takes any D in
+// [1,128]. C interface (ctypes): tdm_flash_bwd_dq returns a cudaError_t code.
+
+#include <math.h>
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kKT = kBK + 8;  // row stride of the transposed K tile
+// Keys per K/V tile of the bf16 kernel. With 128 keys, S and dP take 64
+// fp32 registers a thread each beside dQ's 40 at D = 80; such a build
+// spilled 388 B and took 1.39x as long at the PixArt self shape on an H100.
+constexpr int kBN = 64;
 
+// ---------------------------------------------------------------------------
+// bf16: the wgmma/TMA kernel
+// ---------------------------------------------------------------------------
+
+// The CTA at padded head dim DP, and its shared memory in bytes from a
+// 1024-aligned base: the Q, dO and O tiles [kBM rows], each as panel 0 (64
+// columns) then panel 1 (W1 columns); per stage a K and a V tile [kBN rows]
+// laid out the same way; the bias slots; the mbarriers.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Sq,
-                         int Sk, int D, float scale, int vec) {
-  constexpr int RS = DP + 8;
-  constexpr int KSTEPS = DP / 16;
-  constexpr int NT = kBK / 8;
-  constexpr int ND = DP / 8;
+struct DqLayout {
+  static_assert(DP == 64 || DP == 80 || DP == 128, "padded head dim is 64, 80 or 128");
+  static constexpr int kGroups = 2;                    // consumer warpgroups
+  static constexpr int kBM = kGroups * sm90::kWgRows;  // query rows per CTA
+  static constexpr int kThreads = (kGroups + 1) * 128;
+  static constexpr int W1 = DP - 64;
+  static constexpr int kRows = kBM * DP * 2;  // one row tile
+  static constexpr int kP1 = kBM * 64 * 2;    // panel 1 within a row tile
+  static constexpr int kQ = 0, kDO = kRows, kO = 2 * kRows;
+  static constexpr int kTile = kBN * DP * 2;  // one K or V tile
+  static constexpr int kStage0 = 3 * kRows;
+  static constexpr int kFit = (232448 - 2048 - kStage0) / (2 * kTile + kBN * 4);
+  static constexpr int kStages = kFit > 4 ? 4 : kFit;
+  static_assert(kStages >= 2, "two stages fit");
+  static constexpr int kBias = kStage0 + kStages * 2 * kTile;
+  static constexpr int kBars = kBias + kStages * kBN * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const bf16* qg = q + (size_t)bh * Sq * D;
-  const bf16* dg = dout + (size_t)bh * Sq * D;
-  const bf16* kg = k + (size_t)bh * Sk * D;
-  const bf16* vg = v + (size_t)bh * Sk * D;
-  const float* bg = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
+// One 3-D map [D, S, B*H] per head-dim panel: box [64 or W1 columns,
+// kWgRows rows] for the row tensors, [.., kBN rows] for k and v.
+struct DqMaps {
+  CUtensorMap q[2], dout[2], out[2], dq[2], k[2], v[2];
+};
 
-  // [Q | dO] first, then reused as [K | V] once the fragments are in registers
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kBK * RS;
-  bf16* kt = vs + kBK * RS;
-  float* bs = reinterpret_cast<float*>(kt + DP * kKT);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_rows<DP, kBQ>(ks, qg, q0, Sq, D, vec);
-  load_rows<DP, kBQ>(vs, dg, q0, Sq, D, vec);
-  __syncthreads();
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];
-  load_a_frags<DP>(qf, ks + warp * 16 * RS, g, t);
-  load_a_frags<DP>(df, vs + warp * 16 * RS, g, t);
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float* lg = lse + (size_t)bh * Sq;
-  const float* dlg = delta + (size_t)bh * Sq;
-  const float lse0 = r0 < Sq ? lg[r0] : kLseMasked, lse1 = r1 < Sq ? lg[r1] : kLseMasked;
-  const float dl0 = r0 < Sq ? dlg[r0] : 0.f, dl1 = r1 < Sq ? dlg[r1] : 0.f;
-
-  float acc[ND][4];
+// The sum over this lane's column pairs (c = 8n + 2t) of row r of two bf16
+// row tiles in the panel layout (dO and O): the lane's part of delta.
+template <int DP>
+__device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned char* b, int r,
+                                         int t) {
+  using sm90::swizzled;
+  constexpr int W1 = DqLayout<DP>::W1;
+  constexpr int kP1 = DqLayout<DP>::kP1;
+  float acc = 0.f;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBK) {
-    __syncthreads();  // the fragments (first tile) or the previous tile are read
-    load_rows<DP, kBK>(ks, kg, k0, Sk, D, vec);
-    load_rows<DP, kBK>(vs, vg, k0, Sk, D, vec);
-    load_transposed<DP, kBK>(kt, kg, k0, Sk, D, vec);
-    if (threadIdx.x < kBK) {
-      const int j = k0 + threadIdx.x;
-      bs[threadIdx.x] = j < Sk ? (bg ? bg[j] : 0.f) : kNegInf;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys each
-    float s[NT][4], dp[NT][4];
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t off = swizzled<64>(r, n * 8 + t * 2);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + off));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + off));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  if constexpr (W1 != 0) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      const bf16* kr = ks + (n * 8 + g) * RS + t * 2;
-      const bf16* vr = vs + (n * 8 + g) * RS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        mma_16816(s[n], qf[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-        mma_16816(dp[n], df[kk], lds32(vr + kk * 16), lds32(vr + kk * 16 + 8));
-      }
-    }
-    // dS = P * (dP - delta), P = exp(S + bias - lse); kept in s
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float b0 = bs[n * 8 + t * 2], b1 = bs[n * 8 + t * 2 + 1];
-      s[n][0] = __expf(s[n][0] + b0 - lse0) * (dp[n][0] - dl0);
-      s[n][1] = __expf(s[n][1] + b1 - lse0) * (dp[n][1] - dl0);
-      s[n][2] = __expf(s[n][2] + b0 - lse1) * (dp[n][2] - dl1);
-      s[n][3] = __expf(s[n][3] + b1 - lse1) * (dp[n][3] - dl1);
-    }
-    // dQ += dS K, dS rounded to bf16 (q's dtype)
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const bf16* kr = kt + (n * 8 + g) * kKT + kk * 16 + t * 2;
-        mma_16816(acc[n], a, lds32(kr), lds32(kr + 8));
-      }
+    for (int n = 0; n < W1 / 8; ++n) {
+      const uint32_t off = kP1 + swizzled<W1>(r, n * 8 + t * 2);
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + off));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + off));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
     }
   }
+  return acc;
+}
 
-  bf16* og = dq + (size_t)bh * Sq * D;
+template <int DP>
+__global__ void __launch_bounds__(DqLayout<DP>::kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __restrict__ bias,
+                         const float* __restrict__ lse, float* __restrict__ delta, int H, int Sq,
+                         int Sk, int q_tiles, float scale) {
+  using namespace sm90;
+  using L = DqLayout<DP>;
+  constexpr int W1 = L::W1;
+  constexpr int NST = L::kStages;
+  constexpr int NWG = L::kGroups;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + NST;
+  uint64_t* rows_full = empty + NST;
+  float* bias_s = reinterpret_cast<float*>(smem + L::kBias);
+  const uint32_t base = smem_u32(smem);
+
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * L::kBM;
+  const int n_tiles = (Sk + kBN - 1) / kBN;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 32);        // the producer warp, after the bias slot
+      mbar_init(&empty[s], 4 * NWG);  // every consumer warp
+    }
+    mbar_init(rows_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(rows_full, 3 * L::kRows);
+      const CUtensorMap* srcs[3][2] = {{&maps.q[0], &maps.q[1]},
+                                       {&maps.dout[0], &maps.dout[1]},
+                                       {&maps.out[0], &maps.out[1]}};
+      for (int x = 0; x < 3; ++x) {
+        const uint32_t tile = base + x * L::kRows;
+        for (int w = 0; w < NWG; ++w) {
+          const int row = q0 + w * kWgRows;
+          tma_load_3d(tile + w * kWgRows * 128, srcs[x][0], rows_full, 0, row, bh);
+          if (W1)
+            tma_load_3d(tile + L::kP1 + w * kWgRows * W1 * 2, srcs[x][1], rows_full, 64, row,
+                        bh);
+        }
+      }
+    }
+    const float* brow = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % NST;
+      if (j >= NST) mbar_wait(&empty[s], ((j / NST) & 1) ^ 1);
+      const int k0 = j * kBN;
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * L::kTile);
+        const uint32_t kt = base + L::kStage0 + s * 2 * L::kTile, vt = kt + L::kTile;
+        tma_load_3d(kt, &maps.k[0], &full[s], 0, k0, bh);
+        tma_load_3d(vt, &maps.v[0], &full[s], 0, k0, bh);
+        if (W1) {
+          tma_load_3d(kt + kBN * 128, &maps.k[1], &full[s], 64, k0, bh);
+          tma_load_3d(vt + kBN * 128, &maps.v[1], &full[s], 64, k0, bh);
+        }
+      }
+      for (int i = lane; i < kBN; i += 32) {
+        const int key = k0 + i;
+        bias_s[s * kBN + i] = key < Sk ? (brow ? brow[key] * kLog2e : 0.f) : -INFINITY;
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---------------- consumers: 64 query rows per warpgroup ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // rows within this warpgroup's 64
+  const int row0 = q0 + wg * kWgRows + r0, row1 = row0 + 8;
+  const uint32_t q_p0 = base + L::kQ + wg * kWgRows * 128;
+  const uint32_t q_p1 = base + L::kQ + L::kP1 + wg * kWgRows * W1 * 2;
+  const uint32_t do_p0 = base + L::kDO + wg * kWgRows * 128;
+  const uint32_t do_p1 = base + L::kDO + L::kP1 + wg * kWgRows * W1 * 2;
+  // the rows' lse in log2 units; +1e30 past Sq, so P = 0 there
+  const float* lrow = lse + (size_t)bh * Sq;
+  const float l2_0 = (row0 < Sq ? lrow[row0] : kLseMasked) * kLog2e;
+  const float l2_1 = (row1 < Sq ? lrow[row1] : kLseMasked) * kLog2e;
+
+  mbar_wait(rows_full, 0);
+  // delta of rows r0, r1: this lane's column pairs, then the quad's sum
+  float dl0, dl1;
+  {
+    const unsigned char* dos = smem + L::kDO;
+    const unsigned char* os = smem + L::kO;
+    const int wr = wg * kWgRows;  // the warpgroup's first row within the tile
+    dl0 = quad_sum(row_dot<DP>(dos, os, wr + r0, t));
+    dl1 = quad_sum(row_dot<DP>(dos, os, wr + r1, t));
+  }
+  if (t == 0) {
+    float* drow = delta + (size_t)bh * Sq;
+    if (row0 < Sq) drow[row0] = dl0;
+    if (row1 < Sq) drow[row1] = dl1;
+  }
+
+  float dq0[32];
+  float dq1[W1 ? W1 / 2 : 1];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+  for (int i = 0; i < 32; ++i) dq0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (W1 ? W1 / 2 : 1); ++i) dq1[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NST;
+    mbar_wait(&full[s], (j / NST) & 1);
+    const uint32_t kt = base + L::kStage0 + s * 2 * L::kTile, vt = kt + L::kTile;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x kBN keys each, one commit group
+    float sc[kBN / 2], dp[kBN / 2];
+    wgmma_fence();
+    product_abt<DP>(sc, q_p0, q_p1, kt);
+    product_abt<DP>(dp, do_p0, do_p1, vt);
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      fence_operand(sc[i]);
+      fence_operand(dp[i]);
+    }
+
+    // dS = P (dP - delta), P = exp2(S log2e + bias - lse log2e), kept in sc
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+      const float2 b = *reinterpret_cast<const float2*>(&bias_s[s * kBN + n * 8 + t * 2]);
+      sc[4 * n + 0] = exp2_approx(fmaf(sc[4 * n + 0], kLog2e, b.x - l2_0)) * (dp[4 * n + 0] - dl0);
+      sc[4 * n + 1] = exp2_approx(fmaf(sc[4 * n + 1], kLog2e, b.y - l2_0)) * (dp[4 * n + 1] - dl0);
+      sc[4 * n + 2] = exp2_approx(fmaf(sc[4 * n + 2], kLog2e, b.x - l2_1)) * (dp[4 * n + 2] - dl1);
+      sc[4 * n + 3] = exp2_approx(fmaf(sc[4 * n + 3], kLog2e, b.y - l2_1)) * (dp[4 * n + 3] - dl1);
+    }
+    // dQ += dS K: dS rounded to bf16 in the A-operand layout (the
+    // accumulators of two adjacent 8-key column blocks form one 16-key
+    // step); K read MN-major, as the forward reads V
+    uint32_t da[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      da[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      da[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      da[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      da[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_operand(dq0[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      wgmma_rs_n64(dq0, da[kk], panel_desc<64>(kt + kk * 16 * 128));
+      if constexpr (W1 == 16)
+        wgmma_rs_n16(dq1, da[kk], panel_desc<16>(kt + kBN * 128 + kk * 16 * 32));
+      else if constexpr (W1 == 64)
+        wgmma_rs_n64(dq1, da[kk], panel_desc<64>(kt + kBN * 128 + kk * 16 * 128));
+    }
+    wgmma_commit_and_wait();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_operand(da[kk][e]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_operand(dq0[i]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+  }
+
+  // epilogue: scale dQ, bf16 into this warpgroup's Q rows (its last S
+  // product has completed) in the swizzled layout of the output maps
+  unsigned char* qs0 = smem + L::kQ + wg * kWgRows * 128;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + t * 2;
-    if (r0 < Sq) {
-      if (c < D) og[(size_t)r0 * D + c] = __float2bfloat16(acc[n][0] * scale);
-      if (c + 1 < D) og[(size_t)r0 * D + c + 1] = __float2bfloat16(acc[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(qs0 + swizzled<64>(r0, c)) =
+        pack_bf16(dq0[4 * n + 0] * scale, dq0[4 * n + 1] * scale);
+    *reinterpret_cast<uint32_t*>(qs0 + swizzled<64>(r1, c)) =
+        pack_bf16(dq0[4 * n + 2] * scale, dq0[4 * n + 3] * scale);
+  }
+  if constexpr (W1 != 0) {
+    unsigned char* qs1 = smem + L::kQ + L::kP1 + wg * kWgRows * W1 * 2;
+#pragma unroll
+    for (int n = 0; n < W1 / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      *reinterpret_cast<uint32_t*>(qs1 + swizzled<W1>(r0, c)) =
+          pack_bf16(dq1[4 * n + 0] * scale, dq1[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(qs1 + swizzled<W1>(r1, c)) =
+          pack_bf16(dq1[4 * n + 2] * scale, dq1[4 * n + 3] * scale);
     }
-    if (r1 < Sq) {
-      if (c < D) og[(size_t)r1 * D + c] = __float2bfloat16(acc[n][2] * scale);
-      if (c + 1 < D) og[(size_t)r1 * D + c + 1] = __float2bfloat16(acc[n][3] * scale);
-    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+  if (warp == 0 && lane == 0) {
+    const int row = q0 + wg * kWgRows;
+    tma_store_3d(&maps.dq[0], q_p0, 0, row, bh);
+    if (W1) tma_store_3d(&maps.dq[1], q_p1, 64, row, bh);
+    tma_store_commit_and_wait();
   }
 }
 
 template <int DP>
-struct LaunchBf16 {
-  static cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
-                         const void* dout, const float* lse, const float* delta, void* dq, int B,
-                         int H, int Sq, int Sk, int D, float scale, int vec, cudaStream_t stream) {
-    const size_t smem = (size_t)(2 * kBK * (DP + 8) + DP * kKT) * 2 + kBK * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-    flash_bwd_dq_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        bias, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, D,
-        scale, vec);
-    return cudaGetLastError();
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float* bias,
+                        const void* dout, const void* out, const float* lse, float* delta,
+                        void* dq, int BH, int H, int Sq, int Sk, int D, float scale,
+                        cudaStream_t stream) {
+  using L = DqLayout<DP>;
+  using sm90::encode_panel, sm90::kWgRows;
+  const int q_tiles = (Sq + L::kBM - 1) / L::kBM;
+  if ((long long)BH * q_tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t err = sm90::bind_current_device();
+  if (err != cudaSuccess) return err;
+  DqMaps maps;
+  bool ok = true;
+  for (int p = 0; p < (L::W1 ? 2 : 1); ++p) {
+    const int w = p == 0 ? 64 : L::W1;
+    ok = ok && encode_panel(&maps.q[p], q, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.dout[p], dout, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.out[p], out, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.dq[p], dq, D, Sq, BH, w, kWgRows) &&
+         encode_panel(&maps.k[p], k, D, Sk, BH, w, kBN) &&
+         encode_panel(&maps.v[p], v, D, Sk, BH, w, kBN);
   }
-};
+  if (!ok) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_sm90_kernel<DP><<<BH * q_tiles, L::kThreads, L::kAlloc, stream>>>(
+      maps, bias, lse, delta, H, Sq, Sk, q_tiles, scale);
+  return cudaGetLastError();
+}
 
+// ---------------------------------------------------------------------------
 // fp32: scalar-FMA kernel. Block = 32 query rows of one (b,h), 4 lanes per
-// row (lane t owns columns t, t+4, ...); loop over 32-key tiles.
+// row (lane t owns columns t, t+4, ...); delta from the rows of dO and O,
+// then a loop over 32-key tiles.
+// ---------------------------------------------------------------------------
+
 constexpr int kFR = 32;
 constexpr int kFK = 32;
 
@@ -180,9 +385,9 @@ template <int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
-                        const float* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq, int H, int Sq,
-                        int Sk, int D, float scale) {
+                        const float* __restrict__ dout, const float* __restrict__ out,
+                        const float* __restrict__ lse, float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int Sq, int Sk, int D, float scale) {
   constexpr int DPAD = NJ * 4;
   __shared__ float ks[kFK][DPAD];
   __shared__ float vs[kFK][DPAD];
@@ -193,21 +398,25 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int t = threadIdx.x % 4;
   const float* qg = q + (size_t)bh * Sq * D;
   const float* dg = dout + (size_t)bh * Sq * D;
+  const float* og = out + (size_t)bh * Sq * D;
   const float* kg = k + (size_t)bh * Sk * D;
   const float* vg = v + (size_t)bh * Sk * D;
   const float* bg = bias ? bias + (size_t)(bh / H) * Sk : nullptr;
 
   float qr[NJ], dr[NJ], acc[NJ];
+  float part = 0.f;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int c = j * 4 + t;
     const bool in = row < Sq && c < D;
     qr[j] = in ? qg[(size_t)row * D + c] : 0.f;
     dr[j] = in ? dg[(size_t)row * D + c] : 0.f;
+    part = fmaf(dr[j], in ? og[(size_t)row * D + c] : 0.f, part);
     acc[j] = 0.f;
   }
+  const float dl = quad_sum(part);
+  if (row < Sq && t == 0) delta[(size_t)bh * Sq + row] = dl;
   const float lr = row < Sq ? lse[(size_t)bh * Sq + row] : kLseMasked;
-  const float dl = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
 
   for (int k0 = 0; k0 < Sk; k0 += kFK) {
     __syncthreads();
@@ -247,14 +456,15 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 template <int NJ>
 struct LaunchF32 {
   static cudaError_t run(const void* q, const void* k, const void* v, const float* bias,
-                         const void* dout, const float* lse, const float* delta, void* dq, int B,
-                         int H, int Sq, int Sk, int D, float scale, int /*vec*/,
+                         const void* dout, const void* out, const float* lse, float* delta,
+                         void* dq, int B, int H, int Sq, int Sk, int D, float scale,
                          cudaStream_t stream) {
     dim3 grid(B * H, (Sq + kFR - 1) / kFR);
     flash_bwd_dq_f32_kernel<NJ><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias, static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dq), H, Sq, Sk, D, scale);
+        static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+        static_cast<const float*>(out), lse, delta, static_cast<float*>(dq), H, Sq, Sk, D,
+        scale);
     return cudaGetLastError();
   }
 };
@@ -263,23 +473,44 @@ struct LaunchF32 {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. vec: 1 when D % 8 == 0 and every bf16
-// pointer is 16-byte aligned. Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16. out: the forward's output; delta: the
+// [B,H,Sq] fp32 output that receives rowsum(dO * O). Returns a cudaError_t
+// code.
 int tdm_flash_bwd_dq(const void* q, const void* k, const void* v, const float* bias,
-                     const void* dout, const float* lse, const float* delta, void* dq, int batch,
-                     int heads, int sq, int sk, int d, float scale, int dtype, int vec,
+                     const void* dout, const void* out, const float* lse, float* delta, void* dq,
+                     int batch, int heads, int sq, int sk, int d, float scale, int dtype,
                      void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
-      (sq + kFR - 1) / kFR > 65535)
+      (long long)batch * heads > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)by_padded_dim_bf16<LaunchBf16>(d, q, k, v, bias, dout, lse, delta, dq, batch,
-                                               heads, sq, sk, d, scale, vec, s);
-  if (dtype == 0)
-    return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, dout, lse, delta, dq, batch, heads,
-                                             sq, sk, d, scale, vec, s);
+  const int bh = batch * heads;
+  if (dtype == 1) {
+    if (d % 8 != 0 || !sm90::aligned16({q, k, v, dout, out, dq}))
+      return (int)cudaErrorInvalidValue;
+    if (d <= 64)
+      return (int)launch_bf16<64>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
+                                  scale, s);
+    if (d <= 80)
+      return (int)launch_bf16<80>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
+                                  scale, s);
+    return (int)launch_bf16<128>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
+                                 scale, s);
+  }
+  if (dtype == 0) {
+    if ((sq + kFR - 1) / kFR > 65535) return (int)cudaErrorInvalidValue;
+    return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, dout, out, lse, delta, dq, batch,
+                                             heads, sq, sk, d, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"
+
+// Dynamic shared memory of one bf16 CTA at head dim d (the -Xptxas -v
+// report counts static shared memory only).
+extern "C" int tdm_flash_bwd_dq_smem_bytes(int d) {
+  return d <= 64   ? DqLayout<64>::kAlloc
+         : d <= 80 ? DqLayout<80>::kAlloc
+                   : DqLayout<128>::kAlloc;
+}

@@ -17,17 +17,22 @@ tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
     output back.
   * `flash_attention_fwd_lse` — the same kernel with its [B,H,Sq] fp32 lse
     output (+1e30 on all-masked rows); plain: `plain_attention_lse`.
-  * `flash_attention_bwd_dq` — `csrc/flash_bwd_dq.cu` (`_flash_bwd_dq_kernel`);
-    plain: `plain_attention_bwd_dq`.
+  * `flash_attention_bwd_dq` — `csrc/flash_bwd_dq.cu` (`_flash_bwd_dq_kernel`,
+    with Δ = rowsum(dO∘O) fused in: it takes the forward's output and
+    returns (dQ, Δ)); plain: `plain_attention_bwd_dq`.
   * `flash_attention_bwd_dkv` — `csrc/flash_bwd_dkv.cu`
-    (`_flash_bwd_dkv_kernel`); plain: `plain_attention_bwd_dkv`.
+    (`_flash_bwd_dkv_kernel`), which reads the Δ of the dQ kernel; plain:
+    `plain_attention_bwd_dkv`.
+  In bf16 both run on wgmma and TMA, as the forward does, and their
+  wrappers zero-pad the head dim the same way.
 
 `FlashAttention`, a `torch.autograd.Function`, joins them as the JAX
 package's custom VJP joins its kernels (`attention.py:408-435, 678-687`):
 it pre-scales q itself and saves that q as the residual, so the backward's
 logits match the forward's bit for bit and `scale` enters dQ exactly once,
-inside the kernel. Δ = rowsum(dO∘O) is plain PyTorch (`attention_delta`), as
-the JAX package leaves it to XLA. `attention()` takes that route only when
+inside the kernel. Δ = rowsum(dO∘O), which the JAX package leaves to XLA,
+is computed by the dQ kernel and handed to the dK/dV kernel
+(`attention_delta` is its plain version). `attention()` takes that route only when
 autograd records the call; a call under `torch.no_grad()` or
 `torch.inference_mode()` takes the forward without the lse.
 
@@ -120,8 +125,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q_scaled, k, v, bias, out, lse = ctx.saved_tensors
         dout = dout.to(q_scaled.dtype).contiguous()
-        delta = attention_delta(dout, out)
-        dq = flash_attention_bwd_dq(q_scaled, k, v, bias, dout, lse, delta, ctx.scale)
+        dq, delta = flash_attention_bwd_dq(q_scaled, k, v, bias, dout, out, lse, ctx.scale)
         dk, dv = flash_attention_bwd_dkv(q_scaled, k, v, bias, dout, lse, delta)
         return dq, dk, dv, None, None
 
@@ -215,14 +219,16 @@ def _probs_and_ds(q_scaled, k, v, bias, dout, lse, delta):
 
 
 def plain_attention_bwd_dq(
-    q_scaled, k, v, bias, dout, lse, delta, scale: float
-) -> torch.Tensor:
-    """The dQ kernel's function: scale·dS·K with dS rounded to q's dtype,
-    fp32 product, the result in q's dtype."""
+    q_scaled, k, v, bias, dout, out, lse, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dQ kernel's function: Δ = `attention_delta(dout, out)` and
+    scale·dS·K with dS rounded to q's dtype, fp32 product, dQ in q's dtype.
+    Returns (dq, delta)."""
     f = _acc(q_scaled)
+    delta = attention_delta(dout, out)
     _, ds = _probs_and_ds(q_scaled, k, v, bias, dout, lse, delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q_scaled.dtype).to(f), k.to(f))
-    return (dq * scale).to(q_scaled.dtype)
+    return (dq * scale).to(q_scaled.dtype), delta
 
 
 def plain_attention_bwd_dkv(
@@ -244,7 +250,7 @@ def plain_attention_bwd_dkv(
 
 def _check(q, k, v, bias, *rows) -> None:
     """Shapes, dtypes, devices and contiguity the kernels take. `rows` are
-    the backward's extra [B,H,Sq,D] (dO) and [B,H,Sq] fp32 (lse, Δ)
+    the backward's extra [B,H,Sq,D] (dO, O) and [B,H,Sq] fp32 (lse, Δ)
     operands."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
@@ -322,8 +328,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C entry point -> (its library, argument types)
     "tdm_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "tdm_flash_bwd_dq": (
-        "flash_bwd_dq", [_P] * 8 + [_I] * 5 + [ctypes.c_float] + [_I] * 2 + [_P]),
-    "tdm_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 7 + [_P]),
+        "flash_bwd_dq", [_P] * 9 + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "tdm_flash_bwd_dkv": ("flash_bwd_dkv", [_P] * 9 + [_I] * 6 + [_P]),
     "tdm_splash_fwd": ("splash_fwd", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
@@ -357,14 +363,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _vec(d: int, *tensors) -> int:
-    """1 when the backward kernels may stage rows with 16-byte loads."""
-    return int(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 def tma_head_dim(d: int) -> int:
-    """The head dim the bf16 forward kernel reads: d rounded up to a
-    multiple of 8, since TMA moves rows of a multiple of 16 bytes."""
+    """The head dim the bf16 flash kernels read: d rounded up to a multiple
+    of 8, since TMA moves rows of a multiple of 16 bytes."""
     return -(-d // 8) * 8
 
 
@@ -379,6 +380,17 @@ def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
+def _kernel_operands(*tensors) -> tuple[int, tuple[torch.Tensor, ...]]:
+    """The head dim the flash kernels read and the operands at it: bf16
+    zero-padded to `tma_head_dim` (`pad_head_dim`), fp32 as they are (the
+    scalar kernels take any head dim)."""
+    d = tensors[0].shape[-1]
+    if tensors[0].dtype != torch.bfloat16:
+        return d, tensors
+    dp = tma_head_dim(d)
+    return dp, tuple(pad_head_dim(t, dp) for t in tensors)
+
+
 def _check_pairs(b: int, h: int, kernel: str) -> None:
     """The bf16 forward kernels put the (batch, head) pairs on the grid's y
     axis, which holds at most 65535."""
@@ -390,11 +402,9 @@ def _check_pairs(b: int, h: int, kernel: str) -> None:
 def _fwd(q_scaled, k, v, bias, with_lse: bool):
     _check(q_scaled, k, v, bias)
     b, h, sq, d = q_scaled.shape
-    dk = d
     if q_scaled.dtype == torch.bfloat16:
         _check_pairs(b, h, "flash")
-        dk = tma_head_dim(d)
-        q_scaled, k, v = (pad_head_dim(t, dk) for t in (q_scaled, k, v))
+    dk, (q_scaled, k, v) = _kernel_operands(q_scaled, k, v)
     out = torch.empty((b, h, sq, dk), dtype=q_scaled.dtype, device=q_scaled.device)
     lse = (
         torch.empty((b, h, sq), dtype=torch.float32, device=q_scaled.device)
@@ -444,45 +454,53 @@ def flash_attention_fwd_lse(
 
 
 def flash_attention_bwd_dq(
-    q_scaled, k, v, bias, dout, lse, delta, scale: float
-) -> torch.Tensor:
-    """dQ (the gradient with respect to the unscaled q). A CPU tensor takes
-    `plain_attention_bwd_dq`; a CUDA tensor launches `csrc/flash_bwd_dq.cu`
-    or raises."""
+    q_scaled, k, v, bias, dout, out, lse, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dQ, Δ): the gradient with respect to the unscaled q, and the fp32
+    [B,H,Sq] Δ = rowsum(dO∘O) from the forward's output `out`, which the
+    dK/dV kernel reads. A CPU tensor takes `plain_attention_bwd_dq`; a CUDA
+    tensor launches `csrc/flash_bwd_dq.cu` or raises."""
     if not _on_card("flash_attention_bwd_dq", q_scaled):
-        return plain_attention_bwd_dq(q_scaled, k, v, bias, dout, lse, delta, scale)
-    _check(q_scaled, k, v, bias, dout, lse, delta)
+        return plain_attention_bwd_dq(q_scaled, k, v, bias, dout, out, lse, scale)
+    _check(q_scaled, k, v, bias, dout, out, lse)
     b, h, sq, d = q_scaled.shape
-    dq = torch.empty_like(q_scaled)
+    dp, (q_scaled, k, v, dout, out) = _kernel_operands(q_scaled, k, v, dout, out)
+    dq = torch.empty((b, h, sq, dp), dtype=q_scaled.dtype, device=q_scaled.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q_scaled.device)
     _launch(
         "tdm_flash_bwd_dq", q_scaled.device,
         q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        b, h, sq, k.shape[2], d, float(scale), _DTYPE_CODE[q_scaled.dtype],
-        _vec(d, q_scaled, k, v, dout, dq),
+        dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, h, sq, k.shape[2], dp, float(scale), _DTYPE_CODE[q_scaled.dtype],
     )
     flash_attention_bwd_dq.launches += 1
-    return dq
+    if dp != d:
+        dq = dq[..., :d].contiguous()
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(
     q_scaled, k, v, bias, dout, lse, delta
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dK, dV). A CPU tensor takes `plain_attention_bwd_dkv`; a CUDA tensor
-    launches `csrc/flash_bwd_dkv.cu` or raises."""
+    """(dK, dV), from the Δ that `flash_attention_bwd_dq` returned. A CPU
+    tensor takes `plain_attention_bwd_dkv`; a CUDA tensor launches
+    `csrc/flash_bwd_dkv.cu` or raises."""
     if not _on_card("flash_attention_bwd_dkv", q_scaled):
         return plain_attention_bwd_dkv(q_scaled, k, v, bias, dout, lse, delta)
     _check(q_scaled, k, v, bias, dout, lse, delta)
     b, h, sq, d = q_scaled.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sk = k.shape[2]
+    dp, (q_scaled, k, v, dout) = _kernel_operands(q_scaled, k, v, dout)
+    dk, dv = (torch.empty((b, h, sk, dp), dtype=k.dtype, device=k.device) for _ in range(2))
     _launch(
         "tdm_flash_bwd_dkv", q_scaled.device,
         q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, sq, k.shape[2], d, _DTYPE_CODE[q_scaled.dtype],
-        _vec(d, q_scaled, k, v, dout, dk, dv),
+        dv.data_ptr(), b, h, sq, sk, dp, _DTYPE_CODE[q_scaled.dtype],
     )
     flash_attention_bwd_dkv.launches += 1
+    if dp != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 

@@ -12,7 +12,9 @@ file also runs on the card's machine (no JAX) with
 `python -m pytest --noconftest tests/test_torch_port_attention_bwd.py -m cuda`.
 """
 
+import ctypes
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -118,6 +120,125 @@ def test_scale_enters_dq_once():
     torch.testing.assert_close(grads["auto"], grads["plain"], rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("b,h,sq,sk,d,lengths", [
+    (B, H, SQ, SK, D, LENGTHS),  # multiblock, ragged, an all-masked batch row
+    (2, 3, 130, 70, 72, (70, 33)),  # PixArt's head dim
+])
+def test_plain_dq_and_delta_match_bwd_core_interpret(b, h, sq, sk, d, lengths):
+    """The dQ kernel's plain version returns (dQ, Δ): dQ against the JAX
+    package's `_bwd_core` in interpret mode (the Pallas dQ kernel), Δ
+    against its `:718-724` sum, and the dK/dV plain version fed that Δ
+    against `_bwd_core`'s dK and dV. Both sides take the JAX forward's
+    residuals (pre-scaled q, output, lse); fp32, to 2e-4."""
+    import jax.numpy as jnp
+
+    from tdm_tpu.ops.attention import _bwd_core, _flash_fwd_res
+
+    rng = np.random.default_rng(17)
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for s in (sq, sk, sk))
+    g = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    mask = (np.arange(sk)[None] < np.array(lengths)[:, None]).astype(np.int32)
+    bias = np.where(mask.astype(bool), 0.0, -1e30).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    _, (qs, _, _, _, out, lse) = _flash_fwd_res(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), scale, 128, 128, True, with_lse=True)
+    jdq, jdk, jdv = _bwd_core(qs, jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), out, lse,
+                              jnp.asarray(g), scale, 128, 128, True)
+    # Δ as `_bwd_core` forms it, before its lane broadcast
+    jdelta = jnp.sum(jnp.asarray(g).astype(jnp.float32) * out.astype(jnp.float32), axis=-1)
+
+    t = {name: torch.from_numpy(np.array(x)) for name, x in
+         (("qs", qs), ("k", k), ("v", v), ("g", g), ("out", out), ("lse", np.asarray(lse)[..., 0]))}
+    tbias = torch.from_numpy(bias)
+    dq, delta = tattn.plain_attention_bwd_dq(
+        t["qs"], t["k"], t["v"], tbias, t["g"], t["out"], t["lse"], scale)
+    dk, dv = tattn.plain_attention_bwd_dkv(t["qs"], t["k"], t["v"], tbias, t["g"], t["lse"], delta)
+    assert delta.shape == (b, h, sq) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), np.asarray(jdelta), atol=2e-4, rtol=2e-4)
+    for name, got, ref in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4, rtol=2e-4,
+                                   err_msg=name)
+    for i, n_live in enumerate(lengths):  # masked keys and all-masked rows: exactly 0
+        assert not dk[i, :, n_live:].any() and not dv[i, :, n_live:].any()
+        if n_live == 0:
+            assert not dq[i].any()
+
+
+HEAD_DIMS = (8, 16, 36, 64, 72, 100, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_backward_hands_the_kernels_out_and_one_fused_delta(monkeypatch, d, dtype):
+    """What `FlashAttention.backward` hands the backward kernels, with every
+    launch recorded instead of made (the recorded forward writes a known O
+    into its output buffer): the dQ kernel reads the forward's output O and
+    writes a fresh [B,H,Sq] fp32 Δ buffer, the dK/dV kernel reads that same
+    buffer, and Δ's plain version `attention_delta` is never called. bf16
+    operands reach both kernels zero-padded to a head dim that is a
+    multiple of 8 at 16-byte aligned addresses, and the gradients come back
+    at the caller's head dim; fp32 passes D as it is."""
+    b, h, sq, sk = 3, 2, 45, 77
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to(dtype)
+               for s in (sq, sk, sk))
+    g = torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(np.float32)).to(dtype)
+    o_written = torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(np.float32)).to(dtype)
+    mask = torch.arange(sk)[None] < torch.tensor([77, 30, 0])[:, None]
+    dp = tattn.tma_head_dim(d) if dtype == torch.bfloat16 else d
+    item = o_written.element_size()
+    calls = {}
+
+    def launch(name, device, *args):
+        calls[name] = args
+        if name == "tdm_flash_fwd":  # the forward kernel writes O
+            src = tattn.pad_head_dim(o_written, dp).contiguous()
+            ctypes.memmove(args[4], src.data_ptr(), src.numel() * item)
+        elif name == "tdm_flash_bwd_dq":  # what the dQ kernel reads as O
+            raw = bytearray(ctypes.string_at(args[5], b * h * sq * dp * item))
+            calls["o_read"] = torch.frombuffer(raw, dtype=torch.uint8).view(dtype).view(
+                b, h, sq, dp).clone()
+
+    def no_plain_delta(*args):
+        raise AssertionError("attention_delta called on the kernel route")
+
+    handed = {}
+    dkv_wrapper = tattn.flash_attention_bwd_dkv
+
+    def dkv_recorded(*args):
+        handed["delta"] = args[6]
+        return dkv_wrapper(*args)
+
+    dkv_recorded.launches = 0  # the wrapper counts through its module name
+
+    counts = tattn.launch_counts()
+    monkeypatch.setattr(tattn, "_on_card", lambda wrapper, q: True)
+    monkeypatch.setattr(tattn, "_launch", launch)
+    monkeypatch.setattr(tattn, "attention_delta", no_plain_delta)
+    monkeypatch.setattr(tattn, "flash_attention_bwd_dkv", dkv_recorded)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = tattn.attention(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, g)
+    for w in tattn.WRAPPERS:  # recorded launches do not count
+        w.launches = counts[w.__name__]
+
+    dq_args, dkv_args = calls["tdm_flash_bwd_dq"], calls["tdm_flash_bwd_dkv"]
+    code = tattn._DTYPE_CODE[dtype]
+    assert dq_args[9:14] == (b, h, sq, sk, dp) and dq_args[15] == code
+    assert dkv_args[9:15] == (b, h, sq, sk, dp, code)
+    assert torch.equal(calls["o_read"][..., :d], o_written)
+    assert not calls["o_read"][..., d:].any()
+    delta = handed["delta"]
+    assert delta.shape == (b, h, sq) and delta.dtype == torch.float32 and delta.is_contiguous()
+    assert dq_args[7] == delta.data_ptr() == dkv_args[6]
+    assert delta.data_ptr() not in (dq_args[6], dq_args[5], dq_args[8])  # not lse, O or dQ
+    if dtype == torch.bfloat16:
+        assert all(p % 16 == 0 for p in (*dq_args[:3], *dq_args[4:6], dq_args[8]))
+        assert all(p % 16 == 0 for p in (*dkv_args[:3], dkv_args[4], *dkv_args[7:9]))
+    for grad, leaf in zip(grads, leaves):
+        assert grad.shape == leaf.shape and grad.dtype == dtype and grad.is_contiguous()
+
+
 def test_no_grad_forward_takes_the_no_lse_route(monkeypatch):
     """Under torch.no_grad() attention() calls the forward without the lse;
     under autograd, the forward with the lse and then both backward
@@ -152,21 +273,25 @@ def test_backward_wrappers_have_no_path_for_other_devices():
     with pytest.raises(ValueError, match="no flash kernel for device meta"):
         tattn.flash_attention_fwd_lse(x, x, x, None)
     with pytest.raises(ValueError, match="no flash kernel for device meta"):
-        tattn.flash_attention_bwd_dq(x, x, x, None, x, row, row, 1.0)
+        tattn.flash_attention_bwd_dq(x, x, x, None, x, x, row, 1.0)
     with pytest.raises(ValueError, match="no flash kernel for device meta"):
         tattn.flash_attention_bwd_dkv(x, x, x, None, x, row, row)
 
 
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_card():
-    """The dQ and dK/dV kernels and the lse forward against their plain
-    versions on the same inputs (lse and Δ from the plain forward; dQ and
-    dK/dV once more from the forward kernel's own lse), at PixArt's self and
-    cross shapes (bf16), a ragged bf16 shape and an odd fp32 shape; runs on
-    a machine with the card. bf16, per batch row: relative L2 under 1e-2 and
+    """The dQ kernel (with its fused Δ), the dK/dV kernel and the lse
+    forward against their plain versions on the same inputs (lse and O from
+    the plain forward, the dK/dV kernel fed the plain Δ; dQ and dK/dV once
+    more from the forward kernel's own output and lse, as in training), at
+    PixArt's self and cross shapes (bf16), a ragged bf16 shape, an odd fp32
+    shape and more than 65535 (batch, head) pairs (bf16 and fp32); runs on a
+    machine with the card. bf16, per batch row: relative L2 under 1e-2 and
     max error under 4 bf16 ulps of the row's largest |plain| (both round P
     and dS to bf16 and the result to bf16); fp32: max error under 1e-4 of
-    the largest |plain|. A batch row with every key masked is exactly 0."""
+    the largest |plain|; Δ within 1e-5 of the largest |Δ| (fp32 sums of the
+    same products in another order). A batch row with every key masked is
+    exactly 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -175,6 +300,8 @@ def test_backward_kernels_match_plain_on_card():
         (2, 16, 1024, 120, 72, torch.bfloat16, [90, 0]),
         (3, 2, 333, 200, 72, torch.bfloat16, [200, 129, 0]),
         (2, 3, 1000, 77, 64, torch.float32, [77, 0]),
+        (2, 32769, 5, 7, 16, torch.bfloat16, [7, 3]),
+        (2, 32769, 5, 7, 16, torch.float32, [7, 3]),
     ):
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
                    for s in (sq, sk, sk))
@@ -185,32 +312,29 @@ def test_backward_kernels_match_plain_on_card():
                 lengths, device="cuda")[:, None]
             bias = tattn.key_bias(mask)
         out, lse = tattn.plain_attention_lse(q, k, v, bias)
-        delta = tattn.attention_delta(dout, out)
+        ref = {"out": out}
+        ref["dq"], ref_delta = tattn.plain_attention_bwd_dq(q, k, v, bias, dout, out, lse, 0.3)
+        ref["dk"], ref["dv"] = tattn.plain_attention_bwd_dkv(q, k, v, bias, dout, lse, ref_delta)
         before = tattn.launch_counts()
-        got = {
-            "out": tattn.flash_attention_fwd_lse(q, k, v, bias)[0],
-            "dq": tattn.flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, 0.3),
-            **dict(zip(("dk", "dv"), tattn.flash_attention_bwd_dkv(
-                q, k, v, bias, dout, lse, delta))),
-        }
+        got = {}
+        got["dq"], delta = tattn.flash_attention_bwd_dq(q, k, v, bias, dout, out, lse, 0.3)
+        got["dk"], got["dv"] = tattn.flash_attention_bwd_dkv(q, k, v, bias, dout, lse, ref_delta)
+        pairs = b * h <= 65535  # the forward kernel's cap
+        if pairs:
+            # dQ and dK/dV driven by the forward kernel's own output and lse
+            got["out"], own_lse = tattn.flash_attention_fwd_lse(q, k, v, bias)
+            got["dq_own"], own_delta = tattn.flash_attention_bwd_dq(
+                q, k, v, bias, dout, got["out"], own_lse, 0.3)
+            got["dk_own"], got["dv_own"] = tattn.flash_attention_bwd_dkv(
+                q, k, v, bias, dout, own_lse, own_delta)
+            ref.update({f"{n}_own": ref[n] for n in ("dq", "dk", "dv")})
         after = tattn.launch_counts()
         assert {n: after[n] - before[n] for n in after} == {
-            "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
-            "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+            "flash_attention_fwd": 0, "flash_attention_fwd_lse": int(pairs),
+            "flash_attention_bwd_dq": 1 + pairs, "flash_attention_bwd_dkv": 1 + pairs,
             "splash_attention_fwd": 0}
-        # dQ and dK/dV driven by the forward kernel's own lse, as in training
-        own_lse = tattn.flash_attention_fwd_lse(q, k, v, bias)[1]
-        got["dq_own_lse"] = tattn.flash_attention_bwd_dq(
-            q, k, v, bias, dout, own_lse, delta, 0.3)
-        got["dk_own_lse"], got["dv_own_lse"] = tattn.flash_attention_bwd_dkv(
-            q, k, v, bias, dout, own_lse, delta)
-        ref = {
-            "out": out,
-            "dq": tattn.plain_attention_bwd_dq(q, k, v, bias, dout, lse, delta, 0.3),
-            **dict(zip(("dk", "dv"), tattn.plain_attention_bwd_dkv(
-                q, k, v, bias, dout, lse, delta))),
-        }
-        ref.update({f"{n}_own_lse": ref[n] for n in ("dq", "dk", "dv")})
+        assert delta.shape == (b, h, sq) and delta.dtype == torch.float32
+        assert (delta - ref_delta).abs().max() <= 1e-5 * ref_delta.abs().max()
         for name in got:
             o, r = got[name].float(), ref[name].float()
             assert torch.isfinite(o).all(), name
@@ -225,3 +349,51 @@ def test_backward_kernels_match_plain_on_card():
                 ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
                 assert (oi - ri).norm() <= 1e-2 * ri.norm(), name
                 assert (oi - ri).abs().max().item() <= 4 * ulp, name
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_a_thread_that_never_selected_a_device():
+    """Autograd runs the backward on a worker thread that has no CUDA
+    context of its own until something binds one. Every bf16 kernel (the
+    forward with and without its lse, dQ, dK/dV, splash) launched from a
+    fresh thread, whose first CUDA call is the kernel's, gives the same bits
+    as the same launch from the main thread (no kernel uses atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, sq, sk, d = 3, 2, 333, 200, 72
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+                  for s in (sq, sk, sk, sq))
+    q64, k64, v64 = (torch.randn(2, 3, 257, 64, generator=gen, device="cuda").bfloat16()
+                     for _ in range(3))
+    mask = torch.arange(sk, device="cuda")[None] < torch.tensor(
+        [200, 129, 0], device="cuda")[:, None]
+    bias = tattn.key_bias(mask)
+
+    def run():
+        out, lse = tattn.flash_attention_fwd_lse(q, k, v, bias)
+        dq, delta = tattn.flash_attention_bwd_dq(q, k, v, bias, g, out, lse, 0.3)
+        dk, dv = tattn.flash_attention_bwd_dkv(q, k, v, bias, g, lse, delta)
+        return (out, lse, tattn.flash_attention_fwd(q, k, v, bias), dq, delta, dk, dv,
+                tattn.splash_attention_fwd(q64, k64, v64))
+
+    counts = tattn.launch_counts()
+    on_main = run()
+    torch.cuda.synchronize()
+    result = {}
+
+    def worker():
+        try:
+            result["got"] = run()
+            torch.cuda.synchronize()
+        except Exception as e:  # reported by the assertion below
+            result["error"] = e
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    thread.join(timeout=120)
+    for w in tattn.WRAPPERS:  # a check, not a path
+        w.launches = counts[w.__name__]
+    assert not thread.is_alive() and "error" not in result, result.get("error")
+    for a, b_ in zip(on_main, result["got"]):
+        assert torch.equal(a, b_)

@@ -194,8 +194,9 @@ def test_forward_kernels_match_plain_at_ragged_shapes_on_card():
 
 @pytest.mark.cuda
 def test_kernel_lse_drives_the_backward_kernels_to_the_plain_gradients_on_card():
-    """dQ and dK/dV fed the forward kernel's own lse against the plain
-    backward fed the plain lse (the same Δ), in bf16 at a ragged shape
+    """dQ and dK/dV fed the forward kernel's own lse (and the dQ kernel's Δ)
+    against the plain backward fed the plain lse (both Δ from the plain
+    output), in bf16 at a ragged shape
     with an all-masked batch row, by the per-row bf16 rule; then the whole
     FlashAttention route on the card: one launch of each training kernel,
     finite gradients, exactly 0 on the all-masked row."""
@@ -213,11 +214,10 @@ def test_kernel_lse_drives_the_backward_kernels_to_the_plain_gradients_on_card()
     qs = (q.float() * scale).bfloat16()
     _, lse = tattn.flash_attention_fwd_lse(qs, k, v, bias)
     ref_out, ref_lse = tattn.plain_attention_lse(qs, k, v, bias)
-    delta = tattn.attention_delta(g, ref_out)
-    got = (tattn.flash_attention_bwd_dq(qs, k, v, bias, g, lse, delta, scale),
-           *tattn.flash_attention_bwd_dkv(qs, k, v, bias, g, lse, delta))
-    ref = (tattn.plain_attention_bwd_dq(qs, k, v, bias, g, ref_lse, delta, scale),
-           *tattn.plain_attention_bwd_dkv(qs, k, v, bias, g, ref_lse, delta))
+    dq, delta = tattn.flash_attention_bwd_dq(qs, k, v, bias, g, ref_out, lse, scale)
+    ref_dq, ref_delta = tattn.plain_attention_bwd_dq(qs, k, v, bias, g, ref_out, ref_lse, scale)
+    got = (dq, *tattn.flash_attention_bwd_dkv(qs, k, v, bias, g, lse, delta))
+    ref = (ref_dq, *tattn.plain_attention_bwd_dkv(qs, k, v, bias, g, ref_lse, ref_delta))
     for o, r in zip(got, ref):
         assert torch.isfinite(o).all()
         _per_row_bf16(o, r)
