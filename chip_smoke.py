@@ -26,10 +26,20 @@ Phases, one line each, and any failure exits non-zero:
      checks, per-seed determinism and the kernel launch count per batch;
      then one full-width forward with the kernel against plain attention;
   6. train: full-width PixArt-α-512 TDM distillation through the training
-     CLI's main() (seeded weights and embedding cache, batch 4, bf16, dmd,
-     3 steps): seconds per step, peak memory, the idle share of a step,
-     and each training kernel's launches per step (checked);
-  7. sd3: a full-width SD3-Medium pipeline (24 layers, 24x64 heads, 1024²,
+     CLI's main() at the JAX CLI's default flags (seeded weights and
+     embedding cache, batch 4, bf16, dmd, 3 steps): seconds per step, peak
+     memory, the idle share of a step, and each training kernel's launches
+     per step (checked); then the default rank-32 kohya LoRA export by
+     truncated SVD: its seconds, its keys and one kernel's reconstruction
+     against a float64 SVD (checked);
+  7. train_lora: the same run with a rank-32 LoRA student, 8-bit Adam and
+     gradient accumulation 2 (2 optimizer steps of 2 micro-steps): the
+     attention launches of every micro-step, the factors unchanged inside
+     each window, int8 moments and the rank-32 kohya file (checked);
+     seconds per optimizer step, peak memory, the idle share and device
+     launches of a profiled micro-step, and each optimizer's launches per
+     update of the full-width critic and of the LoRA factors;
+  8. sd3: a full-width SD3-Medium pipeline (24 layers, 24x64 heads, 1024²,
      bf16, seeded weights, attn_impl='splash') with a seeded rank-64 kohya
      LoRA on the default targets, written in the tdm_tpu layout and served
      over HTTP with --lora_scale 0.125: 8 concurrent requests (two batches
@@ -40,8 +50,9 @@ Phases, one line each, and any failure exits non-zero:
 Phase 3 also holds the training kernels (the forward with its lse, dQ with
 its fused Δ, dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
 shapes, rows whose logits are all below -20) against their plain versions;
-phase 4 runs one tiny train step and a tiny SD3 pipeline with a merged LoRA
-on the card against the same on the CPU. Then a JSON line of per-kernel
+phase 4 runs one tiny train step, the same step with a LoRA student, 8-bit
+Adam and accumulation 2, and a tiny SD3 pipeline with a merged LoRA on the
+card against the same on the CPU. Then a JSON line of per-kernel
 numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}.
 
@@ -1043,6 +1054,29 @@ def full_forward_check(torch, transformer, seed: int) -> None:
           f"full-width forward disagrees: rel L2 {rel}")
 
 
+def tiny_step_inputs(torch, config, bundle, gen, dev) -> tuple:
+    """A tiny step's draws and (cond, uncond) for 3 rows with text lengths
+    8, 3 and 1, drawn on the CPU from `gen` and moved to `dev`."""
+    from tdm_tpu_torch.train import tdm
+
+    draws = tdm.make_draws(config, 3, bundle.sample_shape, gen, "cpu")
+    draws = tdm.StepDraws(*(x.to(dev) for x in draws))
+    text = torch.randn(3, bundle.seq_len, bundle.embed_dim, generator=gen).to(dev)
+    mask = (torch.arange(bundle.seq_len)[None] < torch.tensor([[8], [3], [1]])).int().to(dev)
+    return draws, (text, mask), (torch.zeros_like(text), torch.ones_like(mask))
+
+
+def uncounted(A, fn) -> tuple:
+    """fn()'s result and the kernel launches it made, which are then taken
+    off the wrappers' counts: a check, not the main path."""
+    before = A.launch_counts()
+    out = fn()
+    launched = {n: A.launch_counts()[n] - before[n] for n in before}
+    for w in A.WRAPPERS:
+        w.launches = before[w.__name__]
+    return out, launched
+
+
 def phase_reference_train(torch, seed: int) -> None:
     """One tiny TDM step (fp32, dmd) on the card (the kernels) against the
     same step on the CPU (the plain versions), from one state with the same
@@ -1065,23 +1099,14 @@ def phase_reference_train(torch, seed: int) -> None:
         teacher = {k: v.to(dev) for k, v in cpu_params.items()}
         gen = torch.Generator(device="cpu").manual_seed(seed + 3)
         config = tdm.TDMConfig()
-        draws = tdm.make_draws(config, 3, bundle.sample_shape, gen, "cpu")
-        draws = tdm.StepDraws(*(x.to(dev) for x in draws))
-        text = torch.randn(3, bundle.seq_len, bundle.embed_dim, generator=gen).to(dev)
-        mask = (torch.arange(bundle.seq_len)[None]
-                < torch.tensor([[8], [3], [1]])).int().to(dev)
-        uncond = (torch.zeros_like(text), torch.ones_like(mask))
+        draws, cond, uncond = tiny_step_inputs(torch, config, bundle, gen, dev)
         tx = topt.make_optimizer(lr, eps=1e-4)
         state = tdm.init_state(teacher, teacher, tx, tx)
         start = {r: {k: v.clone() for k, v in getattr(state, r).items()}
                  for r in ("student", "critic")}
         step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config,
                                     tx, tx, sample_shape=bundle.sample_shape)
-        before = A.launch_counts()
-        state, metrics = step(state, draws, (text, mask), uncond)
-        launched = {n: A.launch_counts()[n] - before[n] for n in before}
-        for w in A.WRAPPERS:  # a check, not the main path
-            w.launches = before[w.__name__]
+        (state, metrics), launched = uncounted(A, lambda: step(state, draws, cond, uncond))
         runs[dev] = (state, metrics, start, launched)
     (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
     # 2 layers x (self, cross): 7 no-grad forwards, 2 with grad
@@ -1112,6 +1137,169 @@ def phase_reference_train(torch, seed: int) -> None:
           f"update rel L2 / max: student {upd['student'][0]:.3e} / "
           f"{upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} / "
           f"{upd['critic'][1]:.3e} (limits 5e-3 / {0.25 * lr:.1e})", flush=True)
+    reference_train_recipe(torch, seed, cpu_params, want)
+
+
+def q8_decoded(torch, q, shape):
+    """A packed moment's fp32 values and each one's bound on its
+    quantization error, one int8 code step at its magnitude:
+    (2·sqrt(|x|/s) + 1/254)·s/254, s the block's absmax scale."""
+    from tdm_tpu_torch.train import optim as topt
+
+    x = topt.q8_dequantize(q, shape).cpu()
+    s = q.scales.cpu().repeat_interleave(topt.Q8_BLOCK)[:x.numel()].reshape(shape)
+    return x, (2 * torch.sqrt(x.abs() / s.clamp(min=1e-30)) + 1 / 254) * s / 254
+
+
+def state_to(torch, obj, dev):
+    """A copy of a (nested) train state with every tensor on `dev`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to(dev, copy=True)
+    if isinstance(obj, dict):
+        return {k: state_to(torch, v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(state_to(torch, v, dev) for v in obj))
+    return obj
+
+
+def q8_moments(torch, opt, params: dict) -> dict:
+    """'{mu|nu} {name}' → (fp32 values, one-code-step bound) on the CPU for
+    every quantized moment of an accumulating 8-bit optimizer (q8_decoded)."""
+    from tdm_tpu_torch.train import optim as topt
+
+    out = {}
+    for m in ("mu", "nu"):
+        for k, q in topt.leaf_moments(getattr(opt.inner, m), params).items():
+            if isinstance(q, topt.Q8Moment):
+                check(q.values.dtype == torch.int8, f"{m} {k}: codes are {q.values.dtype}")
+                out[f"{m} {k}"] = q8_decoded(torch, q, params[k].shape)
+    return out
+
+
+def reference_train_recipe(torch, seed: int, cpu_params: dict, want: dict) -> None:
+    """The tiny step of phase_reference_train with a rank-4 LoRA student
+    (both factors seeded), 8-bit Adam and accumulation 2, two windows (four
+    micro-steps) on the card against the CPU, the packed 8-bit update cut
+    into slices of 40 blocks (several on the tiny critic, some holding two
+    leaves). Window 1 starts from zero moments; window 2 starts on both
+    sides from the CPU's state after window 1 (its stored int8 codes
+    copied to the card), so its update reads stored codes from the same
+    inputs. Bounds as the plain tiny step: losses and grad norms to 1e-4
+    relative at every micro-step; inside a window every parameter keeps its
+    bits; each window's update (new − old params) of each role to 5e-3
+    relative L2 and each weight to 25% of lr. The requantized moments may
+    differ by one code where a value sits at a rounding boundary, so after
+    each window each decoded moment is held within one code step of each
+    side (q8_decoded) plus 1e-6 of the leaf's largest value. The loss is
+    MSE, as in tests/test_torch_port_train.py's 8-bit step: under the Huber
+    loss (c = 1e-3) the student's grad norm of micro-step 3 differed by
+    1.2e-4 and 2.6e-4 relative between card and CPU, the second time from
+    the same state, while the plain step's differs by 4.1e-5."""
+    from tdm_tpu_torch import lora as lora_lib
+    from tdm_tpu_torch.io import from_jax
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    lr = 1e-4
+    roles = ("student", "critic")
+    runs = {}
+    full_slice = topt._SLICE
+    topt._SLICE = 40 * topt.Q8_BLOCK
+    try:
+        for dev in ("cpu", "cuda"):
+            bundle = families.build("pixart", tiny=True, seed=seed, device=dev)
+            teacher = {k: v.to(dev) for k, v in cpu_params.items()}
+            lora = seeded_lora(torch, bundle.model, 4, seed + 5)
+            factors = {k: v.to(dev) for k, v in lora_lib.factors(lora).items()}
+            tx = topt.make_optimizer(lr, eps=1e-4, eight_bit=True, accumulation_steps=2)
+            config = tdm.TDMConfig(use_huber=False)
+            step = tdm.build_train_step(
+                bundle.denoise_fn, teacher, bundle.schedule, config, tx, tx,
+                sample_shape=bundle.sample_shape, student_denoise_fn=lora_lib.wrap_denoise_fn(
+                    bundle.denoise_fn, lora, stacks=from_jax.layer_stacks(bundle.model.cfg)))
+            gen = torch.Generator(device="cpu").manual_seed(seed + 4)
+            runs[dev] = {"state": tdm.init_state(factors, teacher, tx, tx), "step": step,
+                         "inputs": [tiny_step_inputs(torch, config, bundle, gen, dev)
+                                    for _ in range(4)],
+                         "params": [], "metrics": [], "launched": [], "moments": []}
+
+        def snapshot(run):
+            run["params"].append({r: {k: v.cpu().clone()
+                                      for k, v in getattr(run["state"], r).items()}
+                                  for r in roles})
+
+        for run in runs.values():
+            snapshot(run)
+        for i in range(4):
+            if i == 2:  # window 2 starts from the CPU's state on both sides
+                runs["cuda"]["state"] = state_to(torch, runs["cpu"]["state"], "cuda")
+                runs["cuda"]["params"][-1] = runs["cpu"]["params"][-1]
+            for run in runs.values():
+                draws, cond, uncond = run["inputs"][i]
+                (run["state"], metrics), launched = uncounted(
+                    A, lambda: run["step"](run["state"], draws, cond, uncond))
+                run["metrics"].append(metrics)
+                run["launched"].append(launched)
+                snapshot(run)
+                if i % 2:
+                    st = run["state"]
+                    run["moments"].append({r: q8_moments(torch, getattr(st, f"{r}_opt"),
+                                                         getattr(st, r)) for r in roles})
+    finally:
+        topt._SLICE = full_slice
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst, upd = 0.0, {}
+    for i, (cm, gm, glaunch) in enumerate(zip(cpu["metrics"], card["metrics"],
+                                              card["launched"])):
+        check(glaunch == want, f"tiny recipe micro-step {i + 1} launches {glaunch}")
+        for name in tdm.StepMetrics._fields:
+            c, g = float(getattr(cm, name)), float(getattr(gm, name))
+            worst = max(worst, abs(c - g) / max(abs(c), 1e-12))
+            check(math.isfinite(g) and abs(c - g) <= 1e-4 * abs(c) + 1e-7,
+                  f"tiny recipe micro-step {i + 1} {name}: card {g} vs cpu {c}")
+    cp, gp = cpu["params"], card["params"]
+    for role in roles:
+        for window, lo in ((1, 0), (2, 2)):
+            for k in cp[lo][role]:
+                check(torch.equal(cp[lo + 1][role][k], cp[lo][role][k])
+                      and torch.equal(gp[lo + 1][role][k], gp[lo][role][k]),
+                      f"tiny recipe: {role} {k} changed at micro-step {lo + 1}")
+            d_c = torch.cat([(cp[lo + 2][role][k] - cp[lo][role][k]).flatten()
+                             for k in cp[lo][role]])
+            d_g = torch.cat([(gp[lo + 2][role][k] - gp[lo][role][k]).flatten()
+                             for k in cp[lo][role]])
+            rel = float((d_g - d_c).norm() / d_c.norm())
+            top = float((d_g - d_c).abs().max())
+            upd[(role, window)] = (rel, top)
+            check(float(d_c.abs().max()) > 0.5 * lr,
+                  f"tiny recipe: {role} did not move in window {window}")
+            check(rel <= 5e-3 and top <= 0.25 * lr,
+                  f"tiny recipe {role} window {window} update: rel L2 {rel:.3e}, max {top:.3e}")
+    n_q = 0
+    for window, (cmom, gmom) in enumerate(zip(cpu["moments"], card["moments"]), 1):
+        for role in roles:
+            for key, (x_c, e_c) in cmom[role].items():
+                n_q += window == 2
+                x_g, e_g = gmom[role][key]
+                bound = e_c + e_g + 1e-6 * float(x_c.abs().max())
+                check(bool(((x_g - x_c).abs() <= bound).all()),
+                      f"tiny recipe window {window} {role} {key}: card and cpu moments "
+                      "differ by more than one int8 code step")
+    for role in roles:
+        gopt = getattr(card["state"], f"{role}_opt")
+        check((gopt.mini_step, gopt.gradient_step, gopt.inner.count) == (0, 2, 2),
+              f"tiny recipe {role}: counters {gopt.mini_step, gopt.gradient_step}")
+        check(gopt.inner.mu.codes.is_cuda and gopt.inner.nu.codes.is_cuda,
+              f"tiny recipe {role}: moments not on the card")
+    check(n_q > 0, "tiny recipe: no quantized moment")
+    print(f"[reference] tiny TDM recipe step (rank-4 LoRA, 8-bit Adam, accumulation 2; 2 "
+          f"windows of 2 micro-steps, slices of 40 blocks; window 2 from the cpu's state) "
+          f"cuda vs cpu: metrics max rel err {worst:.3e} (limit 1e-4); bits kept inside each "
+          f"window; update rel L2 / max, windows 1 and 2: " + "; ".join(
+              f"{role} {upd[(role, 1)][0]:.3e} / {upd[(role, 1)][1]:.3e}, "
+              f"{upd[(role, 2)][0]:.3e} / {upd[(role, 2)][1]:.3e}" for role in roles)
+          + f" (limits 5e-3 / {0.25 * lr:.1e}); {n_q} int8 moments within one code step "
+          "after each window", flush=True)
 
 
 def seeded_lora(torch, model, rank: int, seed: int):
@@ -1335,20 +1523,20 @@ TRAIN_STEPS = 3
 TRAIN_LAUNCHES = {"flash_attention_fwd": 392, "flash_attention_fwd_lse": 112,
                   "flash_attention_bwd_dq": 112, "flash_attention_bwd_dkv": 112,
                   "splash_attention_fwd": 0}
+# the train_lora phase: rank-32 LoRA student, 8-bit Adam, 2 micro-steps per
+# optimizer step, 2 optimizer steps
+LORA_RANK, LORA_ACCUM, LORA_STEPS = 32, 2, 2
+# the export's rank-32 reconstruction of one ΔW against float64's optimum
+EXPORT_TOL = 1e-3
 
 
-def phase_train(torch, seed: int, workdir: str) -> dict:
-    """Full-width PixArt-α-512 TDM training through the CLI's main():
-    seeded weights, a seeded full-width embedding cache, batch 4, bf16,
-    dmd, 3 steps. Per step: host and CUDA-event times and the kernels'
-    launches (checked); step 3 under torch.profiler for device busy time."""
+def train_env(seed: int, workdir: str) -> None:
+    """A seeded full-width embedding cache (8 prompts of 120 T5 tokens at
+    4096, ragged masks, a one-token empty prompt) as $TDM_EMBEDDING_CACHE,
+    and the full-size model (no $TDM_TINY_MODEL, no validation decoder)."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from tdm_tpu_torch.cli import train_tdm
     from tdm_tpu_torch.data.prompts import EmbeddingCache
-    from tdm_tpu_torch.ops import attention as A
 
     rng = np.random.default_rng(seed)
     lengths = np.array([120, 77, 33, 9, 120, 1, 56, 100])
@@ -1363,19 +1551,40 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     for var in ("TDM_TINY_MODEL", "TDM_TAESD_DIR"):
         os.environ.pop(var, None)
     os.environ["TDM_EMBEDDING_CACHE"] = cache
-    out = os.path.join(workdir, "train")
-    free_gb = shutil.disk_usage(workdir).free / 1e9
-    print(f"[train] {free_gb:.0f} GB free for the run's checkpoint", flush=True)
-    steps = []
-    watch = ("blocks.0.attn1.to_q.weight", "blocks.0.ff.proj_out.weight", "proj_out.weight")
-    snap = {}
+
+
+def count_device_work(torch, fn) -> tuple:
+    """(result, device work items launched, their device ms) of one call
+    of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return out, sum(e.count for e in kern), sum(e.device_time_total for e in kern) / 1e3
+
+
+def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
+    """A `step_hook` for train_tdm.main: each call (a micro-step) timed by
+    the host clock and CUDA events, its kernels' launches counted, the
+    `profile_at`-th call under torch.profiler (device busy time, every
+    device launch, the top kernels); `after(rec, state)` sees each call's
+    record and state."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tdm_tpu_torch.ops import attention as A
 
     def hook(step, run):
+        n = len(records) + 1
         before = A.launch_counts()
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            if step == TRAIN_STEPS else None
+            if n == profile_at else None
         if prof is not None:
             prof.__enter__()
         t0 = time.monotonic()
@@ -1384,41 +1593,117 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
         ev1.record()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        busy_ms = None
+        rec = {"step": step, "micro": n, "host_s": wall, "event_ms": ev0.elapsed_time(ev1),
+               "busy_ms": None,
+               "launches": {k: A.launch_counts()[k] - before[k] for k in before},
+               "metrics": {k: float(v) for k, v in metrics._asdict().items()}}
         if prof is not None:
             prof.__exit__(None, None, None)
             kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            busy_ms = sum(e.device_time_total for e in kern) / 1e3
+            rec["busy_ms"] = sum(e.device_time_total for e in kern) / 1e3
+            rec["all_launches"] = sum(e.count for e in kern)
             flash = [e for e in kern if "flash_" in e.key]
             top = sorted(kern, key=lambda e: -e.device_time_total)[:10]
             for e in top + [e for e in flash if e not in top]:
                 print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<6d} "
                       f"{e.key[:90]}", flush=True)
-            print(f"[profile] step {step}: device busy {busy_ms:.1f} ms, the flash "
-                  f"kernels {sum(e.device_time_total for e in flash) / 1e3:.1f} ms, "
-                  f"{sum(e.count for e in kern)} kernel launches", flush=True)
-        rec = {"step": step, "host_s": wall, "event_ms": ev0.elapsed_time(ev1),
-               "busy_ms": busy_ms,
-               "launches": {n: A.launch_counts()[n] - before[n] for n in before},
-               "metrics": {k: float(v) for k, v in metrics._asdict().items()}}
-        if step == 1:
+            print(f"[profile] {tag} micro-step {n}: device busy {rec['busy_ms']:.1f} ms, "
+                  f"the flash kernels {sum(e.device_time_total for e in flash) / 1e3:.1f} "
+                  f"ms, {rec['all_launches']} device launches", flush=True)
+        if after is not None:
+            after(rec, state)
+        records.append(rec)
+        print(f"[{tag}] step {step} (micro-step {n}): host {wall:.3f}s, CUDA events "
+              f"{rec['event_ms']:.1f} ms, launches {rec['launches']}, {rec['metrics']}",
+              flush=True)
+        return state, metrics
+
+    return hook
+
+
+def check_train_records(records: list, n: int) -> None:
+    check(len(records) == n, f"{len(records)} micro-steps ran, expected {n}")
+    for rec in records:
+        check(rec["launches"] == TRAIN_LAUNCHES,
+              f"micro-step {rec['micro']} launches {rec['launches']}, expected {TRAIN_LAUNCHES}")
+        check(all(math.isfinite(v) for v in rec["metrics"].values()),
+              f"micro-step {rec['micro']}: non-finite metrics {rec['metrics']}")
+
+
+def kohya_pieces(torch, path: str, rank: int) -> int:
+    """The adapted (kernel, layer) pairs of a kohya file, checking that each
+    has its three keys and rank-`rank` factors."""
+    from tdm_tpu_torch.io import params as params_io
+
+    flat = params_io.load_file(path)
+    downs = [k for k in flat if k.endswith(".lora_down.weight")]
+    for k in downs:
+        up = k.replace(".lora_down.", ".lora_up.")
+        check(up in flat and k.replace(".lora_down.weight", ".alpha") in flat,
+              f"{path}: {k} lacks its up factor or alpha")
+        check(flat[k].shape[0] == rank and flat[up].shape[1] == rank,
+              f"{path}: {k} has rank {flat[k].shape[0]}, expected {rank}")
+    check(len(flat) == 3 * len(downs), f"{path}: {len(flat)} keys for {len(downs)} pieces")
+    return len(downs)
+
+
+def phase_train(torch, seed: int, workdir: str) -> dict:
+    """Full-width PixArt-α-512 TDM training through the CLI's main() at the
+    JAX CLI's default flags: seeded weights, a seeded full-width embedding
+    cache, batch 4, bf16, dmd, 3 steps, then the export of the rank-32
+    kohya LoRA by truncated SVD (--export_lora_rank 32, the default). Per
+    step: host and CUDA-event times and the kernels' launches (checked);
+    step 3 under torch.profiler for device busy time. The export: its
+    seconds, its key count (3 per adapted kernel and layer), and one
+    kernel's rank-32 reconstruction against a float64 SVD of its ΔW."""
+    from tdm_tpu_torch import lora as lora_lib
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.ops import attention as A
+
+    train_env(seed, workdir)
+    out = os.path.join(workdir, "train")
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    print(f"[train] {free_gb:.0f} GB free for the run's checkpoint", flush=True)
+    steps = []
+    watch = ("blocks.0.attn1.to_q.weight", "blocks.0.ff.proj_out.weight", "proj_out.weight")
+    snap = {}
+
+    def after(rec, state):
+        if rec["micro"] == 1:
             snap.update({k: state.student[k].clone() for k in watch})
-        if step == 2:
+        if rec["micro"] == 2:
             rec["student_changed"] = all(
                 bool((state.student[k] != snap[k]).any()) for k in watch)
-        steps.append(rec)
-        print(f"[train] step {step}: host {wall:.3f}s, CUDA events {rec['event_ms']:.1f} "
-              f"ms, launches {rec['launches']}, {rec['metrics']}", flush=True)
-        return state, metrics
+
+    export = {}
+    extract = lora_lib.extract_lora
+
+    def timed_extract(model, base, tuned, rank, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lora = extract(model, base, tuned, rank, **kw)
+        torch.cuda.synchronize()
+        export["s"] = time.monotonic() - t0
+        key, mpath = "blocks.0.attn1.to_q.weight", "blocks/attn1/to_q"
+        export["delta"] = (tuned[key].float() - base[key].float()).T.double().cpu()
+        export["ab"] = (lora.params[mpath]["a"][0].double()
+                        @ lora.params[mpath]["b"][0].double()).cpu()
+        export["pieces"] = sum(e["a"].shape[0] if e["a"].dim() == 3 else 1
+                               for e in lora.params.values())
+        return lora
 
     A.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    train_tdm.main([
-        "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
-        "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
-        "--export_lora_rank", "0", "--seed", str(seed),
-    ], step_hook=hook)
+    lora_lib.extract_lora = timed_extract
+    try:
+        train_tdm.main([
+            "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
+            "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
+            "--seed", str(seed),
+        ], step_hook=step_hook(torch, steps, TRAIN_STEPS, "train", after))
+    finally:
+        lora_lib.extract_lora = extract
     total_s = time.monotonic() - t0
     launches = A.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1426,14 +1711,24 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     ckpt = os.path.join(run_dir, f"checkpoint-{TRAIN_STEPS}")
     ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
     student_gb = os.path.getsize(os.path.join(run_dir, "student.safetensors")) / 1e9
-    check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps ran")
-    for rec in steps:
-        check(rec["launches"] == TRAIN_LAUNCHES,
-              f"step {rec['step']} launches {rec['launches']}, expected {TRAIN_LAUNCHES}")
-        check(all(math.isfinite(v) for v in rec["metrics"].values()),
-              f"step {rec['step']}: non-finite metrics {rec['metrics']}")
+    check_train_records(steps, TRAIN_STEPS)
     check(steps[1]["student_changed"], "the student did not change in step 2")
-    shutil.rmtree(run_dir, ignore_errors=True)  # the disk for the sd3 phase's weights
+    check("s" in export, "the LoRA export did not run")
+    pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
+    check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
+                                      f"{export['pieces']}")
+    delta = export["delta"]
+    sv = torch.linalg.svdvals(delta)
+    norm = float(delta.norm())
+    opt_err = float(sv[32:].norm()) / norm
+    err = float((delta - export["ab"]).norm()) / norm
+    print(f"[train] export: rank-32 kohya LoRA of {pieces} (kernel, layer) pieces "
+          f"({3 * pieces} keys) in {export['s']:.2f} s; blocks.0 attn1.to_q rank-32 "
+          f"relative error {err:.6f} against the float64 optimum {opt_err:.6f} "
+          f"(limit +-{EXPORT_TOL})", flush=True)
+    check(abs(err - opt_err) <= EXPORT_TOL,
+          f"the rank-32 export of blocks.0 attn1.to_q: relative error {err}, optimum {opt_err}")
+    shutil.rmtree(run_dir, ignore_errors=True)  # the disk for the later phases
     # steps after the first that ran without the profiler (its own cost
     # inflates the profiled last step's wall time)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
@@ -1448,13 +1743,141 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
           f"launches per step {TRAIN_LAUNCHES} (checked); step 2 CUDA-event span "
           f"{span:.1f} ms, step 3 device busy "
           + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
-          + f"; main() {total_s:.1f}s incl. a {ckpt_gb:.1f} GB checkpoint and a "
-          f"{student_gb:.2f} GB fp16 student", flush=True)
+          + f"; main() {total_s:.1f}s incl. a {ckpt_gb:.1f} GB checkpoint, a "
+          f"{student_gb:.2f} GB fp16 student and the export", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
             "idle_share": idle, "busy_ms": busy, "event_span_ms": span,
             "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
-            "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
+            "all_launches_per_step": steps[-1].get("all_launches"),
+            "checkpoint_gb": ckpt_gb, "main_s": total_s,
+            "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces,
+                       "rel_err": err, "optimal_rel_err": opt_err},
+            "steps": steps}
+
+
+def optimizer_work(torch, params: dict, seed: int) -> dict:
+    """Device launches and device ms of one update of each optimizer the
+    training path builds, on `params` with seeded gradients, each after a
+    warm-up update of its own: clip + AdamW, clip + 8-bit Adam, and 8-bit
+    Adam under accumulation 2 (a micro-step inside the window, then the one
+    that updates); and apply_updates. The parameters are not changed."""
+    from tdm_tpu_torch.train import optim as topt
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, device=p.device)
+             for k, p in params.items()}
+    out = {"leaves": len(params), "elements": sum(p.numel() for p in params.values())}
+    for name, kw in (("adamw", {}), ("adam8bit", {"eight_bit": True}),
+                     ("adam8bit_accum", {"eight_bit": True, "accumulation_steps": LORA_ACCUM})):
+        tx = topt.make_optimizer(1e-5, **kw)
+        opt = tx.init(params)
+        phases = ("inside_window", "updating") if "accumulation_steps" in kw else ("update",)
+        for _ in phases:  # warm-up: one window
+            _, opt = tx.update(grads, opt, params)
+        out[name] = {}
+        for phase in phases:
+            (updates, opt), n, ms = count_device_work(
+                torch, lambda: tx.update(grads, opt, params))
+            out[name][phase] = {"launches": n, "device_ms": ms}
+        del opt
+    dests = {k: p.clone() for k, p in params.items()}
+    _, n, ms = count_device_work(torch, lambda: topt.apply_updates(dests, updates))
+    out["apply_updates"] = {"launches": n, "device_ms": ms}
+    return out
+
+
+def phase_train_lora(torch, seed: int, workdir: str) -> dict:
+    """Full-width PixArt-α-512 TDM training of a rank-32 LoRA student with
+    8-bit Adam and gradient accumulation 2 through the CLI's main(): batch 4,
+    bf16, dmd, 2 optimizer steps of 2 micro-steps each. Checks: the
+    attention launches of every micro-step equal the train phase's, the
+    factors keep their bits in micro-steps 1 and 3 and change in 2 and 4,
+    every quantized moment is int8, finite metrics, a kohya file of rank-32
+    factors. Reports seconds per optimizer step, peak memory, the device
+    busy time, idle share and device launches of micro-step 2 (profiled),
+    and each optimizer's launches per update of the critic and the factors."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import tdm as tdm_mod
+
+    train_env(seed, workdir)
+    out = os.path.join(workdir, "train_lora")
+    records, prev, last = [], {}, {}
+    init_state = tdm_mod.init_state
+
+    def capture_init(student, *a, **kw):
+        prev.update({k: v.clone() for k, v in student.items()})
+        return init_state(student, *a, **kw)
+
+    def after(rec, state):
+        rec["factors_changed"] = any(not torch.equal(state.student[k], v)
+                                     for k, v in prev.items())
+        prev.update({k: v.clone() for k, v in state.student.items()})
+        rec["mini_step"] = state.student_opt.mini_step
+        last["state"] = state
+
+    A.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tdm_mod.init_state = capture_init
+    try:
+        train_tdm.main([
+            "--output_dir", out, "--max_train_steps", str(LORA_STEPS),
+            "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
+            "--train_lora_rank", str(LORA_RANK), "--use_8bit_adam",
+            "--gradient_accumulation_steps", str(LORA_ACCUM), "--seed", str(seed),
+        ], step_hook=step_hook(torch, records, 2, "train_lora", after))
+    finally:
+        tdm_mod.init_state = init_state
+    total_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    run_dir = out + "_cfg4.5_steps900"
+    ckpt = os.path.join(run_dir, f"checkpoint-{LORA_STEPS}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    check_train_records(records, LORA_STEPS * LORA_ACCUM)
+    changed = [r["factors_changed"] for r in records]
+    check(changed == [False, True] * LORA_STEPS,
+          f"factors changed after micro-steps {changed}, expected only at each 2nd")
+    state = last["state"]
+    for role in ("student", "critic"):
+        inner = getattr(state, f"{role}_opt").inner
+        for m in ("mu", "nu"):
+            q = getattr(inner, m)
+            check(q.codes.dtype == torch.int8 and q.codes.is_cuda,
+                  f"{role} {m}: codes {q.codes.dtype} on {q.codes.device}")
+    check(bool(state.critic_opt.inner.nu.codes.ne(0).any()), "the critic's ν codes are all 0")
+    pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), LORA_RANK)
+    opt_work = {"critic": optimizer_work(torch, state.critic, seed),
+                "student": optimizer_work(torch, state.student, seed)}
+    del state, last["state"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    per_opt_step = records[2]["host_s"] + records[3]["host_s"]
+    busy = records[1]["busy_ms"]
+    span = records[3]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    print(f"[train_lora] PixArt-α-512 TDM, rank-{LORA_RANK} LoRA student, 8-bit Adam, "
+          f"accumulation {LORA_ACCUM} (dmd, batch 4, bf16): {per_opt_step:.3f} s per "
+          f"optimizer step (micro-steps 3+4, unprofiled), micro-steps "
+          + ", ".join(f"{r['host_s']:.3f}" for r in records)
+          + f" s; peak memory {peak_gb:.2f} GiB; micro-step 2 device busy "
+          + (f"{busy:.1f} ms against micro-step 4's CUDA-event span {span:.1f} ms -> "
+             f"idle share {idle:.3f}" if busy else "not measured")
+          + f", {records[1].get('all_launches')} device launches; attention launches per "
+          f"micro-step {TRAIN_LAUNCHES} (checked); factors changed {changed} (checked); "
+          f"kohya file {pieces} rank-{LORA_RANK} pieces; main() {total_s:.1f}s incl. a "
+          f"{ckpt_gb:.2f} GB checkpoint", flush=True)
+    for role, work in opt_work.items():
+        print(f"[train_lora] one update of the {role}'s parameters ({work['leaves']} "
+              f"leaves, {work['elements']} elements): "
+              f"{json.dumps({k: v for k, v in work.items() if isinstance(v, dict)})}",
+              flush=True)
+    return {"s_per_optimizer_step": per_opt_step, "micro_step_s": [r["host_s"] for r in records],
+            "peak_gib": peak_gb, "busy_ms": busy, "event_span_ms": span, "idle_share": idle,
+            "all_launches_per_micro_step": records[1].get("all_launches"),
+            "launches_per_micro_step": TRAIN_LAUNCHES, "factors_changed": changed,
+            "kohya_pieces": pieces, "checkpoint_gb": ckpt_gb, "main_s": total_s,
+            "optimizers": opt_work, "records": records}
 
 
 def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
@@ -1482,7 +1905,7 @@ def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
     }
 
 
-PHASES = ("kernels", "reference", "serve", "train", "sd3")
+PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3")
 
 
 def main(argv=None) -> int:
@@ -1521,6 +1944,8 @@ def main(argv=None) -> int:
             serve = phase_serve(torch, args.seed, workdir)
         if "train" in phases:
             train = phase_train(torch, args.seed, workdir)
+        if "train_lora" in phases:
+            train_lora = phase_train_lora(torch, args.seed, workdir)
         if "sd3" in phases:
             sd3 = phase_sd3(torch, args.seed, workdir)
     except SmokeFailure as e:
@@ -1576,7 +2001,7 @@ def main(argv=None) -> int:
          "dynamic_smem": build["dynamic_smem"]["splash_fwd"]},
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
-                      "serve": serve, "train": train, "sd3": sd3}))
+                      "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -4,20 +4,23 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
 `:27-817`), with its flag names and defaults (`utils/config.py`):
 
   schedule tables → student / critic / teacher parameters (seeded, or
-  refused from a checkpoint directory until slice 3) → clip+AdamW → prompt
-  data (an embedding cache from $TDM_EMBEDDING_CACHE, else hash
-  pseudo-embeddings) → the TDM step → loop [step → metrics at step 1 and
-  every 10 → validation grids every --validation_steps when $TDM_TAESD_DIR
-  names a TAESD decoder → checkpoint every --checkpointing_steps] → final
-  checkpoint and `student.safetensors` (fp16, the JAX package's layout).
+  refused from a checkpoint directory until slice 3; with --train_lora_rank
+  the student is a LoRA over the frozen teacher) → clip → AdamW or 8-bit
+  Adam, under --gradient_accumulation_steps → prompt data (an embedding
+  cache from $TDM_EMBEDDING_CACHE, else hash pseudo-embeddings) → the TDM
+  step → loop [a batch per micro-step; per optimizer step: metrics at step 1
+  and every 10 → validation grids every --validation_steps when
+  $TDM_TAESD_DIR names a TAESD decoder → checkpoint every
+  --checkpointing_steps] → final checkpoint, `student.safetensors` (fp16,
+  the JAX package's layout) and the kohya LoRA `tdm_lora.safetensors`: the
+  trained factors in LoRA mode, else the truncated SVD of student − teacher
+  at --export_lora_rank (0 skips it).
 
 Runs on CUDA unless `--device cpu` is given; `TDM_TINY_MODEL=1` swaps in the
 tiny config. Refused before the first step, each naming its ROADMAP slice:
---fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --train_lora_rank > 0 and
---export_lora_rank > 0 (slice 3: the LoRA export's default is 32, so pass
---export_lora_rank 0), --push_to_hub (slice 7), --use_8bit_adam and
---gradient_accumulation_steps > 1 (slice 2 follow-ups), --quant_forwards
-(slice 4), another --model_family (slices 3-5), --moe_experts (slice 6).
+--fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
+--quant_forwards (slice 4), another --model_family (slices 3-5),
+--moe_experts (slice 6).
 """
 
 from __future__ import annotations
@@ -41,17 +44,6 @@ def refuse_unported(cfg) -> None:
                 f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
                 "ported yet: ROADMAP.md queue 1, slice 6"
             )
-    if cfg.train_lora_rank > 0:
-        raise NotImplementedError(
-            "--train_lora_rank > 0 (LoRA training) is not ported yet: "
-            "ROADMAP.md queue 1, slice 3 (lora/)"
-        )
-    if cfg.export_lora_rank > 0:
-        raise NotImplementedError(
-            f"--export_lora_rank {cfg.export_lora_rank}: the kohya-LoRA export "
-            "is not ported yet (ROADMAP.md queue 1, slice 3, lora/); pass "
-            "--export_lora_rank 0"
-        )
     if cfg.push_to_hub:
         raise NotImplementedError(
             "--push_to_hub is not ported yet: ROADMAP.md queue 1, slice 7 (io/hub.py)"
@@ -87,10 +79,12 @@ def _load_taesd(vae_dir: str, device):
 
 
 def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = None) -> None:
-    """Train. `step_hook(step, run)`, when given, is called for every step
-    with the step's number and a zero-argument callable that runs it and
-    returns (state, metrics); the hook must call it once and return its
-    result (a caller times or profiles steps this way)."""
+    """Train. `step_hook(step, run)`, when given, is called for every
+    micro-step with the number of the optimizer step it belongs to and a
+    zero-argument callable that runs it and returns (state, metrics); the
+    hook must call it once and return its result (a caller times or profiles
+    steps this way)."""
+    from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.data import prompts as data_prompts, tokenizer as tok_lib
     from tdm_tpu_torch.device import resolve_device
     from tdm_tpu_torch.io import from_jax, params as params_io
@@ -201,10 +195,25 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
     )
     schedule = bundle.schedule
     denoise_fn = bundle.denoise_fn
+    stacks = from_jax.layer_stacks(bundle.model.cfg)
+    student_fn = lora_template = None
+    student_init = teacher
+    if cfg.train_lora_rank > 0:
+        # LoRA mode: the student's state is the adapter's factors over the
+        # frozen teacher
+        lora_template = lora_lib.init_lora(
+            bundle.model, cfg.train_lora_rank,
+            generator=torch.Generator().manual_seed(seed + 99),
+        )
+        student_fn = lora_lib.wrap_denoise_fn(denoise_fn, lora_template, stacks=stacks)
+        student_init = {k: v.to(device) for k, v in lora_lib.factors(lora_template).items()}
+        logger.info("LoRA training: rank %d, %d adapted modules",
+                    cfg.train_lora_rank, len(lora_template.alpha))
     step_fn = tdm.build_train_step(
         denoise_fn, teacher, schedule, tdm_cfg, tx_s, tx_c, sample_shape=sample_shape,
+        student_denoise_fn=student_fn,
     )
-    state = tdm.init_state(teacher, teacher, tx_s, tx_c, use_ema=cfg.use_ema)
+    state = tdm.init_state(student_init, teacher, tx_s, tx_c, use_ema=cfg.use_ema)
 
     # ---- resume ----
     mgr = ckpt_lib.CheckpointManager(out_dir, total_limit=cfg.checkpoints_total_limit)
@@ -240,16 +249,19 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
             torch.as_tensor(val_mask, dtype=torch.int32, device=device),
         )
 
-    # ---- loop ----
+    # ---- loop: with --gradient_accumulation_steps N, N micro-steps make one
+    # optimizer step, which alone advances global_step and the cadences ----
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     uncond = None
     profiler = None
+    micro_step = 0
     stop_signal: dict = {"signum": None}
 
     def _graceful(signum, frame):
         stop_signal["signum"] = signum
         signal.signal(signum, signal.SIG_DFL)
-        logger.warning("signal %d — will checkpoint and exit after this step", signum)
+        logger.warning("signal %d — will checkpoint and exit at the next optimizer step",
+                       signum)
 
     prev_handlers = {}
     with contextlib.suppress(ValueError):  # not on the main thread
@@ -278,9 +290,13 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
             return step_fn(state, draws, cond, uncond, teacher)
 
         state, metrics = run() if step_hook is None else step_hook(global_step + 1, run)
-        global_step += 1
+        micro_step += 1
         if cfg.debug_nans and not all(bool(torch.isfinite(v)) for v in metrics):
-            raise FloatingPointError(f"non-finite metrics at step {global_step}: {metrics}")
+            raise FloatingPointError(
+                f"non-finite metrics at step {global_step + 1}: {metrics}")
+        if micro_step % accum != 0:
+            continue  # inside the window: parameters bit-unchanged, no cadence
+        global_step += 1
 
         dt = timer.tick()
         if global_step % 10 == 0 or global_step == 1:
@@ -291,8 +307,12 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
             logger.info("step %d loss_student %.4f loss_critic %.4f",
                         global_step, m["loss_student"], m["loss_critic"])
         if decode_fn is not None and global_step % cfg.validation_steps == 0:
+            val_params = state.ema if cfg.use_ema else state.student
+            if student_fn is not None:
+                with torch.no_grad():
+                    val_params = student_fn.merge(val_params, teacher)
             grids = validation.save_validation_images(
-                denoise_fn, state.ema if cfg.use_ema else state.student, schedule,
+                denoise_fn, val_params, schedule,
                 val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
                 total_steps=cfg.total_steps,
             )
@@ -333,14 +353,25 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
         metrics_log.close()
         return
 
-    # ---- the final student, fp16, in the JAX package's layout ----
+    # ---- the final artifacts: the student, fp16, in the JAX package's
+    # layout, and the kohya LoRA (the reference's released form) ----
     final = state.ema if cfg.use_ema else state.student
+    lora_path = os.path.join(out_dir, "tdm_lora.safetensors")
+    if lora_template is not None:
+        trained = lora_lib.from_factors(final, lora_template.alpha)
+        lora_lib.save_kohya(trained, lora_path, prefix="lora_transformer")
+        final = lora_lib.merge(teacher, trained, 1.0, stacks)
     flat = from_jax.jax_layout(final, scan_layers=bundle.model.cfg.scan_layers)
     params_io.save_file(
         {k: v.astype(np.float16) for k, v in flat.items()},
         os.path.join(out_dir, "student.safetensors"),
     )
-    logger.info("exported student.safetensors")
+    if lora_template is None and cfg.export_lora_rank > 0:
+        lora = lora_lib.extract_lora(bundle.model, teacher, final, cfg.export_lora_rank)
+        lora_lib.save_kohya(lora, lora_path, prefix="lora_transformer")
+    logger.info("exported student.safetensors%s",
+                "" if lora_template is None and cfg.export_lora_rank <= 0
+                else " and tdm_lora.safetensors")
     metrics_log.close()
     logger.info("done at step %d", global_step)
 

@@ -26,8 +26,12 @@ Differences from the JAX step that a caller sees:
     the backward kernels. The other forwards run under `torch.no_grad()`.
   * The state is updated in place (one copy of each model on the device) and
     returned with the metrics.
-  * `quant_forwards` and a LoRA `student_denoise_fn` raise
-    NotImplementedError (ROADMAP.md slices 4 and 3).
+  * A LoRA student (`student_denoise_fn`, `lora.wrap_denoise_fn`): the JAX
+    step merges the factors into the frozen teacher at every student call
+    inside its trace; here they are merged once per step without gradient
+    (for the rollout and x0_gen_sg) and once under autograd (for the student
+    loss). The values are the same: the merge is deterministic.
+  * `quant_forwards` raises NotImplementedError (ROADMAP.md slice 4).
 """
 
 from __future__ import annotations
@@ -64,11 +68,11 @@ class TDMConfig:
 
 
 class TrainState(NamedTuple):
-    step: int
-    student: dict  # name -> tensor (fp32 master weights)
-    student_opt: topt.AdamWState
+    step: int  # train_step calls; a restored state takes its checkpoint's optimizer step
+    student: dict  # name -> tensor (fp32 master weights, or LoRA factors)
+    student_opt: Any  # the optimizer's state (train/optim.py)
     critic: dict
-    critic_opt: topt.AdamWState
+    critic_opt: Any
     ema: Optional[dict]  # EMA of the student (None to disable)
 
 
@@ -161,7 +165,12 @@ def build_train_step(
     student_denoise_fn: Optional[ParamDenoiseFn] = None,
 ):
     """Returns `train_step(state, draws, cond, uncond, teacher=None) ->
-    (state, metrics)`; `teacher` defaults to `teacher_params`."""
+    (state, metrics)`; `teacher` defaults to `teacher_params`.
+
+    `student_denoise_fn`: the LoRA student (`lora.wrap_denoise_fn`), whose
+    state.student holds only the adapter factors; the step's teacher is its
+    frozen base, and its `merge(factors, teacher)` gives the weights every
+    student forward runs with through `denoise_fn`."""
     if config.loss_mode not in ("dmd", "instruct"):
         raise ValueError(f"unknown loss_mode {config.loss_mode!r} (dmd | instruct)")
     if config.loss_mode == "instruct" and schedule.prediction_type != sched.EPSILON:
@@ -174,11 +183,6 @@ def build_train_step(
             "quant_forwards (int8 no-grad forwards) is not ported yet: "
             "ROADMAP.md queue 1, slice 4 (ops/quant.py)"
         )
-    if student_denoise_fn is not None:
-        raise NotImplementedError(
-            "a LoRA student (student_denoise_fn) is not ported yet: "
-            "ROADMAP.md queue 1, slice 3 (lora/)"
-        )
     grid = sched.fewstep_grid(config.total_steps, config.num_steps)
     levels = segment_levels(config)
 
@@ -190,10 +194,17 @@ def build_train_step(
         g = grid.to(dev)
         lv = levels.to(dev)
 
+        def student_weights(student_params):
+            """The weights the student's forward runs with."""
+            if student_denoise_fn is None:
+                return student_params
+            return student_denoise_fn.merge(student_params, teacher)
+
         # ---- 1-2. student rollout from pure noise, no gradient ----
         with torch.no_grad():
+            student_sg = student_weights(state.student)
             traj = sampling.sample_fewstep(
-                lambda x, t, c: denoise_fn(state.student, x, t, c),
+                lambda x, t, c: denoise_fn(student_sg, x, t, c),
                 schedule, z, cond, timestep_grid=grid, return_trajectory=True,
             )
 
@@ -231,12 +242,12 @@ def build_train_step(
             state_in, _ = sampling.gather_trajectory_states(traj, g, seg - 1)
             t_in = g[seg - 1]
 
-            def gen_x0(student_params):
-                out = denoise_fn(student_params, state_in, t_in, cond)
+            def gen_x0(weights):
+                out = denoise_fn(weights, state_in, t_in, cond)
                 return sched.predicted_origin(schedule, out, t_in, state_in)
 
             with torch.no_grad():
-                x0_gen_sg = gen_x0(state.student)
+                x0_gen_sg = gen_x0(student_sg)
             a_f, s_f = sched.alpha_sigma(schedule, t_fake, z.dim())
             x_t_sg = (a_f * x0_gen_sg + s_f * fresh).to(x0_gen_sg.dtype)
 
@@ -271,7 +282,7 @@ def build_train_step(
                 x0_fake = sched.predicted_origin(schedule, eps_fake, t_fake, x_t_sg)
 
             def student_loss_fn(student_params):
-                x0_gen = gen_x0(student_params)
+                x0_gen = gen_x0(student_weights(student_params))
                 target = (x0_gen + x0_real - x0_fake).detach()
                 return weighted_loss(x0_gen, target, x0_gen_sg - x0_real)
 
@@ -295,16 +306,18 @@ def build_train_step(
             target = teacher_cfg_x0(x_in, t_fake)
 
             def student_loss_fn(student_params):
+                weights = student_weights(student_params)
                 if config.student_cfg_in_loss and config.cfg != 1.0:
                     x2, t2 = torch.cat([x_in, x_in]), torch.cat([t_fake, t_fake])
                     cond2 = tuple(torch.cat([a, b]) for a, b in zip(cond, uncond))
-                    eps_c, eps_u = denoise_fn(student_params, x2, t2, cond2).chunk(2)
+                    eps_c, eps_u = denoise_fn(weights, x2, t2, cond2).chunk(2)
                     eps_s = eps_u + config.cfg * (eps_c - eps_u)
                 else:
-                    eps_s = denoise_fn(student_params, x_in, t_fake, cond)
+                    eps_s = denoise_fn(weights, x_in, t_fake, cond)
                 x0_s = sched.predicted_origin(schedule, eps_s, t_fake, x_in)
                 return weighted_loss(x0_s, target, x0_s.float() - target.float())
 
+        student_sg = None  # a LoRA student's merged weights, before the loss merges again
         loss_student, student_grads = _value_and_grad(student_loss_fn, state.student)
         updates, student_opt = student_tx.update(
             student_grads, state.student_opt, state.student
@@ -343,7 +356,8 @@ def init_state(
     use_ema: bool = False,
 ) -> TrainState:
     """A fresh TrainState; each role gets its own copy of the tensors (the
-    recipe starts student and critic from the same teacher weights)."""
+    recipe starts student and critic from the same teacher weights; a LoRA
+    student starts from its factors)."""
     copy = lambda tree: {k: v.detach().clone() for k, v in tree.items()}  # noqa: E731
     return TrainState(
         step=0,

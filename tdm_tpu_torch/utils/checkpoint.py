@@ -4,20 +4,26 @@ Port of `tdm_tpu/utils/checkpoint.py` without orbax: `checkpoint-{step}/`
 directories under the output directory (the reference's naming,
 `src/main.py:563-587`), rotated by `total_limit`, each holding one
 safetensors file per tensor tree (written by the port's numpy writer,
-`io/params.py`) and `state.json` with the step and the optimizer counts:
+`io/params.py`) and `state.json` with the step and the optimizers' counters:
 
     checkpoint-{step}/
-      state.json                  {"step", "student_count", "critic_count", "ema"}
-      student.safetensors         fp32 master weights, port state_dict names
+      state.json             {"step", "ema", "student_count", "critic_count", ...}
+      student.safetensors    fp32 master weights (port state_dict names), or
+                             a LoRA student's factors ('{module path}/a', '/b')
       critic.safetensors
-      ema.safetensors             when the EMA is kept
-      student_mu.safetensors      Adam moments (bf16 moments widened to fp32)
-      student_nu.safetensors
-      critic_mu.safetensors
-      critic_nu.safetensors
+      ema.safetensors        when the EMA is kept
+      student_opt.safetensors  every tensor of the optimizer state, named by
+      critic_opt.safetensors   its field path: 'mu/{name}' and 'nu/{name}'
+                               (AdamW; bf16 moments widened to fp32), the
+                               int8 'mu/codes' with fp32 'mu/scales' and
+                               'mu/small' (8-bit Adam), 'acc/{name}' and
+                               'inner/...' (accumulation)
 
-A directory is written under a temporary name and renamed when complete. The
-format is the port's own; orbax cannot read it.
+Each integer of an optimizer state is a counter in state.json under its
+role and field path: `student_count` for AdamW and 8-bit Adam;
+`student_mini_step`, `student_gradient_step` and `student_inner_count`
+under accumulation. A directory is written under a temporary name and
+renamed when complete. The format is the port's own; orbax cannot read it.
 """
 
 from __future__ import annotations
@@ -37,11 +43,41 @@ _DIR = re.compile(r"checkpoint[-_](\d+)")
 
 
 def _trees(state) -> dict[str, Optional[dict]]:
-    return {
-        "student": state.student, "critic": state.critic, "ema": state.ema,
-        "student_mu": state.student_opt.mu, "student_nu": state.student_opt.nu,
-        "critic_mu": state.critic_opt.mu, "critic_nu": state.critic_opt.nu,
-    }
+    return {"student": state.student, "critic": state.critic, "ema": state.ema}
+
+
+def _walk(node, prefix: str, tensors: dict, counters: dict) -> None:
+    """Every tensor and integer of an optimizer state (named tuples, dicts
+    of tensors, tensors, ints), keyed by its '/'-joined field path."""
+    if isinstance(node, torch.Tensor):
+        tensors[prefix] = node
+    elif isinstance(node, int):
+        counters[prefix] = node
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f in node._fields:
+            _walk(getattr(node, f), f"{prefix}/{f}" if prefix else f, tensors, counters)
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            _walk(v, f"{prefix}/{k}" if prefix else k, tensors, counters)
+    elif node is not None:
+        raise TypeError(f"optimizer state field {prefix!r}: {type(node).__name__}")
+
+
+def _with_counters(node, prefix: str, counters: dict):
+    """`node` with each integer replaced by counters[its field path]."""
+    if isinstance(node, int):
+        return counters[prefix]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(
+            _with_counters(getattr(node, f), f"{prefix}/{f}" if prefix else f, counters)
+            for f in node._fields))
+    return node
+
+
+def _opt_parts(opt_state) -> tuple[dict, dict]:
+    tensors, counters = {}, {}
+    _walk(opt_state, "", tensors, counters)
+    return tensors, counters
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -49,6 +85,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()  # exact; numpy has no bfloat16
     return t.cpu().numpy()
+
+
+def _load_into(path: str, tree: dict) -> None:
+    """Copy every tensor of a safetensors file into `tree`'s tensors, in
+    place; the key sets must be equal."""
+    flat = params_io.load_file(path)
+    if set(flat) != set(tree):
+        raise KeyError(f"{path}: keys differ from the run's")
+    for k, t in tree.items():
+        t.copy_(torch.from_numpy(flat[k]))
 
 
 class CheckpointManager:
@@ -78,19 +124,20 @@ class CheckpointManager:
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        for name, tree in _trees(state).items():
+        trees = _trees(state)
+        meta = {"step": int(step), "ema": state.ema is not None}
+        for role in ("student", "critic"):
+            tensors, counters = _opt_parts(getattr(state, f"{role}_opt"))
+            trees[f"{role}_opt"] = tensors
+            meta.update({f"{role}_{k.replace('/', '_')}": int(v) for k, v in counters.items()})
+        for name, tree in trees.items():
             if tree is not None:
                 params_io.save_file(
                     {k: _to_numpy(v) for k, v in tree.items()},
                     os.path.join(tmp, f"{name}.safetensors"),
                 )
         with open(os.path.join(tmp, "state.json"), "w") as f:
-            json.dump({
-                "step": int(step),
-                "student_count": int(state.student_opt.count),
-                "critic_count": int(state.critic_opt.count),
-                "ema": state.ema is not None,
-            }, f)
+            json.dump(meta, f)
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
         if self.total_limit is not None:
@@ -100,8 +147,8 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """`state` with every tensor overwritten in place from the
-        checkpoint of `step` (the latest when None), its step and counts
-        taken from it."""
+        checkpoint of `step` (the latest when None), its step and
+        optimizer counters taken from it."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.output_dir}")
@@ -113,20 +160,21 @@ class CheckpointManager:
                 f"{path}: saved {'with' if meta['ema'] else 'without'} an EMA, "
                 f"the run is {'with' if state.ema is not None else 'without'} one"
             )
+        opts = {}
         with torch.no_grad():
             for name, tree in _trees(state).items():
-                if tree is None:
-                    continue
-                flat = params_io.load_file(os.path.join(path, f"{name}.safetensors"))
-                if set(flat) != set(tree):
-                    raise KeyError(f"{path}/{name}: keys differ from the run's")
-                for k, t in tree.items():
-                    t.copy_(torch.from_numpy(flat[k]))
-        return state._replace(
-            step=meta["step"],
-            student_opt=state.student_opt._replace(count=meta["student_count"]),
-            critic_opt=state.critic_opt._replace(count=meta["critic_count"]),
-        )
+                if tree is not None:
+                    _load_into(os.path.join(path, f"{name}.safetensors"), tree)
+            for role in ("student", "critic"):
+                opt = getattr(state, f"{role}_opt")
+                tensors, counters = _opt_parts(opt)
+                _load_into(os.path.join(path, f"{role}_opt.safetensors"), tensors)
+                try:
+                    saved = {k: meta[f"{role}_{k.replace('/', '_')}"] for k in counters}
+                except KeyError as e:
+                    raise KeyError(f"{path}: no counter {e} for the run's optimizer") from None
+                opts[f"{role}_opt"] = _with_counters(opt, "", saved)
+        return state._replace(step=meta["step"], **opts)
 
 
 def resolve_resume_step(output_dir: str, resume: str) -> Optional[int]:

@@ -119,8 +119,7 @@ class TrainConfig:
     critic_updates: int = 1
     quant_forwards: bool = False
     allow_pooled_standin: bool = False
-    # rank of the kohya-LoRA artifact extracted at the end (0 = skip); the
-    # LoRA export is not ported yet, so the port needs --export_lora_rank 0
+    # rank of the kohya-LoRA artifact extracted at the end (0 = skip)
     export_lora_rank: int = 32
     train_lora_rank: int = 0
     debug_nans: bool = False
