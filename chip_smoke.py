@@ -26,8 +26,10 @@ Phases, one line each, and any failure exits non-zero:
      checks, per-seed determinism and the kernel launch count per batch;
      then one full-width forward with the kernel against plain attention;
   6. train: full-width PixArt-α-512 TDM distillation through the training
-     CLI's main() at the JAX CLI's default flags (seeded weights and
-     embedding cache, batch 4, bf16, dmd, 3 steps): seconds per step, peak
+     CLI's main() at the JAX CLI's default flags, the teacher read from the
+     transformer/ folder of a PixArt-α-512 diffusers checkout written from
+     the seed (seeded embedding cache, batch 4, bf16, dmd, 3 steps): the
+     teacher's load seconds by part, seconds per step, peak
      memory, the idle share of a step, and each training kernel's launches
      per step (checked); then the default rank-32 kohya LoRA export by
      truncated SVD: its seconds, its keys and one kernel's reconstruction
@@ -46,7 +48,19 @@ Phases, one line each, and any failure exits non-zero:
      of 4), exactly 96 splash-kernel launches and no flash launch per batch,
      per-seed determinism, a profiled batch, and one full-width forward
      through the splash kernel against the same forward through the flash
-     kernel.
+     kernel;
+  9. diffusers: stock diffusers checkouts at full width, written from the
+     seed through the port's manifests (fp16 files, the released key
+     layout): a tiny KL decoder on the card against the CPU (fp32, TF32
+     off); PixArt-α-512 with its 4-channel AutoencoderKL served over HTTP
+     from --model <checkout> (load seconds with the read and the conversion
+     apart, 6 concurrent requests, PNG checks, per-seed determinism,
+     exactly 224 flash-kernel launches per batch, a profiled batch with the
+     KL decode's device time); SD3-Medium with its 16-channel AutoencoderKL
+     through from_pretrained at the default attn_impl (load seconds, one
+     warm batch of 4 at 1024² through the pipeline, timed, exactly 96
+     flash-kernel launches and nothing else, finite images, a profiled
+     batch with the decode's share and the kernel's ms per call).
 Phase 3 also holds the training kernels (the forward with its lse, dQ with
 its fused Δ, dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
 shapes, rows whose logits are all below -20) against their plain versions;
@@ -868,13 +882,145 @@ def phase_reference(torch, seed: int) -> None:
     check(di <= 2e-3, "tiny pipeline images disagree")
 
 
+def pixart_cache(workdir: str, seed: int) -> tuple[str, list]:
+    """An embedding cache of 8 prompts with ragged T5 masks (120 tokens at
+    4096), written once per run: (its path, its prompts)."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+
+    prompts = [f"prompt {i}" for i in range(8)]
+    cache = os.path.join(workdir, "cache.npz")
+    if not os.path.exists(cache):
+        rng = np.random.default_rng(seed)
+        lengths = np.array([120, 77, 33, 9, 120, 1, 56, 100])
+        EmbeddingCache(
+            rng.standard_normal((8, 120, 4096)).astype(np.float16),
+            (np.arange(120)[None] < lengths[:, None]).astype(np.int32), prompts,
+            uncond_embed=np.zeros((120, 4096), np.float16),
+            uncond_mask=np.zeros(120, np.int32),
+        ).save(cache)
+    return cache, prompts
+
+
+# the seeded weights of a checkout's KL VAE: at the transformers' 0.02 a
+# full-width decode is ~0.02 wide and every PNG pixel the same; at 0.15 it
+# spreads over about [-1, 1]
+KL_WEIGHT_SCALE = 0.15
+
+
+def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float, int]:
+    """A stock diffusers checkout at `root`: model_index.json, transformer/
+    and vae/ (an AutoencoderKL), each a config.json and one fp16
+    diffusion_pytorch_model.safetensors of seeded weights in the released
+    checkpoint's key layout (the port's manifests), written one tensor at a
+    time. Returns (seconds, parameters)."""
+    from tdm_tpu_torch.io import manifest
+
+    t0 = time.monotonic()
+    tconf = {"sample_size": cfg.sample_size, "patch_size": cfg.patch_size,
+             "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+             "num_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+             "attention_head_dim": cfg.head_dim}
+    if family == "pixart":
+        index = {"_class_name": "PixArtAlphaPipeline"}
+        tconf.update(_class_name="PixArtTransformer2DModel", caption_channels=cfg.caption_dim)
+    else:
+        index = {"_class_name": "StableDiffusion3Pipeline"}
+        tconf.update(_class_name="SD3Transformer2DModel", joint_attention_dim=cfg.context_dim,
+                     pooled_projection_dim=cfg.pooled_dim,
+                     pos_embed_max_size=cfg.pos_embed_max_size)
+    vconf = {"_class_name": "AutoencoderKL", "latent_channels": vcfg.latent_channels,
+             "block_out_channels": list(vcfg.block_widths),
+             "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_groups,
+             "scaling_factor": vcfg.scaling_factor,
+             "shift_factor": vcfg.shift_factor if vcfg.shift_factor else None}
+    n = 0
+    for sub, conf in (("", index), ("transformer", tconf), ("vae", vconf)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, "model_index.json" if not sub else "config.json"),
+                  "w") as f:
+            json.dump(conf, f)
+    n += manifest.write_synthetic(
+        family, os.path.join(root, "transformer", "diffusion_pytorch_model.safetensors"),
+        cfg, seed=seed)
+    n += manifest.write_synthetic(
+        "klvae", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
+        vcfg, seed=seed + 1, scale=KL_WEIGHT_SCALE)
+    return time.monotonic() - t0, n
+
+
+def pixart_checkout(workdir: str, seed: int) -> str:
+    """The PixArt-α-512 checkout (28 layers, hidden 1152, 16x72 heads,
+    caption 4096; its 4-channel AutoencoderKL [128, 256, 512, 512], scaling
+    0.18215), written once per run."""
+    from tdm_tpu_torch.models import pixart, vae
+
+    root = os.path.join(workdir, "PixArt-XL-2-512x512")
+    if not os.path.exists(os.path.join(root, "model_index.json")):
+        cfg, vcfg = pixart.PixArtConfig(), vae.KLVAEConfig()
+        check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.caption_dim,
+               tuple(vcfg.block_widths), vcfg.latent_channels, vcfg.scaling_factor)
+              == (28, 1152, 16, 72, 4096, (128, 256, 512, 512), 4, 0.18215),
+              "PixArt-α-512 and its VAE")
+        secs, n = write_checkout(root, "pixart", cfg, vcfg, seed)
+        gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                 for f in fs) / 1e9
+        print(f"[checkout] wrote the PixArt-α-512 diffusers checkout ({n / 1e6:.1f}M "
+              f"params, {gb:.2f} GB at fp16) in {secs:.1f}s", flush=True)
+    return root
+
+
+@contextlib.contextmanager
+def timed_calls(torch, targets):
+    """Each (object, attribute) of `targets` wrapped to add the seconds of
+    its calls, the card synchronised after each, to times[attribute]."""
+    times, saved = {}, []
+
+    def wrap(fn, name):
+        def wrapped(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                times[name] = times.get(name, 0.0) + time.monotonic() - t0
+        return wrapped
+
+    for obj, name in targets:
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, wrap(getattr(obj, name), name))
+    try:
+        yield times
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def load_targets():
+    """What a checkout's load is made of: the whole of `_from_diffusers`,
+    the safetensors reads and the strict converters."""
+    from tdm_tpu_torch.io import convert
+    from tdm_tpu_torch.pipelines import loading
+
+    return [(loading, "_from_diffusers"), (convert, "load_torch_state_dict"),
+            (convert, "pixart_params"), (convert, "sd3_params"), (convert, "klvae_params")]
+
+
+def load_report(times: dict) -> dict:
+    total = times["_from_diffusers"]
+    read = times["load_torch_state_dict"]
+    conv = sum(v for k, v in times.items() if k.endswith("_params"))
+    return {"load_s": total, "read_s": read, "convert_s": conv,
+            "convert_share": conv / total, "build_and_copy_s": total - read - conv}
+
+
 def phase_serve(torch, seed: int, workdir: str) -> dict:
     """Full-width PixArt-α-512 served over HTTP through the port."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
     import urllib.request
 
-    from tdm_tpu_torch.data.prompts import EmbeddingCache
     from tdm_tpu_torch.models import pixart, vae
     from tdm_tpu_torch.ops import attention as A
     from tdm_tpu_torch.pipelines import PixArtPipeline, save_pretrained
@@ -898,17 +1044,7 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
     save_pretrained(model_dir, pipe)
     del pipe
     torch.cuda.empty_cache()
-    # an embedding cache of 8 prompts with ragged T5 masks (120 tokens)
-    rng = np.random.default_rng(seed)
-    prompts = [f"prompt {i}" for i in range(8)]
-    lengths = np.array([120, 77, 33, 9, 120, 1, 56, 100])
-    cache = os.path.join(workdir, "cache.npz")
-    EmbeddingCache(
-        rng.standard_normal((8, 120, 4096)).astype(np.float16),
-        (np.arange(120)[None] < lengths[:, None]).astype(np.int32), prompts,
-        uncond_embed=np.zeros((120, 4096), np.float16),
-        uncond_mask=np.zeros(120, np.int32),
-    ).save(cache)
+    cache, prompts = pixart_cache(workdir, seed)
     print(f"[serve] wrote PixArt-α-512 ({n_params / 1e6:.1f}M params) and an "
           f"8-prompt cache in {time.monotonic() - t0:.1f}s", flush=True)
 
@@ -979,32 +1115,52 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
 def profile_batch(torch, pipe, cond, noise, kernel: str = "flash_fwd") -> dict:
     """Device time of one full batch (4 NFE + decode) by kernel, from
     torch.profiler's CUDA activity: busy time, the attention kernel's share
-    (kernels whose name holds `kernel`) and the device's idle share of the
-    batch's wall time."""
+    (kernels whose name holds `kernel`), the device's idle share of the
+    batch's wall time, and the VAE decode's span by CUDA events around it
+    (its kernels run back to back: `decode_alone` finds its device time
+    equal to that span, where the profiler's attribution of kernels to a
+    record_function range around the decode counted MMDiT kernels too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    dec = pipe.vae_decoder
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_decode(z, forward=dec.forward):
+        events[0].record()
+        out = forward(z)
+        events[1].record()
+        return out
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        pipe(prompt_embeds=cond, latents=noise).images.cpu()
-        wall_ms = (time.monotonic() - t0) * 1e3
+    dec.forward = timed_decode
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            pipe(prompt_embeds=cond, latents=noise).images.cpu()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        del dec.forward
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] no device time in the trace: not measured", flush=True)
         return {}
     attn_ms = sum(e.device_time_total for e in kernels if kernel in e.key) / 1e3
+    decode_ms = events[0].elapsed_time(events[1])
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     print(f"[profile] one batch of 4: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
           f"{kernel} {attn_ms:.1f} ms ({attn_ms / busy_ms:.3f} of busy), "
+          f"{type(dec).__name__} decode {decode_ms:.1f} ms by CUDA events "
+          f"({decode_ms / busy_ms:.3f} of busy), "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     for e in top:
         print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "attention_ms": attn_ms,
-            "idle_share": 1 - busy_ms / wall_ms, "launches": sum(e.count for e in kernels)}
+            "idle_share": 1 - busy_ms / wall_ms, "launches": sum(e.count for e in kernels),
+            "decode_ms": decode_ms}
 
 
 @contextlib.contextmanager
@@ -1516,6 +1672,256 @@ def sd3_forward_check(torch, transformer, seed: int) -> float:
     return rel
 
 
+# per batch of 4 at 4 NFE: a self and a cross attention in each of the 28
+# PixArt blocks
+PIXART_LAUNCHES_PER_BATCH = 28 * 2 * 4
+# the KL decoder on the card against the CPU, fp32 with TF32 off: the same
+# convs, GroupNorms and softmax by other algorithms, relative L2
+KL_REL_L2 = 1e-5
+
+
+def kl_decoder_check(torch, seed: int) -> dict:
+    """A tiny KL decoder (4 latent channels, and SD3's 16 at narrow widths)
+    on the card against the same decoder and weights on the CPU, fp32 with
+    TF32 off: relative L2 under KL_REL_L2, and finite."""
+    import dataclasses
+
+    import numpy as np
+
+    from tdm_tpu_torch.io import convert, from_jax, manifest
+    from tdm_tpu_torch.models import vae
+
+    out = {}
+    for name, vcfg in (("tiny", vae.KLVAEConfig.tiny()),
+                       ("sd3_narrow", dataclasses.replace(
+                           vae.KLVAEConfig.sd3(), block_widths=(32, 64, 64), norm_groups=8))):
+        sd = manifest.synthetic_state_dict("klvae", vcfg, seed=seed, scale=0.3)
+        flat = convert.flatten(convert.klvae_params(
+            sd, layers_per_block=vcfg.layers_per_block, n_stages=len(vcfg.block_widths)
+        )["decoder"])
+        z = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (2, vcfg.latent_channels, 24, 20)).astype(np.float32))
+        got = {}
+        for dev in ("cpu", "cuda"):
+            dec = vae.KLDecoder(vcfg, device=dev)
+            dec.load_state_dict(from_jax.state_dict_from_jax(flat, dec))
+            with torch.inference_mode():
+                got[dev] = dec(z.to(dev)).cpu()
+        rel = ((got["cuda"] - got["cpu"]).norm() / got["cpu"].norm()).item()
+        print(f"[diffusers] KL decoder {name} {list(got['cuda'].shape)} fp32 card vs CPU: "
+              f"rel L2 {rel:.3e} (limit {KL_REL_L2})", flush=True)
+        check(bool(torch.isfinite(got["cuda"]).all()) and rel <= KL_REL_L2,
+              f"the KL decoder ({name}) on the card disagrees with the CPU: rel L2 {rel}")
+        out[name] = rel
+    return out
+
+
+def decode_alone(torch, pipe, shape: tuple, seed: int) -> dict:
+    """The pipeline's VAE decode of one batch of latents of `shape` alone
+    (the cost does not depend on the values): its device time and launches
+    under torch.profiler, and its CUDA-event time warm (mean of 3), a
+    check on the `vae_decode` range of a profiled batch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(shape, device="cuda", generator=gen)
+    dec = pipe.vae_decoder
+    flops = [0]
+
+    def count(module, args, out):  # 2 operations per multiply-add
+        if isinstance(module, torch.nn.Conv2d):
+            flops[0] += 2 * out.numel() * module.in_channels * math.prod(module.kernel_size)
+        elif isinstance(module, torch.nn.Linear):
+            flops[0] += 2 * out.numel() * module.in_features
+        else:  # the mid-block's one-head attention: q·kᵀ and p·v over h·w positions
+            b, c, h, w = args[0].shape
+            flops[0] += 2 * 2 * b * (h * w) ** 2 * c
+
+    hooks = [m.register_forward_hook(count) for m in dec.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+             or type(m).__name__ == "_MidAttention"]
+    with torch.inference_mode():
+        dec(z)
+        for hook in hooks:
+            hook.remove()
+        out, launches, device_ms = count_device_work(torch, lambda: dec(z))
+        event_ms = time_ms(torch, lambda: dec(z), iters=3, warmup=1)
+    check(bool(torch.isfinite(out).all()), f"{type(dec).__name__} decode is not finite")
+    rate = flops[0] / (device_ms * 1e-3)
+    print(f"[diffusers] {type(dec).__name__} decode alone {list(shape)} -> "
+          f"{list(out.shape)} fp32: {device_ms:.1f} ms of device time over {launches} "
+          f"launches, {event_ms:.1f} ms by CUDA events (mean of 3); {flops[0] / 1e12:.2f} "
+          f"TFLOP in its convs, linears and attention products, {rate / 1e12:.1f} TFLOP/s "
+          f"= {rate / PEAK_OPS_S['float32']:.2f} of the fp32 peak", flush=True)
+    return {"device_ms": device_ms, "launches": launches, "event_ms": event_ms,
+            "tflop": flops[0] / 1e12, "tflop_s": rate / 1e12}
+
+
+def diffusers_pixart(torch, seed: int, workdir: str) -> dict:
+    """The PixArt-α-512 checkout served over HTTP from --model <checkout>:
+    the load (its read and conversion apart), 6 concurrent requests (two
+    batches of 4, one padded), PNGs, per-seed determinism, the flash
+    kernel's launches per batch, and a profiled batch with the KL decode."""
+    from concurrent.futures import ThreadPoolExecutor
+    import urllib.request
+
+    import numpy as np
+
+    from tdm_tpu_torch.models import vae
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.serve import server as S
+
+    root = pixart_checkout(workdir, seed)
+    cache, prompts = pixart_cache(workdir, seed)
+    t0 = time.monotonic()
+    args = S.parse_args([
+        "--model", root, "--embedding_cache", cache, "--port", "0",
+        "--batch_size", "4", "--max_delay_ms", "1000", "--warmup",
+    ])
+    with timed_calls(torch, load_targets()) as times:
+        server = S.build_server(args).start()
+    up_s = time.monotonic() - t0
+    load = load_report(times)
+    stats, pipe = server.batcher.stats, server.batcher.pipe
+    check(isinstance(pipe.vae_decoder, vae.KLDecoder) and pipe.vae_range == "pm1"
+          and pipe.vae_scaling == 0.18215 and pipe.vae_decoder.cfg.dtype == torch.float32
+          and pipe.transformer.cfg.dtype == torch.bfloat16, "the served PixArt checkout")
+    print(f"[diffusers] PixArt-α-512 checkout loaded in {load['load_s']:.2f}s (safetensors "
+          f"read {load['read_s']:.2f}s, conversion {load['convert_s']:.3f}s = "
+          f"{load['convert_share']:.3f} of the load, modules and copy to the card "
+          f"{load['build_and_copy_s']:.2f}s); server up and warm in {up_s:.1f}s (warm-up "
+          f"batch {stats.last_batch_latency_s:.3f}s)", flush=True)
+
+    def post(prompt, seed):
+        body = json.dumps({"prompt": prompt, "seed": seed}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        t = time.monotonic()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, time.monotonic() - t
+
+    try:
+        # the main path: counts to 0, 6 concurrent requests, then one alone
+        A.reset_launches()
+        b0, pad0 = stats.batches, stats.rows_padded
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(6) as ex:
+            replies = list(ex.map(lambda i: post(prompts[i], 300 + i), range(6)))
+        wall6 = time.monotonic() - t0
+        batches6 = stats.batches - b0
+        solo, solo_s = post(prompts[0], 300)
+        launches = A.launch_counts()
+        batches = stats.batches - b0
+        solo_batch_s = stats.last_batch_latency_s
+    finally:
+        server.close()
+    for reply, _ in replies + [(solo, solo_s)]:
+        check(reply.get("format") == "png" and reply.get("shape") == [512, 512, 3],
+              f"reply {str(reply)[:200]}")
+        check_png(base64.b64decode(reply["image"]), 512, 512)
+    check(batches6 == 2 and stats.rows_padded - pad0 == 2 + 3,
+          f"6 requests ran as {batches6} batches")
+    check(solo["image"] == replies[0][0]["image"],
+          "same (prompt, seed) gave different bytes in another batch")
+    check(len({r["image"] for r, _ in replies}) == 6, "distinct seeds gave equal images")
+    check(launches["flash_attention_fwd"] == PIXART_LAUNCHES_PER_BATCH * batches
+          and sum(launches.values()) == launches["flash_attention_fwd"],
+          f"launches {launches} over {batches} batches, expected "
+          f"{PIXART_LAUNCHES_PER_BATCH} flash_fwd and nothing else per batch")
+    lat = [t for _, t in replies]
+    print(f"[diffusers] PixArt checkout: 6 concurrent requests in {wall6:.3f}s as "
+          f"{batches6} batches ({6 / wall6:.2f} images/s), request latency "
+          f"{min(lat):.3f}-{max(lat):.3f}s; lone request {solo_s:.3f}s, its batch "
+          f"{solo_batch_s:.3f}s; same (prompt, seed) -> same PNG bytes; launches "
+          f"{launches} = {PIXART_LAUNCHES_PER_BATCH} flash_fwd x {batches} batches", flush=True)
+    cond = tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
+    prof = profile_batch(torch, pipe, cond, torch.randn(4, 4, 64, 64))
+    decode = decode_alone(torch, pipe, (4, 4, 64, 64), seed)
+    return {"load": load, "up_s": up_s, "decode": decode,
+            "launches": launches["flash_attention_fwd"], "batches": batches, "launches_per_batch": PIXART_LAUNCHES_PER_BATCH,
+            "wall6_s": wall6, "images_per_s": 6 / wall6, "batch_s": solo_batch_s,
+            "solo_s": solo_s, "profile": prof}
+
+
+def diffusers_sd3(torch, seed: int, workdir: str) -> dict:
+    """The SD3-Medium checkout (24 layers, hidden 1536, 24x64 heads; its
+    16-channel AutoencoderKL, scaling 1.5305, shift 0.0609) through
+    from_pretrained at the default attn_impl ('auto': the flash kernel):
+    the load, then one warm batch of 4 at 1024² through the pipeline, timed,
+    with the kernel's launches counted, and one profiled."""
+    import numpy as np
+
+    from tdm_tpu_torch.models import mmdit_sd3, vae
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import from_pretrained
+
+    cfg, vcfg = mmdit_sd3.MMDiTConfig(), vae.KLVAEConfig.sd3()
+    check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.attn_impl,
+           vcfg.latent_channels, vcfg.scaling_factor, vcfg.shift_factor)
+          == (24, 1536, 24, 64, "auto", 16, 1.5305, 0.0609), "SD3-Medium and its VAE")
+    root = os.path.join(workdir, "stable-diffusion-3-medium-diffusers")
+    secs, n = write_checkout(root, "sd3", cfg, vcfg, seed)
+    print(f"[diffusers] wrote the SD3-Medium diffusers checkout ({n / 1e6:.1f}M params at "
+          f"fp16) in {secs:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    with timed_calls(torch, load_targets()) as times:
+        pipe = from_pretrained(root)
+    load = load_report(times)
+    check(pipe.family == "sd3" and pipe.transformer.cfg.attn_impl == "auto"
+          and pipe.transformer.cfg.dtype == torch.bfloat16
+          and isinstance(pipe.vae_decoder, vae.KLDecoder)
+          and (pipe.vae_scaling, pipe.vae_shift, pipe.vae_range) == (1.5305, 0.0609, "pm1"),
+          "the SD3 checkout's pipeline")
+    print(f"[diffusers] SD3-Medium checkout loaded in {load['load_s']:.2f}s (safetensors "
+          f"read {load['read_s']:.2f}s, conversion {load['convert_s']:.3f}s = "
+          f"{load['convert_share']:.3f} of the load, modules and copy to the card "
+          f"{load['build_and_copy_s']:.2f}s)", flush=True)
+    rng = np.random.default_rng(seed + 3)
+    cond = (rng.standard_normal((4, SD3_TXT, 4096)).astype(np.float16),
+            rng.standard_normal((4, 2048)).astype(np.float16))
+    noise = torch.from_numpy(rng.standard_normal((4, 16, 128, 128)).astype(np.float32))
+    call = dict(prompt_embeds=cond, latents=noise, height=1024, width=1024)
+    pipe(**call)  # warm
+    torch.cuda.synchronize()
+    # the main path: counts to 0, one batch of 4, read just after
+    A.reset_launches()
+    t0 = time.monotonic()
+    images = pipe(**call).images.cpu()
+    batch_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    check(launches["flash_attention_fwd"] == SD3_LAUNCHES_PER_BATCH
+          and sum(launches.values()) == SD3_LAUNCHES_PER_BATCH,
+          f"SD3 checkout batch launches {launches}, expected {SD3_LAUNCHES_PER_BATCH} "
+          "flash_fwd and nothing else")
+    check(tuple(images.shape) == (4, 1024, 1024, 3) and bool(torch.isfinite(images).all())
+          and images.std().item() > 0.01, f"SD3 checkout images {tuple(images.shape)}")
+    print(f"[diffusers] SD3 checkout: one batch of 4 at 1024² in {batch_s:.3f}s "
+          f"({4 / batch_s:.2f} images/s), images finite (std {images.std().item():.3f}); "
+          f"launches {launches}", flush=True)
+    prof = profile_batch(torch, pipe, cond, noise)
+    per_call = prof["attention_ms"] / SD3_LAUNCHES_PER_BATCH if prof else None
+    if per_call is not None:
+        print(f"[diffusers] SD3 checkout: flash_fwd {per_call:.3f} ms per call at "
+              f"[4,24,{SD3_S},{SD3_S},64] in the profiled batch", flush=True)
+    decode = decode_alone(torch, pipe, (4, 16, 128, 128), seed)
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {"load": load, "checkout_write_s": secs, "decode": decode, "params": n,
+            "batch_s": batch_s, "images_per_s": 4 / batch_s, "launches": launches["flash_attention_fwd"],
+            "launches_per_batch": SD3_LAUNCHES_PER_BATCH, "profile": prof,
+            "flash_fwd_ms_per_call": per_call}
+
+
+def phase_diffusers(torch, seed: int, workdir: str) -> dict:
+    """Stock diffusers checkouts at full width: the KL decoder on the card
+    against the CPU, PixArt-α-512 served over HTTP from its checkout, and
+    SD3-Medium at 1024² from its checkout through the pipeline."""
+    return {"kl_check": kl_decoder_check(torch, seed),
+            "pixart": diffusers_pixart(torch, seed, workdir),
+            "sd3": diffusers_sd3(torch, seed, workdir)}
+
+
 TRAIN_STEPS = 3
 # per step at batch 4, dmd, cfg 4.5, critic_updates 1: 7 forwards without
 # grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B, critic probe) and 2
@@ -1649,7 +2055,9 @@ def kohya_pieces(torch, path: str, rank: int) -> int:
 
 def phase_train(torch, seed: int, workdir: str) -> dict:
     """Full-width PixArt-α-512 TDM training through the CLI's main() at the
-    JAX CLI's default flags: seeded weights, a seeded full-width embedding
+    JAX CLI's default flags, the teacher read from the PixArt checkout's
+    transformer/ folder (--pretrained_model_name_or_path; its load timed
+    by part): seeded weights, a seeded full-width embedding
     cache, batch 4, bf16, dmd, 3 steps, then the export of the rank-32
     kohya LoRA by truncated SVD (--export_lora_rank 32, the default). Per
     step: host and CUDA-event times and the kernels' launches (checked);
@@ -1658,8 +2066,10 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     kernel's rank-32 reconstruction against a float64 SVD of its ΔW."""
     from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.io import convert, from_jax
     from tdm_tpu_torch.ops import attention as A
 
+    teacher_dir = os.path.join(pixart_checkout(workdir, seed), "transformer")
     train_env(seed, workdir)
     out = os.path.join(workdir, "train")
     free_gb = shutil.disk_usage(workdir).free / 1e9
@@ -1696,15 +2106,28 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     lora_lib.extract_lora = timed_extract
+    # the teacher's load: the directory's read, the conversion, the carry and
+    # the copy into the module on the card (nothing else in the run loads)
+    load_parts = [(convert, "load_torch_state_dict"), (convert, "pixart_params"),
+                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
     try:
-        train_tdm.main([
-            "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
-            "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
-            "--seed", str(seed),
-        ], step_hook=step_hook(torch, steps, TRAIN_STEPS, "train", after))
+        with timed_calls(torch, load_parts) as teacher_times:
+            train_tdm.main([
+                "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
+                "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
+                "--seed", str(seed), "--pretrained_model_name_or_path", teacher_dir,
+            ], step_hook=step_hook(torch, steps, TRAIN_STEPS, "train", after))
     finally:
         lora_lib.extract_lora = extract
     total_s = time.monotonic() - t0
+    check(set(teacher_times) == {name for _, name in load_parts},
+          f"the teacher was not loaded from {teacher_dir}: {teacher_times}")
+    teacher_s = sum(teacher_times.values())
+    print(f"[train] teacher from {teacher_dir}: loaded in {teacher_s:.2f}s (safetensors read "
+          f"{teacher_times['load_torch_state_dict']:.2f}s, conversion "
+          f"{teacher_times['pixart_params']:.3f}s, carry "
+          f"{teacher_times['state_dict_from_jax']:.2f}s, copy into the module "
+          f"{teacher_times['load_state_dict']:.2f}s)", flush=True)
     launches = A.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     run_dir = out + "_cfg4.5_steps900"
@@ -1746,6 +2169,7 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
           + f"; main() {total_s:.1f}s incl. a {ckpt_gb:.1f} GB checkpoint, a "
           f"{student_gb:.2f} GB fp16 student and the export", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
+            "teacher_load_s": teacher_s, "teacher_load": teacher_times,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
             "idle_share": idle, "busy_ms": busy, "event_span_ms": span,
             "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
@@ -1905,7 +2329,7 @@ def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
     }
 
 
-PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3")
+PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers")
 
 
 def main(argv=None) -> int:
@@ -1948,6 +2372,8 @@ def main(argv=None) -> int:
             train_lora = phase_train_lora(torch, args.seed, workdir)
         if "sd3" in phases:
             sd3 = phase_sd3(torch, args.seed, workdir)
+        if "diffusers" in phases:
+            diffusers = phase_diffusers(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1974,7 +2400,11 @@ def main(argv=None) -> int:
     rows = [
         kernel_row("flash_fwd", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", serve["launches"], kern,
-                   per_block + "; library = SDPA forward", bf16_kernels("flash_fwd", ",0>")),
+                   per_block + "; library = SDPA forward", bf16_kernels("flash_fwd", ",0>"))
+        | {"launches_by_path": {
+            "serve": serve["launches"], "diffusers_pixart": diffusers["pixart"]["launches"],
+            "diffusers_sd3": diffusers["sd3"]["launches"],
+            "train": train["launches"]["flash_attention_fwd"]}},
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
                    kt["flash_fwd_lse"],
@@ -2001,7 +2431,8 @@ def main(argv=None) -> int:
          "dynamic_smem": build["dynamic_smem"]["splash_fwd"]},
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
-                      "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3}))
+                      "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
+                      "diffusers": diffusers}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

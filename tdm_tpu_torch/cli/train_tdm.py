@@ -3,18 +3,19 @@
 Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
 `:27-817`), with its flag names and defaults (`utils/config.py`):
 
-  schedule tables → student / critic / teacher parameters (seeded, or
-  refused from a checkpoint directory until slice 3; with --train_lora_rank
-  the student is a LoRA over the frozen teacher) → clip → AdamW or 8-bit
-  Adam, under --gradient_accumulation_steps → prompt data (an embedding
-  cache from $TDM_EMBEDDING_CACHE, else hash pseudo-embeddings) → the TDM
-  step → loop [a batch per micro-step; per optimizer step: metrics at step 1
-  and every 10 → validation grids every --validation_steps when
-  $TDM_TAESD_DIR names a TAESD decoder → checkpoint every
-  --checkpointing_steps] → final checkpoint, `student.safetensors` (fp16,
-  the JAX package's layout) and the kohya LoRA `tdm_lora.safetensors`: the
-  trained factors in LoRA mode, else the truncated SVD of student − teacher
-  at --export_lora_rank (0 skips it).
+  schedule tables → student / critic / teacher parameters (the teacher
+  from --pretrained_model_name_or_path when that is a directory of the
+  diffusers transformer's safetensors, a checkout's `transformer/`, else
+  seeded; with --train_lora_rank the student is a LoRA over the frozen
+  teacher) → clip → AdamW or 8-bit Adam, under --gradient_accumulation_steps
+  → prompt data (an embedding cache from $TDM_EMBEDDING_CACHE, else hash
+  pseudo-embeddings) → the TDM step → loop [a batch per micro-step; per
+  optimizer step: metrics at step 1 and every 10 → validation grids every
+  --validation_steps when $TDM_TAESD_DIR names a diffusers AutoencoderTiny
+  directory → checkpoint every --checkpointing_steps] → final checkpoint,
+  `student.safetensors` (fp16, the JAX package's layout) and the kohya
+  LoRA `tdm_lora.safetensors`: the trained factors in LoRA mode, else the
+  truncated SVD of student − teacher at --export_lora_rank (0 skips it).
 
 Runs on CUDA unless `--device cpu` is given; `TDM_TINY_MODEL=1` swaps in the
 tiny config. Refused before the first step, each naming its ROADMAP slice:
@@ -50,31 +51,17 @@ def refuse_unported(cfg) -> None:
         )
 
 
-def _load_taesd(vae_dir: str, device):
-    """A TAESD decoder from a tdm_tpu pipeline directory's
-    `vae_decoder.safetensors` (the JAX package's layout)."""
-    import json
-
-    from tdm_tpu_torch.io import from_jax, params as params_io
+def _load_taesd(vae_dir: str, latent_channels: int, device):
+    """The validation decoder from a diffusers AutoencoderTiny directory
+    (TAESD, or TAESD3 for 16-channel latents), as the JAX CLI reads
+    $TDM_TAESD_DIR; the decoder side of its converted tree."""
+    from tdm_tpu_torch.io import convert, from_jax
     from tdm_tpu_torch.models import vae as vae_lib
 
-    path = os.path.join(vae_dir, "vae_decoder.safetensors")
-    if not os.path.exists(path):
-        raise NotImplementedError(
-            f"$TDM_TAESD_DIR={vae_dir!r} has no vae_decoder.safetensors: only "
-            "a tdm_tpu pipeline directory's TAESD decoder loads here (a "
-            "diffusers TAESD directory waits for ROADMAP.md queue 1, slice 3)"
-        )
-    vcfg = vae_lib.TAESDConfig()
-    conf_path = os.path.join(vae_dir, "pipeline.json")
-    if os.path.exists(conf_path):
-        with open(conf_path) as f:
-            conf = dict(json.load(f).get("vae") or {})
-        conf.pop("dtype", None)
-        vcfg = vae_lib.TAESDConfig(**{k: v for k, v in conf.items()
-                                      if k in vae_lib.TAESDConfig.__dataclass_fields__})
+    vcfg = vae_lib.TAESDConfig.taesd3() if latent_channels == 16 else vae_lib.TAESDConfig()
     dec = vae_lib.TAESDDecoder(vcfg, device=device)
-    dec.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(path), dec))
+    tree = convert.taesd_params(convert.load_torch_state_dict(vae_dir))["decoder"]
+    dec.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), dec))
     return dec
 
 
@@ -104,24 +91,24 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
-    if os.path.isdir(cfg.pretrained_model_name_or_path):
-        raise NotImplementedError(
-            f"loading teacher weights from {cfg.pretrained_model_name_or_path!r}: "
-            "diffusers checkpoint directories are not ported yet (ROADMAP.md "
-            "queue 1, slice 3)"
-        )
     bundle = families.build(
         cfg.model_family, tiny=tiny, resolution=cfg.resolution,
         gradient_checkpointing=cfg.gradient_checkpointing,
         mixed_precision=cfg.mixed_precision, moe_experts=cfg.moe_experts,
         seed=seed, device=device,
     )
-    teacher = bundle.init_params()
-    logger.warning(
-        "no local checkpoint at %r — training from RANDOM teacher weights "
-        "(smoke mode; real distillation needs ported weights)",
-        cfg.pretrained_model_name_or_path,
-    )
+    path = cfg.pretrained_model_name_or_path
+    if os.path.isdir(path):
+        from tdm_tpu_torch.io import convert
+
+        teacher = bundle.convert(convert.load_torch_state_dict(path))
+        logger.info("loaded teacher weights from %s", path)
+    else:
+        teacher = bundle.init_params()
+        logger.warning(
+            "no local checkpoint at %r — training from RANDOM teacher weights "
+            "(smoke mode; real distillation needs ported weights)", path,
+        )
     sample_shape, seq_len = bundle.sample_shape, bundle.seq_len
 
     # ---- data: prompts → (text [B,L,D], mask [B,L]) batches ----
@@ -237,7 +224,7 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
     decode_fn = val_cond = val_noise = None
     vae_dir = os.environ.get("TDM_TAESD_DIR", "")
     if vae_dir:
-        dec = _load_taesd(vae_dir, device)
+        dec = _load_taesd(vae_dir, bundle.sample_shape[0], device)
         decode_fn = lambda z: dec(z.float() / dec.cfg.scaling_factor)  # noqa: E731
         gen = torch.Generator(device=device).manual_seed(42)
         val_noise = torch.randn(

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import struct
-from typing import Mapping
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
@@ -53,23 +53,37 @@ def load_file(path: str) -> dict[str, np.ndarray]:
 def save_file(tensors: Mapping[str, np.ndarray], path: str) -> None:
     """Write name → array as one safetensors file (names sorted, as the
     safetensors package writes them)."""
-    header, chunks, offset = {}, [], 0
-    for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
-        code = _FROM_NUMPY.get(arr.dtype)
+    arrays = [(name, np.ascontiguousarray(tensors[name])) for name in sorted(tensors)]
+    write_file(path, [(name, a.shape, a.dtype) for name, a in arrays],
+               (a for _, a in arrays))
+
+
+def write_file(
+    path: str,
+    entries: Sequence[tuple[str, tuple, np.dtype]],
+    leaves: Iterable[np.ndarray],
+) -> None:
+    """Write a safetensors file whose header is known before its data:
+    `entries` lists (name, shape, dtype) in the order `leaves` yields the
+    arrays, each cast to its entry's dtype and written as it comes (a file
+    need not fit in memory at once)."""
+    header, offset = {}, 0
+    for name, shape, dtype in entries:
+        dtype = np.dtype(dtype)
+        code = _FROM_NUMPY.get(dtype)
         if code is None:
-            raise ValueError(f"unsupported dtype {arr.dtype} for {name!r}")
-        buf = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
-        header[name] = {
-            "dtype": code, "shape": list(arr.shape),
-            "data_offsets": [offset, offset + len(buf)],
-        }
-        chunks.append(buf)
-        offset += len(buf)
+            raise ValueError(f"unsupported dtype {dtype} for {name!r}")
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        header[name] = {"dtype": code, "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)  # pad the header to 8-byte alignment
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for buf in chunks:
-            f.write(buf)
+        for (name, shape, dtype), arr in zip(entries, leaves, strict=True):
+            arr = np.ascontiguousarray(arr, dtype=np.dtype(dtype).newbyteorder("<"))
+            if arr.shape != tuple(shape):
+                raise ValueError(f"{name!r} has shape {arr.shape}, its entry {tuple(shape)}")
+            f.write(arr.tobytes())

@@ -25,6 +25,9 @@ from tdm_tpu_torch.io import from_jax
 from tdm_tpu_torch.lora import adapter as lora_lib, io as lora_io
 
 
+VALUE_RANGES = ("unit", "pm1")
+
+
 @dataclass
 class PipelineOutput:
     """images: [B, H, W, 3] float32 in [0, 1] (None with output_type='latent');
@@ -136,7 +139,13 @@ def initial_noise(
     return latents
 
 
-def to_images(decoded: torch.Tensor) -> torch.Tensor:
-    """TAESD output [B, 3, H, W] (in [0, 1]) → [B, H, W, 3] float32
-    clipped to [0, 1]."""
-    return decoded.float().clamp(0.0, 1.0).permute(0, 2, 3, 1)
+def to_images(decoded: torch.Tensor, *, value_range: str = "unit") -> torch.Tensor:
+    """VAE output [B, 3, H, W] → [B, H, W, 3] float32 in [0, 1].
+    `value_range`: 'unit' for TAESD (its output is [0, 1]), 'pm1' for a KL
+    VAE ([-1, 1] → /2 + 0.5, diffusers' postprocess); then clipped."""
+    if value_range not in VALUE_RANGES:
+        raise ValueError(f"unknown vae value_range {value_range!r} (one of {VALUE_RANGES})")
+    x = decoded.float()
+    if value_range == "pm1":
+        x = x / 2.0 + 0.5
+    return x.clamp(0.0, 1.0).permute(0, 2, 3, 1)

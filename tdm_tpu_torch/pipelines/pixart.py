@@ -34,8 +34,9 @@ class PixArtPipeline(DiffusionPipelineBase):
         self,
         transformer: pixart.PixArtTransformer2D,
         *,
-        vae_decoder: Optional[vae_lib.TAESDDecoder] = None,
+        vae_decoder: Optional[Union[vae_lib.TAESDDecoder, vae_lib.KLDecoder]] = None,
         vae_scaling: float = 1.0,
+        vae_range: str = "unit",  # TAESD decodes to [0, 1]; a KL VAE to [-1, 1]: 'pm1'
         schedule: Optional[sched.NoiseSchedule] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
@@ -46,6 +47,7 @@ class PixArtPipeline(DiffusionPipelineBase):
             vae_decoder.to(self.device).eval() if vae_decoder is not None else None
         )
         self.vae_scaling = vae_scaling
+        self.vae_range = vae_range
         self.schedule = (
             schedule if schedule is not None else sched.ddpm_linear(device=self.device)
         )
@@ -119,4 +121,5 @@ class PixArtPipeline(DiffusionPipelineBase):
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling)
-        return PipelineOutput(images=to_images(decoded), latents=out)
+        return PipelineOutput(images=to_images(decoded, value_range=self.vae_range),
+                              latents=out)

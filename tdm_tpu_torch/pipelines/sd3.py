@@ -42,9 +42,10 @@ class SD3Pipeline(DiffusionPipelineBase):
         self,
         transformer: mmdit_sd3.SD3Transformer2D,
         *,
-        vae_decoder: Optional[vae_lib.TAESDDecoder] = None,
+        vae_decoder: Optional[Union[vae_lib.TAESDDecoder, vae_lib.KLDecoder]] = None,
         vae_scaling: float = 1.0,  # TAESD3
         vae_shift: float = 0.0,  # the recipe pins TAESD3's shift to 0
+        vae_range: str = "unit",  # TAESD decodes to [0, 1]; a KL VAE to [-1, 1]: 'pm1'
         flow_shift: float = 6.0,  # the recipe's value; the knob spans 1-6
         device: Optional[Union[str, torch.device]] = None,
     ):
@@ -55,6 +56,7 @@ class SD3Pipeline(DiffusionPipelineBase):
             vae_decoder.to(self.device).eval() if vae_decoder is not None else None
         )
         self.vae_scaling = vae_scaling
+        self.vae_range = vae_range
         self.vae_shift = vae_shift
         self.flow_shift = flow_shift
 
@@ -120,7 +122,8 @@ class SD3Pipeline(DiffusionPipelineBase):
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling + self.vae_shift)
-        return PipelineOutput(images=to_images(decoded), latents=out)
+        return PipelineOutput(images=to_images(decoded, value_range=self.vae_range),
+                              latents=out)
 
 
 def default_sd3_pipeline(

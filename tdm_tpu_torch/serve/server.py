@@ -6,6 +6,9 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
         --embedding_cache cache.npz --batch_size 4 --port 8000 [--device cpu]
     python -m tdm_tpu_torch.serve.server --model out/sd3 --lora tdm.safetensors \\
         --lora_scale 0.125 --embedding_cache sd3_cache.npz   (SD3, 1024²)
+    python -m tdm_tpu_torch.serve.server --model PixArt-alpha/PixArt-XL-2-512x512 \\
+        --embedding_cache cache.npz   (a diffusers checkout, or its repo id
+                                       in the local hub cache)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
@@ -223,7 +226,9 @@ class TDMServer:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", required=True, help="tdm_tpu-layout pipeline dir")
+    p.add_argument("--model", required=True,
+                   help="tdm_tpu-layout pipeline dir, diffusers checkout dir, or "
+                        "'org/name' repo id in the local HF hub cache")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' to run on the CPU)")
     p.add_argument("--host", default="127.0.0.1")

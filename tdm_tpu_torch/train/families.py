@@ -5,7 +5,8 @@ demo's one trained family, `src/main.py:168-176`); sd15, sd3 and cogvideox
 raise NotImplementedError naming their ROADMAP slice. The bundle carries
 what the CLI needs per family: the model, the native training schedule, the
 latent sample shape, the text-conditioning sizes, `denoise_fn(params, x, t,
-cond)` and the seeded parameter init.
+cond)`, the seeded parameter init and `convert`, which loads a diffusers
+transformer state dict (the teacher directory) into the model.
 
 `denoise_fn` puts a dict of tensors into the bundle's one module with
 `torch.func.functional_call`, so the student, the critic and the teacher
@@ -26,6 +27,7 @@ import torch
 from torch.func import functional_call
 
 from tdm_tpu_torch.core import schedules as sched
+from tdm_tpu_torch.io import convert, from_jax
 from tdm_tpu_torch.models import pixart
 
 FAMILIES = ("pixart", "sd15", "sd3", "cogvideox")
@@ -47,6 +49,9 @@ class FamilyBundle:
     denoise_fn: Callable  # (params, x, t, cond) -> native model output
     init_params: Callable  # () -> {name: tensor}, the module's own parameters
     cond_of: Callable  # (text [B,L,D], mask [B,L]) -> cond
+    # diffusers state dict -> the module's own parameters, loaded with its
+    # weights (strict: a missing or unknown key raises)
+    convert: Callable
 
 
 def build(
@@ -109,6 +114,12 @@ def build(
     def init_params():
         return {k: p.detach() for k, p in model.named_parameters()}
 
+    def convert_params(sd):
+        tree = convert.pixart_params(sd, scan_layers=False)
+        with torch.no_grad():
+            model.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), model))
+        return init_params()
+
     return FamilyBundle(
         name=family,
         model=model,
@@ -119,4 +130,5 @@ def build(
         denoise_fn=denoise_fn,
         init_params=init_params,
         cond_of=lambda text, mask: (text, mask),
+        convert=convert_params,
     )

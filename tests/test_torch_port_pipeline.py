@@ -327,10 +327,11 @@ def test_server_status_endpoints_and_errors(server):
 def test_server_refuses_unported_options(flag, value, where):
     """The options still unported raise naming their slice; --lora is
     ported (served in tests/test_torch_port_sd3.py), so it passes the
-    check and the missing model directory is what fails."""
+    check and the missing model (neither a directory nor a hub repo id) is
+    what fails."""
     args = tserver.parse_args(["--model", "unused", "--device", "cpu", flag, value])
     if where is None:
-        with pytest.raises(FileNotFoundError, match="pipeline.json"):
+        with pytest.raises(FileNotFoundError, match="neither an existing path"):
             tserver.build_server(args)
         return
     with pytest.raises(NotImplementedError, match=where):

@@ -596,20 +596,50 @@ def _png_size(path):
 
 
 def test_cli_writes_validation_grids_and_log_validation(tmp_path, monkeypatch):
-    """--validation_steps 1 with $TDM_TAESD_DIR naming a tdm_tpu pipeline
-    directory: the 4- and 1-NFE grids of the 4 validation prompts (2 x 2
-    tiles of 128 x 128 from the tiny 16 x 16 latents); log_validation's
-    student/teacher pair likewise."""
-    from tdm_tpu_torch.models import pixart as tpixart, vae as tvae
-    from tdm_tpu_torch.pipelines import PixArtPipeline, save_pretrained
+    """--validation_steps 1 with $TDM_TAESD_DIR naming a diffusers
+    AutoencoderTiny directory (config.json and seeded weights in the
+    released TAESD's key layout): the CLI's decoder is the JAX CLI's
+    (`taesd_params` of the directory into TAESDConfig(), TAESD3 for 16
+    latent channels) and decodes as the JAX TAESDDecoder does, within 1e-5
+    of the largest output (fp32, sums in another order); the 4- and 1-NFE
+    grids of the 4 validation prompts (2 x 2 tiles of 128 x 128 from the
+    tiny 16 x 16 latents); log_validation's student/teacher pair likewise.
+    The JAX CLI hands the whole {encoder, decoder} tree to its decoder
+    (tdm_tpu/cli/train_tdm.py:593-597), which Flax refuses; the decode
+    compared here is its decoder half."""
+    from tdm_tpu.io import convert as jconvert
+    from tdm_tpu.models import vae as jvae
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.io import manifest as tmanifest
+    from tdm_tpu_torch.models import vae as tvae
     from tdm_tpu_torch.train import validation as tval
 
-    vae_dir = tmp_path / "pipe"
-    save_pretrained(str(vae_dir), PixArtPipeline(
-        tpixart.PixArtTransformer2D(tpixart.PixArtConfig.tiny(), device="cpu"),
-        vae_decoder=tvae.TAESDDecoder(tvae.TAESDConfig(width=8), device="cpu"), device="cpu"))
+    dirs = {}
+    for ch, vcfg in ((4, tvae.TAESDConfig()), (16, tvae.TAESDConfig.taesd3())):
+        d = tmp_path / f"taesd{ch}"
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps({
+            "_class_name": "AutoencoderTiny", "latent_channels": ch,
+            "decoder_block_out_channels": [64] * 4, "num_decoder_blocks": [3, 3, 3, 1]}))
+        tmanifest.write_synthetic("taesd", str(d / "diffusion_pytorch_model.safetensors"),
+                                  vcfg, seed=ch, scale=0.05)
+        dirs[ch] = str(d)
+    z = np.random.default_rng(18).standard_normal((2, 16, 4, 5)).astype(np.float32)
+    for ch, d in dirs.items():
+        dec = train_tdm._load_taesd(d, ch, "cpu")
+        jcfg = jvae.TAESDConfig.taesd3() if ch == 16 else jvae.TAESDConfig()
+        assert dataclasses.asdict(dec.cfg) | {"dtype": None} == dataclasses.asdict(
+            jcfg) | {"dtype": None}
+        jparams = jconvert.to_jax(jconvert.taesd_params(jconvert.load_torch_state_dict(d)))
+        ref = np.asarray(jvae.TAESDDecoder(cfg=jcfg).apply(
+            {"params": jparams["decoder"]}, jnp.asarray(z[:, :ch]) / jcfg.scaling_factor))
+        with torch.no_grad():
+            got = dec(_t(z[:, :ch]) / dec.cfg.scaling_factor).numpy()
+        assert got.shape == ref.shape == (2, 3, 32, 40)
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
     monkeypatch.setenv("TDM_TINY_MODEL", "1")
-    monkeypatch.setenv("TDM_TAESD_DIR", str(vae_dir))
+    monkeypatch.setenv("TDM_TAESD_DIR", dirs[4])
     monkeypatch.delenv("TDM_EMBEDDING_CACHE", raising=False)
     out = _cli(tmp_path, "--max_train_steps", "1", "--validation_steps", "1")
     for k in (4, 1):
