@@ -42,10 +42,12 @@ Phases, one line each, and any failure exits non-zero:
      launches of a profiled micro-step, and each optimizer's launches per
      update of the full-width critic and of the LoRA factors;
   8. sd3: a full-width SD3-Medium pipeline (24 layers, 24x64 heads, 1024²,
-     bf16, seeded weights, attn_impl='splash') with a seeded rank-64 kohya
-     LoRA on the default targets, written in the tdm_tpu layout and served
-     over HTTP with --lora_scale 0.125: 8 concurrent requests (two batches
-     of 4), exactly 96 splash-kernel launches and no flash launch per batch,
+     bf16, attn_impl='splash'; the seeded weights of the SD3 checkout that
+     phases 9 and 10 read too, converted and kept at fp16) with a seeded
+     rank-64 kohya LoRA on the default targets, written in the tdm_tpu
+     layout and served over HTTP with --lora_scale 0.125: 8 concurrent
+     requests (two batches of 4), exactly 96 splash-kernel launches and no
+     flash launch per batch,
      per-seed determinism, a profiled batch, and one full-width forward
      through the splash kernel against the same forward through the flash
      kernel;
@@ -60,13 +62,28 @@ Phases, one line each, and any failure exits non-zero:
      through from_pretrained at the default attn_impl (load seconds, one
      warm batch of 4 at 1024² through the pipeline, timed, exactly 96
      flash-kernel launches and nothing else, finite images, a profiled
-     batch with the decode's share and the kernel's ms per call).
+     batch with the decode's share and the kernel's ms per call);
+ 10. train_sd3: full-width SD3-Medium TDM training through the CLI's main()
+     with the recipe's flags (--model_family sd3 at 512², batch 4, bf16,
+     dmd, rank-32 LoRA student, 8-bit Adam, --gradient_checkpointing, 4
+     steps), the teacher from the SD3 checkout's transformer/ folder, a
+     seeded pooled cache and a seeded TAESD3 for one validation grid:
+     load seconds, seconds per step, peak memory, the idle share and top
+     device operations of a profiled step, each training kernel's launches
+     per step (checked), and the kohya LoRA loaded back into the SD3
+     pipeline.
 Phase 3 also holds the training kernels (the forward with its lse, dQ with
-its fused Δ, dK/dV) and the splash kernel (SD3's [4,24,4429,4429,64], ragged fp32
-shapes, rows whose logits are all below -20) against their plain versions;
-phase 4 runs one tiny train step, the same step with a LoRA student, 8-bit
-Adam and accumulation 2, and a tiny SD3 pipeline with a merged LoRA on the
-card against the same on the CPU. Then a JSON line of per-kernel
+its fused Δ, dK/dV) at one PixArt block's shapes and SD3 training's
+[4,24,1178,1178,64] and [8,24,1178,1178,64] (the forward without lse too,
+all timed in turns with SDPA), and the splash kernel (SD3's
+[4,24,4429,4429,64], ragged fp32 shapes, rows whose logits are all below
+-20) against their plain versions; phase 4 runs one tiny train step, the
+same step with a LoRA student, 8-bit Adam and accumulation 2, one tiny sd3
+step, and a tiny SD3 pipeline with a merged LoRA on the card against the
+same on the CPU; phase 7 also trains the tiny PixArt model for 2 steps
+through main() on the card with its prompts read from a .txt shard by the
+native C++ loader (checked), and times that loader's host seconds per batch
+against the Python batcher's. Then a JSON line of per-kernel
 numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}.
 
@@ -99,6 +116,11 @@ PIX_B, PIX_H, PIX_S, PIX_D, PIX_TXT = 4, 16, 1024, 72, 120
 # tokens (77 CLIP + 256 T5)
 SD3_B, SD3_H, SD3_TXT, SD3_D = 4, 24, 333, 64
 SD3_S = 4096 + SD3_TXT
+# SD3-Medium training at the CLI's default --resolution 512: 1024 image + 154
+# T5 tokens of joint attention, the grad forwards at batch 4 and the
+# teacher's CFG probe at 8
+SD3T_B, SD3T_TXT = 4, 154
+SD3T_S = 1024 + SD3T_TXT
 # bf16, per batch row (all masked: exactly 0): relative L2 error under
 # BF16_REL_L2 and max |kernel - plain| under BF16_ULPS bf16 ulps of the row's
 # largest |plain|. Both versions round the output to bf16 (half an ulp) and
@@ -375,9 +397,21 @@ def compare(torch, out, ref) -> tuple:
     return err, rel, None
 
 
+def sd3_train_cases(torch) -> list:
+    """SD3-Medium training's joint attention at head dim 64, no key mask:
+    the grad forwards' [4,24,1178,1178,64] and the CFG probe's batch of 8."""
+    return [(f"sd3_train_b{b}", b, SD3_H, SD3T_S, SD3T_S, SD3_D, torch.bfloat16, None, True)
+            for b in (SD3T_B, 2 * SD3T_B)]
+
+
+def group_of(shape_name: str) -> str:
+    """The path a timed shape belongs to: SD3 training, or one PixArt block."""
+    return "sd3_train" if shape_name.startswith("sd3_train") else "pixart"
+
+
 def phase_kernels(torch, seed: int) -> dict:
     """Hold the flash kernel against its plain version; time both, SDPA and
-    the bound at the two PixArt shapes."""
+    the bound at the two PixArt shapes and SD3 training's two shapes."""
     import torch.nn.functional as F
 
     from tdm_tpu_torch.ops import attention as A
@@ -393,6 +427,7 @@ def phase_kernels(torch, seed: int) -> dict:
         ("odd", 2, 3, 1000, 77, 64, f32, [77, 40], False),
         ("odd_bf16", 2, 3, 1000, 77, 64, bf16, [77, 0], False),
         ("odd_d72_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 1], False),
+        *sd3_train_cases(torch),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -433,7 +468,7 @@ def phase_kernels(torch, seed: int) -> dict:
         live = sk * b if lengths is None else sum(lengths)
         nbytes, ops = attention_work(b, h, sq, sk, d, 2, live)
         bound, by = bound_ms(nbytes, ops)
-        rec = {"shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
+        rec = {"shape": name, "group": group_of(name), "dims": [b, h, sq, sk, d], "ms": ms,
                "ms_range": [turns["kernel"]["min"], turns["kernel"]["max"]],
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library_ms_range": [turns["sdpa"]["min"], turns["sdpa"]["max"]],
@@ -507,7 +542,8 @@ def compare_lse(torch, got, ref) -> tuple:
 
 def phase_kernels_train(torch, seed: int) -> dict:
     """The training kernels (forward with lse, dQ with its fused Δ, dK/dV)
-    against their plain versions at the training shapes and a sweep, the fp32
+    against their plain versions at the training shapes (one PixArt block,
+    SD3's two) and a sweep, the fp32
     gradients of FlashAttention against autograd of plain_attention, exact
     zeros on all-masked rows, and the times of each kernel, its plain
     version, its bound and SDPA's forward + backward."""
@@ -522,6 +558,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
         ("cross", PIX_B, PIX_H, PIX_S, PIX_TXT, PIX_D, bf16, [120, 77, 13, 0], True),
         ("odd", 2, 3, 1000, 77, 64, f32, [77, 0], False),
         ("odd_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 0], False),
+        *sd3_train_cases(torch),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -650,7 +687,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
             bound, by = bound_ms(nbytes, ops)
             times[kern] = ms
             recs[kern]["shapes"].append({
-                "shape": name, "dims": [b, h, sq, sk, d], "ms": ms,
+                "shape": name, "group": group_of(name), "dims": [b, h, sq, sk, d], "ms": ms,
                 "ms_range": [turns[kern]["min"], turns[kern]["max"]],
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "bytes": nbytes, "ops": ops})
@@ -661,7 +698,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
         rec = recs["flash_fwd_lse"]["shapes"][-1]
         rec["library_ms"] = sdpa_fwd_ms
         rec["library_ms_range"] = [turns["sdpa_fwd"]["min"], turns["sdpa_fwd"]["max"]]
-        pair.append({"shape": name, "port_fwd_lse_dq_dkv_ms": port_ms,
+        pair.append({"shape": name, "dims": [b, h, sq, sk, d], "port_fwd_lse_dq_dkv_ms": port_ms,
                      "dq_plus_dkv_ms": times["flash_bwd_dq"] + times["flash_bwd_dkv"],
                      "sdpa_bwd_ms": turns["sdpa_bwd"]["median"],
                      "sdpa_bwd_ms_range": [turns["sdpa_bwd"]["min"], turns["sdpa_bwd"]["max"]],
@@ -1296,6 +1333,68 @@ def phase_reference_train(torch, seed: int) -> None:
     reference_train_recipe(torch, seed, cpu_params, want)
 
 
+def phase_reference_train_sd3(torch, seed: int) -> None:
+    """One tiny sd3 TDM step (fp32, dmd, MSE; the flow schedule, pooled
+    conditioning) on the card (the kernels) against the same step on the
+    CPU (the plain versions), from one state with the same draws: the bounds
+    of phase_reference_train. MSE, as the recipe check: under the Huber
+    loss the student's grad norm is ill-conditioned at one critic update."""
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    lr = 1e-4
+    runs = {}
+    cpu_params = None
+    for dev in ("cpu", "cuda"):
+        bundle = families.build("sd3", tiny=True, seed=seed, device=dev)
+        if cpu_params is None:
+            cpu_params = bundle.init_params()
+        teacher = {k: v.to(dev) for k, v in cpu_params.items()}
+        gen = torch.Generator(device="cpu").manual_seed(seed + 6)
+        config = tdm.TDMConfig(use_huber=False)
+        draws, (text, mask), (utext, umask) = tiny_step_inputs(torch, config, bundle, gen, dev)
+        pooled = torch.randn(3, bundle.model.cfg.pooled_dim, generator=gen).to(dev)
+        cond = bundle.cond_of(text, mask, pooled)
+        uncond = bundle.cond_of(utext, umask, torch.zeros_like(pooled))
+        tx = topt.make_optimizer(lr, eps=1e-4)
+        state = tdm.init_state(teacher, teacher, tx, tx)
+        start = {r: {k: v.clone() for k, v in getattr(state, r).items()}
+                 for r in ("student", "critic")}
+        step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config,
+                                    tx, tx, sample_shape=bundle.sample_shape)
+        (state, metrics), launched = uncounted(A, lambda: step(state, draws, cond, uncond))
+        runs[dev] = (state, metrics, start, launched)
+    (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
+    # 2 joint blocks: 7 no-grad forwards, 2 with grad
+    want = {"flash_attention_fwd": 14, "flash_attention_fwd_lse": 4,
+            "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4,
+            "splash_attention_fwd": 0}
+    check(glaunch == want, f"tiny sd3 step launches {glaunch}, expected {want}")
+    worst = {}
+    for name in tdm.StepMetrics._fields:
+        c, g = float(getattr(cm, name)), float(getattr(gm, name))
+        worst[name] = abs(c - g) / max(abs(c), 1e-12)
+        check(math.isfinite(g) and abs(c - g) <= 1e-4 * abs(c) + 1e-7,
+              f"tiny sd3 step {name}: card {g} vs cpu {c}")
+    upd = {}
+    for role in ("student", "critic"):
+        d_c = torch.cat([(getattr(cs, role)[k] - cstart[role][k]).flatten()
+                         for k in cstart[role]])
+        d_g = torch.cat([(getattr(gs, role)[k] - gstart[role][k]).cpu().flatten()
+                         for k in cstart[role]])
+        rel = float((d_g - d_c).norm() / d_c.norm())
+        top = float((d_g - d_c).abs().max())
+        upd[role] = (rel, top)
+        check(float(d_c.abs().max()) > 0.5 * lr, f"tiny sd3 step: {role} did not move")
+        check(rel <= 5e-3 and top <= 0.25 * lr,
+              f"tiny sd3 step {role} update: rel L2 {rel:.3e}, max {top:.3e}")
+    print(f"[reference] tiny sd3 TDM step (dmd, MSE, flow schedule) cuda (kernels: "
+          f"{glaunch}) vs cpu (plain): metrics max rel err {max(worst.values()):.3e} (limit "
+          f"1e-4); update rel L2 / max: student {upd['student'][0]:.3e} / "
+          f"{upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} / "
+          f"{upd['critic'][1]:.3e} (limits 5e-3 / {0.25 * lr:.1e})", flush=True)
+
+
 def q8_decoded(torch, q, shape):
     """A packed moment's fp32 values and each one's bound on its
     quantization error, one int8 code step at its magnitude:
@@ -1534,31 +1633,41 @@ def phase_sd3(torch, seed: int, workdir: str) -> dict:
     import urllib.request
 
     from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.io import convert, from_jax, params as params_io
     from tdm_tpu_torch.lora import io as lora_io
-    from tdm_tpu_torch.models import mmdit_sd3
+    from tdm_tpu_torch.models import mmdit_sd3, vae
     from tdm_tpu_torch.ops import attention as A
-    from tdm_tpu_torch.pipelines import save_pretrained
-    from tdm_tpu_torch.pipelines.sd3 import default_sd3_pipeline
     from tdm_tpu_torch.serve import server as S
 
     # SD3-Medium (24 layers, hidden 1536, 24x64 heads, context 4096, pooled
-    # 2048, bf16) with weights from the seed, TAESD3, the rank-64 LoRA
+    # 2048, bf16) in the tdm_tpu layout: the seeded transformer of the SD3
+    # checkout (written once per run, shared with the diffusers and
+    # train_sd3 phases) converted to the JAX package's tree and kept at the
+    # checkout's fp16, a seeded TAESD3 decoder, the rank-64 LoRA
+    root, _, _ = sd3_checkout(workdir, seed)
     t0 = time.monotonic()
-    torch.manual_seed(seed)
     cfg = mmdit_sd3.MMDiTConfig(attn_impl="splash")
     check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.context_dim,
            cfg.pooled_dim, cfg.sample_size) == (24, 1536, 24, 64, 4096, 2048, 128),
           "SD3-Medium widths")
-    pipe = default_sd3_pipeline(cfg=cfg, device="cuda")
-    n_params = sum(p.numel() for p in pipe.transformer.parameters())
     model_dir = os.path.join(workdir, "sd3_medium")
-    save_pretrained(model_dir, pipe)
-    lora = seeded_lora(torch, pipe.transformer, 64, seed)
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "pipeline.json"), "w") as f:
+        json.dump({"family": "sd3", "model": {"attn_impl": "splash"}, "vae": {}}, f)
+    tree = from_jax.flatten_tree(convert.sd3_params(
+        convert.load_torch_state_dict(os.path.join(root, "transformer")),
+        scan_layers=cfg.scan_layers))
+    n_params = sum(a.size for a in tree.values())
+    params_io.save_file(tree, os.path.join(model_dir, "transformer.safetensors"))
+    del tree
+    torch.manual_seed(seed)
+    params_io.save_file(
+        from_jax.jax_layout(vae.TAESDDecoder(vae.TAESDConfig.taesd3()).state_dict()),
+        os.path.join(model_dir, "vae_decoder.safetensors"))
+    lora = seeded_lora(torch, mmdit_sd3.SD3Transformer2D(cfg, device="meta"), 64, seed)
     lora_file = os.path.join(workdir, "sd3_tdm_lora.safetensors")
     lora_io.save_kohya(lora, lora_file)
     lora_mb = os.path.getsize(lora_file) / 1e6
-    del pipe
-    torch.cuda.empty_cache()
     # an embedding cache of 8 prompts: 333 context tokens and a pooled vector
     rng = np.random.default_rng(seed)
     prompts = [f"prompt {i}" for i in range(8)]
@@ -1568,7 +1677,8 @@ def phase_sd3(torch, seed: int, workdir: str) -> dict:
         np.ones((8, SD3_TXT), np.int32), prompts,
         pooled=rng.standard_normal((8, 2048)).astype(np.float16),
     ).save(cache)
-    print(f"[sd3] wrote SD3-Medium ({n_params / 1e6:.1f}M params), a rank-64 kohya LoRA "
+    print(f"[sd3] wrote SD3-Medium ({cfg.num_layers} layers, {n_params / 1e6:.1f}M params "
+          f"from the checkout, fp16) in the tdm_tpu layout, a rank-64 kohya LoRA "
           f"({len(lora.params)} entries, {lora_mb:.0f} MB) and an 8-prompt pooled cache in "
           f"{time.monotonic() - t0:.1f}s", flush=True)
 
@@ -1581,7 +1691,8 @@ def phase_sd3(torch, seed: int, workdir: str) -> dict:
     server = S.build_server(args).start()
     stats = server.batcher.stats
     pipe = server.batcher.pipe
-    check(pipe.family == "sd3" and pipe.transformer.cfg.attn_impl == "splash"
+    check(pipe.family == "sd3" and pipe.transformer.cfg == cfg
+          and isinstance(pipe.vae_decoder, vae.TAESDDecoder)
           and pipe._active == (("tdm", 0.125),), "the served SD3 pipeline")
     print(f"[sd3] loaded, merged the LoRA and warmed in {time.monotonic() - t0:.1f}s "
           f"(warm-up batch {stats.last_batch_latency_s:.3f}s)", flush=True)
@@ -1843,6 +1954,28 @@ def diffusers_pixart(torch, seed: int, workdir: str) -> dict:
             "solo_s": solo_s, "profile": prof}
 
 
+def sd3_checkout(workdir: str, seed: int) -> tuple[str, float, int]:
+    """The SD3-Medium checkout (24 layers, hidden 1536, 24x64 heads, context
+    4096, pooled 2048; its 16-channel AutoencoderKL, scaling 1.5305, shift
+    0.0609), written once per run: (its root, the seconds and parameters of
+    the write, 0 when it was there)."""
+    from tdm_tpu_torch.models import mmdit_sd3, vae
+
+    cfg, vcfg = mmdit_sd3.MMDiTConfig(), vae.KLVAEConfig.sd3()
+    check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.attn_impl,
+           cfg.context_dim, cfg.pooled_dim, vcfg.latent_channels, vcfg.scaling_factor,
+           vcfg.shift_factor)
+          == (24, 1536, 24, 64, "auto", 4096, 2048, 16, 1.5305, 0.0609),
+          "SD3-Medium and its VAE")
+    root = os.path.join(workdir, "stable-diffusion-3-medium-diffusers")
+    if os.path.exists(os.path.join(root, "model_index.json")):
+        return root, 0.0, 0
+    secs, n = write_checkout(root, "sd3", cfg, vcfg, seed)
+    print(f"[checkout] wrote the SD3-Medium diffusers checkout ({n / 1e6:.1f}M params at "
+          f"fp16) in {secs:.1f}s", flush=True)
+    return root, secs, n
+
+
 def diffusers_sd3(torch, seed: int, workdir: str) -> dict:
     """The SD3-Medium checkout (24 layers, hidden 1536, 24x64 heads; its
     16-channel AutoencoderKL, scaling 1.5305, shift 0.0609) through
@@ -1851,18 +1984,11 @@ def diffusers_sd3(torch, seed: int, workdir: str) -> dict:
     with the kernel's launches counted, and one profiled."""
     import numpy as np
 
-    from tdm_tpu_torch.models import mmdit_sd3, vae
+    from tdm_tpu_torch.models import vae
     from tdm_tpu_torch.ops import attention as A
     from tdm_tpu_torch.pipelines import from_pretrained
 
-    cfg, vcfg = mmdit_sd3.MMDiTConfig(), vae.KLVAEConfig.sd3()
-    check((cfg.num_layers, cfg.hidden, cfg.num_heads, cfg.head_dim, cfg.attn_impl,
-           vcfg.latent_channels, vcfg.scaling_factor, vcfg.shift_factor)
-          == (24, 1536, 24, 64, "auto", 16, 1.5305, 0.0609), "SD3-Medium and its VAE")
-    root = os.path.join(workdir, "stable-diffusion-3-medium-diffusers")
-    secs, n = write_checkout(root, "sd3", cfg, vcfg, seed)
-    print(f"[diffusers] wrote the SD3-Medium diffusers checkout ({n / 1e6:.1f}M params at "
-          f"fp16) in {secs:.1f}s", flush=True)
+    root, secs, n = sd3_checkout(workdir, seed)
     torch.cuda.empty_cache()
     with timed_calls(torch, load_targets()) as times:
         pipe = from_pretrained(root)
@@ -1906,7 +2032,6 @@ def diffusers_sd3(torch, seed: int, workdir: str) -> dict:
     decode = decode_alone(torch, pipe, (4, 16, 128, 128), seed)
     del pipe
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
     return {"load": load, "checkout_write_s": secs, "decode": decode, "params": n,
             "batch_s": batch_s, "images_per_s": 4 / batch_s, "launches": launches["flash_attention_fwd"],
             "launches_per_batch": SD3_LAUNCHES_PER_BATCH, "profile": prof,
@@ -2211,6 +2336,14 @@ def optimizer_work(torch, params: dict, seed: int) -> dict:
     return out
 
 
+def prompts_txt(workdir: str, n: int = 64) -> str:
+    """A .txt prompt shard of `n` lines, one prompt each."""
+    path = os.path.join(workdir, "prompts.txt")
+    with open(path, "w") as f:
+        f.writelines(f"a photo of object {i} on a table, studio light\n" for i in range(n))
+    return path
+
+
 def phase_train_lora(torch, seed: int, workdir: str) -> dict:
     """Full-width PixArt-α-512 TDM training of a rank-32 LoRA student with
     8-bit Adam and gradient accumulation 2 through the CLI's main(): batch 4,
@@ -2296,19 +2429,260 @@ def phase_train_lora(torch, seed: int, workdir: str) -> dict:
               f"leaves, {work['elements']} elements): "
               f"{json.dumps({k: v for k, v in work.items() if isinstance(v, dict)})}",
               flush=True)
+    native = native_loader_run(torch, seed, workdir)
     return {"s_per_optimizer_step": per_opt_step, "micro_step_s": [r["host_s"] for r in records],
             "peak_gib": peak_gb, "busy_ms": busy, "event_span_ms": span, "idle_share": idle,
             "all_launches_per_micro_step": records[1].get("all_launches"),
             "launches_per_micro_step": TRAIN_LAUNCHES, "factors_changed": changed,
             "kohya_pieces": pieces, "checkpoint_gb": ckpt_gb, "main_s": total_s,
-            "optimizers": opt_work, "records": records}
+            "optimizers": opt_work, "records": records, "native_loader": native}
 
 
-def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
+def native_loader_run(torch, seed: int, workdir: str) -> dict:
+    """The native C++ prompt loader on PixArt's training path, apart from
+    the full-width runs (which read the embedding cache): 2 steps of the
+    tiny PixArt model through the CLI's main() on the card with a .txt
+    shard as --train_data_dir (hash pseudo-embeddings), every step's batch
+    checked to come from the native loader; then the host seconds per
+    batch of 4 at PixArt's 120 tokens of the native loader against the
+    Python batcher the CLI takes without it, the same shard, seed and hash
+    tokenizer, medians of 5 rounds of 200 batches taken in turns (the
+    embedding lookup after it is the same for both and left out)."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.data import native_loader, prompts, tokenizer
+
+    shard = prompts_txt(workdir)
+    served = []
+    native_next = native_loader.NativePromptLoader.__next__
+
+    def counted_next(self):
+        batch = native_next(self)
+        served.append(len(batch["prompts"]))
+        return batch
+
+    cache = os.environ.pop("TDM_EMBEDDING_CACHE", None)
+    os.environ["TDM_TINY_MODEL"] = "1"
+    native_loader.NativePromptLoader.__next__ = counted_next
+    out = os.path.join(workdir, "train_native")
+    t0 = time.monotonic()
+    try:
+        train_tdm.main(["--output_dir", out, "--max_train_steps", "2",
+                        "--train_batch_size", "4", "--seed", str(seed),
+                        "--train_data_dir", shard])
+    finally:
+        native_loader.NativePromptLoader.__next__ = native_next
+        os.environ.pop("TDM_TINY_MODEL")
+        if cache is not None:
+            os.environ["TDM_EMBEDDING_CACHE"] = cache
+    main_s = time.monotonic() - t0
+    shutil.rmtree(out + "_cfg4.5_steps900", ignore_errors=True)
+    check(served == [4, 4], f"the native loader served batches {served}, expected one "
+                            "of 4 per step")
+    tok = tokenizer.HashTokenizer()
+    loaders = {
+        "native": native_loader.NativePromptLoader(shard, 4, tokenizer=tok, max_length=120,
+                                                   seed=seed),
+        "python": iter(prompts.PromptBatcher(prompts.load_prompts(shard), 4, tokenizer=tok,
+                                             max_length=120, seed=seed)),
+    }
+    secs = {name: [] for name in loaders}
+    try:
+        for name, it in loaders.items():  # warm: the C++ thread fills its ring
+            next(it)
+        for _ in range(5):
+            for name, it in loaders.items():
+                t = time.perf_counter()
+                for _ in range(200):
+                    next(it)
+                secs[name].append((time.perf_counter() - t) / 200)
+    finally:
+        loaders["native"].close()
+    per_batch = {name: sorted(v)[len(v) // 2] for name, v in secs.items()}
+    print(f"[train_lora] native loader ({native_loader.library_path().name}): a tiny "
+          f"PixArt run through main() on the card read its prompts from {shard} "
+          f"({len(served)} batches of 4, checked; main() {main_s:.1f}s); host time per "
+          f"batch of 4 at 120 tokens, medians of 5 rounds of 200 in turns: native "
+          f"{per_batch['native'] * 1e6:.1f} us ({min(secs['native']) * 1e6:.1f}-"
+          f"{max(secs['native']) * 1e6:.1f}), Python batcher "
+          f"{per_batch['python'] * 1e6:.1f} us ({min(secs['python']) * 1e6:.1f}-"
+          f"{max(secs['python']) * 1e6:.1f})", flush=True)
+    return {"batches": len(served), "main_s": main_s, "per_batch_s": per_batch,
+            "rounds_s": secs}
+
+
+# the train_sd3 phase: the recipe's rank-32 LoRA student, 8-bit Adam,
+# --gradient_checkpointing, accumulation 1, 4 optimizer steps at batch 4
+SD3_TRAIN_STEPS, SD3_LORA_RANK = 4, 32
+# per SD3 step (dmd, cfg 4.5, one critic update): 7 forwards without grad
+# (rollout x4, x0_gen_sg, the teacher's CFG probe at 2B, the critic probe)
+# and 2 with grad (critic DSM, student loss), each 24 joint attentions; the
+# checkpointed blocks run their grad forward again in the backward
+SD3_TRAIN_LAUNCHES = {"flash_attention_fwd": 7 * 24, "flash_attention_fwd_lse": 2 * 2 * 24,
+                      "flash_attention_bwd_dq": 2 * 24, "flash_attention_bwd_dkv": 2 * 24,
+                      "splash_attention_fwd": 0}
+
+
+def sd3_train_env(seed: int, workdir: str) -> str:
+    """A seeded full-width SD3 embedding cache as $TDM_EMBEDDING_CACHE: 8
+    prompts of 154 T5 tokens at 4096 with pooled CLIP vectors [8, 2048], the
+    empty prompt's embedding and pooled vector, and dedicated rows with
+    pooled vectors for the 4 default validation prompts; and a seeded TAESD3
+    (a diffusers AutoencoderTiny directory, 16 latent channels) as
+    $TDM_TAESD_DIR. Returns the TAESD3 directory."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.io import manifest
+    from tdm_tpu_torch.models import vae
+    from tdm_tpu_torch.utils import config as cfg_lib
+
+    rng = np.random.default_rng(seed + 20)
+    n, L = 8, SD3T_TXT
+    lengths = np.array([154, 77, 33, 9, 154, 1, 56, 100])
+    val = list(cfg_lib.TrainConfig.validation_prompts)
+    cache = os.path.join(workdir, "sd3_train_cache.npz")
+    EmbeddingCache(
+        rng.standard_normal((n, L, 4096)).astype(np.float16),
+        (np.arange(L)[None] < lengths[:, None]).astype(np.int32),
+        [f"prompt {i}" for i in range(n)],
+        uncond_embed=(0.1 * rng.standard_normal((L, 4096))).astype(np.float16),
+        uncond_mask=(np.arange(L) < 1).astype(np.int32),
+        pooled=rng.standard_normal((n, 2048)).astype(np.float16),
+        uncond_pooled=(0.1 * rng.standard_normal(2048)).astype(np.float16),
+        val_prompts=val,
+        val_embeds=rng.standard_normal((len(val), L, 4096)).astype(np.float16),
+        val_masks=np.ones((len(val), L), np.int32),
+        val_pooled=rng.standard_normal((len(val), 2048)).astype(np.float16),
+    ).save(cache)
+    taesd = os.path.join(workdir, "taesd3")
+    os.makedirs(taesd, exist_ok=True)
+    with open(os.path.join(taesd, "config.json"), "w") as f:
+        json.dump({"_class_name": "AutoencoderTiny", "latent_channels": 16,
+                   "decoder_block_out_channels": [64] * 4,
+                   "num_decoder_blocks": [3, 3, 3, 1]}, f)
+    manifest.write_synthetic("taesd", os.path.join(taesd, "diffusion_pytorch_model.safetensors"),
+                             vae.TAESDConfig.taesd3(), seed=seed + 21, scale=0.05)
+    os.environ.pop("TDM_TINY_MODEL", None)
+    os.environ["TDM_EMBEDDING_CACHE"] = cache
+    os.environ["TDM_TAESD_DIR"] = taesd
+    return taesd
+
+
+def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
+    """Full-width SD3-Medium TDM training through the CLI's main() with the
+    recipe's flags: --model_family sd3 at the default --resolution 512
+    (latent 16x64x64, 1024 + 154 tokens), batch 4, bf16 compute on fp32
+    masters, dmd, a rank-32 LoRA student, 8-bit Adam,
+    --gradient_checkpointing, accumulation 1, 4 optimizer steps; the
+    teacher read from the SD3 checkout's transformer/ folder (its load timed
+    by part); a seeded pooled cache; one validation grid at step 4 through a
+    seeded TAESD3. Per step: host and CUDA-event times and the kernels'
+    launches (checked against SD3_TRAIN_LAUNCHES); step 3 under
+    torch.profiler (device busy time, idle share, the top device
+    operations). Then the kohya LoRA: rank-32 factors on every adapted
+    piece, loaded back into the port's SD3 pipeline from the same checkout
+    (every key resolved to a kernel of SD3's module names and merged)."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.lora import adapter, io as lora_io
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import from_pretrained
+
+    root, _, _ = sd3_checkout(workdir, seed)
+    teacher_dir = os.path.join(root, "transformer")
+    sd3_train_env(seed, workdir)
+    out = os.path.join(workdir, "train_sd3")
+    steps = []
+    load_parts = [(convert, "load_torch_state_dict"), (convert, "sd3_params"),
+                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    torch.cuda.empty_cache()
+    A.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with timed_calls(torch, load_parts) as load_times:
+        train_tdm.main([
+            "--output_dir", out, "--model_family", "sd3", "--max_train_steps",
+            str(SD3_TRAIN_STEPS), "--train_batch_size", str(SD3T_B), "--mixed_precision", "bf16",
+            "--loss_mode", "dmd", "--train_lora_rank", str(SD3_LORA_RANK), "--use_8bit_adam",
+            "--gradient_checkpointing", "--gradient_accumulation_steps", "1",
+            "--validation_steps", str(SD3_TRAIN_STEPS), "--seed", str(seed),
+            "--pretrained_model_name_or_path", teacher_dir,
+        ], step_hook=step_hook(torch, steps, 3, "train_sd3"))
+    total_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(len(steps) == SD3_TRAIN_STEPS, f"{len(steps)} SD3 steps ran")
+    for rec in steps:
+        check(rec["launches"] == SD3_TRAIN_LAUNCHES,
+              f"SD3 step {rec['step']} launches {rec['launches']}, expected "
+              f"{SD3_TRAIN_LAUNCHES}")
+        check(all(math.isfinite(v) for v in rec["metrics"].values()),
+              f"SD3 step {rec['step']}: non-finite metrics {rec['metrics']}")
+    run_dir = out + "_cfg4.5_steps900"
+    for k in (4, 1):  # 4 validation prompts at 512²: a 2 x 2 grid
+        with open(os.path.join(run_dir, f"validation_step{SD3_TRAIN_STEPS}_{k}nfe.png"),
+                  "rb") as f:
+            check_png(f.read(), 1024, 1024)
+    ckpt = os.path.join(run_dir, f"checkpoint-{SD3_TRAIN_STEPS}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    lora_path = os.path.join(run_dir, "tdm_lora.safetensors")
+    pieces = kohya_pieces(torch, lora_path, SD3_LORA_RANK)
+    torch.cuda.empty_cache()
+    # the file's names against SD3's: every key resolves to a kernel of the
+    # checkout's transformer and the pipeline merges it (load_lora_weights
+    # raises on a weight the transformer lacks)
+    pipe = from_pretrained(root)
+    lora = lora_io.load_lora(lora_path, model=pipe.transformer)
+    adapted = adapter.adapted_keys(lora, from_jax.layer_stacks(pipe.transformer.cfg))
+    check(len(adapted) == pieces, f"the kohya file's {pieces} pieces: {len(adapted)} resolved")
+    pipe.load_lora_weights(lora_path, adapter_name="tdm")
+    pipe.set_adapters(["tdm"], [1.0])
+    del pipe, lora
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir, ignore_errors=True)
+    plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
+    per_step = sum(plain) / len(plain)
+    busy = steps[2]["busy_ms"]
+    span = steps[1]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    load_s = sum(load_times.values())
+    print(f"[train_sd3] teacher from {teacher_dir} (and the TAESD3 decoder): loaded in "
+          f"{load_s:.2f}s (safetensors read {load_times.get('load_torch_state_dict', 0):.2f}s, "
+          f"conversion {load_times.get('sd3_params', 0):.3f}s, carry "
+          f"{load_times.get('state_dict_from_jax', 0):.2f}s, copy into the module "
+          f"{load_times.get('load_state_dict', 0):.2f}s)", flush=True)
+    print(f"[train_sd3] SD3-Medium TDM at 512² (dmd, batch {SD3T_B}, bf16, rank-"
+          f"{SD3_LORA_RANK} LoRA student, 8-bit Adam, gradient checkpointing, seeded "
+          f"weights): {per_step:.3f} s/step after the first, unprofiled (steps 2 and 4; "
+          f"{3600 / per_step:.0f} iters/hour), first step {steps[0]['host_s']:.3f} s, "
+          f"profiled step 3 {steps[2]['host_s']:.3f} s; peak memory {peak_gb:.2f} GiB; "
+          f"launches per step {SD3_TRAIN_LAUNCHES} (checked); step 2 CUDA-event span "
+          f"{span:.1f} ms, step 3 device busy "
+          + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
+          + f", {steps[2].get('all_launches')} device launches; kohya file {pieces} rank-"
+          f"{SD3_LORA_RANK} pieces, every one resolved and merged by the SD3 pipeline; "
+          f"validation grids checked; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB "
+          f"checkpoint", flush=True)
+    return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
+            "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb, "idle_share": idle,
+            "busy_ms": busy, "event_span_ms": span,
+            "all_launches_per_step": steps[2].get("all_launches"),
+            "launches": launches, "launches_per_step": SD3_TRAIN_LAUNCHES,
+            "load_s": load_s, "load": load_times, "kohya_pieces": pieces,
+            "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
+
+
+SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
+              "bound_ms", "bound_by")
+
+
+def kernel_row(name, source, replaces, launches, rec, per, resources, sd3_launches) -> dict:
     """One entry of the `kernels` JSON line: the times of the self and the
     cross shape summed (one PixArt block), the bound of their summed work,
-    and the bf16 kernels' registers, spills and HGMMA/HMMA counts."""
-    shapes = rec["shapes"]
+    and the bf16 kernels' registers, spills and HGMMA/HMMA counts; under
+    `sd3_train`, each SD3 training shape alone with the kernel's launches
+    per SD3 step (`sd3_launches`)."""
+    shapes = [r for r in rec["shapes"] if r["group"] == "pixart"]
     nbytes = sum(r["bytes"] for r in shapes)
     ops = sum(r["ops"] for r in shapes)
     bound, by = bound_ms(nbytes, ops)
@@ -2321,15 +2695,16 @@ def kernel_row(name, source, replaces, launches, rec, per, resources) -> dict:
         "bound_ms": bound, "bound_by": by,
         "library_ms": None if None in lib else sum(lib),
         "per": per,
-        "shapes": [{k: r.get(k) for k in ("shape", "dims", "ms", "ms_range", "plain_ms",
-                                          "library_ms", "library_ms_range", "bound_ms",
-                                          "bound_by")}
-                   for r in shapes],
+        "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in shapes],
+        "sd3_train": {"launches_per_step": sd3_launches,
+                      "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in rec["shapes"]
+                                 if r["group"] == "sd3_train"]},
         "resources": resources,
     }
 
 
-PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers")
+PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers",
+          "train_sd3")
 
 
 def main(argv=None) -> int:
@@ -2363,6 +2738,7 @@ def main(argv=None) -> int:
         if "reference" in phases:
             phase_reference(torch, args.seed)
             phase_reference_train(torch, args.seed)
+            phase_reference_train_sd3(torch, args.seed)
             phase_reference_sd3(torch, args.seed, workdir)
         if "serve" in phases:
             serve = phase_serve(torch, args.seed, workdir)
@@ -2374,6 +2750,8 @@ def main(argv=None) -> int:
             sd3 = phase_sd3(torch, args.seed, workdir)
         if "diffusers" in phases:
             diffusers = phase_diffusers(torch, args.seed, workdir)
+        if "train_sd3" in phases:
+            train_sd3 = phase_train_sd3(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2390,8 +2768,13 @@ def main(argv=None) -> int:
               "backward alone against dQ + dK/dV, and SDPA forward + backward "
               "against the port's lse forward + dQ (delta fused) + dK/dV: "
               "training_attention)")
-    kt, per_step = ktrain["kernels"], train["launches_per_step"]
+    kt = ktrain["kernels"]
     res = build["resources"]
+    sd3_step = train_sd3["launches_per_step"]
+
+    def by_path(wrapper):
+        return {"train": train["launches"][wrapper],
+                "train_sd3": train_sd3["launches"][wrapper]}
 
     def bf16_kernels(lib, suffix=""):
         return {fn: r for fn, r in res[lib].items()
@@ -2400,22 +2783,28 @@ def main(argv=None) -> int:
     rows = [
         kernel_row("flash_fwd", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", serve["launches"], kern,
-                   per_block + "; library = SDPA forward", bf16_kernels("flash_fwd", ",0>"))
+                   per_block + "; library = SDPA forward", bf16_kernels("flash_fwd", ",0>"),
+                   sd3_step["flash_attention_fwd"])
         | {"launches_by_path": {
             "serve": serve["launches"], "diffusers_pixart": diffusers["pixart"]["launches"],
             "diffusers_sd3": diffusers["sd3"]["launches"],
-            "train": train["launches"]["flash_attention_fwd"]}},
+            **by_path("flash_attention_fwd")}},
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
                    kt["flash_fwd_lse"],
                    per_block + "; library = SDPA forward on inputs that require grad",
-                   bf16_kernels("flash_fwd", ",1>")),
+                   bf16_kernels("flash_fwd", ",1>"), sd3_step["flash_attention_fwd_lse"])
+        | {"launches_by_path": by_path("flash_attention_fwd_lse")},
         kernel_row("flash_bwd_dq", "tdm_tpu_torch/csrc/flash_bwd_dq.cu",
                    "tdm_tpu/ops/attention.py:600", train["launches"]["flash_attention_bwd_dq"],
-                   kt["flash_bwd_dq"], per_block + no_lib, bf16_kernels("flash_bwd_dq")),
+                   kt["flash_bwd_dq"], per_block + no_lib, bf16_kernels("flash_bwd_dq"),
+                   sd3_step["flash_attention_bwd_dq"])
+        | {"launches_by_path": by_path("flash_attention_bwd_dq")},
         kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
                    "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
-                   kt["flash_bwd_dkv"], per_block + no_lib, bf16_kernels("flash_bwd_dkv")),
+                   kt["flash_bwd_dkv"], per_block + no_lib, bf16_kernels("flash_bwd_dkv"),
+                   sd3_step["flash_attention_bwd_dkv"])
+        | {"launches_by_path": by_path("flash_attention_bwd_dkv")},
         {"name": "splash_fwd", "route": "cuda", "source": "tdm_tpu_torch/csrc/splash_fwd.cu",
          "replaces": "tdm_tpu/ops/attention.py:153", "launches": sd3["launches"],
          "launches_per_batch": sd3["launches_per_batch"],
@@ -2432,7 +2821,7 @@ def main(argv=None) -> int:
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
-                      "diffusers": diffusers}))
+                      "diffusers": diffusers, "train_sd3": train_sd3}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

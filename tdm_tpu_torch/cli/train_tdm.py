@@ -8,8 +8,10 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
   diffusers transformer's safetensors, a checkout's `transformer/`, else
   seeded; with --train_lora_rank the student is a LoRA over the frozen
   teacher) → clip → AdamW or 8-bit Adam, under --gradient_accumulation_steps
-  → prompt data (an embedding cache from $TDM_EMBEDDING_CACHE, else hash
-  pseudo-embeddings) → the TDM step → loop [a batch per micro-step; per
+  → prompt data (an embedding cache from $TDM_EMBEDDING_CACHE, with SD3's
+  pooled vectors when it has them; else hash pseudo-embeddings of the
+  prompts of --train_data_dir, a .txt/.jsonl file read by the native C++
+  loader where g++ builds it) → the TDM step → loop [a batch per micro-step; per
   optimizer step: metrics at step 1 and every 10 → validation grids every
   --validation_steps when $TDM_TAESD_DIR names a diffusers AutoencoderTiny
   directory → checkpoint every --checkpointing_steps] → final checkpoint,
@@ -17,11 +19,16 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
   LoRA `tdm_lora.safetensors`: the trained factors in LoRA mode, else the
   truncated SVD of student − teacher at --export_lora_rank (0 skips it).
 
-Runs on CUDA unless `--device cpu` is given; `TDM_TINY_MODEL=1` swaps in the
-tiny config. Refused before the first step, each naming its ROADMAP slice:
---fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
---quant_forwards (slice 4), another --model_family (slices 3-5),
---moe_experts (slice 6).
+--model_family pixart (PixArt-α) or sd3 (SD3-Medium under the shifted flow
+schedule, conditioned on T5 tokens and the pooled CLIP vector; a full-size
+sd3 run whose data has no pooled vectors is refused with ValueError before
+any model is built, unless --allow_pooled_standin). Runs on CUDA unless
+`--device cpu` is given, and logs the peak device memory at the end on
+CUDA; `TDM_TINY_MODEL=1` swaps in the tiny config. Refused before the
+first step, each naming its ROADMAP slice: --fsdp/--tp/--pp/--sp/--ep > 1
+(slice 6), --push_to_hub (slice 7), --quant_forwards (slice 4),
+--model_family sd15 (slice 4) and cogvideox (slice 5), --moe_experts
+(slice 6).
 """
 
 from __future__ import annotations
@@ -71,6 +78,11 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
     zero-argument callable that runs it and returns (state, metrics); the
     hook must call it once and return its result (a caller times or profiles
     steps this way)."""
+    with contextlib.ExitStack() as closing:
+        _train(argv, step_hook, closing)
+
+
+def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.data import prompts as data_prompts, tokenizer as tok_lib
     from tdm_tpu_torch.device import resolve_device
@@ -91,11 +103,21 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
+    emb_cache_path = os.environ.get("TDM_EMBEDDING_CACHE", "")
+    cache = None
+    if emb_cache_path and os.path.exists(emb_cache_path):
+        cache = data_prompts.EmbeddingCache.load(emb_cache_path)
+    families.check_pooled_source(
+        cfg.model_family, tiny=tiny, allow_pooled_standin=cfg.allow_pooled_standin,
+        has_pooled=cache is not None and cache.pooled is not None,
+    )
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     bundle = families.build(
         cfg.model_family, tiny=tiny, resolution=cfg.resolution,
         gradient_checkpointing=cfg.gradient_checkpointing,
         mixed_precision=cfg.mixed_precision, moe_experts=cfg.moe_experts,
-        seed=seed, device=device,
+        allow_pooled_standin=cfg.allow_pooled_standin, seed=seed, device=device,
     )
     path = cfg.pretrained_model_name_or_path
     if os.path.isdir(path):
@@ -111,38 +133,62 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
         )
     sample_shape, seq_len = bundle.sample_shape, bundle.seq_len
 
-    # ---- data: prompts → (text [B,L,D], mask [B,L]) batches ----
-    uncond_pair = None
-    emb_cache_path = os.environ.get("TDM_EMBEDDING_CACHE", "")
-    if emb_cache_path and os.path.exists(emb_cache_path):
-        cache = data_prompts.EmbeddingCache.load(emb_cache_path)
+    # ---- data: prompts → (text [B,L,D], mask [B,L], pooled [B,P] or None)
+    # batches; pooled rides SD3 caches (the CLIP-L/G vectors) ----
+    uncond_pair = uncond_pooled = None
+    if cache is not None:
         batches = cache.batches(local_batch, seed=seed)
-        get_batch = lambda: next(batches)  # noqa: E731
+
+        def get_batch():
+            b = next(batches)
+            return b if len(b) == 3 else (*b, None)
+
         dataset_size = len(cache.prompts)
         val_rows_fn = lambda: cache.validation_rows(cfg.validation_prompts)  # noqa: E731
         if cache.uncond_embed is not None:
             uncond_pair = (np.asarray(cache.uncond_embed, np.float32),
                            np.asarray(cache.uncond_mask, np.int32))
+        if cache.uncond_pooled is not None:
+            uncond_pooled = np.asarray(cache.uncond_pooled, np.float32)
         logger.info("streaming %d cached embeddings", len(cache.prompts))
     else:
         tok = tok_lib.HashTokenizer()
         src = cfg.train_data_dir
-        prompt_list = data_prompts.load_prompts(
-            src or list(cfg.validation_prompts) * 8,
-            caption_column=cfg.caption_column, max_samples=cfg.max_train_samples,
-            dataset_config_name=cfg.dataset_config_name,
-        )
-        dataset_size = len(prompt_list)
-        batcher = iter(data_prompts.PromptBatcher(
-            prompt_list, local_batch, tokenizer=tok, max_length=seq_len, seed=seed,
-        ))
+        batcher = None
+        if src and os.path.isfile(src) and src.endswith((".txt", ".jsonl")):
+            # the native C++ mmap + prefetch loader; the Python batcher
+            # where it cannot be built
+            from tdm_tpu_torch.data import native_loader
+
+            reason = native_loader.unavailable_reason()
+            if reason is None:
+                batcher = native_loader.NativePromptLoader(
+                    src, local_batch, caption_column=cfg.caption_column,
+                    tokenizer=tok, max_length=seq_len, seed=seed,
+                )
+                closing.callback(batcher.close)
+                dataset_size = batcher.num_prompts
+                logger.info("native loader: %d prompts from %s", dataset_size, src)
+            else:
+                logger.warning("native loader unavailable (%s); reading %s with the "
+                               "Python batcher", reason, src)
+        if batcher is None:
+            prompt_list = data_prompts.load_prompts(
+                src or list(cfg.validation_prompts) * 8,
+                caption_column=cfg.caption_column, max_samples=cfg.max_train_samples,
+                dataset_config_name=cfg.dataset_config_name,
+            )
+            dataset_size = len(prompt_list)
+            batcher = iter(data_prompts.PromptBatcher(
+                prompt_list, local_batch, tokenizer=tok, max_length=seq_len, seed=seed,
+            ))
         proj = np.random.default_rng(0).normal(
             size=(tok.vocab_size, bundle.embed_dim)
         ).astype(np.float32) * 0.02
 
         def get_batch():
             b = next(batcher)
-            return proj[b["input_ids"]], b["attention_mask"]
+            return proj[b["input_ids"]], b["attention_mask"], None
 
         def val_rows_fn():
             ids, m = tok(list(cfg.validation_prompts), max_length=seq_len)
@@ -230,10 +276,11 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
         val_noise = torch.randn(
             (len(cfg.validation_prompts), *sample_shape), generator=gen, device=device
         )
-        val_text, val_mask, _ = val_rows_fn()
+        val_text, val_mask, val_pooled = val_rows_fn()
         val_cond = bundle.cond_of(
             torch.as_tensor(val_text, dtype=torch.float32, device=device),
             torch.as_tensor(val_mask, dtype=torch.int32, device=device),
+            None if val_pooled is None else torch.as_tensor(val_pooled, device=device),
         )
 
     # ---- loop: with --gradient_accumulation_steps N, N micro-steps make one
@@ -258,19 +305,32 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
     def to_device(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
 
+    def pooled_to_device(a):
+        return None if a is None else to_device(a, torch.float32)
+
     while global_step < n_total_steps:
-        text_np, mask_np = get_batch()
-        cond = bundle.cond_of(to_device(text_np, torch.float32), to_device(mask_np, torch.int32))
+        text_np, mask_np, pooled_np = get_batch()
+        cond = bundle.cond_of(to_device(text_np, torch.float32), to_device(mask_np, torch.int32),
+                              pooled_to_device(pooled_np))
         if uncond is None:
             # the CFG null branch: the cache's empty-prompt embedding, else
-            # zeros under an all-ones mask (smoke mode)
+            # zeros under an all-ones mask (smoke mode); its pooled vector is
+            # the cache's empty-prompt one, else zeros when the batches carry
+            # pooled vectors, else None (the stand-in folds)
             if uncond_pair is not None:
                 u_text = np.broadcast_to(uncond_pair[0][None], np.shape(text_np))
                 u_mask = np.broadcast_to(uncond_pair[1][None], np.shape(mask_np))
             else:
                 u_text, u_mask = np.zeros(np.shape(text_np)), np.ones(np.shape(mask_np))
+            if uncond_pooled is not None:
+                u_pooled = np.broadcast_to(uncond_pooled[None],
+                                           (np.shape(text_np)[0], *uncond_pooled.shape))
+            elif pooled_np is not None:
+                u_pooled = np.zeros(np.shape(pooled_np), np.float32)
+            else:
+                u_pooled = None
             uncond = bundle.cond_of(to_device(u_text, torch.float32),
-                                    to_device(u_mask, torch.int32))
+                                    to_device(u_mask, torch.int32), pooled_to_device(u_pooled))
         draws = tdm.make_draws(tdm_cfg, local_batch, sample_shape, gen, device)
 
         def run():
@@ -348,7 +408,7 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
         trained = lora_lib.from_factors(final, lora_template.alpha)
         lora_lib.save_kohya(trained, lora_path, prefix="lora_transformer")
         final = lora_lib.merge(teacher, trained, 1.0, stacks)
-    flat = from_jax.jax_layout(final, scan_layers=bundle.model.cfg.scan_layers)
+    flat = from_jax.jax_layout(final, stacks=stacks)
     params_io.save_file(
         {k: v.astype(np.float16) for k, v in flat.items()},
         os.path.join(out_dir, "student.safetensors"),
@@ -360,6 +420,9 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
                 "" if lora_template is None and cfg.export_lora_rank <= 0
                 else " and tdm_lora.safetensors")
     metrics_log.close()
+    if device.type == "cuda":
+        logger.info("peak device memory %.2f GiB (max_memory_allocated)",
+                    torch.cuda.max_memory_allocated(device) / 2**30)
     logger.info("done at step %d", global_step)
 
 

@@ -1,7 +1,8 @@
 """Diffusion noise schedules as precomputed tables plus pure schedule math.
 
-Port of `tdm_tpu/core/schedules.py` for the PixArt paths: the linear-β DDPM
-schedule (reference `src/main.py:132-139`), the forward process, the x₀ / ε
+Port of `tdm_tpu/core/schedules.py` for the PixArt and SD3 paths: the
+linear-β DDPM schedule (reference `src/main.py:132-139`), the shifted
+rectified-flow schedule SD3 trains under, the forward process, the x₀ / ε
 projections, the few-step timestep grids, and the training step's
 inter-timestep transport, mixed noise, SNR and native DSM target. Tables
 are built on the host in float64 (a cumprod of ~1000 terms loses digits in
@@ -52,6 +53,33 @@ def ddpm_linear(
         sigmas=torch.tensor(
             np.sqrt(1.0 - alphas_cumprod), dtype=torch.float32, device=dev
         ),
+        num_train_timesteps=num_train_timesteps,
+        prediction_type=prediction_type,
+    )
+
+
+def shift_sigma(sigma, shift: float):
+    """The flow shift σ̂ = s·σ / (1 + (s−1)·σ) (`flow_shift`, the identity at
+    s = 1), on numpy arrays or tensors alike."""
+    return shift * sigma / (1.0 + (shift - 1.0) * sigma)
+
+
+def flow_match(
+    num_train_timesteps: int = 1000,
+    shift: float = 1.0,
+    prediction_type: str = FLOW,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> NoiseSchedule:
+    """The rectified-flow schedule (SD3): x_t = (1−σ̂)x₀ + σ̂ε with σ(t) =
+    (t+1)/T shifted by `shift`; the model predicts the velocity v = ε − x₀.
+    t = T−1 is pure noise. The tables are built in float64 and stored fp32."""
+    dev = resolve_device(device)
+    sigma = np.arange(1, num_train_timesteps + 1, dtype=np.float64) / float(num_train_timesteps)
+    sigma = shift_sigma(sigma, shift)
+    return NoiseSchedule(
+        alphas=torch.tensor(1.0 - sigma, dtype=torch.float32, device=dev),
+        sigmas=torch.tensor(sigma, dtype=torch.float32, device=dev),
         num_train_timesteps=num_train_timesteps,
         prediction_type=prediction_type,
     )

@@ -57,7 +57,7 @@ def flow_grid(
     ~1 down to ~0 over K steps, model timesteps σ·num_train_timesteps."""
     alphas_lin = np.linspace(1.0, 1.0 / num_train_timesteps, num_steps + 1)
     sigma = 1.0 - alphas_lin  # ascending 0 → ~1
-    sigma = flow_shift * sigma / (1.0 + (flow_shift - 1.0) * sigma)
+    sigma = sched.shift_sigma(sigma, flow_shift)
     sigma = sigma[::-1][:-1]  # descending, K values (drop the 0)
     sigmas = np.concatenate([sigma, [0.0]])
 

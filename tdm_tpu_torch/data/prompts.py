@@ -183,21 +183,27 @@ class EmbeddingCache:
             val_pooled=opt("val_pooled"),
         )
 
-    def validation_rows(self, prompts: Sequence[str]) -> tuple[np.ndarray, np.ndarray, None]:
-        """(embeds [V,L,D] fp32, masks [V,L] int32, None) of the fixed
-        validation prompts: the dedicated rows first, then the main rows;
-        a prompt in neither raises, since grids must render the same fixed
-        prompts every time (reference src/main.py:416-431)."""
-        e_rows, m_rows, missing = [], [], []
+    def validation_rows(
+        self, prompts: Sequence[str]
+    ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """(embeds [V,L,D] fp32, masks [V,L] int32, pooled [V,P] fp32 or
+        None) of the fixed validation prompts: the dedicated rows first,
+        then the main rows; a prompt in neither raises, since grids must
+        render the same fixed prompts every time (reference
+        src/main.py:416-431). The pooled rows come from `val_pooled` and
+        `pooled` alike, and are None where any prompt's row has none."""
+        e_rows, m_rows, p_rows, missing = [], [], [], []
         for p in prompts:
             if p in self.val_prompts:
                 i = self.val_prompts.index(p)
                 e_rows.append(self.val_embeds[i])
                 m_rows.append(self.val_masks[i])
+                p_rows.append(None if self.val_pooled is None else self.val_pooled[i])
             elif p in self.prompts:
                 i = self.prompts.index(p)
                 e_rows.append(self.embeds[i])
                 m_rows.append(self.masks[i])
+                p_rows.append(None if self.pooled is None else self.pooled[i])
             else:
                 missing.append(p)
         if missing:
@@ -206,18 +212,24 @@ class EmbeddingCache:
                 "rebuild it with cli/build_cache (it embeds "
                 "--validation_prompts under dedicated keys)"
             )
+        pooled = (None if any(r is None for r in p_rows)
+                  else np.stack(p_rows).astype(np.float32))
         return (np.stack(e_rows).astype(np.float32),
-                np.stack(m_rows).astype(np.int32), None)
+                np.stack(m_rows).astype(np.int32), pooled)
 
     def batches(
         self, batch_size: int, *, seed: int = 0, host_index: int = 0, host_count: int = 1
-    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    ) -> Iterator[tuple]:
         """Yields shuffled (embeds fp32 [B,L,D], masks [B,L]) batches of this
-        host's rows, forever, reshuffled each epoch."""
+        host's rows, forever, reshuffled each epoch; (embeds, masks, pooled
+        fp32 [B,P]) when the cache carries pooled vectors (SD3)."""
         idx_all = np.arange(len(self.prompts))[host_index::host_count]
         rng = np.random.default_rng(seed + host_index)
         while True:
             order = rng.permutation(len(idx_all))
             for s in range(0, len(idx_all) - batch_size + 1, batch_size):
                 sel = idx_all[order[s : s + batch_size]]
-                yield self.embeds[sel].astype(np.float32), self.masks[sel]
+                out = (self.embeds[sel].astype(np.float32), self.masks[sel])
+                if self.pooled is not None:
+                    out = out + (self.pooled[sel].astype(np.float32),)
+                yield out

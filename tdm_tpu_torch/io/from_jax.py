@@ -16,10 +16,11 @@ module is filled and every given key is used. `jax_name` and `port_key` map
 single names both ways, for the LoRA merge (`lora/adapter.py`).
 
 `train_state_from_jax` carries a whole training state of the JAX package
-(`tdm_tpu.train.tdm.TrainState`): the student, critic and EMA trees and the
-AdamW moments and count inside each optax state, so a test can start the
-port's train step and the JAX one from one state. It reads the JAX objects
-by their attributes and nested mappings only; nothing of JAX is imported.
+(`tdm_tpu.train.tdm.TrainState`) of PixArt or SD3: the student (full
+weights or LoRA factors), critic and EMA trees and each optax state (AdamW,
+8-bit Adam, under accumulation or not), so a test can start the port's
+train step and the JAX one from one state. It reads the JAX objects by
+their attributes and nested mappings only; nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -213,33 +214,113 @@ def _adam_state(opt_state: Any) -> Optional[Any]:
     return None
 
 
+def _is_q8(leaf: Any) -> bool:
+    """The JAX package's blockwise-int8 moment (`optim._Q8Moment`)."""
+    return hasattr(leaf, "values") and hasattr(leaf, "scales") and not isinstance(leaf, Mapping)
+
+
+def _q8_decoded(q: Any, shape: tuple) -> np.ndarray:
+    """A JAX `_Q8Moment` → the fp32 array of `shape` it holds (its
+    `_q8_dequantize`: sign·u²·scale per block of 256, u = code/127)."""
+    u = np.asarray(q.values).reshape(-1, 256).astype(np.float32) / 127.0
+    flat = (np.sign(u) * u**2 * np.asarray(q.scales, np.float32)[:, None]).reshape(-1)
+    return flat[: int(np.prod(shape))].reshape(shape)
+
+
+def _flat_moments(tree: Mapping, shapes: Mapping[str, tuple], prefix: str = "") -> dict:
+    """A JAX moment tree → flat '/'-joined fp32 arrays: int8 leaves decoded
+    to the shape of their parameter, bf16 ones widened."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flat_moments(v, shapes, key))
+        elif _is_q8(v):
+            out[key] = _q8_decoded(v, shapes[key])
+        else:
+            out[key] = np.array(v).astype(np.float32)
+    return out
+
+
 def train_state_from_jax(
-    state: Any, module: nn.Module, *, device=None, mu_dtype: Optional[torch.dtype] = None
+    state: Any,
+    module: nn.Module,
+    *,
+    device=None,
+    mu_dtype: Optional[torch.dtype] = None,
+    lora: bool = False,
+    eight_bit: bool = False,
 ):
     """A JAX `TrainState` → the port's `train.tdm.TrainState` for `module`
-    (the PixArt model whose parameter names the trees take), on `device`.
-    Params and moments become fp32 (the moments in `mu_dtype` when given);
-    an optimizer state without Adam moments raises."""
+    (the PixArt or SD3 model whose parameter names the trees take; the
+    stacked and unrolled layouts alike), on `device`. With `lora`, the
+    student and EMA trees are a LoRA student's factors, carried as the flat
+    '{module path}/a', '/b' dict of `lora.factors`.
+
+    Params and moments become fp32 (AdamW's first moment in `mu_dtype` when
+    given). The optimizer states keep their structure: AdamW's moments;
+    with `eight_bit` (a state of the JAX package's `adam8bit`, whose leaves
+    under its size gate are plain arrays, so that a tree of small leaves
+    looks like AdamW's), the int8 moments decoded to fp32, carried, and
+    quantized again over the port's own leaves (`optim.q8_pack`; the JAX
+    package's blocks run over its [in, out] kernels, so this is exact for
+    zero moments and within one code step otherwise); `optax.MultiSteps` as
+    a `MultiStepsState` with its accumulated gradient. A state without Adam
+    moments, or with int8 moments and no `eight_bit`, raises."""
     from tdm_tpu_torch.train import optim as topt, tdm
 
-    def tree(t):
-        sd = state_dict_from_jax(flatten_tree(t), module)  # copies of JAX's buffers
+    def carried(flat, factors):
+        if factors:
+            sd = {k: torch.from_numpy(np.ascontiguousarray(flat[k])) for k in sorted(flat)}
+        else:
+            sd = state_dict_from_jax(flat, module)  # copies of JAX's buffers
         return {k: v.to(device=device, dtype=torch.float32) for k, v in sd.items()}
 
-    def opt(opt_state):
+    def role(params_tree, opt_state, factors):
+        params = carried(flatten_tree(params_tree), factors)
+        shapes = {k: np.shape(v) for k, v in flatten_tree(params_tree).items()}
+        return params, opt(opt_state, params, shapes, factors)
+
+    def opt(opt_state, params, shapes, factors):
+        if all(hasattr(opt_state, a) for a in ("mini_step", "gradient_step",
+                                               "inner_opt_state", "acc_grads")):
+            return topt.MultiStepsState(
+                mini_step=int(np.asarray(opt_state.mini_step)),
+                gradient_step=int(np.asarray(opt_state.gradient_step)),
+                inner=opt(opt_state.inner_opt_state, params, shapes, factors),
+                acc=carried(flatten_tree(opt_state.acc_grads), factors),
+            )
         adam = _adam_state(opt_state)
         if adam is None:
             raise ValueError("the JAX optimizer state holds no Adam mu/nu/count")
-        mu = tree(adam.mu)
+        if not eight_bit and any(_is_q8(leaf) for leaf in _leaves(adam.mu)):
+            raise ValueError("the JAX optimizer state holds int8 moments: pass eight_bit=True")
+        count = int(np.asarray(adam.count))
+        mu = carried(_flat_moments(adam.mu, shapes), factors)
+        nu = carried(_flat_moments(adam.nu, shapes), factors)
+        if eight_bit:
+            return topt.Adam8State(count=count, mu=topt.q8_pack(mu, params),
+                                   nu=topt.q8_pack(nu, params))
         if mu_dtype is not None:
             mu = {k: v.to(mu_dtype) for k, v in mu.items()}
-        return topt.AdamWState(count=int(np.asarray(adam.count)), mu=mu, nu=tree(adam.nu))
+        return topt.AdamWState(count=count, mu=mu, nu=nu)
 
+    student, student_opt = role(state.student, state.student_opt, lora)
+    critic, critic_opt = role(state.critic, state.critic_opt, False)
     return tdm.TrainState(
         step=int(np.asarray(state.step)),
-        student=tree(state.student),
-        student_opt=opt(state.student_opt),
-        critic=tree(state.critic),
-        critic_opt=opt(state.critic_opt),
-        ema=None if state.ema is None else tree(state.ema),
+        student=student,
+        student_opt=student_opt,
+        critic=critic,
+        critic_opt=critic_opt,
+        ema=None if state.ema is None else carried(flatten_tree(state.ema), lora),
     )
+
+
+def _leaves(tree: Any) -> Iterator[Any]:
+    """The leaves of a nested mapping, an int8 moment counting as one."""
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -13,6 +13,7 @@ every use as Flax casts its fp32 parameters to `dtype`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -20,8 +21,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils import checkpoint as ckpt
 
 from tdm_tpu_torch.ops.attention import attention as fused_attention
+
+# the JAX package's remat policies: 'full' recomputes the whole block in the
+# backward; 'dots' (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+# keeps the outputs of the Dense layers' matmuls and recomputes the rest
+REMAT_POLICIES = ("full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def sinusoidal_timestep_embedding(
@@ -267,3 +276,33 @@ def unpatchify(
     x = tokens.reshape(b, grid_h, grid_w, patch, patch, channels)
     x = torch.einsum("bhwpqc->bchpwq", x)
     return x.reshape(b, channels, grid_h * patch, grid_w * patch)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Save the outputs of the Dense layers' products (F.linear reaches the
+    dispatcher as mm or addmm); recompute everything else, the batched
+    products of plain attention and the flash kernels included."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(block, params, *args):
+    return functional_call(block, params, args)
+
+
+def checkpoint_block(block: nn.Module, *args, policy: str = "full"):
+    """block(*args) with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant) under the remat `policy`. The
+    recompute runs on the parameters in use now, handed over as inputs:
+    under torch.func.functional_call the module's own are back in place by
+    the time the backward recomputes."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} (one of {REMAT_POLICIES})")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+    params = dict(block.named_parameters())
+    return ckpt.checkpoint(_run_block, block, params, *args, use_reentrant=False, **kw)
+

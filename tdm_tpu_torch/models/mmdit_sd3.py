@@ -1,4 +1,4 @@
-"""SD3 MMDiT denoiser in PyTorch (inference).
+"""SD3 MMDiT denoiser in PyTorch (serving and training).
 
 Port of `tdm_tpu/models/mmdit_sd3.py`, the SD3-Medium transformer of the
 reference's headline recipe (TDM-SD3-LoRA, 4 steps, 1024²): latent
@@ -18,7 +18,11 @@ self-attention (`attn2`) gated by three more modulation vectors.
 Attention goes through `ops.attention` with `cfg.attn_impl`: 'splash' takes
 the splash kernel (`csrc/splash_fwd.cu`) for the unmasked joint attention
 at head dim 64/128; the JAX package's 'auto', 'pallas' and 'xla' all
-compute one function and take the flash route. The blocks are one
+compute one function and take the flash route (under autograd, the flash
+forward with its lse and the backward kernels). Training holds fp32 master
+weights (`param_dtype=torch.float32`) and `cfg.remat` checkpoints each
+joint block when autograd records the forward (`layers.checkpoint_block`,
+full recomputation, as the JAX package's `nn.remat`). The blocks are one
 ModuleList; the weight carry (`io/from_jax.py`) reads the JAX package's
 scanned tree (`blocks_dual`/`blocks` stacks plus the unrolled last block
 `blocks_{N-1}`) and its unrolled `blocks_{i}` tree alike.
@@ -61,8 +65,8 @@ class MMDiTConfig:
     # the JAX package's layer layout: True = stacked 'blocks_dual'/'blocks'
     # trees plus an unrolled last block; the port always holds a ModuleList
     scan_layers: bool = True
-    # the JAX training option; the port's SD3 model runs inference only, so
-    # it changes nothing here
+    # per-block activation checkpointing (--gradient_checkpointing): each
+    # joint block recomputed in the backward
     remat: bool = False
 
     @property
@@ -262,8 +266,12 @@ class SD3Transformer2D(nn.Module):
             L.sinusoidal_timestep_embedding(t, 256).to(c.dtype))
         temb = temb + self.text_embedder(pooled.to(c.dtype))
         ctx = self.context_embedder(context.to(c.dtype))
+        remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x, ctx = block(x, ctx, temb)
+            if remat:
+                x, ctx = L.checkpoint_block(block, x, ctx, temb)
+            else:
+                x, ctx = block(x, ctx, temb)
         mod = self.norm_out(temb)  # AdaLayerNormContinuous: (scale, shift)
         x = L.layer_norm(x) * (1 + mod[:, 0:1]) + mod[:, 1:2]
         x = self.proj_out(x)

@@ -13,7 +13,9 @@ The model computes in `cfg.dtype`. Serving holds its parameters in that
 dtype; training builds it with `param_dtype=torch.float32` (fp32 master
 weights, cast to the compute dtype inside each layer, as Flax does), and
 `cfg.remat` checkpoints each block (`torch.utils.checkpoint`, recomputed in
-the backward) when autograd records the forward.
+the backward) when autograd records the forward: the whole block under
+`remat_policy='full'`, all but the Dense layers' matmul outputs under
+'dots' (`layers.checkpoint_block`).
 
 The blocks are a ModuleList; the weight carry (`io/from_jax.py`) reads the
 JAX package's stacked `blocks/...` tree and its unrolled `blocks_{i}/...`
@@ -28,8 +30,6 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
@@ -52,7 +52,7 @@ class PixArtConfig:
     # a ModuleList
     scan_layers: bool = True
     # per-block activation checkpointing (the reference's
-    # --gradient_checkpointing); only 'full' recomputation is ported
+    # --gradient_checkpointing) under one of layers.REMAT_POLICIES
     remat: bool = False
     remat_policy: str = "full"
     # research option of the JAX config: accepted so its pipeline.json
@@ -125,11 +125,9 @@ class PixArtTransformer2D(nn.Module):
                 "PixArt MoE blocks (moe_experts > 0) are not ported yet: "
                 "ROADMAP.md queue 1, slice 6 (multi-GPU, models/moe.py)"
             )
-        if c.remat and c.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={c.remat_policy!r} is not ported yet (only "
-                "'full' recomputation is): ROADMAP.md queue 1, known gaps"
-            )
+        if c.remat_policy not in L.REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {c.remat_policy!r} (one of {L.REMAT_POLICIES})")
         dev = resolve_device(device)
         kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=dev)
         self.pos_embed = L.PatchEmbed(
@@ -163,13 +161,7 @@ class PixArtTransformer2D(nn.Module):
         remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                # the recompute (in the backward, the lse forward included)
-                # runs on the parameters in use now, handed over as inputs:
-                # under torch.func.functional_call the module's own would be
-                # back in place by then
-                params = dict(block.named_parameters())
-                x = checkpoint(_run_block, block, params, x, y, text_mask, t6,
-                               use_reentrant=False)
+                x = L.checkpoint_block(block, x, y, text_mask, t6, policy=c.remat_policy)
             else:
                 x = block(x, y, text_mask, t6)
         mod = self.final_scale_shift_table[None] + t_emb.float()[:, None]
@@ -177,10 +169,6 @@ class PixArtTransformer2D(nn.Module):
         x = self.proj_out(L.layer_norm(x) * (1 + scale) + shift)
         out = L.unpatchify(x, gh, gw, c.patch_size, c.out_channels)
         return out.to(latent.dtype)
-
-
-def _run_block(block, params, x, y, text_mask, t6):
-    return functional_call(block, params, (x, y, text_mask, t6))
 
 
 def epsilon(model_out: torch.Tensor) -> torch.Tensor:

@@ -285,6 +285,29 @@ def leaf_moments(moments: Q8Moments, params: Params) -> dict:
     return out
 
 
+def q8_pack(moments: Params, params: Params) -> Q8Moments:
+    """One fp32 moment per leaf of `params` (name → tensor of its shape) →
+    the packed Q8Moments that `adam8bit` keeps for `params`: each quantized
+    leaf through `q8_quantize` on its own, the others as they are."""
+    codes, scales, small = [], [], []
+    for span in _layout(params)[0]:
+        for name, _, _, _ in span.leaves:
+            m = moments[name].float()
+            if span.quantized:
+                q = q8_quantize(m)
+                codes.append(q.values)
+                scales.append(q.scales)
+            else:
+                small.append(m.reshape(-1))
+    dev = next(iter(params.values())).device
+
+    def cat(parts, dtype):
+        return torch.cat(parts).to(dev) if parts else torch.zeros(0, dtype=dtype, device=dev)
+
+    return Q8Moments(codes=cat(codes, torch.int8), scales=cat(scales, torch.float32),
+                     small=cat(small, torch.float32))
+
+
 def adam8bit(
     lr: Union[Schedule, float],
     *,

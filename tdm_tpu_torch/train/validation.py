@@ -1,8 +1,10 @@
 """Validation images during training: fixed-seed grids of the student.
 
 Port of `tdm_tpu/train/validation.py`: `save_validation_images` renders
-K-step rollouts (4 and 1 NFE) of the student on fixed (prompts, noise),
-decodes them with a TAESD decoder and writes one PNG grid per K;
+K-step rollouts (4 and 1 NFE) of the student on fixed (prompts, noise)
+under the family's schedule and cond (PixArt's DDPM tables and (text,
+mask); SD3's flow tables and (ctx, pooled)), decodes them with a TAESD
+decoder (TAESD3 for SD3's 16 channels) and writes one PNG grid per K;
 `log_validation` renders the student (K steps, no CFG) beside the teacher
 (28 steps, CFG 7) from the same seed. PNGs go through the port's own
 encoder (`serve.server.encode_png`: the card's machine has no Pillow).

@@ -73,6 +73,13 @@ os.makedirs(_USERS, exist_ok=True)
 open(_ME, "w").close()
 compilation_cache.set_cache_dir(_CACHE)
 compilation_cache.reset_cache()
+# The JAX package's CLIs and server turn the cache on themselves
+# (`utils.config.enable_compilation_cache`), in the directory that
+# $JAX_COMPILATION_CACHE_DIR names: tests/conftest.py's shared one unless
+# it names this run's. A worker that ran one of their tests went on with the
+# shared directory, where an earlier run had stored the sequence-parallel
+# programs, and aborted when it came to them.
+os.environ["JAX_COMPILATION_CACHE_DIR"] = _CACHE
 
 
 @atexit.register

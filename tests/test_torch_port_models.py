@@ -134,12 +134,16 @@ def test_layer_norm_matches_in_fp32_and_keeps_dtype():
 
 
 def test_pixart_refuses_unported_options():
-    for kw in ({"moe_experts": 4}, {"remat": True, "remat_policy": "dots"}):
-        cfg = dataclasses.replace(tpixart.PixArtConfig.tiny(), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpixart.PixArtTransformer2D(cfg, device="cpu")
+    cfg = dataclasses.replace(tpixart.PixArtConfig.tiny(), moe_experts=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpixart.PixArtTransformer2D(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpixart.make_pp_forward(None, None)
+    # both of the JAX package's remat policies are ported; another one is
+    # refused as the JAX package refuses it
+    cfg = dataclasses.replace(tpixart.PixArtConfig.tiny(), remat=True, remat_policy="offload")
+    with pytest.raises(ValueError, match="remat_policy"):
+        tpixart.PixArtTransformer2D(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("stages,blocks,width", [(1, 1, 8), (3, 3, 16)])

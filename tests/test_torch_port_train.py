@@ -438,7 +438,7 @@ def test_train_step_refuses_unported():
     with pytest.raises(NotImplementedError, match="slice 4"):
         ttdm.build_train_step(tb.denoise_fn, {}, tb.schedule, ttdm.TDMConfig(quant_forwards=True),
                               tx, tx, sample_shape=tb.sample_shape)
-    for fam, where in (("sd3", "slice 3"), ("sd15", "slice 4"), ("cogvideox", "slice 5")):
+    for fam, where in (("sd15", "slice 4"), ("cogvideox", "slice 5")):
         with pytest.raises(NotImplementedError, match=where):
             tfamilies.build(fam, tiny=True, device="cpu")
 
@@ -541,7 +541,7 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     (["--sp", "2"], "slice 6"),
     (["--push_to_hub"], "slice 7"),
     (["--quant_forwards"], "slice 4"),
-    (["--model_family", "sd3"], "slice 3"),
+    (["--model_family", "sd15"], "slice 4"),
     (["--moe_experts", "4"], "slice 6"),
 ])
 def test_cli_refuses_unported_flags_before_the_first_step(tmp_path, monkeypatch, flags, where):
