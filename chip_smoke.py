@@ -71,9 +71,24 @@ Phases, one line each, and any failure exits non-zero:
      load seconds, seconds per step, peak memory, the idle share and top
      device operations of a profiled step, each training kernel's launches
      per step (checked), and the kohya LoRA loaded back into the SD3
-     pipeline.
-Phase 3 also holds the training kernels (the forward with its lse, dQ with
-its fused Δ, dK/dV) at one PixArt block's shapes and SD3 training's
+     pipeline;
+ 11. sd15: a small SD1.5 pipeline at head dims 80 and 160 with a merged
+     LoRA, fp32, on the card against the CPU; then a full-width SD1.5
+     diffusers checkout (the UNet at 320/640/1280/1280, 8 heads, context
+     768, fp16, and its KL VAE, written from the seed through the port's
+     manifests) served over HTTP from --model <checkout> with a seeded
+     rank-64 kohya LoRA on the attention projections (--lora) and a CLIP-L
+     embedding cache: 8 concurrent requests (two batches of 4 at 512², 4
+     NFE, DPM-Solver++ on the scaled-linear grid) and one alone, PNGs that
+     are not constant, per-seed determinism, exactly 128 kernel-1 launches
+     and nothing else per batch, a profiled batch (48 of its launches at
+     head dim 160, by kernel name), the KL decode alone, the load seconds,
+     peak memory, and one full-width UNet forward against plain attention.
+Phase 3 also holds kernel 1 at SD1.5's head dims 40, 136 and 160 (ragged,
+masked and all-masked rows, bf16 and fp32) and times its eight SD1.5
+shapes in turns with SDPA; it also holds the training kernels (the forward
+with its lse, dQ with its fused Δ, dK/dV) at one PixArt block's shapes and
+SD3 training's
 [4,24,1178,1178,64] and [8,24,1178,1178,64] (the forward without lse too,
 all timed in turns with SDPA), and the splash kernel (SD3's
 [4,24,4429,4429,64], ragged fp32 shapes, rows whose logits are all below
@@ -131,6 +146,26 @@ BF16_REL_L2, BF16_ULPS = 1e-2, 4
 # fp32, elementwise |kernel - plain| <= atol + rtol·|plain|: the same sums
 # in another order.
 F32_TOL = (2e-5, 2e-5)
+# fp32 at SD1.5's head dims 40 and 160 (outputs are O(1) averages of v):
+# max |kernel - plain| under 1e-5
+SD15_F32_ATOL = 1e-5
+# SD1.5 at 512², batch 4, 8 heads: its attention calls [B, H, Sq, Sk, D] by
+# level (64² latent: 4096 tokens at width 320, D 40; 1024 at 640, D 80; 256
+# at 1280, D 160; the mid block's 64 at D 160), each self-attention unmasked
+# and each cross-attention over the 77 CLIP tokens, with the calls of each
+# per batch of 4 NFE (5 transformers at D 40 and at D 80, 6 at D 160, one
+# of them the mid block's)
+SD15_B, SD15_H, SD15_TXT = 4, 8, 77
+SD15_SHAPES = (  # name, sq, sk, d, calls per batch
+    ("sd15_self_d40", 4096, 4096, 40, 20), ("sd15_cross_d40", 4096, SD15_TXT, 40, 20),
+    ("sd15_self_d80", 1024, 1024, 80, 20), ("sd15_cross_d80", 1024, SD15_TXT, 80, 20),
+    ("sd15_self_d160", 256, 256, 160, 20), ("sd15_cross_d160", 256, SD15_TXT, 160, 20),
+    ("sd15_mid_self_d160", 64, 64, 160, 4), ("sd15_mid_cross_d160", 64, SD15_TXT, 160, 4),
+)
+# kernel 1's launches per SD1.5 batch (16 transformers, self + cross, 4 NFE)
+# and those at head dim 160 (6 transformers)
+SD15_LAUNCHES_PER_BATCH = 16 * 2 * 4
+SD15_D160_PER_BATCH = 6 * 2 * 4
 # the lse of a row with live keys, fp32, kernel against plain: the same
 # logits, exp by __expf or expf, the sums in another order
 LSE_TOL = 1e-4
@@ -316,7 +351,7 @@ def phase_build() -> dict:
                       for r in sm90.values()), f"{lib}: a bf16 kernel spills: {sm90}")
     smem = {}
     for lib, fn_name, keys in (
-            ("flash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (80,), (128,))),
+            ("flash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (80,), (128,), (160,))),
             ("splash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (128,))),
             ("flash_bwd_dq", "tdm_flash_bwd_dq_smem_bytes", ((64,), (80,), (128,))),
             ("flash_bwd_dkv", "tdm_flash_bwd_dkv_smem_bytes",
@@ -405,13 +440,21 @@ def sd3_train_cases(torch) -> list:
 
 
 def group_of(shape_name: str) -> str:
-    """The path a timed shape belongs to: SD3 training, or one PixArt block."""
-    return "sd3_train" if shape_name.startswith("sd3_train") else "pixart"
+    """The path a timed shape belongs to: SD3 training, SD1.5 serving, or
+    one PixArt block."""
+    for group in ("sd3_train", "sd15"):
+        if shape_name.startswith(group):
+            return group
+    return "pixart"
 
 
 def phase_kernels(torch, seed: int) -> dict:
     """Hold the flash kernel against its plain version; time both, SDPA and
-    the bound at the two PixArt shapes and SD3 training's two shapes."""
+    the bound at the two PixArt shapes, SD3 training's two shapes and the
+    eight SD1.5 serving shapes. SD1.5's head dims 40 (the 64-column panel)
+    and 160 (three panels, 64-key tiles) and 136 are held on ragged shapes
+    with a masked, a ragged and an all-masked batch row, bf16 and fp32 (fp32
+    within SD15_F32_ATOL)."""
     import torch.nn.functional as F
 
     from tdm_tpu_torch.ops import attention as A
@@ -428,6 +471,10 @@ def phase_kernels(torch, seed: int) -> dict:
         ("odd_bf16", 2, 3, 1000, 77, 64, bf16, [77, 0], False),
         ("odd_d72_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 1], False),
         *sd3_train_cases(torch),
+        *((f"sd15_ragged_d{d}_{str(dt).split('.')[-1]}", 3, 2, 333, 200, d, dt,
+           [200, 129, 0], False) for d in (40, 136, 160) for dt in (bf16, f32)),
+        *((name, SD15_B, SD15_H, sq, sk, d, bf16, None if sq == sk else [sk] * SD15_B, True)
+          for name, sq, sk, d, _ in SD15_SHAPES),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -452,6 +499,8 @@ def phase_kernels(torch, seed: int) -> dict:
               f"{str(dtype).split('.')[-1]} max_abs_err {err:.3e} rel_l2 "
               f"{rel:.3e} ({tol})", flush=True)
         check(bad is None, f"{name}: {bad}")
+        check(not (name.startswith("sd15") and dtype == f32 and err > SD15_F32_ATOL),
+              f"{name}: max_abs_err {err:.3e} above {SD15_F32_ATOL}")
         max_err = max(max_err, err)
         if not timed:
             continue
@@ -850,10 +899,13 @@ def grad_check(torch, seed: int) -> None:
           flush=True)
 
 
-def check_png(png: bytes, width: int, height: int) -> None:
+def check_png(png: bytes, width: int, height: int):
     """A valid 8-bit RGB PNG of the given size: signature, chunk CRCs,
     IHDR, and an IDAT stream that inflates to one filter byte plus 3·width
-    bytes per row."""
+    bytes per row. Returns its [H, W, 3] uint8 pixels (the server writes
+    filter 0 on every row, which is checked)."""
+    import numpy as np
+
     check(png[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
     pos, chunks = 8, {}
     while pos < len(png):
@@ -867,8 +919,12 @@ def check_png(png: bytes, width: int, height: int) -> None:
     w, h = int.from_bytes(ihdr[0:4], "big"), int.from_bytes(ihdr[4:8], "big")
     check((w, h, ihdr[8], ihdr[9]) == (width, height, 8, 2),
           f"PNG header {w}x{h} depth {ihdr[8]} color {ihdr[9]}")
-    check(len(zlib.decompress(chunks[b"IDAT"])) == h * (1 + 3 * w), "PNG data size")
+    data = zlib.decompress(chunks[b"IDAT"])
+    check(len(data) == h * (1 + 3 * w), "PNG data size")
     check(b"IEND" in chunks, "PNG IEND")
+    rows = np.frombuffer(data, np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG rows use filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
 
 
 def phase_reference(torch, seed: int) -> None:
@@ -948,21 +1004,31 @@ KL_WEIGHT_SCALE = 0.15
 
 def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float, int]:
     """A stock diffusers checkout at `root`: model_index.json, transformer/
-    and vae/ (an AutoencoderKL), each a config.json and one fp16
-    diffusion_pytorch_model.safetensors of seeded weights in the released
-    checkpoint's key layout (the port's manifests), written one tensor at a
-    time. Returns (seconds, parameters)."""
+    (SD1.5: unet/) and vae/ (an AutoencoderKL), each a config.json and one
+    fp16 diffusion_pytorch_model.safetensors of seeded weights in the
+    released checkpoint's key layout (the port's manifests, family pixart,
+    sd3 or unet_sd15), written one tensor at a time. Returns (seconds,
+    parameters)."""
     from tdm_tpu_torch.io import manifest
 
     t0 = time.monotonic()
-    tconf = {"sample_size": cfg.sample_size, "patch_size": cfg.patch_size,
-             "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
-             "num_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
-             "attention_head_dim": cfg.head_dim}
+    sub = "transformer"
+    if family == "unet_sd15":  # SD1.5's int attention_head_dim is its head count
+        sub, index = "unet", {"_class_name": "StableDiffusionPipeline"}
+        tconf = {"_class_name": "UNet2DConditionModel", "in_channels": cfg.in_channels,
+                 "out_channels": cfg.out_channels, "layers_per_block": cfg.layers_per_block,
+                 "block_out_channels": list(cfg.block_widths),
+                 "norm_num_groups": cfg.norm_groups, "cross_attention_dim": cfg.context_dim,
+                 "attention_head_dim": cfg.num_heads}
+    else:
+        tconf = {"sample_size": cfg.sample_size, "patch_size": cfg.patch_size,
+                 "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+                 "num_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                 "attention_head_dim": cfg.head_dim}
     if family == "pixart":
         index = {"_class_name": "PixArtAlphaPipeline"}
         tconf.update(_class_name="PixArtTransformer2DModel", caption_channels=cfg.caption_dim)
-    else:
+    elif family == "sd3":
         index = {"_class_name": "StableDiffusion3Pipeline"}
         tconf.update(_class_name="SD3Transformer2DModel", joint_attention_dim=cfg.context_dim,
                      pooled_projection_dim=cfg.pooled_dim,
@@ -973,14 +1039,13 @@ def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float,
              "scaling_factor": vcfg.scaling_factor,
              "shift_factor": vcfg.shift_factor if vcfg.shift_factor else None}
     n = 0
-    for sub, conf in (("", index), ("transformer", tconf), ("vae", vconf)):
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
-        with open(os.path.join(root, sub, "model_index.json" if not sub else "config.json"),
+    for folder, conf in (("", index), (sub, tconf), ("vae", vconf)):
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+        with open(os.path.join(root, folder, "config.json" if folder else "model_index.json"),
                   "w") as f:
             json.dump(conf, f)
     n += manifest.write_synthetic(
-        family, os.path.join(root, "transformer", "diffusion_pytorch_model.safetensors"),
-        cfg, seed=seed)
+        family, os.path.join(root, sub, "diffusion_pytorch_model.safetensors"), cfg, seed=seed)
     n += manifest.write_synthetic(
         "klvae", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
         vcfg, seed=seed + 1, scale=KL_WEIGHT_SCALE)
@@ -1184,6 +1249,7 @@ def profile_batch(torch, pipe, cond, noise, kernel: str = "flash_fwd") -> dict:
         print("[profile] no device time in the trace: not measured", flush=True)
         return {}
     attn_ms = sum(e.device_time_total for e in kernels if kernel in e.key) / 1e3
+    by_name = {e.key: e.count for e in kernels if kernel in e.key}
     decode_ms = events[0].elapsed_time(events[1])
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     print(f"[profile] one batch of 4: wall {wall_ms:.1f} ms, device busy "
@@ -1197,7 +1263,7 @@ def profile_batch(torch, pipe, cond, noise, kernel: str = "flash_fwd") -> dict:
               f"{e.key[:90]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "attention_ms": attn_ms,
             "idle_share": 1 - busy_ms / wall_ms, "launches": sum(e.count for e in kernels),
-            "decode_ms": decode_ms}
+            "decode_ms": decode_ms, "kernel_launches": by_name}
 
 
 @contextlib.contextmanager
@@ -2047,6 +2113,271 @@ def phase_diffusers(torch, seed: int, workdir: str) -> dict:
             "sd3": diffusers_sd3(torch, seed, workdir)}
 
 
+# ---------------------------------------------------------------------------
+# SD1.5 / Dreamshaper served from a diffusers checkout
+# ---------------------------------------------------------------------------
+
+
+def sd15_reference(torch, seed: int, workdir: str) -> dict:
+    """A small SD1.5 pipeline whose levels run at head dims 80 and 160 (one
+    head over widths 80/160), fp32, with a merged kohya LoRA on its
+    attention projections, on the card (kernel 1's fp32 path) against the
+    same pipeline on the CPU (the plain version): the sampler state is bf16
+    in both, so the latents agree to one bf16 ulp of their scale and the
+    images to half a PNG step."""
+    import dataclasses
+
+    import numpy as np
+
+    from tdm_tpu_torch.lora import io as lora_io
+    from tdm_tpu_torch.models import unet_sd15, vae
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import SD15Pipeline
+
+    torch.manual_seed(seed)
+    cfg = dataclasses.replace(unet_sd15.UNetConfig.tiny(), block_widths=(80, 160), num_heads=1)
+    pipes = [SD15Pipeline(unet_sd15.UNet2DCondition(cfg, device=dev),
+                          vae_decoder=vae.KLDecoder(vae.KLVAEConfig.tiny(), device=dev),
+                          device=dev) for dev in ("cpu", "cuda")]
+    cpu, gpu = pipes
+    gpu.unet.load_state_dict(cpu.unet.state_dict())
+    gpu.vae_decoder.load_state_dict(cpu.vae_decoder.state_dict())
+    lora_file = os.path.join(workdir, "tiny_sd15_lora.safetensors")
+    lora_io.save_kohya(sd15_lora(torch, cpu.unet, 4, seed), lora_file)
+    for pipe in pipes:
+        pipe.load_lora_weights(lora_file, adapter_name="tdm")
+    rng = np.random.default_rng(seed)
+    lat = rng.standard_normal((3, 4, 16, 16)).astype(np.float32)
+    ctx = rng.standard_normal((3, SD15_TXT, cfg.context_dim)).astype(np.float32)
+    mask = (np.arange(SD15_TXT)[None] < np.array([[77], [9], [0]])).astype(np.int32)
+    kw = dict(prompt_embeds=(ctx, mask), latents=lat, height=128, width=128)
+    ref = cpu(**kw)
+    before = A.launch_counts()
+    got = gpu(**kw)
+    torch.cuda.synchronize()
+    launched = {n: A.launch_counts()[n] - before[n] for n in before}
+    for w in A.WRAPPERS:  # a check, not the main path
+        w.launches = before[w.__name__]
+    dl = (got.latents.float().cpu() - ref.latents.float()).abs()
+    scale = ref.latents.float().abs().max().item()
+    di = (got.images.cpu() - ref.images).abs().max().item()
+    print(f"[sd15] small SD1.5 pipeline (head dims 80/160, fp32, LoRA) cuda (kernel 1, "
+          f"{launched['flash_attention_fwd']} launches) vs cpu (plain): latents max_abs_err "
+          f"{dl.max().item():.3e} of scale {scale:.3g}, {(dl > 0).float().mean().item():.4f} of "
+          f"elements differ; images max_abs_err {di:.3e}", flush=True)
+    check(launched["flash_attention_fwd"] == 4 * 2 * 4 and sum(launched.values()) == 4 * 2 * 4,
+          f"small SD1.5 pipeline launches {launched}")
+    check(dl.max().item() <= 2**-7 * scale, "small SD1.5 latents disagree")
+    check((dl > 0).float().mean().item() < 0.01, "small SD1.5 latents disagree")
+    check(di <= 2e-3, "small SD1.5 images disagree")
+    return {"latents_max_abs_err": dl.max().item(), "images_max_abs_err": di}
+
+
+def sd15_lora(torch, unet, rank: int, seed: int):
+    """A LoRA of `rank` on the UNet's attention projections (to_q, to_k,
+    to_v, to_out of every self and cross attention), both factors drawn
+    from the seed."""
+    from tdm_tpu_torch.lora import adapter
+
+    gen = torch.Generator().manual_seed(seed)
+    lora = adapter.init_lora(
+        unet, rank, generator=gen,
+        target=lambda path, shape: path[-1] in ("to_q", "to_k", "to_v", "to_out"))
+    for entry in lora.params.values():
+        entry["b"] = 0.02 * torch.randn(entry["b"].shape, generator=gen)
+    return lora
+
+
+def sd15_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]:
+    """The SD1.5 checkout (the UNet at widths 320/640/1280/1280, 2 layers a
+    block, 8 heads, context 768, GroupNorm 32; the 4-channel AutoencoderKL
+    [128, 256, 512, 512], scaling 0.18215) as `StableDiffusionPipeline`
+    ships it: model_index.json, unet/ and vae/, each a config.json and one
+    fp16 safetensors file of seeded weights in the released key layout.
+    Returns (its root, the seconds and parameters of the write)."""
+    from tdm_tpu_torch.models import unet_sd15, vae
+
+    cfg, vcfg = unet_sd15.UNetConfig(), vae.KLVAEConfig()
+    check((tuple(cfg.block_widths), cfg.layers_per_block, cfg.num_heads, cfg.context_dim,
+           cfg.norm_groups, cfg.dtype, tuple(vcfg.block_widths), vcfg.scaling_factor)
+          == ((320, 640, 1280, 1280), 2, 8, 768, 32, torch.bfloat16, (128, 256, 512, 512),
+              0.18215), "SD1.5 and its VAE")
+    root = os.path.join(workdir, "stable-diffusion-v1-5")
+    secs, n = write_checkout(root, "unet_sd15", cfg, vcfg, seed)
+    print(f"[checkout] wrote the SD1.5 diffusers checkout ({n / 1e6:.1f}M params at fp16) "
+          f"in {secs:.1f}s", flush=True)
+    return root, secs, n
+
+
+def sd15_cache(workdir: str, seed: int) -> tuple[str, list]:
+    """An embedding cache of 8 prompts: CLIP-L last hidden states [77, 768]
+    with every token live, as SD1.5's UNet attends them."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+
+    prompts = [f"sd15 prompt {i}" for i in range(8)]
+    cache = os.path.join(workdir, "clip_cache.npz")
+    rng = np.random.default_rng(seed + 5)
+    EmbeddingCache(rng.standard_normal((8, SD15_TXT, 768)).astype(np.float16),
+                   np.ones((8, SD15_TXT), np.int32), prompts).save(cache)
+    return cache, prompts
+
+
+def sd15_forward_check(torch, unet, seed: int) -> float:
+    """One full-width UNet forward at 512², batch 4, with kernel 1 against
+    the same forward with the plain attention, both on the card: bf16
+    through 16 transformers and 22 ResBlocks, so the check is relative (L2
+    error under 2%)."""
+    import numpy as np
+
+    from tdm_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed + 7)
+    lat = torch.from_numpy(rng.standard_normal((4, 4, 64, 64)).astype(np.float32)).cuda()
+    ctx = torch.from_numpy(rng.standard_normal((4, SD15_TXT, 768)).astype(np.float32)).cuda()
+    mask = torch.ones(4, SD15_TXT, dtype=torch.int32, device="cuda")
+    t = torch.tensor([999, 749, 500, 250], device="cuda")
+    before = A.launch_counts()
+    with torch.inference_mode():
+        out = unet(lat, t, ctx, mask).float()
+        with forced_attention("plain"):
+            ref = unet(lat, t, ctx, mask).float()
+    for w in A.WRAPPERS:  # a check, not the main path
+        w.launches = before[w.__name__]
+    rel = ((out - ref).norm() / ref.norm()).item()
+    print(f"[sd15] full-width UNet forward, kernel vs plain attention: rel L2 {rel:.3e}, "
+          f"finite {bool(torch.isfinite(out).all())}", flush=True)
+    check(bool(torch.isfinite(out).all()) and rel < 2e-2,
+          f"full-width UNet forward disagrees: rel L2 {rel}")
+    return rel
+
+
+def phase_sd15(torch, seed: int, workdir: str) -> dict:
+    """SD1.5 served over HTTP from a full-width diffusers checkout with a
+    rank-64 kohya LoRA merged at load: 8 concurrent requests (two batches
+    of 4) and one alone, PNGs that are not constant, per-seed determinism,
+    kernel 1's launches per batch (128, 48 at head dim 160, and nothing
+    else), a profiled batch, the KL decode alone, and one full-width forward
+    against plain attention."""
+    from concurrent.futures import ThreadPoolExecutor
+    import urllib.request
+
+    import numpy as np
+
+    from tdm_tpu_torch.io import convert
+    from tdm_tpu_torch.lora import io as lora_io
+    from tdm_tpu_torch.models import unet_sd15, vae
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.serve import server as S
+
+    torch.cuda.empty_cache()
+    reference = sd15_reference(torch, seed, workdir)
+    root, write_s, n_params = sd15_checkout(torch, workdir, seed)
+    cache, prompts = sd15_cache(workdir, seed)
+    lora_file = os.path.join(workdir, "sd15_tdm_lora.safetensors")
+    lora = sd15_lora(torch, unet_sd15.UNet2DCondition(device="meta"), 64, seed)
+    lora_io.save_kohya(lora, lora_file)
+    t0 = time.monotonic()
+    args = S.parse_args([
+        "--model", root, "--lora", lora_file, "--embedding_cache", cache, "--port", "0",
+        "--batch_size", "4", "--max_delay_ms", "1000", "--warmup",
+    ])
+    with timed_calls(torch, load_targets() + [(convert, "unet_sd15_params")]) as times:
+        server = S.build_server(args).start()
+    up_s = time.monotonic() - t0
+    load = load_report(times)
+    stats, pipe = server.batcher.stats, server.batcher.pipe
+    check(pipe.family == "sd15" and pipe.unet.cfg == unet_sd15.UNetConfig()
+          and isinstance(pipe.vae_decoder, vae.KLDecoder) and pipe.vae_range == "pm1"
+          and pipe.vae_scaling == 0.18215 and pipe.vae_decoder.cfg.dtype == torch.float32
+          and pipe._active == (("tdm", 1.0),), "the served SD1.5 checkout")
+    print(f"[sd15] SD1.5 checkout with a rank-64 LoRA ({len(lora.params)} projections) loaded "
+          f"in {load['load_s']:.2f}s (safetensors read {load['read_s']:.2f}s, conversion "
+          f"{load['convert_s']:.3f}s, modules and copy to the card "
+          f"{load['build_and_copy_s']:.2f}s); server up and warm in {up_s:.1f}s (warm-up "
+          f"batch {stats.last_batch_latency_s:.3f}s)", flush=True)
+
+    def post(prompt, seed):
+        body = json.dumps({"prompt": prompt, "seed": seed}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        t = time.monotonic()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, time.monotonic() - t
+
+    try:
+        # the main path: counts to 0, 8 concurrent requests, then one alone
+        A.reset_launches()
+        b0, pad0 = stats.batches, stats.rows_padded
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(8) as ex:
+            replies = list(ex.map(lambda i: post(prompts[i], 500 + i), range(8)))
+        wall8 = time.monotonic() - t0
+        batches8 = stats.batches - b0
+        full_batch_s = stats.last_batch_latency_s
+        solo, solo_s = post(prompts[0], 500)
+        launches = A.launch_counts()
+        batches = stats.batches - b0
+    finally:
+        server.close()
+    stds, pixels = [], []
+    for reply, _ in replies + [(solo, solo_s)]:
+        check(reply.get("format") == "png" and reply.get("shape") == [512, 512, 3],
+              f"reply {str(reply)[:200]}")
+        pixels.append(check_png(base64.b64decode(reply["image"]), 512, 512).astype(np.int16))
+        stds.append(float(pixels[-1].std()))
+    solo_diff = np.abs(pixels[-1] - pixels[0])
+    check(min(stds) > 1.0, f"a served image is (nearly) constant: pixel std {min(stds)}")
+    check(batches8 == 2 and stats.rows_padded - pad0 == 3,
+          f"8 requests ran as {batches8} batches")
+    check(solo["image"] == replies[0][0]["image"],
+          f"same (prompt, seed) gave different bytes in another batch: "
+          f"{int((solo_diff > 0).sum())} of {solo_diff.size} pixel values differ, by at most "
+          f"{int(solo_diff.max())}")
+    check(len({r["image"] for r, _ in replies}) == 8, "distinct seeds gave equal images")
+    check(launches["flash_attention_fwd"] == SD15_LAUNCHES_PER_BATCH * batches
+          and sum(launches.values()) == launches["flash_attention_fwd"],
+          f"launches {launches} over {batches} batches, expected "
+          f"{SD15_LAUNCHES_PER_BATCH} flash_fwd and nothing else per batch")
+    lat = [t for _, t in replies]
+    print(f"[sd15] 8 concurrent requests in {wall8:.3f}s as {batches8} batches of 4 "
+          f"({8 / wall8:.2f} images/s), request latency {min(lat):.3f}-{max(lat):.3f}s, "
+          f"last full batch {full_batch_s:.3f}s; lone request {solo_s:.3f}s; same (prompt, "
+          f"seed) -> same PNG bytes; pixel std {min(stds):.1f}-{max(stds):.1f}; launches "
+          f"{launches} = {SD15_LAUNCHES_PER_BATCH} flash_fwd x {batches} batches", flush=True)
+    cond = tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
+    noise = torch.randn(4, 4, 64, 64)
+    with torch.inference_mode():
+        images = pipe(prompt_embeds=cond, latents=noise).images.cpu()
+    check(tuple(images.shape) == (4, 512, 512, 3) and bool(torch.isfinite(images).all())
+          and images.std().item() > 0.01, f"SD1.5 images {tuple(images.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_batch(torch, pipe, cond, noise)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_dim = {dp: sum(c for k, c in prof.get("kernel_launches", {}).items()
+                      if f"flash_fwd_sm90_kernel<{dp}," in k) for dp in (64, 80, 160)}
+    if prof:
+        check(sum(prof["kernel_launches"].values()) == SD15_LAUNCHES_PER_BATCH
+              and by_dim[160] == SD15_D160_PER_BATCH and by_dim[64] == by_dim[80] == 40,
+              f"profiled SD1.5 batch: kernel 1 launches {prof['kernel_launches']}")
+        print(f"[sd15] profiled batch: kernel 1 launches by padded head dim {by_dim} "
+              f"(D 40 reads DP 64); peak device memory {peak_gb:.2f} GB", flush=True)
+    decode = decode_alone(torch, pipe, (4, 4, 64, 64), seed)
+    rel = sd15_forward_check(torch, pipe.unet, seed)
+    del pipe
+    torch.cuda.empty_cache()
+    return {"reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
+            "params": n_params, "lora_projections": len(lora.params),
+            "launches": launches["flash_attention_fwd"], "batches": batches,
+            "launches_per_batch": SD15_LAUNCHES_PER_BATCH, "launches_by_head_dim": by_dim,
+            "wall8_s": wall8, "images_per_s": 8 / wall8, "batch_s": full_batch_s,
+            "solo_s": solo_s, "profile": prof, "peak_gb": peak_gb, "decode": decode,
+            "forward_rel_l2": rel}
+
+
 TRAIN_STEPS = 3
 # per step at batch 4, dmd, cfg 4.5, critic_updates 1: 7 forwards without
 # grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B, critic probe) and 2
@@ -2704,7 +3035,7 @@ def kernel_row(name, source, replaces, launches, rec, per, resources, sd3_launch
 
 
 PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers",
-          "train_sd3")
+          "train_sd3", "sd15")
 
 
 def main(argv=None) -> int:
@@ -2752,6 +3083,8 @@ def main(argv=None) -> int:
             diffusers = phase_diffusers(torch, args.seed, workdir)
         if "train_sd3" in phases:
             train_sd3 = phase_train_sd3(torch, args.seed, workdir)
+        if "sd15" in phases:
+            sd15 = phase_sd15(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2788,7 +3121,13 @@ def main(argv=None) -> int:
         | {"launches_by_path": {
             "serve": serve["launches"], "diffusers_pixart": diffusers["pixart"]["launches"],
             "diffusers_sd3": diffusers["sd3"]["launches"],
-            **by_path("flash_attention_fwd")}},
+            **by_path("flash_attention_fwd"), "sd15": sd15["launches"]},
+           "sd15": {"launches_per_batch": SD15_LAUNCHES_PER_BATCH,
+                    "calls_per_batch": {name: calls for name, *_, calls in SD15_SHAPES},
+                    "launches_by_head_dim": sd15["launches_by_head_dim"],
+                    "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in kern["shapes"]
+                               if r["group"] == "sd15"]},
+           "dynamic_smem": build["dynamic_smem"]["flash_fwd"]},
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
                    kt["flash_fwd_lse"],
@@ -2821,7 +3160,7 @@ def main(argv=None) -> int:
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
-                      "diffusers": diffusers, "train_sd3": train_sd3}))
+                      "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -1,7 +1,8 @@
 """Diffusion noise schedules as precomputed tables plus pure schedule math.
 
-Port of `tdm_tpu/core/schedules.py` for the PixArt and SD3 paths: the
-linear-β DDPM schedule (reference `src/main.py:132-139`), the shifted
+Port of `tdm_tpu/core/schedules.py` for the PixArt, SD1.5 and SD3 paths:
+the linear-β DDPM schedule (reference `src/main.py:132-139`), SD1.5's
+scaled-linear one, the shifted
 rectified-flow schedule SD3 trains under, the forward process, the x₀ / ε
 projections, the few-step timestep grids, and the training step's
 inter-timestep transport, mixed noise, SNR and native DSM target. Tables
@@ -45,8 +46,30 @@ def ddpm_linear(
     device: Optional[Union[str, torch.device]] = None,
 ) -> NoiseSchedule:
     """Linear-β DDPM schedule (DDPMScheduler(beta_schedule='linear'))."""
-    dev = resolve_device(device)
     betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    return _from_betas(betas, num_train_timesteps, prediction_type, device)
+
+
+def ddpm_scaled_linear(
+    num_train_timesteps: int = 1000,
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+    prediction_type: str = EPSILON,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> NoiseSchedule:
+    """Scaled-linear β schedule of the SD1.x family (SD1.5's scheduler
+    config, the Dreamshaper recipe): β_t = linspace(√β₀, √β₁)²."""
+    betas = np.linspace(
+        beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
+    return _from_betas(betas, num_train_timesteps, prediction_type, device)
+
+
+def _from_betas(betas: np.ndarray, num_train_timesteps: int, prediction_type: str,
+                device) -> NoiseSchedule:
+    """α/σ tables of a β schedule: the cumprod in float64 on the host,
+    stored fp32 on `device`."""
+    dev = resolve_device(device)
     alphas_cumprod = np.cumprod(1.0 - betas)
     return NoiseSchedule(
         alphas=torch.tensor(np.sqrt(alphas_cumprod), dtype=torch.float32, device=dev),

@@ -19,6 +19,10 @@
 //     GFLOP against 37.7 MB moved -> operations-bound (0.0195 ms vs 0.0113 ms).
 //   * PixArt cross-attention, Sq=1024 Sk=120 (masked T5 tokens): 2.3 GFLOP
 //     against 21.1 MB moved (q and out dominate) -> bytes-bound (0.0059 ms).
+//   * SD1.5 at 512², batch 4, 8 heads: self-attention [4,8,4096,4096,40]
+//     is operations-bound (86 GFLOP, 0.087 ms); its cross-attention over
+//     77 CLIP tokens, and every call at D = 80 and 160 but the 1024-token
+//     self-attention, move more bytes than they compute.
 //   The lse adds 4 bytes per query row (0.26 MB at these shapes).
 // The bf16 path is the warp-specialised wgmma/TMA mainloop of
 // attn_fwd_sm90.cuh (HAS_BIAS, WITH_LSE as a template flag, so the inference
@@ -26,14 +30,16 @@
 // 128-key K/V tiles in a TMA ring, both products on wgmma. The TPU kernel's
 // sequential k grid axis is the loop inside the CTA; its D->128 padding
 // becomes D = 72 read as a 64-column and a 16-column panel that TMA
-// zero-fills to 80. The key bias of each tile rides with its K/V tile; keys
-// past Sk get -inf there.
+// zero-fills to 80, and its D->256 padding of SD1.5's D = 160 three panels
+// of 64, 64 and 32 columns (D = 40 reads the 64-column panel alone, zero-
+// filled past column 40). The key bias of each tile rides with its K/V
+// tile; keys past Sk get -inf there.
 //
 // Layout: q/out [B,H,Sq,D], k/v [B,H,Sk,D], contiguous; bias [B,Sk] fp32 or
 // null (no mask); lse [B,H,Sq] fp32 or null (not wanted). bf16 takes D % 8 ==
-// 0, D <= 128 and 16-byte aligned bases (the wrapper zero-pads D to a
+// 0, D <= 160 and 16-byte aligned bases (the wrapper zero-pads D to a
 // multiple of 8); fp32 goes through a scalar-FMA kernel (fp32 has no
-// tensor-core path at full precision) and takes any D in [1,128].
+// tensor-core path at full precision) and takes any D in [1,160].
 //
 // C interface (loaded with ctypes): tdm_flash_fwd returns a cudaError_t code
 // (0 on success) after checking cudaGetLastError() right after the launch.
@@ -66,7 +72,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float
   if (D <= 80)
     return sm90::launch<80, kGroups<80>>(flash_fwd_sm90_kernel<80, LSE>, q, k, v, bias, o, lse,
                                          B * H, H, Sq, Sk, D, s);
-  return sm90::launch<128, kGroups<128>>(flash_fwd_sm90_kernel<128, LSE>, q, k, v, bias, o, lse,
+  if (D <= 128)
+    return sm90::launch<128, kGroups<128>>(flash_fwd_sm90_kernel<128, LSE>, q, k, v, bias, o,
+                                           lse, B * H, H, Sq, Sk, D, s);
+  return sm90::launch<160, kGroups<160>>(flash_fwd_sm90_kernel<160, LSE>, q, k, v, bias, o, lse,
                                          B * H, H, Sq, Sk, D, s);
 }
 
@@ -191,13 +200,15 @@ extern "C" {
 int tdm_flash_fwd(const void* q, const void* k, const void* v, const float* bias, void* out,
                   float* lse, int batch, int heads, int sq, int sk, int d, int dtype,
                   void* stream) {
-  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 160 ||
       (sq + kFR - 1) / kFR > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return (int)(lse ? launch_bf16<true>(q, k, v, bias, out, lse, batch, heads, sq, sk, d, s)
                      : launch_bf16<false>(q, k, v, bias, out, lse, batch, heads, sq, sk, d, s));
+  if (dtype == 0 && d > 128)  // 40 columns a lane: the fp32 sweep above 128
+    return (int)LaunchF32<40>::run(q, k, v, bias, out, lse, batch, heads, sq, sk, d, s);
   if (dtype == 0)
     return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, out, lse, batch, heads, sq, sk,
                                              d, s);

@@ -3,20 +3,22 @@
 // kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //   * mbarriers, TMA loads and stores of 3-D tiles (cp.async.bulk.tensor);
 //   * wgmma (bf16 in, fp32 accumulate): SS with N = 128 or 64 (both operands
-//     K-major in swizzled shared memory), RS with N = 64 or 16 (A in
+//     K-major in swizzled shared memory), RS with N = 64, 32 or 16 (A in
 //     registers, B MN-major through the descriptor's transpose bit), and
 //     product_abt, A B^T of 64 by 64 rows over a padded head dim of 64, 80
 //     or 128;
 //   * shared-memory matrix descriptors for 64-column panels (128-byte
-//     swizzle) and 16-column panels (32-byte swizzle), and the byte offset
-//     that swizzle gives an element pair;
+//     swizzle), 32-column panels (64-byte swizzle) and 16-column panels
+//     (32-byte swizzle), and the byte offset that swizzle gives an element
+//     pair;
 //   * the host side: binding the current device's context to the calling
 //     thread, the 16-byte alignment check, cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint (no driver stub is linked), and the
 //     map of one head-dim panel of a bf16 [B*H, S, D] tensor.
 // A tile of W columns is stored as TMA writes it: rows of W*2 bytes, the
-// 16-byte chunks of row r XORed with r's bits (r % 8 for W = 64, (r / 4) % 2
-// for W = 16). Every panel starts on a 1024-byte boundary.
+// 16-byte chunks of row r XORed with r's bits (r % 8 for W = 64, (r / 2) % 4
+// for W = 32, (r / 4) % 2 for W = 16). Every panel starts on a 1024-byte
+// boundary.
 
 #pragma once
 
@@ -123,21 +125,21 @@ __device__ __forceinline__ void fence_operand(uint32_t& x) {
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle (1 = 128 B, 3 = 32 B).
+// byte offsets (16-byte units), swizzle (1 = 128 B, 2 = 64 B, 3 = 32 B).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                               uint32_t swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
 }
 
-// A panel of W columns (64 or 16), rows of W*2 bytes written by TMA with the
-// matching swizzle. K-major: 8-row groups SBO apart (8 rows x W*2 bytes);
-// MN-major (V read transposed): 8-row groups along K the same distance
-// apart; one MN block per panel, so LBO is never stepped.
+// A panel of W columns (64, 32 or 16), rows of W*2 bytes written by TMA with
+// the matching swizzle. K-major: 8-row groups SBO apart (8 rows x W*2
+// bytes); MN-major (V read transposed): 8-row groups along K the same
+// distance apart; one MN block per panel, so LBO is never stepped.
 template <int W>
 __device__ __forceinline__ uint64_t panel_desc(uint32_t addr) {
-  static_assert(W == 64 || W == 16, "panel width");
-  return make_desc(addr, 16, 8 * W * 2, W == 64 ? 1 : 3);
+  static_assert(W == 64 || W == 32 || W == 16, "panel width");
+  return make_desc(addr, 16, 8 * W * 2, W == 64 ? 1 : W == 32 ? 2 : 3);
 }
 
 // The byte offset TMA's swizzle gives element pair (row r, column c) of a
@@ -145,7 +147,7 @@ __device__ __forceinline__ uint64_t panel_desc(uint32_t addr) {
 template <int W>
 __device__ __forceinline__ uint32_t swizzled(int r, int c) {
   const uint32_t off = r * W * 2 + c * 2;
-  return off ^ (((off >> 7) & (W == 64 ? 7u : 1u)) << 4);
+  return off ^ (((off >> 7) & (W == 64 ? 7u : W == 32 ? 3u : 1u)) << 4);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {  // exp2(-inf) = 0
@@ -212,6 +214,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -285,9 +301,10 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of panel `panel` (columns 0-63, or 64 onwards with width w1) of a
-// bf16 [B*H, S, D] tensor, box_rows rows per box. Elements past D or S are
-// read as zeros and never written.
+// The map of a head-dim panel of a bf16 [B*H, S, D] tensor: boxes of
+// `width` columns (64, 32 or 16, with the 128-, 64- or 32-byte swizzle) and
+// box_rows rows; the panel's first column is given at each load or store.
+// Elements past D or S are read as zeros and never written.
 inline bool encode_panel(CUtensorMap* map, const void* ptr, int D, int S, int BH, int width,
                          int box_rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -298,7 +315,9 @@ inline bool encode_panel(CUtensorMap* map, const void* ptr, int D, int S, int BH
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+            width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+            : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

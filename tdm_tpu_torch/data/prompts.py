@@ -98,7 +98,7 @@ class PromptBatcher:
 def pack_family_cond(family: str, embeds, masks, pooled=None, *, error: type = ValueError):
     """Cache rows → the family's conditioning: (embeds, pooled) for SD3,
     which needs a cache with pooled vectors (`error` otherwise), (embeds,
-    mask) for PixArt."""
+    mask) for PixArt (T5 [B, 120, 4096]) and SD1.5 (CLIP-L [B, 77, 768])."""
     if family == "cogvideox":
         raise NotImplementedError(
             "cogvideox conditioning is not ported yet: ROADMAP.md queue 1, "

@@ -1,8 +1,9 @@
 """Checkpoint conversion: diffusers state dicts → the JAX package's trees.
 
 Port of the numpy half of `tdm_tpu/io/convert.py` for the families the port
-builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), TAESD/TAESD3
-(`taesd_params`) and AutoencoderKL (`klvae_params`). Each converter returns
+builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), the SD1.5 UNet
+(`unet_sd15_params`), TAESD/TAESD3 (`taesd_params`) and AutoencoderKL
+(`klvae_params`). Each converter returns
 the same nested numpy tree as its JAX twin before `to_jax`; the weight carry
 (`io/from_jax.state_dict_from_jax` over `flatten`) loads that tree into the
 port's modules, so a diffusers checkpoint and a tdm_tpu-layout directory take
@@ -143,6 +144,18 @@ def _linear(sd: dict, tree: dict, src: str, dst: str, *, bias: bool = True) -> N
 def _conv(sd: dict, tree: dict, src: str, dst: str) -> None:
     """torch Conv2d [out, in, kh, kw] → HWIO [kh, kw, in, out] (a view)."""
     _set(tree, f"{dst}/kernel", np.transpose(sd[f"{src}.weight"], (2, 3, 1, 0)))
+    if f"{src}.bias" in sd:
+        _set(tree, f"{dst}/bias", sd[f"{src}.bias"])
+
+
+def _linear_1x1(sd: dict, tree: dict, src: str, dst: str) -> None:
+    """A torch 1×1 Conv2d [out, in, 1, 1] or Linear [out, in] → a Dense
+    kernel [in, out] (SD1.5's spatial transformers project with 1×1 convs;
+    a view either way)."""
+    w = sd[f"{src}.weight"]
+    if w.ndim == 4:
+        w = w[:, :, 0, 0]
+    _set(tree, f"{dst}/kernel", w.T)
     if f"{src}.bias" in sd:
         _set(tree, f"{dst}/bias", sd[f"{src}.bias"])
 
@@ -351,6 +364,76 @@ def sd3_params(sd: dict[str, np.ndarray], *, scan_layers: bool = True) -> dict:
         tree = stack_layers(tree, count=d, out_name="blocks_dual")
         return stack_layers(tree, count=n - 1 - d, start=d)
     return stack_layers(tree, count=n - 1)
+
+
+# ---------------------------------------------------------------------------
+# SD1.5 UNet (diffusers UNet2DConditionModel)
+# ---------------------------------------------------------------------------
+
+
+def _unet_resnet(sd: dict, tree: dict, src: str, dst: str) -> None:
+    _norm(sd, tree, f"{src}.norm1", f"{dst}/norm1")
+    _conv(sd, tree, f"{src}.conv1", f"{dst}/conv1")
+    _linear(sd, tree, f"{src}.time_emb_proj", f"{dst}/time_emb_proj")
+    _norm(sd, tree, f"{src}.norm2", f"{dst}/norm2")
+    _conv(sd, tree, f"{src}.conv2", f"{dst}/conv2")
+    if f"{src}.conv_shortcut.weight" in sd:
+        _conv(sd, tree, f"{src}.conv_shortcut", f"{dst}/conv_shortcut")
+
+
+def _unet_spatial_transformer(sd: dict, tree: dict, src: str, dst: str) -> None:
+    _norm(sd, tree, f"{src}.norm", f"{dst}/norm")
+    _linear_1x1(sd, tree, f"{src}.proj_in", f"{dst}/proj_in")
+    _linear_1x1(sd, tree, f"{src}.proj_out", f"{dst}/proj_out")
+    b, d = f"{src}.transformer_blocks.0", f"{dst}/transformer_blocks_0"
+    for j in (1, 2, 3):
+        _norm(sd, tree, f"{b}.norm{j}", f"{d}/norm{j}")
+    for attn in ("attn1", "attn2"):
+        for p in ("to_q", "to_k", "to_v"):
+            _linear(sd, tree, f"{b}.{attn}.{p}", f"{d}/{attn}/{p}")
+        _linear(sd, tree, f"{b}.{attn}.to_out.0", f"{d}/{attn}/to_out")
+    _linear(sd, tree, f"{b}.ff.net.0.proj", f"{d}/ff/proj_in")
+    _linear(sd, tree, f"{b}.ff.net.2", f"{d}/ff/proj_out")
+
+
+@_strict_converter("unet_sd15")
+def unet_sd15_params(
+    sd: dict[str, np.ndarray], *, layers_per_block: int = 2, n_stages: int = 4
+) -> dict:
+    """diffusers SD1.5 UNet state dict → the UNet2DCondition tree:
+    conv_in, time_embedding.linear_{1,2}, down_blocks.{i}.{resnets,
+    attentions, downsamplers} → down_{i}_{res,attn}_{j}/down_{i}_downsample,
+    the mid block → mid_res_0/mid_attn/mid_res_1, up_blocks likewise (3
+    resnets a stage, upsamplers → up_{i}_upsample), conv_norm_out and
+    conv_out. The last down stage and the first up stage have no
+    attentions."""
+    tree: dict = {}
+    _conv(sd, tree, "conv_in", "conv_in")
+    for j in (1, 2):
+        _linear(sd, tree, f"time_embedding.linear_{j}", f"time_embedding/linear_{j}")
+    for i in range(n_stages):
+        for j in range(layers_per_block):
+            _unet_resnet(sd, tree, f"down_blocks.{i}.resnets.{j}", f"down_{i}_res_{j}")
+            if i < n_stages - 1:
+                _unet_spatial_transformer(sd, tree, f"down_blocks.{i}.attentions.{j}",
+                                          f"down_{i}_attn_{j}")
+        if i < n_stages - 1:
+            _conv(sd, tree, f"down_blocks.{i}.downsamplers.0.conv", f"down_{i}_downsample")
+    _unet_resnet(sd, tree, "mid_block.resnets.0", "mid_res_0")
+    _unet_spatial_transformer(sd, tree, "mid_block.attentions.0", "mid_attn")
+    _unet_resnet(sd, tree, "mid_block.resnets.1", "mid_res_1")
+    for i in range(n_stages):
+        stage = n_stages - 1 - i
+        for j in range(layers_per_block + 1):
+            _unet_resnet(sd, tree, f"up_blocks.{i}.resnets.{j}", f"up_{i}_res_{j}")
+            if stage < n_stages - 1:
+                _unet_spatial_transformer(sd, tree, f"up_blocks.{i}.attentions.{j}",
+                                          f"up_{i}_attn_{j}")
+        if stage > 0:
+            _conv(sd, tree, f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample")
+    _norm(sd, tree, "conv_norm_out", "conv_norm_out")
+    _conv(sd, tree, "conv_out", "conv_out")
+    return tree
 
 
 # ---------------------------------------------------------------------------

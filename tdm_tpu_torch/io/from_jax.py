@@ -6,7 +6,11 @@ The JAX package stores parameters as a flat dict of arrays keyed by
 same names, so the carry is a rename plus two layout changes:
   * Dense `kernel` [in, out] → `weight` [out, in];
   * Conv `kernel` HWIO → `weight` OIHW;
-and the layer stack becomes `blocks.{i}....`. The JAX package stores it
+and the layer stack becomes `blocks.{i}....`. The port's fp32 norms keep
+Flax's `scale` and `bias` (the KL decoder's GroupNorms, SD3's RMS qk norms,
+the SD1.5 UNet's GroupNorms and LayerNorms), so they carry by name; the
+UNet's modules (`down_{i}_res_{j}`, `mid_attn`, `transformer_blocks_0`,
+...) are the JAX tree's and hold no layer stack. The JAX package stores it
 either unrolled (`blocks_{i}/...`) or, under its default `scan_layers=True`,
 as stacks with a leading [L] axis: PixArt's `blocks/...` holds every block;
 SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
@@ -130,8 +134,8 @@ def state_dict_from_jax(
     flat: Mapping[str, np.ndarray], module: nn.Module
 ) -> dict[str, torch.Tensor]:
     """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
-    SD3Transformer2D or TAESDDecoder), from the stacked or the unrolled
-    layout. Raises KeyError naming every missing and unexpected key, and
+    SD3Transformer2D, UNet2DCondition, TAESDDecoder or KLDecoder), from the
+    stacked or the unrolled layout. Raises KeyError naming every missing and unexpected key, and
     ValueError on a shape mismatch."""
     out: dict[str, np.ndarray] = {}
     starts = _stacks_of(flat)

@@ -1,7 +1,8 @@
 """Checkpoint key/shape manifests: the diffusers key surface of each family.
 
 Port of `tdm_tpu/io/manifest.py` for the families the port converts
-(pixart, sd3, klvae, taesd, taesd3), built on the port's own configs. The
+(pixart, sd3, unet_sd15, klvae, taesd, taesd3), built on the port's own
+configs. The
 inventory of a family is generated from its model config and lists exactly
 the {torch key: shape} its converter in `io/convert.py` reads, so:
   * a checkpoint is checked from its safetensors header alone
@@ -10,8 +11,8 @@ the {torch key: shape} its converter in `io/convert.py` reads, so:
     (`synthetic_state_dict`, or `write_synthetic` one leaf at a time for a
     full-width file), which is how the tests and `chip_smoke.py` build
     diffusers checkouts without released weights.
-unet_sd15, cogvideox and vae3d_decoder raise NotImplementedError naming
-their ROADMAP slice.
+cogvideox and vae3d_decoder raise NotImplementedError naming their ROADMAP
+slice.
 """
 
 from __future__ import annotations
@@ -119,6 +120,71 @@ def _sd3(cfg) -> _Shapes:
     return s
 
 
+def _unet_sd15(cfg) -> _Shapes:
+    """runwayml SD1.5 UNet2DConditionModel (convert.unet_sd15_params):
+    1×1-conv proj_in/proj_out, bias-free q/k/v, GEGLU's doubled proj_in."""
+    s = _Shapes()
+    widths = list(cfg.block_widths)
+    n_stages = len(widths)
+    lpb = cfg.layers_per_block
+    temb = widths[0] * 4
+
+    def resnet(name, cin, cout):
+        s.norm(f"{name}.norm1", cin)
+        s.conv(f"{name}.conv1", cin, cout)
+        s.lin(f"{name}.time_emb_proj", temb, cout)
+        s.norm(f"{name}.norm2", cout)
+        s.conv(f"{name}.conv2", cout, cout)
+        if cin != cout:
+            s.conv(f"{name}.conv_shortcut", cin, cout, k=1)
+
+    def spatial(name, w):
+        s.norm(f"{name}.norm", w)
+        s.conv(f"{name}.proj_in", w, w, k=1)
+        s.conv(f"{name}.proj_out", w, w, k=1)
+        t = f"{name}.transformer_blocks.0"
+        for j in (1, 2, 3):
+            s.norm(f"{t}.norm{j}", w)
+        for attn, ctx in (("attn1", w), ("attn2", cfg.context_dim)):
+            s.lin(f"{t}.{attn}.to_q", w, w, bias=False)
+            s.lin(f"{t}.{attn}.to_k", ctx, w, bias=False)
+            s.lin(f"{t}.{attn}.to_v", ctx, w, bias=False)
+            s.lin(f"{t}.{attn}.to_out.0", w, w)
+        s.lin(f"{t}.ff.net.0.proj", w, 8 * w)
+        s.lin(f"{t}.ff.net.2", 4 * w, w)
+
+    s.conv("conv_in", cfg.in_channels, widths[0])
+    s.lin("time_embedding.linear_1", widths[0], temb)
+    s.lin("time_embedding.linear_2", temb, temb)
+    ch = widths[0]
+    skips = [ch]
+    for i, w in enumerate(widths):
+        for j in range(lpb):
+            resnet(f"down_blocks.{i}.resnets.{j}", ch, w)
+            ch = w
+            if i < n_stages - 1:
+                spatial(f"down_blocks.{i}.attentions.{j}", w)
+            skips.append(w)
+        if i < n_stages - 1:
+            s.conv(f"down_blocks.{i}.downsamplers.0.conv", w, w)
+            skips.append(w)
+    resnet("mid_block.resnets.0", widths[-1], widths[-1])
+    spatial("mid_block.attentions.0", widths[-1])
+    resnet("mid_block.resnets.1", widths[-1], widths[-1])
+    for i, w in enumerate(reversed(widths)):
+        stage = n_stages - 1 - i
+        for j in range(lpb + 1):
+            resnet(f"up_blocks.{i}.resnets.{j}", ch + skips.pop(), w)
+            ch = w
+            if stage < n_stages - 1:
+                spatial(f"up_blocks.{i}.attentions.{j}", w)
+        if stage > 0:
+            s.conv(f"up_blocks.{i}.upsamplers.0.conv", w, w)
+    s.norm("conv_norm_out", widths[0])
+    s.conv("conv_out", widths[0], cfg.out_channels)
+    return s
+
+
 def _klvae(cfg) -> _Shapes:
     """SD1.5/SD3 AutoencoderKL, encoder and decoder (convert.klvae_params)."""
     s = _Shapes()
@@ -209,11 +275,12 @@ def _taesd(cfg) -> _Shapes:
 
 
 def _default_cfg(family: str):
-    from tdm_tpu_torch.models import mmdit_sd3, pixart, vae
+    from tdm_tpu_torch.models import mmdit_sd3, pixart, unet_sd15, vae
 
     return {
         "pixart": pixart.PixArtConfig,
         "sd3": mmdit_sd3.MMDiTConfig,
+        "unet_sd15": unet_sd15.UNetConfig,
         "klvae": vae.KLVAEConfig,
         "taesd": vae.TAESDConfig,
         "taesd3": vae.TAESDConfig.taesd3,
@@ -223,12 +290,12 @@ def _default_cfg(family: str):
 _INVENTORIES = {
     "pixart": _pixart,
     "sd3": _sd3,
+    "unet_sd15": _unet_sd15,
     "klvae": _klvae,
     "taesd": _taesd,
     "taesd3": _taesd,
 }
 _NOT_PORTED = {
-    "unet_sd15": "slice 4 (the other image families)",
     "cogvideox": "slice 5 (CogVideoX video)",
     "vae3d_decoder": "slice 5 (CogVideoX video)",
 }

@@ -1,4 +1,4 @@
-"""Building blocks of the PixArt and SD3 denoisers, in PyTorch.
+"""Building blocks of the PixArt, SD3 and SD1.5 denoisers, in PyTorch.
 
 Port of the serving path's part of `tdm_tpu/models/layers.py`. Module and
 parameter names follow the JAX package's tree (to_q/to_k/to_v/to_out,
@@ -31,6 +31,16 @@ from tdm_tpu_torch.ops.attention import attention as fused_attention
 # keeps the outputs of the Dense layers' matmuls and recomputes the rest
 REMAT_POLICIES = ("full", "dots")
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# the JAX package's attn_impl names; every one but 'splash' takes the flash
+# kernel's route
+ATTN_IMPLS = ("auto", "pallas", "xla", "splash")
+
+
+def attn_route(attn_impl: str) -> str:
+    """The JAX package's attn_impl → the port's attention route."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
+    return "splash" if attn_impl == "splash" else "auto"
 
 
 def sinusoidal_timestep_embedding(
@@ -60,15 +70,18 @@ def sinusoidal_timestep_embedding(
 
 class Dense(nn.Linear):
     """A linear layer computing in `dtype` on parameters held in
-    `param_dtype` (default: `dtype`), cast at every use."""
+    `param_dtype` (default: `dtype`), cast at every use; `bias=False`
+    drops the bias (SD1.5's q/k/v projections)."""
 
-    def __init__(self, in_dim: int, out_dim: int, *, dtype, param_dtype=None, device=None):
-        super().__init__(in_dim, out_dim, dtype=param_dtype or dtype, device=device)
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True, dtype,
+                 param_dtype=None, device=None):
+        super().__init__(in_dim, out_dim, bias=bias, dtype=param_dtype or dtype, device=device)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -76,8 +89,8 @@ class Conv2d(nn.Conv2d):
     `param_dtype` (default: `dtype`), cast at every use."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
-                 dtype, param_dtype=None, device=None):
-        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                 padding: int = 0, dtype, param_dtype=None, device=None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=padding,
                          dtype=param_dtype or dtype, device=device)
         self.compute_dtype = dtype
 
@@ -197,7 +210,10 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
     """Multi-head self or cross attention over [B, S, D] tokens through
     `ops.attention` (the kernels on CUDA) with the route `impl` ('auto' or
-    'splash'), and an optional RMS qk norm ('rms')."""
+    'splash'), and an optional RMS qk norm ('rms'). `context_dim` is the
+    width of the tokens k and v are made from (default `dim`: PixArt's and
+    SD3's projected context); `qkv_bias=False` drops the q/k/v biases
+    (SD1.5)."""
 
     def __init__(
         self,
@@ -205,6 +221,8 @@ class Attention(nn.Module):
         heads: int,
         head_dim: int,
         *,
+        context_dim: Optional[int] = None,
+        qkv_bias: bool = True,
         qk_norm: Optional[str] = None,
         impl: str = "auto",
         dtype,
@@ -213,11 +231,12 @@ class Attention(nn.Module):
     ):
         super().__init__()
         inner = heads * head_dim
+        ctx_dim = dim if context_dim is None else context_dim
         self.heads, self.head_dim, self.impl = heads, head_dim, impl
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.to_q = Dense(dim, inner, **kw)
-        self.to_k = Dense(dim, inner, **kw)
-        self.to_v = Dense(dim, inner, **kw)
+        self.to_q = Dense(dim, inner, bias=qkv_bias, **kw)
+        self.to_k = Dense(ctx_dim, inner, bias=qkv_bias, **kw)
+        self.to_v = Dense(ctx_dim, inner, bias=qkv_bias, **kw)
         if qk_norm == "rms":
             self.norm_q = RMSNorm(head_dim, dtype=dtype, device=device)
             self.norm_k = RMSNorm(head_dim, dtype=dtype, device=device)
@@ -246,6 +265,34 @@ class Attention(nn.Module):
         return self.to_out(out)
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm of NCHW activations in fp32 with fp32 `scale`/`bias` (Flax's
+    GroupNorm(dtype=float32) and its parameter names); the output is fp32."""
+
+    def __init__(self, groups: int, width: int, eps: float, *, device=None):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.scale = nn.Parameter(torch.ones(width, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.groups, self.scale, self.bias, eps=self.eps)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis in fp32 with fp32 `scale`/`bias` (Flax's
+    LayerNorm(dtype=float32)); the output is fp32."""
+
+    def __init__(self, width: int, eps: float, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(width, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, eps=self.eps)
+
+
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Affine-free LayerNorm computed in fp32, cast back to x's dtype."""
     x32 = x.float()
@@ -254,18 +301,31 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((x32 - mean) / torch.sqrt(var + eps)).to(x.dtype)
 
 
-class FeedForward(nn.Module):
-    """Transformer MLP with the tanh-approximated GELU (PixArt's
-    'gelu-approximate'), mult× expansion."""
+FF_ACTIVATIONS = ("gelu-approximate", "geglu")
 
-    def __init__(self, dim: int, mult: int = 4, *, dtype, param_dtype=None, device=None):
+
+class FeedForward(nn.Module):
+    """Transformer MLP, mult× expansion: the tanh-approximated GELU
+    ('gelu-approximate', PixArt and SD3) or GEGLU ('geglu', SD1.5: proj_in
+    to twice the inner width, h · gelu(gate) with the exact erf GELU)."""
+
+    def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu-approximate",
+                 dtype, param_dtype=None, device=None):
         super().__init__()
+        if activation not in FF_ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r} (one of {FF_ACTIVATIONS})")
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.proj_in = Dense(dim, dim * mult, **kw)
-        self.proj_out = Dense(dim * mult, dim, **kw)
+        self.activation = activation
+        inner = dim * mult
+        self.proj_in = Dense(dim, 2 * inner if activation == "geglu" else inner, **kw)
+        self.proj_out = Dense(inner, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))
+        h = self.proj_in(x)
+        if self.activation == "geglu":
+            h, gate = h.chunk(2, dim=-1)
+            return self.proj_out(h * F.gelu(gate))
+        return self.proj_out(F.gelu(h, approximate="tanh"))
 
 
 def unpatchify(

@@ -40,10 +40,6 @@ from torch import nn
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
 
-# the JAX package's attention choices; all but 'splash' take the flash route
-ATTN_IMPLS = ("auto", "pallas", "xla", "splash")
-
-
 @dataclass(frozen=True)
 class MMDiTConfig:
     sample_size: int = 128  # latent H = W at 1024px
@@ -97,13 +93,6 @@ class MMDiTConfig:
         )
 
 
-def _route(attn_impl: str) -> str:
-    """The JAX package's attn_impl → the port's attention route."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"unknown attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
-    return "splash" if attn_impl == "splash" else "auto"
-
-
 class AdaLNZero(nn.Module):
     """silu(temb) → linear → n modulation vectors [B, n, dim] (diffusers
     AdaLayerNormZero emits 6, AdaLayerNormZeroX 9, AdaLayerNormContinuous
@@ -125,7 +114,7 @@ class JointBlock(nn.Module):
         c = cfg
         inner = c.hidden
         kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=device)
-        self.cfg, self.impl = c, _route(c.attn_impl)
+        self.cfg, self.impl = c, L.attn_route(c.attn_impl)
         self.context_pre_only, self.dual_attention = context_pre_only, dual_attention
         self.norm1 = AdaLNZero(9 if dual_attention else 6, inner, **kw)
         self.norm1_context = AdaLNZero(2 if context_pre_only else 6, inner, **kw)

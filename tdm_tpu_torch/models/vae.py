@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdm_tpu_torch.device import resolve_device
+from tdm_tpu_torch.models.layers import GroupNorm
 
 
 @dataclass(frozen=True)
@@ -118,20 +119,6 @@ class KLVAEConfig:
         return KLVAEConfig(block_widths=(8, 16), norm_groups=4)
 
 
-class _GroupNorm(nn.Module):
-    """GroupNorm in fp32 with eps 1e-6 and fp32 `scale`/`bias` (Flax's
-    GroupNorm(dtype=float32) and its parameter names); the output is fp32."""
-
-    def __init__(self, groups: int, width: int, *, device):
-        super().__init__()
-        self.groups = groups
-        self.scale = nn.Parameter(torch.ones(width, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.zeros(width, dtype=torch.float32, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.groups, self.scale, self.bias, eps=1e-6)
-
-
 class _ResBlock(nn.Module):
     """norm-silu-conv twice plus the input; a 1×1 `shortcut` only where the
     width changes."""
@@ -140,9 +127,9 @@ class _ResBlock(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.dtype = dtype
-        self.norm1 = _GroupNorm(groups, cin, device=device)
+        self.norm1 = GroupNorm(groups, cin, 1e-6, device=device)
         self.conv1 = nn.Conv2d(cin, width, 3, padding=1, **kw)
-        self.norm2 = _GroupNorm(groups, width, device=device)
+        self.norm2 = GroupNorm(groups, width, 1e-6, device=device)
         self.conv2 = nn.Conv2d(width, width, 3, padding=1, **kw)
         self.shortcut = nn.Conv2d(cin, width, 1, **kw) if cin != width else None
 
@@ -163,7 +150,7 @@ class _MidAttention(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.dtype = dtype
-        self.norm = _GroupNorm(groups, width, device=device)
+        self.norm = GroupNorm(groups, width, 1e-6, device=device)
         self.to_q = nn.Linear(width, width, **kw)
         self.to_k = nn.Linear(width, width, **kw)
         self.to_v = nn.Linear(width, width, **kw)
@@ -206,7 +193,7 @@ class KLDecoder(nn.Module):
                 ch = width
             if i < len(widths) - 1:
                 self.add_module(f"up_{i}_conv", nn.Conv2d(ch, ch, 3, padding=1, **kw))
-        self.norm_out = _GroupNorm(g, widths[0], device=dev)
+        self.norm_out = GroupNorm(g, widths[0], 1e-6, device=dev)
         self.conv_out = nn.Conv2d(widths[0], c.image_channels, 3, padding=1, **kw)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

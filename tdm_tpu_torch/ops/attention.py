@@ -14,7 +14,8 @@ tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
     In bf16 it runs the wgmma/TMA mainloop of `csrc/attn_fwd_sm90.cuh`,
     which reads rows of a multiple of 16 bytes: the wrapper zero-pads the
     head dim to a multiple of 8 (`pad_head_dim`, exact) and slices the
-    output back.
+    output back. It takes head dims up to `FWD_MAX_HEAD_DIM` (160, SD1.5's
+    1280-wide blocks at 8 heads).
   * `flash_attention_fwd_lse` — the same kernel with its [B,H,Sq] fp32 lse
     output (+1e30 on all-masked rows); plain: `plain_attention_lse`.
   * `flash_attention_bwd_dq` — `csrc/flash_bwd_dq.cu` (`_flash_bwd_dq_kernel`,
@@ -24,7 +25,8 @@ tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
     (`_flash_bwd_dkv_kernel`), which reads the Δ of the dQ kernel; plain:
     `plain_attention_bwd_dkv`.
   In bf16 both run on wgmma and TMA, as the forward does, and their
-  wrappers zero-pad the head dim the same way.
+  wrappers zero-pad the head dim the same way. They take head dims up to
+  `BWD_MAX_HEAD_DIM` (128).
 
 `FlashAttention`, a `torch.autograd.Function`, joins them as the JAX
 package's custom VJP joins its kernels (`attention.py:408-435, 678-687`):
@@ -68,6 +70,11 @@ _NEG_INF = -1e30  # the key bias of a masked key, as in the TPU kernel
 _LSE_MASKED = 1e30  # the lse of a row with no unmasked key: exp(s - lse) = 0
 IMPLS = ("auto", "plain", "splash")
 SPLASH_HEAD_DIMS = (64, 128)
+# the largest head dim each kernel takes; above it the wrappers raise
+# (ROADMAP.md "known gaps": the JAX kernels pad any head dim to a multiple
+# of 128)
+FWD_MAX_HEAD_DIM = 160
+BWD_MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -248,10 +255,10 @@ def plain_attention_bwd_dkv(
 # ---------------------------------------------------------------------------
 
 
-def _check(q, k, v, bias, *rows) -> None:
+def _check(q, k, v, bias, *rows, max_d: int = BWD_MAX_HEAD_DIM) -> None:
     """Shapes, dtypes, devices and contiguity the kernels take. `rows` are
     the backward's extra [B,H,Sq,D] (dO, O) and [B,H,Sq] fp32 (lse, Δ)
-    operands."""
+    operands; `max_d` is the kernel's largest head dim."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -260,8 +267,10 @@ def _check(q, k, v, bias, *rows) -> None:
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
-    if not 1 <= d <= 128:
-        raise ValueError(f"head dim {d} outside the kernel's range [1, 128]")
+    if not 1 <= d <= max_d:
+        raise ValueError(
+            f"head dim {d} outside the kernel's range [1, {max_d}] "
+            "(ROADMAP.md, known gaps)")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
@@ -365,7 +374,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def tma_head_dim(d: int) -> int:
     """The head dim the bf16 flash kernels read: d rounded up to a multiple
-    of 8, since TMA moves rows of a multiple of 16 bytes."""
+    of 8, since TMA moves rows of a multiple of 16 bytes. Above
+    FWD_MAX_HEAD_DIM no kernel takes it."""
+    if not 1 <= d <= FWD_MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} outside the flash kernels' range [1, {FWD_MAX_HEAD_DIM}] "
+            "(ROADMAP.md, known gaps)")
     return -(-d // 8) * 8
 
 
@@ -400,7 +414,7 @@ def _check_pairs(b: int, h: int, kernel: str) -> None:
 
 
 def _fwd(q_scaled, k, v, bias, with_lse: bool):
-    _check(q_scaled, k, v, bias)
+    _check(q_scaled, k, v, bias, max_d=FWD_MAX_HEAD_DIM)
     b, h, sq, d = q_scaled.shape
     if q_scaled.dtype == torch.bfloat16:
         _check_pairs(b, h, "flash")

@@ -3,9 +3,10 @@ verbs and the diffusers call-convention pieces of
 `tdm_tpu/pipelines/base.py`.
 
 LoRA (`load_lora_weights`, `set_adapters`): adapters merge into the
-transformer's weights in place. The pipeline keeps a pristine copy of every
-weight an adapter touches, and `set_adapters` re-merges the named adapters
-from it, so scale 0 gives back the base (the recipe's teacher baseline).
+denoiser's weights in place (the transformer, or SD1.5's UNet). The
+pipeline keeps a pristine copy of every weight an adapter touches, and
+`set_adapters` re-merges the named adapters from it, so scale 0 gives back
+the base (the recipe's teacher baseline).
 
 Noise: with no `latents=`, a pipeline draws its initial noise from a
 `torch.Generator` seeded with `seed` (on the CPU, so a seed gives the same
@@ -37,26 +38,38 @@ class PipelineOutput:
     latents: Any = None
 
 
+def denoiser_of(pipe) -> torch.nn.Module:
+    """A pipeline's denoiser: its `transformer`, or SD1.5's `unet`."""
+    model = getattr(pipe, "transformer", None)
+    return model if model is not None else pipe.unet
+
+
 class DiffusionPipelineBase:
-    """The LoRA verbs over `self.transformer` (a model with a `cfg`)."""
+    """The LoRA verbs over the pipeline's denoiser (a model with a `cfg`):
+    `self.transformer`, or `self.unet` where there is none (SD1.5, as
+    `tdm_tpu/pipelines/base.py:285` picks it)."""
 
     family: str = ""
-    transformer: torch.nn.Module
 
     def __init__(self):
         self._loras: dict[str, lora_lib.LoRA] = {}
         self._base: dict[str, torch.Tensor] = {}  # pristine adapted weights
         self._active: tuple = ()  # ((name, scale), ...)
 
+    @property
+    def denoiser(self) -> torch.nn.Module:
+        return denoiser_of(self)
+
     def load_lora_weights(self, path: str, adapter_name: str = "default") -> None:
         """Read a kohya or peft safetensors LoRA and make it the one active
         adapter at scale 1.0."""
-        lora = lora_io.load_lora(path, model=self.transformer)
-        stacks = from_jax.layer_stacks(self.transformer.cfg)
-        weights = dict(self.transformer.named_parameters())
+        model = self.denoiser
+        lora = lora_io.load_lora(path, model=model)
+        stacks = from_jax.layer_stacks(model.cfg)
+        weights = dict(model.named_parameters())
         for key in lora_lib.adapted_keys(lora, stacks):
             if key not in weights:
-                raise KeyError(f"LoRA {path}: the transformer has no weight {key}")
+                raise KeyError(f"LoRA {path}: the {type(model).__name__} has no weight {key}")
             if key not in self._base:  # untouched by any adapter so far
                 self._base[key] = weights[key].detach().clone()
         self._loras[adapter_name] = lora
@@ -69,12 +82,13 @@ class DiffusionPipelineBase:
         """Merge the named adapters at the given scales into the pristine
         weights; scale 0 leaves an adapter out."""
         scales = list(scales) if scales is not None else [1.0] * len(names)
-        stacks = from_jax.layer_stacks(self.transformer.cfg)
+        model = self.denoiser
+        stacks = from_jax.layer_stacks(model.cfg)
         merged = dict(self._base)
         for name, scale in zip(names, scales):
             if scale != 0.0:
                 merged = lora_lib.merge(merged, self._loras[name], scale, stacks)
-        weights = dict(self.transformer.named_parameters())
+        weights = dict(model.named_parameters())
         for key, value in merged.items():
             weights[key].copy_(value)
         self._active = tuple(zip(names, scales))

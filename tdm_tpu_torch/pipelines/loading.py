@@ -1,24 +1,27 @@
 """`from_pretrained` / `save_pretrained`: pipelines from a directory or a
 cached hub repo id.
 
-Port of `tdm_tpu/pipelines/loading.py`, families pixart and sd3, for its two
-layouts:
+Port of `tdm_tpu/pipelines/loading.py`, families pixart, sd3 and sd15, for
+its two layouts:
 
 1. The tdm_tpu layout (written by `save_pretrained` of either package):
 
     my_pipe/
-      pipeline.json               {"family": "pixart" | "sd3",
+      pipeline.json               {"family": "pixart" | "sd3" | "sd15",
                                    "model": {...}, "vae": {...}}
                                    (config fields)
       transformer.safetensors     denoiser params, flat '/'-joined Flax keys
-      vae_decoder.safetensors     optional TAESD (TAESD3 for sd3) decoder
+                                  (SD1.5's UNet too)
+      vae_decoder.safetensors     optional TAESD (TAESD3 for sd3) decoder;
+                                  for sd15 the KL decoder
 
-2. A stock diffusers checkout (`model_index.json` with `transformer/` and
-   `vae/` subfolders): `_class_name` picks the family, each subfolder's
-   `config.json` maps onto the port's config, and the torch state dicts
-   run through the strict converters of `io/convert.py`. The VAE is an
-   `AutoencoderKL` (the KL decoder) or an `AutoencoderTiny` (TAESD).
-   `text_encoder*/` subfolders are not loaded (ROADMAP.md queue 1, slice 7).
+2. A stock diffusers checkout (`model_index.json` with `transformer/`, or
+   SD1.5's `unet/`, and `vae/` subfolders): `_class_name` picks the family,
+   each subfolder's `config.json` maps onto the port's config, and the
+   torch state dicts run through the strict converters of `io/convert.py`.
+   The VAE is an `AutoencoderKL` (the KL decoder) or an `AutoencoderTiny`
+   (TAESD). `text_encoder*/` subfolders are not loaded (ROADMAP.md queue 1,
+   slice 7).
 
 An `org/name` repo id resolves against the local hub cache first
 (`io/hub.resolve_pretrained`). Both layouts reach the modules through the
@@ -38,28 +41,30 @@ import torch
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.io import convert, from_jax, hub, params as params_io
-from tdm_tpu_torch.models import mmdit_sd3, pixart, vae as vae_lib
+from tdm_tpu_torch.models import layers, mmdit_sd3, pixart, unet_sd15, vae as vae_lib
 from tdm_tpu_torch.pipelines.pixart import PixArtPipeline
+from tdm_tpu_torch.pipelines.sd15 import SD15Pipeline
 from tdm_tpu_torch.pipelines.sd3 import SD3Pipeline
 
-FAMILIES = ("pixart", "sd3")
+FAMILIES = ("pixart", "sd3", "sd15")
 _NOT_PORTED = {
-    "sd15": "slice 4 (the other image families)",
     "cogvideox": "slice 5 (CogVideoX video)",
 }
+Pipeline = Union[PixArtPipeline, SD3Pipeline, SD15Pipeline]
 
 
 def _config(cls, conf: dict, default=None):
     """pipeline.json block → config dataclass (dtype names → torch dtypes,
     lists → tuples) over `default` (cls() when None). The JAX package's
-    `attn_impl` is checked; a config that has the field keeps it (SD3:
-    'splash' takes the splash kernel, the other names the flash route), one
-    without it (PixArt, whose attention every name routes alike) drops it."""
+    `attn_impl` is checked; a config that has the field keeps it (SD3 and
+    SD1.5: 'splash' takes the splash kernel where it applies, the other
+    names the flash route), one without it (PixArt, whose attention every
+    name routes alike) drops it."""
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in conf.items()}
     if isinstance(kw.get("dtype"), str):
         kw["dtype"] = getattr(torch, kw["dtype"])
     impl = kw.get("attn_impl", "auto")
-    if impl not in mmdit_sd3.ATTN_IMPLS:
+    if impl not in layers.ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} in pipeline.json")
     if not any(f.name == "attn_impl" for f in dataclasses.fields(cls)):
         kw.pop("attn_impl", None)
@@ -87,7 +92,7 @@ def from_pretrained(
     revision: Optional[str] = None,
     cache_dir: Optional[str] = None,
     **kwargs,
-) -> Union[PixArtPipeline, SD3Pipeline]:
+) -> Pipeline:
     """Assemble the pipeline of a tdm_tpu-layout directory, a diffusers
     checkout or a cached `org/name` repo id on `device` (CUDA unless the
     caller passes 'cpu'). For a diffusers checkout `model_config=` overrides
@@ -109,6 +114,8 @@ def from_pretrained(
     _check_family(family)
     # a bundled text encoder is not loaded (the encoders are ROADMAP slice
     # 7): the pipeline takes prompt_embeds= and the server an embedding cache
+    if family == "sd15":
+        return _sd15_from_layout(path, meta, dev, **kwargs)
     if family == "sd3":
         cfg = _config(mmdit_sd3.MMDiTConfig, meta.get("model", {}))
         transformer = mmdit_sd3.SD3Transformer2D(cfg, device=dev)
@@ -139,6 +146,24 @@ def from_pretrained(
     )
 
 
+def _sd15_from_layout(path: str, meta: dict, dev: torch.device, **kwargs) -> SD15Pipeline:
+    """The sd15 branch of layout 1 (`tdm_tpu/pipelines/loading.py:171-180`):
+    the UNet from transformer.safetensors and, when there is one, the KL
+    decoder from vae_decoder.safetensors."""
+    cfg = _config(unet_sd15.UNetConfig, meta.get("model", {}))
+    unet = unet_sd15.UNet2DCondition(cfg, device=dev)
+    unet.load_state_dict(from_jax.state_dict_from_jax(
+        params_io.load_file(os.path.join(path, "transformer.safetensors")), unet))
+    vcfg = _config(vae_lib.KLVAEConfig, meta.get("vae", {}))
+    vae_file = os.path.join(path, "vae_decoder.safetensors")
+    vae = None
+    if os.path.exists(vae_file):
+        vae = vae_lib.KLDecoder(vcfg, device=dev)
+        vae.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae))
+    return SD15Pipeline(unet, vae_decoder=vae, vae_scaling=vcfg.scaling_factor, device=dev,
+                        **kwargs)
+
+
 def _check_family(family: str) -> None:
     if family in _NOT_PORTED:
         raise NotImplementedError(
@@ -149,14 +174,14 @@ def _check_family(family: str) -> None:
         raise ValueError(f"unknown family {family!r}")
 
 
-def save_pretrained(path: str, pipe: Union[PixArtPipeline, SD3Pipeline]) -> None:
+def save_pretrained(path: str, pipe: Pipeline) -> None:
     """Write `pipe` as a tdm_tpu-layout directory (fp32 weights in the JAX
     package's tree, stacked or unrolled per the config's scan_layers). As
     in the JAX package, the pristine base weights are written: adapter
     merges are runtime state (load the LoRA file again after loading).
-    Layout 1 holds a pixart/sd3 VAE as TAESD only, so a pipeline with a KL
-    decoder is refused."""
-    if isinstance(pipe.vae_decoder, vae_lib.KLDecoder):
+    Layout 1 holds a pixart/sd3 VAE as TAESD only, so such a pipeline with
+    a KL decoder is refused; an sd15 one holds its KL decoder."""
+    if pipe.family != "sd15" and isinstance(pipe.vae_decoder, vae_lib.KLDecoder):
         raise ValueError(
             "save_pretrained: the tdm_tpu layout stores pixart/sd3 VAEs as "
             "TAESD only (both packages' loaders rebuild vae_decoder.safetensors "
@@ -165,14 +190,15 @@ def save_pretrained(path: str, pipe: Union[PixArtPipeline, SD3Pipeline]) -> None
             "pipeline a TAESD decoder"
         )
     os.makedirs(path, exist_ok=True)
-    cfg = pipe.transformer.cfg
+    model = pipe.denoiser
+    cfg = model.cfg
     meta = {"family": pipe.family, "model": _config_dict(cfg), "vae": {}}
     if pipe.vae_decoder is not None:
         meta["vae"] = _config_dict(pipe.vae_decoder.cfg)
     with open(os.path.join(path, "pipeline.json"), "w") as f:
         json.dump(meta, f, indent=1)
     params_io.save_file(
-        from_jax.jax_layout({**pipe.transformer.state_dict(), **pipe._base},
+        from_jax.jax_layout({**model.state_dict(), **pipe._base},
                             stacks=from_jax.layer_stacks(cfg)),
         os.path.join(path, "transformer.safetensors"),
     )
@@ -245,6 +271,22 @@ def _sd3_config(hf: dict) -> mmdit_sd3.MMDiTConfig:
     return dataclasses.replace(mmdit_sd3.MMDiTConfig(), **kw)
 
 
+def _unet_config(hf: dict) -> unet_sd15.UNetConfig:
+    kw = _mapped(hf, {
+        "in_channels": "in_channels", "out_channels": "out_channels",
+        "layers_per_block": "layers_per_block",
+        "cross_attention_dim": "context_dim", "norm_num_groups": "norm_groups",
+    })
+    if "block_out_channels" in hf:
+        kw["block_widths"] = tuple(hf["block_out_channels"])
+    # SD1.5's int `attention_head_dim: 8` is the HEAD COUNT (diffusers' UNet
+    # reads the int form as heads)
+    heads = hf.get("attention_head_dim")
+    if isinstance(heads, int):
+        kw["num_heads"] = heads
+    return dataclasses.replace(unet_sd15.UNetConfig(), **kw)
+
+
 def _load(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """A converter's tree into `module` through the weight carry."""
     module.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), module))
@@ -311,10 +353,16 @@ def _from_diffusers(path: str, dev: torch.device, model_config: Optional[dict] =
         index = json.load(f)
     family = _family_from_class(index.get("_class_name", ""))
     _check_family(family)
-    hf = _subconfig(path, "transformer")
-    sd = convert.load_torch_state_dict(os.path.join(path, "transformer"))
+    sub = "unet" if family == "sd15" else "transformer"
+    hf = _subconfig(path, sub)
+    sd = convert.load_torch_state_dict(os.path.join(path, sub))
     vae, vae_kw = _load_diffusers_vae(path, dev)
     vae_kw.update(kwargs)  # explicit kwargs win over derived settings
+    if family == "sd15":
+        cfg = _config(unet_sd15.UNetConfig, model_config or {}, _unet_config(hf))
+        unet = _load(unet_sd15.UNet2DCondition(cfg, device=dev), convert.unet_sd15_params(
+            sd, layers_per_block=cfg.layers_per_block, n_stages=len(cfg.block_widths)))
+        return SD15Pipeline(unet, vae_decoder=vae, device=dev, **vae_kw)
     if family == "pixart":
         cfg = _config(pixart.PixArtConfig, model_config or {}, _pixart_config(hf))
         transformer = _load(pixart.PixArtTransformer2D(cfg, device=dev),

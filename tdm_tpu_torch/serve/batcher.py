@@ -27,16 +27,18 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from tdm_tpu_torch.pipelines.base import denoiser_of
+
 
 def latent_shape(pipe, call_kwargs: dict) -> tuple[int, ...]:
     """Per-request (leading-1) latent shape at the server's resolution (the
-    family's default: 512² PixArt, 1024² SD3)."""
+    family's default: 512² PixArt and SD1.5, 1024² SD3)."""
     fam = getattr(pipe, "family", "")
-    if fam not in ("pixart", "sd3"):
+    if fam not in ("pixart", "sd3", "sd15"):
         raise NotImplementedError(
             f"serving family {fam!r} is not ported yet (ROADMAP.md queue 1)"
         )
-    ch = pipe.transformer.cfg.in_channels
+    ch = denoiser_of(pipe).cfg.in_channels
     side = 1024 if fam == "sd3" else 512
     h = call_kwargs.get("height", side)
     w = call_kwargs.get("width", side)
@@ -69,8 +71,8 @@ def _tree_nbytes(tree) -> int:
 
 def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str], Any]:
     """prompt → batch-1 conditioning from an offline embedding cache (the
-    `.npz` of the JAX package's cli/build_cache; SD3 needs its pooled
-    vectors). The empty prompt falls back to the cache's uncond_* rows (the
+    `.npz` of the JAX package's cli/build_cache: T5 for PixArt, CLIP-L for
+    SD1.5; SD3 needs its pooled vectors). The empty prompt falls back to the cache's uncond_* rows (the
     CFG branch)."""
     if embedding_cache is None:
         raise ValueError(
@@ -200,7 +202,7 @@ class MicroBatcher:
         self.call_kwargs.pop("seed", None)  # per request, via latents=
         self.cond_fn = cond_fn or make_cond_fn(pipe, embedding_cache)
         self._noise_shape = latent_shape(pipe, self.call_kwargs)
-        bf16 = pipe.transformer.cfg.dtype == torch.bfloat16
+        bf16 = denoiser_of(pipe).cfg.dtype == torch.bfloat16
         self._cond_dtype = torch.bfloat16 if bf16 else None
         self._uncond = None
         gs = self.call_kwargs.get("guidance_scale", 1.0)

@@ -9,6 +9,8 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
     python -m tdm_tpu_torch.serve.server --model PixArt-alpha/PixArt-XL-2-512x512 \\
         --embedding_cache cache.npz   (a diffusers checkout, or its repo id
                                        in the local hub cache)
+    python -m tdm_tpu_torch.serve.server --model dreamshaper-7 --lora tdm.safetensors \\
+        --embedding_cache clip_cache.npz   (SD1.5, 512², a CLIP-L cache)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",

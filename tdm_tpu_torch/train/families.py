@@ -43,7 +43,7 @@ from tdm_tpu_torch.models import mmdit_sd3, pixart
 
 FAMILIES = ("pixart", "sd15", "sd3", "cogvideox")
 _NOT_PORTED = {
-    "sd15": "slice 4 (the other image families)",
+    "sd15": "slice 4 (sd15 TDM training: the UNet's remat and kernels 2 and 3 at head dim 160)",
     "cogvideox": "slice 5 (CogVideoX video)",
 }
 # SD3-Medium's training schedule: the HF scheduler config's `shift`

@@ -23,7 +23,7 @@ from tdm_tpu_torch.ops import attention as tattn
 
 torch.set_num_threads(2)
 
-HEAD_DIMS = (8, 16, 36, 64, 72, 100, 128)
+HEAD_DIMS = (8, 16, 36, 40, 64, 72, 100, 128, 136, 160)
 LENGTHS = (77, 30, 0)  # ragged, and a batch row whose keys are all masked
 
 
@@ -100,6 +100,32 @@ def test_flash_wrapper_hands_the_kernel_padded_operands(monkeypatch, d, with_lse
             assert all(p % 16 == 0 for p in (args[0], args[1], args[2], args[4]))
         assert (args[5] is not None) == with_lse
     for w in tattn.WRAPPERS:  # recorded launches do not count
+        w.launches = counts[w.__name__]
+
+
+def test_head_dim_limits_name_the_known_gaps(monkeypatch):
+    """Kernel 1 takes head dims up to 160 (SD1.5's 1280-wide blocks at 8
+    heads), the backward kernels up to 128; above, the wrappers raise before
+    any launch, naming ROADMAP.md's known gaps."""
+    monkeypatch.setattr(tattn, "_on_card", lambda wrapper, q: True)
+    monkeypatch.setattr(tattn, "_launch", lambda name, device, *args: None)
+    counts = tattn.launch_counts()
+    assert tattn.tma_head_dim(160) == 160 and tattn.tma_head_dim(131) == 136
+    for d in (0, 161, 168):
+        with pytest.raises(ValueError, match="known gaps"):
+            tattn.tma_head_dim(d)
+    q, k, v, bias = _inputs(168, torch.bfloat16)
+    for fwd in (tattn.flash_attention_fwd, tattn.flash_attention_fwd_lse):
+        with pytest.raises(ValueError, match=r"range \[1, 160\].*known gaps"):
+            fwd(q, k, v, bias)
+    q, k, v, bias = _inputs(136, torch.bfloat16)
+    tattn.flash_attention_fwd(q, k, v, bias)
+    lse = torch.zeros(q.shape[:3])
+    with pytest.raises(ValueError, match=r"range \[1, 128\].*known gaps"):
+        tattn.flash_attention_bwd_dq(q, k, v, bias, q, q, lse, 1.0)
+    with pytest.raises(ValueError, match=r"range \[1, 128\].*known gaps"):
+        tattn.flash_attention_bwd_dkv(q, k, v, bias, q, lse, lse)
+    for w in tattn.WRAPPERS:
         w.launches = counts[w.__name__]
 
 
@@ -233,3 +259,80 @@ def test_kernel_lse_drives_the_backward_kernels_to_the_plain_gradients_on_card()
         "splash_attention_fwd": 0}
     for t in grads:
         assert torch.isfinite(t).all() and not t[2].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain_at_sd15_head_dims_on_card():
+    """Kernel 1 at SD1.5's head dims 40 (the 64-column panel, zero-filled
+    past column 40), 160 (three panels of 64, 64 and 32 columns) and 136
+    (the same, zero-filled past 136): ragged Sq and Sk, a ragged key mask
+    and an all-masked batch row, against the plain version. bf16 by the
+    per-row rule, fp32 within 1e-5 (the same sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for d in (40, 136, 160):
+        for b, h, sq, sk, lengths in ((3, 2, 333, 200, (200, 129, 0)), (2, 8, 256, 77, None)):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, bias = (t.cuda() for t in _inputs(
+                    d, dtype, b=b, h=h, sq=sq, sk=sk, lengths=lengths or (sk,) * b, seed=d))
+                bias = None if lengths is None else bias
+                out = tattn.flash_attention_fwd(q, k, v, bias)
+                ref = tattn.plain_attention(q, k, v, bias)
+                assert out.shape == ref.shape and torch.isfinite(out).all()
+                if dtype == torch.bfloat16:
+                    _per_row_bf16(out, ref)
+                else:
+                    assert (out - ref).abs().max() <= 1e-5, (d, b, dtype)
+
+
+def kernel_bits() -> dict:
+    """{case: sha256 of the output bytes} of kernel 1 (without and with the
+    lse) at head dims 64, 80 and 128 with a ragged key mask, and of kernel 4
+    at 64 and 128, on bf16 inputs drawn with numpy from a fixed seed."""
+    import hashlib
+
+    out = {}
+    for d in (64, 80, 128):
+        q, k, v, bias = (t.cuda() for t in _inputs(d, torch.bfloat16, b=2, h=3, sq=200, sk=150,
+                                                   lengths=(150, 77), seed=d))
+        o = tattn.flash_attention_fwd(q, k, v, bias)
+        o_lse, lse = tattn.flash_attention_fwd_lse(q, k, v, bias)
+        for name, t in ((f"flash_d{d}", o), (f"flash_lse_d{d}", o_lse),
+                        (f"flash_lse_d{d}_lse", lse)):
+            out[name] = hashlib.sha256(t.cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                                                    else torch.int32).numpy().tobytes()).hexdigest()
+    for d in (64, 128):
+        q, k, v, _ = (t.cuda() for t in _inputs(d, torch.bfloat16, b=2, h=3, sq=200, sk=150,
+                                                lengths=(150, 150), seed=d))
+        o = tattn.splash_attention_fwd(q, k, v)
+        out[f"splash_d{d}"] = hashlib.sha256(o.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
+    return out
+
+
+# kernel_bits() as the kernels of the parent commit gave it on an NVIDIA H100
+# 80GB HBM3, before their mainloop took a third head-dim panel and a 64-key
+# tile for DP = 160: the instantiations at 64, 80 and 128 keep their code
+# and must keep their bits
+KERNEL_BITS = {
+    "flash_d64": "892998e922feb4f70312a490ec86211bebe8c304937332d6f02cd42a98065098",
+    "flash_lse_d64": "892998e922feb4f70312a490ec86211bebe8c304937332d6f02cd42a98065098",
+    "flash_lse_d64_lse": "31b7325099193c6cecf14896e574d9e4c13788b2fb301f97a8ece73e3887e892",
+    "flash_d80": "17ff4c7495f3f12dcf7cf0a2e5a7759deebf4bba73b70c6e419a8b4ad777b9b1",
+    "flash_lse_d80": "17ff4c7495f3f12dcf7cf0a2e5a7759deebf4bba73b70c6e419a8b4ad777b9b1",
+    "flash_lse_d80_lse": "ab38a4d736b0148d58364142fed4f45aed8c2f18554ee9df450c8c77f56ff5d0",
+    "flash_d128": "52116e02544e2d80ea3e2975e9609bf170327882bd35bf3014ce01f929b7f0f1",
+    "flash_lse_d128": "52116e02544e2d80ea3e2975e9609bf170327882bd35bf3014ce01f929b7f0f1",
+    "flash_lse_d128_lse": "e91cd7760d0d4391d34046659ced3cd41324a6b112ef91d2b3150362e2accf5b",
+    "splash_d64": "ac4bf1aac1377ad13682586a13241cb75549bc35fb94dd14b796244992c8e919",
+    "splash_d128": "b6192ea1bf6b58af8746653daafd8626a603affb1cbf2eb71270438c2b795838",
+}
+
+
+@pytest.mark.cuda
+def test_flash_and_splash_bits_unchanged_at_64_80_128_on_card():
+    """The third head-dim panel and DP 160's 64-key tiles are compile-time
+    branches: kernel 1 at DP 64, 80 and 128 (with and without its lse) and
+    kernel 4 give the parent commit's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    assert kernel_bits() == KERNEL_BITS

@@ -219,9 +219,9 @@ def test_from_pretrained_reads_every_jax_attn_impl(jax_dir, tmp_path, impl):
 
 
 def test_from_pretrained_refuses_unported_families(tmp_path):
-    """sd15 and cogvideox wait for their slices (sd3 is ported:
-    tests/test_torch_port_sd3.py)."""
-    for family, where in (("sd15", "slice 4"), ("cogvideox", "slice 5")):
+    """cogvideox waits for its slice (sd3 and sd15 are ported:
+    tests/test_torch_port_sd3.py, tests/test_torch_port_sd15.py)."""
+    for family, where in (("cogvideox", "slice 5"),):
         (tmp_path / "pipeline.json").write_text(json.dumps({"family": family}))
         with pytest.raises(NotImplementedError, match=where):
             from_pretrained(str(tmp_path), device="cpu")
