@@ -83,18 +83,34 @@ Phases, one line each, and any failure exits non-zero:
      are not constant, per-seed determinism, exactly 128 kernel-1 launches
      and nothing else per batch, a profiled batch (48 of its launches at
      head dim 160, by kernel name), the KL decode alone, the load seconds,
-     peak memory, and one full-width UNet forward against plain attention.
+     peak memory, and one full-width UNet forward against plain attention;
+     then the same server as `python -m tdm_tpu_torch.serve.server` in a
+     subprocess (which sets its fp32 precision itself) answers the lone
+     request with the in-process server's PNG bytes, its KL decode timed
+     by CUDA events beside the in-process one;
+ 12. train_sd15: full-width SD1.5 TDM training through the CLI's main() at
+     the JAX CLI's defaults plus --gradient_checkpointing (--model_family
+     sd15 at 512², batch 4, bf16 on fp32 masters, dmd, AdamW, 4 steps), the
+     teacher from the SD1.5 checkout's unet/ folder, a seeded CLIP-L cache
+     with ragged masks and a seeded TAESD for one validation grid: first
+     one full-width step on one batch without remat, with it and with it
+     again, bit for bit; then seconds per step, peak memory, the idle share
+     and top device operations of a profiled step, each training kernel's
+     launches per step (checked) and by padded head dim in the profiled
+     step (checked), and the rank-32 export's seconds and keys.
 Phase 3 also holds kernel 1 at SD1.5's head dims 40, 136 and 160 (ragged,
 masked and all-masked rows, bf16 and fp32) and times its eight SD1.5
 shapes in turns with SDPA; it also holds the training kernels (the forward
 with its lse, dQ with its fused Δ, dK/dV) at one PixArt block's shapes and
 SD3 training's
 [4,24,1178,1178,64] and [8,24,1178,1178,64] (the forward without lse too,
-all timed in turns with SDPA), and the splash kernel (SD3's
+all timed in turns with SDPA), SD1.5 training's eight shapes at head dims
+40, 80 and 160 (batch 4, 8 heads, cross over 77 ragged CLIP tokens, timed
+in turns with SDPA) with fp32 checks at 136 and 160, and the splash kernel (SD3's
 [4,24,4429,4429,64], ragged fp32 shapes, rows whose logits are all below
 -20) against their plain versions; phase 4 runs one tiny train step, the
 same step with a LoRA student, 8-bit Adam and accumulation 2, one tiny sd3
-step, and a tiny SD3 pipeline with a merged LoRA on the card against the
+step, one tiny sd15 step, and a tiny SD3 pipeline with a merged LoRA on the card against the
 same on the CPU; phase 7 also trains the tiny PixArt model for 2 steps
 through main() on the card with its prompts read from a .txt shard by the
 native C++ loader (checked), and times that loader's host seconds per batch
@@ -166,6 +182,16 @@ SD15_SHAPES = (  # name, sq, sk, d, calls per batch
 # and those at head dim 160 (6 transformers)
 SD15_LAUNCHES_PER_BATCH = 16 * 2 * 4
 SD15_D160_PER_BATCH = 6 * 2 * 4
+# SD1.5 training at 512², batch 4 (the grad forwards), bf16: the self and
+# cross calls of each level (cross over 77 CLIP tokens with ragged masks)
+SD15T_LENGTHS = [77, 40, 13, 5]
+SD15T_SHAPES = (  # name, sq, sk, d
+    ("sd15_train_self_d40", 4096, 4096, 40), ("sd15_train_cross_d40", 4096, SD15_TXT, 40),
+    ("sd15_train_self_d80", 1024, 1024, 80), ("sd15_train_cross_d80", 1024, SD15_TXT, 80),
+    ("sd15_train_self_d160", 256, 256, 160), ("sd15_train_cross_d160", 256, SD15_TXT, 160),
+    ("sd15_train_mid_self_d160", 64, 64, 160),
+    ("sd15_train_mid_cross_d160", 64, SD15_TXT, 160),
+)
 # the lse of a row with live keys, fp32, kernel against plain: the same
 # logits, exp by __expf or expf, the sums in another order
 LSE_TOL = 1e-4
@@ -353,9 +379,9 @@ def phase_build() -> dict:
     for lib, fn_name, keys in (
             ("flash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (80,), (128,), (160,))),
             ("splash_fwd", "tdm_attn_fwd_smem_bytes", ((64,), (128,))),
-            ("flash_bwd_dq", "tdm_flash_bwd_dq_smem_bytes", ((64,), (80,), (128,))),
+            ("flash_bwd_dq", "tdm_flash_bwd_dq_smem_bytes", ((64,), (80,), (128,), (160,))),
             ("flash_bwd_dkv", "tdm_flash_bwd_dkv_smem_bytes",
-             tuple((d, g) for d in (64, 80, 128) for g in (1, 2)))):
+             tuple((d, g) for d in (64, 80, 128, 160) for g in (1, 2)))):
         fn = getattr(ctypes.CDLL(str(libs[lib])), fn_name)
         smem[lib] = {"/".join(map(str, key)): fn(*key) for key in keys}
         print(f"[build]   {lib}: dynamic shared memory per CTA by head dim"
@@ -439,10 +465,22 @@ def sd3_train_cases(torch) -> list:
             for b in (SD3T_B, 2 * SD3T_B)]
 
 
+def sd15_train_cases(torch) -> list:
+    """SD1.5 training's attention calls at batch 4, 8 heads, bf16 (timed),
+    and fp32 checks at head dims 136 and 160 with ragged, masked and
+    all-masked batch rows."""
+    return [*((name, SD15_B, SD15_H, sq, sk, d, torch.bfloat16,
+               None if sq == sk else SD15T_LENGTHS, True) for name, sq, sk, d in SD15T_SHAPES),
+            *((f"sd15_train_ragged_d{d}_float32", 3, 2, 333, 200, d, torch.float32,
+               [200, 129, 0], False) for d in (136, 160)),
+            ("sd15_train_ragged_d160_bfloat16", 3, 2, 333, 200, 160, torch.bfloat16,
+             [200, 129, 0], False)]
+
+
 def group_of(shape_name: str) -> str:
-    """The path a timed shape belongs to: SD3 training, SD1.5 serving, or
-    one PixArt block."""
-    for group in ("sd3_train", "sd15"):
+    """The path a timed shape belongs to: SD3 training, SD1.5 training,
+    SD1.5 serving, or one PixArt block."""
+    for group in ("sd3_train", "sd15_train", "sd15"):
         if shape_name.startswith(group):
             return group
     return "pixart"
@@ -592,7 +630,8 @@ def compare_lse(torch, got, ref) -> tuple:
 def phase_kernels_train(torch, seed: int) -> dict:
     """The training kernels (forward with lse, dQ with its fused Δ, dK/dV)
     against their plain versions at the training shapes (one PixArt block,
-    SD3's two) and a sweep, the fp32
+    SD3's two, SD1.5's eight at head dims 40, 80 and 160) and a sweep, the
+    fp32
     gradients of FlashAttention against autograd of plain_attention, exact
     zeros on all-masked rows, and the times of each kernel, its plain
     version, its bound and SDPA's forward + backward."""
@@ -608,6 +647,7 @@ def phase_kernels_train(torch, seed: int) -> dict:
         ("odd", 2, 3, 1000, 77, 64, f32, [77, 0], False),
         ("odd_bf16", 3, 2, 333, 200, 72, bf16, [200, 129, 0], False),
         *sd3_train_cases(torch),
+        *sd15_train_cases(torch),
     ]
     for d in (8, 16, 36, 64, 100, 128):
         for dtype in (bf16, f32):
@@ -1399,12 +1439,14 @@ def phase_reference_train(torch, seed: int) -> None:
     reference_train_recipe(torch, seed, cpu_params, want)
 
 
-def phase_reference_train_sd3(torch, seed: int) -> None:
-    """One tiny sd3 TDM step (fp32, dmd, MSE; the flow schedule, pooled
-    conditioning) on the card (the kernels) against the same step on the
-    CPU (the plain versions), from one state with the same draws: the bounds
-    of phase_reference_train. MSE, as the recipe check: under the Huber
-    loss the student's grad norm is ill-conditioned at one critic update."""
+def reference_family_step(torch, seed: int, family: str, want: dict) -> dict:
+    """One tiny TDM step of `family` (fp32, dmd, MSE) on the card (the
+    kernels) against the same step on the CPU (the plain versions), from
+    one state with the same draws: the bounds of phase_reference_train.
+    MSE, as the recipe check: under the Huber loss the student's grad norm
+    is ill-conditioned at one critic update. sd3 conditions on a seeded
+    pooled vector too. Returns the card's launches, checked against `want`,
+    and the worst errors."""
     from tdm_tpu_torch.ops import attention as A
     from tdm_tpu_torch.train import families, optim as topt, tdm
 
@@ -1412,16 +1454,19 @@ def phase_reference_train_sd3(torch, seed: int) -> None:
     runs = {}
     cpu_params = None
     for dev in ("cpu", "cuda"):
-        bundle = families.build("sd3", tiny=True, seed=seed, device=dev)
+        bundle = families.build(family, tiny=True, seed=seed, device=dev)
         if cpu_params is None:
             cpu_params = bundle.init_params()
         teacher = {k: v.to(dev) for k, v in cpu_params.items()}
         gen = torch.Generator(device="cpu").manual_seed(seed + 6)
         config = tdm.TDMConfig(use_huber=False)
         draws, (text, mask), (utext, umask) = tiny_step_inputs(torch, config, bundle, gen, dev)
-        pooled = torch.randn(3, bundle.model.cfg.pooled_dim, generator=gen).to(dev)
-        cond = bundle.cond_of(text, mask, pooled)
-        uncond = bundle.cond_of(utext, umask, torch.zeros_like(pooled))
+        if family == "sd3":
+            pooled = torch.randn(3, bundle.model.cfg.pooled_dim, generator=gen).to(dev)
+            cond = bundle.cond_of(text, mask, pooled)
+            uncond = bundle.cond_of(utext, umask, torch.zeros_like(pooled))
+        else:
+            cond, uncond = bundle.cond_of(text, mask), bundle.cond_of(utext, umask)
         tx = topt.make_optimizer(lr, eps=1e-4)
         state = tdm.init_state(teacher, teacher, tx, tx)
         start = {r: {k: v.clone() for k, v in getattr(state, r).items()}
@@ -1431,17 +1476,13 @@ def phase_reference_train_sd3(torch, seed: int) -> None:
         (state, metrics), launched = uncounted(A, lambda: step(state, draws, cond, uncond))
         runs[dev] = (state, metrics, start, launched)
     (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
-    # 2 joint blocks: 7 no-grad forwards, 2 with grad
-    want = {"flash_attention_fwd": 14, "flash_attention_fwd_lse": 4,
-            "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4,
-            "splash_attention_fwd": 0}
-    check(glaunch == want, f"tiny sd3 step launches {glaunch}, expected {want}")
+    check(glaunch == want, f"tiny {family} step launches {glaunch}, expected {want}")
     worst = {}
     for name in tdm.StepMetrics._fields:
         c, g = float(getattr(cm, name)), float(getattr(gm, name))
         worst[name] = abs(c - g) / max(abs(c), 1e-12)
         check(math.isfinite(g) and abs(c - g) <= 1e-4 * abs(c) + 1e-7,
-              f"tiny sd3 step {name}: card {g} vs cpu {c}")
+              f"tiny {family} step {name}: card {g} vs cpu {c}")
     upd = {}
     for role in ("student", "critic"):
         d_c = torch.cat([(getattr(cs, role)[k] - cstart[role][k]).flatten()
@@ -1451,14 +1492,33 @@ def phase_reference_train_sd3(torch, seed: int) -> None:
         rel = float((d_g - d_c).norm() / d_c.norm())
         top = float((d_g - d_c).abs().max())
         upd[role] = (rel, top)
-        check(float(d_c.abs().max()) > 0.5 * lr, f"tiny sd3 step: {role} did not move")
+        check(float(d_c.abs().max()) > 0.5 * lr, f"tiny {family} step: {role} did not move")
         check(rel <= 5e-3 and top <= 0.25 * lr,
-              f"tiny sd3 step {role} update: rel L2 {rel:.3e}, max {top:.3e}")
-    print(f"[reference] tiny sd3 TDM step (dmd, MSE, flow schedule) cuda (kernels: "
-          f"{glaunch}) vs cpu (plain): metrics max rel err {max(worst.values()):.3e} (limit "
-          f"1e-4); update rel L2 / max: student {upd['student'][0]:.3e} / "
-          f"{upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} / "
+              f"tiny {family} step {role} update: rel L2 {rel:.3e}, max {top:.3e}")
+    print(f"[reference] tiny {family} TDM step (dmd, MSE, {bundle.schedule.prediction_type} "
+          f"schedule) cuda (kernels: {glaunch}) vs cpu (plain): metrics max rel err "
+          f"{max(worst.values()):.3e} (limit 1e-4); update rel L2 / max: student "
+          f"{upd['student'][0]:.3e} / {upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} / "
           f"{upd['critic'][1]:.3e} (limits 5e-3 / {0.25 * lr:.1e})", flush=True)
+    return {"launches": glaunch, "metrics_max_rel_err": max(worst.values()),
+            "update_rel_l2": {r: u[0] for r, u in upd.items()}}
+
+
+def phase_reference_train_sd3(torch, seed: int) -> None:
+    """The tiny sd3 step (the flow schedule, pooled conditioning) on the card
+    against the CPU: 2 joint blocks, 7 no-grad forwards and 2 with grad."""
+    reference_family_step(torch, seed, "sd3", {
+        "flash_attention_fwd": 14, "flash_attention_fwd_lse": 4,
+        "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4, "splash_attention_fwd": 0})
+
+
+def phase_reference_train_sd15(torch, seed: int) -> dict:
+    """The tiny sd15 step (the scaled-linear schedule, the UNet's im2col
+    convolutions) on the card against the CPU: 4 spatial transformers x
+    (self, cross), 7 no-grad forwards and 2 with grad."""
+    return reference_family_step(torch, seed, "sd15", {
+        "flash_attention_fwd": 56, "flash_attention_fwd_lse": 16,
+        "flash_attention_bwd_dq": 16, "flash_attention_bwd_dkv": 16, "splash_attention_fwd": 0})
 
 
 def q8_decoded(torch, q, shape):
@@ -2193,8 +2253,9 @@ def sd15_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]:
     block, 8 heads, context 768, GroupNorm 32; the 4-channel AutoencoderKL
     [128, 256, 512, 512], scaling 0.18215) as `StableDiffusionPipeline`
     ships it: model_index.json, unet/ and vae/, each a config.json and one
-    fp16 safetensors file of seeded weights in the released key layout.
-    Returns (its root, the seconds and parameters of the write)."""
+    fp16 safetensors file of seeded weights in the released key layout,
+    written once per run. Returns (its root, the seconds and parameters of
+    the write, 0 when it was there)."""
     from tdm_tpu_torch.models import unet_sd15, vae
 
     cfg, vcfg = unet_sd15.UNetConfig(), vae.KLVAEConfig()
@@ -2203,6 +2264,8 @@ def sd15_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]:
           == ((320, 640, 1280, 1280), 2, 8, 768, 32, torch.bfloat16, (128, 256, 512, 512),
               0.18215), "SD1.5 and its VAE")
     root = os.path.join(workdir, "stable-diffusion-v1-5")
+    if os.path.exists(os.path.join(root, "model_index.json")):
+        return root, 0.0, 0
     secs, n = write_checkout(root, "unet_sd15", cfg, vcfg, seed)
     print(f"[checkout] wrote the SD1.5 diffusers checkout ({n / 1e6:.1f}M params at fp16) "
           f"in {secs:.1f}s", flush=True)
@@ -2253,6 +2316,100 @@ def sd15_forward_check(torch, unet, seed: int) -> float:
     return rel
 
 
+@contextlib.contextmanager
+def timed_kl_decode(torch, out: list):
+    """Every KLDecoder forward timed by CUDA events (ms appended to `out`)."""
+    from tdm_tpu_torch.models import vae
+
+    fwd = vae.KLDecoder.forward
+
+    def timed(self, z):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y = fwd(self, z)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+        return y
+
+    vae.KLDecoder.forward = timed
+    try:
+        yield out
+    finally:
+        vae.KLDecoder.forward = fwd
+
+
+# `python -m tdm_tpu_torch.serve.server` as run_module runs it, with the KL
+# decoder's forward timed by CUDA events (one stderr line per decode, with
+# the cuDNN TF32 flag the server left)
+SERVER_WITH_DECODE_TIMES = """
+import runpy, sys, torch
+from tdm_tpu_torch.models import vae
+fwd = vae.KLDecoder.forward
+def timed(self, z):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record(); y = fwd(self, z); ev[1].record(); torch.cuda.synchronize()
+    print(f"decode_ms {ev[0].elapsed_time(ev[1])} cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", file=sys.stderr, flush=True)
+    return y
+vae.KLDecoder.forward = timed
+sys.argv = ["tdm_tpu_torch.serve.server", *sys.argv[1:]]
+runpy.run_module("tdm_tpu_torch.serve.server", run_name="__main__", alter_sys=True)
+"""
+
+
+def subprocess_server_check(torch, server_args: list, prompt: str, seed: int,
+                            want_png: str) -> dict:
+    """The server's own process (`python -m tdm_tpu_torch.serve.server`,
+    which sets the fp32 precision itself, TF32 off) answers one request
+    with the PNG bytes that the in-process server (the smoke's own TF32-off
+    settings) gave the same (prompt, seed); its decode times and the flags
+    it ran under come back on stderr. The process is stopped with SIGTERM
+    (the server's graceful path) and waited for."""
+    import signal
+    import urllib.request
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = os.path.join(os.path.dirname(server_args[server_args.index("--model") + 1]),
+                       "server_subprocess.log")
+    t0 = time.monotonic()
+    with open(log, "w") as errf:
+        proc = subprocess.Popen([sys.executable, "-c", SERVER_WITH_DECODE_TIMES, *server_args],
+                                cwd=here, stdout=subprocess.PIPE, stderr=errf, text=True)
+    try:
+        port = None
+        for line in proc.stdout:
+            m = re.search(r"at http://[^:]+:(\d+) ", line)
+            if m:
+                port = int(m.group(1))
+                break
+        check(port is not None, "the server subprocess never said where it listens")
+        up_s = time.monotonic() - t0
+        body = json.dumps({"prompt": prompt, "seed": seed}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reply = json.loads(r.read())
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    with open(log) as f:
+        err = f.read()
+    decodes = [float(m.group(1)) for m in re.finditer(r"decode_ms ([0-9.]+)", err)]
+    flags = re.findall(r"cudnn.allow_tf32 (\w+) matmul.allow_tf32 (\w+)", err)
+    check(bool(decodes) and all(f == ("False", "False") for f in flags),
+          f"the server subprocess's decodes {decodes} under TF32 flags {flags}")
+    check(reply.get("image") == want_png,
+          "the server subprocess gave other PNG bytes than the in-process server")
+    return {"up_s": up_s, "decode_ms": decodes[-1], "decodes": len(decodes),
+            "tf32": False, "png_equal": True}
+
+
 def phase_sd15(torch, seed: int, workdir: str) -> dict:
     """SD1.5 served over HTTP from a full-width diffusers checkout with a
     rank-64 kohya LoRA merged at load: 8 concurrent requests (two batches
@@ -2279,10 +2436,9 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
     lora = sd15_lora(torch, unet_sd15.UNet2DCondition(device="meta"), 64, seed)
     lora_io.save_kohya(lora, lora_file)
     t0 = time.monotonic()
-    args = S.parse_args([
-        "--model", root, "--lora", lora_file, "--embedding_cache", cache, "--port", "0",
-        "--batch_size", "4", "--max_delay_ms", "1000", "--warmup",
-    ])
+    args_list = ["--model", root, "--lora", lora_file, "--embedding_cache", cache, "--port",
+                 "0", "--batch_size", "4", "--max_delay_ms", "1000", "--warmup"]
+    args = S.parse_args(args_list)
     with timed_calls(torch, load_targets() + [(convert, "unet_sd15_params")]) as times:
         server = S.build_server(args).start()
     up_s = time.monotonic() - t0
@@ -2318,7 +2474,8 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
         wall8 = time.monotonic() - t0
         batches8 = stats.batches - b0
         full_batch_s = stats.last_batch_latency_s
-        solo, solo_s = post(prompts[0], 500)
+        with timed_kl_decode(torch, []) as solo_decode_ms:
+            solo, solo_s = post(prompts[0], 500)
         launches = A.launch_counts()
         batches = stats.batches - b0
     finally:
@@ -2369,7 +2526,14 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
     rel = sd15_forward_check(torch, pipe.unet, seed)
     del pipe
     torch.cuda.empty_cache()
+    sub = subprocess_server_check(torch, args_list, prompts[0], 500, solo["image"])
+    sub["in_process_decode_ms"] = solo_decode_ms[-1]
+    print(f"[sd15] `python -m tdm_tpu_torch.serve.server` in a subprocess (TF32 off, set by "
+          f"the server): up and warm in {sub['up_s']:.1f}s, the lone request's PNG bytes equal "
+          f"the in-process server's; KL decode of its batch of 4 {sub['decode_ms']:.2f} ms "
+          f"there, {sub['in_process_decode_ms']:.2f} ms in-process (CUDA events)", flush=True)
     return {"reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
+            "subprocess_server": sub,
             "params": n_params, "lora_projections": len(lora.params),
             "launches": launches["flash_attention_fwd"], "batches": batches,
             "launches_per_batch": SD15_LAUNCHES_PER_BATCH, "launches_by_head_dim": by_dim,
@@ -2465,6 +2629,7 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
             rec["busy_ms"] = sum(e.device_time_total for e in kern) / 1e3
             rec["all_launches"] = sum(e.count for e in kern)
             flash = [e for e in kern if "flash_" in e.key]
+            rec["flash_kernels"] = {e.key: e.count for e in flash}
             top = sorted(kern, key=lambda e: -e.device_time_total)[:10]
             for e in top + [e for e in flash if e not in top]:
                 print(f"[profile]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<6d} "
@@ -3003,6 +3168,269 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
             "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
 
 
+SD15_TRAIN_STEPS = 4
+# per step at batch 4, dmd, cfg 4.5, critic_updates 1, --gradient_checkpointing:
+# 7 forwards without grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B,
+# critic probe) and 2 with grad (critic DSM, student loss), each 16 spatial
+# transformers x (self, cross) = 32 calls (10 at head dim 40, 10 at 80, 12
+# at 160); every grad forward's calls run twice with the lse, once more in
+# the remat recompute
+SD15_CALLS = {64: 10, 80: 10, 160: 12}  # per forward, by padded head dim
+SD15_TRAIN_LAUNCHES = {"flash_attention_fwd": 7 * 32, "flash_attention_fwd_lse": 2 * 2 * 32,
+                       "flash_attention_bwd_dq": 2 * 32, "flash_attention_bwd_dkv": 2 * 32,
+                       "splash_attention_fwd": 0}
+
+
+def sd15_train_env(seed: int, workdir: str) -> str:
+    """A seeded CLIP-L embedding cache as $TDM_EMBEDDING_CACHE (8 prompts of
+    77 tokens at 768 with ragged masks, the empty prompt's 77 live tokens,
+    dedicated rows for the 4 default validation prompts),
+    and a seeded TAESD (a diffusers AutoencoderTiny directory, 4 latent
+    channels) as $TDM_TAESD_DIR. Returns the TAESD directory."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.io import manifest
+    from tdm_tpu_torch.models import vae
+
+    from tdm_tpu_torch.utils import config as cfg_lib
+
+    rng = np.random.default_rng(seed + 40)
+    lengths = np.array([77, 40, 13, 5, 77, 1, 56, 20])
+    val = list(cfg_lib.TrainConfig.validation_prompts)
+    cache = os.path.join(workdir, "sd15_train_cache.npz")
+    EmbeddingCache(
+        rng.standard_normal((8, SD15_TXT, 768)).astype(np.float16),
+        (np.arange(SD15_TXT)[None] < lengths[:, None]).astype(np.int32),
+        [f"sd15 train prompt {i}" for i in range(8)],
+        uncond_embed=(0.1 * rng.standard_normal((SD15_TXT, 768))).astype(np.float16),
+        uncond_mask=np.ones(SD15_TXT, np.int32),
+        val_prompts=val,
+        val_embeds=rng.standard_normal((len(val), SD15_TXT, 768)).astype(np.float16),
+        val_masks=np.ones((len(val), SD15_TXT), np.int32),
+    ).save(cache)
+    taesd = os.path.join(workdir, "taesd")
+    os.makedirs(taesd, exist_ok=True)
+    with open(os.path.join(taesd, "config.json"), "w") as f:
+        json.dump({"_class_name": "AutoencoderTiny", "latent_channels": 4}, f)
+    manifest.write_synthetic("taesd", os.path.join(taesd, "diffusion_pytorch_model.safetensors"),
+                             vae.TAESDConfig(), seed=seed + 41, scale=0.05)
+    os.environ.pop("TDM_TINY_MODEL", None)
+    os.environ["TDM_EMBEDDING_CACHE"] = cache
+    os.environ["TDM_TAESD_DIR"] = taesd
+    return taesd
+
+
+def sd15_remat_check(torch, seed: int, teacher_dir: str) -> dict:
+    """One full-width sd15 TDM step (512², batch 4, bf16 on fp32 masters,
+    dmd, AdamW) on one batch three times from one state: without remat,
+    with remat, with remat again. Remat recomputes each ResBlock and
+    SpatialTransformer through the same kernels and the same im2col
+    convolutions, none of which uses atomics, so the metrics and every
+    updated tensor of student and critic are checked bit for bit against
+    the run without remat, and the second remat run against the first."""
+    from tdm_tpu_torch.io import convert
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    bundles = {r: families.build("sd15", gradient_checkpointing=r, mixed_precision="bf16",
+                                 seed=seed, device="cuda") for r in (False, True)}
+    teacher = bundles[False].convert(convert.load_torch_state_dict(teacher_dir))
+    shape = bundles[False].sample_shape
+    gen = torch.Generator(device="cpu").manual_seed(seed + 42)
+    config = tdm.TDMConfig()
+    draws = tdm.StepDraws(*(x.cuda() for x in tdm.make_draws(config, SD15_B, shape, gen, "cpu")))
+    text = torch.randn(SD15_B, SD15_TXT, 768, generator=gen).cuda()
+    mask = (torch.arange(SD15_TXT)[None] < torch.tensor(SD15T_LENGTHS)[:, None]).int().cuda()
+    cond, uncond = (text, mask), (torch.zeros_like(text), torch.ones_like(mask))
+    tx = topt.make_optimizer(2e-5, eps=1e-8, weight_decay=0.01, max_grad_norm=1.0)
+    runs, report = [], {}
+    for i, remat in enumerate((False, True, True)):
+        state = tdm.init_state(teacher, teacher, tx, tx)
+        step = tdm.build_train_step(bundles[remat].denoise_fn, teacher, bundles[remat].schedule,
+                                    config, tx, tx, sample_shape=shape)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        (new, metrics), _ = uncounted(A, lambda: step(state, draws, cond, uncond))
+        torch.cuda.synchronize()
+        report.setdefault("remat_s" if remat else "plain_s", time.monotonic() - t0)
+        m = {k: float(v) for k, v in metrics._asdict().items()}
+        check(all(math.isfinite(v) for v in m.values()), f"sd15 step metrics {m}")
+        runs.append((m, {r: getattr(new, r) for r in ("student", "critic")}))
+        del state, new
+        if i == 1:  # remat against plain; then the plain run's tensors go
+            report["remat_vs_plain"] = _same_step(torch, *runs)
+            runs.pop(0)
+    report["repeat"] = _same_step(torch, *runs)
+    del runs, teacher, bundles
+    torch.cuda.empty_cache()
+    print(f"[train_sd15] full-width step on one batch: remat vs plain "
+          f"{report['remat_vs_plain']}, remat twice {report['repeat']} (host "
+          f"{report['plain_s']:.2f}s plain, {report['remat_s']:.2f}s remat, first calls)",
+          flush=True)
+    for name in ("remat_vs_plain", "repeat"):
+        check(report[name]["metrics_equal"] and report[name]["tensors_differing"] == 0,
+              f"sd15 step {name}: not bit for bit: {report[name]}")
+    return report
+
+
+def _same_step(torch, a, b) -> dict:
+    """Whether two steps' metrics and updated tensors are the same bits."""
+    (ma, ta), (mb, tb) = a, b
+    differ = [f"{r}/{k}" for r in ta for k in ta[r] if not torch.equal(ta[r][k], tb[r][k])]
+    worst = max((float((ta[r][k] - tb[r][k]).abs().max()) for r in ta for k in ta[r]
+                 if f"{r}/{k}" in differ), default=0.0)
+    return {"metrics_equal": ma == mb, "tensors_differing": len(differ),
+            "tensors": sum(len(t) for t in ta.values()), "max_abs_diff": worst,
+            "first_differing": differ[:3]}
+
+
+def _flash_by_dim(kernels: dict) -> dict:
+    """{kernel: {template arguments: launches}} of a profiled step's flash
+    kernels, from their demangled names."""
+    out = {}
+    for key, n in kernels.items():
+        m = re.search(r"(flash_\w+_sm90_kernel)<([^>]*)>", key)
+        if m:
+            args = ",".join(a.strip() for a in m.group(2).split(","))
+            out.setdefault(m.group(1), {})
+            out[m.group(1)][args] = out[m.group(1)].get(args, 0) + n
+    return out
+
+
+def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
+    """Full-width SD1.5 TDM training through the CLI's main() at the JAX
+    CLI's defaults plus --gradient_checkpointing (--model_family sd15 at
+    512², latent 4x64x64, batch 4, bf16 compute on fp32 masters, dmd, AdamW,
+    4 steps), the teacher read from the unet/ folder of the SD1.5 checkout
+    (written here if the sd15 phase did not run; its load timed by part), a
+    seeded CLIP-L cache with ragged masks and one validation grid at step 4
+    through a seeded TAESD. First the remat check (sd15_remat_check). Per
+    step: host and CUDA-event times and the kernels' launches (checked
+    against SD15_TRAIN_LAUNCHES); step 3 under torch.profiler (device busy
+    time, idle share, top device operations, and the flash kernels'
+    launches by padded head dim, checked against SD15_CALLS). Then the
+    default rank-32 kohya export by truncated SVD: its seconds and keys."""
+    from tdm_tpu_torch import lora as lora_lib
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.ops import attention as A
+
+    root, _, _ = sd15_checkout(torch, workdir, seed)
+    teacher_dir = os.path.join(root, "unet")
+    remat = sd15_remat_check(torch, seed, teacher_dir)
+    sd15_train_env(seed, workdir)
+    out = os.path.join(workdir, "train_sd15")
+    steps = []
+    export = {}
+    extract = lora_lib.extract_lora
+
+    def timed_extract(model, base, tuned, rank, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lora = extract(model, base, tuned, rank, **kw)
+        torch.cuda.synchronize()
+        export["s"] = time.monotonic() - t0
+        export["pieces"] = len(lora.params)
+        return lora
+
+    load_parts = [(convert, "load_torch_state_dict"), (convert, "unet_sd15_params"),
+                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    torch.cuda.empty_cache()
+    A.reset_launches()  # the main path from here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    lora_lib.extract_lora = timed_extract
+    try:
+        with timed_calls(torch, load_parts) as load_times:
+            train_tdm.main([
+                "--output_dir", out, "--model_family", "sd15", "--max_train_steps",
+                str(SD15_TRAIN_STEPS), "--train_batch_size", str(SD15_B), "--mixed_precision",
+                "bf16", "--loss_mode", "dmd", "--gradient_checkpointing", "--validation_steps",
+                str(SD15_TRAIN_STEPS), "--seed", str(seed),
+                "--pretrained_model_name_or_path", teacher_dir,
+            ], step_hook=step_hook(torch, steps, 3, "train_sd15"))
+    finally:
+        lora_lib.extract_lora = extract
+    total_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(set(load_times) == {name for _, name in load_parts},
+          f"the teacher was not loaded from {teacher_dir}: {load_times}")
+    check(len(steps) == SD15_TRAIN_STEPS, f"{len(steps)} sd15 steps ran")
+    for rec in steps:
+        check(rec["launches"] == SD15_TRAIN_LAUNCHES,
+              f"sd15 step {rec['step']} launches {rec['launches']}, expected "
+              f"{SD15_TRAIN_LAUNCHES}")
+        check(all(math.isfinite(v) for v in rec["metrics"].values()),
+              f"sd15 step {rec['step']}: non-finite metrics {rec['metrics']}")
+    by_dim = _flash_by_dim(steps[2].get("flash_kernels", {}))
+    if by_dim:  # the profiler saw the device: launches by padded head dim
+        want = {"flash_fwd_sm90_kernel": {f"{dp},{lse}": n * c for dp, c in SD15_CALLS.items()
+                                          for lse, n in (("false", 7), ("true", 4))},
+                "flash_bwd_dq_sm90_kernel": {str(dp): 2 * c for dp, c in SD15_CALLS.items()}}
+        got_fwd = {k.replace(",0", ",false").replace(",1", ",true"): v
+                   for k, v in by_dim.get("flash_fwd_sm90_kernel", {}).items()}
+        dkv = by_dim.get("flash_bwd_dkv_sm90_kernel", {})
+        dkv_by_dp = {}
+        for args, n in dkv.items():
+            dp, _, passes = args.split(",")
+            if passes != "2":  # the dV pass or the whole kernel: one per call
+                dkv_by_dp[dp] = dkv_by_dp.get(dp, 0) + n
+        check(got_fwd == want["flash_fwd_sm90_kernel"]
+              and by_dim.get("flash_bwd_dq_sm90_kernel") == want["flash_bwd_dq_sm90_kernel"]
+              and dkv_by_dp == {str(dp): 2 * c for dp, c in SD15_CALLS.items()}
+              and sum(n for a, n in dkv.items() if a.endswith(",2")) == 2 * SD15_CALLS[160],
+              f"profiled sd15 step: flash kernels by template arguments {by_dim}")
+        print(f"[train_sd15] profiled step 3: flash kernels by template arguments {by_dim} "
+              f"(checked: padded head dims 64/80/160 at {SD15_CALLS} calls a forward; the "
+              f"dK/dV kernel at 160 runs a dV pass <160,*,1> and a dK pass <160,*,2>)",
+              flush=True)
+    run_dir = out + "_cfg4.5_steps900"
+    for k in (4, 1):  # 4 validation prompts at 512²: a 2 x 2 grid
+        with open(os.path.join(run_dir, f"validation_step{SD15_TRAIN_STEPS}_{k}nfe.png"),
+                  "rb") as f:
+            check_png(f.read(), 1024, 1024)
+    ckpt = os.path.join(run_dir, f"checkpoint-{SD15_TRAIN_STEPS}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    check("s" in export, "the LoRA export did not run")
+    pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
+    check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
+                                      f"{export['pieces']}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
+    per_step = sum(plain) / len(plain)
+    busy = steps[2]["busy_ms"]
+    span = steps[1]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    load_s = sum(load_times.values())
+    print(f"[train_sd15] teacher from {teacher_dir}: loaded in {load_s:.2f}s (safetensors "
+          f"read {load_times['load_torch_state_dict']:.2f}s, conversion "
+          f"{load_times['unet_sd15_params']:.3f}s, carry "
+          f"{load_times['state_dict_from_jax']:.2f}s, copy into the module "
+          f"{load_times['load_state_dict']:.2f}s)", flush=True)
+    print(f"[train_sd15] SD1.5 TDM at 512² (dmd, batch {SD15_B}, bf16, AdamW, gradient "
+          f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
+          f"unprofiled (steps 2 and 4; {3600 / per_step:.0f} iters/hour), first step "
+          f"{steps[0]['host_s']:.3f} s, profiled step 3 {steps[2]['host_s']:.3f} s; peak "
+          f"memory {peak_gb:.2f} GiB; launches per step {SD15_TRAIN_LAUNCHES} (checked); "
+          f"step 2 CUDA-event span {span:.1f} ms, step 3 device busy "
+          + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
+          + f", {steps[2].get('all_launches')} device launches; export: rank-32 kohya LoRA "
+          f"of {pieces} kernels ({3 * pieces} keys) in {export['s']:.2f} s; validation "
+          f"grids checked; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB checkpoint",
+          flush=True)
+    return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
+            "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb, "idle_share": idle,
+            "busy_ms": busy, "event_span_ms": span,
+            "all_launches_per_step": steps[2].get("all_launches"),
+            "flash_kernels_by_template": by_dim, "launches": launches,
+            "launches_per_step": SD15_TRAIN_LAUNCHES, "load_s": load_s, "load": load_times,
+            "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces},
+            "checkpoint_gb": ckpt_gb, "main_s": total_s, "remat_check": remat,
+            "steps": steps}
+
+
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
               "bound_ms", "bound_by")
 
@@ -3035,7 +3463,7 @@ def kernel_row(name, source, replaces, launches, rec, per, resources, sd3_launch
 
 
 PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers",
-          "train_sd3", "sd15")
+          "train_sd3", "sd15", "train_sd15")
 
 
 def main(argv=None) -> int:
@@ -3070,6 +3498,7 @@ def main(argv=None) -> int:
             phase_reference(torch, args.seed)
             phase_reference_train(torch, args.seed)
             phase_reference_train_sd3(torch, args.seed)
+            phase_reference_train_sd15(torch, args.seed)
             phase_reference_sd3(torch, args.seed, workdir)
         if "serve" in phases:
             serve = phase_serve(torch, args.seed, workdir)
@@ -3085,6 +3514,8 @@ def main(argv=None) -> int:
             train_sd3 = phase_train_sd3(torch, args.seed, workdir)
         if "sd15" in phases:
             sd15 = phase_sd15(torch, args.seed, workdir)
+        if "train_sd15" in phases:
+            train_sd15 = phase_train_sd15(torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3107,7 +3538,14 @@ def main(argv=None) -> int:
 
     def by_path(wrapper):
         return {"train": train["launches"][wrapper],
-                "train_sd3": train_sd3["launches"][wrapper]}
+                "train_sd3": train_sd3["launches"][wrapper],
+                "train_sd15": train_sd15["launches"][wrapper]}
+
+    def sd15_train(rec, wrapper):
+        return {"sd15_train": {
+            "launches_per_step": SD15_TRAIN_LAUNCHES[wrapper],
+            "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in rec["shapes"]
+                       if r["group"] == "sd15_train"]}}
 
     def bf16_kernels(lib, suffix=""):
         return {fn: r for fn, r in res[lib].items()
@@ -3127,23 +3565,29 @@ def main(argv=None) -> int:
                     "launches_by_head_dim": sd15["launches_by_head_dim"],
                     "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in kern["shapes"]
                                if r["group"] == "sd15"]},
-           "dynamic_smem": build["dynamic_smem"]["flash_fwd"]},
+           "dynamic_smem": build["dynamic_smem"]["flash_fwd"]}
+        | sd15_train(kern, "flash_attention_fwd"),
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
                    "tdm_tpu/ops/attention.py:291", train["launches"]["flash_attention_fwd_lse"],
                    kt["flash_fwd_lse"],
                    per_block + "; library = SDPA forward on inputs that require grad",
                    bf16_kernels("flash_fwd", ",1>"), sd3_step["flash_attention_fwd_lse"])
-        | {"launches_by_path": by_path("flash_attention_fwd_lse")},
+        | {"launches_by_path": by_path("flash_attention_fwd_lse")}
+        | sd15_train(kt["flash_fwd_lse"], "flash_attention_fwd_lse"),
         kernel_row("flash_bwd_dq", "tdm_tpu_torch/csrc/flash_bwd_dq.cu",
                    "tdm_tpu/ops/attention.py:600", train["launches"]["flash_attention_bwd_dq"],
                    kt["flash_bwd_dq"], per_block + no_lib, bf16_kernels("flash_bwd_dq"),
                    sd3_step["flash_attention_bwd_dq"])
-        | {"launches_by_path": by_path("flash_attention_bwd_dq")},
+        | {"launches_by_path": by_path("flash_attention_bwd_dq"),
+           "dynamic_smem": build["dynamic_smem"]["flash_bwd_dq"]}
+        | sd15_train(kt["flash_bwd_dq"], "flash_attention_bwd_dq"),
         kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
                    "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
                    kt["flash_bwd_dkv"], per_block + no_lib, bf16_kernels("flash_bwd_dkv"),
                    sd3_step["flash_attention_bwd_dkv"])
-        | {"launches_by_path": by_path("flash_attention_bwd_dkv")},
+        | {"launches_by_path": by_path("flash_attention_bwd_dkv"),
+           "dynamic_smem": build["dynamic_smem"]["flash_bwd_dkv"]}
+        | sd15_train(kt["flash_bwd_dkv"], "flash_attention_bwd_dkv"),
         {"name": "splash_fwd", "route": "cuda", "source": "tdm_tpu_torch/csrc/splash_fwd.cu",
          "replaces": "tdm_tpu/ops/attention.py:153", "launches": sd3["launches"],
          "launches_per_batch": sd3["launches_per_batch"],
@@ -3160,7 +3604,8 @@ def main(argv=None) -> int:
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
-                      "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15}))
+                      "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,
+                      "train_sd15": train_sd15}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -5,8 +5,8 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
 
   schedule tables → student / critic / teacher parameters (the teacher
   from --pretrained_model_name_or_path when that is a directory of the
-  diffusers transformer's safetensors, a checkout's `transformer/`, else
-  seeded; with --train_lora_rank the student is a LoRA over the frozen
+  diffusers denoiser's safetensors, a checkout's `transformer/` or
+  `unet/`, else seeded; with --train_lora_rank the student is a LoRA over the frozen
   teacher) → clip → AdamW or 8-bit Adam, under --gradient_accumulation_steps
   → prompt data (an embedding cache from $TDM_EMBEDDING_CACHE, with SD3's
   pooled vectors when it has them; else hash pseudo-embeddings of the
@@ -19,16 +19,19 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
   LoRA `tdm_lora.safetensors`: the trained factors in LoRA mode, else the
   truncated SVD of student − teacher at --export_lora_rank (0 skips it).
 
---model_family pixart (PixArt-α) or sd3 (SD3-Medium under the shifted flow
-schedule, conditioned on T5 tokens and the pooled CLIP vector; a full-size
-sd3 run whose data has no pooled vectors is refused with ValueError before
-any model is built, unless --allow_pooled_standin). Runs on CUDA unless
-`--device cpu` is given, and logs the peak device memory at the end on
-CUDA; `TDM_TINY_MODEL=1` swaps in the tiny config. Refused before the
-first step, each naming its ROADMAP slice: --fsdp/--tp/--pp/--sp/--ep > 1
-(slice 6), --push_to_hub (slice 7), --quant_forwards (slice 4),
---model_family sd15 (slice 4) and cogvideox (slice 5), --moe_experts
-(slice 6).
+--model_family pixart (PixArt-α), sd15 (the SD1.5 UNet under the
+scaled-linear schedule, conditioned on CLIP-L tokens; the teacher directory
+is the `unet/` folder of an SD1.5 diffusers checkout) or sd3 (SD3-Medium
+under the shifted flow schedule, conditioned on T5 tokens and the pooled
+CLIP vector; a full-size sd3 run whose data has no pooled vectors is
+refused with ValueError before any model is built, unless
+--allow_pooled_standin). Runs on CUDA unless `--device cpu` is given, and
+logs the peak device memory at the end on CUDA; fp32 products run in full
+fp32 unless --allow_tf32; `TDM_TINY_MODEL=1` swaps in the tiny config.
+Refused before the first step, each naming its ROADMAP slice:
+--fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
+--quant_forwards (slice 4), --model_family cogvideox (slice 5),
+--moe_experts (slice 6).
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = No
 def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.data import prompts as data_prompts, tokenizer as tok_lib
-    from tdm_tpu_torch.device import resolve_device
+    from tdm_tpu_torch.device import resolve_device, set_fp32_precision
     from tdm_tpu_torch.io import from_jax, params as params_io
     from tdm_tpu_torch.train import families, optim as topt, tdm, validation
     from tdm_tpu_torch.utils import checkpoint as ckpt_lib, config as cfg_lib
@@ -94,6 +97,8 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     cfg = cfg_lib.parse_args(argv)
     refuse_unported(cfg)
     device = resolve_device(cfg.device)
+    # fp32 products in full fp32 unless --allow_tf32 (reference src/main.py:197-198)
+    set_fp32_precision(cfg.allow_tf32)
     out_dir = cfg.resolved_output_dir()
     logger = log_lib.setup_logging()
     logger.info("config: %s", cfg)

@@ -54,14 +54,22 @@
 //     descriptors; P and dS never go through shared memory;
 //   * the epilogue rounds dK and dV to bf16 into the warpgroup's K and V
 //     rows (by then unused) and stores them with TMA, which clips keys >= Sk
-//     and columns >= D.
+//     and columns >= D;
+//   * SD1.5's D = 160 reads three head-dim panels (64, 64 and 32 columns, the
+//     last with the 64-byte swizzle; D = 136 zero-filled to 160). There dK
+//     and dV take 80 fp32 registers a thread each, beside S^T and dP^T (32
+//     each): 224 before any fragment or address. So DP = 160 runs two
+//     launches over the same grid, a dV pass (S^T, P^T, dV += P^T dO) and a
+//     dK pass (S^T and dP^T, dS^T, dK += dS^T Q), each holding one of the
+//     two accumulators; S^T is computed in both, and K, Q and dO are read
+//     twice.
 // The (batch, head) pairs and key tiles share grid x, so B*H has no cap
 // below 2^31 / (key tiles).
 //
 // Layout: q/dO [B,H,Sq,D], k/v/dK/dV [B,H,Sk,D], contiguous; bias [B,Sk] fp32
-// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 128 and
+// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 160 and
 // 16-byte aligned bases (the wrapper zero-pads D); fp32 goes through a
-// scalar-FMA kernel and takes any D in [1,128]. C interface (ctypes):
+// scalar-FMA kernel and takes any D in [1,160]. C interface (ctypes):
 // tdm_flash_bwd_dkv returns a cudaError_t code.
 
 #include <math.h>
@@ -73,26 +81,34 @@ namespace {
 
 constexpr int kBQ = 64;  // query rows per Q/dO tile
 
+// What one launch accumulates: dK and dV together, or at DP = 160 one of
+// them (a dV pass, then a dK pass)
+constexpr int kBoth = 0, kDvPass = 1, kDkPass = 2;
+
 // ---------------------------------------------------------------------------
 // bf16: the wgmma/TMA kernel
 // ---------------------------------------------------------------------------
 
 // The CTA at padded head dim DP with NWG consumer warpgroups, and its shared
 // memory in bytes from a 1024-aligned base: the K and V tiles [kBM rows],
-// each as panel 0 (64 columns) then panel 1 (W1 columns); per stage a Q and
-// a dO tile [kBQ rows] laid out the same way; per stage the lse and delta
-// slots [kBQ each]; the mbarriers.
+// each as panel 0 (64 columns) then panel 1 (W1 columns) and panel 2 (W2
+// columns); per stage a Q and a dO tile [kBQ rows] laid out the same way;
+// per stage the lse and delta slots [kBQ each]; the mbarriers.
 template <int DP, int NWG>
 struct DkvLayout {
-  static_assert(DP == 64 || DP == 80 || DP == 128, "padded head dim is 64, 80 or 128");
+  static_assert(DP == 64 || DP == 80 || DP == 128 || DP == 160,
+                "padded head dim is 64, 80, 128 or 160");
   static_assert(NWG == 1 || NWG == 2, "one or two consumer warpgroups");
   static constexpr int kBM = NWG * sm90::kWgRows;  // key rows per CTA
   static constexpr int kThreads = NWG * 128;
-  static constexpr int W1 = DP - 64;
+  static constexpr int W1 = DP == 160 ? 64 : DP - 64;  // second panel's width (0: none)
+  static constexpr int W2 = DP - 64 - W1;              // third panel's width (0: none)
   static constexpr int kRows = kBM * DP * 2;  // the K or the V tile
   static constexpr int kP1 = kBM * 64 * 2;    // panel 1 within it
+  static constexpr int kP2 = kP1 + kBM * W1 * 2;  // panel 2 within it
   static constexpr int kK = 0, kV = kRows;
   static constexpr int kTile = kBQ * DP * 2;  // one Q or dO tile
+  static constexpr int kTP2 = kBQ * (64 + W1) * 2;  // panel 2 within a Q or dO tile
   static constexpr int kStage0 = 2 * kRows;
   // Up to 6 stages with two warpgroups (one CTA an SM either way); up to 4
   // with one, so that two CTAs fit an SM (with one, at 6 stages, the self
@@ -107,13 +123,13 @@ struct DkvLayout {
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
 
-// One 3-D map [D, S, B*H] per head-dim panel, box [64 or W1 columns,
+// One 3-D map [D, S, B*H] per head-dim panel, box [64, W1 or W2 columns,
 // kWgRows rows] (kBQ = kWgRows).
 struct DkvMaps {
-  CUtensorMap q[2], dout[2], k[2], v[2], dk[2], dv[2];
+  CUtensorMap q[3], dout[3], k[3], v[3], dk[3], dv[3];
 };
 
-template <int DP, int NWG>
+template <int DP, int NWG, int PASS>
 __global__ void __launch_bounds__(DkvLayout<DP, NWG>::kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __restrict__ bias,
                           const float* __restrict__ lse, const float* __restrict__ delta, int H,
@@ -121,7 +137,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
   using namespace sm90;
   using L = DkvLayout<DP, NWG>;
   constexpr int W1 = L::W1;
+  constexpr int W2 = L::W2;
   constexpr int NST = L::kStages;
+  constexpr bool kDV = PASS != kDkPass, kDK = PASS != kDvPass;
   static_assert(kBQ == kWgRows, "Q/dO tiles and K/V rows share the box height");
 
   extern __shared__ unsigned char smem_raw[];
@@ -174,6 +192,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
         tma_load_3d(qt + kBQ * 128, &maps.q[1], &full[s], 64, q0, bh);
         tma_load_3d(dt + kBQ * 128, &maps.dout[1], &full[s], 64, q0, bh);
       }
+      if (W2) {
+        tma_load_3d(qt + L::kTP2, &maps.q[2], &full[s], 64 + W1, q0, bh);
+        tma_load_3d(dt + L::kTP2, &maps.dout[2], &full[s], 64 + W1, q0, bh);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -196,6 +218,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
           tma_load_3d(base + L::kV + L::kP1 + w * kWgRows * W1 * 2, &maps.v[1], kv_full, 64,
                       row, bh);
         }
+        if (W2) {
+          tma_load_3d(base + L::kK + L::kP2 + w * kWgRows * W2 * 2, &maps.k[2], kv_full,
+                      64 + W1, row, bh);
+          tma_load_3d(base + L::kV + L::kP2 + w * kWgRows * W2 * 2, &maps.v[2], kv_full,
+                      64 + W1, row, bh);
+        }
       }
     }
     for (int j = 0; j < NST && j < n_tiles; ++j) {
@@ -216,13 +244,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
   const uint32_t k_p1 = base + L::kK + L::kP1 + wg * kWgRows * W1 * 2;
   const uint32_t v_p0 = base + L::kV + wg * kWgRows * 128;
   const uint32_t v_p1 = base + L::kV + L::kP1 + wg * kWgRows * W1 * 2;
+  const uint32_t k_p2 = base + L::kK + L::kP2 + wg * kWgRows * W2 * 2;
+  const uint32_t v_p2 = base + L::kV + L::kP2 + wg * kWgRows * W2 * 2;
 
   float dk0[32], dv0[32];
   float dk1[W1 ? W1 / 2 : 1], dv1[W1 ? W1 / 2 : 1];
+  float dk2[W2 ? W2 / 2 : 1], dv2[W2 ? W2 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk0[i] = dv0[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (W1 ? W1 / 2 : 1); ++i) dk1[i] = dv1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (W2 ? W2 / 2 : 1); ++i) dk2[i] = dv2[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -237,16 +270,17 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
     mbar_wait(&full[s], (j / NST) & 1);
     const uint32_t qt = base + L::kStage0 + s * 2 * L::kTile, dt = qt + L::kTile;
 
-    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, one commit group
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, one commit
+    // group (the dV pass needs no dP^T)
     float st[32], dpt[32];
     wgmma_fence();
-    product_abt<DP>(st, k_p0, k_p1, qt);
-    product_abt<DP>(dpt, v_p0, v_p1, dt);
+    product_abt<DP>(st, k_p0, k_p1, qt, k_p2);
+    if constexpr (kDK) product_abt<DP>(dpt, v_p0, v_p1, dt, v_p2);
     wgmma_commit_and_wait();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       fence_operand(st[i]);
-      fence_operand(dpt[i]);
+      if constexpr (kDK) fence_operand(dpt[i]);
     }
 
     // P^T (kept in st) and dS^T = P^T (dP^T - delta) (kept in dpt): the key
@@ -257,15 +291,17 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
     for (int n = 0; n < 8; ++n) {
       const int c = n * 8 + t * 2;
       const float2 la = *reinterpret_cast<const float2*>(&l2[c]);
-      const float2 da = *reinterpret_cast<const float2*>(&dl[c]);
       st[4 * n + 0] = exp2_approx(fmaf(st[4 * n + 0], kLog2e, b2_0 - la.x));
       st[4 * n + 1] = exp2_approx(fmaf(st[4 * n + 1], kLog2e, b2_0 - la.y));
       st[4 * n + 2] = exp2_approx(fmaf(st[4 * n + 2], kLog2e, b2_1 - la.x));
       st[4 * n + 3] = exp2_approx(fmaf(st[4 * n + 3], kLog2e, b2_1 - la.y));
-      dpt[4 * n + 0] = st[4 * n + 0] * (dpt[4 * n + 0] - da.x);
-      dpt[4 * n + 1] = st[4 * n + 1] * (dpt[4 * n + 1] - da.y);
-      dpt[4 * n + 2] = st[4 * n + 2] * (dpt[4 * n + 2] - da.x);
-      dpt[4 * n + 3] = st[4 * n + 3] * (dpt[4 * n + 3] - da.y);
+      if constexpr (kDK) {
+        const float2 da = *reinterpret_cast<const float2*>(&dl[c]);
+        dpt[4 * n + 0] = st[4 * n + 0] * (dpt[4 * n + 0] - da.x);
+        dpt[4 * n + 1] = st[4 * n + 1] * (dpt[4 * n + 1] - da.y);
+        dpt[4 * n + 2] = st[4 * n + 2] * (dpt[4 * n + 2] - da.x);
+        dpt[4 * n + 3] = st[4 * n + 3] * (dpt[4 * n + 3] - da.y);
+      }
     }
     // P^T and dS^T rounded to bf16 in the A-operand layout (two adjacent
     // 8-query column blocks form one 16-query step)
@@ -274,27 +310,45 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
-        sa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+        if constexpr (kDV) pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+        if constexpr (kDK) sa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
       }
     }
     // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      fence_operand(dk0[i]);
-      fence_operand(dv0[i]);
+      if constexpr (kDK) fence_operand(dk0[i]);
+      if constexpr (kDV) fence_operand(dv0[i]);
+    }
+    if constexpr (W2 != 0) {
+#pragma unroll
+      for (int i = 0; i < W1 / 2; ++i) {
+        if constexpr (kDK) fence_operand(dk1[i]);
+        if constexpr (kDV) fence_operand(dv1[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < W2 / 2; ++i) {
+        if constexpr (kDK) fence_operand(dk2[i]);
+        if constexpr (kDV) fence_operand(dv2[i]);
+      }
     }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs_n64(dv0, pa[kk], panel_desc<64>(dt + kk * 16 * 128));
-      wgmma_rs_n64(dk0, sa[kk], panel_desc<64>(qt + kk * 16 * 128));
+      if constexpr (kDV) wgmma_rs_n64(dv0, pa[kk], panel_desc<64>(dt + kk * 16 * 128));
+      if constexpr (kDK) wgmma_rs_n64(dk0, sa[kk], panel_desc<64>(qt + kk * 16 * 128));
       if constexpr (W1 == 16) {
         wgmma_rs_n16(dv1, pa[kk], panel_desc<16>(dt + kBQ * 128 + kk * 16 * 32));
         wgmma_rs_n16(dk1, sa[kk], panel_desc<16>(qt + kBQ * 128 + kk * 16 * 32));
       } else if constexpr (W1 == 64) {
-        wgmma_rs_n64(dv1, pa[kk], panel_desc<64>(dt + kBQ * 128 + kk * 16 * 128));
-        wgmma_rs_n64(dk1, sa[kk], panel_desc<64>(qt + kBQ * 128 + kk * 16 * 128));
+        if constexpr (kDV)
+          wgmma_rs_n64(dv1, pa[kk], panel_desc<64>(dt + kBQ * 128 + kk * 16 * 128));
+        if constexpr (kDK)
+          wgmma_rs_n64(dk1, sa[kk], panel_desc<64>(qt + kBQ * 128 + kk * 16 * 128));
+      }
+      if constexpr (W2 == 32) {
+        if constexpr (kDV) wgmma_rs_n32(dv2, pa[kk], panel_desc<32>(dt + L::kTP2 + kk * 16 * 64));
+        if constexpr (kDK) wgmma_rs_n32(dk2, sa[kk], panel_desc<32>(qt + L::kTP2 + kk * 16 * 64));
       }
     }
     wgmma_commit_and_wait();
@@ -302,13 +356,25 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        fence_operand(pa[kk][e]);
-        fence_operand(sa[kk][e]);
+        if constexpr (kDV) fence_operand(pa[kk][e]);
+        if constexpr (kDK) fence_operand(sa[kk][e]);
       }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      fence_operand(dk0[i]);
-      fence_operand(dv0[i]);
+      if constexpr (kDK) fence_operand(dk0[i]);
+      if constexpr (kDV) fence_operand(dv0[i]);
+    }
+    if constexpr (W2 != 0) {
+#pragma unroll
+      for (int i = 0; i < W1 / 2; ++i) {
+        if constexpr (kDK) fence_operand(dk1[i]);
+        if constexpr (kDV) fence_operand(dv1[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < W2 / 2; ++i) {
+        if constexpr (kDK) fence_operand(dk2[i]);
+        if constexpr (kDV) fence_operand(dv2[i]);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
@@ -321,12 +387,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + t * 2;
-    *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r0, c)) = pack_bf16(dk0[4 * n], dk0[4 * n + 1]);
-    *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r1, c)) =
-        pack_bf16(dk0[4 * n + 2], dk0[4 * n + 3]);
-    *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r0, c)) = pack_bf16(dv0[4 * n], dv0[4 * n + 1]);
-    *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r1, c)) =
-        pack_bf16(dv0[4 * n + 2], dv0[4 * n + 3]);
+    if constexpr (kDK) {
+      *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r0, c)) =
+          pack_bf16(dk0[4 * n], dk0[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(ks0 + swizzled<64>(r1, c)) =
+          pack_bf16(dk0[4 * n + 2], dk0[4 * n + 3]);
+    }
+    if constexpr (kDV) {
+      *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r0, c)) =
+          pack_bf16(dv0[4 * n], dv0[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(vs0 + swizzled<64>(r1, c)) =
+          pack_bf16(dv0[4 * n + 2], dv0[4 * n + 3]);
+    }
   }
   if constexpr (W1 != 0) {
     unsigned char* ks1 = smem + L::kK + L::kP1 + wg * kWgRows * W1 * 2;
@@ -334,28 +406,69 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvMaps maps, const float* __r
 #pragma unroll
     for (int n = 0; n < W1 / 8; ++n) {
       const int c = n * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r0, c)) =
-          pack_bf16(dk1[4 * n], dk1[4 * n + 1]);
-      *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r1, c)) =
-          pack_bf16(dk1[4 * n + 2], dk1[4 * n + 3]);
-      *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r0, c)) =
-          pack_bf16(dv1[4 * n], dv1[4 * n + 1]);
-      *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r1, c)) =
-          pack_bf16(dv1[4 * n + 2], dv1[4 * n + 3]);
+      if constexpr (kDK) {
+        *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r0, c)) =
+            pack_bf16(dk1[4 * n], dk1[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(ks1 + swizzled<W1>(r1, c)) =
+            pack_bf16(dk1[4 * n + 2], dk1[4 * n + 3]);
+      }
+      if constexpr (kDV) {
+        *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r0, c)) =
+            pack_bf16(dv1[4 * n], dv1[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(vs1 + swizzled<W1>(r1, c)) =
+            pack_bf16(dv1[4 * n + 2], dv1[4 * n + 3]);
+      }
+    }
+  }
+  if constexpr (W2 != 0) {
+    unsigned char* ks2 = smem + L::kK + L::kP2 + wg * kWgRows * W2 * 2;
+    unsigned char* vs2 = smem + L::kV + L::kP2 + wg * kWgRows * W2 * 2;
+#pragma unroll
+    for (int n = 0; n < W2 / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      if constexpr (kDK) {
+        *reinterpret_cast<uint32_t*>(ks2 + swizzled<W2>(r0, c)) =
+            pack_bf16(dk2[4 * n], dk2[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(ks2 + swizzled<W2>(r1, c)) =
+            pack_bf16(dk2[4 * n + 2], dk2[4 * n + 3]);
+      }
+      if constexpr (kDV) {
+        *reinterpret_cast<uint32_t*>(vs2 + swizzled<W2>(r0, c)) =
+            pack_bf16(dv2[4 * n], dv2[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(vs2 + swizzled<W2>(r1, c)) =
+            pack_bf16(dv2[4 * n + 2], dv2[4 * n + 3]);
+      }
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
   if (warp == 0 && lane == 0) {
     const int row = k0 + wg * kWgRows;
-    tma_store_3d(&maps.dk[0], k_p0, 0, row, bh);
-    tma_store_3d(&maps.dv[0], v_p0, 0, row, bh);
+    if (kDK) tma_store_3d(&maps.dk[0], k_p0, 0, row, bh);
+    if (kDV) tma_store_3d(&maps.dv[0], v_p0, 0, row, bh);
     if (W1) {
-      tma_store_3d(&maps.dk[1], k_p1, 64, row, bh);
-      tma_store_3d(&maps.dv[1], v_p1, 64, row, bh);
+      if (kDK) tma_store_3d(&maps.dk[1], k_p1, 64, row, bh);
+      if (kDV) tma_store_3d(&maps.dv[1], v_p1, 64, row, bh);
+    }
+    if (W2) {
+      if (kDK) tma_store_3d(&maps.dk[2], k_p2, 64 + W1, row, bh);
+      if (kDV) tma_store_3d(&maps.dv[2], v_p2, 64 + W1, row, bh);
     }
     tma_store_commit_and_wait();
   }
+}
+
+template <int DP, int NWG, int PASS>
+cudaError_t launch_pass(const DkvMaps& maps, const float* bias, const float* lse,
+                        const float* delta, int BH, int H, int Sq, int Sk, int k_tiles,
+                        cudaStream_t stream) {
+  using L = DkvLayout<DP, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<DP, NWG, PASS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_sm90_kernel<DP, NWG, PASS><<<BH * k_tiles, L::kThreads, L::kAlloc, stream>>>(
+      maps, bias, lse, delta, H, Sq, Sk, k_tiles);
+  return cudaGetLastError();
 }
 
 template <int DP, int NWG>
@@ -371,8 +484,8 @@ cudaError_t launch_bf16_groups(const void* q, const void* k, const void* v, cons
   if (err != cudaSuccess) return err;
   DkvMaps maps;
   bool ok = true;
-  for (int p = 0; p < (L::W1 ? 2 : 1); ++p) {
-    const int w = p == 0 ? 64 : L::W1;
+  for (int p = 0; p < 1 + (L::W1 > 0) + (L::W2 > 0); ++p) {
+    const int w = p == 0 ? 64 : p == 1 ? L::W1 : L::W2;
     ok = ok && encode_panel(&maps.q[p], q, D, Sq, BH, w, kWgRows) &&
          encode_panel(&maps.dout[p], dout, D, Sq, BH, w, kWgRows) &&
          encode_panel(&maps.k[p], k, D, Sk, BH, w, kWgRows) &&
@@ -381,12 +494,13 @@ cudaError_t launch_bf16_groups(const void* q, const void* k, const void* v, cons
          encode_panel(&maps.dv[p], dv, D, Sk, BH, w, kWgRows);
   }
   if (!ok) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<DP, NWG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_sm90_kernel<DP, NWG><<<BH * k_tiles, L::kThreads, L::kAlloc, stream>>>(
-      maps, bias, lse, delta, H, Sq, Sk, k_tiles);
-  return cudaGetLastError();
+  if constexpr (DP == 160) {  // a dV pass, then a dK pass
+    err = launch_pass<DP, NWG, kDvPass>(maps, bias, lse, delta, BH, H, Sq, Sk, k_tiles, stream);
+    if (err != cudaSuccess) return err;
+    return launch_pass<DP, NWG, kDkPass>(maps, bias, lse, delta, BH, H, Sq, Sk, k_tiles, stream);
+  } else {
+    return launch_pass<DP, NWG, kBoth>(maps, bias, lse, delta, BH, H, Sq, Sk, k_tiles, stream);
+  }
 }
 
 // Two warpgroups when the grid of 128-key CTAs covers the card's SMs, else
@@ -513,7 +627,7 @@ extern "C" {
 int tdm_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                       const void* dout, const float* lse, const float* delta, void* dk, void* dv,
                       int batch, int heads, int sq, int sk, int d, int dtype, void* stream) {
-  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 160 ||
       (long long)batch * heads > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -527,11 +641,17 @@ int tdm_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* 
     if (d <= 80)
       return (int)launch_bf16<80>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
                                   s);
-    return (int)launch_bf16<128>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
+    if (d <= 128)
+      return (int)launch_bf16<128>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk,
+                                   d, s);
+    return (int)launch_bf16<160>(q, k, v, bias, dout, lse, delta, dk, dv, bh, heads, sq, sk, d,
                                  s);
   }
   if (dtype == 0) {
     if ((sk + kFR - 1) / kFR > 65535) return (int)cudaErrorInvalidValue;
+    if (d > 128)  // 40 columns a lane: the fp32 sweep above 128
+      return (int)LaunchF32<40>::run(q, k, v, bias, dout, lse, delta, dk, dv, batch, heads, sq,
+                                     sk, d, s);
     return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, dout, lse, delta, dk, dv, batch,
                                              heads, sq, sk, d, s);
   }
@@ -545,8 +665,12 @@ int tdm_flash_bwd_dkv(const void* q, const void* k, const void* v, const float* 
 // memory only).
 extern "C" int tdm_flash_bwd_dkv_smem_bytes(int d, int groups) {
   if (groups == 2)
-    return d <= 64 ? DkvLayout<64, 2>::kAlloc : d <= 80 ? DkvLayout<80, 2>::kAlloc
-                                                          : DkvLayout<128, 2>::kAlloc;
-  return d <= 64 ? DkvLayout<64, 1>::kAlloc : d <= 80 ? DkvLayout<80, 1>::kAlloc
-                                                        : DkvLayout<128, 1>::kAlloc;
+    return d <= 64    ? DkvLayout<64, 2>::kAlloc
+           : d <= 80  ? DkvLayout<80, 2>::kAlloc
+           : d <= 128 ? DkvLayout<128, 2>::kAlloc
+                      : DkvLayout<160, 2>::kAlloc;
+  return d <= 64    ? DkvLayout<64, 1>::kAlloc
+         : d <= 80  ? DkvLayout<80, 1>::kAlloc
+         : d <= 128 ? DkvLayout<128, 1>::kAlloc
+                    : DkvLayout<160, 1>::kAlloc;
 }

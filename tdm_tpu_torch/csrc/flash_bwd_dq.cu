@@ -42,8 +42,15 @@
 //     MN-major through the descriptor's transpose bit (the forward reads V
 //     so): K is staged once;
 //   * the head dim lives in panels (64 columns with the 128-byte swizzle, 16
-//     with the 32-byte swizzle for D = 72 -> 80, or a second 64); TMA
-//     zero-fills past D and past S;
+//     with the 32-byte swizzle for D = 72 -> 80, or a second 64, or for
+//     SD1.5's D = 160 a second 64 and a third of 32 with the 64-byte
+//     swizzle, D = 136 zero-filled to 160); TMA zero-fills past D and past S;
+//   * at DP = 160 dQ alone takes 80 fp32 registers a thread beside S and dP
+//     (32 each). Under two consumer warpgroups and a producer (384 threads)
+//     ptxas caps a thread at 168 registers, so DP = 160 runs one consumer
+//     warpgroup of 64 query rows beside the producer (256 threads, up to 255
+//     registers, no setmaxnreg); the smaller row tiles leave room for four
+//     stages of the ring;
 //   * the epilogue scales dQ, rounds it to bf16 into the warpgroup's Q rows
 //     (by then unused) and stores it with TMA, which clips rows >= Sq and
 //     columns >= D.
@@ -51,10 +58,10 @@
 // below 2^31 / (query tiles).
 //
 // Layout: q/dO/O/dQ [B,H,Sq,D], k/v [B,H,Sk,D], contiguous; bias [B,Sk] fp32
-// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 128 and
+// or null; lse and delta [B,H,Sq] fp32. bf16 takes D % 8 == 0, D <= 160 and
 // 16-byte aligned bases (the wrapper zero-pads D); fp32 goes through a
 // scalar-FMA kernel that fuses delta the same way and takes any D in
-// [1,128]. C interface (ctypes): tdm_flash_bwd_dq returns a cudaError_t code.
+// [1,160]. C interface (ctypes): tdm_flash_bwd_dq returns a cudaError_t code.
 
 #include <math.h>
 
@@ -74,19 +81,24 @@ constexpr int kBN = 64;
 
 // The CTA at padded head dim DP, and its shared memory in bytes from a
 // 1024-aligned base: the Q, dO and O tiles [kBM rows], each as panel 0 (64
-// columns) then panel 1 (W1 columns); per stage a K and a V tile [kBN rows]
-// laid out the same way; the bias slots; the mbarriers.
+// columns) then panel 1 (W1 columns) and panel 2 (W2 columns); per stage a
+// K and a V tile [kBN rows] laid out the same way; the bias slots; the
+// mbarriers.
 template <int DP>
 struct DqLayout {
-  static_assert(DP == 64 || DP == 80 || DP == 128, "padded head dim is 64, 80 or 128");
-  static constexpr int kGroups = 2;                    // consumer warpgroups
+  static_assert(DP == 64 || DP == 80 || DP == 128 || DP == 160,
+                "padded head dim is 64, 80, 128 or 160");
+  static constexpr int kGroups = DP == 160 ? 1 : 2;    // consumer warpgroups
   static constexpr int kBM = kGroups * sm90::kWgRows;  // query rows per CTA
   static constexpr int kThreads = (kGroups + 1) * 128;
-  static constexpr int W1 = DP - 64;
+  static constexpr int W1 = DP == 160 ? 64 : DP - 64;  // second panel's width (0: none)
+  static constexpr int W2 = DP - 64 - W1;              // third panel's width (0: none)
   static constexpr int kRows = kBM * DP * 2;  // one row tile
   static constexpr int kP1 = kBM * 64 * 2;    // panel 1 within a row tile
+  static constexpr int kP2 = kP1 + kBM * W1 * 2;  // panel 2 within a row tile
   static constexpr int kQ = 0, kDO = kRows, kO = 2 * kRows;
   static constexpr int kTile = kBN * DP * 2;  // one K or V tile
+  static constexpr int kTP2 = kBN * (64 + W1) * 2;  // panel 2 within a K or V tile
   static constexpr int kStage0 = 3 * kRows;
   static constexpr int kFit = (232448 - 2048 - kStage0) / (2 * kTile + kBN * 4);
   static constexpr int kStages = kFit > 4 ? 4 : kFit;
@@ -97,10 +109,10 @@ struct DqLayout {
   static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
 };
 
-// One 3-D map [D, S, B*H] per head-dim panel: box [64 or W1 columns,
+// One 3-D map [D, S, B*H] per head-dim panel: box [64, W1 or W2 columns,
 // kWgRows rows] for the row tensors, [.., kBN rows] for k and v.
 struct DqMaps {
-  CUtensorMap q[2], dout[2], out[2], dq[2], k[2], v[2];
+  CUtensorMap q[3], dout[3], out[3], dq[3], k[3], v[3];
 };
 
 // The sum over this lane's column pairs (c = 8n + 2t) of row r of two bf16
@@ -110,7 +122,9 @@ __device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned 
                                          int t) {
   using sm90::swizzled;
   constexpr int W1 = DqLayout<DP>::W1;
+  constexpr int W2 = DqLayout<DP>::W2;
   constexpr int kP1 = DqLayout<DP>::kP1;
+  constexpr int kP2 = DqLayout<DP>::kP2;
   float acc = 0.f;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -130,6 +144,16 @@ __device__ __forceinline__ float row_dot(const unsigned char* a, const unsigned 
       acc = fmaf(x.y, y.y, acc);
     }
   }
+  if constexpr (W2 != 0) {
+#pragma unroll
+    for (int n = 0; n < W2 / 8; ++n) {
+      const uint32_t off = kP2 + swizzled<W2>(r, n * 8 + t * 2);
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + off));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + off));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
   return acc;
 }
 
@@ -141,6 +165,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
   using namespace sm90;
   using L = DqLayout<DP>;
   constexpr int W1 = L::W1;
+  constexpr int W2 = L::W2;
   constexpr int NST = L::kStages;
   constexpr int NWG = L::kGroups;
 
@@ -171,13 +196,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
 
   if (wg == NWG) {
     // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (warp != 0) return;
     if (lane == 0) {
       mbar_arrive_expect_tx(rows_full, 3 * L::kRows);
-      const CUtensorMap* srcs[3][2] = {{&maps.q[0], &maps.q[1]},
-                                       {&maps.dout[0], &maps.dout[1]},
-                                       {&maps.out[0], &maps.out[1]}};
+      const CUtensorMap* srcs[3][3] = {{&maps.q[0], &maps.q[1], &maps.q[2]},
+                                       {&maps.dout[0], &maps.dout[1], &maps.dout[2]},
+                                       {&maps.out[0], &maps.out[1], &maps.out[2]}};
       for (int x = 0; x < 3; ++x) {
         const uint32_t tile = base + x * L::kRows;
         for (int w = 0; w < NWG; ++w) {
@@ -186,6 +211,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
           if (W1)
             tma_load_3d(tile + L::kP1 + w * kWgRows * W1 * 2, srcs[x][1], rows_full, 64, row,
                         bh);
+          if (W2)
+            tma_load_3d(tile + L::kP2 + w * kWgRows * W2 * 2, srcs[x][2], rows_full, 64 + W1,
+                        row, bh);
         }
       }
     }
@@ -203,6 +231,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
           tma_load_3d(kt + kBN * 128, &maps.k[1], &full[s], 64, k0, bh);
           tma_load_3d(vt + kBN * 128, &maps.v[1], &full[s], 64, k0, bh);
         }
+        if (W2) {
+          tma_load_3d(kt + L::kTP2, &maps.k[2], &full[s], 64 + W1, k0, bh);
+          tma_load_3d(vt + L::kTP2, &maps.v[2], &full[s], 64 + W1, k0, bh);
+        }
       }
       for (int i = lane; i < kBN; i += 32) {
         const int key = k0 + i;
@@ -214,7 +246,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
   }
 
   // ---------------- consumers: 64 query rows per warpgroup ----------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g, r1 = r0 + 8;  // rows within this warpgroup's 64
   const int row0 = q0 + wg * kWgRows + r0, row1 = row0 + 8;
@@ -222,6 +254,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
   const uint32_t q_p1 = base + L::kQ + L::kP1 + wg * kWgRows * W1 * 2;
   const uint32_t do_p0 = base + L::kDO + wg * kWgRows * 128;
   const uint32_t do_p1 = base + L::kDO + L::kP1 + wg * kWgRows * W1 * 2;
+  const uint32_t q_p2 = base + L::kQ + L::kP2 + wg * kWgRows * W2 * 2;
+  const uint32_t do_p2 = base + L::kDO + L::kP2 + wg * kWgRows * W2 * 2;
   // the rows' lse in log2 units; +1e30 past Sq, so P = 0 there
   const float* lrow = lse + (size_t)bh * Sq;
   const float l2_0 = (row0 < Sq ? lrow[row0] : kLseMasked) * kLog2e;
@@ -245,10 +279,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
 
   float dq0[32];
   float dq1[W1 ? W1 / 2 : 1];
+  float dq2[W2 ? W2 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq0[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (W1 ? W1 / 2 : 1); ++i) dq1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (W2 ? W2 / 2 : 1); ++i) dq2[i] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % NST;
@@ -258,8 +295,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
     // S = Q K^T and dP = dO V^T: 64 rows x kBN keys each, one commit group
     float sc[kBN / 2], dp[kBN / 2];
     wgmma_fence();
-    product_abt<DP>(sc, q_p0, q_p1, kt);
-    product_abt<DP>(dp, do_p0, do_p1, vt);
+    product_abt<DP>(sc, q_p0, q_p1, kt, q_p2);
+    product_abt<DP>(dp, do_p0, do_p1, vt, do_p2);
     wgmma_commit_and_wait();
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) {
@@ -289,6 +326,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_operand(dq0[i]);
+    if constexpr (W2 != 0) {
+#pragma unroll
+      for (int i = 0; i < W1 / 2; ++i) fence_operand(dq1[i]);
+#pragma unroll
+      for (int i = 0; i < W2 / 2; ++i) fence_operand(dq2[i]);
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -297,6 +340,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
         wgmma_rs_n16(dq1, da[kk], panel_desc<16>(kt + kBN * 128 + kk * 16 * 32));
       else if constexpr (W1 == 64)
         wgmma_rs_n64(dq1, da[kk], panel_desc<64>(kt + kBN * 128 + kk * 16 * 128));
+      if constexpr (W2 == 32)
+        wgmma_rs_n32(dq2, da[kk], panel_desc<32>(kt + L::kTP2 + kk * 16 * 64));
     }
     wgmma_commit_and_wait();
 #pragma unroll
@@ -305,6 +350,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
       for (int e = 0; e < 4; ++e) fence_operand(da[kk][e]);
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_operand(dq0[i]);
+    if constexpr (W2 != 0) {
+#pragma unroll
+      for (int i = 0; i < W1 / 2; ++i) fence_operand(dq1[i]);
+#pragma unroll
+      for (int i = 0; i < W2 / 2; ++i) fence_operand(dq2[i]);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
@@ -331,12 +382,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqMaps maps, const float* __res
           pack_bf16(dq1[4 * n + 2] * scale, dq1[4 * n + 3] * scale);
     }
   }
+  if constexpr (W2 != 0) {
+    unsigned char* qs2 = smem + L::kQ + L::kP2 + wg * kWgRows * W2 * 2;
+#pragma unroll
+    for (int n = 0; n < W2 / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      *reinterpret_cast<uint32_t*>(qs2 + swizzled<W2>(r0, c)) =
+          pack_bf16(dq2[4 * n + 0] * scale, dq2[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(qs2 + swizzled<W2>(r1, c)) =
+          pack_bf16(dq2[4 * n + 2] * scale, dq2[4 * n + 3] * scale);
+    }
+  }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to TMA
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
   if (warp == 0 && lane == 0) {
     const int row = q0 + wg * kWgRows;
     tma_store_3d(&maps.dq[0], q_p0, 0, row, bh);
     if (W1) tma_store_3d(&maps.dq[1], q_p1, 64, row, bh);
+    if (W2) tma_store_3d(&maps.dq[2], q_p2, 64 + W1, row, bh);
     tma_store_commit_and_wait();
   }
 }
@@ -354,8 +417,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const float
   if (err != cudaSuccess) return err;
   DqMaps maps;
   bool ok = true;
-  for (int p = 0; p < (L::W1 ? 2 : 1); ++p) {
-    const int w = p == 0 ? 64 : L::W1;
+  for (int p = 0; p < 1 + (L::W1 > 0) + (L::W2 > 0); ++p) {
+    const int w = p == 0 ? 64 : p == 1 ? L::W1 : L::W2;
     ok = ok && encode_panel(&maps.q[p], q, D, Sq, BH, w, kWgRows) &&
          encode_panel(&maps.dout[p], dout, D, Sq, BH, w, kWgRows) &&
          encode_panel(&maps.out[p], out, D, Sq, BH, w, kWgRows) &&
@@ -480,7 +543,7 @@ int tdm_flash_bwd_dq(const void* q, const void* k, const void* v, const float* b
                      const void* dout, const void* out, const float* lse, float* delta, void* dq,
                      int batch, int heads, int sq, int sk, int d, float scale, int dtype,
                      void* stream) {
-  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 128 ||
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 160 ||
       (long long)batch * heads > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -494,11 +557,17 @@ int tdm_flash_bwd_dq(const void* q, const void* k, const void* v, const float* b
     if (d <= 80)
       return (int)launch_bf16<80>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
                                   scale, s);
-    return (int)launch_bf16<128>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
+    if (d <= 128)
+      return (int)launch_bf16<128>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk,
+                                   d, scale, s);
+    return (int)launch_bf16<160>(q, k, v, bias, dout, out, lse, delta, dq, bh, heads, sq, sk, d,
                                  scale, s);
   }
   if (dtype == 0) {
     if ((sq + kFR - 1) / kFR > 65535) return (int)cudaErrorInvalidValue;
+    if (d > 128)  // 40 columns a lane: the fp32 sweep above 128
+      return (int)LaunchF32<40>::run(q, k, v, bias, dout, out, lse, delta, dq, batch, heads, sq,
+                                     sk, d, scale, s);
     return (int)by_padded_dim_f32<LaunchF32>(d, q, k, v, bias, dout, out, lse, delta, dq, batch,
                                              heads, sq, sk, d, scale, s);
   }
@@ -510,7 +579,8 @@ int tdm_flash_bwd_dq(const void* q, const void* k, const void* v, const float* b
 // Dynamic shared memory of one bf16 CTA at head dim d (the -Xptxas -v
 // report counts static shared memory only).
 extern "C" int tdm_flash_bwd_dq_smem_bytes(int d) {
-  return d <= 64   ? DqLayout<64>::kAlloc
-         : d <= 80 ? DqLayout<80>::kAlloc
-                   : DqLayout<128>::kAlloc;
+  return d <= 64    ? DqLayout<64>::kAlloc
+         : d <= 80  ? DqLayout<80>::kAlloc
+         : d <= 128 ? DqLayout<128>::kAlloc
+                    : DqLayout<160>::kAlloc;
 }

@@ -5,8 +5,8 @@
 //   * wgmma (bf16 in, fp32 accumulate): SS with N = 128 or 64 (both operands
 //     K-major in swizzled shared memory), RS with N = 64, 32 or 16 (A in
 //     registers, B MN-major through the descriptor's transpose bit), and
-//     product_abt, A B^T of 64 by 64 rows over a padded head dim of 64, 80
-//     or 128;
+//     product_abt, A B^T of 64 by 64 rows over a padded head dim of 64, 80,
+//     128 or 160;
 //   * shared-memory matrix descriptors for 64-column panels (128-byte
 //     swizzle), 32-column panels (64-byte swizzle) and 16-column panels
 //     (32-byte swizzle), and the byte offset that swizzle gives an element
@@ -244,20 +244,27 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d = A B^T over the padded head dim DP (64, 80 or 128): A is 64 rows whose
-// panels start at a0 and a1, B a tile of 64 rows at b, both in the panel
-// layout (panel 0 of 64 columns, then panel 1 of DP - 64).
+// d = A B^T over the padded head dim DP (64, 80, 128 or 160): A is 64 rows
+// whose panels start at a0, a1 and a2, B a tile of 64 rows at b, both in
+// the panel layout (panel 0 of 64 columns, then panel 1 of DP - 64 columns,
+// or at DP = 160 panel 1 of 64 and panel 2 of 32 with the 64-byte swizzle).
 template <int DP>
-__device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t b) {
+__device__ __forceinline__ void product_abt(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t b,
+                                            uint32_t a2 = 0) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_ss_n64(d, panel_desc<64>(a0 + kk * 32), panel_desc<64>(b + kk * 32), kk > 0);
   if constexpr (DP == 80) {
     wgmma_ss_n64(d, panel_desc<16>(a1), panel_desc<16>(b + 64 * 128), 1);
-  } else if constexpr (DP == 128) {
+  } else if constexpr (DP == 128 || DP == 160) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_ss_n64(d, panel_desc<64>(a1 + kk * 32), panel_desc<64>(b + 64 * 128 + kk * 32), 1);
+  }
+  if constexpr (DP == 160) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_ss_n64(d, panel_desc<32>(a2 + kk * 32), panel_desc<32>(b + 64 * 256 + kk * 32), 1);
   }
 }
 

@@ -99,6 +99,41 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def conv2d_im2col(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                  stride: int, padding: int) -> torch.Tensor:
+    """A convolution as an explicit im2col GEMM: `F.unfold` (a 1×1 kernel at
+    stride 1 without padding reads x as it is), one batched product with
+    the weight as [out, in·k·k], then the reshape. Its backward, by
+    autograd, is two batched products, a sum over the batch and `F.fold`
+    (col2im, a gather): no cuDNN and no atomics, so the same inputs give the
+    same bits, and a row's bits do not depend on its batch-mates."""
+    b, cin, h, w = x.shape
+    cout, _, kh, kw = weight.shape
+    ho = (h + 2 * padding - kh) // stride + 1
+    wo = (w + 2 * padding - kw) // stride + 1
+    if kh == kw == 1 and stride == 1 and padding == 0:
+        cols = x.reshape(b, cin, h * w)
+    else:
+        cols = F.unfold(x, (kh, kw), padding=padding, stride=stride)
+    out = torch.bmm(weight.reshape(cout, -1).expand(b, -1, -1), cols)
+    if bias is not None:
+        out = out + bias[:, None]
+    return out.reshape(b, cout, ho, wo)
+
+
+class GemmConv2d(Conv2d):
+    """`Conv2d` through `conv2d_im2col` on every call: the SD1.5 UNet's one
+    convolution route, in its forward, a remat block's recompute and the
+    backward alike, chosen by the module and not by a process-wide switch
+    (the UNet module docstring says why cuDNN is not that route)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return conv2d_im2col(x.to(dt), self.weight.to(dt), bias, self.stride[0],
+                             self.padding[0])
+
+
 class TimestepEmbedding(nn.Module):
     """Two-layer SiLU MLP over the sinusoidal embedding."""
 

@@ -26,7 +26,8 @@ tensor on the CPU, and on a CUDA tensor launches its kernel (counted in
     `plain_attention_bwd_dkv`.
   In bf16 both run on wgmma and TMA, as the forward does, and their
   wrappers zero-pad the head dim the same way. They take head dims up to
-  `BWD_MAX_HEAD_DIM` (128).
+  `BWD_MAX_HEAD_DIM` (160, SD1.5 training's 1280-wide blocks; at padded
+  head dim 160 the dK/dV wrapper's kernel runs a dV pass and a dK pass).
 
 `FlashAttention`, a `torch.autograd.Function`, joins them as the JAX
 package's custom VJP joins its kernels (`attention.py:408-435, 678-687`):
@@ -70,11 +71,13 @@ _NEG_INF = -1e30  # the key bias of a masked key, as in the TPU kernel
 _LSE_MASKED = 1e30  # the lse of a row with no unmasked key: exp(s - lse) = 0
 IMPLS = ("auto", "plain", "splash")
 SPLASH_HEAD_DIMS = (64, 128)
-# the largest head dim each kernel takes; above it the wrappers raise
-# (ROADMAP.md "known gaps": the JAX kernels pad any head dim to a multiple
-# of 128)
+# the largest head dim each kernel takes; above it the wrappers raise (the
+# JAX kernels pad any head dim to a multiple of 128; no model of either
+# package has one above 160: ROADMAP.md §2, still to port)
 FWD_MAX_HEAD_DIM = 160
-BWD_MAX_HEAD_DIM = 128
+BWD_MAX_HEAD_DIM = 160
+_HEAD_DIM_GAP = "head dims above 160 are still to port: ROADMAP.md §2"
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -269,8 +272,7 @@ def _check(q, k, v, bias, *rows, max_d: int = BWD_MAX_HEAD_DIM) -> None:
         )
     if not 1 <= d <= max_d:
         raise ValueError(
-            f"head dim {d} outside the kernel's range [1, {max_d}] "
-            "(ROADMAP.md, known gaps)")
+            f"head dim {d} outside the kernel's range [1, {max_d}] ({_HEAD_DIM_GAP})")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
@@ -379,7 +381,7 @@ def tma_head_dim(d: int) -> int:
     if not 1 <= d <= FWD_MAX_HEAD_DIM:
         raise ValueError(
             f"head dim {d} outside the flash kernels' range [1, {FWD_MAX_HEAD_DIM}] "
-            "(ROADMAP.md, known gaps)")
+            f"({_HEAD_DIM_GAP})")
     return -(-d // 8) * 8
 
 

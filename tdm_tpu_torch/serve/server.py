@@ -283,9 +283,11 @@ def build_server(args: argparse.Namespace) -> TDMServer:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP.md queue 1, {where}"
             )
+    from tdm_tpu_torch.device import set_fp32_precision
     from tdm_tpu_torch.pipelines import from_pretrained
     from tdm_tpu_torch.serve.batcher import MicroBatcher
 
+    set_fp32_precision()  # the decoders' fp32 convolutions in full fp32, as in JAX
     pipe = from_pretrained(args.model, device=args.device)
     if args.lora:
         pipe.load_lora_weights(args.lora, adapter_name="tdm")

@@ -1,14 +1,15 @@
 """Model-family registry of the training CLI.
 
 Port of `tdm_tpu/train/families.py` for the pixart family (the reference
-demo's one trained family, `src/main.py:168-176`) and the sd3 family
-(SD3-Medium, the reference's headline TDM LoRA); sd15 and cogvideox raise
-NotImplementedError naming their ROADMAP slice. The bundle carries what
+demo's one trained family, `src/main.py:168-176`), the sd15 family (the
+SD1.5 UNet of the Dreamshaper recipe) and the sd3 family (SD3-Medium, the
+reference's headline TDM LoRA); cogvideox raises NotImplementedError naming
+its ROADMAP slice. The bundle carries what
 the CLI needs per family: the model, the native training schedule, the
 latent sample shape, the text-conditioning sizes and `cond_of(text, mask,
 pooled=None)`, `denoise_fn(params, x, t, cond)`, the seeded parameter init
-and `convert`, which loads a diffusers transformer state dict (the teacher
-directory) into the model.
+and `convert`, which loads a diffusers transformer or UNet state dict (the
+teacher directory) into the model.
 
 `denoise_fn` puts a dict of tensors into the bundle's one module with
 `torch.func.functional_call`, so the student, the critic and the teacher
@@ -17,7 +18,12 @@ holds fp32 master weights and computes in the config's dtype (bf16 for the
 full-size model under `--mixed_precision bf16`). Every attention call goes
 through `ops.attention`: the flash kernels on CUDA, as the JAX training
 family pins `attn_impl="pallas"` for PixArt (`families.py:114-121`) and
-keeps `"auto"` for SD3, both the flash route here.
+keeps `"auto"` for SD3 and SD1.5, all the flash route here.
+
+sd15 trains under SD1.5's scaled-linear β schedule with ε prediction and
+conditions on (CLIP-L tokens, mask), as pixart on (T5 tokens, mask); its
+`--gradient_checkpointing` recomputes every ResBlock and SpatialTransformer
+(`UNetConfig.remat`).
 
 sd3 trains under the shifted rectified-flow schedule (`flow_match`, shift
 3) with the velocity output passed through, and conditions on (T5 tokens,
@@ -39,13 +45,10 @@ from torch.func import functional_call
 
 from tdm_tpu_torch.core import schedules as sched
 from tdm_tpu_torch.io import convert, from_jax
-from tdm_tpu_torch.models import mmdit_sd3, pixart
+from tdm_tpu_torch.models import mmdit_sd3, pixart, unet_sd15
 
 FAMILIES = ("pixart", "sd15", "sd3", "cogvideox")
-_NOT_PORTED = {
-    "sd15": "slice 4 (sd15 TDM training: the UNet's remat and kernels 2 and 3 at head dim 160)",
-    "cogvideox": "slice 5 (CogVideoX video)",
-}
+_NOT_PORTED = {"cogvideox": "slice 5 (CogVideoX video)"}
 # SD3-Medium's training schedule: the HF scheduler config's `shift`
 SD3_SHIFT = 3.0
 STANDIN_REFUSED = (
@@ -143,6 +146,8 @@ def build(
             "ROADMAP.md queue 1, slice 6 (models/moe.py)"
         )
     lat = 8 if tiny else max(resolution // 8, 8)
+    if family == "sd15":
+        return _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device)
     if family == "pixart":
         mcfg = pixart.PixArtConfig.tiny() if tiny else pixart.PixArtConfig()
     else:
@@ -208,4 +213,40 @@ def build(
         seq_len=8 if tiny else 154,  # T5 tokens of the joint context
         embed_dim=mcfg.context_dim, denoise_fn=denoise_fn, init_params=init_params,
         cond_of=cond_of, convert=converter(convert.sd3_params),
+    )
+
+
+def _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device):
+    """The sd15 bundle (`tdm_tpu/train/families.py:163-200`): the UNet at
+    the latent size of --resolution (its config has no sample size),
+    holding fp32 masters and computing in the config's dtype."""
+    mcfg = unet_sd15.UNetConfig.tiny() if tiny else unet_sd15.UNetConfig()
+    if gradient_checkpointing:
+        mcfg = dataclasses.replace(mcfg, remat=True)
+    mcfg = _compute_dtype(mcfg, mixed_precision, tiny)
+    torch.manual_seed(seed)
+    model = unet_sd15.UNet2DCondition(mcfg, device=device, param_dtype=torch.float32)
+    model.requires_grad_(False)
+
+    def init_params():
+        return {k: p.detach() for k, p in model.named_parameters()}
+
+    def denoise_fn(params, x, t, cond):
+        text, mask = cond
+        return functional_call(model, params, (x, t, text, mask))
+
+    def convert_params(sd):
+        tree = convert.unet_sd15_params(sd, layers_per_block=mcfg.layers_per_block,
+                                        n_stages=len(mcfg.block_widths))
+        with torch.no_grad():
+            model.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), model))
+        return init_params()
+
+    return FamilyBundle(
+        name="sd15", model=model,
+        # SD1.5's scheduler config: scaled-linear β (README.md:97)
+        schedule=sched.ddpm_scaled_linear(device=device),
+        sample_shape=(mcfg.in_channels, lat, lat), seq_len=8 if tiny else 77,
+        embed_dim=mcfg.context_dim, denoise_fn=denoise_fn, init_params=init_params,
+        cond_of=lambda text, mask, pooled=None: (text, mask), convert=convert_params,
     )

@@ -164,6 +164,91 @@ def test_plain_dq_and_delta_match_bwd_core_interpret(b, h, sq, sk, d, lengths):
             assert not dq[i].any()
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("d", [136, 160])
+def test_backward_matches_jax_grads_at_head_dim_160(d, masked):
+    """The port's training attention at SD1.5's D 160 (and 136, which the
+    kernels zero-fill to 160) under autograd, and the plain versions of the
+    dQ and dK/dV kernels on the JAX forward's residuals, against `jax.grad`
+    of the JAX package's attention through its Pallas kernels in interpret
+    mode (D padded to 256) and through XLA: fp32, within 1e-5, with a
+    ragged key mask and an all-masked batch row."""
+    import jax
+    import jax.numpy as jnp
+
+    from tdm_tpu.ops.attention import _bwd_core, _flash_fwd_res
+    from tdm_tpu.ops.attention import attention as jattention
+
+    rng = np.random.default_rng(d + masked)
+    b, h, sq, sk = 3, 2, 70, 45
+    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) for s in (sq, sk, sk))
+    g = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    lengths = (45, 17, 0) if masked else (sk,) * b
+    mask = (np.arange(sk)[None] < np.array(lengths)[:, None]).astype(np.int32)
+    jmask = jnp.asarray(mask) if masked else None
+
+    def loss(impl):
+        def f(q_, k_, v_):
+            kw = {"interpret": True, "block_q": 64, "block_k": 32} if impl == "pallas" else {}
+            out = jattention(q_, k_, v_, jmask, impl=impl, **kw)
+            return jnp.sum(out * jnp.asarray(g))
+        return f
+
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = tattn.attention(*leaves, torch.from_numpy(mask) if masked else None)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for impl in ("pallas", "xla"):
+        ref = jax.grad(loss(impl), argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+        for name, a, r in zip("qkv", got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0, atol=1e-5,
+                                       err_msg=f"d{name} against {impl}")
+
+    # the plain versions of kernels 2 and 3 against `_bwd_core` (interpret)
+    # on the JAX forward's residuals
+    scale = 1.0 / math.sqrt(d)
+    bias = np.where(mask.astype(bool), 0.0, -1e30).astype(np.float32)
+    _, (qs, _, _, _, jout, jlse) = _flash_fwd_res(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), scale, 64, 32, True, with_lse=True)
+    jdq, jdk, jdv = _bwd_core(qs, jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), jout,
+                              jlse, jnp.asarray(g), scale, 64, 32, True)
+    t = [torch.from_numpy(np.array(x)) for x in (qs, k, v, bias, g, jout)]
+    lse = torch.from_numpy(np.array(jlse)[..., 0])
+    dq, delta = tattn.flash_attention_bwd_dq(*t, lse, scale)  # the CPU takes the plain version
+    dk, dv = tattn.flash_attention_bwd_dkv(*t[:5], lse, delta)
+    for name, a, r in (("dq", dq, jdq), ("dk", dk, jdk), ("dv", dv, jdv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0, atol=1e-5, err_msg=name)
+    if masked:
+        assert not dq[2].any() and not dk[2].any() and not dv[2].any()
+        assert not dk[1, :, 17:].any() and not dv[1, :, 17:].any()
+
+
+def test_backward_wrappers_take_head_dim_160_and_refuse_168(monkeypatch):
+    """On a CUDA tensor the backward wrappers hand the kernels D 160 as it
+    is and D 136 at 136 (TMA zero-fills it to the 160 panels), and refuse
+    D 168 before any launch, naming the gap still to port."""
+    monkeypatch.setattr(tattn, "_on_card", lambda wrapper, q: True)
+    calls = []
+    monkeypatch.setattr(tattn, "_launch", lambda name, device, *args: calls.append((name, args)))
+    counts = tattn.launch_counts()
+    for d in (136, 160):
+        q = torch.zeros(2, 2, 33, d, dtype=torch.bfloat16)
+        lse = torch.zeros(2, 2, 33)
+        tattn.flash_attention_bwd_dq(q, q, q, None, q, q, lse, 1.0)
+        tattn.flash_attention_bwd_dkv(q, q, q, None, q, lse, lse)
+        assert [c[0] for c in calls] == ["tdm_flash_bwd_dq", "tdm_flash_bwd_dkv"]
+        assert calls[0][1][13] == d and calls[1][1][13] == d
+        calls.clear()
+    q = torch.zeros(2, 2, 33, 168, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 2, 33)
+    with pytest.raises(ValueError, match=r"range \[1, 160\].*still to port"):
+        tattn.flash_attention_bwd_dq(q, q, q, None, q, q, lse, 1.0)
+    with pytest.raises(ValueError, match=r"range \[1, 160\].*still to port"):
+        tattn.flash_attention_bwd_dkv(q, q, q, None, q, lse, lse)
+    assert not calls
+    for w in tattn.WRAPPERS:
+        w.launches = counts[w.__name__]
+
+
 HEAD_DIMS = (8, 16, 36, 64, 72, 100, 128)
 
 
@@ -285,8 +370,8 @@ def test_backward_kernels_match_plain_on_card():
     the plain forward, the dK/dV kernel fed the plain Δ; dQ and dK/dV once
     more from the forward kernel's own output and lse, as in training), at
     PixArt's self and cross shapes (bf16), a ragged bf16 shape, an odd fp32
-    shape and more than 65535 (batch, head) pairs (bf16 and fp32); runs on a
-    machine with the card. bf16, per batch row: relative L2 under 1e-2 and
+    shape, more than 65535 (batch, head) pairs (bf16 and fp32) and SD1.5's
+    head dims 136 and 160 (bf16 and fp32); runs on a machine with the card. bf16, per batch row: relative L2 under 1e-2 and
     max error under 4 bf16 ulps of the row's largest |plain| (both round P
     and dS to bf16 and the result to bf16); fp32: max error under 1e-4 of
     the largest |plain|; Δ within 1e-5 of the largest |Δ| (fp32 sums of the
@@ -302,6 +387,13 @@ def test_backward_kernels_match_plain_on_card():
         (2, 3, 1000, 77, 64, torch.float32, [77, 0]),
         (2, 32769, 5, 7, 16, torch.bfloat16, [7, 3]),
         (2, 32769, 5, 7, 16, torch.float32, [7, 3]),
+        # SD1.5's head dim 160 (three panels; the dK/dV kernel's dV and dK
+        # passes, one and two warpgroups) and 136 (zero-filled to 160)
+        (4, 8, 256, 256, 160, torch.bfloat16, None),
+        (4, 8, 256, 77, 160, torch.bfloat16, [77, 40, 13, 0]),
+        (3, 2, 333, 200, 136, torch.bfloat16, [200, 129, 0]),
+        (3, 2, 333, 200, 160, torch.float32, [200, 129, 0]),
+        (2, 3, 100, 77, 136, torch.float32, [77, 0]),
     ):
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
                    for s in (sq, sk, sk))
@@ -397,3 +489,73 @@ def test_kernels_launch_from_a_thread_that_never_selected_a_device():
     assert not thread.is_alive() and "error" not in result, result.get("error")
     for a, b_ in zip(on_main, result["got"]):
         assert torch.equal(a, b_)
+
+
+def bwd_kernel_bits() -> dict:
+    """{case: sha256 of the output bytes} of the dQ kernel (dQ and Δ) and the
+    dK/dV kernel at head dims 64, 80 and 128 with a ragged key mask, once
+    with few (batch, head) pairs (one dK/dV warpgroup) and once with many
+    (two), on bf16 inputs drawn with numpy from a fixed seed."""
+    import hashlib
+
+    def digest(t):
+        view = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+        return hashlib.sha256(t.cpu().view(view).numpy().tobytes()).hexdigest()
+
+    out = {}
+    for d in (64, 80, 128):
+        for b, h in ((2, 3), (2, 40)):
+            rng = np.random.default_rng(d + h)
+            q, k, v, g = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+                np.float32)).to("cuda", torch.bfloat16) for s in (200, 150, 150, 200))
+            mask = torch.arange(150, device="cuda")[None] < torch.tensor([150, 77],
+                                                                         device="cuda")[:, None]
+            bias = tattn.key_bias(mask)
+            o, lse = tattn.plain_attention_lse(q, k, v, bias)
+            dq, delta = tattn.flash_attention_bwd_dq(q, k, v, bias, g, o, lse, 0.3)
+            dk, dv = tattn.flash_attention_bwd_dkv(q, k, v, bias, g, lse, delta)
+            for name, t in (("dq", dq), ("delta", delta), ("dk", dk), ("dv", dv)):
+                out[f"{name}_d{d}_h{h}"] = digest(t)
+    return out
+
+
+# bwd_kernel_bits() as the kernels of the parent commit gave it on an NVIDIA
+# H100 80GB HBM3, before the backward kernels took a third head-dim panel
+# for DP = 160: the instantiations at 64, 80 and 128 keep their arithmetic
+# and must keep their bits
+BWD_KERNEL_BITS = {
+    "dq_d64_h3": "1eb2aae7696b04446493212ee9ca27f1e726757f84615240cc125d4dc853d784",
+    "delta_d64_h3": "deea47f89d853e4294b89d9df7cde6b259e16415c18effbf41d577835dcd653c",
+    "dk_d64_h3": "e8c647eb02dc59093de380040b48d91e89751f36746eb644dd6af9865296973a",
+    "dv_d64_h3": "392801173690a354c16c102fa6b4a572506dd757cdf3d2d9d045ce3fbae07b74",
+    "dq_d64_h40": "ba69b1bf06369ecdbc002991eec00f5b787aba477ed9e16bf29540e1a79e62aa",
+    "delta_d64_h40": "b377e4da4107b7ea427e491e889db3cd6c7caeabba9c4703814aed2fb2b7b1d4",
+    "dk_d64_h40": "61d07ed17250edb6fdf501c55551a7af4c88fc6bbcc9b9029ac779acfb11b2a0",
+    "dv_d64_h40": "19ac8fab70d0e053f2a86e105b82597f5c91a03adfe27c6587f9ef7d8861739e",
+    "dq_d80_h3": "115444031ab68fb58d4e6b48c7f006b202987a1cf51bfe44ee79d7676794697d",
+    "delta_d80_h3": "899ceb8a8ddf35d3704ac588f7c3b697a4e972e8a2caf53698f83983a66837b1",
+    "dk_d80_h3": "bc60e573a7df8285aef53bceead377475186bf8b2a6159a1cbe57d0e262f166e",
+    "dv_d80_h3": "d1894428c9a9e26bf9bff792ba4180f570557e0024504938a07d7250fe662257",
+    "dq_d80_h40": "c28c71c89c1ab0bdc37d810bb3c0cfc31a5404d23b0c517a0c151dcff0861eca",
+    "delta_d80_h40": "0c3ee26312014ef5ab068c0c870d161a0d74d1988122fa9290d080ddaceb8e6a",
+    "dk_d80_h40": "592bf2f52d8876da3b9f651f84ee3bb37f07b08deb1d89a9c06ceefee9c72d77",
+    "dv_d80_h40": "6189aae3c3456f93f431b2d77e49226f1fc7d17bd714c0a0acd07fb4153fab1d",
+    "dq_d128_h3": "bd345a37b0ca45cf1b48d420fcfe2c626f1a5883b71a0b3abe3a7966b4ec1e64",
+    "delta_d128_h3": "50f72141be7f4995a6e0c02764c9efe9dee9311b10baa342d6f3bfe8d8696aa9",
+    "dk_d128_h3": "482ab43cccb7a6e9620c672c83d5e92e277a8526e061a168413a8e3276689063",
+    "dv_d128_h3": "d9a4fea2344555b95bf28ace57d014960b5f8165d2d0adeb0b7653435065dd9b",
+    "dq_d128_h40": "0c0e3f16d75d952ceca27b6fd26ebdddb3255061cd6a48518875524fcc79033f",
+    "delta_d128_h40": "f9a915ca83c78daf891276c7424ac9658a6dce83800a865624913c7545e4ba17",
+    "dk_d128_h40": "9b0c6c5ad0cb7ad9c43a532355ca7a5bf0f6ceb7f6ff2bc69417970237c3e9e9",
+    "dv_d128_h40": "4ebae0159dd5a2e1a1b9a12842280416701f0464d850213cc89feef77b72e274",
+}
+
+
+@pytest.mark.cuda
+def test_backward_bits_unchanged_at_64_80_128_on_card():
+    """The third head-dim panel and the dV/dK passes of DP 160 are
+    compile-time branches: dQ, Δ, dK and dV at DP 64, 80 and 128 (one and
+    two dK/dV warpgroups) give the parent commit's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    assert bwd_kernel_bits() == BWD_KERNEL_BITS

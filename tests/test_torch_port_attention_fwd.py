@@ -104,27 +104,31 @@ def test_flash_wrapper_hands_the_kernel_padded_operands(monkeypatch, d, with_lse
 
 
 def test_head_dim_limits_name_the_known_gaps(monkeypatch):
-    """Kernel 1 takes head dims up to 160 (SD1.5's 1280-wide blocks at 8
-    heads), the backward kernels up to 128; above, the wrappers raise before
-    any launch, naming ROADMAP.md's known gaps."""
+    """Kernel 1 and the backward kernels take head dims up to 160 (SD1.5's
+    1280-wide blocks at 8 heads); above, the wrappers raise before any
+    launch, naming the gap still to port in ROADMAP.md §2."""
     monkeypatch.setattr(tattn, "_on_card", lambda wrapper, q: True)
     monkeypatch.setattr(tattn, "_launch", lambda name, device, *args: None)
     counts = tattn.launch_counts()
     assert tattn.tma_head_dim(160) == 160 and tattn.tma_head_dim(131) == 136
     for d in (0, 161, 168):
-        with pytest.raises(ValueError, match="known gaps"):
+        with pytest.raises(ValueError, match="still to port"):
             tattn.tma_head_dim(d)
     q, k, v, bias = _inputs(168, torch.bfloat16)
-    for fwd in (tattn.flash_attention_fwd, tattn.flash_attention_fwd_lse):
-        with pytest.raises(ValueError, match=r"range \[1, 160\].*known gaps"):
-            fwd(q, k, v, bias)
-    q, k, v, bias = _inputs(136, torch.bfloat16)
-    tattn.flash_attention_fwd(q, k, v, bias)
     lse = torch.zeros(q.shape[:3])
-    with pytest.raises(ValueError, match=r"range \[1, 128\].*known gaps"):
+    for fwd in (tattn.flash_attention_fwd, tattn.flash_attention_fwd_lse):
+        with pytest.raises(ValueError, match=r"range \[1, 160\].*still to port"):
+            fwd(q, k, v, bias)
+    with pytest.raises(ValueError, match=r"range \[1, 160\].*still to port"):
         tattn.flash_attention_bwd_dq(q, k, v, bias, q, q, lse, 1.0)
-    with pytest.raises(ValueError, match=r"range \[1, 128\].*known gaps"):
+    with pytest.raises(ValueError, match=r"range \[1, 160\].*still to port"):
         tattn.flash_attention_bwd_dkv(q, k, v, bias, q, lse, lse)
+    q, k, v, bias = _inputs(136, torch.bfloat16)
+    lse = torch.zeros(q.shape[:3])
+    tattn.flash_attention_fwd(q, k, v, bias)
+    dq, delta = tattn.flash_attention_bwd_dq(q, k, v, bias, q, q, lse, 1.0)
+    dk, dv = tattn.flash_attention_bwd_dkv(q, k, v, bias, q, lse, delta)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     for w in tattn.WRAPPERS:
         w.launches = counts[w.__name__]
 

@@ -198,9 +198,12 @@ def test_tiny_sd15_4nfe_matches_the_golden(golden_tuple):
 
 
 def test_unet_refusals():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tunet.UNet2DCondition(dataclasses.replace(tunet.UNetConfig.tiny(), remat=True),
-                              device="cpu")
+    # remat (--gradient_checkpointing) builds: every ResBlock and
+    # SpatialTransformer is checkpointed under the same module names
+    remat = tunet.UNet2DCondition(dataclasses.replace(tunet.UNetConfig.tiny(), remat=True),
+                                  device="cpu")
+    plain = tunet.UNet2DCondition(tunet.UNetConfig.tiny(), device="cpu")
+    assert list(remat.state_dict()) == list(plain.state_dict())
     with pytest.raises(ValueError, match="unknown attn_impl"):
         tunet.UNet2DCondition(dataclasses.replace(tunet.UNetConfig.tiny(), attn_impl="x"),
                               device="cpu")
@@ -213,20 +216,33 @@ def test_unet_refusals():
 
 
 def test_unet_convolutions_run_without_cudnn():
-    """The UNet's forward turns cuDNN off for its convolutions (cuDNN's bf16
-    engine on the H100 is not bitwise stable between calls; the module
-    docstring) and restores the flag after, also when the forward raises."""
+    """The UNet's convolutions never reach cuDNN (its bf16 engine on the
+    H100 is not bitwise stable between calls; the module docstring): every
+    one is a `GemmConv2d` (im2col and a batched product), no convolution
+    operator runs in the forward, the cuDNN switch is left as it was, and a
+    bad input still raises."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Convolutions(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Convolutions.n += "convolution" in func.__name__
+            return func(*args, **(kwargs or {}))
+
     unet = tunet.UNet2DCondition(tunet.UNetConfig.tiny(), device="cpu")
+    convs = [m for m in unet.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert convs and all(isinstance(m, tlayers.GemmConv2d) for m in convs)
     seen = []
     unet.conv_in.register_forward_hook(
         lambda mod, a, o: seen.append(torch.backends.cudnn.enabled))
     lat, t, ctx, mask = inputs(1)
     assert torch.backends.cudnn.enabled
-    with torch.no_grad():
+    with torch.no_grad(), Convolutions():
         unet(*_t(lat, t, ctx), torch.from_numpy(mask))
         with pytest.raises(RuntimeError):
             unet(*_t(lat[:, :3], t, ctx), torch.from_numpy(mask))
-    assert seen == [False] and torch.backends.cudnn.enabled
+    assert seen == [True] and Convolutions.n == 0 and torch.backends.cudnn.enabled
 
 
 def test_full_unet_widths_and_launches():
