@@ -97,8 +97,31 @@ Phases, one line each, and any failure exits non-zero:
      again, bit for bit; then seconds per step, peak memory, the idle share
      and top device operations of a profiled step, each training kernel's
      launches per step (checked) and by padded head dim in the profiled
-     step (checked), and the rank-32 export's seconds and keys.
-Phase 3 also holds kernel 1 at SD1.5's head dims 40, 136 and 160 (ragged,
+     step (checked), and the rank-32 export's seconds and keys;
+ 13. cogvideox: a full-width CogVideoX-2B diffusers checkout (30 layers,
+     30x64 heads, T5 4096, fp16 in the released transformer key layout;
+     the AutoencoderKLCogVideoX decoder in tdm_tpu's key layout), written
+     from the seed through the port's manifests with a seeded T5 cache
+     [4, 226, 4096] and a seeded rank-64 kohya LoRA, served over HTTP
+     with --lora_scale 1 --num_frames 49 --batch_size 2: two concurrent
+     requests (one batch) and one of them alone twice, GIF structure
+     (GIF89a, 720x480, 49 frames, 12 cs delays, the loop block) read
+     without an imaging package and two frames of each decoded, per-seed
+     determinism (the same GIF bytes alone twice and in the batch),
+     exactly 120 kernel-1 launches and nothing else per batch; a profiled
+     batch (kernel 1's ms a call, the transformer's and the 3D decode's
+     device time by CUDA events, the idle share, peak memory), the load
+     seconds, one latent decoded twice bit for bit, the decode's
+     operations and the GIF encode's seconds, one full-width forward
+     against plain attention head by head, and the decoder's per-tap
+     causal conv against F.conv3d (cuDNN, a yardstick), repeated bit for
+     bit.
+Each phase prints `[timing] <phase> <seconds>`. Phase 3 also holds kernel 1
+and kernel 4 at CogVideoX-2B's [1,30,17776,17776,64] and
+[2,30,17776,17776,64] (no mask) against the plain version computed head by
+head, timed in turns with SDPA; phase 4 also runs the tiny CogVideoX
+pipeline under both position schemes, tiled and streamed, on the card
+against the CPU. Phase 3 also holds kernel 1 at SD1.5's head dims 40, 136 and 160 (ragged,
 masked and all-masked rows, bf16 and fp32) and times its eight SD1.5
 shapes in turns with SDPA; it also holds the training kernels (the forward
 with its lse, dQ with its fused Δ, dK/dV) at one PixArt block's shapes and
@@ -178,6 +201,12 @@ SD15_SHAPES = (  # name, sq, sk, d, calls per batch
     ("sd15_self_d160", 256, 256, 160, 20), ("sd15_cross_d160", 256, SD15_TXT, 160, 20),
     ("sd15_mid_self_d160", 64, 64, 160, 4), ("sd15_mid_cross_d160", 64, SD15_TXT, 160, 4),
 )
+# CogVideoX-2B at 49 frames, 480×720: 226 T5 tokens + 13·30·45 video tokens
+# in one unmasked joint attention per block, 30 heads × 64; 30 blocks × 4 NFE
+# launches of kernel 1 per batch
+COG_H, COG_D, COG_TXT = 30, 64, 226
+COG_S = COG_TXT + 13 * 30 * 45
+COG_LAUNCHES_PER_BATCH = 30 * 4
 # kernel 1's launches per SD1.5 batch (16 transformers, self + cross, 4 NFE)
 # and those at head dim 160 (6 transformers)
 SD15_LAUNCHES_PER_BATCH = 16 * 2 * 4
@@ -3431,6 +3460,635 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
             "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# CogVideoX-2B: kernel 1 at S = 17,776, the tiny pipeline, the served path
+# ---------------------------------------------------------------------------
+
+
+def plain_by_head(torch, q_scaled, k, v):
+    """`plain_attention` one head at a time over every batch row: the same
+    function (each head's softmax is its own) with fp32 logits of one head,
+    [B, 1, S, S], at a time, where the whole call's would not fit."""
+    from tdm_tpu_torch.ops import attention as A
+
+    return torch.cat([A.plain_attention(q_scaled[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1],
+                                        None) for h in range(q_scaled.shape[1])], dim=1)
+
+
+def phase_kernels_cogvideox(torch, seed: int) -> dict:
+    """Kernel 1 (no key bias) and kernel 4 at CogVideoX-2B's joint attention,
+    [B, 30, 17776, 17776, 64] bf16 at batch 1 and 2, each held against the
+    plain version computed head by head (compare(), per batch row), and
+    timed in turns with SDPA (6 rounds of 50 launches; median, min, max),
+    with the plain version's time (head by head, once) and the bound."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    fwd, _ = A._entry("tdm_flash_fwd")
+    splash, _ = A._entry("tdm_splash_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes, max_err, splash_err = [], 0.0, 0.0
+    for b in (1, 2):
+        h, s, d = COG_H, COG_S, COG_D
+        q, k, v, _, qs, _ = _attn_inputs(torch, gen, b, h, s, s, d, torch.bfloat16, None)
+        before = A.launch_counts()
+        out = A.flash_attention_fwd(qs, k, v, None)
+        out4 = A.splash_attention_fwd(qs, k, v)
+        for w in A.WRAPPERS:  # comparison launches do not count
+            w.launches = before[w.__name__]
+        t0 = time.monotonic()
+        ref = plain_by_head(torch, qs, k, v)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        results = {}
+        for name, got in (("flash_fwd", out), ("splash_fwd", out4)):
+            check(bool(torch.isfinite(got).all()), f"{name} cogvideox_b{b}: non-finite output")
+            err, rel, bad = compare(torch, got, ref)
+            print(f"[kernels] {name} cogvideox_b{b} [{b},{h},{s},{s},{d}] bf16 no mask "
+                  f"max_abs_err {err:.3e} rel_l2 {rel:.3e} against plain head by head "
+                  f"(per row rel L2 <= {BF16_REL_L2}, <= {BF16_ULPS} bf16 ulps)", flush=True)
+            check(bad is None, f"{name} cogvideox_b{b}: {bad}")
+            results[name] = (err, rel)
+        del ref
+        max_err = max(max_err, results["flash_fwd"][0])
+        splash_err = max(splash_err, results["splash_fwd"][0])
+        turns = time_turns(torch, {
+            "kernel": lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                  out.data_ptr(), None, b, h, s, s, d, 1, stream),
+            "splash": lambda: splash(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out4.data_ptr(), b * h, s, s, d, 1, stream),
+            "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)})
+        ms, splash_ms, lib_ms = (turns[n]["median"] for n in ("kernel", "splash", "sdpa"))
+        nbytes, ops = attention_work(b, h, s, s, d, 2, s * b, bias=False)
+        bound, by = bound_ms(nbytes, ops)
+        shapes.append({
+            "shape": f"cogvideox_b{b}", "group": "cogvideox", "dims": [b, h, s, s, d],
+            "ms": ms, "ms_range": [turns["kernel"]["min"], turns["kernel"]["max"]],
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_ms_range": [turns["sdpa"]["min"], turns["sdpa"]["max"]],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": results["flash_fwd"][0],
+            "rel_l2": results["flash_fwd"][1], "bytes": nbytes, "ops": ops,
+            "splash_ms": splash_ms,
+            "splash_ms_range": [turns["splash"]["min"], turns["splash"]["max"]],
+            "splash_max_abs_err": results["splash_fwd"][0]})
+        print(f"[kernels] cogvideox_b{b} [{b},{h},{s},{s},{d}] in turns: flash_fwd "
+              f"{spread(turns['kernel'])} ({ms / bound:.2f}x bound, {ms / lib_ms:.2f}x SDPA, "
+              f"{ops / ms / 1e9:.0f} TFLOP/s) | splash_fwd {spread(turns['splash'])} "
+              f"({splash_ms / bound:.2f}x bound, {splash_ms / lib_ms:.2f}x SDPA) | sdpa "
+              f"{spread(turns['sdpa'])} | plain_ms {plain_ms:.1f} (head by head, once) | "
+              f"bound_ms {bound:.4f} ({by})", flush=True)
+        del q, k, v, qs, out, out4
+        torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_abs_err": max_err, "splash_max_abs_err": splash_err}
+
+
+def tiny_cogvideox_pair(torch, seed: int, use_rotary: bool):
+    """The tiny CogVideoX pipeline (fp32, 2 layers of 2×16 heads, the tiny
+    3D VAE, tiles of 6 latents overlapping by 2) on the CPU and on the card
+    with the same seeded weights."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import cogvideox as cog, vae3d
+    from tdm_tpu_torch.pipelines import CogVideoXPipeline
+
+    torch.manual_seed(seed)
+    cfg = dataclasses.replace(cog.CogVideoXConfig.tiny(), use_rotary=use_rotary)
+    pipes = [CogVideoXPipeline(cog.CogVideoXTransformer3D(cfg, device=dev),
+                               vae_decoder=vae3d.VAE3DDecoder(vae3d.VAE3DConfig.tiny(), device=dev),
+                               vae_tile=6, vae_tile_overlap=2, device=dev)
+             for dev in ("cpu", "cuda")]
+    pipes[1].transformer.load_state_dict(pipes[0].transformer.state_dict())
+    pipes[1].vae_decoder.load_state_dict(pipes[0].vae_decoder.state_dict())
+    return pipes
+
+
+def phase_reference_cogvideox(torch, seed: int) -> None:
+    """The tiny CogVideoX pipeline under both position schemes on the card
+    (kernel 1, the per-tap conv2d route of the 3D VAE) against the same
+    pipeline on the CPU (plain attention): latents to one bf16 ulp of their
+    scale (the sampler state is bf16 in both), frames of the tiled decode
+    (8×10 latents in 6-tiles) and of the same decode streamed in chunks of 2
+    latent frames to half an 8-bit step."""
+    import numpy as np
+
+    from tdm_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed + 23)
+    lat = rng.standard_normal((3, 16, 3, 8, 10)).astype(np.float32)
+    text = rng.standard_normal((3, 8, 32)).astype(np.float32)
+    kw = dict(prompt_embeds=text, latents=lat, num_frames=5, height=16, width=20)
+    for use_rotary in (False, True):
+        cpu, gpu = tiny_cogvideox_pair(torch, seed, use_rotary)
+        ref = cpu(**kw)
+        before = A.launch_counts()
+        got = gpu(**kw)
+        gpu.vae_temporal_chunk = 2
+        with torch.inference_mode():
+            streamed = to_frames(gpu.decode(got.latents))
+        torch.cuda.synchronize()
+        launched = {n: A.launch_counts()[n] - before[n] for n in before}
+        for w in A.WRAPPERS:  # a check, not the main path
+            w.launches = before[w.__name__]
+        dl = (got.latents.float().cpu() - ref.latents.float()).abs()
+        scale = ref.latents.float().abs().max().item()
+        di = (got.frames.cpu() - ref.frames).abs().max().item()
+        ds = (streamed.cpu() - ref.frames).abs().max().item()
+        print(f"[reference] tiny CogVideoX ({'RoPE' if use_rotary else 'sin-cos'}) cuda "
+              f"(kernel 1, {launched['flash_attention_fwd']} launches) vs cpu (plain): latents "
+              f"max_abs_err {dl.max().item():.3e} of scale {scale:.3g}, "
+              f"{(dl > 0).float().mean().item():.4f} of elements differ; frames "
+              f"{tuple(got.frames.shape)} tiled max_abs_err {di:.3e}, streamed {ds:.3e}",
+              flush=True)
+        check(launched["flash_attention_fwd"] == 2 * 4 and sum(launched.values()) == 8,
+              f"tiny CogVideoX launches {launched}")
+        check(dl.max().item() <= 2**-7 * scale, "tiny CogVideoX latents disagree")
+        check((dl > 0).float().mean().item() < 0.01, "tiny CogVideoX latents disagree")
+        check(tuple(got.frames.shape) == (3, 5, 16, 20, 3) and di <= 2e-3 and ds <= 2e-3,
+              "tiny CogVideoX frames disagree")
+
+
+def to_frames(video):
+    """A decoded [B, 3, F, H, W] video as the pipeline's [B, F, H, W, 3]."""
+    from tdm_tpu_torch.pipelines.base import to_images
+
+    return to_images(video, value_range="pm1")
+
+
+VAE3D_WEIGHT_SCALE = 0.1  # seeded decoder weights: frames spread over [0, 1]
+
+
+def cogvideox_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]:
+    """The CogVideoX-2B checkout (30 layers, 30×64 heads, T5 4096, time
+    embedding 512; the AutoencoderKLCogVideoX decoder [128, 256, 256, 512],
+    scaling 1.15258426) as `CogVideoXPipeline` ships it: model_index.json,
+    transformer/ (its config counting 49 pixel frames) and vae/, each a
+    config.json and one fp16 safetensors file of seeded weights in the key
+    layout of the port's manifests. The transformer's 1.69 B weights,
+    N(0, 0.02) as `write_synthetic` draws them, are drawn on the card from
+    the seed (numpy's generator would take most of a minute). Returns (its
+    root, the seconds and parameters of the write)."""
+    import numpy as np
+
+    from tdm_tpu_torch.io import manifest, params as params_io
+    from tdm_tpu_torch.models import cogvideox as cog, vae3d
+
+    cfg, vcfg = cog.CogVideoXConfig(), vae3d.VAE3DConfig()
+    check((cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.text_dim, cfg.time_embed_dim,
+           cfg.max_text_len, cfg.use_rotary, tuple(vcfg.block_widths), vcfg.scaling_factor)
+          == (30, 30, 64, 4096, 512, 226, False, (128, 256, 256, 512), 1.15258426),
+          "CogVideoX-2B and its VAE")
+    root = os.path.join(workdir, "CogVideoX-2b")
+    t0 = time.monotonic()
+    files = {
+        "model_index.json": {"_class_name": "CogVideoXPipeline"},
+        "transformer/config.json": {
+            "_class_name": "CogVideoXTransformer3DModel", "in_channels": cfg.in_channels,
+            "out_channels": cfg.out_channels, "patch_size": cfg.patch_size,
+            "num_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "attention_head_dim": cfg.head_dim, "text_embed_dim": cfg.text_dim,
+            "time_embed_dim": cfg.time_embed_dim, "max_text_seq_length": cfg.max_text_len,
+            "sample_frames": 49, "sample_height": 60, "sample_width": 90,
+            "temporal_compression_ratio": 4, "use_rotary_positional_embeddings": False},
+        "vae/config.json": {
+            "_class_name": "AutoencoderKLCogVideoX", "latent_channels": vcfg.latent_channels,
+            "block_out_channels": list(vcfg.block_widths),
+            "layers_per_block": vcfg.layers_per_block, "norm_num_groups": vcfg.norm_groups,
+            "scaling_factor": vcfg.scaling_factor, "temporal_compression_ratio": 4},
+    }
+    for name, conf in files.items():
+        os.makedirs(os.path.dirname(os.path.join(root, name)), exist_ok=True)
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(conf, f)
+    shapes = manifest.expected_manifest("cogvideox", cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params_io.write_file(
+        os.path.join(root, "transformer", "diffusion_pytorch_model.safetensors"),
+        [(k, shape, np.float16) for k, shape in shapes.items()],
+        ((0.02 * torch.randn(shape, generator=gen, device="cuda")).half().cpu().numpy()
+         for shape in shapes.values()))
+    n = sum(math.prod(shape) for shape in shapes.values())
+    n += manifest.write_synthetic(
+        "vae3d_decoder", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
+        vcfg, seed=seed + 1, scale=VAE3D_WEIGHT_SCALE)
+    secs = time.monotonic() - t0
+    print(f"[checkout] wrote the CogVideoX-2B diffusers checkout ({n / 1e6:.1f}M params at "
+          f"fp16) in {secs:.1f}s", flush=True)
+    return root, secs, n
+
+
+def t5_cache(workdir: str, seed: int) -> tuple[str, list]:
+    """An embedding cache of 4 prompts: T5-XXL rows [226, 4096] (CogVideoX
+    attends to all 226, so the masks are all ones)."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+
+    prompts = [f"cogvideox prompt {i}" for i in range(4)]
+    cache = os.path.join(workdir, "t5_cache.npz")
+    rng = np.random.default_rng(seed + 29)
+    EmbeddingCache(rng.standard_normal((4, COG_TXT, 4096)).astype(np.float16),
+                   np.ones((4, COG_TXT), np.int32), prompts).save(cache)
+    return cache, prompts
+
+
+def check_gif(gif: bytes, frames: int, width: int, height: int) -> list:
+    """A GIF89a of `frames` frames at width×height with a 256-entry global
+    colour table, the NETSCAPE2.0 block looping forever and a 12 cs delay
+    before every frame, read block by block. Returns each frame's LZW
+    sub-block data, joined."""
+    check(gif[:6] == b"GIF89a" and gif[-1:] == b"\x3b", "GIF signature and trailer")
+    w, h, packed = (int.from_bytes(gif[6:8], "little"), int.from_bytes(gif[8:10], "little"),
+                    gif[10])
+    check((w, h, packed) == (width, height, 0xF7), f"GIF screen {w}x{h} flags {packed:#x}")
+    pos, loop, delays, data = 13 + 768, None, [], []
+    while gif[pos] != 0x3B:
+        kind = gif[pos]
+        if kind == 0x21:
+            label, pos, blocks = gif[pos + 1], pos + 2, []
+            while gif[pos]:
+                blocks.append(gif[pos + 1:pos + 1 + gif[pos]])
+                pos += 1 + gif[pos]
+            pos += 1
+            if label == 0xFF and blocks[0] == b"NETSCAPE2.0":
+                loop = int.from_bytes(blocks[1][1:3], "little")
+            elif label == 0xF9:
+                delays.append(int.from_bytes(blocks[0][1:3], "little"))
+        else:
+            check(kind == 0x2C and gif[pos + 9] == 0 and gif[pos + 10] == 8,
+                  "GIF image descriptor")
+            pos, chunks = pos + 11, []
+            while gif[pos]:
+                chunks.append(gif[pos + 1:pos + 1 + gif[pos]])
+                pos += 1 + gif[pos]
+            pos += 1
+            data.append(b"".join(chunks))
+    check(loop == 0 and len(data) == frames and delays == [12] * frames,
+          f"GIF loop {loop}, {len(data)} frames, delays {sorted(set(delays))}")
+    return data
+
+
+def lzw_decode(data: bytes, n: int, min_size: int = 8) -> list:
+    """The first `n` palette indices of one GIF frame's LZW data."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    acc = nbits = pos = 0
+    size, table, prev, out = min_size + 1, None, None, []
+    while len(out) < n:
+        while nbits < size:
+            acc |= data[pos] << nbits
+            pos, nbits = pos + 1, nbits + 8
+        code, acc, nbits = acc & ((1 << size) - 1), acc >> size, nbits - size
+        if code == clear:
+            table = [[i] for i in range(clear)] + [None, None]
+            size, prev = min_size + 1, None
+            continue
+        if code == end:
+            break
+        entry = table[code] if code < len(table) else table[prev] + [table[prev][0]]
+        out.extend(entry)
+        if prev is not None and len(table) < 4096:
+            table.append(table[prev] + [entry[0]])
+        prev = code
+        if len(table) == (1 << size) and size < 12:
+            size += 1
+    return out[:n]
+
+
+def gif_frame_std(torch, data: bytes, width: int, height: int) -> float:
+    """The standard deviation of one decoded GIF frame's RGB values."""
+    import numpy as np
+
+    from tdm_tpu_torch.serve.server import gif_palette
+
+    return float(gif_palette()[np.array(lzw_decode(data, width * height))].std())
+
+
+def vae3d_conv_ops(torch, pipe, shape) -> int:
+    """The operations (2 a multiply-add) of the causal convs of one tiled
+    decode of latents of `shape`, counted as they run on the meta device
+    (shapes only, no arithmetic)."""
+    from tdm_tpu_torch.models import vae3d
+
+    ops, conv = [0], vae3d.causal_conv3d
+
+    def counted(xp, weight, bias, kh, kw):
+        out = conv(xp, weight, bias, kh, kw)
+        ops[0] += 2 * out.numel() * math.prod(weight.shape[1:])
+        return out
+
+    vae3d.causal_conv3d = counted
+    try:
+        with torch.inference_mode():
+            vae3d.decode_tiled(vae3d.VAE3DDecoder(pipe.vae_cfg, device="meta"),
+                               torch.zeros(shape, device="meta"), tile=pipe.vae_tile,
+                               overlap=pipe.vae_tile_overlap,
+                               spatial_factor=pipe.vae_cfg.spatial_factor)
+    finally:
+        vae3d.causal_conv3d = conv
+    return ops[0]
+
+
+def profile_cogvideox(torch, pipe, cond, noise, **call) -> dict:
+    """One batch (4 NFE + the tiled 3D decode) under torch.profiler's CUDA
+    activity: wall time, device busy time (the union of the kernels'
+    intervals: launches of one stream may overlap, so their summed times
+    can exceed the wall) and idle share, the summed kernel time, kernel
+    1's device time and ms per call (by kernel name), the transformer's
+    forwards and the decode by CUDA events around them, and the peak
+    memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = {"transformer": [], "decode": []}
+    saved = [(pipe.transformer, "forward"), (pipe, "decode")]
+
+    def timed(fn, name):
+        def wrapped(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans[name].append(ev)
+            return out
+        return wrapped
+
+    pipe.transformer.forward = timed(pipe.transformer.forward, "transformer")
+    pipe.decode = timed(pipe.decode, "decode")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            pipe(prompt_embeds=cond, latents=noise, **call).images.cpu()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        for obj, name in saved:
+            del obj.__dict__[name]
+    t_post = time.monotonic()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    summed_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    busy_ms = busy_us / 1e3
+    span_ms = {n: sum(a.elapsed_time(b) for a, b in ev) for n, ev in spans.items()}
+    if busy_ms == 0:
+        print("[profile] no device time in the trace: not measured", flush=True)
+        return {"wall_ms": wall_ms, "peak_gib": peak_gb, **{f"{n}_ms": v for n, v in
+                                                             span_ms.items()}}
+    flash = [e for e in kernels if "flash_fwd" in e.key]
+    attn_ms = sum(e.device_time_total for e in flash) / 1e3
+    calls = sum(e.count for e in flash)
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    print(f"[profile] one CogVideoX batch of {noise.shape[0]}: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms (the union of kernel intervals; idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; kernel times summed {summed_ms:.1f} ms); transformer "
+          f"{span_ms['transformer']:.1f} ms over {len(spans['transformer'])} forwards, kernel 1 "
+          f"{attn_ms:.1f} ms over {calls} calls ({attn_ms / max(calls, 1):.3f} ms a call), 3D "
+          f"decode {span_ms['decode']:.1f} ms ({span_ms['decode'] / busy_ms:.3f} of busy) by "
+          f"CUDA events; peak {peak_gb:.2f} GiB; {sum(e.count for e in kernels)} launches; "
+          f"trace read in {time.monotonic() - t_post:.1f}s", flush=True)
+    for e in top:
+        print(f"[profile]   {e.device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}",
+              flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "summed_kernel_ms": summed_ms, "attention_ms": attn_ms, "attention_calls": calls,
+            "attention_ms_per_call": attn_ms / max(calls, 1),
+            "transformer_ms": span_ms["transformer"], "decode_ms": span_ms["decode"],
+            "peak_gib": peak_gb, "launches": sum(e.count for e in kernels)}
+
+
+@contextlib.contextmanager
+def attention_by_head():
+    """Every attention call of the models computed by the plain version one
+    head at a time (here only: a comparison, not the main path)."""
+    import torch
+
+    from tdm_tpu_torch.models import layers
+
+    kernel_attention = layers.fused_attention
+
+    def by_head(q, k, v, key_mask=None, **kw):
+        return torch.cat([kernel_attention(q[:, h:h + 1].contiguous(), k[:, h:h + 1].contiguous(),
+                                           v[:, h:h + 1].contiguous(), key_mask,
+                                           **{**kw, "impl": "plain"})
+                          for h in range(q.shape[1])], dim=1)
+
+    layers.fused_attention = by_head
+    try:
+        yield
+    finally:
+        layers.fused_attention = kernel_attention
+
+
+def cogvideox_forward_check(torch, transformer, seed: int) -> float:
+    """One full-width CogVideoX-2B forward (batch 1, 49 frames at 480×720,
+    the served LoRA merged) through kernel 1 against the same forward with
+    attention computed plainly head by head, both on the card: bf16 through
+    30 blocks, so the check is relative (L2 error under 2%)."""
+    import numpy as np
+
+    from tdm_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(seed + 31)
+    lat = torch.from_numpy(rng.standard_normal((1, 16, 13, 60, 90)).astype(np.float32)).cuda()
+    text = torch.from_numpy(rng.standard_normal((1, COG_TXT, 4096)).astype(np.float32)).cuda()
+    t = torch.tensor([856], device="cuda")
+    before = A.launch_counts()
+    with torch.inference_mode():
+        out = transformer(lat, t, text).float()
+        with attention_by_head():
+            ref = transformer(lat, t, text).float()
+    for w in A.WRAPPERS:  # a check, not the main path
+        w.launches = before[w.__name__]
+    rel = ((out - ref).norm() / ref.norm()).item()
+    print(f"[cogvideox] full-width forward [1,16,13,60,90], kernel 1 vs plain attention head "
+          f"by head: rel L2 {rel:.3e}, finite {bool(torch.isfinite(out).all())}", flush=True)
+    check(bool(torch.isfinite(out).all()) and rel < 2e-2,
+          f"full-width CogVideoX forward disagrees: rel L2 {rel}")
+    return rel
+
+
+def conv3d_route_check(torch, seed: int) -> dict:
+    """The 3D VAE's largest causal conv, 256 → 128 channels over 49 frames
+    at 256×256 (fp32, TF32 off), by the decoder's route (one conv2d per
+    temporal tap, summed) three times, bit for bit, and by cuDNN's 3D
+    convolution (`F.conv3d`, a yardstick the decoder never calls) on the
+    same padded input: their agreement, each one's repeatability and time
+    (CUDA events, mean of 3 after one warm-up)."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.models import vae3d
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 37)
+    xp = torch.randn(1, 51, 256, 256, 256, generator=gen, device="cuda")
+    w = torch.randn(128, 256, 3, 3, 3, generator=gen, device="cuda") / (27 * 256) ** 0.5
+    bias = torch.randn(128, generator=gen, device="cuda")
+    x3 = xp.permute(0, 2, 1, 3, 4).contiguous()  # N, C, D, H, W
+    with torch.inference_mode():
+        outs = [vae3d.causal_conv3d(xp, w, bias, 3, 3) for _ in range(3)]
+        lib = [F.conv3d(x3, w, bias, padding=(0, 1, 1)) for _ in range(2)]
+        route_ms = time_ms(torch, lambda: vae3d.causal_conv3d(xp, w, bias, 3, 3), 3, 1)
+        lib_ms = time_ms(torch, lambda: F.conv3d(x3, w, bias, padding=(0, 1, 1)), 3, 1)
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    lib_same = torch.equal(lib[0], lib[1])
+    ref = lib[0].permute(0, 2, 1, 3, 4)
+    rel = ((outs[0] - ref).norm() / ref.norm()).item()
+    ops = 2 * outs[0].numel() * 256 * 27
+    print(f"[cogvideox] causal conv 256->128 [1,49,256,256] fp32: per-tap conv2d route "
+          f"{route_ms:.1f} ms ({ops / route_ms / 1e9:.1f} TFLOP/s), 3 calls the same bits: "
+          f"{same}; F.conv3d (cuDNN, yardstick) {lib_ms:.1f} ms, 2 calls the same bits: "
+          f"{lib_same}; rel L2 between them {rel:.2e}", flush=True)
+    check(same, "the decoder's causal conv gave other bits on a repeated call")
+    check(rel < 1e-5, f"the per-tap causal conv disagrees with F.conv3d: rel L2 {rel}")
+    return {"route_ms": route_ms, "conv3d_ms": lib_ms, "route_repeatable": same,
+            "conv3d_repeatable": lib_same, "rel_l2": rel, "tflop": ops / 1e12}
+
+
+def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
+    """CogVideoX-2B served over HTTP from a full-width diffusers checkout
+    with a seeded rank-64 kohya LoRA merged at scale 1, --num_frames 49 at
+    480×720, batch 2: two concurrent requests (one batch) and one of them
+    alone twice; GIF structure, frames that are not constant, per-seed
+    determinism, exactly 120 kernel-1 launches and nothing else per batch;
+    a profiled batch, one latent decoded twice bit for bit, the GIF encode
+    time, and one full-width forward against plain attention head by head."""
+    from concurrent.futures import ThreadPoolExecutor
+    import urllib.request
+
+    import numpy as np
+
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.lora import adapter, io as lora_io
+    from tdm_tpu_torch.models import cogvideox as cog, vae3d
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.serve import server as S
+
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    root, write_s, n_params = cogvideox_checkout(torch, workdir, seed)
+    cache, prompts = t5_cache(workdir, seed)
+    lora_file = os.path.join(workdir, "cogvideox_tdm_lora.safetensors")
+    lora = seeded_lora(torch, cog.CogVideoXTransformer3D(device="meta"), 64, seed)
+    lora_io.save_kohya(lora, lora_file)
+    t0 = time.monotonic()
+    args = S.parse_args(["--model", root, "--lora", lora_file, "--lora_scale", "1",
+                         "--num_frames", "49", "--embedding_cache", cache, "--port", "0",
+                         "--batch_size", "2", "--max_delay_ms", "1000"])
+    with timed_calls(torch, load_targets() + [(convert, "cogvideox_params"),
+                                              (convert, "vae3d_decoder_params")]) as times:
+        server = S.build_server(args).start()
+    up_s = time.monotonic() - t0
+    load = load_report(times)
+    stats, pipe = server.batcher.stats, server.batcher.pipe
+    check(pipe.family == "cogvideox" and pipe.transformer.cfg == cog.CogVideoXConfig()
+          and isinstance(pipe.vae_decoder, vae3d.VAE3DDecoder)
+          and pipe.vae_cfg == vae3d.VAE3DConfig() and pipe._active == (("tdm", 1.0),)
+          and (pipe.vae_tile, pipe.vae_tile_overlap) == (32, 4),
+          "the served CogVideoX-2B checkout")
+    adapted = len(adapter.adapted_keys(lora, from_jax.layer_stacks(pipe.transformer.cfg)))
+    print(f"[cogvideox] CogVideoX-2B checkout with a rank-64 LoRA ({len(lora.params)} targets, "
+          f"{adapted} weights) loaded in {load['load_s']:.2f}s (safetensors read "
+          f"{load['read_s']:.2f}s, conversion {load['convert_s']:.3f}s, modules and copy to the "
+          f"card {load['build_and_copy_s']:.2f}s); server up in {up_s:.1f}s "
+          f"({time.monotonic() - t_phase:.1f}s into the phase)", flush=True)
+
+    def post(prompt, seed):
+        body = json.dumps({"prompt": prompt, "seed": seed}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        t = time.monotonic()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = json.loads(r.read())
+        return out, time.monotonic() - t
+
+    try:
+        # the main path: counts to 0, two concurrent requests, then one alone twice
+        A.reset_launches()
+        b0 = stats.batches
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(2) as ex:
+            pair = list(ex.map(lambda i: post(prompts[i], 700 + i), range(2)))
+        wall2 = time.monotonic() - t0
+        pair_batch_s = stats.last_batch_latency_s
+        solo = [post(prompts[0], 700) for _ in range(2)]
+        launches = A.launch_counts()
+        batches = stats.batches - b0
+    finally:
+        server.close()
+    stds = []
+    for reply, _ in pair + solo:
+        check(reply.get("format") == "gif" and reply.get("shape") == [49, 480, 720, 3],
+              f"reply {str(reply)[:200]}")
+        data = check_gif(base64.b64decode(reply["video"]), 49, 720, 480)
+        stds += [gif_frame_std(torch, data[i], 720, 480) for i in (0, 48)]
+    check(min(stds) > 1.0, f"a served frame is (nearly) constant: RGB std {min(stds)}")
+    check(batches == 3, f"4 requests ran as {batches} batches")
+    check(solo[0][0]["video"] == solo[1][0]["video"],
+          "the same (prompt, seed) alone twice gave different GIF bytes")
+    check(solo[0][0]["video"] == pair[0][0]["video"],
+          "the same (prompt, seed) gave other GIF bytes in a batch of 2 than alone")
+    check(pair[0][0]["video"] != pair[1][0]["video"], "distinct seeds gave equal videos")
+    check(launches["flash_attention_fwd"] == COG_LAUNCHES_PER_BATCH * batches
+          and sum(launches.values()) == launches["flash_attention_fwd"],
+          f"launches {launches} over {batches} batches, expected {COG_LAUNCHES_PER_BATCH} "
+          f"flash_fwd and nothing else per batch")
+    lat = [t for _, t in pair]
+    print(f"[cogvideox] 2 concurrent requests in {wall2:.2f}s as one batch of 2 (latency "
+          f"{min(lat):.2f}-{max(lat):.2f}s, batch {pair_batch_s:.2f}s dispatch to readback); "
+          f"alone {solo[0][1]:.2f}s and {solo[1][1]:.2f}s; GIFs 49x720x480, frame RGB std "
+          f"{min(stds):.1f}-{max(stds):.1f}; same (prompt, seed) -> same GIF bytes alone twice "
+          f"and in the batch; launches {launches} = {COG_LAUNCHES_PER_BATCH} flash_fwd x "
+          f"{batches} batches ({time.monotonic() - t_phase:.1f}s into the phase)", flush=True)
+    cond = torch.from_numpy(np.concatenate([server.batcher.cond_fn(prompts[1])] * 2))
+    noise = torch.randn(2, 16, 13, 60, 90)
+    prof = profile_cogvideox(torch, pipe, cond, noise, num_frames=49, height=480, width=720)
+    # one latent decoded twice: the same bits; the decode's time and operations
+    with torch.inference_mode():
+        z = pipe(prompt_embeds=cond[:1], latents=noise[:1], num_frames=49,
+                 output_type="latent").latents
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        a = pipe.decode(z)
+        ev[1].record()
+        b = pipe.decode(z)
+        ev[2].record()
+        torch.cuda.synchronize()
+    check(torch.equal(a, b), "the 3D decode of one latent gave other bits the second time")
+    frames = to_frames(a)[0].cpu().numpy()
+    t0 = time.monotonic()
+    gif = S.encode_gif(frames)
+    gif_s = time.monotonic() - t0
+    ops = vae3d_conv_ops(torch, pipe, tuple(z.shape))
+    dec_ms = [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+    print(f"[cogvideox] 3D decode of one video (8 tiles of 32x32 latents, 13 -> 49 frames, "
+          f"fp32): {dec_ms[0]:.1f} and {dec_ms[1]:.1f} ms by CUDA events, the same bits; "
+          f"{ops / 1e12:.1f} TFLOP in its convs ({ops / (min(dec_ms) * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s); GIF encode {gif_s:.2f}s on the host ({len(gif) / 1e6:.1f} MB) "
+          f"({time.monotonic() - t_phase:.1f}s into the phase)", flush=True)
+    del a, b
+    rel = cogvideox_forward_check(torch, pipe.transformer, seed)
+    conv = conv3d_route_check(torch, seed)
+    del pipe
+    torch.cuda.empty_cache()
+    phase_s = time.monotonic() - t_phase
+    print(f"[cogvideox] phase in {phase_s:.1f}s", flush=True)
+    return {"load": load, "up_s": up_s, "checkout_write_s": write_s, "params": n_params,
+            "lora_targets": len(lora.params), "lora_weights": adapted,
+            "launches": launches["flash_attention_fwd"],
+            "batches": batches, "launches_per_batch": COG_LAUNCHES_PER_BATCH,
+            "wall2_s": wall2, "videos_per_min": 2 / wall2 * 60, "batch_s": pair_batch_s,
+            "solo_s": [t for _, t in solo], "profile": prof, "decode_ms": dec_ms,
+            "decode_tflop": ops / 1e12, "gif_encode_s": gif_s, "gif_mb": len(gif) / 1e6,
+            "forward_rel_l2": rel, "conv_route": conv, "phase_s": phase_s}
+
+
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
               "bound_ms", "bound_by")
 
@@ -3462,8 +4120,16 @@ def kernel_row(name, source, replaces, launches, rec, per, resources, sd3_launch
     }
 
 
+def timed_phase(fn, *args):
+    """fn(*args), with a line of its wall seconds."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    print(f"[timing] {fn.__name__} {time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
 PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers",
-          "train_sd3", "sd15", "train_sd15")
+          "train_sd3", "sd15", "train_sd15", "cogvideox")
 
 
 def main(argv=None) -> int:
@@ -3491,31 +4157,35 @@ def main(argv=None) -> int:
         dev = phase_device(torch)
         build = phase_build()
         if "kernels" in phases:
-            kern = phase_kernels(torch, args.seed)
-            ktrain = phase_kernels_train(torch, args.seed)
-            ksplash = phase_kernels_splash(torch, args.seed)
+            kern = timed_phase(phase_kernels, torch, args.seed)
+            ktrain = timed_phase(phase_kernels_train, torch, args.seed)
+            ksplash = timed_phase(phase_kernels_splash, torch, args.seed)
+            kcog = timed_phase(phase_kernels_cogvideox, torch, args.seed)
         if "reference" in phases:
-            phase_reference(torch, args.seed)
-            phase_reference_train(torch, args.seed)
-            phase_reference_train_sd3(torch, args.seed)
-            phase_reference_train_sd15(torch, args.seed)
-            phase_reference_sd3(torch, args.seed, workdir)
+            timed_phase(phase_reference, torch, args.seed)
+            timed_phase(phase_reference_train, torch, args.seed)
+            timed_phase(phase_reference_train_sd3, torch, args.seed)
+            timed_phase(phase_reference_train_sd15, torch, args.seed)
+            timed_phase(phase_reference_sd3, torch, args.seed, workdir)
+            timed_phase(phase_reference_cogvideox, torch, args.seed)
         if "serve" in phases:
-            serve = phase_serve(torch, args.seed, workdir)
+            serve = timed_phase(phase_serve, torch, args.seed, workdir)
         if "train" in phases:
-            train = phase_train(torch, args.seed, workdir)
+            train = timed_phase(phase_train, torch, args.seed, workdir)
         if "train_lora" in phases:
-            train_lora = phase_train_lora(torch, args.seed, workdir)
+            train_lora = timed_phase(phase_train_lora, torch, args.seed, workdir)
         if "sd3" in phases:
-            sd3 = phase_sd3(torch, args.seed, workdir)
+            sd3 = timed_phase(phase_sd3, torch, args.seed, workdir)
         if "diffusers" in phases:
-            diffusers = phase_diffusers(torch, args.seed, workdir)
+            diffusers = timed_phase(phase_diffusers, torch, args.seed, workdir)
         if "train_sd3" in phases:
-            train_sd3 = phase_train_sd3(torch, args.seed, workdir)
+            train_sd3 = timed_phase(phase_train_sd3, torch, args.seed, workdir)
         if "sd15" in phases:
-            sd15 = phase_sd15(torch, args.seed, workdir)
+            sd15 = timed_phase(phase_sd15, torch, args.seed, workdir)
         if "train_sd15" in phases:
-            train_sd15 = phase_train_sd15(torch, args.seed, workdir)
+            train_sd15 = timed_phase(phase_train_sd15, torch, args.seed, workdir)
+        if "cogvideox" in phases:
+            cogvideox = timed_phase(phase_cogvideox, torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3559,12 +4229,16 @@ def main(argv=None) -> int:
         | {"launches_by_path": {
             "serve": serve["launches"], "diffusers_pixart": diffusers["pixart"]["launches"],
             "diffusers_sd3": diffusers["sd3"]["launches"],
-            **by_path("flash_attention_fwd"), "sd15": sd15["launches"]},
+            **by_path("flash_attention_fwd"), "sd15": sd15["launches"],
+            "cogvideox": cogvideox["launches"]},
            "sd15": {"launches_per_batch": SD15_LAUNCHES_PER_BATCH,
                     "calls_per_batch": {name: calls for name, *_, calls in SD15_SHAPES},
                     "launches_by_head_dim": sd15["launches_by_head_dim"],
                     "shapes": [{k: r.get(k) for k in SHAPE_KEYS} for r in kern["shapes"]
                                if r["group"] == "sd15"]},
+           "cogvideox": {"launches_per_batch": COG_LAUNCHES_PER_BATCH,
+                         "shapes": [{k: r.get(k) for k in SHAPE_KEYS}
+                                    for r in kcog["shapes"]]},
            "dynamic_smem": build["dynamic_smem"]["flash_fwd"]}
         | sd15_train(kern, "flash_attention_fwd"),
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
@@ -3600,12 +4274,19 @@ def main(argv=None) -> int:
          "ms_range": ksplash["ms_range"], "library_ms_range": ksplash["library_ms_range"],
          "flash_ms": ksplash["flash_ms"], "flash_ms_range": ksplash["flash_ms_range"],
          "dims": ksplash["dims"], "resources": bf16_kernels("splash_fwd"),
-         "dynamic_smem": build["dynamic_smem"]["splash_fwd"]},
+         "dynamic_smem": build["dynamic_smem"]["splash_fwd"],
+         "cogvideox": {"shapes": [
+             {"shape": r["shape"], "dims": r["dims"], "ms": r["splash_ms"],
+              "ms_range": r["splash_ms_range"], "plain_ms": r["plain_ms"],
+              "library_ms": r["library_ms"], "library_ms_range": r["library_ms_range"],
+              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+              "max_abs_err": r["splash_max_abs_err"], "flash_ms": r["ms"]}
+             for r in kcog["shapes"]]}},
     ]
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
                       "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,
-                      "train_sd15": train_sd15}))
+                      "train_sd15": train_sd15, "cogvideox": cogvideox}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

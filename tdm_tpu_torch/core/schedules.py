@@ -1,8 +1,9 @@
 """Diffusion noise schedules as precomputed tables plus pure schedule math.
 
-Port of `tdm_tpu/core/schedules.py` for the PixArt, SD1.5 and SD3 paths:
-the linear-β DDPM schedule (reference `src/main.py:132-139`), SD1.5's
-scaled-linear one, the shifted
+Port of `tdm_tpu/core/schedules.py` for the PixArt, SD1.5, SD3 and
+CogVideoX paths: the linear-β DDPM schedule (reference `src/main.py:132-139`),
+SD1.5's scaled-linear one, CogVideoX's (scaled-linear, SNR-shifted, zero
+terminal SNR, v-prediction), the shifted
 rectified-flow schedule SD3 trains under, the forward process, the x₀ / ε
 projections, the few-step timestep grids, and the training step's
 inter-timestep transport, mixed noise, SNR and native DSM target. Tables
@@ -63,6 +64,37 @@ def ddpm_scaled_linear(
     betas = np.linspace(
         beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
     return _from_betas(betas, num_train_timesteps, prediction_type, device)
+
+
+def cogvideox(
+    num_train_timesteps: int = 1000,
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+    snr_shift_scale: float = 3.0,
+    rescale_zero_terminal_snr: bool = True,
+    *,
+    device: Optional[Union[str, torch.device]] = None,
+) -> NoiseSchedule:
+    """CogVideoX's schedule (`tdm_tpu/core/schedules.py:133-163`):
+    scaled-linear β, the SNR shift ᾱ ← ᾱ/(s − (s−1)ᾱ), and the rescale to
+    zero terminal SNR (√ᾱ shifted and scaled so the last step is pure noise
+    and step 0 keeps its value), in float64 on the host, stored fp32;
+    v-prediction."""
+    dev = resolve_device(device)
+    betas = np.linspace(
+        beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
+    ac = np.cumprod(1.0 - betas)
+    ac = ac / (snr_shift_scale - (snr_shift_scale - 1.0) * ac)
+    sqrt_ac = np.sqrt(ac)
+    if rescale_zero_terminal_snr:
+        a0, a_last = sqrt_ac[0], sqrt_ac[-1]
+        sqrt_ac = (sqrt_ac - a_last) * a0 / (a0 - a_last)
+    return NoiseSchedule(
+        alphas=torch.tensor(sqrt_ac, dtype=torch.float32, device=dev),
+        sigmas=torch.tensor(np.sqrt(1.0 - sqrt_ac**2), dtype=torch.float32, device=dev),
+        num_train_timesteps=num_train_timesteps,
+        prediction_type=V_PREDICTION,
+    )
 
 
 def _from_betas(betas: np.ndarray, num_train_timesteps: int, prediction_type: str,

@@ -96,14 +96,13 @@ class PromptBatcher:
 
 
 def pack_family_cond(family: str, embeds, masks, pooled=None, *, error: type = ValueError):
-    """Cache rows → the family's conditioning: (embeds, pooled) for SD3,
-    which needs a cache with pooled vectors (`error` otherwise), (embeds,
-    mask) for PixArt (T5 [B, 120, 4096]) and SD1.5 (CLIP-L [B, 77, 768])."""
+    """Cache rows → the family's conditioning: the embedding sequence alone
+    for CogVideoX (T5 [B, 226, 4096], no mask: the model attends to every
+    padded token), (embeds, pooled) for SD3, which needs a cache with pooled
+    vectors (`error` otherwise), (embeds, mask) for PixArt (T5 [B, 120,
+    4096]) and SD1.5 (CLIP-L [B, 77, 768])."""
     if family == "cogvideox":
-        raise NotImplementedError(
-            "cogvideox conditioning is not ported yet: ROADMAP.md queue 1, "
-            "slice 5 (CogVideoX)"
-        )
+        return embeds
     if family == "sd3":
         if pooled is None:
             raise error(

@@ -2,15 +2,17 @@
 
 Port of the numpy half of `tdm_tpu/io/convert.py` for the families the port
 builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), the SD1.5 UNet
-(`unet_sd15_params`), TAESD/TAESD3 (`taesd_params`) and AutoencoderKL
-(`klvae_params`). Each converter returns
+(`unet_sd15_params`), TAESD/TAESD3 (`taesd_params`), AutoencoderKL
+(`klvae_params`), the CogVideoX transformer (`cogvideox_params`) and its 3D
+VAE's decoder (`vae3d_decoder_params`). Each converter returns
 the same nested numpy tree as its JAX twin before `to_jax`; the weight carry
 (`io/from_jax.state_dict_from_jax` over `flatten`) loads that tree into the
 port's modules, so a diffusers checkpoint and a tdm_tpu-layout directory take
 one weight path.
 
 torch Linear weights are [out, in] and the tree's Dense kernels [in, out];
-torch Conv2d is [out, in, kh, kw] and the tree's HWIO. Both are numpy views
+torch Conv2d is [out, in, kh, kw] and the tree's HWIO; torch Conv3d is
+[out, in, kt, kh, kw] and the tree's [kt, kh, kw, in, out]. Both are numpy views
 here, so the carry's transpose back gives the checkpoint's own buffers and
 the load into a module is the one copy.
 
@@ -495,4 +497,95 @@ def klvae_params(
         _conv(sd, enc, "encoder.conv_out", "conv_out")
         if "quant_conv.weight" in sd:
             _conv(sd, enc, "quant_conv", "quant_conv")
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX 3D-DiT (diffusers CogVideoXTransformer3DModel)
+# ---------------------------------------------------------------------------
+
+
+@_strict_converter(
+    "cogvideox",
+    # the 2B's non-persistent 3D sin-cos buffer, recomputed on the host
+    ignore=(r"patch_embed\.pos_embedding",),
+)
+def cogvideox_params(sd: dict[str, np.ndarray], *, scan_layers: bool = True) -> dict:
+    """CogVideoX transformer state dict → the CogVideoXTransformer3D tree
+    (the 5B's RoPE has no weights)."""
+    tree: dict = {}
+    _conv(sd, tree, "patch_embed.proj", "patch_proj")
+    _linear(sd, tree, "patch_embed.text_proj", "text_proj")
+    for j in (1, 2):
+        _linear(sd, tree, f"time_embedding.linear_{j}", f"time_embedding/linear_{j}")
+    for i in range(_n_blocks(sd, r"transformer_blocks\.(\d+)\.")):
+        src, dst = f"transformer_blocks.{i}", f"blocks_{i}"
+        for norm in ("norm1", "norm2"):
+            _linear(sd, tree, f"{src}.{norm}.linear", f"{dst}/{norm}/linear")
+            _norm(sd, tree, f"{src}.{norm}.norm", f"{dst}/{norm}/norm")
+        for p in ("to_q", "to_k", "to_v"):
+            _linear(sd, tree, f"{src}.attn1.{p}", f"{dst}/{p}")
+        for qk in ("norm_q", "norm_k"):
+            _norm(sd, tree, f"{src}.attn1.{qk}", f"{dst}/{qk}")
+        _linear(sd, tree, f"{src}.attn1.to_out.0", f"{dst}/to_out")
+        _linear(sd, tree, f"{src}.ff.net.0.proj", f"{dst}/ff/proj_in")
+        _linear(sd, tree, f"{src}.ff.net.2", f"{dst}/ff/proj_out")
+    _norm(sd, tree, "norm_final", "norm_final")
+    _linear(sd, tree, "norm_out.linear", "norm_out_linear")
+    _norm(sd, tree, "norm_out.norm", "norm_out_norm")
+    _linear(sd, tree, "proj_out", "proj_out")
+    return stack_layers(tree) if scan_layers else tree
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX 3D VAE decoder (diffusers AutoencoderKLCogVideoX)
+# ---------------------------------------------------------------------------
+
+
+def _cconv3d(sd: dict, tree: dict, src: str, dst: str) -> None:
+    """CogVideoXCausalConv3d (an nn.Conv3d as `.conv`): [out, in, kt, kh,
+    kw] → [kt, kh, kw, in, out] under `{dst}/conv` (a view)."""
+    _set(tree, f"{dst}/conv/kernel", np.transpose(sd[f"{src}.conv.weight"], (2, 3, 4, 1, 0)))
+    if f"{src}.conv.bias" in sd:
+        _set(tree, f"{dst}/conv/bias", sd[f"{src}.conv.bias"])
+
+
+def _vae3d_resnet(sd: dict, tree: dict, src: str, dst: str) -> None:
+    _norm(sd, tree, f"{src}.norm1", f"{dst}/norm1/gn")
+    _cconv3d(sd, tree, f"{src}.conv1", f"{dst}/conv1")
+    _norm(sd, tree, f"{src}.norm2", f"{dst}/norm2/gn")
+    _cconv3d(sd, tree, f"{src}.conv2", f"{dst}/conv2")
+    if f"{src}.conv_shortcut.conv.weight" in sd:
+        _set(tree, f"{dst}/shortcut/kernel",
+             np.transpose(sd[f"{src}.conv_shortcut.conv.weight"], (2, 3, 4, 1, 0)))
+        if f"{src}.conv_shortcut.conv.bias" in sd:
+            _set(tree, f"{dst}/shortcut/bias", sd[f"{src}.conv_shortcut.conv.bias"])
+
+
+@_strict_converter(
+    "vae3d_decoder",
+    # a decoder-only converter: the encoder's weights are left alone
+    ignore=(r"encoder\..*", r"quant_conv\..*", r"post_quant_conv\..*"),
+)
+def vae3d_decoder_params(
+    sd: dict[str, np.ndarray], *, layers_per_block: int = 3, n_stages: int = 4
+) -> dict:
+    """The CogVideoX VAE's decoder state dict → the VAE3DDecoder tree; each
+    stage's upsampler Conv2d [out, in, 3, 3] becomes the per-frame (1, 3,
+    3) causal conv."""
+    tree: dict = {}
+    _cconv3d(sd, tree, "decoder.conv_in", "conv_in")
+    _vae3d_resnet(sd, tree, "decoder.mid_block.resnets.0", "mid_block_1")
+    _vae3d_resnet(sd, tree, "decoder.mid_block.resnets.1", "mid_block_2")
+    for i in range(n_stages):
+        for j in range(layers_per_block + 1):
+            _vae3d_resnet(sd, tree, f"decoder.up_blocks.{i}.resnets.{j}", f"up_{i}_res_{j}")
+        up = f"decoder.up_blocks.{i}.upsamplers.0.conv"
+        if f"{up}.weight" in sd:
+            _set(tree, f"up_{i}_upsampler/conv/kernel",
+                 np.transpose(sd[f"{up}.weight"], (2, 3, 1, 0))[None])
+            if f"{up}.bias" in sd:
+                _set(tree, f"up_{i}_upsampler/conv/bias", sd[f"{up}.bias"])
+    _norm(sd, tree, "decoder.norm_out", "norm_out/gn")
+    _cconv3d(sd, tree, "decoder.conv_out", "conv_out")
     return tree

@@ -5,7 +5,8 @@ The JAX package stores parameters as a flat dict of arrays keyed by
 '/'-joined Flax paths (`tdm_tpu/io/params.py`). The port's modules keep the
 same names, so the carry is a rename plus two layout changes:
   * Dense `kernel` [in, out] → `weight` [out, in];
-  * Conv `kernel` HWIO → `weight` OIHW;
+  * Conv `kernel` HWIO → `weight` OIHW, and a 3D conv's [kt, kh, kw, in,
+    out] → [out, in, kt, kh, kw] (the CogVideoX VAE);
 and the layer stack becomes `blocks.{i}....`. The port's fp32 norms keep
 Flax's `scale` and `bias` (the KL decoder's GroupNorms, SD3's RMS qk norms,
 the SD1.5 UNet's GroupNorms and LayerNorms), so they carry by name; the
@@ -76,6 +77,8 @@ def _leaf(prefix: list[str], rest: list[str], arr: np.ndarray) -> tuple[str, np.
             arr = arr.T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:  # a 3D conv: [kt, kh, kw, in, out] → [out, in, kt, kh, kw]
+            arr = arr.transpose(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"kernel {'/'.join(prefix + rest)} has rank {arr.ndim}")
         name = "weight"
@@ -177,7 +180,8 @@ def jax_layout(
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
         if key.endswith(".weight"):
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            arr = {2: lambda a: a.T, 4: lambda a: a.transpose(2, 3, 1, 0),
+                   5: lambda a: a.transpose(2, 3, 4, 1, 0)}[arr.ndim](arr)
         path, layer = jax_name(key, stacks)
         if layer is None:
             flat[path] = arr

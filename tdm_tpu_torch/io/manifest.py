@@ -1,8 +1,8 @@
 """Checkpoint key/shape manifests: the diffusers key surface of each family.
 
 Port of `tdm_tpu/io/manifest.py` for the families the port converts
-(pixart, sd3, unet_sd15, klvae, taesd, taesd3), built on the port's own
-configs. The
+(pixart, sd3, unet_sd15, klvae, cogvideox, vae3d_decoder, taesd, taesd3),
+built on the port's own configs. The
 inventory of a family is generated from its model config and lists exactly
 the {torch key: shape} its converter in `io/convert.py` reads, so:
   * a checkpoint is checked from its safetensors header alone
@@ -11,8 +11,6 @@ the {torch key: shape} its converter in `io/convert.py` reads, so:
     (`synthetic_state_dict`, or `write_synthetic` one leaf at a time for a
     full-width file), which is how the tests and `chip_smoke.py` build
     diffusers checkouts without released weights.
-cogvideox and vae3d_decoder raise NotImplementedError naming their ROADMAP
-slice.
 """
 
 from __future__ import annotations
@@ -49,6 +47,10 @@ class _Shapes(dict):
         self[f"{name}.weight"] = (cout, cin, k, k)
         if bias:
             self[f"{name}.bias"] = (cout,)
+
+    def conv3d(self, name: str, cin: int, cout: int, kt: int = 3, ks: int = 3) -> None:
+        self[f"{name}.weight"] = (cout, cin, kt, ks, ks)
+        self[f"{name}.bias"] = (cout,)
 
     def norm(self, name: str, dim: int) -> None:
         self[f"{name}.weight"] = (dim,)
@@ -237,6 +239,63 @@ def _klvae(cfg) -> _Shapes:
     return s
 
 
+def _cogvideox(cfg) -> _Shapes:
+    """THUDM/CogVideoX-2b transformer (convert.cogvideox_params)."""
+    s = _Shapes()
+    d = cfg.hidden
+    s.conv("patch_embed.proj", cfg.in_channels, d, k=cfg.patch_size)
+    s.lin("patch_embed.text_proj", cfg.text_dim, d)
+    s.lin("time_embedding.linear_1", d, cfg.time_embed_dim)
+    s.lin("time_embedding.linear_2", cfg.time_embed_dim, cfg.time_embed_dim)
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            s.lin(f"{b}.{norm}.linear", cfg.time_embed_dim, 6 * d)
+            s.norm(f"{b}.{norm}.norm", d)
+        for p in ("to_q", "to_k", "to_v"):
+            s.lin(f"{b}.attn1.{p}", d, d)
+        s.norm(f"{b}.attn1.norm_q", cfg.head_dim)
+        s.norm(f"{b}.attn1.norm_k", cfg.head_dim)
+        s.lin(f"{b}.attn1.to_out.0", d, d)
+        s.lin(f"{b}.ff.net.0.proj", d, 4 * d)
+        s.lin(f"{b}.ff.net.2", 4 * d, d)
+    s.norm("norm_final", d)
+    s.lin("norm_out.linear", cfg.time_embed_dim, 2 * d)
+    s.norm("norm_out.norm", d)
+    s.lin("proj_out", d, cfg.patch_size**2 * cfg.out_channels)
+    return s
+
+
+def _vae3d_decoder(cfg) -> _Shapes:
+    """The CogVideoX causal 3D VAE, decoder side (convert.vae3d_decoder_params):
+    every CogVideoXCausalConv3d wraps an nn.Conv3d as `.conv`."""
+    s = _Shapes()
+    widths = list(cfg.block_widths)
+    n_stages = len(widths)
+
+    def resnet(name, cin, cout):
+        s.norm(f"{name}.norm1", cin)
+        s.conv3d(f"{name}.conv1.conv", cin, cout)
+        s.norm(f"{name}.norm2", cout)
+        s.conv3d(f"{name}.conv2.conv", cout, cout)
+        if cin != cout:
+            s.conv3d(f"{name}.conv_shortcut.conv", cin, cout, kt=1, ks=1)
+
+    s.conv3d("decoder.conv_in.conv", cfg.latent_channels, widths[-1])
+    resnet("decoder.mid_block.resnets.0", widths[-1], widths[-1])
+    resnet("decoder.mid_block.resnets.1", widths[-1], widths[-1])
+    ch = widths[-1]
+    for i, w in enumerate(reversed(widths)):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", ch, w)
+            ch = w
+        if i < n_stages - 1:
+            s.conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", w, w)
+    s.norm("decoder.norm_out", widths[0])
+    s.conv3d("decoder.conv_out.conv", widths[0], cfg.image_channels)
+    return s
+
+
 def _taesd(cfg) -> _Shapes:
     """madebyollin/taesd and TAESD3 AutoencoderTiny (convert.taesd_params):
     positional nn.Sequential keys; the stage convs have no bias."""
@@ -275,9 +334,11 @@ def _taesd(cfg) -> _Shapes:
 
 
 def _default_cfg(family: str):
-    from tdm_tpu_torch.models import mmdit_sd3, pixart, unet_sd15, vae
+    from tdm_tpu_torch.models import cogvideox, mmdit_sd3, pixart, unet_sd15, vae, vae3d
 
     return {
+        "cogvideox": cogvideox.CogVideoXConfig,
+        "vae3d_decoder": vae3d.VAE3DConfig,
         "pixart": pixart.PixArtConfig,
         "sd3": mmdit_sd3.MMDiTConfig,
         "unet_sd15": unet_sd15.UNetConfig,
@@ -292,12 +353,10 @@ _INVENTORIES = {
     "sd3": _sd3,
     "unet_sd15": _unet_sd15,
     "klvae": _klvae,
+    "cogvideox": _cogvideox,
+    "vae3d_decoder": _vae3d_decoder,
     "taesd": _taesd,
     "taesd3": _taesd,
-}
-_NOT_PORTED = {
-    "cogvideox": "slice 5 (CogVideoX video)",
-    "vae3d_decoder": "slice 5 (CogVideoX video)",
 }
 MANIFEST_FAMILIES = ("pixart", "sd3", "unet_sd15", "klvae", "cogvideox",
                      "vae3d_decoder", "taesd", "taesd3")
@@ -308,6 +367,8 @@ _IGNORED_PREFIXES = {
     "sd3": ("pos_embed.pos_embed",),
     "taesd": ("latent_magnitude", "latent_shift"),
     "taesd3": ("latent_magnitude", "latent_shift"),
+    "vae3d_decoder": ("encoder.", "quant_conv.", "post_quant_conv."),
+    "cogvideox": ("patch_embed.pos_embedding",),
     "pixart": (
         "adaln_single.emb.resolution_embedder.",
         "adaln_single.emb.aspect_ratio_embedder.",
@@ -319,11 +380,6 @@ _IGNORED_PREFIXES = {
 def expected_manifest(family: str, cfg=None) -> dict[str, tuple[int, ...]]:
     """The exact {torch key: shape} inventory the family's converter reads,
     generated from the model config (by default the released model's)."""
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {family} manifest is not ported yet: ROADMAP.md queue 1, "
-            f"{_NOT_PORTED[family]}"
-        )
     if family not in _INVENTORIES:
         raise ValueError(f"unknown manifest family {family!r}; known: {MANIFEST_FAMILIES}")
     return dict(_INVENTORIES[family](cfg if cfg is not None else _default_cfg(family)))

@@ -1,4 +1,5 @@
-"""Building blocks of the PixArt, SD3 and SD1.5 denoisers, in PyTorch.
+"""Building blocks of the PixArt, SD3, SD1.5 and CogVideoX denoisers, in
+PyTorch.
 
 Port of the serving path's part of `tdm_tpu/models/layers.py`. Module and
 parameter names follow the JAX package's tree (to_q/to_k/to_v/to_out,
@@ -361,6 +362,26 @@ class FeedForward(nn.Module):
             h, gate = h.chunk(2, dim=-1)
             return self.proj_out(h * F.gelu(gate))
         return self.proj_out(F.gelu(h, approximate="tanh"))
+
+
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation x·(1+scale)+shift; shift and scale [B, D] or
+    [B, 1, D] (`tdm_tpu/models/layers.py:233-237`)."""
+    if shift.dim() == 2:
+        shift, scale = shift[:, None], scale[:, None]
+    return x * (1 + scale) + shift
+
+
+def apply_rotary(x: torch.Tensor, rotary: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Rotate the interleaved pairs (x0, x1) of x [B, H, S, D] by the (cos,
+    sin) tables [S, D] (CogVideoX-5B's 3D RoPE, `tdm_tpu/models/layers.py:
+    240-251`): (x0·c − x1·s, x1·c + x0·s) with c, s from the even columns;
+    the result in x's dtype."""
+    cos, sin = rotary
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    c, s = cos[..., 0::2], sin[..., 0::2]
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 def unpatchify(

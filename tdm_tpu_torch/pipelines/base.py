@@ -31,11 +31,23 @@ VALUE_RANGES = ("unit", "pm1")
 
 @dataclass
 class PipelineOutput:
-    """images: [B, H, W, 3] float32 in [0, 1] (None with output_type='latent');
-    latents: the sampler's final x₀ estimate [B, C, h, w]."""
+    """images: [B, H, W, 3] float32 in [0, 1], or videos [B, F, H, W, 3]
+    (None with output_type='latent'); latents: the sampler's final x₀
+    estimate [B, C, h, w] ([B, C, F, h, w] for a video)."""
 
     images: Any
     latents: Any = None
+
+    @property
+    def frames(self) -> Any:
+        """diffusers' video accessor (`pipe(...).frames[0]`): the decoded
+        [B, F, H, W, 3] videos. Image and latent outputs raise."""
+        if self.images is not None and self.images.dim() == 5:
+            return self.images
+        raise AttributeError(
+            "frames is only available on decoded video outputs ([B,F,H,W,3]); use "
+            ".images for decoded images, or .latents with output_type='latent'"
+        )
 
 
 def denoiser_of(pipe) -> torch.nn.Module:
@@ -154,12 +166,14 @@ def initial_noise(
 
 
 def to_images(decoded: torch.Tensor, *, value_range: str = "unit") -> torch.Tensor:
-    """VAE output [B, 3, H, W] → [B, H, W, 3] float32 in [0, 1].
-    `value_range`: 'unit' for TAESD (its output is [0, 1]), 'pm1' for a KL
-    VAE ([-1, 1] → /2 + 0.5, diffusers' postprocess); then clipped."""
+    """VAE output [B, 3, H, W] → [B, H, W, 3] (a video [B, 3, F, H, W] →
+    [B, F, H, W, 3]) float32 in [0, 1]. `value_range`: 'unit' for TAESD
+    (its output is [0, 1]), 'pm1' for a KL or 3D VAE ([-1, 1] → /2 + 0.5,
+    diffusers' postprocess); then clipped."""
     if value_range not in VALUE_RANGES:
         raise ValueError(f"unknown vae value_range {value_range!r} (one of {VALUE_RANGES})")
     x = decoded.float()
     if value_range == "pm1":
         x = x / 2.0 + 0.5
-    return x.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    x = x.clamp(0.0, 1.0)
+    return x.permute(0, 2, 3, 1) if x.dim() == 4 else x.permute(0, 2, 3, 4, 1)

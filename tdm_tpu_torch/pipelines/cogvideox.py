@@ -1,0 +1,155 @@
+"""CogVideoX pipeline: 4-NFE text-to-video.
+
+Port of `tdm_tpu/pipelines/cogvideox.py` for the serving path, as the
+reference's video recipe drives `CogVideoXPipeline` with the TDM LoRA:
+`pipe(prompt_embeds=embeds, guidance_scale=1, num_inference_steps=4,
+num_frames=49)` at 480×720, sampled on the grid the TDM generator was
+trained on, t = (999, 856, 665, 399) (`TDM_TRAINED_GRID`; another step
+count takes `fewstep_grid(1000, K)`), under the CogVideoX schedule
+(v-prediction, zero terminal SNR). The fp32 latents, divided by the VAE's
+`scaling_factor`, are decoded by the causal 3D VAE in spatial tiles
+(`vae_tile`, `vae_tile_overlap`, the reference's `enable_tiling()`), each
+tile streamed in temporal chunks when `vae_temporal_chunk` is set
+(`enable_slicing()`); the output is [B, F, H, W, 3] (`.frames`).
+
+Conditioning is the T5 embedding sequence [B, 226, 4096] alone, with no
+mask; the text encoder is not ported yet, so `encode_prompt` raises, and CFG
+(only above 1) takes `negative_embeds` or, with no encoder attached, zeros.
+Sequence parallelism waits for slice 6.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+
+from tdm_tpu_torch.core import sampling, schedules as sched
+from tdm_tpu_torch.device import resolve_device
+from tdm_tpu_torch.models import cogvideox as cog, vae3d
+from tdm_tpu_torch.pipelines.base import (
+    DiffusionPipelineBase,
+    PipelineOutput,
+    check_negative_prompt,
+    generator_for,
+    initial_noise,
+    repeat_per_prompt,
+    to_images,
+)
+
+TDM_TRAINED_GRID = (999, 856, 665, 399)  # the reference README.md:129
+
+
+class CogVideoXPipeline(DiffusionPipelineBase):
+    family = "cogvideox"
+
+    def __init__(
+        self,
+        transformer: cog.CogVideoXTransformer3D,
+        *,
+        vae_decoder: Optional[vae3d.VAE3DDecoder] = None,
+        vae_cfg: Optional[vae3d.VAE3DConfig] = None,
+        schedule: Optional[sched.NoiseSchedule] = None,
+        vae_tile: int = 32,
+        vae_tile_overlap: int = 4,
+        vae_temporal_chunk: Optional[int] = None,
+        sequence_parallel_mesh=None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__()
+        if sequence_parallel_mesh is not None:
+            raise NotImplementedError(
+                "CogVideoX sequence parallelism is not ported yet: ROADMAP.md queue 1, "
+                "slice 6 (multi-GPU)")
+        self.device = resolve_device(device)
+        self.transformer = transformer.to(self.device).eval()
+        self.vae_decoder = (
+            vae_decoder.to(self.device).eval() if vae_decoder is not None else None
+        )
+        self.vae_cfg = vae_cfg or (vae_decoder.cfg if vae_decoder is not None
+                                   else vae3d.VAE3DConfig())
+        self.schedule = (
+            schedule if schedule is not None else sched.cogvideox(device=self.device)
+        )
+        self.vae_tile = vae_tile
+        self.vae_tile_overlap = vae_tile_overlap
+        self.vae_temporal_chunk = vae_temporal_chunk
+
+    def encode_prompt(self, prompts):
+        raise NotImplementedError(
+            "T5 encode_prompt is not ported yet: ROADMAP.md queue 1, slice 7 "
+            "(text encoders from transformers); serve from an embedding "
+            "cache or pass prompt_embeds=embeds [B, 226, 4096]"
+        )
+
+    def latent_shape(self, batch: int, num_frames: int, height: int, width: int) -> tuple:
+        """[B, C, 1 + (num_frames − 1)/tf, height/sf, width/sf]."""
+        c = self.vae_cfg
+        return (batch, self.transformer.cfg.in_channels,
+                1 + (num_frames - 1) // c.temporal_factor,
+                height // c.spatial_factor, width // c.spatial_factor)
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """fp32 latents / scaling_factor → the tiled (and, with
+        vae_temporal_chunk, streamed) 3D decode [B, 3, F, H, W], one video
+        at a time: the convolutions' shapes, so the library's choice of
+        algorithm and with it a video's bits, do not depend on the batch,
+        and the peak memory is one video's."""
+        c = self.vae_cfg
+        if self.vae_temporal_chunk is not None:
+            def decode_fn(z):
+                return vae3d.decode_streaming(self.vae_decoder, z, chunk=self.vae_temporal_chunk)
+        else:
+            decode_fn = self.vae_decoder
+        z = latents.float() / c.scaling_factor
+        return torch.cat([
+            vae3d.decode_tiled(decode_fn, z[i:i + 1], tile=self.vae_tile,
+                               overlap=self.vae_tile_overlap, spatial_factor=c.spatial_factor)
+            for i in range(z.shape[0])])
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        prompt: Optional[list[str]] = None,
+        *,
+        negative_prompt: Optional[list[str]] = None,
+        prompt_embeds=None,
+        negative_embeds=None,
+        num_inference_steps: int = 4,
+        num_videos_per_prompt: int = 1,
+        guidance_scale: float = 1.0,
+        num_frames: int = 49,
+        height: int = 480,
+        width: int = 720,
+        seed: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        latents=None,
+        timesteps: Optional[Sequence[int]] = None,
+        output_type: str = "video",
+    ) -> PipelineOutput:
+        if prompt_embeds is None:
+            prompt_embeds = self.encode_prompt(prompt)
+        cond = torch.as_tensor(prompt_embeds).to(self.device)
+        check_negative_prompt(negative_prompt, cond.shape[0])
+        use_cfg = guidance_scale is not None and guidance_scale > 1.0
+        uncond = None
+        if use_cfg:
+            uncond = (torch.as_tensor(negative_embeds).to(self.device)
+                      if negative_embeds is not None else torch.zeros_like(cond))
+        cond = repeat_per_prompt(cond, num_videos_per_prompt)
+        uncond = repeat_per_prompt(uncond, num_videos_per_prompt)
+        noise = initial_noise(
+            latents, generator_for(seed, generator),
+            self.latent_shape(cond.shape[0], num_frames, height, width), self.device)
+        if timesteps is None:
+            timesteps = (TDM_TRAINED_GRID if num_inference_steps == 4 else
+                         sched.fewstep_grid(1000, num_inference_steps).tolist())
+        out = sampling.sample_fewstep(
+            cog.make_denoise_fn(self.transformer), self.schedule, noise, cond,
+            timestep_grid=sched.grid_from_list(timesteps), uncond=uncond,
+            cfg=guidance_scale if use_cfg else None,
+        )
+        if output_type == "latent" or self.vae_decoder is None:
+            return PipelineOutput(images=None, latents=out)
+        return PipelineOutput(images=to_images(self.decode(out), value_range="pm1"),
+                              latents=out)

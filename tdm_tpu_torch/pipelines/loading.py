@@ -1,27 +1,29 @@
 """`from_pretrained` / `save_pretrained`: pipelines from a directory or a
 cached hub repo id.
 
-Port of `tdm_tpu/pipelines/loading.py`, families pixart, sd3 and sd15, for
-its two layouts:
+Port of `tdm_tpu/pipelines/loading.py`, families pixart, sd3, sd15 and
+cogvideox, for its two layouts:
 
 1. The tdm_tpu layout (written by `save_pretrained` of either package):
 
     my_pipe/
-      pipeline.json               {"family": "pixart" | "sd3" | "sd15",
-                                   "model": {...}, "vae": {...}}
-                                   (config fields)
+      pipeline.json               {"family": "pixart" | "sd3" | "sd15" |
+                                   "cogvideox", "model": {...},
+                                   "vae": {...}} (config fields)
       transformer.safetensors     denoiser params, flat '/'-joined Flax keys
                                   (SD1.5's UNet too)
       vae_decoder.safetensors     optional TAESD (TAESD3 for sd3) decoder;
-                                  for sd15 the KL decoder
+                                  for sd15 the KL decoder, for cogvideox
+                                  the 3D VAE's decoder
 
 2. A stock diffusers checkout (`model_index.json` with `transformer/`, or
    SD1.5's `unet/`, and `vae/` subfolders): `_class_name` picks the family,
    each subfolder's `config.json` maps onto the port's config, and the
    torch state dicts run through the strict converters of `io/convert.py`.
-   The VAE is an `AutoencoderKL` (the KL decoder) or an `AutoencoderTiny`
-   (TAESD). `text_encoder*/` subfolders are not loaded (ROADMAP.md queue 1,
-   slice 7).
+   The VAE is an `AutoencoderKL` (the KL decoder), an `AutoencoderTiny`
+   (TAESD) or, for CogVideoX, an `AutoencoderKLCogVideoX` (the 3D decoder;
+   the transformer config's pixel `sample_frames` becomes latent frames).
+   `text_encoder*/` subfolders are not loaded (ROADMAP.md queue 1, slice 7).
 
 An `org/name` repo id resolves against the local hub cache first
 (`io/hub.resolve_pretrained`). Both layouts reach the modules through the
@@ -41,16 +43,16 @@ import torch
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.io import convert, from_jax, hub, params as params_io
-from tdm_tpu_torch.models import layers, mmdit_sd3, pixart, unet_sd15, vae as vae_lib
+from tdm_tpu_torch.models import (
+    cogvideox as cog, layers, mmdit_sd3, pixart, unet_sd15, vae as vae_lib, vae3d,
+)
+from tdm_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from tdm_tpu_torch.pipelines.pixart import PixArtPipeline
 from tdm_tpu_torch.pipelines.sd15 import SD15Pipeline
 from tdm_tpu_torch.pipelines.sd3 import SD3Pipeline
 
-FAMILIES = ("pixart", "sd3", "sd15")
-_NOT_PORTED = {
-    "cogvideox": "slice 5 (CogVideoX video)",
-}
-Pipeline = Union[PixArtPipeline, SD3Pipeline, SD15Pipeline]
+FAMILIES = ("pixart", "sd3", "sd15", "cogvideox")
+Pipeline = Union[PixArtPipeline, SD3Pipeline, SD15Pipeline, CogVideoXPipeline]
 
 
 def _config(cls, conf: dict, default=None):
@@ -116,6 +118,8 @@ def from_pretrained(
     # 7): the pipeline takes prompt_embeds= and the server an embedding cache
     if family == "sd15":
         return _sd15_from_layout(path, meta, dev, **kwargs)
+    if family == "cogvideox":
+        return _cogvideox_from_layout(path, meta, dev, **kwargs)
     if family == "sd3":
         cfg = _config(mmdit_sd3.MMDiTConfig, meta.get("model", {}))
         transformer = mmdit_sd3.SD3Transformer2D(cfg, device=dev)
@@ -164,12 +168,25 @@ def _sd15_from_layout(path: str, meta: dict, dev: torch.device, **kwargs) -> SD1
                         **kwargs)
 
 
+def _cogvideox_from_layout(path: str, meta: dict, dev: torch.device,
+                           **kwargs) -> CogVideoXPipeline:
+    """The cogvideox branch of layout 1 (`tdm_tpu/pipelines/loading.py:
+    182-191`): the transformer and, when there is one, the 3D VAE's
+    decoder."""
+    cfg = _config(cog.CogVideoXConfig, meta.get("model", {}))
+    transformer = cog.CogVideoXTransformer3D(cfg, device=dev)
+    transformer.load_state_dict(from_jax.state_dict_from_jax(
+        params_io.load_file(os.path.join(path, "transformer.safetensors")), transformer))
+    vcfg = _config(vae3d.VAE3DConfig, meta.get("vae", {}))
+    vae_file = os.path.join(path, "vae_decoder.safetensors")
+    vae = None
+    if os.path.exists(vae_file):
+        vae = vae3d.VAE3DDecoder(vcfg, device=dev)
+        vae.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae))
+    return CogVideoXPipeline(transformer, vae_decoder=vae, vae_cfg=vcfg, device=dev, **kwargs)
+
+
 def _check_family(family: str) -> None:
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet: ROADMAP.md queue 1, "
-            f"{_NOT_PORTED[family]}"
-        )
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
 
@@ -195,6 +212,8 @@ def save_pretrained(path: str, pipe: Pipeline) -> None:
     meta = {"family": pipe.family, "model": _config_dict(cfg), "vae": {}}
     if pipe.vae_decoder is not None:
         meta["vae"] = _config_dict(pipe.vae_decoder.cfg)
+    elif getattr(pipe, "vae_cfg", None) is not None:  # cogvideox's latent geometry
+        meta["vae"] = _config_dict(pipe.vae_cfg)
     with open(os.path.join(path, "pipeline.json"), "w") as f:
         json.dump(meta, f, indent=1)
     params_io.save_file(
@@ -229,7 +248,7 @@ def _family_from_class(class_name: str) -> str:
             return family
     raise ValueError(
         f"unsupported diffusers pipeline class {class_name!r} "
-        f"(supported families: {FAMILIES + tuple(_NOT_PORTED)})"
+        f"(supported families: {FAMILIES})"
     )
 
 
@@ -287,6 +306,22 @@ def _unet_config(hf: dict) -> unet_sd15.UNetConfig:
     return dataclasses.replace(unet_sd15.UNetConfig(), **kw)
 
 
+def _cogvideox_config(hf: dict) -> cog.CogVideoXConfig:
+    kw = _mapped(hf, {
+        "in_channels": "in_channels", "out_channels": "out_channels",
+        "patch_size": "patch_size", "num_layers": "num_layers",
+        "num_attention_heads": "num_heads", "attention_head_dim": "head_dim",
+        "text_embed_dim": "text_dim", "time_embed_dim": "time_embed_dim",
+        "max_text_seq_length": "max_text_len",
+        "sample_height": "sample_h", "sample_width": "sample_w",
+        "use_rotary_positional_embeddings": "use_rotary",
+    })
+    if "sample_frames" in hf:  # diffusers counts pixel frames, the config latent ones
+        kw["sample_frames"] = (hf["sample_frames"] - 1) // hf.get(
+            "temporal_compression_ratio", 4) + 1
+    return dataclasses.replace(cog.CogVideoXConfig(), **kw)
+
+
 def _load(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """A converter's tree into `module` through the weight carry."""
     module.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), module))
@@ -296,20 +331,28 @@ def _load(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
 def _load_diffusers_vae(path: str, dev: torch.device):
     """vae/ subfolder → (decoder module or None, pipeline kwargs): an
     `AutoencoderKL` as the KL decoder (value range 'pm1'), an
-    `AutoencoderTiny` as TAESD ('unit'); none when the subfolder is absent
+    `AutoencoderTiny` as TAESD ('unit'), an `AutoencoderKLCogVideoX` as the
+    3D decoder (its config as `vae_cfg`); none when the subfolder is absent
     or its class is another."""
     if not os.path.exists(os.path.join(path, "vae", "config.json")):
         return None, {}
     hf = _subconfig(path, "vae")
     cls = hf.get("_class_name", "")
-    if cls == "AutoencoderKLCogVideoX":
-        raise NotImplementedError(
-            "the CogVideoX 3D VAE (AutoencoderKLCogVideoX) is not ported yet: "
-            "ROADMAP.md queue 1, slice 5 (CogVideoX video)"
-        )
-    if cls not in ("AutoencoderTiny", "AutoencoderKL"):
+    if cls not in ("AutoencoderTiny", "AutoencoderKL", "AutoencoderKLCogVideoX"):
         return None, {}
     sd = convert.load_torch_state_dict(os.path.join(path, "vae"))
+    if cls == "AutoencoderKLCogVideoX":
+        kw = _mapped(hf, {
+            "latent_channels": "latent_channels", "layers_per_block": "layers_per_block",
+            "norm_num_groups": "norm_groups", "scaling_factor": "scaling_factor",
+            "temporal_compression_ratio": "temporal_factor",
+        })
+        if "block_out_channels" in hf:
+            kw["block_widths"] = tuple(hf["block_out_channels"])
+        vcfg = dataclasses.replace(vae3d.VAE3DConfig(), **kw)
+        tree = convert.vae3d_decoder_params(sd, layers_per_block=vcfg.layers_per_block,
+                                            n_stages=len(vcfg.block_widths))
+        return _load(vae3d.VAE3DDecoder(vcfg, device=dev), tree), {"vae_cfg": vcfg}
     kw = _mapped(hf, {
         "latent_channels": "latent_channels",
         "scaling_factor": "scaling_factor",
@@ -358,6 +401,11 @@ def _from_diffusers(path: str, dev: torch.device, model_config: Optional[dict] =
     sd = convert.load_torch_state_dict(os.path.join(path, sub))
     vae, vae_kw = _load_diffusers_vae(path, dev)
     vae_kw.update(kwargs)  # explicit kwargs win over derived settings
+    if family == "cogvideox":
+        cfg = _config(cog.CogVideoXConfig, model_config or {}, _cogvideox_config(hf))
+        transformer = _load(cog.CogVideoXTransformer3D(cfg, device=dev),
+                            convert.cogvideox_params(sd, scan_layers=False))
+        return CogVideoXPipeline(transformer, vae_decoder=vae, device=dev, **vae_kw)
     if family == "sd15":
         cfg = _config(unet_sd15.UNetConfig, model_config or {}, _unet_config(hf))
         unet = _load(unet_sd15.UNet2DCondition(cfg, device=dev), convert.unet_sd15_params(

@@ -5,7 +5,9 @@ calls of a fixed batch size (`batch_size`, or the smallest of
 `batch_buckets` that fits); a partial batch is padded by repeating its last
 row, and padded outputs are dropped. Each request's initial noise comes from
 its own seed, so a (prompt, seed) gives the same image whatever its
-batch-mates. The noise is drawn with `torch.Generator().manual_seed(seed)`
+batch-mates. A request's conditioning is its family's (`data/prompts.
+pack_family_cond`): a tuple of batch-1 tensors, or CogVideoX's embedding
+sequence alone. The noise is drawn with `torch.Generator().manual_seed(seed)`
 on the CPU — different numbers from the JAX server's `PRNGKey(seed)` for the
 same seed, by construction.
 
@@ -32,12 +34,14 @@ from tdm_tpu_torch.pipelines.base import denoiser_of
 
 def latent_shape(pipe, call_kwargs: dict) -> tuple[int, ...]:
     """Per-request (leading-1) latent shape at the server's resolution (the
-    family's default: 512² PixArt and SD1.5, 1024² SD3)."""
+    family's default: 512² PixArt and SD1.5, 1024² SD3; CogVideoX's
+    `num_frames` frames, 49 by default, at 480×720)."""
     fam = getattr(pipe, "family", "")
+    if fam == "cogvideox":
+        return pipe.latent_shape(1, call_kwargs.get("num_frames", 49),
+                                 call_kwargs.get("height", 480), call_kwargs.get("width", 720))
     if fam not in ("pixart", "sd3", "sd15"):
-        raise NotImplementedError(
-            f"serving family {fam!r} is not ported yet (ROADMAP.md queue 1)"
-        )
+        raise ValueError(f"unknown serving family {fam!r}")
     ch = denoiser_of(pipe).cfg.in_channels
     side = 1024 if fam == "sd3" else 512
     h = call_kwargs.get("height", side)
@@ -53,27 +57,35 @@ def request_noise(seed: int, shape: tuple) -> torch.Tensor:
 
 
 def _to_device(tree, device, float_dtype=None):
-    """Conditioning tuple → tensors on `device`; floats cast to
-    `float_dtype` when given (bf16 for a bf16 model: the model's first use
-    rounds them the same way, and the upload is half the bytes)."""
+    """Conditioning (a tuple, or one array) → tensors on `device`; floats
+    cast to `float_dtype` when given (bf16 for a bf16 model: the model's
+    first use rounds them the same way, and the upload is half the bytes)."""
     def put(x):
         x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
         if float_dtype is not None and x.is_floating_point():
             x = x.to(float_dtype)
         return x.to(device)
 
-    return tuple(put(x) for x in tree)
+    return tuple(put(x) for x in tree) if isinstance(tree, (tuple, list)) else put(tree)
 
 
 def _tree_nbytes(tree) -> int:
-    return sum(x.numel() * x.element_size() for x in tree)
+    leaves = tree if isinstance(tree, (tuple, list)) else (tree,)
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def _cat_rows(conds: list):
+    """Batch-1 conditionings → one batch, concatenated on the batch axis."""
+    if isinstance(conds[0], (tuple, list)):
+        return tuple(torch.cat(xs, dim=0) for xs in zip(*conds))
+    return torch.cat(conds, dim=0)
 
 
 def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str], Any]:
     """prompt → batch-1 conditioning from an offline embedding cache (the
-    `.npz` of the JAX package's cli/build_cache: T5 for PixArt, CLIP-L for
-    SD1.5; SD3 needs its pooled vectors). The empty prompt falls back to the cache's uncond_* rows (the
-    CFG branch)."""
+    `.npz` of the JAX package's cli/build_cache: T5 for PixArt and
+    CogVideoX, CLIP-L for SD1.5; SD3 needs its pooled vectors). The empty
+    prompt falls back to the cache's uncond_* rows (the CFG branch)."""
     if embedding_cache is None:
         raise ValueError(
             "the port serves from an embedding cache (T5 encode_prompt is "
@@ -163,8 +175,9 @@ class ServeStats:
 
 class MicroBatcher:
     """Collect generation requests into fixed-size pipeline calls.
-    `submit` returns a Future resolving to the request's [H, W, 3] image
-    (or its latent row when the pipeline has no decoder)."""
+    `submit` returns a Future resolving to the request's [H, W, 3] image,
+    or [F, H, W, 3] video (its latent row when the pipeline has no
+    decoder)."""
 
     def __init__(
         self,
@@ -371,16 +384,12 @@ class MicroBatcher:
         bucket = next(b for b in self.batch_buckets if b >= n)
         pad = bucket - n
         rows = batch + [batch[-1]] * pad  # padded rows repeat the last one
-        cond = tuple(torch.cat(xs, dim=0) for xs in zip(*[p.cond for p in rows]))
+        cond = _cat_rows([p.cond for p in rows])
         noise = torch.cat([p.noise for p in rows], dim=0)
         uncond = None
         if self._uncond is not None:
-            uncond = tuple(
-                torch.cat(xs, dim=0)
-                for xs in zip(*[
-                    p.uncond if p.uncond is not None else self._uncond for p in rows
-                ])
-            )
+            uncond = _cat_rows(
+                [p.uncond if p.uncond is not None else self._uncond for p in rows])
         t0 = time.monotonic()
         out = self.pipe(
             prompt_embeds=cond, negative_embeds=uncond, latents=noise, **self.call_kwargs

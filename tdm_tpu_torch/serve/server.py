@@ -11,15 +11,21 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
                                        in the local hub cache)
     python -m tdm_tpu_torch.serve.server --model dreamshaper-7 --lora tdm.safetensors \\
         --embedding_cache clip_cache.npz   (SD1.5, 512², a CLIP-L cache)
+    python -m tdm_tpu_torch.serve.server --model CogVideoX-2b --lora tdm.safetensors \\
+        --embedding_cache t5_cache.npz --num_frames 49   (CogVideoX, 480×720,
+                                       a T5 cache of [226, 4096] rows)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
                         "shape": [H, W, 3], "seed": 8888}
+                     (a video: {"video": <base64 GIF>, "format": "gif",
+                        "shape": [F, H, W, 3], "seed": 8888})
     GET  /healthz    → {"ok": true, "stats": {...}}
     GET  /stats      → the same batching counters
     GET  /metrics    → the counters in Prometheus text exposition
 
-PNGs are encoded with the standard library's zlib (no imaging package).
+PNGs are encoded with the standard library's zlib and GIFs by `encode_gif`
+(no imaging package).
 """
 
 from __future__ import annotations
@@ -94,10 +100,105 @@ def encode_png(rgb: np.ndarray) -> bytes:
     )
 
 
+# the GIF's fixed palette: a 6×7×6 colour cube (252 colours, green finest),
+# so a GIF's bytes depend on its frames alone
+GIF_LEVELS = (6, 7, 6)
+GIF_DELAY_MS = 125  # 8 fps, the reference's export_to_video rate
+
+
+def gif_palette() -> np.ndarray:
+    """[256, 3] uint8: the colour cube in index order (r, g, b), padded with
+    black to the 256 entries of an 8-bit colour table."""
+    r, g, b = (np.round(np.arange(n) * 255.0 / (n - 1)) for n in GIF_LEVELS)
+    cube = np.stack(np.meshgrid(r, g, b, indexing="ij"), axis=-1).reshape(-1, 3)
+    return np.concatenate([cube, np.zeros((256 - len(cube), 3))]).astype(np.uint8)
+
+
+def gif_indices(frames: np.ndarray) -> np.ndarray:
+    """[F, H, W, 3] float in [0, 1] → [F, H, W] uint8 palette indices: each
+    channel rounded to its nearest cube level (within half a level step)."""
+    lv = np.array(GIF_LEVELS)
+    q = np.rint(np.clip(frames, 0.0, 1.0) * (lv - 1)).astype(np.uint8)
+    return (q[..., 0] * (lv[1] * lv[2]) + q[..., 1] * lv[2] + q[..., 2]).astype(np.uint8)
+
+
+def _lzw(indices: bytes) -> bytes:
+    """GIF's variable-width LZW of a frame's palette indices: a clear code
+    first and again whenever the table fills (next code 4095), the end code
+    last; the m-th code after a clear is 9 + [m ≥ 255] + [m ≥ 767] + [m ≥
+    1791] bits wide (the width grows when the next code reaches 512, 1024,
+    2048), packed low bit first. The indices are 8-bit: the minimum code
+    size is 8."""
+    min_size = 8
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    codes, clears = [clear], [0]
+    table: dict = {}
+    get, append = table.get, codes.append
+    next_code = end + 1
+    prefix = indices[0]
+    for k in indices[1:]:
+        key = (prefix << 8) | k
+        code = get(key)
+        if code is not None:
+            prefix = code
+            continue
+        append(prefix)
+        if next_code == 4095:
+            clears.append(len(codes))
+            append(clear)
+            table.clear()
+            next_code = end + 1
+        else:
+            table[key] = next_code
+            next_code += 1
+        prefix = k
+    append(prefix)
+    append(end)
+    codes = np.array(codes, np.int64)
+    pos = np.arange(len(codes))
+    starts = np.array(clears)
+    m = pos - starts[np.maximum(np.searchsorted(starts, pos, side="left") - 1, 0)] - 1
+    sizes = min_size + 1 + (m >= 255) + (m >= 767) + (m >= 1791)
+    sizes[0] = min_size + 1
+    bits = (codes[:, None] >> np.arange(12)) & 1
+    return np.packbits(bits[np.arange(12) < sizes[:, None]].astype(np.uint8),
+                       bitorder="little").tobytes()
+
+
+def encode_gif(frames: np.ndarray) -> bytes:
+    """[F, H, W, 3] float in [0, 1] → GIF89a bytes: the fixed colour cube as
+    the global colour table, the NETSCAPE2.0 block looping forever, and per
+    frame a graphic control block (the delay in centiseconds, truncated as
+    Pillow writes it: 125 ms → 12) and the LZW-coded indices in sub-blocks
+    of at most 255 bytes."""
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"encode_gif takes [F, H, W, 3] frames, got {frames.shape}")
+    n, h, w, _ = frames.shape
+    idx = gif_indices(frames)
+    parts = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+             b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
+    for i in range(n):
+        parts.append(b"\x21\xf9\x04\x04" + struct.pack("<H", GIF_DELAY_MS // 10) + b"\x00\x00")
+        parts.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08")
+        data = _lzw(idx[i].tobytes())
+        parts.extend(bytes([len(data[j:j + 255])]) + data[j:j + 255]
+                     for j in range(0, len(data), 255))
+        parts.append(b"\x00")
+    parts.append(b"\x3b")
+    return b"".join(parts)
+
+
 def _encode_image(arr: np.ndarray) -> dict:
-    """[H,W,3] float in [0,1] → PNG; anything else (a pipeline with no VAE
-    returns raw latents) → base64 .npy."""
+    """[H,W,3] float in [0,1] → PNG; [F,H,W,3] → GIF (`encode_gif`, 8 fps);
+    anything else (a pipeline with no VAE returns raw latents) → base64
+    .npy."""
     arr = np.asarray(arr, np.float32)
+    if arr.ndim == 4 and arr.shape[-1] == 3:
+        return {
+            "video": base64.b64encode(encode_gif(arr)).decode(),
+            "format": "gif",
+            "shape": list(arr.shape),
+        }
     if not (arr.ndim == 3 and arr.shape[-1] == 3):
         buf = io.BytesIO()
         np.save(buf, arr)
@@ -244,6 +345,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="server-wide negative prompt (CFG > 1 only)")
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
+    p.add_argument("--num_frames", type=int, default=None,
+                   help="video frames (CogVideoX; the pipeline's default 49)")
     p.add_argument("--flow_shift", type=float, default=None,
                    help="the flow grid's shift (SD3; the pipeline's default 6)")
     p.add_argument("--lora", default=None,
@@ -294,11 +397,14 @@ def build_server(args: argparse.Namespace) -> TDMServer:
         pipe.set_adapters(["tdm"], [args.lora_scale])
     call = {"num_inference_steps": args.num_inference_steps,
             "guidance_scale": args.guidance_scale}
-    for k in ("height", "width", "flow_shift"):
+    for k in ("height", "width", "num_frames", "flow_shift"):
         if getattr(args, k) is not None:
             call[k] = getattr(args, k)
     if "flow_shift" in call and pipe.family != "sd3":
         raise ValueError(f"--flow_shift applies to the flow models (sd3), not {pipe.family}")
+    if "num_frames" in call and pipe.family != "cogvideox":
+        raise ValueError(f"--num_frames applies to the video model (cogvideox), not "
+                         f"{pipe.family}")
     buckets = None
     if args.batch_buckets:
         buckets = tuple(int(b) for b in args.batch_buckets.split(","))

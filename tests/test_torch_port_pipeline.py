@@ -219,12 +219,16 @@ def test_from_pretrained_reads_every_jax_attn_impl(jax_dir, tmp_path, impl):
 
 
 def test_from_pretrained_refuses_unported_families(tmp_path):
-    """cogvideox waits for its slice (sd3 and sd15 are ported:
-    tests/test_torch_port_sd3.py, tests/test_torch_port_sd15.py)."""
-    for family, where in (("cogvideox", "slice 5"),):
-        (tmp_path / "pipeline.json").write_text(json.dumps({"family": family}))
-        with pytest.raises(NotImplementedError, match=where):
-            from_pretrained(str(tmp_path), device="cpu")
+    """A family the port does not know is refused by name; every family of
+    the JAX package loads (sd3, sd15 and cogvideox: tests/test_torch_port_sd3.py,
+    tests/test_torch_port_sd15.py, tests/test_torch_port_cogvideox.py)."""
+    from tdm_tpu.pipelines import loading as jloading
+    from tdm_tpu_torch.pipelines import loading as tloading
+
+    assert set(tloading.FAMILIES) == set(jloading.FAMILIES)
+    (tmp_path / "pipeline.json").write_text(json.dumps({"family": "flux"}))
+    with pytest.raises(ValueError, match="unknown family 'flux'"):
+        from_pretrained(str(tmp_path), device="cpu")
     with pytest.raises(FileNotFoundError):
         from_pretrained(str(tmp_path / "missing"), device="cpu")
 

@@ -509,8 +509,7 @@ def test_pack_family_cond_and_pooled_cache(tmp_path):
     assert pack_family_cond("pixart", e, m)[1] is m
     with pytest.raises(ValueError, match="pooled"):
         pack_family_cond("sd3", e, m, None)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        pack_family_cond("cogvideox", e, m)
+    assert pack_family_cond("cogvideox", e, m) is e  # the sequence alone, no mask
     path = str(tmp_path / "c.npz")
     EmbeddingCache(np.zeros((2, 3, 4), np.float16), np.ones((2, 3), np.int32), ["a", "b"],
                    uncond_embed=np.zeros((3, 4), np.float16), uncond_mask=np.ones(3, np.int32),
