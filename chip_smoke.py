@@ -115,14 +115,32 @@ Phases, one line each, and any failure exits non-zero:
      operations and the GIF encode's seconds, one full-width forward
      against plain attention head by head, and the decoder's per-tap
      causal conv against F.conv3d (cuDNN, a yardstick), repeated bit for
-     bit.
+     bit;
+ 14. train_cogvideox: full-width CogVideoX-2B TDM training through the
+     CLI's main() with the recipe's flags (--model_family cogvideox
+     --num_frames 49, batch 2, bf16 on fp32 masters, dmd, rank-64 LoRA
+     student, 8-bit Adam, --gradient_checkpointing, 4 steps), the teacher
+     from the CogVideoX checkout's transformer/ folder, a seeded T5 cache
+     with ragged masks and a TAESD3 in $TDM_TAESD_DIR that the video run
+     leaves unread: first one full-width step at 2 blocks and batch 1
+     without remat, with it and with it again, bit for bit; then load
+     seconds, seconds per step, peak memory, the idle share and top device
+     operations of a profiled step, each training kernel's launches per
+     step (checked, and by template arguments in the profiled step), and
+     the rank-64 kohya LoRA loaded back into the checkout's pipeline, one
+     4-NFE latent with it and one without.
 Each phase prints `[timing] <phase> <seconds>`. Phase 3 also holds kernel 1
 and kernel 4 at CogVideoX-2B's [1,30,17776,17776,64] and
 [2,30,17776,17776,64] (no mask) against the plain version computed head by
-head, timed in turns with SDPA; phase 4 also runs the tiny CogVideoX
-pipeline under both position schemes, tiled and streamed, on the card
-against the CPU. Phase 3 also holds kernel 1 at SD1.5's head dims 40, 136 and 160 (ragged,
-masked and all-masked rows, bf16 and fp32) and times its eight SD1.5
+head, timed in turns with SDPA, and the training kernels (the forward with
+its lse, dQ with its fused Δ, dK/dV) at [2,30,17776,17776,64] against
+their plain versions head by head, timed in turns with SDPA's forward and
+backward; phase 4 also runs the tiny CogVideoX pipeline under both
+position schemes, tiled and streamed, on the card against the CPU, and one
+tiny cogvideox TDM step, plain and as the recipe's LoRA student with 8-bit
+Adam and accumulation 2. Phase 3 also holds kernel 1 at SD1.5's head dims
+40, 136 and 160 (ragged, masked and all-masked rows, bf16 and fp32) and
+times its eight SD1.5
 shapes in turns with SDPA; it also holds the training kernels (the forward
 with its lse, dQ with its fused Δ, dK/dV) at one PixArt block's shapes and
 SD3 training's
@@ -149,6 +167,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import gc
 import json
 import math
 import os
@@ -207,6 +226,17 @@ SD15_SHAPES = (  # name, sq, sk, d, calls per batch
 COG_H, COG_D, COG_TXT = 30, 64, 226
 COG_S = COG_TXT + 13 * 30 * 45
 COG_LAUNCHES_PER_BATCH = 30 * 4
+# CogVideoX-2B training at 49 frames, 480×720 (latents [16, 13, 60, 90]) with
+# the recipe's flags at the video pipeline's batch 2, 4 optimizer steps
+COG_TRAIN_B, COG_TRAIN_STEPS, COG_LORA_RANK = 2, 4, 64
+# per step (dmd, cfg 4.5, one critic update, --gradient_checkpointing): 7
+# forwards without grad (rollout x4, x0_gen_sg, the teacher's CFG probe at
+# 2B, the critic probe) and 2 with grad (critic DSM, student loss), each 30
+# joint attentions; every grad forward's blocks run again in the backward's
+# recompute
+COG_TRAIN_LAUNCHES = {"flash_attention_fwd": 7 * 30, "flash_attention_fwd_lse": 2 * 2 * 30,
+                      "flash_attention_bwd_dq": 2 * 30, "flash_attention_bwd_dkv": 2 * 30,
+                      "splash_attention_fwd": 0}
 # kernel 1's launches per SD1.5 batch (16 transformers, self + cross, 4 NFE)
 # and those at head dim 160 (6 transformers)
 SD15_LAUNCHES_PER_BATCH = 16 * 2 * 4
@@ -598,9 +628,10 @@ def phase_kernels(torch, seed: int) -> dict:
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
-def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys):
+def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys, bias=True):
     """(bytes, operations) of one training kernel at this run's mask, each
-    input read once and each output written once. `live_keys` is the
+    input read once and each output written once (the fp32 key bias only
+    when the call has one). `live_keys` is the
     unmasked keys summed over the batch; K and V are read for those keys
     only, and the products are counted per (query, unmasked key) pair:
       fwd_lse: q read, out written, K/V read, bias read, lse written;
@@ -614,7 +645,7 @@ def attention_bwd_work(kernel, b, h, sq, sk, d, item_bytes, live_keys):
     kv = item_bytes * h * d * live_keys  # K or V over the unmasked keys
     full_k = item_bytes * h * d * b * sk
     row_f32 = 4 * b * h * sq  # lse or Δ
-    bias = 4 * b * sk
+    bias = 4 * b * sk if bias else 0
     if kernel == "fwd_lse":
         return 2 * rows + 2 * kv + bias + row_f32, 4 * h * sq * d * live_keys
     if kernel == "dq":
@@ -1071,13 +1102,32 @@ def pixart_cache(workdir: str, seed: int) -> tuple[str, list]:
 KL_WEIGHT_SCALE = 0.15
 
 
+def write_seeded(path: str, family: str, cfg, seed: int, scale: float = 0.02) -> int:
+    """The file `manifest.write_synthetic` writes (the family's released key
+    layout, fp16, N(0, scale) weights), one tensor at a time, with the
+    weights drawn on the card from the seed: numpy's generator takes most
+    of a minute for 2 B of them. Returns the number of parameters."""
+    import numpy as np
+    import torch
+
+    from tdm_tpu_torch.io import manifest, params as params_io
+
+    shapes = manifest.expected_manifest(family, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params_io.write_file(
+        path, [(k, shape, np.float16) for k, shape in shapes.items()],
+        ((scale * torch.randn(shape, generator=gen, device="cuda")).half().cpu().numpy()
+         for shape in shapes.values()))
+    return sum(math.prod(shape) for shape in shapes.values())
+
+
 def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float, int]:
     """A stock diffusers checkout at `root`: model_index.json, transformer/
     (SD1.5: unet/) and vae/ (an AutoencoderKL), each a config.json and one
     fp16 diffusion_pytorch_model.safetensors of seeded weights in the
     released checkpoint's key layout (the port's manifests, family pixart,
-    sd3 or unet_sd15), written one tensor at a time. Returns (seconds,
-    parameters)."""
+    sd3 or unet_sd15), written one tensor at a time; the denoiser's drawn
+    on the card (write_seeded). Returns (seconds, parameters)."""
     from tdm_tpu_torch.io import manifest
 
     t0 = time.monotonic()
@@ -1113,8 +1163,8 @@ def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float,
         with open(os.path.join(root, folder, "config.json" if folder else "model_index.json"),
                   "w") as f:
             json.dump(conf, f)
-    n += manifest.write_synthetic(
-        family, os.path.join(root, sub, "diffusion_pytorch_model.safetensors"), cfg, seed=seed)
+    n += write_seeded(os.path.join(root, sub, "diffusion_pytorch_model.safetensors"), family,
+                      cfg, seed)
     n += manifest.write_synthetic(
         "klvae", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
         vcfg, seed=seed + 1, scale=KL_WEIGHT_SCALE)
@@ -1468,10 +1518,12 @@ def phase_reference_train(torch, seed: int) -> None:
     reference_train_recipe(torch, seed, cpu_params, want)
 
 
-def reference_family_step(torch, seed: int, family: str, want: dict) -> dict:
-    """One tiny TDM step of `family` (fp32, dmd, MSE) on the card (the
-    kernels) against the same step on the CPU (the plain versions), from
-    one state with the same draws: the bounds of phase_reference_train.
+def reference_family_step(torch, seed: int, family: str, want: dict,
+                          total_steps: int = 900) -> dict:
+    """One tiny TDM step of `family` (fp32, dmd, MSE, on the grid of
+    `total_steps`) on the card (the kernels) against the same step on the
+    CPU (the plain versions), from one state with the same draws: the
+    bounds of phase_reference_train.
     MSE, as the recipe check: under the Huber loss the student's grad norm
     is ill-conditioned at one critic update. sd3 conditions on a seeded
     pooled vector too. Returns the card's launches, checked against `want`,
@@ -1488,7 +1540,7 @@ def reference_family_step(torch, seed: int, family: str, want: dict) -> dict:
             cpu_params = bundle.init_params()
         teacher = {k: v.to(dev) for k, v in cpu_params.items()}
         gen = torch.Generator(device="cpu").manual_seed(seed + 6)
-        config = tdm.TDMConfig(use_huber=False)
+        config = tdm.TDMConfig(use_huber=False, total_steps=total_steps)
         draws, (text, mask), (utext, umask) = tiny_step_inputs(torch, config, bundle, gen, dev)
         if family == "sd3":
             pooled = torch.randn(3, bundle.model.cfg.pooled_dim, generator=gen).to(dev)
@@ -1541,6 +1593,24 @@ def phase_reference_train_sd3(torch, seed: int) -> None:
         "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4, "splash_attention_fwd": 0})
 
 
+def phase_reference_train_cogvideox(torch, seed: int) -> dict:
+    """The tiny cogvideox step (v-prediction at zero terminal SNR on the
+    1000-step grid, whose first index is the terminal one; video latents
+    [3, 16, 3, 8, 8]; T5 rows zeroed past their masks) on the card against
+    the CPU: 2 blocks, 7 no-grad forwards and 2 with grad; then the same
+    step as the recipe's LoRA student with 8-bit Adam and accumulation 2
+    (reference_train_recipe)."""
+    from tdm_tpu_torch.train import families
+
+    want = {"flash_attention_fwd": 14, "flash_attention_fwd_lse": 4,
+            "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4,
+            "splash_attention_fwd": 0}
+    out = reference_family_step(torch, seed, "cogvideox", want, total_steps=1000)
+    cpu_params = families.build("cogvideox", tiny=True, seed=seed, device="cpu").init_params()
+    reference_train_recipe(torch, seed, cpu_params, want, family="cogvideox", total_steps=1000)
+    return out
+
+
 def phase_reference_train_sd15(torch, seed: int) -> dict:
     """The tiny sd15 step (the scaled-linear schedule, the UNet's im2col
     convolutions) on the card against the CPU: 4 spatial transformers x
@@ -1586,8 +1656,10 @@ def q8_moments(torch, opt, params: dict) -> dict:
     return out
 
 
-def reference_train_recipe(torch, seed: int, cpu_params: dict, want: dict) -> None:
-    """The tiny step of phase_reference_train with a rank-4 LoRA student
+def reference_train_recipe(torch, seed: int, cpu_params: dict, want: dict,
+                           family: str = "pixart", total_steps: int = 900) -> None:
+    """The tiny step of phase_reference_train (or of `family`'s tiny model,
+    on the grid of `total_steps`) with a rank-4 LoRA student
     (both factors seeded), 8-bit Adam and accumulation 2, two windows (four
     micro-steps) on the card against the CPU, the packed 8-bit update cut
     into slices of 40 blocks (several on the tiny critic, some holding two
@@ -1617,20 +1689,21 @@ def reference_train_recipe(torch, seed: int, cpu_params: dict, want: dict) -> No
     topt._SLICE = 40 * topt.Q8_BLOCK
     try:
         for dev in ("cpu", "cuda"):
-            bundle = families.build("pixart", tiny=True, seed=seed, device=dev)
+            bundle = families.build(family, tiny=True, seed=seed, device=dev)
             teacher = {k: v.to(dev) for k, v in cpu_params.items()}
             lora = seeded_lora(torch, bundle.model, 4, seed + 5)
             factors = {k: v.to(dev) for k, v in lora_lib.factors(lora).items()}
             tx = topt.make_optimizer(lr, eps=1e-4, eight_bit=True, accumulation_steps=2)
-            config = tdm.TDMConfig(use_huber=False)
+            config = tdm.TDMConfig(use_huber=False, total_steps=total_steps)
             step = tdm.build_train_step(
                 bundle.denoise_fn, teacher, bundle.schedule, config, tx, tx,
                 sample_shape=bundle.sample_shape, student_denoise_fn=lora_lib.wrap_denoise_fn(
                     bundle.denoise_fn, lora, stacks=from_jax.layer_stacks(bundle.model.cfg)))
             gen = torch.Generator(device="cpu").manual_seed(seed + 4)
+            inputs = [tiny_step_inputs(torch, config, bundle, gen, dev) for _ in range(4)]
             runs[dev] = {"state": tdm.init_state(factors, teacher, tx, tx), "step": step,
-                         "inputs": [tiny_step_inputs(torch, config, bundle, gen, dev)
-                                    for _ in range(4)],
+                         "inputs": [(draws, bundle.cond_of(*cond), bundle.cond_of(*uncond))
+                                    for draws, cond, uncond in inputs],
                          "params": [], "metrics": [], "launched": [], "moments": []}
 
         def snapshot(run):
@@ -1702,7 +1775,8 @@ def reference_train_recipe(torch, seed: int, cpu_params: dict, want: dict) -> No
         check(gopt.inner.mu.codes.is_cuda and gopt.inner.nu.codes.is_cuda,
               f"tiny recipe {role}: moments not on the card")
     check(n_q > 0, "tiny recipe: no quantized moment")
-    print(f"[reference] tiny TDM recipe step (rank-4 LoRA, 8-bit Adam, accumulation 2; 2 "
+    print(f"[reference] tiny {family} TDM recipe step (rank-4 LoRA, 8-bit Adam, "
+          f"accumulation 2; 2 "
           f"windows of 2 micro-steps, slices of 40 blocks; window 2 from the cpu's state) "
           f"cuda vs cpu: metrics max rel err {worst:.3e} (limit 1e-4); bits kept inside each "
           f"window; update rel L2 / max, windows 1 and 2: " + "; ".join(
@@ -3057,8 +3131,6 @@ def sd3_train_env(seed: int, workdir: str) -> str:
     import numpy as np
 
     from tdm_tpu_torch.data.prompts import EmbeddingCache
-    from tdm_tpu_torch.io import manifest
-    from tdm_tpu_torch.models import vae
     from tdm_tpu_torch.utils import config as cfg_lib
 
     rng = np.random.default_rng(seed + 20)
@@ -3079,6 +3151,19 @@ def sd3_train_env(seed: int, workdir: str) -> str:
         val_masks=np.ones((len(val), L), np.int32),
         val_pooled=rng.standard_normal((len(val), 2048)).astype(np.float16),
     ).save(cache)
+    taesd = taesd3_dir(workdir, seed)
+    os.environ.pop("TDM_TINY_MODEL", None)
+    os.environ["TDM_EMBEDDING_CACHE"] = cache
+    os.environ["TDM_TAESD_DIR"] = taesd
+    return taesd
+
+
+def taesd3_dir(workdir: str, seed: int) -> str:
+    """A seeded TAESD3: a diffusers AutoencoderTiny directory with 16 latent
+    channels."""
+    from tdm_tpu_torch.io import manifest
+    from tdm_tpu_torch.models import vae
+
     taesd = os.path.join(workdir, "taesd3")
     os.makedirs(taesd, exist_ok=True)
     with open(os.path.join(taesd, "config.json"), "w") as f:
@@ -3087,9 +3172,6 @@ def sd3_train_env(seed: int, workdir: str) -> str:
                    "num_decoder_blocks": [3, 3, 3, 1]}, f)
     manifest.write_synthetic("taesd", os.path.join(taesd, "diffusion_pytorch_model.safetensors"),
                              vae.TAESDConfig.taesd3(), seed=seed + 21, scale=0.05)
-    os.environ.pop("TDM_TINY_MODEL", None)
-    os.environ["TDM_EMBEDDING_CACHE"] = cache
-    os.environ["TDM_TAESD_DIR"] = taesd
     return taesd
 
 
@@ -3259,8 +3341,7 @@ def sd15_remat_check(torch, seed: int, teacher_dir: str) -> dict:
     updated tensor of student and critic are checked bit for bit against
     the run without remat, and the second remat run against the first."""
     from tdm_tpu_torch.io import convert
-    from tdm_tpu_torch.ops import attention as A
-    from tdm_tpu_torch.train import families, optim as topt, tdm
+    from tdm_tpu_torch.train import families, tdm
 
     bundles = {r: families.build("sd15", gradient_checkpointing=r, mixed_precision="bf16",
                                  seed=seed, device="cuda") for r in (False, True)}
@@ -3272,34 +3353,53 @@ def sd15_remat_check(torch, seed: int, teacher_dir: str) -> dict:
     text = torch.randn(SD15_B, SD15_TXT, 768, generator=gen).cuda()
     mask = (torch.arange(SD15_TXT)[None] < torch.tensor(SD15T_LENGTHS)[:, None]).int().cuda()
     cond, uncond = (text, mask), (torch.zeros_like(text), torch.ones_like(mask))
+    report = remat_steps(torch, {r: b.denoise_fn for r, b in bundles.items()}, teacher,
+                         bundles[False].schedule, shape, (draws, cond, uncond), "sd15")
+    del teacher, bundles
+    torch.cuda.empty_cache()
+    print(f"[train_sd15] full-width step on one batch: remat vs plain "
+          f"{report['remat_vs_plain']}, remat twice {report['repeat']} (host "
+          f"{report['plain_s']:.2f}s plain, {report['remat_s']:.2f}s remat, first calls)",
+          flush=True)
+    return report
+
+
+def remat_steps(torch, denoise_fns: dict, teacher: dict, schedule, shape: tuple,
+                inputs: tuple, tag: str) -> dict:
+    """One TDM step (dmd, AdamW, the smoke's recipe defaults) from the
+    teacher's state on one batch (`inputs`: draws, cond, uncond) three
+    times: through `denoise_fns[False]` (no remat), then twice through
+    `denoise_fns[True]` (remat). Checks the metrics and every updated
+    tensor of student and critic bit for bit, remat against plain and the
+    second remat run against the first; returns the comparisons, each
+    kind's first host seconds and launches."""
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import optim as topt, tdm
+
+    draws, cond, uncond = inputs
     tx = topt.make_optimizer(2e-5, eps=1e-8, weight_decay=0.01, max_grad_norm=1.0)
     runs, report = [], {}
     for i, remat in enumerate((False, True, True)):
         state = tdm.init_state(teacher, teacher, tx, tx)
-        step = tdm.build_train_step(bundles[remat].denoise_fn, teacher, bundles[remat].schedule,
-                                    config, tx, tx, sample_shape=shape)
+        step = tdm.build_train_step(denoise_fns[remat], teacher, schedule, tdm.TDMConfig(),
+                                    tx, tx, sample_shape=shape)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        (new, metrics), _ = uncounted(A, lambda: step(state, draws, cond, uncond))
+        (new, metrics), launched = uncounted(A, lambda: step(state, draws, cond, uncond))
         torch.cuda.synchronize()
         report.setdefault("remat_s" if remat else "plain_s", time.monotonic() - t0)
+        report.setdefault("remat_launches" if remat else "plain_launches", launched)
         m = {k: float(v) for k, v in metrics._asdict().items()}
-        check(all(math.isfinite(v) for v in m.values()), f"sd15 step metrics {m}")
+        check(all(math.isfinite(v) for v in m.values()), f"{tag} step metrics {m}")
         runs.append((m, {r: getattr(new, r) for r in ("student", "critic")}))
         del state, new
         if i == 1:  # remat against plain; then the plain run's tensors go
             report["remat_vs_plain"] = _same_step(torch, *runs)
             runs.pop(0)
     report["repeat"] = _same_step(torch, *runs)
-    del runs, teacher, bundles
-    torch.cuda.empty_cache()
-    print(f"[train_sd15] full-width step on one batch: remat vs plain "
-          f"{report['remat_vs_plain']}, remat twice {report['repeat']} (host "
-          f"{report['plain_s']:.2f}s plain, {report['remat_s']:.2f}s remat, first calls)",
-          flush=True)
     for name in ("remat_vs_plain", "repeat"):
         check(report[name]["metrics_equal"] and report[name]["tensors_differing"] == 0,
-              f"sd15 step {name}: not bit for bit: {report[name]}")
+              f"{tag} step {name}: not bit for bit: {report[name]}")
     return report
 
 
@@ -3544,6 +3644,160 @@ def phase_kernels_cogvideox(torch, seed: int) -> dict:
     return {"shapes": shapes, "max_abs_err": max_err, "splash_max_abs_err": splash_err}
 
 
+def plain_train_by_head(torch, qs, k, v, dout, scale):
+    """The training kernels' plain versions (the lse forward, dQ with Δ,
+    dK/dV fed the plain Δ) one head at a time over every batch row, each
+    head's fp32 [B, 1, S, S] logits, probabilities and dS at a time."""
+    from tdm_tpu_torch.ops import attention as A
+
+    outs = {n: [] for n in ("out", "lse", "dq", "delta", "dk", "dv")}
+    for h in range(qs.shape[1]):
+        one = [x[:, h:h + 1] for x in (qs, k, v, dout)]
+        out, lse = A.plain_attention_lse(*one[:3], None)
+        dq, delta = A.plain_attention_bwd_dq(*one[:3], None, one[3], out, lse, scale)
+        dk, dv = A.plain_attention_bwd_dkv(*one[:3], None, one[3], lse, delta)
+        for name, t in zip(outs, (out, lse, dq, delta, dk, dv)):
+            outs[name].append(t)
+    return {n: torch.cat(ts, dim=1) for n, ts in outs.items()}
+
+
+def phase_kernels_train_cogvideox(torch, seed: int) -> dict:
+    """The training kernels at CogVideoX-2B's joint attention with the
+    train step's batch, [2, 30, 17776, 17776, 64] bf16 with no key mask
+    (17,776 = 138·128 + 112: a ragged tail of query and key tiles): the
+    forward with its lse, dQ with its fused Δ and dK/dV, each against its
+    plain version computed head by head (compare() per batch row; the lse
+    to LSE_TOL, Δ to DELTA_TOL), and the backward driven by the forward
+    kernel's own output and lse as in training. Then each kernel timed in
+    turns with SDPA's forward on inputs that require grad and SDPA's
+    backward alone (6 rounds of 20 launches: median, min, max), with the
+    plain version's time (head by head, once) and the bound."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    b, h, s, d = COG_TRAIN_B, COG_H, COG_S, COG_D
+    q, k, v, _, qs, _ = _attn_inputs(torch, gen, b, h, s, s, d, torch.bfloat16, None)
+    dout = torch.randn(b, h, s, d, generator=gen, device="cuda").bfloat16()
+    scale = 1.0 / d ** 0.5
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = plain_train_by_head(torch, qs, k, v, dout, scale)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    before = A.launch_counts()
+    out, lse = A.flash_attention_fwd_lse(qs, k, v, None)
+    dq, delta = A.flash_attention_bwd_dq(qs, k, v, None, dout, ref["out"], ref["lse"], scale)
+    dk, dv = A.flash_attention_bwd_dkv(qs, k, v, None, dout, ref["lse"], ref["delta"])
+    dq_own, delta_own = A.flash_attention_bwd_dq(qs, k, v, None, dout, out, lse, scale)
+    dk_own, dv_own = A.flash_attention_bwd_dkv(qs, k, v, None, dout, lse, delta_own)
+    for w in A.WRAPPERS:  # comparison launches do not count
+        w.launches = before[w.__name__]
+    torch.cuda.synchronize()
+    dims = f"[{b},{h},{s},{s},{d}] bf16 no mask"
+    lse_err, lse_bad = compare_lse(torch, lse, ref["lse"])
+    check(lse_bad is None, f"flash_fwd_lse cogvideox_train: {lse_bad}")
+    errs = {"flash_fwd_lse": lse_err, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for label, got, want in (("delta", delta, ref["delta"]),
+                             ("delta from the kernel's output", delta_own,
+                              A.attention_delta(dout, out))):
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        print(f"[kernels] flash_bwd_dq cogvideox_train {dims} {label}: max_abs_err {err:.3e} "
+              f"of the largest |Δ| (limit {DELTA_TOL})", flush=True)
+        check(bool(torch.isfinite(got).all()) and err <= DELTA_TOL,
+              f"flash_bwd_dq cogvideox_train {label}: {err:.3e} > {DELTA_TOL}")
+    for kern, label, got, want in (
+            ("flash_fwd_lse", "out", out, ref["out"]),
+            ("flash_bwd_dq", "dq", dq, ref["dq"]),
+            ("flash_bwd_dq", "dq from the kernel's lse", dq_own, ref["dq"]),
+            ("flash_bwd_dkv", "dk", dk, ref["dk"]), ("flash_bwd_dkv", "dv", dv, ref["dv"]),
+            ("flash_bwd_dkv", "dk from the kernel's lse", dk_own, ref["dk"]),
+            ("flash_bwd_dkv", "dv from the kernel's lse", dv_own, ref["dv"])):
+        check(bool(torch.isfinite(got).all()), f"{kern} cogvideox_train: non-finite {label}")
+        err, rel, bad = compare(torch, got, want)
+        tail, _, tail_bad = compare(torch, got[:, :, 138 * 128:], want[:, :, 138 * 128:])
+        print(f"[kernels] {kern} cogvideox_train {dims} {label} max_abs_err {err:.3e} rel_l2 "
+              f"{rel:.3e} (the ragged tail's 112 rows {tail:.3e}) against plain head by head",
+              flush=True)
+        check(bad is None and tail_bad is None, f"{kern} cogvideox_train {label}: "
+                                                f"{bad or tail_bad}")
+        errs[kern] = max(errs[kern], err)
+    print(f"[kernels] flash_fwd_lse cogvideox_train {dims} lse max_abs_err {lse_err:.3e} "
+          f"(limit {LSE_TOL}); plain versions head by head {plain_s:.1f}s", flush=True)
+    del ref, dq_own, dk_own, dv_own, delta_own
+    torch.cuda.empty_cache()
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd, _ = A._entry("tdm_flash_fwd")
+    fdq, _ = A._entry("tdm_flash_bwd_dq")
+    fdkv, _ = A._entry("tdm_flash_bwd_dkv")
+    kernels = {
+        "flash_fwd_lse": lambda: fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                     out.data_ptr(), lse.data_ptr(), b, h, s, s, d, 1, stream),
+        "flash_bwd_dq": lambda: fdq(qs.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                    dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                    delta.data_ptr(), dq.data_ptr(), b, h, s, s, d, scale, 1,
+                                    stream),
+        "flash_bwd_dkv": lambda: fdkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                      dk.data_ptr(), dv.data_ptr(), b, h, s, s, d, 1, stream),
+    }
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+    turns = time_turns(torch, {
+        **kernels,
+        "sdpa_fwd": lambda: F.scaled_dot_product_attention(qg, kg, vg),
+        "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                                retain_graph=True),
+    }, iters=20)
+    # the plain versions' times, head by head, once each
+    plain_ms = {}
+    for kern, fn in (
+            ("flash_fwd_lse", lambda i, *x: A.plain_attention_lse(*x[:3], None)),
+            ("flash_bwd_dq", lambda i, *x: A.plain_attention_bwd_dq(
+                *x[:3], None, x[3], out[:, i], lse[:, i], scale)),
+            ("flash_bwd_dkv", lambda i, *x: A.plain_attention_bwd_dkv(
+                *x[:3], None, x[3], lse[:, i], delta[:, i]))):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for hh in range(h):
+            one = slice(hh, hh + 1)
+            fn(one, qs[:, one], k[:, one], v[:, one], dout[:, one])
+        torch.cuda.synchronize()
+        plain_ms[kern] = (time.monotonic() - t0) * 1e3
+    work = {"flash_fwd_lse": "fwd_lse", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}
+    recs = {}
+    for kern, name in work.items():
+        nbytes, ops = attention_bwd_work(name, b, h, s, s, d, 2, s * b, bias=False)
+        bound, by = bound_ms(nbytes, ops)
+        ms = turns[kern]["median"]
+        lib = "sdpa_fwd" if kern == "flash_fwd_lse" else "sdpa_bwd"
+        recs[kern] = {
+            "shape": "cogvideox_train_b2", "group": "cogvideox_train", "dims": [b, h, s, s, d],
+            "ms": ms, "ms_range": [turns[kern]["min"], turns[kern]["max"]],
+            "plain_ms": plain_ms[kern],
+            # SDPA's forward beside the lse forward; its backward alone (dQ,
+            # dK, dV) beside dQ and beside dK/dV each: no one library call
+            # computes either backward kernel's function alone
+            "library_ms": turns[lib]["median"] if kern == "flash_fwd_lse" else None,
+            "sdpa_ms": turns[lib]["median"], "sdpa_ms_range": [turns[lib]["min"],
+                                                               turns[lib]["max"]],
+            "bound_ms": bound, "bound_by": by, "max_abs_err": errs[kern],
+            "bytes": nbytes, "ops": ops}
+        print(f"[kernels] {kern} cogvideox_train {dims} in turns: {spread(turns[kern])} "
+              f"({ms / bound:.2f}x bound, {ops / ms / 1e9:.0f} TFLOP/s) | {lib} "
+              f"{spread(turns[lib])} | plain_ms {plain_ms[kern]:.1f} (head by head, once) | "
+              f"bound_ms {bound:.4f} ({by})", flush=True)
+    pair = recs["flash_bwd_dq"]["ms"] + recs["flash_bwd_dkv"]["ms"]
+    print(f"[kernels] training attention cogvideox_train: dq + dkv {pair:.3f} ms vs SDPA's "
+          f"backward alone {spread(turns['sdpa_bwd'])} "
+          f"({pair / turns['sdpa_bwd']['median']:.2f}x)", flush=True)
+    del q, k, v, qs, dout, out, lse, dq, delta, dk, dv, qg, kg, vg, sdpa_out
+    torch.cuda.empty_cache()
+    return {"kernels": recs, "dq_plus_dkv_ms": pair, "sdpa_bwd_ms": turns["sdpa_bwd"]["median"],
+            "plain_s": plain_s}
+
+
 def tiny_cogvideox_pair(torch, seed: int, use_rotary: bool):
     """The tiny CogVideoX pipeline (fp32, 2 layers of 2×16 heads, the tiny
     3D VAE, tiles of 6 latents overlapping by 2) on the CPU and on the card
@@ -3625,13 +3879,11 @@ def cogvideox_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]
     scaling 1.15258426) as `CogVideoXPipeline` ships it: model_index.json,
     transformer/ (its config counting 49 pixel frames) and vae/, each a
     config.json and one fp16 safetensors file of seeded weights in the key
-    layout of the port's manifests. The transformer's 1.69 B weights,
-    N(0, 0.02) as `write_synthetic` draws them, are drawn on the card from
-    the seed (numpy's generator would take most of a minute). Returns (its
-    root, the seconds and parameters of the write)."""
-    import numpy as np
-
-    from tdm_tpu_torch.io import manifest, params as params_io
+    layout of the port's manifests, written once per run (by the first of
+    `cogvideox` and `train_cogvideox` that runs); the transformer's 1.69 B
+    weights drawn on the card (write_seeded). Returns (its root, the
+    seconds and parameters of the write, 0 when it was there)."""
+    from tdm_tpu_torch.io import manifest
     from tdm_tpu_torch.models import cogvideox as cog, vae3d
 
     cfg, vcfg = cog.CogVideoXConfig(), vae3d.VAE3DConfig()
@@ -3640,6 +3892,8 @@ def cogvideox_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]
           == (30, 30, 64, 4096, 512, 226, False, (128, 256, 256, 512), 1.15258426),
           "CogVideoX-2B and its VAE")
     root = os.path.join(workdir, "CogVideoX-2b")
+    if os.path.exists(os.path.join(root, "model_index.json")):
+        return root, 0.0, 0
     t0 = time.monotonic()
     files = {
         "model_index.json": {"_class_name": "CogVideoXPipeline"},
@@ -3661,14 +3915,8 @@ def cogvideox_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]
         os.makedirs(os.path.dirname(os.path.join(root, name)), exist_ok=True)
         with open(os.path.join(root, name), "w") as f:
             json.dump(conf, f)
-    shapes = manifest.expected_manifest("cogvideox", cfg)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params_io.write_file(
-        os.path.join(root, "transformer", "diffusion_pytorch_model.safetensors"),
-        [(k, shape, np.float16) for k, shape in shapes.items()],
-        ((0.02 * torch.randn(shape, generator=gen, device="cuda")).half().cpu().numpy()
-         for shape in shapes.values()))
-    n = sum(math.prod(shape) for shape in shapes.values())
+    n = write_seeded(os.path.join(root, "transformer", "diffusion_pytorch_model.safetensors"),
+                     "cogvideox", cfg, seed)
     n += manifest.write_synthetic(
         "vae3d_decoder", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
         vcfg, seed=seed + 1, scale=VAE3D_WEIGHT_SCALE)
@@ -4089,6 +4337,268 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
             "forward_rel_l2": rel, "conv_route": conv, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# CogVideoX-2B training: the recipe's flags at 49 frames, 480×720
+# ---------------------------------------------------------------------------
+
+
+def cog_train_env(seed: int, workdir: str) -> str:
+    """A seeded full-width T5 embedding cache as $TDM_EMBEDDING_CACHE: 8
+    prompts of 226 tokens at 4096 with ragged masks (CogVideoX zeroes the
+    rows past them) and the empty prompt's embedding (one live token); and
+    a seeded TAESD3 as $TDM_TAESD_DIR, which a video run must leave
+    unread (TAESD decodes no video latent). Returns the cache's path."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+
+    rng = np.random.default_rng(seed + 30)
+    lengths = np.array([226, 120, 57, 13, 226, 1, 90, 200])
+    cache = os.path.join(workdir, "cog_train_cache.npz")
+    EmbeddingCache(
+        rng.standard_normal((8, COG_TXT, 4096)).astype(np.float16),
+        (np.arange(COG_TXT)[None] < lengths[:, None]).astype(np.int32),
+        [f"cogvideox train prompt {i}" for i in range(8)],
+        uncond_embed=(0.1 * rng.standard_normal((COG_TXT, 4096))).astype(np.float16),
+        uncond_mask=(np.arange(COG_TXT) < 1).astype(np.int32),
+    ).save(cache)
+    os.environ.pop("TDM_TINY_MODEL", None)
+    os.environ["TDM_EMBEDDING_CACHE"] = cache
+    os.environ["TDM_TAESD_DIR"] = taesd3_dir(workdir, seed)
+    return cache
+
+
+def cogvideox_remat_check(torch, seed: int, teacher_dir: str) -> dict:
+    """One CogVideoX TDM step at full width and S (1920 wide, 30×64 heads,
+    latents [1, 16, 13, 60, 90], 226 T5 tokens) cut to the checkout's first
+    2 blocks, batch 1, bf16 on fp32 masters, dmd, AdamW, three times from
+    one state on one batch: without remat, with remat, with remat again.
+    The models are the bundle's (its denoise_fn puts the weights into the
+    3D DiT by functional_call; its schedule; its cond_of). Remat recomputes
+    each block through the same kernels, none of which uses atomics, so the
+    metrics and every updated tensor of student and critic are checked bit
+    for bit against the run without remat, and the second remat run
+    against the first. 30 blocks at batch 2 without remat do not fit."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from tdm_tpu_torch.core import schedules as sched
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.models import cogvideox as cog
+    from tdm_tpu_torch.train import families, tdm
+
+    full = families.build("cogvideox", num_frames=49, mixed_precision="bf16", device="meta")
+    cfg = dataclasses.replace(full.model.cfg, num_layers=2)
+    flat = {k: v for k, v in convert.flatten(convert.cogvideox_params(
+        convert.load_torch_state_dict(teacher_dir), scan_layers=False)).items()
+        if not k.startswith("blocks_") or int(k.split("/")[0][7:]) < cfg.num_layers}
+    models = {r: cog.CogVideoXTransformer3D(dataclasses.replace(cfg, remat=r), device="cuda",
+                                            param_dtype=torch.float32).requires_grad_(False)
+              for r in (False, True)}
+    teacher = {k: v.to("cuda", torch.float32)
+               for k, v in from_jax.state_dict_from_jax(flat, models[False]).items()}
+    shape = full.sample_shape
+    gen = torch.Generator(device="cpu").manual_seed(seed + 31)
+    draws = tdm.StepDraws(*(x.cuda() for x in tdm.make_draws(tdm.TDMConfig(), 1, shape, gen,
+                                                               "cpu")))
+    text = torch.randn(1, COG_TXT, 4096, generator=gen).cuda()
+    mask = (torch.arange(COG_TXT) < 100).int()[None].cuda()
+    cond = full.cond_of(text, mask)
+    uncond = full.cond_of(torch.zeros_like(text), torch.ones_like(mask))
+
+    def denoise_fn(model):  # the bundle's denoise_fn over `model`
+        return lambda params, x, t, c: functional_call(model, params, (x, t, c))
+
+    report = remat_steps(torch, {r: denoise_fn(m) for r, m in models.items()}, teacher,
+                         sched.cogvideox(device="cuda"), shape, (draws, cond, uncond),
+                         "cogvideox")
+    del teacher, models
+    torch.cuda.empty_cache()
+    n = cfg.num_layers
+    check(report["plain_launches"]["flash_attention_fwd_lse"] == 2 * n
+          and report["remat_launches"]["flash_attention_fwd_lse"] == 4 * n
+          and report["remat_launches"]["flash_attention_bwd_dq"] == 2 * n,
+          f"cogvideox remat check launches {report['plain_launches']}, "
+          f"{report['remat_launches']}")
+    print(f"[train_cogvideox] full-width step at 2 blocks, batch 1, one batch: remat vs plain "
+          f"{report['remat_vs_plain']}, remat twice {report['repeat']} (host "
+          f"{report['plain_s']:.2f}s plain, {report['remat_s']:.2f}s remat, first calls; lse "
+          f"forwards {report['plain_launches']['flash_attention_fwd_lse']} plain, "
+          f"{report['remat_launches']['flash_attention_fwd_lse']} with the recompute)",
+          flush=True)
+    return report
+
+
+def cogvideox_lora_latents(torch, root: str, lora_path: str, seed: int) -> dict:
+    """The trained kohya LoRA loaded back into the CogVideoX pipeline of
+    the checkout: every key resolved to a kernel of the 3D DiT and merged at
+    1.0; one 4-NFE latent [1, 16, 13, 60, 90] (no decode) with it and one
+    without it from the same noise and T5 rows: finite, and not the same."""
+    from tdm_tpu_torch.io import from_jax
+    from tdm_tpu_torch.lora import adapter, io as lora_io
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import from_pretrained
+
+    pipe = from_pretrained(root)
+    lora = lora_io.load_lora(lora_path, model=pipe.transformer)
+    adapted = adapter.adapted_keys(lora, from_jax.layer_stacks(pipe.transformer.cfg))
+    gen = torch.Generator().manual_seed(seed + 32)
+    call = dict(prompt_embeds=torch.randn(1, COG_TXT, 4096, generator=gen),
+                latents=torch.randn(1, 16, 13, 60, 90, generator=gen), num_frames=49,
+                output_type="latent")
+
+    def without_and_with():
+        base = pipe(**call).latents
+        pipe.load_lora_weights(lora_path, adapter_name="tdm")
+        pipe.set_adapters(["tdm"], [1.0])
+        return base, pipe(**call).latents
+
+    (base, tuned), _ = uncounted(A, without_and_with)  # a check, not the main path
+    rel = float((tuned.float() - base.float()).norm() / base.float().norm())
+    check(bool(torch.isfinite(tuned).all()) and bool(torch.isfinite(base).all()),
+          "a CogVideoX latent with the trained LoRA is not finite")
+    check(not torch.equal(tuned, base), "the trained LoRA left the 4-NFE latent unchanged")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"adapted_weights": len(adapted), "latent_rel_l2_vs_base": rel}
+
+
+def _flash_launch_check(kernels: dict, want: dict) -> dict:
+    """The flash kernels of a profiled step by template arguments
+    (_flash_by_dim), checked against `want`: the wrappers' launches of one
+    step, all at padded head dim 64 (the forward <64, lse>; dK/dV one
+    launch a call there)."""
+    by = _flash_by_dim(kernels)
+    fwd = by.get("flash_fwd_sm90_kernel", {})
+    dkv = by.get("flash_bwd_dkv_sm90_kernel", {})
+    got = {"flash_attention_fwd": fwd.get("64,false", 0),
+           "flash_attention_fwd_lse": fwd.get("64,true", 0),
+           "flash_attention_bwd_dq": by.get("flash_bwd_dq_sm90_kernel", {}).get("64", 0),
+           "flash_attention_bwd_dkv": sum(n for a, n in dkv.items() if a.startswith("64,"))}
+    check(got == {k: want[k] for k in got} and sum(fwd.values()) == got["flash_attention_fwd"]
+          + got["flash_attention_fwd_lse"] and sum(dkv.values()) == got["flash_attention_bwd_dkv"],
+          f"profiled step: flash kernels by template arguments {by}, expected {want}")
+    return by
+
+
+def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
+    """Full-width CogVideoX-2B TDM training through the CLI's main() with
+    the recipe's flags: --model_family cogvideox --num_frames 49 (latents
+    [16, 13, 60, 90], 17,550 video + 226 T5 tokens), batch 2 (the video
+    pipeline's), bf16 compute on fp32 masters, dmd, a rank-64 LoRA student,
+    8-bit Adam, --gradient_checkpointing, 4 optimizer steps without LR
+    warm-up (so 4 steps move the factors); the teacher read from the
+    transformer/ folder of the CogVideoX-2B checkout (written here if the
+    cogvideox phase did not run; its load timed by part); a seeded T5 cache
+    with ragged masks; $TDM_TAESD_DIR set to a TAESD3 that the video run
+    must leave unread (validation every 2 steps; no grid). First the remat
+    check (cogvideox_remat_check). Per step: host and CUDA-event times and
+    the kernels' launches (checked against COG_TRAIN_LAUNCHES); step 3
+    under torch.profiler (device busy time, idle share, the top device
+    operations, the flash kernels by template arguments, checked). Then
+    the rank-64 kohya LoRA loaded back into the checkout's pipeline
+    (cogvideox_lora_latents)."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.ops import attention as A
+
+    t_phase = time.monotonic()
+    root, write_s, _ = cogvideox_checkout(torch, workdir, seed)
+    teacher_dir = os.path.join(root, "transformer")
+    remat = cogvideox_remat_check(torch, seed, teacher_dir)
+    cog_train_env(seed, workdir)
+    out = os.path.join(workdir, "train_cogvideox")
+    steps = []
+    load_parts = [(convert, "load_torch_state_dict"), (convert, "cogvideox_params"),
+                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 2**30  # by earlier phases, before main()
+    A.reset_launches()  # the main path from here
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        with timed_calls(torch, load_parts) as load_times:
+            train_tdm.main([
+                "--output_dir", out, "--model_family", "cogvideox", "--num_frames", "49",
+                "--max_train_steps", str(COG_TRAIN_STEPS), "--train_batch_size",
+                str(COG_TRAIN_B), "--mixed_precision", "bf16", "--loss_mode", "dmd",
+                "--gradient_checkpointing", "--train_lora_rank", str(COG_LORA_RANK),
+                "--use_8bit_adam", "--lr_warmup_steps", "0", "--validation_steps", "2",
+                "--seed", str(seed), "--pretrained_model_name_or_path", teacher_dir,
+            ], step_hook=step_hook(torch, steps, 3, "train_cogvideox"))
+    finally:
+        os.environ.pop("TDM_TAESD_DIR", None)
+    total_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(set(load_times) == {name for _, name in load_parts},
+          f"the teacher was not loaded from {teacher_dir}: {load_times}")
+    check(len(steps) == COG_TRAIN_STEPS, f"{len(steps)} cogvideox steps ran")
+    for rec in steps:
+        check(rec["launches"] == COG_TRAIN_LAUNCHES,
+              f"cogvideox step {rec['step']} launches {rec['launches']}, expected "
+              f"{COG_TRAIN_LAUNCHES}")
+        check(all(math.isfinite(v) for v in rec["metrics"].values()),
+              f"cogvideox step {rec['step']}: non-finite metrics {rec['metrics']}")
+    by_template = None
+    if steps[2].get("flash_kernels"):  # the profiler saw the device
+        by_template = _flash_launch_check(steps[2]["flash_kernels"], COG_TRAIN_LAUNCHES)
+        print(f"[train_cogvideox] profiled step 3: flash kernels by template arguments "
+              f"{by_template} (checked against {COG_TRAIN_LAUNCHES})", flush=True)
+    run_dir = out + "_cfg4.5_steps900"
+    grids = [f for f in os.listdir(run_dir) if f.startswith("validation")]
+    check(not grids, f"a video run wrote validation grids {grids}")
+    ckpt = os.path.join(run_dir, f"checkpoint-{COG_TRAIN_STEPS}")
+    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    lora_path = os.path.join(run_dir, "tdm_lora.safetensors")
+    pieces = kohya_pieces(torch, lora_path, COG_LORA_RANK)
+    torch.cuda.empty_cache()
+    lora = cogvideox_lora_latents(torch, root, lora_path, seed)
+    check(lora["adapted_weights"] == pieces,
+          f"the kohya file's {pieces} pieces: {lora['adapted_weights']} resolved")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
+    per_step = sum(plain) / len(plain)
+    busy = steps[2]["busy_ms"]
+    # the profiled step's own CUDA-event span: its kernels run milliseconds
+    # each, so the unprofiled step 2's span can be shorter than step 3's busy
+    span = steps[2]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    load_s = sum(load_times.values())
+    phase_s = time.monotonic() - t_phase
+    print(f"[train_cogvideox] teacher from {teacher_dir}: loaded in {load_s:.2f}s (safetensors "
+          f"read {load_times['load_torch_state_dict']:.2f}s, conversion "
+          f"{load_times['cogvideox_params']:.3f}s, carry "
+          f"{load_times['state_dict_from_jax']:.2f}s, copy into the module "
+          f"{load_times['load_state_dict']:.2f}s)", flush=True)
+    print(f"[train_cogvideox] CogVideoX-2B TDM at 49x480x720 (dmd, batch {COG_TRAIN_B}, bf16 "
+          f"on fp32 masters, rank-{COG_LORA_RANK} LoRA student, 8-bit Adam, gradient "
+          f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
+          f"unprofiled (steps 2 and 4; {3600 / per_step:.0f} iters/hour), first step "
+          f"{steps[0]['host_s']:.3f} s, profiled step 3 {steps[2]['host_s']:.3f} s; peak "
+          f"memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB of it held before main()); launches "
+          f"per step {COG_TRAIN_LAUNCHES} (checked); step "
+          f"2 CUDA-event span {steps[1]['event_ms']:.1f} ms; step 3 span {span:.1f} ms, busy "
+          + (f"{busy:.1f} ms -> idle share {idle:.4f}" if busy else "not measured")
+          + f", {steps[2].get('all_launches')} device launches; no validation grid (video); "
+          f"kohya file {pieces} rank-{COG_LORA_RANK} pieces, every one resolved and merged by "
+          f"the pipeline, its 4-NFE latent {lora['latent_rel_l2_vs_base']:.3e} (rel L2) from "
+          f"the base's; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB checkpoint; phase "
+          f"{phase_s:.1f}s", flush=True)
+    return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
+            "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
+            "held_before_main_gib": held_gb, "idle_share": idle,
+            "busy_ms": busy, "event_span_ms": span,
+            "all_launches_per_step": steps[2].get("all_launches"),
+            "flash_kernels_by_template": by_template, "launches": launches,
+            "launches_per_step": COG_TRAIN_LAUNCHES, "load_s": load_s, "load": load_times,
+            "kohya_pieces": pieces, "lora": lora, "checkpoint_gb": ckpt_gb, "main_s": total_s,
+            "checkout_write_s": write_s, "remat_check": remat, "phase_s": phase_s,
+            "steps": steps}
+
+
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
               "bound_ms", "bound_by")
 
@@ -4129,7 +4639,7 @@ def timed_phase(fn, *args):
 
 
 PHASES = ("kernels", "reference", "serve", "train", "train_lora", "sd3", "diffusers",
-          "train_sd3", "sd15", "train_sd15", "cogvideox")
+          "train_sd3", "sd15", "train_sd15", "cogvideox", "train_cogvideox")
 
 
 def main(argv=None) -> int:
@@ -4161,6 +4671,7 @@ def main(argv=None) -> int:
             ktrain = timed_phase(phase_kernels_train, torch, args.seed)
             ksplash = timed_phase(phase_kernels_splash, torch, args.seed)
             kcog = timed_phase(phase_kernels_cogvideox, torch, args.seed)
+            kcog_train = timed_phase(phase_kernels_train_cogvideox, torch, args.seed)
         if "reference" in phases:
             timed_phase(phase_reference, torch, args.seed)
             timed_phase(phase_reference_train, torch, args.seed)
@@ -4168,6 +4679,7 @@ def main(argv=None) -> int:
             timed_phase(phase_reference_train_sd15, torch, args.seed)
             timed_phase(phase_reference_sd3, torch, args.seed, workdir)
             timed_phase(phase_reference_cogvideox, torch, args.seed)
+            timed_phase(phase_reference_train_cogvideox, torch, args.seed)
         if "serve" in phases:
             serve = timed_phase(phase_serve, torch, args.seed, workdir)
         if "train" in phases:
@@ -4186,6 +4698,8 @@ def main(argv=None) -> int:
             train_sd15 = timed_phase(phase_train_sd15, torch, args.seed, workdir)
         if "cogvideox" in phases:
             cogvideox = timed_phase(phase_cogvideox, torch, args.seed, workdir)
+        if "train_cogvideox" in phases:
+            train_cogvideox = timed_phase(phase_train_cogvideox, torch, args.seed, workdir)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4209,7 +4723,15 @@ def main(argv=None) -> int:
     def by_path(wrapper):
         return {"train": train["launches"][wrapper],
                 "train_sd3": train_sd3["launches"][wrapper],
-                "train_sd15": train_sd15["launches"][wrapper]}
+                "train_sd15": train_sd15["launches"][wrapper],
+                "train_cogvideox": train_cogvideox["launches"][wrapper]}
+
+    def cog_train(kern, wrapper):
+        rec = kcog_train["kernels"][kern]
+        return {"cogvideox_train": {
+            "launches_per_step": COG_TRAIN_LAUNCHES[wrapper],
+            "shapes": [{k: rec.get(k) for k in (*SHAPE_KEYS, "max_abs_err", "sdpa_ms",
+                                                "sdpa_ms_range")}]}}
 
     def sd15_train(rec, wrapper):
         return {"sd15_train": {
@@ -4239,6 +4761,7 @@ def main(argv=None) -> int:
            "cogvideox": {"launches_per_batch": COG_LAUNCHES_PER_BATCH,
                          "shapes": [{k: r.get(k) for k in SHAPE_KEYS}
                                     for r in kcog["shapes"]]},
+           "cogvideox_train": {"launches_per_step": COG_TRAIN_LAUNCHES["flash_attention_fwd"]},
            "dynamic_smem": build["dynamic_smem"]["flash_fwd"]}
         | sd15_train(kern, "flash_attention_fwd"),
         kernel_row("flash_fwd_lse", "tdm_tpu_torch/csrc/flash_fwd.cu",
@@ -4247,21 +4770,24 @@ def main(argv=None) -> int:
                    per_block + "; library = SDPA forward on inputs that require grad",
                    bf16_kernels("flash_fwd", ",1>"), sd3_step["flash_attention_fwd_lse"])
         | {"launches_by_path": by_path("flash_attention_fwd_lse")}
-        | sd15_train(kt["flash_fwd_lse"], "flash_attention_fwd_lse"),
+        | sd15_train(kt["flash_fwd_lse"], "flash_attention_fwd_lse")
+        | cog_train("flash_fwd_lse", "flash_attention_fwd_lse"),
         kernel_row("flash_bwd_dq", "tdm_tpu_torch/csrc/flash_bwd_dq.cu",
                    "tdm_tpu/ops/attention.py:600", train["launches"]["flash_attention_bwd_dq"],
                    kt["flash_bwd_dq"], per_block + no_lib, bf16_kernels("flash_bwd_dq"),
                    sd3_step["flash_attention_bwd_dq"])
         | {"launches_by_path": by_path("flash_attention_bwd_dq"),
            "dynamic_smem": build["dynamic_smem"]["flash_bwd_dq"]}
-        | sd15_train(kt["flash_bwd_dq"], "flash_attention_bwd_dq"),
+        | sd15_train(kt["flash_bwd_dq"], "flash_attention_bwd_dq")
+        | cog_train("flash_bwd_dq", "flash_attention_bwd_dq"),
         kernel_row("flash_bwd_dkv", "tdm_tpu_torch/csrc/flash_bwd_dkv.cu",
                    "tdm_tpu/ops/attention.py:635", train["launches"]["flash_attention_bwd_dkv"],
                    kt["flash_bwd_dkv"], per_block + no_lib, bf16_kernels("flash_bwd_dkv"),
                    sd3_step["flash_attention_bwd_dkv"])
         | {"launches_by_path": by_path("flash_attention_bwd_dkv"),
            "dynamic_smem": build["dynamic_smem"]["flash_bwd_dkv"]}
-        | sd15_train(kt["flash_bwd_dkv"], "flash_attention_bwd_dkv"),
+        | sd15_train(kt["flash_bwd_dkv"], "flash_attention_bwd_dkv")
+        | cog_train("flash_bwd_dkv", "flash_attention_bwd_dkv"),
         {"name": "splash_fwd", "route": "cuda", "source": "tdm_tpu_torch/csrc/splash_fwd.cu",
          "replaces": "tdm_tpu/ops/attention.py:153", "launches": sd3["launches"],
          "launches_per_batch": sd3["launches_per_batch"],
@@ -4286,7 +4812,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
                       "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,
-                      "train_sd15": train_sd15, "cogvideox": cogvideox}))
+                      "train_sd15": train_sd15, "cogvideox": cogvideox,
+                      "cogvideox_train_attention": {
+                          k: kcog_train[k] for k in ("dq_plus_dkv_ms", "sdpa_bwd_ms")},
+                      "train_cogvideox": train_cogvideox}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"],

@@ -14,24 +14,28 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
   loader where g++ builds it) → the TDM step → loop [a batch per micro-step; per
   optimizer step: metrics at step 1 and every 10 → validation grids every
   --validation_steps when $TDM_TAESD_DIR names a diffusers AutoencoderTiny
-  directory → checkpoint every --checkpointing_steps] → final checkpoint,
+  directory and the latents are images (a video family renders none, as
+  the JAX CLI) → checkpoint every --checkpointing_steps] → final checkpoint,
   `student.safetensors` (fp16, the JAX package's layout) and the kohya
   LoRA `tdm_lora.safetensors`: the trained factors in LoRA mode, else the
   truncated SVD of student − teacher at --export_lora_rank (0 skips it).
 
 --model_family pixart (PixArt-α), sd15 (the SD1.5 UNet under the
 scaled-linear schedule, conditioned on CLIP-L tokens; the teacher directory
-is the `unet/` folder of an SD1.5 diffusers checkout) or sd3 (SD3-Medium
+is the `unet/` folder of an SD1.5 diffusers checkout), sd3 (SD3-Medium
 under the shifted flow schedule, conditioned on T5 tokens and the pooled
 CLIP vector; a full-size sd3 run whose data has no pooled vectors is
 refused with ValueError before any model is built, unless
---allow_pooled_standin). Runs on CUDA unless `--device cpu` is given, and
-logs the peak device memory at the end on CUDA; fp32 products run in full
-fp32 unless --allow_tf32; `TDM_TINY_MODEL=1` swaps in the tiny config.
+--allow_pooled_standin) or cogvideox (CogVideoX-2B on video latents of
+--num_frames pixel frames, 49 by the config's default, under its
+v-prediction schedule, conditioned on T5 tokens [226, 4096]; the teacher
+directory is a checkout's `transformer/`). Runs on CUDA unless `--device
+cpu` is given, and logs the peak device memory at the end on CUDA; fp32
+products run in full fp32 unless --allow_tf32; `TDM_TINY_MODEL=1` swaps in
+the tiny config.
 Refused before the first step, each naming its ROADMAP slice:
 --fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
---quant_forwards (slice 4), --model_family cogvideox (slice 5),
---moe_experts (slice 6).
+--quant_forwards (slice 4), --moe_experts (slice 6).
 """
 
 from __future__ import annotations
@@ -119,7 +123,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     bundle = families.build(
-        cfg.model_family, tiny=tiny, resolution=cfg.resolution,
+        cfg.model_family, tiny=tiny, resolution=cfg.resolution, num_frames=cfg.num_frames,
         gradient_checkpointing=cfg.gradient_checkpointing,
         mixed_precision=cfg.mixed_precision, moe_experts=cfg.moe_experts,
         allow_pooled_standin=cfg.allow_pooled_standin, seed=seed, device=device,
@@ -271,10 +275,11 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     timer = log_lib.StepTimer()
 
     # ---- fixed validation inputs (prompts of --validation_prompts, noise
-    # seed 42), only when a TAESD decoder is given ----
+    # seed 42), only when a TAESD decoder is given and the latents are
+    # images [C, H, W]: TAESD decodes no video latent ----
     decode_fn = val_cond = val_noise = None
     vae_dir = os.environ.get("TDM_TAESD_DIR", "")
-    if vae_dir:
+    if vae_dir and len(sample_shape) == 3:
         dec = _load_taesd(vae_dir, bundle.sample_shape[0], device)
         decode_fn = lambda z: dec(z.float() / dec.cfg.scaling_factor)  # noqa: E731
         gen = torch.Generator(device=device).manual_seed(42)

@@ -21,10 +21,11 @@ module is filled and every given key is used. `jax_name` and `port_key` map
 single names both ways, for the LoRA merge (`lora/adapter.py`).
 
 `train_state_from_jax` carries a whole training state of the JAX package
-(`tdm_tpu.train.tdm.TrainState`) of PixArt or SD3: the student (full
-weights or LoRA factors), critic and EMA trees and each optax state (AdamW,
-8-bit Adam, under accumulation or not), so a test can start the port's
-train step and the JAX one from one state. It reads the JAX objects by
+(`tdm_tpu.train.tdm.TrainState`) of PixArt, SD3, the SD1.5 UNet or the
+CogVideoX 3D DiT: the student (full weights or LoRA factors), critic and
+EMA trees and each optax state (AdamW, 8-bit Adam, under accumulation or
+not), so a test can start the port's train step and the JAX one from one
+state. It reads the JAX objects by
 their attributes and nested mappings only; nothing of JAX is imported.
 """
 
@@ -137,9 +138,10 @@ def state_dict_from_jax(
     flat: Mapping[str, np.ndarray], module: nn.Module
 ) -> dict[str, torch.Tensor]:
     """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
-    SD3Transformer2D, UNet2DCondition, TAESDDecoder or KLDecoder), from the
-    stacked or the unrolled layout. Raises KeyError naming every missing and unexpected key, and
-    ValueError on a shape mismatch."""
+    SD3Transformer2D, UNet2DCondition, CogVideoXTransformer3D, TAESDDecoder,
+    KLDecoder or VAE3DDecoder), from the stacked or the unrolled layout.
+    Raises KeyError naming every missing and unexpected key, and ValueError
+    on a shape mismatch."""
     out: dict[str, np.ndarray] = {}
     starts = _stacks_of(flat)
     for path, arr in flat.items():
@@ -260,10 +262,10 @@ def train_state_from_jax(
     eight_bit: bool = False,
 ):
     """A JAX `TrainState` → the port's `train.tdm.TrainState` for `module`
-    (the PixArt or SD3 model whose parameter names the trees take; the
-    stacked and unrolled layouts alike), on `device`. With `lora`, the
-    student and EMA trees are a LoRA student's factors, carried as the flat
-    '{module path}/a', '/b' dict of `lora.factors`.
+    (the PixArt, SD3, SD1.5 or CogVideoX model whose parameter names the
+    trees take; the stacked and unrolled layouts alike), on `device`. With
+    `lora`, the student and EMA trees are a LoRA student's factors, carried
+    as the flat '{module path}/a', '/b' dict of `lora.factors`.
 
     Params and moments become fp32 (AdamW's first moment in `mu_dtype` when
     given). The optimizer states keep their structure: AdamW's moments;

@@ -30,6 +30,13 @@ norm1|norm2/{linear,norm}, to_q/k/v/out, norm_q/norm_k, ff, norm_final,
 norm_out_linear, norm_out_norm, proj_out), so the weight carry
 (`io/from_jax.py`) fills them from the stacked or the unrolled tree.
 
+Serving holds the parameters in `cfg.dtype`; training builds the model with
+`param_dtype=torch.float32` (fp32 master weights, cast to `cfg.dtype` at
+every use, as Flax casts its fp32 parameters) and, under `cfg.remat`,
+recomputes each block in the backward when autograd records the forward
+(`layers.checkpoint_block`, policy 'full', as the JAX package's
+`nn.remat(CogVideoXBlock)`).
+
 Sequence parallelism (`sequence_parallel_axis`, ring attention) and
 `make_pp_forward` wait for ROADMAP.md queue 1, slice 6, and raise.
 """
@@ -140,10 +147,11 @@ class CogLayerNormZero(nn.Module):
     text stream; one shared affine LayerNorm (fp32, eps 1e-5) on both, the
     modulation in the model dtype."""
 
-    def __init__(self, temb_dim: int, dim: int, *, dtype, device=None):
+    def __init__(self, temb_dim: int, dim: int, *, dtype, param_dtype=None, device=None):
         super().__init__()
         self.dtype = dtype
-        self.linear = L.Dense(temb_dim, 6 * dim, dtype=dtype, device=device)
+        self.linear = L.Dense(temb_dim, 6 * dim, dtype=dtype, param_dtype=param_dtype,
+                              device=device)
         self.norm = L.LayerNorm(dim, 1e-5, device=device)
 
     def forward(self, x, ctx, temb):
@@ -155,11 +163,11 @@ class CogLayerNormZero(nn.Module):
 
 
 class CogVideoXBlock(nn.Module):
-    def __init__(self, cfg: CogVideoXConfig, device=None):
+    def __init__(self, cfg: CogVideoXConfig, device=None, param_dtype=None):
         super().__init__()
         c = self.cfg = cfg
         inner = c.hidden
-        kw = dict(dtype=c.dtype, device=device)
+        kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=device)
         self.impl = L.attn_route(c.attn_impl)
         self.norm1 = CogLayerNormZero(c.time_embed_dim, inner, **kw)
         self.to_q = L.Dense(inner, inner, **kw)
@@ -204,28 +212,27 @@ class CogVideoXBlock(nn.Module):
 class CogVideoXTransformer3D(nn.Module):
     """forward(latent [B, 16, F, H, W], t [B], text [B, L, text_dim]) →
     the prediction [B, 16, F, H, W] in latent's dtype (v-prediction for the
-    2B checkpoint). Parameters are held in cfg.dtype (serving)."""
+    2B checkpoint). `param_dtype` is the parameters' dtype (default
+    cfg.dtype, as serving holds them; fp32 masters in training)."""
 
     def __init__(self, cfg: Optional[CogVideoXConfig] = None, *,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = self.cfg = cfg if cfg is not None else CogVideoXConfig()
         if c.sequence_parallel_axis is not None:
             raise NotImplementedError(
                 "CogVideoX sequence parallelism (ring attention over "
                 f"sequence_parallel_axis) is not ported yet: {_SLICE6}")
-        if c.remat:
-            raise NotImplementedError(
-                "CogVideoX remat belongs to its training, not ported yet: "
-                "ROADMAP.md queue 1, slice 5 (CogVideoX training)")
         L.attn_route(c.attn_impl)
         dev = resolve_device(device)
         inner, p = c.hidden, c.patch_size
-        kw = dict(dtype=c.dtype, device=dev)
+        kw = dict(dtype=c.dtype, param_dtype=param_dtype, device=dev)
         self.patch_proj = L.Conv2d(c.in_channels, inner, p, stride=p, **kw)
         self.text_proj = L.Dense(c.text_dim, inner, **kw)
         self.time_embedding = L.TimestepEmbedding(inner, c.time_embed_dim, **kw)
-        self.blocks = nn.ModuleList(CogVideoXBlock(c, dev) for _ in range(c.num_layers))
+        self.blocks = nn.ModuleList(CogVideoXBlock(c, dev, param_dtype)
+                                    for _ in range(c.num_layers))
         self.norm_final = L.LayerNorm(inner, 1e-5, device=dev)
         self.norm_out_linear = L.Dense(c.time_embed_dim, 2 * inner, **kw)
         self.norm_out_norm = L.LayerNorm(inner, 1e-5, device=dev)
@@ -274,8 +281,12 @@ class CogVideoXTransformer3D(nn.Module):
             x = x + self._table("sincos", f, gh, gw, latent.device)[None]
         t_base = L.sinusoidal_timestep_embedding(t, c.hidden)
         temb = self.time_embedding(t_base.to(c.dtype))
+        remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x, ctx = block(x, ctx, temb, rotary)
+            if remat:
+                x, ctx = L.checkpoint_block(block, x, ctx, temb, rotary)
+            else:
+                x, ctx = block(x, ctx, temb, rotary)
         # norm_final of the JAX model runs over [ctx; x] and keeps the video
         # rows; a LayerNorm is per row, so the text rows are left out
         x = self.norm_final(x).to(c.dtype)

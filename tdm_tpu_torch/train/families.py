@@ -1,10 +1,10 @@
 """Model-family registry of the training CLI.
 
-Port of `tdm_tpu/train/families.py` for the pixart family (the reference
+Port of `tdm_tpu/train/families.py`: the pixart family (the reference
 demo's one trained family, `src/main.py:168-176`), the sd15 family (the
-SD1.5 UNet of the Dreamshaper recipe) and the sd3 family (SD3-Medium, the
-reference's headline TDM LoRA); cogvideox raises NotImplementedError naming
-its ROADMAP slice. The bundle carries what
+SD1.5 UNet of the Dreamshaper recipe), the sd3 family (SD3-Medium, the
+reference's headline TDM LoRA) and the cogvideox family (CogVideoX-2B,
+the video recipe). The bundle carries what
 the CLI needs per family: the model, the native training schedule, the
 latent sample shape, the text-conditioning sizes and `cond_of(text, mask,
 pooled=None)`, `denoise_fn(params, x, t, cond)`, the seeded parameter init
@@ -32,6 +32,14 @@ stand-in from the tokens, which a full-size run takes only under
 `allow_pooled_standin`. Its `denoise_fn` feeds the MMDiT the flow timestep
 σ̂(t)·1000 of the schedule index t, where the JAX family feeds the index
 itself (ROADMAP.md §3).
+
+cogvideox trains CogVideoX-2B on latents [16, F, 60, 90] (F = 1 +
+(num_frames − 1)//4 latent frames, 13 for the 49 of 480×720) under its
+v-prediction schedule (SNR-shifted, zero terminal SNR), the raw v output
+passed through; it conditions on the T5 tokens alone, the padded rows
+zeroed by `cond_of` (the model takes no mask), and its `denoise_fn` feeds
+the schedule index t, as `pipelines/cogvideox.py` feeds it when serving.
+`--gradient_checkpointing` recomputes every block (`CogVideoXConfig.remat`).
 """
 
 from __future__ import annotations
@@ -45,10 +53,9 @@ from torch.func import functional_call
 
 from tdm_tpu_torch.core import schedules as sched
 from tdm_tpu_torch.io import convert, from_jax
-from tdm_tpu_torch.models import mmdit_sd3, pixart, unet_sd15
+from tdm_tpu_torch.models import cogvideox as cog, mmdit_sd3, pixart, unet_sd15
 
 FAMILIES = ("pixart", "sd15", "sd3", "cogvideox")
-_NOT_PORTED = {"cogvideox": "slice 5 (CogVideoX video)"}
 # SD3-Medium's training schedule: the HF scheduler config's `shift`
 SD3_SHIFT = 3.0
 STANDIN_REFUSED = (
@@ -120,6 +127,7 @@ def build(
     *,
     tiny: bool = False,
     resolution: int = 512,
+    num_frames: int = 0,
     gradient_checkpointing: bool = False,
     mixed_precision: Optional[str] = None,
     allow_pooled_standin: bool = False,
@@ -128,16 +136,13 @@ def build(
     device=None,
 ) -> FamilyBundle:
     """The training bundle of `--model_family`, its parameters drawn from
-    `seed` on `device` (CUDA unless given). `allow_pooled_standin` lets a
-    full-size sd3 run fold the pooled stand-in when a batch carries no
-    pooled vectors (tiny runs always may)."""
+    `seed` on `device` (CUDA unless given). `num_frames` (pixel frames, 0
+    for the config's own) sets cogvideox's latent frames; the image
+    families take `resolution`. `allow_pooled_standin` lets a full-size sd3
+    run fold the pooled stand-in when a batch carries no pooled vectors
+    (tiny runs always may)."""
     if family not in FAMILIES:
         raise ValueError(f"unknown --model_family {family!r}; choose from {FAMILIES}")
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"training --model_family {family} is not ported yet: ROADMAP.md "
-            f"queue 1, {_NOT_PORTED[family]}"
-        )
     if moe_experts > 0:
         if family != "pixart":
             raise ValueError(f"--moe_experts is a pixart-family extension (got {family!r})")
@@ -148,6 +153,9 @@ def build(
     lat = 8 if tiny else max(resolution // 8, 8)
     if family == "sd15":
         return _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device)
+    if family == "cogvideox":
+        return _build_cogvideox(tiny, num_frames, gradient_checkpointing, mixed_precision,
+                                seed, device)
     if family == "pixart":
         mcfg = pixart.PixArtConfig.tiny() if tiny else pixart.PixArtConfig()
     else:
@@ -249,4 +257,46 @@ def _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device
         sample_shape=(mcfg.in_channels, lat, lat), seq_len=8 if tiny else 77,
         embed_dim=mcfg.context_dim, denoise_fn=denoise_fn, init_params=init_params,
         cond_of=lambda text, mask, pooled=None: (text, mask), convert=convert_params,
+    )
+
+
+def _build_cogvideox(tiny, num_frames, gradient_checkpointing, mixed_precision, seed, device):
+    """The cogvideox bundle (`tdm_tpu/train/families.py:274-327`): the 3D
+    DiT holding fp32 masters and computing in the config's dtype."""
+    mcfg = cog.CogVideoXConfig.tiny() if tiny else cog.CogVideoXConfig()
+    if num_frames > 0:
+        # pixel frames → latent frames by the causal VAE's 4× temporal factor
+        mcfg = dataclasses.replace(mcfg, sample_frames=1 + (num_frames - 1) // 4)
+    if gradient_checkpointing:
+        mcfg = dataclasses.replace(mcfg, remat=True)
+    mcfg = _compute_dtype(mcfg, mixed_precision, tiny)
+    torch.manual_seed(seed)
+    model = cog.CogVideoXTransformer3D(mcfg, device=device, param_dtype=torch.float32)
+    model.requires_grad_(False)
+
+    def init_params():
+        return {k: p.detach() for k, p in model.named_parameters()}
+
+    def denoise_fn(params, x, t, cond):
+        # the schedule index t, as the pipeline's sampler feeds it
+        return functional_call(model, params, (x, t, cond))
+
+    def cond_of(text, mask, pooled=None):
+        # no mask reaches the model: the padded T5 rows are zeroed here
+        return text * mask.to(text.dtype)[..., None]
+
+    def convert_params(sd):
+        tree = convert.cogvideox_params(sd, scan_layers=False)
+        with torch.no_grad():
+            model.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), model))
+        return init_params()
+
+    return FamilyBundle(
+        name="cogvideox", model=model,
+        # v-prediction, SNR-shifted, zero terminal SNR; the raw v output is
+        # passed through (the step works in the native parameterization)
+        schedule=sched.cogvideox(device=device),
+        sample_shape=(mcfg.in_channels, mcfg.sample_frames, mcfg.sample_h, mcfg.sample_w),
+        seq_len=mcfg.max_text_len, embed_dim=mcfg.text_dim, denoise_fn=denoise_fn,
+        init_params=init_params, cond_of=cond_of, convert=convert_params,
     )

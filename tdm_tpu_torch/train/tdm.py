@@ -45,7 +45,8 @@ from tdm_tpu_torch.core import sampling, schedules as sched
 from tdm_tpu_torch.train import optim as topt
 
 # denoise_fn(params, x, t, cond) -> the model's output in its schedule's
-# NATIVE parameterization; cond is (text_embeds, text_mask)
+# NATIVE parameterization; cond is the family's conditioning (a tuple of
+# tensors, or CogVideoX's one tensor of T5 tokens)
 ParamDenoiseFn = Callable[[Any, torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
 
@@ -138,6 +139,16 @@ def sample_segment_and_t(
     hi = levels[seg - 1] if config.use_separate else torch.full_like(lo, config.total_steps - 1)
     t_fake = (lo + u * (hi - lo)).to(torch.int64)
     return seg, lo, t_fake
+
+
+def cat_cond(cond, uncond):
+    """cond and uncond batched into one forward, leaf by leaf, as the JAX
+    step's `jax.tree.map` concatenates them: a tuple of tensors (text and
+    mask, or SD3's tokens and pooled vector) or one tensor (CogVideoX's
+    T5 tokens)."""
+    if isinstance(cond, torch.Tensor):
+        return torch.cat([cond, uncond])
+    return tuple(torch.cat([a, b]) for a, b in zip(cond, uncond))
 
 
 def _detached(params: dict) -> dict:
@@ -233,7 +244,7 @@ def build_train_step(
                 eps = denoise_fn(teacher, x_t, t, cond)
                 return sched.predicted_origin(schedule, eps, t, x_t)
             x2, t2 = torch.cat([x_t, x_t]), torch.cat([t, t])
-            cond2 = tuple(torch.cat([a, b]) for a, b in zip(cond, uncond))
+            cond2 = cat_cond(cond, uncond)
             x0_2 = sched.predicted_origin(schedule, denoise_fn(teacher, x2, t2, cond2), t2, x2)
             x0_c, x0_u = x0_2.chunk(2)
             return x0_u + config.cfg * (x0_c - x0_u)
@@ -309,7 +320,7 @@ def build_train_step(
                 weights = student_weights(student_params)
                 if config.student_cfg_in_loss and config.cfg != 1.0:
                     x2, t2 = torch.cat([x_in, x_in]), torch.cat([t_fake, t_fake])
-                    cond2 = tuple(torch.cat([a, b]) for a, b in zip(cond, uncond))
+                    cond2 = cat_cond(cond, uncond)
                     eps_c, eps_u = denoise_fn(weights, x2, t2, cond2).chunk(2)
                     eps_s = eps_u + config.cfg * (eps_c - eps_u)
                 else:

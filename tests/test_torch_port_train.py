@@ -438,8 +438,7 @@ def test_train_step_refuses_unported():
     with pytest.raises(NotImplementedError, match="slice 4"):
         ttdm.build_train_step(tb.denoise_fn, {}, tb.schedule, ttdm.TDMConfig(quant_forwards=True),
                               tx, tx, sample_shape=tb.sample_shape)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tfamilies.build("cogvideox", tiny=True, device="cpu")
+    assert tfamilies.build("cogvideox", tiny=True, device="cpu").name == "cogvideox"  # ported
     assert tfamilies.build("sd15", tiny=True, device="cpu").name == "sd15"  # ported
 
 
