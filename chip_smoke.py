@@ -21,14 +21,25 @@ Phases, one line each, and any failure exits non-zero:
   4. reference: the tiny pipeline on the card (kernel) against the same
      pipeline on the CPU (plain attention);
   5. serve: a full-width PixArt-α-512 pipeline (28 layers, seeded random
-     weights) written with the port's writer, served over HTTP by
-     TDMServer: 6 concurrent requests (two batches of 4, one padded), PNG
-     checks, per-seed determinism and the kernel launch count per batch;
-     then one full-width forward with the kernel against plain attention;
+     weights) written with the port's writer, its T5-v1.1-XXL (24 x 4096,
+     4.76 B parameters, seeded, bf16) and a hash tokenizer bundled,
+     served over HTTP by TDMServer from raw prompts with no embedding
+     cache (ENC_PROMPTS: 1 to 160 words, caption-length rows of 56 to 120
+     tokens among them, one cut at 120): 6 concurrent requests (two batches of 4, one padded), PNG
+     checks, per-seed determinism and the kernel launch count per batch,
+     the peak memory with the T5 resident; the T5 in bf16 against the same
+     weights in fp32 per row, its batch-1 encode time against its bound,
+     the host time of a request's encode; then
+     `python -m tdm_tpu_torch.cli.build_cache --pipeline <the bundle>`
+     (its main()) writes the cache the train phases read, each prompt's
+     batch-1 encode against its row reported; then one full-width forward
+     with the kernel against plain attention. The seeded encoders (T5-XXL,
+     CLIP-L, OpenCLIP-G) are written once per run and hardlinked into the
+     bundle and the SD3, SD1.5 and CogVideoX checkouts' text_encoder*/;
   6. train: full-width PixArt-α-512 TDM distillation through the training
      CLI's main() at the JAX CLI's default flags, the teacher read from the
      transformer/ folder of a PixArt-α-512 diffusers checkout written from
-     the seed (seeded embedding cache, batch 4, bf16, dmd, 3 steps): the
+     the seed (the cache build_cache wrote, batch 4, bf16, dmd, 3 steps): the
      teacher's load seconds by part, seconds per step, peak
      memory, the idle share of a step, and each training kernel's launches
      per step (checked); then the default rank-32 kohya LoRA export by
@@ -59,10 +70,14 @@ Phases, one line each, and any failure exits non-zero:
      apart, 6 concurrent requests, PNG checks, per-seed determinism,
      exactly 224 flash-kernel launches per batch, a profiled batch with the
      KL decode's device time); SD3-Medium with its 16-channel AutoencoderKL
-     through from_pretrained at the default attn_impl (load seconds, one
-     warm batch of 4 at 1024² through the pipeline, timed, exactly 96
-     flash-kernel launches and nothing else, finite images, a profiled
-     batch with the decode's share and the kernel's ms per call);
+     and its text_encoder, _2, _3 (CLIP-L, OpenCLIP-G, T5-XXL) through
+     from_pretrained at the default attn_impl with hash tokenizers passed
+     (load seconds, the encoders' apart, one warm batch of 4 raw prompts at
+     1024² through the pipeline, timed, exactly 96 flash-kernel launches and
+     nothing else, finite images, the peak memory; the same batch from its
+     prompt_embeds timed apart from the batch-4 encode; a profiled batch with
+     the decode's share and the kernel's ms per call; CLIP-L, CLIP-G and
+     T5 at 256 tokens in bf16 against fp32 and their encode times);
  10. train_sd3: full-width SD3-Medium TDM training through the CLI's main()
      with the recipe's flags (--model_family sd3 at 512², batch 4, bf16,
      dmd, rank-32 LoRA student, 8-bit Adam, --gradient_checkpointing, 4
@@ -76,7 +91,8 @@ Phases, one line each, and any failure exits non-zero:
      LoRA, fp32, on the card against the CPU; then a full-width SD1.5
      diffusers checkout (the UNet at 320/640/1280/1280, 8 heads, context
      768, fp16, and its KL VAE, written from the seed through the port's
-     manifests) served over HTTP from --model <checkout> with a seeded
+     manifests) served over HTTP from --model <a view of the checkout
+     without its text_encoder/, so that the cache serves> with a seeded
      rank-64 kohya LoRA on the attention projections (--lora) and a CLIP-L
      embedding cache: 8 concurrent requests (two batches of 4 at 512², 4
      NFE, DPM-Solver++ on the scaled-linear grid) and one alone, PNGs that
@@ -87,7 +103,10 @@ Phases, one line each, and any failure exits non-zero:
      then the same server as `python -m tdm_tpu_torch.serve.server` in a
      subprocess (which sets its fp32 precision itself) answers the lone
      request with the in-process server's PNG bytes, its KL decode timed
-     by CUDA events beside the in-process one;
+     by CUDA events beside the in-process one; then the checkout through
+     from_pretrained with a hash tokenizer passed: its CLIP-L
+     text_encoder/, one batch of 4 raw prompts (128 launches), CLIP-L in
+     bf16 against fp32 and its encode time;
  12. train_sd15: full-width SD1.5 TDM training through the CLI's main() at
      the JAX CLI's defaults plus --gradient_checkpointing (--model_family
      sd15 at 512², batch 4, bf16 on fp32 masters, dmd, AdamW, 4 steps), the
@@ -115,7 +134,11 @@ Phases, one line each, and any failure exits non-zero:
      operations and the GIF encode's seconds, one full-width forward
      against plain attention head by head, and the decoder's per-tap
      causal conv against F.conv3d (cuDNN, a yardstick), repeated bit for
-     bit;
+     bit; the serving peak (the server is built on a view of the checkout
+     without its text_encoder/, so no encoder is resident); then the
+     checkout through from_pretrained with a hash tokenizer passed: one
+     batch of 2 raw prompts to latents (120 launches), T5 at 226 tokens in
+     bf16 against fp32 and its encode time;
  14. train_cogvideox: full-width CogVideoX-2B TDM training through the
      CLI's main() with the recipe's flags (--model_family cogvideox
      --num_frames 49, batch 2, bf16 on fp32 masters, dmd, rank-64 LoRA
@@ -1121,6 +1144,371 @@ def write_seeded(path: str, family: str, cfg, seed: int, scale: float = 0.02) ->
     return sum(math.prod(shape) for shape in shapes.values())
 
 
+# ---------------------------------------------------------------------------
+# The text encoders at full width: seeded files, checks, times
+# ---------------------------------------------------------------------------
+
+# bf16 against fp32 on the same weights, per row: bf16 rounds every product
+# and the residual stream to 8 bits, and over 24-32 blocks a row drifts by
+# about 2% (a 24-layer, 512-wide T5 and a 32-layer CLIP-G-like tower on the
+# CPU at these init scales: relative L2 0.019-0.024 and 0.013); a wrong
+# mask, bias or norm dtype shows as O(1)
+ENC_BF16_REL_L2 = 5e-2
+# the hash tokenizers the smoke passes: CLIP's pool at its EOS 49407, as a
+# real tokenizer's rows do; T5's vocabulary of 32,128 holds HashTokenizer's
+# default 30,000
+CLIP_VOCAB, CLIP_EOS = 49408, 49407
+# a dense caption of the kind PixArt-α trains on (161 words)
+CAPTION = (
+    "The image shows a quiet harbor town at dawn, seen from a hill above the water. Small "
+    "fishing boats with red and blue hulls are moored along a wooden pier, and their "
+    "reflections ripple in the calm sea. Behind the pier, rows of whitewashed houses with "
+    "terracotta roofs climb the slope, their windows catching the first warm light. A narrow "
+    "cobblestone street winds between the houses toward a stone church with a tall bell "
+    "tower. On the left, a lighthouse painted in white and red stripes stands on a rocky "
+    "point, and a few seagulls circle above it. The sky is pale pink near the horizon and "
+    "fades to soft blue overhead, with thin clouds drifting to the east. In the foreground, "
+    "wild grass and yellow flowers sway in a light breeze, and a bicycle leans against a "
+    "weathered fence. The overall mood is peaceful and nostalgic, rendered in a detailed, "
+    "painterly style with gentle contrast and a warm color palette.")
+
+
+def caption(words: int, start: int = 0) -> str:
+    """`words` words of CAPTION from word `start` on, wrapping around."""
+    w = CAPTION.split()
+    return " ".join(w[(start + i) % len(w)] for i in range(words))
+
+
+# the prompts the encoders see: short ones and caption-length ones, so that
+# the cache the train phases read has ragged masks of 2 to 120 live tokens
+# (hash tokens: a word each and the EOS): 160 words is cut at T5's 120 and
+# CLIP's 77, 119 fill 120 exactly, 76 fill CLIP's 77
+ENC_PROMPTS = ["a red fox in the snow", caption(160),
+               "an astronaut riding a horse on mars, oil painting", caption(76, 40), "x",
+               caption(119, 80), caption(55, 20), caption(99, 60)]
+ENC_T5_LIVE = [7, 120, 10, 77, 2, 120, 56, 100]  # at 120 tokens
+
+
+def t5_xxl_config(torch):
+    from tdm_tpu_torch.models import t5
+
+    cfg = t5.T5Config()
+    check((cfg.vocab_size, cfg.d_model, cfg.d_kv, cfg.num_heads, cfg.d_ff, cfg.num_layers,
+           cfg.dtype) == (32128, 4096, 64, 64, 10240, 24, torch.bfloat16), "T5-v1.1-XXL")
+    return cfg
+
+
+def clip_configs(torch) -> dict:
+    """CLIP-L as SD1.5 ships it (no projection), CLIP-L with its 768²
+    projection and OpenCLIP-G (exact GELU, projection 1280) as SD3 does."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import clip
+
+    base = clip.CLIPTextConfig()
+    check((base.vocab_size, base.hidden, base.num_heads, base.num_layers, base.max_positions,
+           base.eos_token_id, base.activation) == (CLIP_VOCAB, 768, 12, 12, 77, CLIP_EOS,
+                                                   "quick_gelu"), "CLIP-L")
+    return {"clip_l": base, "clip_l_proj": dataclasses.replace(base, projection_dim=768),
+            "clip_g": dataclasses.replace(base, hidden=1280, num_heads=20, num_layers=32,
+                                          activation="gelu", projection_dim=1280)}
+
+
+def hf_encoder_layout(cfg) -> dict:
+    """{key: (shape, init std, or 'ones' / 'zeros')} of the HF layout the
+    converters read (T5EncoderModel; CLIPTextModel[WithProjection]), with
+    the transformers init of each tensor: T5 folds 1/sqrt(d_kv) into q."""
+    from tdm_tpu_torch.models import t5
+
+    out = {}
+    if isinstance(cfg, t5.T5Config):
+        d, inner, ff = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+        out["shared.weight"] = ((cfg.vocab_size, d), 1.0)
+        for i in range(cfg.num_layers):
+            b = f"encoder.block.{i}.layer"
+            out[f"{b}.0.layer_norm.weight"] = ((d,), "ones")
+            out[f"{b}.0.SelfAttention.q.weight"] = ((inner, d), (d * cfg.d_kv) ** -0.5)
+            for p in ("k", "v"):
+                out[f"{b}.0.SelfAttention.{p}.weight"] = ((inner, d), d ** -0.5)
+            out[f"{b}.0.SelfAttention.o.weight"] = ((d, inner), inner ** -0.5)
+            if i == 0:
+                out[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = (
+                    (cfg.rel_buckets, cfg.num_heads), d ** -0.5)
+            out[f"{b}.1.layer_norm.weight"] = ((d,), "ones")
+            out[f"{b}.1.DenseReluDense.wi_0.weight"] = ((ff, d), d ** -0.5)
+            out[f"{b}.1.DenseReluDense.wi_1.weight"] = ((ff, d), d ** -0.5)
+            out[f"{b}.1.DenseReluDense.wo.weight"] = ((d, ff), ff ** -0.5)
+        out["encoder.final_layer_norm.weight"] = ((d,), "ones")
+        return out
+    d, ff, t = cfg.hidden, cfg.hidden * cfg.mlp_ratio, "text_model"
+    in_std = d ** -0.5 * (2 * cfg.num_layers) ** -0.5
+    out[f"{t}.embeddings.token_embedding.weight"] = ((cfg.vocab_size, d), 0.02)
+    out[f"{t}.embeddings.position_embedding.weight"] = ((cfg.max_positions, d), 0.02)
+    for i in range(cfg.num_layers):
+        b = f"{t}.encoder.layers.{i}"
+        for n in ("layer_norm1", "layer_norm2"):
+            out[f"{b}.{n}.weight"], out[f"{b}.{n}.bias"] = ((d,), "ones"), ((d,), "zeros")
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[f"{b}.self_attn.{p}.weight"] = ((d, d), d ** -0.5 if p == "out_proj" else in_std)
+            out[f"{b}.self_attn.{p}.bias"] = ((d,), "zeros")
+        out[f"{b}.mlp.fc1.weight"], out[f"{b}.mlp.fc1.bias"] = ((ff, d), (2 * d) ** -0.5), \
+            ((ff,), "zeros")
+        out[f"{b}.mlp.fc2.weight"], out[f"{b}.mlp.fc2.bias"] = ((d, ff), in_std), \
+            ((d,), "zeros")
+    out[f"{t}.final_layer_norm.weight"] = ((d,), "ones")
+    out[f"{t}.final_layer_norm.bias"] = ((d,), "zeros")
+    if cfg.projection_dim is not None:
+        out["text_projection.weight"] = ((cfg.projection_dim, d), d ** -0.5)
+    return out
+
+
+def hf_encoder_config(cfg) -> dict:
+    """The config.json of an HF encoder folder."""
+    from tdm_tpu_torch.models import t5
+
+    if isinstance(cfg, t5.T5Config):
+        return {"architectures": ["T5EncoderModel"], "vocab_size": cfg.vocab_size,
+                "d_model": cfg.d_model, "d_kv": cfg.d_kv, "num_heads": cfg.num_heads,
+                "d_ff": cfg.d_ff, "num_layers": cfg.num_layers,
+                "relative_attention_num_buckets": cfg.rel_buckets,
+                "relative_attention_max_distance": cfg.rel_max_distance,
+                "feed_forward_proj": "gated-gelu"}
+    out = {"architectures": ["CLIPTextModel"], "vocab_size": cfg.vocab_size,
+           "hidden_size": cfg.hidden, "intermediate_size": cfg.hidden * cfg.mlp_ratio,
+           "num_attention_heads": cfg.num_heads, "num_hidden_layers": cfg.num_layers,
+           "max_position_embeddings": cfg.max_positions, "eos_token_id": cfg.eos_token_id,
+           "hidden_act": cfg.activation}
+    if cfg.projection_dim is not None:
+        out.update(architectures=["CLIPTextModelWithProjection"],
+                   projection_dim=cfg.projection_dim)
+    return out
+
+
+def _seeded_leaves(torch, layout: dict, seed: int, transpose: set):
+    """The layout's tensors drawn on the card from the seed, in its order, as
+    fp16 numpy arrays; the keys in `transpose` as [in, out]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for key, (shape, init) in layout.items():
+        if init == "ones":
+            x = torch.ones(shape, device="cuda")
+        elif init == "zeros":
+            x = torch.zeros(shape, device="cuda")
+        else:
+            x = init * torch.randn(shape, generator=gen, device="cuda")
+        if key in transpose:
+            x = x.t()
+        yield x.half().contiguous().cpu().numpy()
+
+
+def write_seeded_encoder(torch, cfg, seed: int, *, folder: str | None = None,
+                         bundle: str | None = None) -> int:
+    """Weights drawn on the card from the seed at the transformers init, as
+    an HF encoder `folder` (config.json, model.safetensors at fp16) and/or
+    a tdm_tpu-layout text_encoder file `bundle` (the strict converter's
+    tree, flat '/' keys, Dense kernels [in, out], drawn again from the seed
+    rather than transposed on the host): the same values either way.
+    Returns the parameter count."""
+    import numpy as np
+
+    from tdm_tpu_torch.io import convert, params as params_io
+    from tdm_tpu_torch.models import t5
+
+    layout = hf_encoder_layout(cfg)
+    if folder is not None:
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "config.json"), "w") as f:
+            json.dump(hf_encoder_config(cfg), f)
+        params_io.write_file(os.path.join(folder, "model.safetensors"),
+                             [(k, shape, np.float16) for k, (shape, _) in layout.items()],
+                             _seeded_leaves(torch, layout, seed, set()))
+    if bundle is not None:
+        # the converter over unread placeholders: its tree names each leaf
+        # and says which are transposed views
+        empty = {k: np.empty(shape, np.float16) for k, (shape, _) in layout.items()}
+        conv = convert.t5_encoder_params if isinstance(cfg, t5.T5Config) else \
+            convert.clip_text_params
+        by_id = {id(a): k for k, a in empty.items()}
+        flax = {}
+        for name, leaf in convert.flatten(conv(empty)).items():
+            src = leaf if id(leaf) in by_id else leaf.base
+            flax[by_id[id(src)]] = (name, leaf.shape, src is not leaf)
+        params_io.write_file(
+            bundle, [(flax[k][0], flax[k][1], np.float16) for k in layout],
+            _seeded_leaves(torch, layout, seed, {k for k in layout if flax[k][2]}))
+    return sum(math.prod(shape) for shape, _ in layout.values())
+
+
+ENCODER_SEEDS = {"t5": 7, "t5_bundle": 7, "clip_l": 30, "clip_l_proj": 30, "clip_g": 31}
+
+
+def seeded_encoders(torch, workdir: str, seed: int, names=()) -> dict:
+    """The run's seeded text encoders under workdir/encoders, each of
+    `names` written when it is not there (hardlinked wherever a checkout or
+    bundle needs it; `release_encoder` deletes one when its phases are
+    done, since the card's machine counts every block its disk ever held):
+    T5-v1.1-XXL as an HF folder ('t5') and as a tdm_tpu-layout file
+    ('t5_bundle', the same weights), CLIP-L without and with its
+    projection, OpenCLIP-G. Returns {name: (folder or file, config)} of all."""
+    root = os.path.join(workdir, "encoders")
+    cfgs = {"t5": t5_xxl_config(torch), **clip_configs(torch)}
+    out = {name: (os.path.join(root, name), cfg) for name, cfg in cfgs.items()}
+    out["t5_bundle"] = (os.path.join(root, "t5_text_encoder.safetensors"), cfgs["t5"])
+    for name in names:
+        path, cfg = out[name]
+        if os.path.exists(path):
+            continue
+        t0 = time.monotonic()
+        os.makedirs(root, exist_ok=True)
+        tmp = path + ".partial"
+        n = write_seeded_encoder(torch, cfg, seed + ENCODER_SEEDS[name],
+                                 **({"bundle": tmp} if name == "t5_bundle" else {"folder": tmp}))
+        os.rename(tmp, path)
+        gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                 for f in fs) / 1e9 if os.path.isdir(path) else os.path.getsize(path) / 1e9
+        print(f"[encoders] wrote {name} ({n / 1e6:.1f}M params, {gb:.2f} GB at fp16) in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+    return out
+
+
+def release_encoder(torch, workdir: str, seed: int, name: str, *links: str) -> None:
+    """Delete a seeded encoder and the `links` to it (checkout folders or a
+    bundle), so that its blocks serve the later phases' writes."""
+    path = seeded_encoders(torch, workdir, seed)[name][0]
+    for p in (path, *links):
+        if os.path.isdir(p):
+            shutil.rmtree(p, ignore_errors=True)
+        elif os.path.exists(p):
+            os.remove(p)
+
+
+def cache_served_view(root: str) -> str:
+    """The checkout at `root` without its text_encoder*/ folders, beside it:
+    a directory of symlinks to the rest. A server built on it attaches no
+    encoder and serves its embedding cache; on the checkout itself, whose
+    encoders have no tokenizer here (no transformers), every request would
+    go to encode_prompt and raise, as in the JAX package."""
+    view = root.rstrip("/") + "_cache_served"
+    os.makedirs(view, exist_ok=True)
+    for name in os.listdir(root):
+        dst = os.path.join(view, name)
+        if not name.startswith("text_encoder") and not os.path.lexists(dst):
+            os.symlink(os.path.join(root, name), dst)
+    return view
+
+
+def link_encoder(folder: str, dst: str) -> None:
+    """An HF encoder folder into a checkout as `dst`, its files hardlinked."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(folder):
+        if not os.path.exists(os.path.join(dst, name)):
+            os.link(os.path.join(folder, name), os.path.join(dst, name))
+
+
+def encoder_work(cfg, tokens: int) -> tuple:
+    """(bytes, bf16 operations, fp32 operations) of one batch-1 encode at
+    `tokens` tokens: every bf16 weight matrix read once (the embedding's
+    rows only), the ids read and the states written once; 2 operations per
+    multiply-add of the bf16 products, and the fp32 attention products."""
+    from tdm_tpu_torch.models import t5
+
+    if isinstance(cfg, t5.T5Config):
+        d, inner, layers = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.num_layers
+        mat = layers * (4 * d * inner + 3 * d * cfg.d_ff)
+        attn = layers * 2 * 2 * tokens * tokens * inner
+        embed_bytes = tokens * d * 2
+    else:
+        d, layers = cfg.hidden, cfg.num_layers
+        mat = layers * (4 * d * d + 2 * d * d * cfg.mlp_ratio) + d * (cfg.projection_dim or 0)
+        attn = layers * 2 * 2 * tokens * tokens * d
+        embed_bytes = tokens * d * 4 * 2  # fp32 token and position rows
+    nbytes = mat * 2 + embed_bytes + tokens * 8 + tokens * d * 2
+    return nbytes, 2 * mat * tokens, attn
+
+
+def encoder_bound_ms(cfg, tokens: int) -> tuple[float, str]:
+    nbytes, bf16_ops, f32_ops = encoder_work(cfg, tokens)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (bf16_ops / PEAK_OPS_S["bfloat16"] + f32_ops / PEAK_OPS_S["float32"]) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_encode(torch, fn, iters: int = 10) -> dict:
+    """Median (min, max) ms of `fn()` by CUDA events over `iters` calls
+    after one warm call, and the host's seconds around the median call."""
+    with torch.inference_mode():
+        fn()
+        ms = []
+        for _ in range(iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+    return {"ms": statistics.median(ms), "ms_range": [min(ms), max(ms)]}
+
+
+def encoder_report(torch, name: str, enc, ids, mask=None, outputs=None,
+                   against_fp32: bool = True) -> dict:
+    """One full-width encoder: `enc` (bf16) against the same weights in fp32
+    on the card, per row of the batch `ids` (relative L2 under
+    ENC_BF16_REL_L2, finite; skipped without `against_fp32`, for an
+    encoder already held so at another length), and the batch-1 encode
+    time against its bound. `outputs(result)` picks the compared tensors
+    (CLIP: the states a pipeline reads and the pooled vector)."""
+    import dataclasses
+
+    outputs = outputs or (lambda r: {"states": r})
+    ids = torch.as_tensor(ids, device="cuda")
+    mask = None if mask is None else torch.as_tensor(mask, device="cuda")
+    args = (ids,) if mask is None else (ids, mask)
+    with torch.inference_mode():
+        got = {k: v.float() for k, v in outputs(enc(*args)).items()}
+        ref = {}
+        if against_fp32:
+            enc32 = type(enc)(dataclasses.replace(enc.cfg, dtype=torch.float32), device="cuda")
+            enc32.load_state_dict(enc.state_dict())  # widened exactly
+            ref = outputs(enc32(*args))
+            del enc32
+    torch.cuda.empty_cache()
+    rel = {}
+    for k, g in got.items():
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {k}")
+    for k, r in ref.items():
+        rows = [((a - b).norm() / b.norm()).item() for a, b in zip(got[k], r)]
+        rel[k] = max(rows)
+        check(rel[k] <= ENC_BF16_REL_L2,
+              f"{name} bf16 against fp32, {k}: relative L2 {rows} > {ENC_BF16_REL_L2}")
+    one = tuple(a[:1] for a in args)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time_encode(torch, lambda: enc(*one))
+    t["encode_peak_extra_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    tokens = ids.shape[1]
+    bound, by = encoder_bound_ms(enc.cfg, tokens)
+    held = ("bf16 against fp32 per row, max relative L2 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in rel.items())
+            + f" (bound {ENC_BF16_REL_L2})") if rel else "finite"
+    print(f"[encoders] {name}: {held}; batch-1 encode at {tokens} tokens {t['ms']:.3f} ms "
+          f"({t['ms_range'][0]:.3f}-{t['ms_range'][1]:.3f}), bound {bound:.3f} ms ({by}), "
+          f"{t['ms'] / bound:.2f}x; {encoder_params(enc) / 1e6:.1f}M params, "
+          f"{t['encode_peak_extra_gib']:.3f} GiB above them while encoding", flush=True)
+    return {"rel_l2": rel, "tokens": tokens, **t, "bound_ms": bound, "bound_by": by,
+            "params": encoder_params(enc)}
+
+
+def clip_outputs(proj: bool):
+    """What a pipeline reads of a CLIP output: SD3 the penultimate state and
+    the projected pooled vector, SD1.5 the last state."""
+    if proj:
+        return lambda r: {"penultimate": r.hidden_states[-2], "pooled": r.pooled}
+    return lambda r: {"last": r.last_hidden_state, "pooled": r.pooled}
+
+
+def encoder_params(module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
 def write_checkout(root: str, family: str, cfg, vcfg, seed: int) -> tuple[float, int]:
     """A stock diffusers checkout at `root`: model_index.json, transformer/
     (SD1.5: unet/) and vae/ (an AutoencoderKL), each a config.json and one
@@ -1228,6 +1616,25 @@ def load_targets():
             (convert, "pixart_params"), (convert, "sd3_params"), (convert, "klvae_params")]
 
 
+def teacher_load_parts(converter: str):
+    """What a trainer's teacher load is made of: the directory's read, the
+    family's strict converter, the carry's checks and `load_from_jax` (the
+    carry and the copy into the module on the card)."""
+    from tdm_tpu_torch.io import convert, from_jax
+
+    return [(convert, "load_torch_state_dict"), (convert, converter),
+            (from_jax, "_carried"), (from_jax, "load_from_jax")]
+
+
+def teacher_load_report(times: dict, converter: str) -> tuple[float, str]:
+    """The load's seconds (`_carried` runs inside `load_from_jax`) and a
+    line of its parts."""
+    total = times["load_torch_state_dict"] + times[converter] + times["load_from_jax"]
+    return total, (f"safetensors read {times['load_torch_state_dict']:.2f}s, conversion "
+                   f"{times[converter]:.3f}s, carry {times['_carried']:.2f}s, copy into "
+                   f"the module {times['load_from_jax'] - times['_carried']:.2f}s")
+
+
 def load_report(times: dict) -> dict:
     total = times["_from_diffusers"]
     read = times["load_torch_state_dict"]
@@ -1236,20 +1643,19 @@ def load_report(times: dict) -> dict:
             "convert_share": conv / total, "build_and_copy_s": total - read - conv}
 
 
-def phase_serve(torch, seed: int, workdir: str) -> dict:
-    """Full-width PixArt-α-512 served over HTTP through the port."""
-    import numpy as np
-    from concurrent.futures import ThreadPoolExecutor
-    import urllib.request
-
+def pixart_bundle(torch, seed: int, workdir: str) -> str:
+    """The served PixArt-α-512 pipeline (28 layers, hidden 1152, 16x72
+    heads, caption 4096, TAESD width 64, bf16) with weights from the seed,
+    written once per run in the tdm_tpu layout by the port's
+    save_pretrained, and its T5-v1.1-XXL bundled beside it: the seeded
+    encoder's tdm_tpu-layout file hardlinked as text_encoder.safetensors and
+    pipeline.json's "text_encoder" block with a hash tokenizer."""
     from tdm_tpu_torch.models import pixart, vae
-    from tdm_tpu_torch.ops import attention as A
-    from tdm_tpu_torch.pipelines import PixArtPipeline, save_pretrained
-    from tdm_tpu_torch.serve import server as S
+    from tdm_tpu_torch.pipelines import PixArtPipeline, loading, save_pretrained
 
-    # a full-width pipeline (28 layers, hidden 1152, 16x72 heads, caption
-    # 4096, TAESD width 64, bf16) with weights from the seed, written in the
-    # tdm_tpu layout with the port's own writer
+    model_dir = os.path.join(workdir, "pixart_alpha_512")
+    if os.path.exists(os.path.join(model_dir, "text_encoder.safetensors")):
+        return model_dir
     t0 = time.monotonic()
     torch.manual_seed(seed)
     cfg = pixart.PixArtConfig()
@@ -1261,23 +1667,78 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
         device="cuda",
     )
     n_params = sum(p.numel() for p in pipe.transformer.parameters())
-    model_dir = os.path.join(workdir, "pixart_alpha_512")
     save_pretrained(model_dir, pipe)
     del pipe
     torch.cuda.empty_cache()
-    cache, prompts = pixart_cache(workdir, seed)
-    print(f"[serve] wrote PixArt-α-512 ({n_params / 1e6:.1f}M params) and an "
-          f"8-prompt cache in {time.monotonic() - t0:.1f}s", flush=True)
+    t5_file, t5_cfg = seeded_encoders(torch, workdir, seed, ["t5_bundle"])["t5_bundle"]
+    os.link(t5_file, os.path.join(model_dir, "text_encoder.safetensors"))
+    meta_file = os.path.join(model_dir, "pipeline.json")
+    with open(meta_file) as f:
+        meta = json.load(f)
+    meta["text_encoder"] = {"family": "t5", "config": loading._config_dict(t5_cfg),
+                            "tokenizer": {"kind": "hash"}}
+    with open(meta_file, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(f"[serve] wrote PixArt-α-512 ({n_params / 1e6:.1f}M params) with its T5-XXL "
+          f"bundled in {time.monotonic() - t0:.1f}s", flush=True)
+    return model_dir
 
+
+def built_cache(seed: int, workdir: str) -> str:
+    """`python -m tdm_tpu_torch.cli.build_cache --pipeline <the PixArt
+    bundle>` over a .txt of the 8 prompts (its main() in this process), run
+    once per run: the T5-XXL cache [8, 120, 4096] with the uncond and the
+    CLI's 4 validation rows that the train phases read."""
+    import torch
+
+    from tdm_tpu_torch.cli import build_cache
+
+    cache = os.path.join(workdir, "built_cache.npz")
+    if os.path.exists(cache):
+        return cache
+    bundle = pixart_bundle(torch, seed, workdir)
+    txt = os.path.join(workdir, "cache_prompts.txt")
+    with open(txt, "w") as f:
+        f.write("\n".join(ENC_PROMPTS) + "\n")
+    t0 = time.monotonic()
+    build_cache.main(["--pipeline", bundle, "--prompts", txt, "--out", cache,
+                      "--batch_size", "8"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[build_cache] {time.monotonic() - t0:.1f}s with the bundle's load", flush=True)
+    return cache
+
+
+def phase_serve(torch, seed: int, workdir: str) -> dict:
+    """Full-width PixArt-α-512 served over HTTP through the port from raw
+    prompts: the bundle's T5-XXL and hash tokenizer, no embedding cache."""
+    from concurrent.futures import ThreadPoolExecutor
+    import urllib.request
+
+    from tdm_tpu_torch.models import t5
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import loading
+    from tdm_tpu_torch.serve import batcher as B, server as S
+
+    model_dir = pixart_bundle(torch, seed, workdir)
+    prompts = ENC_PROMPTS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     args = S.parse_args([
-        "--model", model_dir, "--embedding_cache", cache, "--port", "0",
-        "--batch_size", "4", "--max_delay_ms", "1000", "--warmup",
+        "--model", model_dir, "--port", "0", "--batch_size", "4", "--max_delay_ms", "1000",
+        "--warmup",
     ])
-    server = S.build_server(args).start()
-    stats = server.batcher.stats
-    print(f"[serve] loaded and warmed in {time.monotonic() - t0:.1f}s "
-          f"(warm-up batch {stats.last_batch_latency_s:.3f}s)", flush=True)
+    with timed_calls(torch, [(loading, "_load_bundled_text_encoder")]) as times:
+        server = S.build_server(args).start()
+    stats, pipe = server.batcher.stats, server.batcher.pipe
+    check(isinstance(pipe.text_encoder, t5.T5Encoder) and B.has_encoders(pipe)
+          and args.embedding_cache is None, "the served bundle encodes raw prompts")
+    t5_load_s = times["_load_bundled_text_encoder"]
+    print(f"[serve] loaded and warmed on '' in {time.monotonic() - t0:.1f}s (T5-XXL "
+          f"{encoder_params(pipe.text_encoder) / 1e9:.3f} B params loaded in {t5_load_s:.2f}s; "
+          f"warm-up batch {stats.last_batch_latency_s:.3f}s); no embedding cache", flush=True)
 
     def post(prompt, seed):
         body = json.dumps({"prompt": prompt, "seed": seed}).encode()
@@ -1305,10 +1766,7 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
         solo_batch_s = stats.last_batch_latency_s
     finally:
         server.close()
-    pipe = server.batcher.pipe
-    cond = tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
-    prof = profile_batch(torch, pipe, cond, torch.randn(4, 4, 64, 64))
-    full_forward_check(torch, pipe.transformer, seed)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for reply, _ in replies + [(solo, solo_s)]:
         check(reply.get("format") == "png" and reply.get("shape") == [512, 512, 3],
               f"reply {str(reply)[:200]}")
@@ -1318,19 +1776,75 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
     check(solo["image"] == replies[0][0]["image"],
           "same (prompt, seed) gave different bytes in another batch")
     check(len({r["image"] for r, _ in replies}) == 6, "distinct seeds gave equal images")
-    per_batch = 28 * 2 * 4
+    per_batch = PIXART_LAUNCHES_PER_BATCH
     check(launches == per_batch * batches,
           f"flash_fwd launched {launches}x over {batches} batches, "
           f"expected {per_batch} per batch")
     lat = [s for _, s in replies]
-    print(f"[serve] 6 concurrent requests in {wall6:.3f}s as {batches6} "
+    print(f"[serve] 6 concurrent raw-prompt requests in {wall6:.3f}s as {batches6} "
           f"batches ({6 / wall6:.2f} images/s), request latency "
           f"{min(lat):.3f}-{max(lat):.3f}s; lone request {solo_s:.3f}s, its "
           f"batch {solo_batch_s:.3f}s; same (prompt, seed) -> same PNG bytes; "
-          f"flash_fwd launches {launches} = {per_batch} x {batches} batches",
-          flush=True)
+          f"flash_fwd launches {launches} = {per_batch} x {batches} batches; peak device "
+          f"memory {peak_gb:.2f} GiB with the T5 resident", flush=True)
+    # the request's encode on its handler thread: host seconds around it
+    enc_s = []
+    for p in prompts:
+        t0 = time.monotonic()
+        server.batcher.cond_fn(p)
+        torch.cuda.synchronize()
+        enc_s.append(time.monotonic() - t0)
+    ids, mask = pipe.tokenizer(prompts[:4], max_length=pipe.max_text_len)
+    t5_rep = encoder_report(torch, "T5-XXL (PixArt, 120 tokens)", pipe.text_encoder, ids, mask)
+    t5_rep.update(load_s=t5_load_s, params=encoder_params(pipe.text_encoder),
+                  request_encode_s=statistics.median(enc_s))
+    cache_rows = cache_against_batch1(torch, pipe, built_cache(seed, workdir))
+    cond = tuple(torch.cat([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
+    prof = profile_batch(torch, pipe, cond, torch.randn(4, 4, 64, 64))
+    if prof:
+        share = 4 * t5_rep["ms"] / (prof["busy_ms"] + 4 * t5_rep["ms"])
+        prof["encode_share"] = share
+        print(f"[serve] the batch's 4 encodes (4 x {t5_rep['ms']:.3f} ms, one per request; "
+              f"host {t5_rep['request_encode_s'] * 1e3:.2f} ms each) are {share:.3f} of its "
+              f"device time", flush=True)
+    full_forward_check(torch, pipe.transformer, seed)
+    # the train phases read the cache, nothing reads the bundle again
+    release_encoder(torch, workdir, seed, "t5_bundle", model_dir)
     return {"launches": launches, "batches": batches, "wall6_s": wall6,
-            "images_per_s": 6 / wall6, "batch_s": solo_batch_s, "profile": prof}
+            "images_per_s": 6 / wall6, "batch_s": solo_batch_s, "profile": prof,
+            "peak_gib": peak_gb, "t5": t5_rep, "cache_rows": cache_rows}
+
+
+def cache_against_batch1(torch, pipe, cache_path: str) -> dict:
+    """Each prompt's batch-1 encode against its row of the cache that
+    build_cache wrote from the same bundle in chunks of 8: the largest
+    difference, before and after rounding the batch-1 row to the cache's
+    fp16 (cuBLAS may take another algorithm for another M; reported, not
+    checked)."""
+    import numpy as np
+
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+
+    cache = EmbeddingCache.load(cache_path)
+    check(cache.embeds.shape == (len(ENC_PROMPTS), 120, 4096) and cache.prompts == ENC_PROMPTS
+          and cache.masks.sum(1).tolist() == ENC_T5_LIVE
+          and cache.uncond_embed is not None and len(cache.val_prompts) == 4,
+          f"build_cache wrote {cache.embeds.shape} with {cache.masks.sum(1).tolist()} live "
+          f"tokens for {[len(p.split()) for p in cache.prompts]} words")
+    raw = fp16 = rel = 0.0
+    for i, p in enumerate(cache.prompts):
+        e, m = pipe.encode_prompt([p])
+        row = e[0].float().cpu().numpy()
+        check(np.array_equal(m[0].cpu().numpy(), cache.masks[i]), f"mask of {p!r}")
+        ref = cache.embeds[i].astype(np.float32)
+        raw = max(raw, float(np.abs(row - ref).max()))
+        fp16 = max(fp16, float(np.abs(row.astype(np.float16).astype(np.float32) - ref).max()))
+        rel = max(rel, float(np.linalg.norm(row - ref) / np.linalg.norm(ref)))
+    print(f"[build_cache] a prompt's batch-1 encode against its row of the cache (chunks of "
+          f"8): max |diff| {raw:.3e} ({fp16:.3e} after rounding it to fp16), relative L2 "
+          f"{rel:.4f} at most", flush=True)
+    return {"max_abs_diff": raw, "max_abs_diff_fp16": fp16, "max_rel_l2": rel,
+            "rows": len(cache.prompts)}
 
 
 def profile_batch(torch, pipe, cond, noise, kernel: str = "flash_fwd") -> dict:
@@ -2043,8 +2557,7 @@ def kl_decoder_check(torch, seed: int) -> dict:
             (2, vcfg.latent_channels, 24, 20)).astype(np.float32))
         got = {}
         for dev in ("cpu", "cuda"):
-            dec = vae.KLDecoder(vcfg, device=dev)
-            dec.load_state_dict(from_jax.state_dict_from_jax(flat, dec))
+            dec = from_jax.load_from_jax(flat, vae.KLDecoder(vcfg, device=dev))
             with torch.inference_mode():
                 got[dev] = dec(z.to(dev)).cpu()
         rel = ((got["cuda"] - got["cpu"]).norm() / got["cpu"].norm()).item()
@@ -2199,72 +2712,136 @@ def sd3_checkout(workdir: str, seed: int) -> tuple[str, float, int]:
     root = os.path.join(workdir, "stable-diffusion-3-medium-diffusers")
     if os.path.exists(os.path.join(root, "model_index.json")):
         return root, 0.0, 0
+    import torch
+
     secs, n = write_checkout(root, "sd3", cfg, vcfg, seed)
+    enc = seeded_encoders(torch, workdir, seed, ["clip_l_proj", "clip_g", "t5"])
+    for sub, name in (("text_encoder", "clip_l_proj"), ("text_encoder_2", "clip_g"),
+                      ("text_encoder_3", "t5")):
+        link_encoder(enc[name][0], os.path.join(root, sub))
     print(f"[checkout] wrote the SD3-Medium diffusers checkout ({n / 1e6:.1f}M params at "
-          f"fp16) in {secs:.1f}s", flush=True)
+          f"fp16) in {secs:.1f}s, its text_encoder, _2, _3 (CLIP-L, CLIP-G, T5-XXL) "
+          "hardlinked", flush=True)
     return root, secs, n
 
 
 def diffusers_sd3(torch, seed: int, workdir: str) -> dict:
     """The SD3-Medium checkout (24 layers, hidden 1536, 24x64 heads; its
-    16-channel AutoencoderKL, scaling 1.5305, shift 0.0609) through
-    from_pretrained at the default attn_impl ('auto': the flash kernel):
-    the load, then one warm batch of 4 at 1024² through the pipeline, timed,
-    with the kernel's launches counted, and one profiled."""
+    16-channel AutoencoderKL, scaling 1.5305, shift 0.0609; its text
+    encoders CLIP-L, CLIP-G and T5-XXL in text_encoder, _2, _3) through
+    from_pretrained at the default attn_impl ('auto': the flash kernel),
+    hash tokenizers passed: the load, then one warm batch of 4 at 1024²
+    from raw prompts through the pipeline (the triple stack's encode
+    included), timed, with the kernel's launches counted; the same batch
+    from its prompt_embeds, timed apart from the encode; one profiled;
+    then CLIP-L and CLIP-G (and T5 at 256 tokens) in bf16 against fp32 and
+    their batch-1 encode times."""
     import numpy as np
 
+    from tdm_tpu_torch.data.tokenizer import HashTokenizer
     from tdm_tpu_torch.models import vae
     from tdm_tpu_torch.ops import attention as A
-    from tdm_tpu_torch.pipelines import from_pretrained
+    from tdm_tpu_torch.pipelines import from_pretrained, loading
+    from tdm_tpu_torch.serve import batcher as B
 
     root, secs, n = sd3_checkout(workdir, seed)
+    gc.collect()
     torch.cuda.empty_cache()
-    with timed_calls(torch, load_targets()) as times:
-        pipe = from_pretrained(root)
+    toks = {"clip_l": HashTokenizer(CLIP_VOCAB, eos_id=CLIP_EOS),
+            "clip_g": HashTokenizer(CLIP_VOCAB, eos_id=CLIP_EOS), "t5": HashTokenizer()}
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(torch, load_targets() + [(loading, "_load_diffusers_text_encoders")]) \
+            as times:
+        pipe = from_pretrained(root, tokenizers=toks)
     load = load_report(times)
+    enc_load_s = times["_load_diffusers_text_encoders"]
     check(pipe.family == "sd3" and pipe.transformer.cfg.attn_impl == "auto"
           and pipe.transformer.cfg.dtype == torch.bfloat16
           and isinstance(pipe.vae_decoder, vae.KLDecoder)
-          and (pipe.vae_scaling, pipe.vae_shift, pipe.vae_range) == (1.5305, 0.0609, "pm1"),
-          "the SD3 checkout's pipeline")
+          and (pipe.vae_scaling, pipe.vae_shift, pipe.vae_range) == (1.5305, 0.0609, "pm1")
+          and B.has_encoders(pipe) and pipe.tokenizers == toks
+          and [pipe.text_encoders[k].cfg.projection_dim for k in ("clip_l", "clip_g")]
+          == [768, 1280] and pipe.text_encoders["clip_g"].cfg.activation == "gelu",
+          "the SD3 checkout's pipeline and its triple stack")
+    enc_params = {k: encoder_params(m) for k, m in pipe.text_encoders.items()}
     print(f"[diffusers] SD3-Medium checkout loaded in {load['load_s']:.2f}s (safetensors "
           f"read {load['read_s']:.2f}s, conversion {load['convert_s']:.3f}s = "
           f"{load['convert_share']:.3f} of the load, modules and copy to the card "
-          f"{load['build_and_copy_s']:.2f}s)", flush=True)
+          f"{load['build_and_copy_s']:.2f}s); of it the text encoders "
+          f"({', '.join(f'{k} {v / 1e6:.1f}M' for k, v in enc_params.items())}) "
+          f"{enc_load_s:.2f}s", flush=True)
+    prompts = ENC_PROMPTS[:4]
     rng = np.random.default_rng(seed + 3)
-    cond = (rng.standard_normal((4, SD3_TXT, 4096)).astype(np.float16),
-            rng.standard_normal((4, 2048)).astype(np.float16))
     noise = torch.from_numpy(rng.standard_normal((4, 16, 128, 128)).astype(np.float32))
-    call = dict(prompt_embeds=cond, latents=noise, height=1024, width=1024)
+    call = dict(prompt=prompts, latents=noise, height=1024, width=1024)
     pipe(**call)  # warm
     torch.cuda.synchronize()
-    # the main path: counts to 0, one batch of 4, read just after
+    # the main path: counts to 0, one batch of 4 from raw prompts, read just after
     A.reset_launches()
     t0 = time.monotonic()
     images = pipe(**call).images.cpu()
-    batch_s = time.monotonic() - t0
+    raw_s = time.monotonic() - t0
     launches = A.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(launches["flash_attention_fwd"] == SD3_LAUNCHES_PER_BATCH
           and sum(launches.values()) == SD3_LAUNCHES_PER_BATCH,
           f"SD3 checkout batch launches {launches}, expected {SD3_LAUNCHES_PER_BATCH} "
           "flash_fwd and nothing else")
     check(tuple(images.shape) == (4, 1024, 1024, 3) and bool(torch.isfinite(images).all())
           and images.std().item() > 0.01, f"SD3 checkout images {tuple(images.shape)}")
-    print(f"[diffusers] SD3 checkout: one batch of 4 at 1024² in {batch_s:.3f}s "
-          f"({4 / batch_s:.2f} images/s), images finite (std {images.std().item():.3f}); "
-          f"launches {launches}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cond = pipe.encode_prompt(prompts)
+    torch.cuda.synchronize()
+    encode_s = time.monotonic() - t0
+    check(tuple(cond[0].shape) == (4, SD3_TXT, 4096) and tuple(cond[1].shape) == (4, 2048)
+          and not cond[0][:, :77, 768 + 1280:].any(),
+          f"SD3 conditioning {tuple(cond[0].shape)}, {tuple(cond[1].shape)}")
+    # the same batch from its prompt_embeds: its time without the encode
+    t0 = time.monotonic()
+    again = pipe(prompt_embeds=cond, latents=noise, height=1024, width=1024).images.cpu()
+    batch_s = time.monotonic() - t0
+    raw_vs_embeds = (again - images).abs().max().item()
+    print(f"[diffusers] SD3 checkout: one batch of 4 at 1024² from prompt_embeds in "
+          f"{batch_s:.3f}s ({4 / batch_s:.2f} images/s); from raw prompts {raw_s:.3f}s (the "
+          f"triple stack's batch-4 encode alone {encode_s:.3f}s); the two batches' images "
+          f"differ by {raw_vs_embeds:.3e} at most; images finite (std "
+          f"{images.std().item():.3f}); launches {launches}; peak device memory "
+          f"{peak_gib:.2f} GiB with the encoders resident", flush=True)
     prof = profile_batch(torch, pipe, cond, noise)
     per_call = prof["attention_ms"] / SD3_LAUNCHES_PER_BATCH if prof else None
     if per_call is not None:
         print(f"[diffusers] SD3 checkout: flash_fwd {per_call:.3f} ms per call at "
               f"[4,24,{SD3_S},{SD3_S},64] in the profiled batch", flush=True)
     decode = decode_alone(torch, pipe, (4, 16, 128, 128), seed)
+    ids_clip, _ = toks["clip_l"](prompts, max_length=pipe.max_clip_len)
+    ids_t5, mask_t5 = toks["t5"](prompts, max_length=pipe.max_t5_len)
+    encoders = {
+        "clip_l": encoder_report(torch, "CLIP-L (SD3, projected)", pipe.text_encoders["clip_l"],
+                                 ids_clip, outputs=clip_outputs(True)),
+        "clip_g": encoder_report(torch, "CLIP-G (SD3, projected)", pipe.text_encoders["clip_g"],
+                                 ids_clip, outputs=clip_outputs(True)),
+        "t5": encoder_report(torch, "T5-XXL (SD3, 256 tokens)", pipe.text_encoders["t5"],
+                             ids_t5, mask_t5, against_fp32=False),
+    }
+    stack_ms = sum(e["ms"] for e in encoders.values())
+    if prof:
+        prof["encode_share"] = stack_ms / (prof["busy_ms"] + stack_ms)
+        print(f"[diffusers] SD3: the triple stack's batch-1 encodes {stack_ms:.3f} ms against "
+              f"the profiled batch's {prof['busy_ms']:.1f} ms busy (one batch-4 encode per "
+              f"pipeline call; per request in the server: 4 x {stack_ms:.3f} ms)", flush=True)
     del pipe
+    gc.collect()
     torch.cuda.empty_cache()
+    # train_sd3 reads only transformer/; the T5 is written again for CogVideoX
+    release_encoder(torch, workdir, seed, "t5", os.path.join(root, "text_encoder_3"))
     return {"load": load, "checkout_write_s": secs, "decode": decode, "params": n,
-            "batch_s": batch_s, "images_per_s": 4 / batch_s, "launches": launches["flash_attention_fwd"],
+            "batch_s": batch_s, "images_per_s": 4 / batch_s, "raw_batch_s": raw_s,
+            "encode_batch4_s": encode_s, "raw_vs_embeds_max_abs": raw_vs_embeds,
+            "launches": launches["flash_attention_fwd"],
             "launches_per_batch": SD3_LAUNCHES_PER_BATCH, "profile": prof,
-            "flash_fwd_ms_per_call": per_call}
+            "flash_fwd_ms_per_call": per_call, "peak_gib": peak_gib,
+            "encoders_load_s": enc_load_s, "encoders": encoders}
 
 
 def phase_diffusers(torch, seed: int, workdir: str) -> dict:
@@ -2370,8 +2947,10 @@ def sd15_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]:
     if os.path.exists(os.path.join(root, "model_index.json")):
         return root, 0.0, 0
     secs, n = write_checkout(root, "unet_sd15", cfg, vcfg, seed)
+    link_encoder(seeded_encoders(torch, workdir, seed, ["clip_l"])["clip_l"][0],
+                 os.path.join(root, "text_encoder"))
     print(f"[checkout] wrote the SD1.5 diffusers checkout ({n / 1e6:.1f}M params at fp16) "
-          f"in {secs:.1f}s", flush=True)
+          f"in {secs:.1f}s, its text_encoder (CLIP-L) hardlinked", flush=True)
     return root, secs, n
 
 
@@ -2513,6 +3092,57 @@ def subprocess_server_check(torch, server_args: list, prompt: str, seed: int,
             "tf32": False, "png_equal": True}
 
 
+def raw_prompt_batch(torch, root: str, family: str, tokenizer, call: dict, want: int,
+                     report, warm: bool = True) -> dict:
+    """The checkout at `root` through from_pretrained with `tokenizer`
+    passed (the card's machine has no `transformers` for a tokenizer
+    folder): its text_encoder/ loaded (timed), one batch from raw prompts
+    with kernel 1's launches counted (`want`, and nothing else), the
+    largest device memory of load and batch, and `report(pipe)`, the
+    encoder's own checks."""
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import from_pretrained, loading
+    from tdm_tpu_torch.serve import batcher as B
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with timed_calls(torch, [(loading, "_load_diffusers_text_encoders")]) as times:
+        pipe = from_pretrained(root, tokenizer=tokenizer)
+    load_s = time.monotonic() - t0
+    check(pipe.family == family and B.has_encoders(pipe) and pipe.tokenizer is tokenizer,
+          f"the {family} checkout's text encoder")
+    with torch.inference_mode():
+        if warm:
+            pipe(**call)
+            torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.monotonic()
+        out = pipe(**call)
+        result = (out.images if out.images is not None else out.latents).float().cpu()
+        batch_s = time.monotonic() - t0
+    launches = A.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["flash_attention_fwd"] == want and sum(launches.values()) == want,
+          f"{family} raw-prompt batch launches {launches}, expected {want} flash_fwd")
+    check(bool(torch.isfinite(result).all()) and result.std().item() > 0.01,
+          f"{family} raw-prompt batch output {tuple(result.shape)}")
+    enc_s = times["_load_diffusers_text_encoders"]
+    print(f"[{family}] from_pretrained(<checkout>, tokenizer=HashTokenizer) in {load_s:.2f}s "
+          f"(text encoder {encoder_params(pipe.text_encoder) / 1e6:.1f}M params, "
+          f"{enc_s:.2f}s); one {'warm ' if warm else 'first '}batch of "
+          f"{len(call['prompt'])} raw prompts in {batch_s:.3f}s, "
+          f"output {tuple(result.shape)} finite; launches {launches}; peak device memory "
+          f"{peak_gib:.2f} GiB", flush=True)
+    rep = report(pipe)
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"load_s": load_s, "encoder_load_s": enc_s, "batch_s": batch_s,
+            "launches": launches["flash_attention_fwd"], "peak_gib": peak_gib, "encoder": rep}
+
+
 def phase_sd15(torch, seed: int, workdir: str) -> dict:
     """SD1.5 served over HTTP from a full-width diffusers checkout with a
     rank-64 kohya LoRA merged at load: 8 concurrent requests (two batches
@@ -2525,6 +3155,7 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
 
     import numpy as np
 
+    from tdm_tpu_torch.data.tokenizer import HashTokenizer
     from tdm_tpu_torch.io import convert
     from tdm_tpu_torch.lora import io as lora_io
     from tdm_tpu_torch.models import unet_sd15, vae
@@ -2539,7 +3170,8 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
     lora = sd15_lora(torch, unet_sd15.UNet2DCondition(device="meta"), 64, seed)
     lora_io.save_kohya(lora, lora_file)
     t0 = time.monotonic()
-    args_list = ["--model", root, "--lora", lora_file, "--embedding_cache", cache, "--port",
+    args_list = ["--model", cache_served_view(root), "--lora", lora_file, "--embedding_cache",
+                 cache, "--port",
                  "0", "--batch_size", "4", "--max_delay_ms", "1000", "--warmup"]
     args = S.parse_args(args_list)
     with timed_calls(torch, load_targets() + [(convert, "unet_sd15_params")]) as times:
@@ -2550,7 +3182,8 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
     check(pipe.family == "sd15" and pipe.unet.cfg == unet_sd15.UNetConfig()
           and isinstance(pipe.vae_decoder, vae.KLDecoder) and pipe.vae_range == "pm1"
           and pipe.vae_scaling == 0.18215 and pipe.vae_decoder.cfg.dtype == torch.float32
-          and pipe._active == (("tdm", 1.0),), "the served SD1.5 checkout")
+          and pipe._active == (("tdm", 1.0),) and pipe.text_encoder is None,
+          "the served SD1.5 checkout (its cache-served view: no encoder)")
     print(f"[sd15] SD1.5 checkout with a rank-64 LoRA ({len(lora.params)} projections) loaded "
           f"in {load['load_s']:.2f}s (safetensors read {load['read_s']:.2f}s, conversion "
           f"{load['convert_s']:.3f}s, modules and copy to the card "
@@ -2635,7 +3268,17 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
           f"the server): up and warm in {sub['up_s']:.1f}s, the lone request's PNG bytes equal "
           f"the in-process server's; KL decode of its batch of 4 {sub['decode_ms']:.2f} ms "
           f"there, {sub['in_process_decode_ms']:.2f} ms in-process (CUDA events)", flush=True)
-    return {"reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
+    tok = HashTokenizer(CLIP_VOCAB, eos_id=CLIP_EOS)
+
+    def clip_report(p):
+        ids, _ = tok(ENC_PROMPTS[:4], max_length=p.max_text_len)
+        return encoder_report(torch, "CLIP-L (SD1.5, last state)", p.text_encoder, ids,
+                              outputs=clip_outputs(False))
+
+    raw = raw_prompt_batch(torch, root, "sd15", tok,
+                           dict(prompt=ENC_PROMPTS[:4], latents=torch.randn(4, 4, 64, 64)),
+                           SD15_LAUNCHES_PER_BATCH, clip_report)
+    return {"raw_prompts": raw, "reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
             "subprocess_server": sub,
             "params": n_params, "lora_projections": len(lora.params),
             "launches": launches["flash_attention_fwd"], "batches": batches,
@@ -2660,23 +3303,12 @@ EXPORT_TOL = 1e-3
 
 
 def train_env(seed: int, workdir: str) -> None:
-    """A seeded full-width embedding cache (8 prompts of 120 T5 tokens at
-    4096, ragged masks, a one-token empty prompt) as $TDM_EMBEDDING_CACHE,
-    and the full-size model (no $TDM_TINY_MODEL, no validation decoder)."""
-    import numpy as np
-
-    from tdm_tpu_torch.data.prompts import EmbeddingCache
-
-    rng = np.random.default_rng(seed)
-    lengths = np.array([120, 77, 33, 9, 120, 1, 56, 100])
-    cache = os.path.join(workdir, "train_cache.npz")
-    EmbeddingCache(
-        rng.standard_normal((8, 120, 4096)).astype(np.float16),
-        (np.arange(120)[None] < lengths[:, None]).astype(np.int32),
-        [f"prompt {i}" for i in range(8)],
-        uncond_embed=(0.1 * rng.standard_normal((120, 4096))).astype(np.float16),
-        uncond_mask=(np.arange(120) < 1).astype(np.int32),  # the empty prompt: one token
-    ).save(cache)
+    """The cache the port's build_cache wrote from the PixArt bundle's
+    T5-XXL (`built_cache`: 8 prompts of 120 tokens at 4096 with their
+    ragged masks, the one-token empty prompt, the CLI's validation rows) as
+    $TDM_EMBEDDING_CACHE, and the full-size model (no $TDM_TINY_MODEL, no
+    validation decoder)."""
+    cache = built_cache(seed, workdir)
     for var in ("TDM_TINY_MODEL", "TDM_TAESD_DIR"):
         os.environ.pop(var, None)
     os.environ["TDM_EMBEDDING_CACHE"] = cache
@@ -2781,8 +3413,9 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     """Full-width PixArt-α-512 TDM training through the CLI's main() at the
     JAX CLI's default flags, the teacher read from the PixArt checkout's
     transformer/ folder (--pretrained_model_name_or_path; its load timed
-    by part): seeded weights, a seeded full-width embedding
-    cache, batch 4, bf16, dmd, 3 steps, then the export of the rank-32
+    by part): seeded weights, the embedding cache the port's build_cache
+    wrote from the PixArt bundle's T5-XXL (`train_env`), batch 4, bf16, dmd,
+    3 steps, then the export of the rank-32
     kohya LoRA by truncated SVD (--export_lora_rank 32, the default). Per
     step: host and CUDA-event times and the kernels' launches (checked);
     step 3 under torch.profiler for device busy time. The export: its
@@ -2832,8 +3465,7 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     lora_lib.extract_lora = timed_extract
     # the teacher's load: the directory's read, the conversion, the carry and
     # the copy into the module on the card (nothing else in the run loads)
-    load_parts = [(convert, "load_torch_state_dict"), (convert, "pixart_params"),
-                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    load_parts = teacher_load_parts("pixart_params")
     try:
         with timed_calls(torch, load_parts) as teacher_times:
             train_tdm.main([
@@ -2846,12 +3478,9 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     total_s = time.monotonic() - t0
     check(set(teacher_times) == {name for _, name in load_parts},
           f"the teacher was not loaded from {teacher_dir}: {teacher_times}")
-    teacher_s = sum(teacher_times.values())
-    print(f"[train] teacher from {teacher_dir}: loaded in {teacher_s:.2f}s (safetensors read "
-          f"{teacher_times['load_torch_state_dict']:.2f}s, conversion "
-          f"{teacher_times['pixart_params']:.3f}s, carry "
-          f"{teacher_times['state_dict_from_jax']:.2f}s, copy into the module "
-          f"{teacher_times['load_state_dict']:.2f}s)", flush=True)
+    teacher_s, parts = teacher_load_report(teacher_times, "pixart_params")
+    print(f"[train] teacher from {teacher_dir}: loaded in {teacher_s:.2f}s ({parts})",
+          flush=True)
     launches = A.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     run_dir = out + "_cfg4.5_steps900"
@@ -2875,6 +3504,8 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
           f"(limit +-{EXPORT_TOL})", flush=True)
     check(abs(err - opt_err) <= EXPORT_TOL,
           f"the rank-32 export of blocks.0 attn1.to_q: relative error {err}, optimum {opt_err}")
+    print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
+          f"the run's checkpoint, before its removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)  # the disk for the later phases
     # steps after the first that ran without the profiler (its own cost
     # inflates the profiled last step's wall time)
@@ -3007,6 +3638,8 @@ def phase_train_lora(torch, seed: int, workdir: str) -> dict:
     opt_work = {"critic": optimizer_work(torch, state.critic, seed),
                 "student": optimizer_work(torch, state.student, seed)}
     del state, last["state"]
+    print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
+          f"the run's checkpoint, before its removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     per_opt_step = records[2]["host_s"] + records[3]["host_s"]
     busy = records[1]["busy_ms"]
@@ -3200,8 +3833,7 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     sd3_train_env(seed, workdir)
     out = os.path.join(workdir, "train_sd3")
     steps = []
-    load_parts = [(convert, "load_torch_state_dict"), (convert, "sd3_params"),
-                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    load_parts = teacher_load_parts("sd3_params")
     torch.cuda.empty_cache()
     A.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -3246,18 +3878,17 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     pipe.set_adapters(["tdm"], [1.0])
     del pipe, lora
     torch.cuda.empty_cache()
+    print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
+          f"the run's checkpoint, before its removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
     busy = steps[2]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
-    load_s = sum(load_times.values())
-    print(f"[train_sd3] teacher from {teacher_dir} (and the TAESD3 decoder): loaded in "
-          f"{load_s:.2f}s (safetensors read {load_times.get('load_torch_state_dict', 0):.2f}s, "
-          f"conversion {load_times.get('sd3_params', 0):.3f}s, carry "
-          f"{load_times.get('state_dict_from_jax', 0):.2f}s, copy into the module "
-          f"{load_times.get('load_state_dict', 0):.2f}s)", flush=True)
+    load_s, parts = teacher_load_report(load_times, "sd3_params")
+    print(f"[train_sd3] teacher from {teacher_dir} (and the TAESD3 decoder): loaded in {load_s:.2f}s ({parts})",
+          flush=True)
     print(f"[train_sd3] SD3-Medium TDM at 512² (dmd, batch {SD3T_B}, bf16, rank-"
           f"{SD3_LORA_RANK} LoRA student, 8-bit Adam, gradient checkpointing, seeded "
           f"weights): {per_step:.3f} s/step after the first, unprofiled (steps 2 and 4; "
@@ -3463,8 +4094,7 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
         export["pieces"] = len(lora.params)
         return lora
 
-    load_parts = [(convert, "load_torch_state_dict"), (convert, "unet_sd15_params"),
-                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    load_parts = teacher_load_parts("unet_sd15_params")
     torch.cuda.empty_cache()
     A.reset_launches()  # the main path from here
     torch.cuda.reset_peak_memory_stats()
@@ -3526,18 +4156,17 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
     check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
                                       f"{export['pieces']}")
+    print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
+          f"the run's checkpoint, before its removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
     busy = steps[2]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
-    load_s = sum(load_times.values())
-    print(f"[train_sd15] teacher from {teacher_dir}: loaded in {load_s:.2f}s (safetensors "
-          f"read {load_times['load_torch_state_dict']:.2f}s, conversion "
-          f"{load_times['unet_sd15_params']:.3f}s, carry "
-          f"{load_times['state_dict_from_jax']:.2f}s, copy into the module "
-          f"{load_times['load_state_dict']:.2f}s)", flush=True)
+    load_s, parts = teacher_load_report(load_times, "unet_sd15_params")
+    print(f"[train_sd15] teacher from {teacher_dir}: loaded in {load_s:.2f}s ({parts})",
+          flush=True)
     print(f"[train_sd15] SD1.5 TDM at 512² (dmd, batch {SD15_B}, bf16, AdamW, gradient "
           f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
           f"unprofiled (steps 2 and 4; {3600 / per_step:.0f} iters/hour), first step "
@@ -3921,8 +4550,10 @@ def cogvideox_checkout(torch, workdir: str, seed: int) -> tuple[str, float, int]
         "vae3d_decoder", os.path.join(root, "vae", "diffusion_pytorch_model.safetensors"),
         vcfg, seed=seed + 1, scale=VAE3D_WEIGHT_SCALE)
     secs = time.monotonic() - t0
+    link_encoder(seeded_encoders(torch, workdir, seed, ["t5"])["t5"][0],
+                 os.path.join(root, "text_encoder"))
     print(f"[checkout] wrote the CogVideoX-2B diffusers checkout ({n / 1e6:.1f}M params at "
-          f"fp16) in {secs:.1f}s", flush=True)
+          f"fp16) in {secs:.1f}s, its text_encoder (T5-XXL) hardlinked", flush=True)
     return root, secs, n
 
 
@@ -4211,6 +4842,7 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
 
     import numpy as np
 
+    from tdm_tpu_torch.data.tokenizer import HashTokenizer
     from tdm_tpu_torch.io import convert, from_jax
     from tdm_tpu_torch.lora import adapter, io as lora_io
     from tdm_tpu_torch.models import cogvideox as cog, vae3d
@@ -4224,9 +4856,13 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
     lora_file = os.path.join(workdir, "cogvideox_tdm_lora.safetensors")
     lora = seeded_lora(torch, cog.CogVideoXTransformer3D(device="meta"), 64, seed)
     lora_io.save_kohya(lora, lora_file)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    args = S.parse_args(["--model", root, "--lora", lora_file, "--lora_scale", "1",
-                         "--num_frames", "49", "--embedding_cache", cache, "--port", "0",
+    args = S.parse_args(["--model", cache_served_view(root), "--lora", lora_file,
+                         "--lora_scale", "1", "--num_frames", "49", "--embedding_cache", cache,
+                         "--port", "0",
                          "--batch_size", "2", "--max_delay_ms", "1000"])
     with timed_calls(torch, load_targets() + [(convert, "cogvideox_params"),
                                               (convert, "vae3d_decoder_params")]) as times:
@@ -4270,6 +4906,8 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
         batches = stats.batches - b0
     finally:
         server.close()
+    serve_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(pipe.text_encoder is None, "the cache-served view attached no T5")
     stds = []
     for reply, _ in pair + solo:
         check(reply.get("format") == "gif" and reply.get("shape") == [49, 480, 720, 3],
@@ -4323,8 +4961,23 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
     del a, b
     rel = cogvideox_forward_check(torch, pipe.transformer, seed)
     conv = conv3d_route_check(torch, seed)
+    server.batcher.pipe = None
     del pipe
     torch.cuda.empty_cache()
+    print(f"[cogvideox] serving peak device memory {serve_peak_gib:.2f} GiB from the cache, "
+          f"no encoder resident", flush=True)
+    tok = HashTokenizer()
+
+    def t5_report(p):
+        ids, mask = tok(ENC_PROMPTS[:2], max_length=p.transformer.cfg.max_text_len)
+        return encoder_report(torch, "T5-XXL (CogVideoX, 226 tokens)", p.text_encoder, ids,
+                              mask, against_fp32=False)
+
+    raw = raw_prompt_batch(
+        torch, root, "cogvideox", tok,
+        dict(prompt=ENC_PROMPTS[:2], latents=noise, num_frames=49, output_type="latent"),
+        COG_LAUNCHES_PER_BATCH, t5_report, warm=False)
+    release_encoder(torch, workdir, seed, "t5", os.path.join(root, "text_encoder"))
     phase_s = time.monotonic() - t_phase
     print(f"[cogvideox] phase in {phase_s:.1f}s", flush=True)
     return {"load": load, "up_s": up_s, "checkout_write_s": write_s, "params": n_params,
@@ -4334,7 +4987,8 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
             "wall2_s": wall2, "videos_per_min": 2 / wall2 * 60, "batch_s": pair_batch_s,
             "solo_s": [t for _, t in solo], "profile": prof, "decode_ms": dec_ms,
             "decode_tflop": ops / 1e12, "gif_encode_s": gif_s, "gif_mb": len(gif) / 1e6,
-            "forward_rel_l2": rel, "conv_route": conv, "phase_s": phase_s}
+            "forward_rel_l2": rel, "conv_route": conv, "phase_s": phase_s,
+            "serve_peak_gib": serve_peak_gib, "raw_prompts": raw}
 
 
 # ---------------------------------------------------------------------------
@@ -4510,8 +5164,7 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     cog_train_env(seed, workdir)
     out = os.path.join(workdir, "train_cogvideox")
     steps = []
-    load_parts = [(convert, "load_torch_state_dict"), (convert, "cogvideox_params"),
-                  (from_jax, "state_dict_from_jax"), (torch.nn.Module, "load_state_dict")]
+    load_parts = teacher_load_parts("cogvideox_params")
     gc.collect()
     torch.cuda.empty_cache()
     held_gb = torch.cuda.memory_allocated() / 2**30  # by earlier phases, before main()
@@ -4558,6 +5211,8 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     lora = cogvideox_lora_latents(torch, root, lora_path, seed)
     check(lora["adapted_weights"] == pieces,
           f"the kohya file's {pieces} pieces: {lora['adapted_weights']} resolved")
+    print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
+          f"the run's checkpoint, before its removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
@@ -4566,13 +5221,10 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     # each, so the unprofiled step 2's span can be shorter than step 3's busy
     span = steps[2]["event_ms"]
     idle = None if not busy else 1 - busy / span
-    load_s = sum(load_times.values())
+    load_s, parts = teacher_load_report(load_times, "cogvideox_params")
     phase_s = time.monotonic() - t_phase
-    print(f"[train_cogvideox] teacher from {teacher_dir}: loaded in {load_s:.2f}s (safetensors "
-          f"read {load_times['load_torch_state_dict']:.2f}s, conversion "
-          f"{load_times['cogvideox_params']:.3f}s, carry "
-          f"{load_times['state_dict_from_jax']:.2f}s, copy into the module "
-          f"{load_times['load_state_dict']:.2f}s)", flush=True)
+    print(f"[train_cogvideox] teacher from {teacher_dir}: loaded in {load_s:.2f}s ({parts})",
+          flush=True)
     print(f"[train_cogvideox] CogVideoX-2B TDM at 49x480x720 (dmd, batch {COG_TRAIN_B}, bf16 "
           f"on fp32 masters, rank-{COG_LORA_RANK} LoRA student, 8-bit Adam, gradient "
           f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
@@ -4631,10 +5283,13 @@ def kernel_row(name, source, replaces, launches, rec, per, resources, sd3_launch
 
 
 def timed_phase(fn, *args):
-    """fn(*args), with a line of its wall seconds."""
+    """fn(*args), with a line of its wall seconds and the disk space the
+    run's files hold after it."""
     t0 = time.monotonic()
     out = fn(*args)
-    print(f"[timing] {fn.__name__} {time.monotonic() - t0:.1f}s", flush=True)
+    used = shutil.disk_usage(os.path.dirname(os.path.abspath(__file__))).used / 2**30
+    print(f"[timing] {fn.__name__} {time.monotonic() - t0:.1f}s (disk used {used:.1f} GiB)",
+          flush=True)
     return out
 
 
@@ -4809,7 +5464,18 @@ def main(argv=None) -> int:
               "max_abs_err": r["splash_max_abs_err"], "flash_ms": r["ms"]}
              for r in kcog["shapes"]]}},
     ]
+    text_encoders = {
+        "t5_xxl_pixart": serve["t5"], "clip_l_sd3": diffusers["sd3"]["encoders"]["clip_l"],
+        "clip_g_sd3": diffusers["sd3"]["encoders"]["clip_g"],
+        "t5_xxl_sd3": diffusers["sd3"]["encoders"]["t5"],
+        "clip_l_sd15": sd15["raw_prompts"]["encoder"],
+        "t5_xxl_cogvideox": cogvideox["raw_prompts"]["encoder"],
+        "serving_peak_gib": {"pixart": serve["peak_gib"], "sd3": diffusers["sd3"]["peak_gib"],
+                             "sd15": sd15["raw_prompts"]["peak_gib"],
+                             "cogvideox": cogvideox["serve_peak_gib"]},
+        "build_cache_rows": serve["cache_rows"]}
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
+                      "text_encoders": text_encoders,
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
                       "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,
                       "train_sd15": train_sd15, "cogvideox": cogvideox,

@@ -75,8 +75,7 @@ def _load_taesd(vae_dir: str, latent_channels: int, device):
     vcfg = vae_lib.TAESDConfig.taesd3() if latent_channels == 16 else vae_lib.TAESDConfig()
     dec = vae_lib.TAESDDecoder(vcfg, device=device)
     tree = convert.taesd_params(convert.load_torch_state_dict(vae_dir))["decoder"]
-    dec.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), dec))
-    return dec
+    return from_jax.load_from_jax(convert.flatten(tree), dec)
 
 
 def main(argv: Optional[list[str]] = None, *, step_hook: Optional[Callable] = None) -> None:

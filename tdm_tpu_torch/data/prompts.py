@@ -4,13 +4,15 @@ text-embedding cache and the family conditioning format.
 The port's own copy of `tdm_tpu/data/prompts.py` for the PixArt paths (numpy
 only): `load_prompts` reads .txt / .jsonl files and in-memory lists (an HF
 dataset name raises: slice 7), `PromptBatcher` is the shuffling per-host
-batcher, and `EmbeddingCache` reads and writes the `.npz` that the JAX
+batcher, and `EmbeddingCache` reads and writes the `.npz` that either
 package's `cli/build_cache` builds — embeds [N, L, D], masks [N, L],
 prompts [N], the empty prompt's `uncond_embed` [L, D] / `uncond_mask` [L]
 for the CFG branch, the dedicated validation rows (val_prompts,
 val_embeds, val_masks), and an SD3 cache's pooled CLIP vectors (pooled
-[N, P], uncond_pooled [P], val_pooled [V, P]). `pack_family_cond` turns
-cache rows into the conditioning the pipeline takes.
+[N, P], uncond_pooled [P], val_pooled [V, P]). `EmbeddingCache.build`
+and `chunked_encode` encode prompts into one (the port's `cli/build_cache`),
+and `pack_family_cond` turns cache rows into the conditioning the pipeline
+takes.
 """
 
 from __future__ import annotations
@@ -113,6 +115,32 @@ def pack_family_cond(family: str, embeds, masks, pooled=None, *, error: type = V
     return (embeds, masks)
 
 
+def to_numpy(x) -> np.ndarray:
+    """An encoder's output (a torch tensor on any device, bf16 too, or an
+    array) as a host array; bf16 widens exactly to fp32."""
+    if hasattr(x, "detach"):
+        x = x.detach()
+        return (x.float() if x.is_floating_point() else x).cpu().numpy()
+    return np.asarray(x)
+
+
+def chunked_encode(plist: Sequence[str], enc, batch_size: int):
+    """Encode prompts through `enc(padded_chunk) → (embeds, masks,
+    pooled-or-None)` in chunks of `batch_size` padded with empty strings
+    (one encoder shape), trimming the padding and concatenating: the core
+    of `EmbeddingCache.build` and of `cli/build_cache`'s pipeline path."""
+    es, ms, ps = [], [], []
+    for i in range(0, len(plist), batch_size):
+        chunk = list(plist[i : i + batch_size])
+        pad = batch_size - len(chunk)
+        e, m, p = enc(chunk + [""] * pad)
+        es.append(e[: len(chunk)])
+        ms.append(m[: len(chunk)])
+        if p is not None:
+            ps.append(p[: len(chunk)])
+    return np.concatenate(es), np.concatenate(ms), np.concatenate(ps) if ps else None
+
+
 class EmbeddingCache:
     """Per-prompt text embeddings (T5; CLIP + T5 with pooled vectors for
     SD3), encoded once offline."""
@@ -143,6 +171,35 @@ class EmbeddingCache:
         self.val_embeds = val_embeds  # [V, L, D] or None
         self.val_masks = val_masks  # [V, L] or None
         self.val_pooled = val_pooled  # [V, P] or None
+
+    @staticmethod
+    def build(
+        prompts: Sequence[str], tokenizer, encode_fn, *, max_length: int = 120,
+        batch_size: int = 32, val_prompts: Optional[Sequence[str]] = None,
+    ) -> "EmbeddingCache":
+        """encode_fn(ids [B, L], mask [B, L]) → embeds [B, L, D], stored at
+        fp16, with the empty prompt's row (the first of a chunk of
+        `batch_size` empty prompts) as uncond_* and `val_prompts` under the
+        dedicated validation keys."""
+
+        def enc(chunk):
+            ids, mask = tokenizer(chunk, max_length=max_length)
+            e = to_numpy(encode_fn(np.asarray(ids), np.asarray(mask)))
+            return e.astype(np.float16), np.asarray(mask), None
+
+        prompts = list(prompts)
+        embeds, masks, _ = chunked_encode(prompts, enc, batch_size)
+        u_ids, u_mask = tokenizer([""] * batch_size, max_length=max_length)
+        u = to_numpy(encode_fn(np.asarray(u_ids), np.asarray(u_mask)))
+        val_prompts = list(val_prompts or [])
+        v_e = v_m = None
+        if val_prompts:
+            v_e, v_m, _ = chunked_encode(val_prompts, enc, batch_size)
+        return EmbeddingCache(
+            embeds, masks, prompts,
+            uncond_embed=u[0].astype(np.float16), uncond_mask=np.asarray(u_mask)[0],
+            val_prompts=val_prompts, val_embeds=v_e, val_masks=v_m,
+        )
 
     def save(self, path: str) -> None:
         extra = {}

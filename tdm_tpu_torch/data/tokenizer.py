@@ -1,10 +1,14 @@
-"""The training CLI's stand-in tokenizer.
+"""Tokenizers with the framework's call convention
+    tokenizer(texts, max_length) -> (ids [B, L] int32, mask [B, L] int32),
+padded to `max_length` and truncated, as the reference drives
+`T5Tokenizer(..., padding='max_length', truncation=True)`.
 
-The port's own copy of `HashTokenizer` from `tdm_tpu/data/tokenizer.py`
-(numpy only): a deterministic word-hash tokenizer for smoke runs without a
-T5 embedding cache, with the framework's call convention
-    tokenizer(texts, max_length) -> (ids [B, L] int32, mask [B, L] int32).
-The transformers-backed tokenizers wait for slice 7 (text encoders).
+The port's own copy of `tdm_tpu/data/tokenizer.py` (numpy only):
+`HFTokenizer` wraps a local `transformers` tokenizer folder (T5
+sentencepiece, CLIP BPE) and imports `transformers` only when one is made;
+without that package it raises ImportError naming it, and never falls back
+to another tokenizer. `HashTokenizer` is the dependency-free deterministic
+word hash for tests and smoke runs.
 """
 
 from __future__ import annotations
@@ -12,6 +16,29 @@ from __future__ import annotations
 import zlib
 
 import numpy as np
+
+
+class HFTokenizer:
+    """A local HF tokenizer folder (never fetched from the network)."""
+
+    def __init__(self, path: str, **kwargs):
+        try:
+            from transformers import AutoTokenizer
+        except ImportError as e:
+            raise ImportError(
+                f"HFTokenizer({path!r}) needs the `transformers` package, which is "
+                "not installed; install it, or pass a tokenizer of your own "
+                "(e.g. data.tokenizer.HashTokenizer for smoke runs)"
+            ) from e
+        self.path = path  # kept so save_pretrained can bundle it again
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True, **kwargs)
+
+    def __call__(self, texts, max_length: int):
+        out = self._tok(
+            list(texts), max_length=max_length, padding="max_length",
+            truncation=True, return_tensors="np",
+        )
+        return out["input_ids"].astype(np.int32), out["attention_mask"].astype(np.int32)
 
 
 class HashTokenizer:

@@ -3,10 +3,11 @@
 Port of the numpy half of `tdm_tpu/io/convert.py` for the families the port
 builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), the SD1.5 UNet
 (`unet_sd15_params`), TAESD/TAESD3 (`taesd_params`), AutoencoderKL
-(`klvae_params`), the CogVideoX transformer (`cogvideox_params`) and its 3D
-VAE's decoder (`vae3d_decoder_params`). Each converter returns
+(`klvae_params`), the CogVideoX transformer (`cogvideox_params`), its 3D
+VAE's decoder (`vae3d_decoder_params`), and the text encoders: T5
+(`t5_encoder_params`) and CLIP's text tower (`clip_text_params`). Each converter returns
 the same nested numpy tree as its JAX twin before `to_jax`; the weight carry
-(`io/from_jax.state_dict_from_jax` over `flatten`) loads that tree into the
+(`io/from_jax.load_from_jax` over `flatten`) loads that tree into the
 port's modules, so a diffusers checkpoint and a tdm_tpu-layout directory take
 one weight path.
 
@@ -588,4 +589,70 @@ def vae3d_decoder_params(
                 _set(tree, f"up_{i}_upsampler/conv/bias", sd[f"{up}.bias"])
     _norm(sd, tree, "decoder.norm_out", "norm_out/gn")
     _cconv3d(sd, tree, "decoder.conv_out", "conv_out")
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# T5 encoder (transformers T5EncoderModel → models/t5.T5Encoder)
+# ---------------------------------------------------------------------------
+
+
+@_strict_converter(
+    "t5_encoder",
+    ignore=(
+        r"decoder\..*", r"lm_head\.weight",
+        # HF files often carry the tied-embedding alias
+        r"encoder\.embed_tokens\.weight",
+    ),
+)
+def t5_encoder_params(sd: dict[str, np.ndarray]) -> dict:
+    """HF T5EncoderModel state dict → the T5Encoder tree. q/k/v/o have no
+    bias; the feed-forward is v1.1's gated GELU (`DenseReluDense.wi_0`,
+    `wi_1`, `wo`); the relative attention bias exists in block 0 only."""
+    tree: dict = {}
+    _set(tree, "shared_embedding", sd["shared.weight"])
+    for i in range(_n_blocks(sd, r"encoder\.block\.(\d+)\.")):
+        src, dst = f"encoder.block.{i}", f"block_{i}"
+        _norm(sd, tree, f"{src}.layer.0.layer_norm", f"{dst}/ln_attn")
+        for p in ("q", "k", "v", "o"):
+            _linear(sd, tree, f"{src}.layer.0.SelfAttention.{p}",
+                    f"{dst}/SelfAttention/{p}", bias=False)
+        rel = f"{src}.layer.0.SelfAttention.relative_attention_bias.weight"
+        if rel in sd:
+            _set(tree, f"{dst}/SelfAttention/relative_attention_bias", sd[rel])
+        _norm(sd, tree, f"{src}.layer.1.layer_norm", f"{dst}/ln_ff")
+        for p in ("wi_0", "wi_1", "wo"):
+            _linear(sd, tree, f"{src}.layer.1.DenseReluDense.{p}", f"{dst}/{p}", bias=False)
+    _norm(sd, tree, "encoder.final_layer_norm", "final_layer_norm")
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# CLIP text encoder (transformers CLIPTextModel[WithProjection] →
+# models/clip.CLIPTextEncoder)
+# ---------------------------------------------------------------------------
+
+
+@_strict_converter(
+    "clip_text",
+    # old transformers checkpoints persist the position_ids buffer
+    ignore=(r".*\.position_ids",),
+)
+def clip_text_params(sd: dict[str, np.ndarray]) -> dict:
+    """HF CLIPTextModel(WithProjection) state dict → the CLIPTextEncoder
+    tree; `text_projection` only where the checkpoint has one."""
+    tree: dict = {}
+    _set(tree, "token_embedding", sd["text_model.embeddings.token_embedding.weight"])
+    _set(tree, "position_embedding", sd["text_model.embeddings.position_embedding.weight"])
+    for i in range(_n_blocks(sd, r"text_model\.encoder\.layers\.(\d+)\.")):
+        src, dst = f"text_model.encoder.layers.{i}", f"layers_{i}"
+        _norm(sd, tree, f"{src}.layer_norm1", f"{dst}/layer_norm1")
+        _norm(sd, tree, f"{src}.layer_norm2", f"{dst}/layer_norm2")
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, tree, f"{src}.self_attn.{p}", f"{dst}/{p}")
+        _linear(sd, tree, f"{src}.mlp.fc1", f"{dst}/fc1")
+        _linear(sd, tree, f"{src}.mlp.fc2", f"{dst}/fc2")
+    _norm(sd, tree, "text_model.final_layer_norm", "final_layer_norm")
+    if "text_projection.weight" in sd:
+        _linear(sd, tree, "text_projection", "text_projection", bias=False)
     return tree

@@ -11,7 +11,12 @@ and the layer stack becomes `blocks.{i}....`. The port's fp32 norms keep
 Flax's `scale` and `bias` (the KL decoder's GroupNorms, SD3's RMS qk norms,
 the SD1.5 UNet's GroupNorms and LayerNorms), so they carry by name; the
 UNet's modules (`down_{i}_res_{j}`, `mid_attn`, `transformer_blocks_0`,
-...) are the JAX tree's and hold no layer stack. The JAX package stores it
+...) are the JAX tree's and hold no layer stack, and so are the text
+encoders' (T5's `shared_embedding`, `block_{i}/SelfAttention/{q,k,v,o}`,
+block 0's `relative_attention_bias`, `ln_attn`, `ln_ff`, `wi_0`, `wi_1`,
+`wo`; CLIP's `token_embedding`, `position_embedding`,
+`layers_{i}/{q,k,v,out}_proj`, `fc1`, `fc2`, `layer_norm1`, `layer_norm2`,
+`text_projection`), which carry by name as they are. The JAX package stores it
 either unrolled (`blocks_{i}/...`) or, under its default `scan_layers=True`,
 as stacks with a leading [L] axis: PixArt's `blocks/...` holds every block;
 SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
@@ -32,6 +37,7 @@ their attributes and nested mappings only; nothing of JAX is imported.
 from __future__ import annotations
 
 import re
+import warnings
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
@@ -139,9 +145,32 @@ def state_dict_from_jax(
 ) -> dict[str, torch.Tensor]:
     """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
     SD3Transformer2D, UNet2DCondition, CogVideoXTransformer3D, TAESDDecoder,
-    KLDecoder or VAE3DDecoder), from the stacked or the unrolled layout.
-    Raises KeyError naming every missing and unexpected key, and ValueError
-    on a shape mismatch."""
+    KLDecoder, VAE3DDecoder, T5Encoder or CLIPTextEncoder), from the stacked
+    or the unrolled layout. Raises KeyError naming every missing and
+    unexpected key, and ValueError on a shape mismatch."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in _carried(flat, module).items()}
+
+
+def load_from_jax(flat: Mapping[str, np.ndarray], module: nn.Module) -> nn.Module:
+    """`module.load_state_dict(state_dict_from_jax(flat, module))` with the
+    layout changes made on the module's device: each array goes to the
+    device as it lies in memory (a transposed kernel as a strided view, one
+    copy of its bytes) and is cast and laid out there, so the host copies
+    nothing (a 4.8 B-parameter T5 moves in seconds). The same checks; the
+    same values."""
+    arrays = _carried(flat, module)
+    with torch.no_grad(), warnings.catch_warnings():
+        # read-only arrays (a JAX tree's) are only read here
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        for key, dst in module.state_dict(keep_vars=True).items():
+            dst.copy_(torch.from_numpy(arrays[key]).to(dst.device))
+    return module
+
+
+def _carried(flat: Mapping[str, np.ndarray], module: nn.Module) -> dict[str, np.ndarray]:
+    """The carry's arrays (views where the layout allows) by `module`'s
+    state_dict keys, checked against the module."""
     out: dict[str, np.ndarray] = {}
     starts = _stacks_of(flat)
     for path, arr in flat.items():
@@ -161,7 +190,7 @@ def state_dict_from_jax(
                 f"weight carry: {key} has shape {tuple(out[key].shape)}, the "
                 f"module expects {tuple(ref.shape)}"
             )
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return out
 
 
 def jax_layout(

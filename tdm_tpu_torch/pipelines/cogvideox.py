@@ -13,8 +13,11 @@ tile streamed in temporal chunks when `vae_temporal_chunk` is set
 (`enable_slicing()`); the output is [B, F, H, W, 3] (`.frames`).
 
 Conditioning is the T5 embedding sequence [B, 226, 4096] alone, with no
-mask; the text encoder is not ported yet, so `encode_prompt` raises, and CFG
-(only above 1) takes `negative_embeds` or, with no encoder attached, zeros.
+mask: from raw prompts through the attached tokenizer and T5 encoder at the
+transformer's `max_text_len` (`encode_prompt`), or precomputed
+(`prompt_embeds=embeds`). CFG (only above 1) takes `negative_embeds`, else
+encodes the negative prompt ("" by default) as diffusers'
+`CogVideoXPipeline` does, else, with no encoder attached, zeros.
 Sequence parallelism waits for slice 6.
 """
 
@@ -26,7 +29,7 @@ import torch
 
 from tdm_tpu_torch.core import sampling, schedules as sched
 from tdm_tpu_torch.device import resolve_device
-from tdm_tpu_torch.models import cogvideox as cog, vae3d
+from tdm_tpu_torch.models import cogvideox as cog, t5 as t5_lib, vae3d
 from tdm_tpu_torch.pipelines.base import (
     DiffusionPipelineBase,
     PipelineOutput,
@@ -49,6 +52,8 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         *,
         vae_decoder: Optional[vae3d.VAE3DDecoder] = None,
         vae_cfg: Optional[vae3d.VAE3DConfig] = None,
+        text_encoder: Optional[t5_lib.T5Encoder] = None,
+        tokenizer=None,
         schedule: Optional[sched.NoiseSchedule] = None,
         vae_tile: int = 32,
         vae_tile_overlap: int = 4,
@@ -68,6 +73,10 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         )
         self.vae_cfg = vae_cfg or (vae_decoder.cfg if vae_decoder is not None
                                    else vae3d.VAE3DConfig())
+        self.text_encoder = (
+            text_encoder.to(self.device).eval() if text_encoder is not None else None
+        )
+        self.tokenizer = tokenizer
         self.schedule = (
             schedule if schedule is not None else sched.cogvideox(device=self.device)
         )
@@ -75,12 +84,15 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         self.vae_tile_overlap = vae_tile_overlap
         self.vae_temporal_chunk = vae_temporal_chunk
 
-    def encode_prompt(self, prompts):
-        raise NotImplementedError(
-            "T5 encode_prompt is not ported yet: ROADMAP.md queue 1, slice 7 "
-            "(text encoders from transformers); serve from an embedding "
-            "cache or pass prompt_embeds=embeds [B, 226, 4096]"
-        )
+    @torch.inference_mode()
+    def encode_prompt(self, prompts: list[str]) -> torch.Tensor:
+        """T5 states [B, max_text_len, d_model] at the transformer's
+        `max_text_len` (226), with no mask."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError("no tokenizer/text_encoder — pass prompt_embeds")
+        ids, mask = self.tokenizer(list(prompts), max_length=self.transformer.cfg.max_text_len)
+        return self.text_encoder(torch.from_numpy(ids).to(self.device),
+                                 torch.from_numpy(mask).to(self.device))
 
     def latent_shape(self, batch: int, num_frames: int, height: int, width: int) -> tuple:
         """[B, C, 1 + (num_frames − 1)/tf, height/sf, width/sf]."""
@@ -130,12 +142,16 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         if prompt_embeds is None:
             prompt_embeds = self.encode_prompt(prompt)
         cond = torch.as_tensor(prompt_embeds).to(self.device)
-        check_negative_prompt(negative_prompt, cond.shape[0])
+        negative_prompt = check_negative_prompt(negative_prompt, cond.shape[0])
         use_cfg = guidance_scale is not None and guidance_scale > 1.0
         uncond = None
         if use_cfg:
-            uncond = (torch.as_tensor(negative_embeds).to(self.device)
-                      if negative_embeds is not None else torch.zeros_like(cond))
+            if negative_embeds is not None:
+                uncond = torch.as_tensor(negative_embeds).to(self.device)
+            elif self.tokenizer is not None and self.text_encoder is not None:
+                uncond = self.encode_prompt(negative_prompt or [""] * cond.shape[0])
+            else:  # cached-embeds serving with no encoder attached
+                uncond = torch.zeros_like(cond)
         cond = repeat_per_prompt(cond, num_videos_per_prompt)
         uncond = repeat_per_prompt(uncond, num_videos_per_prompt)
         noise = initial_noise(

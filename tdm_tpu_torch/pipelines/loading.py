@@ -15,6 +15,13 @@ cogvideox, for its two layouts:
       vae_decoder.safetensors     optional TAESD (TAESD3 for sd3) decoder;
                                   for sd15 the KL decoder, for cogvideox
                                   the 3D VAE's decoder
+      text_encoder.safetensors    optional T5 (pixart, cogvideox) or CLIP
+                                  (sd15) encoder, described by
+                                  pipeline.json's "text_encoder" block:
+                                  {"family": "t5" | "clip", "config": {...},
+                                   "tokenizer": {"kind": "hf"} | {"kind":
+                                   "hash", "vocab_size": N, "eos_id": E}}
+      tokenizer/                  optional HF tokenizer folder ("kind": "hf")
 
 2. A stock diffusers checkout (`model_index.json` with `transformer/`, or
    SD1.5's `unet/`, and `vae/` subfolders): `_class_name` picks the family,
@@ -23,7 +30,11 @@ cogvideox, for its two layouts:
    The VAE is an `AutoencoderKL` (the KL decoder), an `AutoencoderTiny`
    (TAESD) or, for CogVideoX, an `AutoencoderKLCogVideoX` (the 3D decoder;
    the transformer config's pixel `sample_frames` becomes latent frames).
-   `text_encoder*/` subfolders are not loaded (ROADMAP.md queue 1, slice 7).
+   `text_encoder/` (T5 for pixart and cogvideox, CLIP-L for sd15; SD3's
+   `text_encoder`, `_2`, `_3`: CLIP-L, CLIP-G, T5) convert through the
+   strict `t5_encoder_params` / `clip_text_params`, and `tokenizer*/`
+   folders load as `HFTokenizer`s (which need `transformers`) unless the
+   caller passes `tokenizer=` / `tokenizers=`.
 
 An `org/name` repo id resolves against the local hub cache first
 (`io/hub.resolve_pretrained`). Both layouts reach the modules through the
@@ -36,15 +47,19 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
+import shutil
 from typing import Optional, Union
 
 import torch
 
+from tdm_tpu_torch.data.tokenizer import HashTokenizer, HFTokenizer
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.io import convert, from_jax, hub, params as params_io
 from tdm_tpu_torch.models import (
-    cogvideox as cog, layers, mmdit_sd3, pixart, unet_sd15, vae as vae_lib, vae3d,
+    clip as clip_lib, cogvideox as cog, layers, mmdit_sd3, pixart, t5 as t5_lib, unet_sd15,
+    vae as vae_lib, vae3d,
 )
 from tdm_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 from tdm_tpu_torch.pipelines.pixart import PixArtPipeline
@@ -60,8 +75,8 @@ def _config(cls, conf: dict, default=None):
     lists → tuples) over `default` (cls() when None). The JAX package's
     `attn_impl` is checked; a config that has the field keeps it (SD3 and
     SD1.5: 'splash' takes the splash kernel where it applies, the other
-    names the flash route), one without it (PixArt, whose attention every
-    name routes alike) drops it."""
+    names the flash route), one without it (PixArt and the text encoders,
+    whose attention every name routes alike) drops it."""
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in conf.items()}
     if isinstance(kw.get("dtype"), str):
         kw["dtype"] = getattr(torch, kw["dtype"])
@@ -114,8 +129,7 @@ def from_pretrained(
         meta = json.load(f)
     family = meta["family"]
     _check_family(family)
-    # a bundled text encoder is not loaded (the encoders are ROADMAP slice
-    # 7): the pipeline takes prompt_embeds= and the server an embedding cache
+    kwargs = {**_load_bundled_text_encoder(path, meta, family, dev, kwargs), **kwargs}
     if family == "sd15":
         return _sd15_from_layout(path, meta, dev, **kwargs)
     if family == "cogvideox":
@@ -128,17 +142,13 @@ def from_pretrained(
         cfg = _config(pixart.PixArtConfig, meta.get("model", {}))
         transformer = pixart.PixArtTransformer2D(cfg, device=dev)
         vcfg = _config(vae_lib.TAESDConfig, meta.get("vae", {}))
-    transformer.load_state_dict(from_jax.state_dict_from_jax(
-        params_io.load_file(os.path.join(path, "transformer.safetensors")),
-        transformer,
-    ))
+    from_jax.load_from_jax(
+        params_io.load_file(os.path.join(path, "transformer.safetensors")), transformer)
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
     if os.path.exists(vae_file):
         vae = vae_lib.TAESDDecoder(vcfg, device=dev)
-        vae.load_state_dict(
-            from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae)
-        )
+        from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     if family == "sd3":
         return SD3Pipeline(
             transformer, vae_decoder=vae, vae_scaling=vcfg.scaling_factor,
@@ -156,14 +166,14 @@ def _sd15_from_layout(path: str, meta: dict, dev: torch.device, **kwargs) -> SD1
     decoder from vae_decoder.safetensors."""
     cfg = _config(unet_sd15.UNetConfig, meta.get("model", {}))
     unet = unet_sd15.UNet2DCondition(cfg, device=dev)
-    unet.load_state_dict(from_jax.state_dict_from_jax(
-        params_io.load_file(os.path.join(path, "transformer.safetensors")), unet))
+    from_jax.load_from_jax(
+        params_io.load_file(os.path.join(path, "transformer.safetensors")), unet)
     vcfg = _config(vae_lib.KLVAEConfig, meta.get("vae", {}))
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
     if os.path.exists(vae_file):
         vae = vae_lib.KLDecoder(vcfg, device=dev)
-        vae.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae))
+        from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     return SD15Pipeline(unet, vae_decoder=vae, vae_scaling=vcfg.scaling_factor, device=dev,
                         **kwargs)
 
@@ -175,15 +185,67 @@ def _cogvideox_from_layout(path: str, meta: dict, dev: torch.device,
     decoder."""
     cfg = _config(cog.CogVideoXConfig, meta.get("model", {}))
     transformer = cog.CogVideoXTransformer3D(cfg, device=dev)
-    transformer.load_state_dict(from_jax.state_dict_from_jax(
-        params_io.load_file(os.path.join(path, "transformer.safetensors")), transformer))
+    from_jax.load_from_jax(
+        params_io.load_file(os.path.join(path, "transformer.safetensors")), transformer)
     vcfg = _config(vae3d.VAE3DConfig, meta.get("vae", {}))
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
     if os.path.exists(vae_file):
         vae = vae3d.VAE3DDecoder(vcfg, device=dev)
-        vae.load_state_dict(from_jax.state_dict_from_jax(params_io.load_file(vae_file), vae))
+        from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     return CogVideoXPipeline(transformer, vae_decoder=vae, vae_cfg=vcfg, device=dev, **kwargs)
+
+
+def _load_bundled_text_encoder(path: str, meta: dict, family: str, dev: torch.device,
+                               given: dict) -> dict:
+    """A bundled encoder (pipeline.json's "text_encoder" block,
+    text_encoder.safetensors and tokenizer/) → the pipeline kwargs
+    {text_encoder, tokenizer}; {} without one. SD3's triple stack is not
+    bundled this way (as in the JAX package): its pipeline takes
+    `text_encoders=` or precomputed embeddings. A tokenizer the caller
+    passes is not loaded from the bundle."""
+    spec = meta.get("text_encoder")
+    enc_file = os.path.join(path, "text_encoder.safetensors")
+    if not spec or not os.path.exists(enc_file) or family == "sd3":
+        return {}
+    enc_family = spec.get("family", "t5")
+    if enc_family == "t5":
+        encoder = t5_lib.T5Encoder(_config(t5_lib.T5Config, spec.get("config", {})),
+                                   device=dev)
+    elif enc_family == "clip":
+        encoder = clip_lib.CLIPTextEncoder(
+            _config(clip_lib.CLIPTextConfig, spec.get("config", {})), device=dev)
+    else:
+        raise ValueError(f"unknown text-encoder family {enc_family!r}")
+    from_jax.load_from_jax(params_io.load_file(enc_file), encoder)
+    out = {"text_encoder": encoder}
+    if "tokenizer" not in given:
+        tok_spec = spec.get("tokenizer", {"kind": "hf"})
+        tok_dir = os.path.join(path, "tokenizer")
+        if tok_spec.get("kind") == "hash":
+            out["tokenizer"] = HashTokenizer(vocab_size=tok_spec.get("vocab_size", 30000),
+                                             eos_id=tok_spec.get("eos_id"))
+        elif os.path.isdir(tok_dir):
+            out["tokenizer"] = HFTokenizer(tok_dir)
+    return out
+
+
+def _tokenizer_spec(tokenizer) -> Optional[dict]:
+    """pipeline.json's tokenizer block for a pipeline's tokenizer: a
+    HashTokenizer's vocabulary, or "hf" for an HFTokenizer of a local
+    folder. Any other tokenizer cannot be bundled: as the JAX package, warn
+    now (the reloaded pipeline has no tokenizer) and write none."""
+    if tokenizer is None:
+        return None
+    if isinstance(tokenizer, HashTokenizer):
+        return {"kind": "hash", "vocab_size": tokenizer.vocab_size, "eos_id": tokenizer.eos_id}
+    if isinstance(tokenizer, HFTokenizer) and os.path.isdir(tokenizer.path):
+        return {"kind": "hf"}
+    logging.getLogger(__name__).warning(
+        "save_pretrained: tokenizer %r cannot be bundled (not a local-dir "
+        "HFTokenizer or HashTokenizer); the reloaded pipeline will have "
+        "tokenizer=None — reattach one before passing raw prompts", tokenizer)
+    return None
 
 
 def _check_family(family: str) -> None:
@@ -197,7 +259,12 @@ def save_pretrained(path: str, pipe: Pipeline) -> None:
     in the JAX package, the pristine base weights are written: adapter
     merges are runtime state (load the LoRA file again after loading).
     Layout 1 holds a pixart/sd3 VAE as TAESD only, so such a pipeline with
-    a KL decoder is refused; an sd15 one holds its KL decoder."""
+    a KL decoder is refused; an sd15 one holds its KL decoder. A pixart,
+    sd15 or cogvideox pipeline's text encoder is written as
+    text_encoder.safetensors (fp32, the JAX tree) with its config and its
+    tokenizer's kind (an HFTokenizer's folder copied to tokenizer/); SD3's
+    triple stack has no place in the layout and is not written, as in the
+    JAX package."""
     if pipe.family != "sd15" and isinstance(pipe.vae_decoder, vae_lib.KLDecoder):
         raise ValueError(
             "save_pretrained: the tdm_tpu layout stores pixart/sd3 VAEs as "
@@ -214,6 +281,17 @@ def save_pretrained(path: str, pipe: Pipeline) -> None:
         meta["vae"] = _config_dict(pipe.vae_decoder.cfg)
     elif getattr(pipe, "vae_cfg", None) is not None:  # cogvideox's latent geometry
         meta["vae"] = _config_dict(pipe.vae_cfg)
+    encoder = getattr(pipe, "text_encoder", None)
+    tokenizer = getattr(pipe, "tokenizer", None)
+    if encoder is not None:
+        meta["text_encoder"] = {
+            "family": "t5" if isinstance(encoder, t5_lib.T5Encoder) else "clip",
+            "config": _config_dict(encoder.cfg)}
+        tok_spec = _tokenizer_spec(tokenizer)
+        if tok_spec is not None:
+            meta["text_encoder"]["tokenizer"] = tok_spec
+    else:
+        tok_spec = None
     with open(os.path.join(path, "pipeline.json"), "w") as f:
         json.dump(meta, f, indent=1)
     params_io.save_file(
@@ -226,6 +304,13 @@ def save_pretrained(path: str, pipe: Pipeline) -> None:
             from_jax.jax_layout(pipe.vae_decoder.state_dict()),
             os.path.join(path, "vae_decoder.safetensors"),
         )
+    if encoder is not None:
+        params_io.save_file(from_jax.jax_layout(encoder.state_dict()),
+                            os.path.join(path, "text_encoder.safetensors"))
+        if tok_spec == {"kind": "hf"}:
+            dst = os.path.join(path, "tokenizer")
+            if os.path.abspath(tokenizer.path) != os.path.abspath(dst):
+                shutil.copytree(tokenizer.path, dst, dirs_exist_ok=True)
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +409,83 @@ def _cogvideox_config(hf: dict) -> cog.CogVideoXConfig:
 
 def _load(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     """A converter's tree into `module` through the weight carry."""
-    module.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), module))
-    return module
+    return from_jax.load_from_jax(convert.flatten(tree), module)
+
+
+def _t5_config_from_hf(hf: dict, common: dict) -> t5_lib.T5Config:
+    kw = _mapped(hf, {
+        "vocab_size": "vocab_size", "d_model": "d_model", "d_kv": "d_kv",
+        "num_heads": "num_heads", "d_ff": "d_ff", "num_layers": "num_layers",
+        "relative_attention_num_buckets": "rel_buckets",
+        "relative_attention_max_distance": "rel_max_distance",
+    })
+    return _config(t5_lib.T5Config, common, t5_lib.T5Config(**kw))
+
+
+def _clip_config_from_hf(hf: dict, common: dict) -> clip_lib.CLIPTextConfig:
+    kw = _mapped(hf, {
+        "vocab_size": "vocab_size", "hidden_size": "hidden",
+        "num_attention_heads": "num_heads", "num_hidden_layers": "num_layers",
+        "max_position_embeddings": "max_positions",
+        "eos_token_id": "eos_token_id", "hidden_act": "activation",
+    })
+    if "intermediate_size" in hf and "hidden_size" in hf:
+        kw["mlp_ratio"] = hf["intermediate_size"] // hf["hidden_size"]
+    # the projection exists only on the WithProjection variant (SD3's pooled
+    # path); a plain CLIPTextModel (SD1.5) pools the final state
+    if any("WithProjection" in a for a in hf.get("architectures") or []):
+        kw["projection_dim"] = hf.get("projection_dim")
+    return _config(clip_lib.CLIPTextConfig, common, clip_lib.CLIPTextConfig(**kw))
+
+
+def _load_diffusers_text_encoders(path: str, family: str, common: dict, dev: torch.device,
+                                  given: dict) -> dict:
+    """text_encoder*/ and tokenizer*/ subfolders → the pipeline's
+    conditioning kwargs. A missing encoder folder is skipped (the
+    prompt_embeds path always works; SD3 takes its stack only whole); a
+    present one converts strictly. `common` carries the dtype/attn_impl
+    overrides of `model_config` to the encoder configs. A tokenizer folder
+    loads as an HFTokenizer unless the caller passes `tokenizer=` (SD3:
+    `tokenizers=`)."""
+
+    def load_one(sub: str, kind: str):
+        if not os.path.exists(os.path.join(path, sub, "config.json")):
+            return None
+        hf = _subconfig(path, sub)
+        sd = convert.load_torch_state_dict(os.path.join(path, sub))
+        if kind == "t5":
+            model = t5_lib.T5Encoder(_t5_config_from_hf(hf, common), device=dev)
+            tree = convert.t5_encoder_params(sd)
+        else:
+            model = clip_lib.CLIPTextEncoder(_clip_config_from_hf(hf, common), device=dev)
+            tree = convert.clip_text_params(sd)
+        return from_jax.load_from_jax(convert.flatten(tree), model)
+
+    def load_tok(sub: str):
+        d = os.path.join(path, sub)
+        return HFTokenizer(d) if os.path.isdir(d) else None
+
+    if family == "sd3":  # CLIP-L, CLIP-G (penultimate + pooled), T5
+        encoders = {"clip_l": load_one("text_encoder", "clip"),
+                    "clip_g": load_one("text_encoder_2", "clip"),
+                    "t5": load_one("text_encoder_3", "t5")}
+        if any(v is None for v in encoders.values()):
+            return {}
+        kw = {"text_encoders": encoders}
+        if "tokenizers" not in given:
+            toks = {"clip_l": load_tok("tokenizer"), "clip_g": load_tok("tokenizer_2"),
+                    "t5": load_tok("tokenizer_3")}
+            if all(v is not None for v in toks.values()):
+                kw["tokenizers"] = toks
+        return kw
+    encoder = load_one("text_encoder", "clip" if family == "sd15" else "t5")
+    if encoder is None:
+        return {}
+    kw = {"text_encoder": encoder}
+    tok = None if "tokenizer" in given else load_tok("tokenizer")
+    if tok is not None:
+        kw["tokenizer"] = tok
+    return kw
 
 
 def _load_diffusers_vae(path: str, dev: torch.device):
@@ -400,6 +560,8 @@ def _from_diffusers(path: str, dev: torch.device, model_config: Optional[dict] =
     hf = _subconfig(path, sub)
     sd = convert.load_torch_state_dict(os.path.join(path, sub))
     vae, vae_kw = _load_diffusers_vae(path, dev)
+    common = {k: v for k, v in (model_config or {}).items() if k in ("dtype", "attn_impl")}
+    vae_kw.update(_load_diffusers_text_encoders(path, family, common, dev, kwargs))
     vae_kw.update(kwargs)  # explicit kwargs win over derived settings
     if family == "cogvideox":
         cfg = _config(cog.CogVideoXConfig, model_config or {}, _cogvideox_config(hf))

@@ -1,10 +1,13 @@
 """PixArt-α pipeline: 4-NFE text-to-image with the TDM student.
 
-Port of `tdm_tpu/pipelines/pixart.py` for the serving path: conditioning
-from precomputed T5 embeddings (`prompt_embeds=(embeds, mask)`), the
-deterministic few-step rollout on the reference grid (total_steps=900, K=4
-→ t=[899, 674, 449, 224]) with optional CFG, or DPM-Solver++(2M) / UniPC
-on the DDPM grid (`solver="dpm"|"unipc"`), and the TAESD decode.
+Port of `tdm_tpu/pipelines/pixart.py`: conditioning from raw prompts
+through the attached tokenizer and T5 encoder (`encode_prompt`: T5 at
+`max_text_len` 120, (embeds, mask)) or precomputed (`prompt_embeds=(embeds,
+mask)`), the deterministic few-step rollout on the reference grid
+(total_steps=900, K=4 → t=[899, 674, 449, 224]) with optional CFG (the
+negative prompt, or "", encoded when no `negative_embeds` are given), or
+DPM-Solver++(2M) / UniPC on the DDPM grid (`solver="dpm"|"unipc"`), and the
+TAESD decode.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from tdm_tpu_torch.core import sampling, schedules as sched, solvers
 from tdm_tpu_torch.device import resolve_device
-from tdm_tpu_torch.models import pixart, vae as vae_lib
+from tdm_tpu_torch.models import pixart, t5 as t5_lib, vae as vae_lib
 from tdm_tpu_torch.pipelines.base import (
     DiffusionPipelineBase,
     PipelineOutput,
@@ -37,7 +40,10 @@ class PixArtPipeline(DiffusionPipelineBase):
         vae_decoder: Optional[Union[vae_lib.TAESDDecoder, vae_lib.KLDecoder]] = None,
         vae_scaling: float = 1.0,
         vae_range: str = "unit",  # TAESD decodes to [0, 1]; a KL VAE to [-1, 1]: 'pm1'
+        text_encoder: Optional[t5_lib.T5Encoder] = None,
+        tokenizer=None,
         schedule: Optional[sched.NoiseSchedule] = None,
+        max_text_len: int = 120,  # the reference's T5 length
         device: Optional[Union[str, torch.device]] = None,
     ):
         super().__init__()
@@ -48,16 +54,28 @@ class PixArtPipeline(DiffusionPipelineBase):
         )
         self.vae_scaling = vae_scaling
         self.vae_range = vae_range
+        self.text_encoder = (
+            text_encoder.to(self.device).eval() if text_encoder is not None else None
+        )
+        self.tokenizer = tokenizer
         self.schedule = (
             schedule if schedule is not None else sched.ddpm_linear(device=self.device)
         )
+        self.max_text_len = max_text_len
 
-    def encode_prompt(self, prompts):
-        raise NotImplementedError(
-            "T5 encode_prompt is not ported yet: ROADMAP.md queue 1, slice 7 "
-            "(text encoders from transformers); serve from an embedding "
-            "cache or pass prompt_embeds=(embeds, mask)"
-        )
+    @torch.inference_mode()
+    def encode_prompt(self, prompts: list[str]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Tokenize and T5-encode: (embeds [B, max_text_len, d_model], mask
+        [B, max_text_len] int32) on the pipeline's device. Needs a tokenizer
+        and a text encoder; otherwise pass `prompt_embeds`."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError(
+                "no tokenizer/text_encoder attached — pass prompt_embeds="
+                "(embeds, mask) instead of raw prompts"
+            )
+        ids, mask = self.tokenizer(list(prompts), max_length=self.max_text_len)
+        mask = torch.from_numpy(mask).to(self.device)
+        return self.text_encoder(torch.from_numpy(ids).to(self.device), mask), mask
 
     def _cond(self, embeds_and_mask) -> tuple[torch.Tensor, torch.Tensor]:
         embeds, mask = embeds_and_mask
@@ -96,7 +114,7 @@ class PixArtPipeline(DiffusionPipelineBase):
         uncond = None
         if use_cfg:
             if negative_embeds is None:
-                negative_embeds = self.encode_prompt(negative_prompt)
+                negative_embeds = self.encode_prompt(negative_prompt or [""] * cond[0].shape[0])
             uncond = self._cond(negative_embeds)
         cond = repeat_per_prompt(cond, num_images_per_prompt)
         uncond = repeat_per_prompt(uncond, num_images_per_prompt)

@@ -8,9 +8,9 @@ DPM-Solver++(2M) on the scaled-linear DDPM grid (UniPC with
 num_inference_steps=4, guidance_scale=1)` at 512², and the KL VAE's decode
 (scaling 0.18215, output range [-1, 1]).
 
-Conditioning comes precomputed: CLIP-L's last hidden states [B, 77, 768]
-and their mask; the text encoder is not ported yet, so `encode_prompt`
-raises.
+Conditioning: CLIP-L's last hidden states [B, 77, 768] and their mask,
+from raw prompts through the attached tokenizer and encoder
+(`encode_prompt`) or precomputed (`prompt_embeds=(embeds, mask)`).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from tdm_tpu_torch.core import schedules as sched, solvers
 from tdm_tpu_torch.device import resolve_device
-from tdm_tpu_torch.models import unet_sd15, vae as vae_lib
+from tdm_tpu_torch.models import clip as clip_lib, unet_sd15, vae as vae_lib
 from tdm_tpu_torch.pipelines.base import (
     DiffusionPipelineBase,
     PipelineOutput,
@@ -45,7 +45,10 @@ class SD15Pipeline(DiffusionPipelineBase):
         vae_decoder: Optional[vae_lib.KLDecoder] = None,
         vae_scaling: float = 0.18215,
         vae_range: str = "pm1",  # the KL VAE decodes to [-1, 1]
+        text_encoder: Optional[clip_lib.CLIPTextEncoder] = None,
+        tokenizer=None,
         schedule: Optional[sched.NoiseSchedule] = None,
+        max_text_len: int = 77,
         device: Optional[Union[str, torch.device]] = None,
     ):
         super().__init__()
@@ -56,17 +59,25 @@ class SD15Pipeline(DiffusionPipelineBase):
         )
         self.vae_scaling = vae_scaling
         self.vae_range = vae_range
+        self.text_encoder = (
+            text_encoder.to(self.device).eval() if text_encoder is not None else None
+        )
+        self.tokenizer = tokenizer
         # SD1.5's scheduler config: scaled-linear β in [0.00085, 0.012]
         self.schedule = (
             schedule if schedule is not None else sched.ddpm_scaled_linear(device=self.device)
         )
+        self.max_text_len = max_text_len
 
-    def encode_prompt(self, prompts):
-        raise NotImplementedError(
-            "the CLIP-L encode_prompt is not ported yet: ROADMAP.md queue 1, slice 7 "
-            "(text encoders from transformers); serve from an embedding cache or "
-            "pass prompt_embeds=(embeds, mask)"
-        )
+    @torch.inference_mode()
+    def encode_prompt(self, prompts: list[str]) -> tuple[torch.Tensor, torch.Tensor]:
+        """CLIP-L's last hidden states [B, max_text_len, 768] and the mask
+        [B, max_text_len] int32."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError("no tokenizer/text_encoder attached — pass prompt_embeds")
+        ids, mask = self.tokenizer(list(prompts), max_length=self.max_text_len)
+        out = self.text_encoder(torch.from_numpy(ids).to(self.device))
+        return out.last_hidden_state, torch.from_numpy(mask).to(self.device)
 
     def _cond(self, embeds_and_mask) -> tuple[torch.Tensor, torch.Tensor]:
         embeds, mask = embeds_and_mask
@@ -103,7 +114,7 @@ class SD15Pipeline(DiffusionPipelineBase):
         uncond = None
         if use_cfg:
             if negative_embeds is None:
-                negative_embeds = self.encode_prompt(negative_prompt)
+                negative_embeds = self.encode_prompt(negative_prompt or [""] * cond[0].shape[0])
             uncond = self._cond(negative_embeds)
         cond = repeat_per_prompt(cond, num_images_per_prompt)
         uncond = repeat_per_prompt(uncond, num_images_per_prompt)

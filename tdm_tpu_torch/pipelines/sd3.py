@@ -7,10 +7,14 @@ DPM-Solver++(2M) on the flow grid with `flow_shift` (6 by default; UniPC
 with `solver="unipc"`), `pipe(prompt_embeds=(context, pooled),
 num_inference_steps=4, height=width=1024, guidance_scale=1.0)`.
 
-Conditioning comes precomputed: context [B, L, 4096] (the CLIP-L/G
-penultimate states padded to 4096, then the T5 states) and pooled [B,
-2048]; the text encoders themselves are not ported yet, so `encode_prompt`
-raises.
+Conditioning (the triple-encoder stack, `encode_prompt`):
+  context = concat_seq(pad_features(concat_features(CLIP-L penultimate,
+                       CLIP-G penultimate), → 4096), T5 states)
+            [B, 77 + 256, 4096]
+  pooled  = concat(CLIP-L projected pooled 768, CLIP-G projected pooled
+            1280) [B, 2048]
+or precomputed as `prompt_embeds=(context, pooled)` (an embedding cache
+with pooled vectors).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from tdm_tpu_torch.core import solvers
 from tdm_tpu_torch.device import resolve_device
@@ -46,7 +51,11 @@ class SD3Pipeline(DiffusionPipelineBase):
         vae_scaling: float = 1.0,  # TAESD3
         vae_shift: float = 0.0,  # the recipe pins TAESD3's shift to 0
         vae_range: str = "unit",  # TAESD decodes to [0, 1]; a KL VAE to [-1, 1]: 'pm1'
+        text_encoders: Optional[dict] = None,  # {'clip_l', 'clip_g', 't5'}: modules
+        tokenizers: Optional[dict] = None,  # the same keys
         flow_shift: float = 6.0,  # the recipe's value; the knob spans 1-6
+        max_t5_len: int = 256,
+        max_clip_len: int = 77,
         device: Optional[Union[str, torch.device]] = None,
     ):
         super().__init__()
@@ -58,14 +67,38 @@ class SD3Pipeline(DiffusionPipelineBase):
         self.vae_scaling = vae_scaling
         self.vae_range = vae_range
         self.vae_shift = vae_shift
+        self.text_encoders = {k: m.to(self.device).eval()
+                              for k, m in (text_encoders or {}).items()}
+        self.tokenizers = dict(tokenizers or {})
         self.flow_shift = flow_shift
+        self.max_t5_len = max_t5_len
+        self.max_clip_len = max_clip_len
 
-    def encode_prompt(self, prompts):
-        raise NotImplementedError(
-            "the SD3 text encoders (CLIP-L, CLIP-G, T5) are not ported yet: "
-            "ROADMAP.md queue 1, slice 7; serve from an embedding cache with "
-            "pooled vectors or pass prompt_embeds=(context, pooled)"
-        )
+    @torch.inference_mode()
+    def encode_prompt(self, prompts: list[str]) -> tuple[torch.Tensor, torch.Tensor]:
+        """→ (context [B, max_clip_len + max_t5_len, context_dim], pooled
+        [B, 2048]); needs all three encoders and tokenizers attached."""
+        need = {"clip_l", "clip_g", "t5"}
+        if not need <= set(self.text_encoders) or not need <= set(self.tokenizers):
+            raise ValueError(
+                "SD3 needs clip_l/clip_g/t5 encoders+tokenizers — or pass "
+                "prompt_embeds=(context, pooled) precomputed"
+            )
+        prompts = list(prompts)
+
+        def ids_of(name, length):
+            ids, mask = self.tokenizers[name](prompts, max_length=length)
+            return torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+
+        seqs, pooleds = [], []
+        for name in ("clip_l", "clip_g"):
+            out = self.text_encoders[name](ids_of(name, self.max_clip_len)[0])
+            seqs.append(out.hidden_states[-2])  # SD3 reads the PENULTIMATE layer
+            pooleds.append(out.pooled)
+        clip_seq = torch.cat(seqs, dim=-1)  # [B, 77, 768 + 1280]
+        clip_seq = F.pad(clip_seq, (0, self.transformer.cfg.context_dim - clip_seq.shape[-1]))
+        t5_seq = self.text_encoders["t5"](*ids_of("t5", self.max_t5_len))
+        return torch.cat([clip_seq, t5_seq], dim=1), torch.cat(pooleds, dim=-1)
 
     def _cond(self, context_and_pooled) -> tuple[torch.Tensor, torch.Tensor]:
         context, pooled = context_and_pooled
@@ -103,7 +136,7 @@ class SD3Pipeline(DiffusionPipelineBase):
         uncond = None
         if use_cfg:
             if negative_embeds is None:
-                negative_embeds = self.encode_prompt(negative_prompt)
+                negative_embeds = self.encode_prompt(negative_prompt or [""] * cond[0].shape[0])
             uncond = self._cond(negative_embeds)
         cond = repeat_per_prompt(cond, num_images_per_prompt)
         uncond = repeat_per_prompt(uncond, num_images_per_prompt)

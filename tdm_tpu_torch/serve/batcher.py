@@ -11,8 +11,8 @@ sequence alone. The noise is drawn with `torch.Generator().manual_seed(seed)`
 on the CPU — different numbers from the JAX server's `PRNGKey(seed)` for the
 same seed, by construction.
 
-Threads: `submit` runs on the caller's thread (cache lookup and upload);
-one worker thread calls the pipeline; one resolver thread copies results
+Threads: `submit` runs on the caller's thread (the prompt's encode, or its
+cache lookup, and the upload); one worker thread calls the pipeline; one resolver thread copies results
 back to the host, so a readback overlaps the next batch's work. The pending
 queue is bounded (`max_queue`); overflow raises `Overloaded` (HTTP 429).
 """
@@ -81,16 +81,29 @@ def _cat_rows(conds: list):
     return torch.cat(conds, dim=0)
 
 
+def has_encoders(pipe) -> bool:
+    """Whether the pipeline has text encoder(s) attached, as the JAX
+    package's make_cond_fn asks: then every prompt goes to encode_prompt,
+    which raises where a tokenizer is missing."""
+    return bool(getattr(pipe, "text_encoder", None) is not None
+                or getattr(pipe, "text_encoders", None))
+
+
 def make_cond_fn(pipe, embedding_cache: Optional[str] = None) -> Callable[[str], Any]:
-    """prompt → batch-1 conditioning from an offline embedding cache (the
-    `.npz` of the JAX package's cli/build_cache: T5 for PixArt and
-    CogVideoX, CLIP-L for SD1.5; SD3 needs its pooled vectors). The empty
-    prompt falls back to the cache's uncond_* rows (the CFG branch)."""
+    """prompt → batch-1 conditioning in the family's format. Prefers the
+    attached encoders (`pipe.encode_prompt([prompt])`, run on the calling
+    thread under inference mode on the pipeline's device: batch 1, so a
+    prompt's conditioning does not depend on other requests); falls back to
+    an offline embedding cache (the `.npz` of either package's
+    cli/build_cache: T5 for PixArt and CogVideoX, CLIP-L for SD1.5; SD3
+    needs its pooled vectors), where the empty prompt falls back to the
+    cache's uncond_* rows (the CFG branch). Raises if neither is there."""
+    if has_encoders(pipe):
+        return lambda prompt: pipe.encode_prompt([prompt])
     if embedding_cache is None:
         raise ValueError(
-            "the port serves from an embedding cache (T5 encode_prompt is "
-            "not ported yet: ROADMAP.md queue 1, slice 7) — pass "
-            "embedding_cache= (an .npz built with cli/build_cache)"
+            "the pipeline has no text encoders — pass embedding_cache= (an "
+            ".npz built with cli/build_cache)"
         )
     from tdm_tpu_torch.data.prompts import EmbeddingCache, pack_family_cond
 

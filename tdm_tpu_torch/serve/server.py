@@ -3,7 +3,10 @@
 Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
 
     python -m tdm_tpu_torch.serve.server --model out/pixart_tdm \\
-        --embedding_cache cache.npz --batch_size 4 --port 8000 [--device cpu]
+        --batch_size 4 --port 8000 [--device cpu]   (raw prompts through the
+                                       bundled T5 and tokenizer)
+    python -m tdm_tpu_torch.serve.server --model out/pixart_tdm \\
+        --embedding_cache cache.npz   (no encoder attached: cached prompts)
     python -m tdm_tpu_torch.serve.server --model out/sd3 --lora tdm.safetensors \\
         --lora_scale 0.125 --embedding_cache sd3_cache.npz   (SD3, 1024²)
     python -m tdm_tpu_torch.serve.server --model PixArt-alpha/PixArt-XL-2-512x512 \\
@@ -355,7 +358,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="its adapter scale (the SD3 recipe: 0.125)")
     p.add_argument("--embedding_cache", default=None,
                    help="offline text embedding cache (.npz from cli/build_cache; "
-                        "SD3 needs its pooled vectors)")
+                        "SD3 needs its pooled vectors) when the pipeline has no "
+                        "text encoders attached")
     p.add_argument("--max_queue", type=int, default=64,
                    help="max pending requests; a full queue answers HTTP 429")
     p.add_argument("--batch_buckets", default=None,
@@ -365,7 +369,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="cast results on the device before the host copy")
     p.add_argument("--warmup", nargs="?", const="", default=None, metavar="PROMPT",
                    help="run one discarded batch per bucket before accepting "
-                        "traffic; with no PROMPT uses the first cached prompt")
+                        "traffic; with no PROMPT uses '' (or the first cached "
+                        "prompt when serving from --embedding_cache)")
     # options of the JAX server whose modules are not ported yet
     p.add_argument("--quant", default=None, choices=(None, "int8"),
                    help="not ported yet (ROADMAP slice 4)")

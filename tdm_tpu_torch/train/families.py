@@ -174,9 +174,7 @@ def build(
     def converter(to_tree):
         def convert_params(sd):
             tree = to_tree(sd, scan_layers=False)
-            with torch.no_grad():
-                model.load_state_dict(
-                    from_jax.state_dict_from_jax(convert.flatten(tree), model))
+            from_jax.load_from_jax(convert.flatten(tree), model)
             return init_params()
         return convert_params
 
@@ -246,8 +244,7 @@ def _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device
     def convert_params(sd):
         tree = convert.unet_sd15_params(sd, layers_per_block=mcfg.layers_per_block,
                                         n_stages=len(mcfg.block_widths))
-        with torch.no_grad():
-            model.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), model))
+        from_jax.load_from_jax(convert.flatten(tree), model)
         return init_params()
 
     return FamilyBundle(
@@ -287,8 +284,7 @@ def _build_cogvideox(tiny, num_frames, gradient_checkpointing, mixed_precision, 
 
     def convert_params(sd):
         tree = convert.cogvideox_params(sd, scan_layers=False)
-        with torch.no_grad():
-            model.load_state_dict(from_jax.state_dict_from_jax(convert.flatten(tree), model))
+        from_jax.load_from_jax(convert.flatten(tree), model)
         return init_params()
 
     return FamilyBundle(

@@ -209,7 +209,7 @@ def test_slice6_options_raise():
     model = tcog.CogVideoXTransformer3D(tcog.CogVideoXConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6"):
         CogVideoXPipeline(model, sequence_parallel_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="no tokenizer/text_encoder"):
         CogVideoXPipeline(model, device="cpu")(["a cat"])
 
 

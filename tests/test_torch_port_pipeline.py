@@ -157,7 +157,7 @@ def test_pipeline_call_contract(port_pipe):
         port_pipe(prompt_embeds=(text, mask), latents=lat[:, :, :8], **CALL)
     with pytest.raises(ValueError, match="negative_prompt has 1 entries"):
         port_pipe(prompt_embeds=(text, mask), negative_prompt=["x"], **CALL)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="no tokenizer/text_encoder attached"):
         port_pipe(["a cat"], **CALL)
     with pytest.raises(ValueError, match="unknown solver"):
         port_pipe(prompt_embeds=(text, mask), solver="euler", **CALL)

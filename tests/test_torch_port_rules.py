@@ -19,9 +19,10 @@ import pytest
 import torch
 
 from tdm_tpu_torch import resolve_device
+from tdm_tpu_torch.cli import build_cache as tbuild_cache
 from tdm_tpu_torch.core import schedules as tsched
 from tdm_tpu_torch.io import params as params_io
-from tdm_tpu_torch.models import pixart as tpixart, vae as tvae
+from tdm_tpu_torch.models import clip as tclip, pixart as tpixart, t5 as tt5, vae as tvae
 from tdm_tpu_torch.ops import attention as tattn
 from tdm_tpu_torch.pipelines import from_pretrained
 from tdm_tpu_torch.pipelines.base import PipelineOutput
@@ -88,6 +89,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         from_pretrained(str(tmp_path))
     with pytest.raises(RuntimeError, match="--device cpu"):
         tserver.build_server(tserver.parse_args(["--model", str(tmp_path)]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tt5.T5Encoder(tt5.T5Config.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tclip.CLIPTextEncoder(tclip.CLIPTextConfig.tiny())
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tbuild_cache.main(["--pipeline", str(tmp_path), "--prompts", str(tmp_path / "p.txt"),
+                           "--out", str(tmp_path / "c.npz")])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -495,7 +495,7 @@ def test_sd3_pipeline_contract():
     again = pipe(prompt_embeds=(ctx, pooled), seed=3, height=64, width=64)
     assert out.images.shape == (2, 64, 64, 3) and out.latents.shape == (2, 16, 8, 8)
     torch.testing.assert_close(out.images, again.images, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="SD3 needs clip_l/clip_g/t5"):
         pipe(["a cat"])
     with pytest.raises(ValueError, match="unknown solver"):
         pipe(prompt_embeds=(ctx, pooled), solver="fewstep")
