@@ -16,7 +16,7 @@ Phases, one line each, and any failure exits non-zero:
      ones spill nothing;
   3. kernels: each kernel held against its plain PyTorch version on the
      card at the main path's shapes (and a sweep of head dims), with its
-     time and one PyTorch library call's in turns (6 rounds of 50
+     time and one PyTorch library call's in turns (2 rounds of 10
      launches; median, min and max), the plain version's and the bound;
   4. reference: the tiny pipeline on the card (kernel) against the same
      pipeline on the CPU (plain attention);
@@ -80,7 +80,7 @@ Phases, one line each, and any failure exits non-zero:
      T5 at 256 tokens in bf16 against fp32 and their encode times);
  10. train_sd3: full-width SD3-Medium TDM training through the CLI's main()
      with the recipe's flags (--model_family sd3 at 512², batch 4, bf16,
-     dmd, rank-32 LoRA student, 8-bit Adam, --gradient_checkpointing, 4
+     dmd, rank-32 LoRA student, 8-bit Adam, --gradient_checkpointing, 3
      steps), the teacher from the SD3 checkout's transformer/ folder, a
      seeded pooled cache and a seeded TAESD3 for one validation grid:
      load seconds, seconds per step, peak memory, the idle share and top
@@ -109,7 +109,7 @@ Phases, one line each, and any failure exits non-zero:
      bf16 against fp32 and its encode time;
  12. train_sd15: full-width SD1.5 TDM training through the CLI's main() at
      the JAX CLI's defaults plus --gradient_checkpointing (--model_family
-     sd15 at 512², batch 4, bf16 on fp32 masters, dmd, AdamW, 4 steps), the
+     sd15 at 512², batch 4, bf16 on fp32 masters, dmd, AdamW, 3 steps), the
      teacher from the SD1.5 checkout's unet/ folder, a seeded CLIP-L cache
      with ragged masks and a seeded TAESD for one validation grid: first
      one full-width step on one batch without remat, with it and with it
@@ -142,7 +142,7 @@ Phases, one line each, and any failure exits non-zero:
  14. train_cogvideox: full-width CogVideoX-2B TDM training through the
      CLI's main() with the recipe's flags (--model_family cogvideox
      --num_frames 49, batch 2, bf16 on fp32 masters, dmd, rank-64 LoRA
-     student, 8-bit Adam, --gradient_checkpointing, 4 steps), the teacher
+     student, 8-bit Adam, --gradient_checkpointing, 3 steps), the teacher
      from the CogVideoX checkout's transformer/ folder, a seeded T5 cache
      with ragged masks and a TAESD3 in $TDM_TAESD_DIR that the video run
      leaves unread: first one full-width step at 2 blocks and batch 1
@@ -178,7 +178,38 @@ step, one tiny sd15 step, and a tiny SD3 pipeline with a merged LoRA on the card
 same on the CPU; phase 7 also trains the tiny PixArt model for 2 steps
 through main() on the card with its prompts read from a .txt shard by the
 native C++ loader (checked), and times that loader's host seconds per batch
-against the Python batcher's. Then a JSON line of per-kernel
+against the Python batcher's.
+
+int8 and the offline verbs, inside those phases: in serve, sd3, sd15 and
+cogvideox, one batch of the served pipeline at `pipe.quant = "int8"`
+against bf16 (same conditioning and noise, latents out; CogVideoX at 13
+frames, 4 latent frames, for the clock): the int8
+products a batch (`int8_dot`'s count, and `aten::_int_mm` in a profiled
+forward) against the Dense calls the gate admits, reckoned from the
+model's modules and shapes on the meta device (`reckon_gated`), the
+attention launches unchanged, the bf16 bits unchanged after an int8
+batch, a row's int8 bits the same with other batch-mates, the latents
+within 0.15 (relative L2) of bf16, the sampler's device ms and the
+batch's wall ms in turns, the quantize/rescale share of a profiled int8
+forward; serve also answers one raw request from a server started with
+`--quant int8` (the bundle without its T5, serving the build_cache cache), and
+runs `cli.generate.main` on the PixArt bundle (a directory of 4 PNGs at
+--quant int8, from raw prompts); train runs main() again with
+--quant_forwards for 2 steps (int8 products per step against the gate's
+count over the forwards JAX wraps in q(), kernels 1-3 launches unchanged,
+s/step, peak); sd15 runs `cli.evaluate.main` with --compare_teacher (28
+steps, cfg 7) on a seeded CLIP ViT-L/14
+folder with a hash tokenizer (written, then deleted), and the vision
+tower in bf16 against fp32; cogvideox runs `cli.generate.main` to a GIF of
+13 frames (GEN_GIF_FRAMES); reference holds int8_dot, the CLIP vision
+tower, preprocess_images and both image VAE encoders on the card against
+the CPU. The kernels phase times 2 rounds of 10 launches in turns;
+train_sd3, train_sd15 and train_cogvideox take 3 steps, and they and the
+--quant_forwards run write no final checkpoint
+(`no_final_checkpoint`: the train and train_lora phases write the
+checkpoint path's files and time them).
+
+Then a JSON line of per-kernel
 numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
 {...}}.
 
@@ -190,6 +221,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -250,8 +282,9 @@ COG_H, COG_D, COG_TXT = 30, 64, 226
 COG_S = COG_TXT + 13 * 30 * 45
 COG_LAUNCHES_PER_BATCH = 30 * 4
 # CogVideoX-2B training at 49 frames, 480×720 (latents [16, 13, 60, 90]) with
-# the recipe's flags at the video pipeline's batch 2, 4 optimizer steps
-COG_TRAIN_B, COG_TRAIN_STEPS, COG_LORA_RANK = 2, 4, 64
+# the recipe's flags at the video pipeline's batch 2, 3 optimizer steps (the
+# smoke's clock: the first warms, the second is timed, the third profiled)
+COG_TRAIN_B, COG_TRAIN_STEPS, COG_LORA_RANK = 2, 3, 64
 # per step (dmd, cfg 4.5, one critic update, --gradient_checkpointing): 7
 # forwards without grad (rollout x4, x0_gen_sg, the teacher's CFG probe at
 # 2B, the critic probe) and 2 with grad (critic DSM, student loss), each 30
@@ -317,7 +350,7 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_turns(torch, fns: dict, rounds: int = 6, iters: int = 50) -> dict:
+def time_turns(torch, fns: dict, rounds: int = 2, iters: int = 10) -> dict:
     """Time each callable of `fns` in turns: `rounds` rounds of `iters`
     launches each (CUDA-event mean per launch), the order reversed every
     other round (a, b, b, a, ...), after a warm-up of each. Returns, per
@@ -1800,7 +1833,8 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
                   request_encode_s=statistics.median(enc_s))
     cache_rows = cache_against_batch1(torch, pipe, built_cache(seed, workdir))
     cond = tuple(torch.cat([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
-    prof = profile_batch(torch, pipe, cond, torch.randn(4, 4, 64, 64))
+    noise = torch.randn(4, 4, 64, 64)
+    prof = profile_batch(torch, pipe, cond, noise)
     if prof:
         share = 4 * t5_rep["ms"] / (prof["busy_ms"] + 4 * t5_rep["ms"])
         prof["encode_share"] = share
@@ -1808,11 +1842,23 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
               f"host {t5_rep['request_encode_s'] * 1e3:.2f} ms each) are {share:.3f} of its "
               f"device time", flush=True)
     full_forward_check(torch, pipe.transformer, seed)
+    int8 = int8_serving(
+        torch, "serve", pipe, cond, noise,
+        tuple(torch.cat([x] * 4) for x in server.batcher.cond_fn(prompts[2])),
+        torch.randn(4, 4, 64, 64), gated_per_forward=pixart_gated(torch, 4), forwards=4,
+        wrapper="flash_attention_fwd")
+    int8["server"] = quant_server_request(torch, model_dir, built_cache(seed, workdir),
+                                          prompts[0], 100)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_runs(torch, model_dir, prompts, workdir)
     # the train phases read the cache, nothing reads the bundle again
     release_encoder(torch, workdir, seed, "t5_bundle", model_dir)
     return {"launches": launches, "batches": batches, "wall6_s": wall6,
             "images_per_s": 6 / wall6, "batch_s": solo_batch_s, "profile": prof,
-            "peak_gib": peak_gb, "t5": t5_rep, "cache_rows": cache_rows}
+            "peak_gib": peak_gb, "t5": t5_rep, "cache_rows": cache_rows, "int8": int8,
+            "generate": gen}
 
 
 def cache_against_batch1(torch, pipe, cache_path: str) -> dict:
@@ -2485,12 +2531,20 @@ def phase_sd3(torch, seed: int, workdir: str) -> dict:
           f"same PNG bytes; launches {launches} = {SD3_LAUNCHES_PER_BATCH} splash x {batches} "
           f"batches", flush=True)
     cond = tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[1]))
-    prof = profile_batch(torch, pipe, cond, torch.randn(4, 16, 128, 128), kernel="splash_fwd")
+    noise = torch.randn(4, 16, 128, 128)
+    prof = profile_batch(torch, pipe, cond, noise, kernel="splash_fwd")
     forward_rel = sd3_forward_check(torch, pipe.transformer, seed)
+    gated = reckon_gated(torch, mmdit_sd3.SD3Transformer2D(cfg, device="meta"),
+                         (4, 16, 128, 128), (4,), (4, SD3_TXT, 4096), (4, 2048))[1]
+    int8 = int8_serving(
+        torch, "sd3", pipe, cond, noise,
+        tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[2])),
+        torch.randn(4, 16, 128, 128), gated_per_forward=gated, forwards=4,
+        wrapper="splash_attention_fwd")
     return {"launches": launches["splash_attention_fwd"], "batches": batches,
             "launches_per_batch": SD3_LAUNCHES_PER_BATCH, "wall8_s": wall8,
             "images_per_s": 8 / wall8, "batch_s": batch_s, "solo_s": solo_s,
-            "profile": prof, "splash_vs_flash_forward_rel_l2": forward_rel}
+            "profile": prof, "splash_vs_flash_forward_rel_l2": forward_rel, "int8": int8}
 
 
 def sd3_forward_check(torch, transformer, seed: int) -> float:
@@ -3260,6 +3314,14 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
               f"(D 40 reads DP 64); peak device memory {peak_gb:.2f} GB", flush=True)
     decode = decode_alone(torch, pipe, (4, 4, 64, 64), seed)
     rel = sd15_forward_check(torch, pipe.unet, seed)
+    gated = reckon_gated(torch, unet_sd15.UNet2DCondition(device="meta"), (4, 4, 64, 64), (4,),
+                         (4, SD15_TXT, 768), (4, SD15_TXT), int_arg=3)[1]
+    int8 = int8_serving(
+        torch, "sd15", pipe, cond, noise,
+        tuple(np.concatenate([x] * 4) for x in server.batcher.cond_fn(prompts[2])),
+        torch.randn(4, 4, 64, 64), gated_per_forward=gated, forwards=4,
+        wrapper="flash_attention_fwd")
+    server.batcher.pipe = None
     del pipe
     torch.cuda.empty_cache()
     sub = subprocess_server_check(torch, args_list, prompts[0], 500, solo["image"])
@@ -3278,7 +3340,9 @@ def phase_sd15(torch, seed: int, workdir: str) -> dict:
     raw = raw_prompt_batch(torch, root, "sd15", tok,
                            dict(prompt=ENC_PROMPTS[:4], latents=torch.randn(4, 4, 64, 64)),
                            SD15_LAUNCHES_PER_BATCH, clip_report)
-    return {"raw_prompts": raw, "reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
+    evaluated = evaluate_runs(torch, cache_served_view(root), lora_file, workdir, seed)
+    return {"int8": int8, "evaluate": evaluated,
+            "raw_prompts": raw, "reference": reference, "load": load, "up_s": up_s, "checkout_write_s": write_s,
             "subprocess_server": sub,
             "params": n_params, "lora_projections": len(lora.params),
             "launches": launches["flash_attention_fwd"], "batches": batches,
@@ -3332,16 +3396,17 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
     """A `step_hook` for train_tdm.main: each call (a micro-step) timed by
     the host clock and CUDA events, its kernels' launches counted, the
     `profile_at`-th call under torch.profiler (device busy time, every
-    device launch, the top kernels); `after(rec, state)` sees each call's
-    record and state."""
+    device launch, the top kernels), and its int8 products (`int8_dot`'s
+    count); `after(rec, state)` sees each call's record and state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.ops import attention as A, quant
 
     def hook(step, run):
         n = len(records) + 1
         before = A.launch_counts()
+        q8_before = quant.int8_dot.launches
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -3357,6 +3422,7 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
         rec = {"step": step, "micro": n, "host_s": wall, "event_ms": ev0.elapsed_time(ev1),
                "busy_ms": None,
                "launches": {k: A.launch_counts()[k] - before[k] for k in before},
+               "int8_products": quant.int8_dot.launches - q8_before,
                "metrics": {k: float(v) for k, v in metrics._asdict().items()}}
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -3381,6 +3447,22 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
         return state, metrics
 
     return hook
+
+
+@contextlib.contextmanager
+def no_final_checkpoint():
+    """train_tdm.main() without its final checkpoint (CheckpointManager.save
+    a no-op): the `train` and `train_lora` phases write and time the
+    checkpoint path; the later families' 10–21 GB of the same writes cost
+    the smoke's clock a minute or more each and check nothing."""
+    from tdm_tpu_torch.utils import checkpoint as ckpt_lib
+
+    save = ckpt_lib.CheckpointManager.save
+    ckpt_lib.CheckpointManager.save = lambda self, step, state: ""
+    try:
+        yield
+    finally:
+        ckpt_lib.CheckpointManager.save = save
 
 
 def check_train_records(records: list, n: int) -> None:
@@ -3511,6 +3593,7 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     # inflates the profiled last step's wall time)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
+    qf = quant_forwards_run(torch, seed, workdir, teacher_dir, per_step)
     busy = steps[-1]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
@@ -3532,7 +3615,7 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
             "checkpoint_gb": ckpt_gb, "main_s": total_s,
             "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces,
                        "rel_err": err, "optimal_rel_err": opt_err},
-            "steps": steps}
+            "steps": steps, "quant_forwards": qf}
 
 
 def optimizer_work(torch, params: dict, seed: int) -> dict:
@@ -3743,8 +3826,9 @@ def native_loader_run(torch, seed: int, workdir: str) -> dict:
 
 
 # the train_sd3 phase: the recipe's rank-32 LoRA student, 8-bit Adam,
-# --gradient_checkpointing, accumulation 1, 4 optimizer steps at batch 4
-SD3_TRAIN_STEPS, SD3_LORA_RANK = 4, 32
+# --gradient_checkpointing, accumulation 1, 3 optimizer steps at batch 4 (the
+# smoke's clock: the first warms, the second is timed, the third profiled)
+SD3_TRAIN_STEPS, SD3_LORA_RANK = 3, 32
 # per SD3 step (dmd, cfg 4.5, one critic update): 7 forwards without grad
 # (rollout x4, x0_gen_sg, the teacher's CFG probe at 2B, the critic probe)
 # and 2 with grad (critic DSM, student loss), each 24 joint attentions; the
@@ -3813,9 +3897,9 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     recipe's flags: --model_family sd3 at the default --resolution 512
     (latent 16x64x64, 1024 + 154 tokens), batch 4, bf16 compute on fp32
     masters, dmd, a rank-32 LoRA student, 8-bit Adam,
-    --gradient_checkpointing, accumulation 1, 4 optimizer steps; the
+    --gradient_checkpointing, accumulation 1, 3 optimizer steps; the
     teacher read from the SD3 checkout's transformer/ folder (its load timed
-    by part); a seeded pooled cache; one validation grid at step 4 through a
+    by part); a seeded pooled cache; one validation grid at step 3 through a
     seeded TAESD3. Per step: host and CUDA-event times and the kernels'
     launches (checked against SD3_TRAIN_LAUNCHES); step 3 under
     torch.profiler (device busy time, idle share, the top device
@@ -3838,7 +3922,7 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     A.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    with timed_calls(torch, load_parts) as load_times:
+    with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
         train_tdm.main([
             "--output_dir", out, "--model_family", "sd3", "--max_train_steps",
             str(SD3_TRAIN_STEPS), "--train_batch_size", str(SD3T_B), "--mixed_precision", "bf16",
@@ -3862,8 +3946,8 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
         with open(os.path.join(run_dir, f"validation_step{SD3_TRAIN_STEPS}_{k}nfe.png"),
                   "rb") as f:
             check_png(f.read(), 1024, 1024)
-    ckpt = os.path.join(run_dir, f"checkpoint-{SD3_TRAIN_STEPS}")
-    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    check(not any(f.startswith("checkpoint-") for f in os.listdir(run_dir)),
+          "train_sd3 wrote a checkpoint")
     lora_path = os.path.join(run_dir, "tdm_lora.safetensors")
     pieces = kohya_pieces(torch, lora_path, SD3_LORA_RANK)
     torch.cuda.empty_cache()
@@ -3879,7 +3963,7 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     del pipe, lora
     torch.cuda.empty_cache()
     print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
-          f"the run's checkpoint, before its removal", flush=True)
+          f"the run's files, before their removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
@@ -3891,7 +3975,7 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
           flush=True)
     print(f"[train_sd3] SD3-Medium TDM at 512² (dmd, batch {SD3T_B}, bf16, rank-"
           f"{SD3_LORA_RANK} LoRA student, 8-bit Adam, gradient checkpointing, seeded "
-          f"weights): {per_step:.3f} s/step after the first, unprofiled (steps 2 and 4; "
+          f"weights): {per_step:.3f} s/step after the first, unprofiled (step 2; "
           f"{3600 / per_step:.0f} iters/hour), first step {steps[0]['host_s']:.3f} s, "
           f"profiled step 3 {steps[2]['host_s']:.3f} s; peak memory {peak_gb:.2f} GiB; "
           f"launches per step {SD3_TRAIN_LAUNCHES} (checked); step 2 CUDA-event span "
@@ -3899,18 +3983,18 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
           + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
           + f", {steps[2].get('all_launches')} device launches; kohya file {pieces} rank-"
           f"{SD3_LORA_RANK} pieces, every one resolved and merged by the SD3 pipeline; "
-          f"validation grids checked; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB "
-          f"checkpoint", flush=True)
+          f"validation grids checked; main() {total_s:.1f}s (no final checkpoint: "
+          f"`no_final_checkpoint`)", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb, "idle_share": idle,
             "busy_ms": busy, "event_span_ms": span,
             "all_launches_per_step": steps[2].get("all_launches"),
             "launches": launches, "launches_per_step": SD3_TRAIN_LAUNCHES,
             "load_s": load_s, "load": load_times, "kohya_pieces": pieces,
-            "checkpoint_gb": ckpt_gb, "main_s": total_s, "steps": steps}
+            "checkpoint_gb": None, "main_s": total_s, "steps": steps}
 
 
-SD15_TRAIN_STEPS = 4
+SD15_TRAIN_STEPS = 3  # the first warms, the second is timed, the third profiled
 # per step at batch 4, dmd, cfg 4.5, critic_updates 1, --gradient_checkpointing:
 # 7 forwards without grad (rollout x4, x0_gen_sg, teacher CFG probe at 2B,
 # critic probe) and 2 with grad (critic DSM, student loss), each 16 spatial
@@ -4062,9 +4146,9 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     """Full-width SD1.5 TDM training through the CLI's main() at the JAX
     CLI's defaults plus --gradient_checkpointing (--model_family sd15 at
     512², latent 4x64x64, batch 4, bf16 compute on fp32 masters, dmd, AdamW,
-    4 steps), the teacher read from the unet/ folder of the SD1.5 checkout
+    3 steps), the teacher read from the unet/ folder of the SD1.5 checkout
     (written here if the sd15 phase did not run; its load timed by part), a
-    seeded CLIP-L cache with ragged masks and one validation grid at step 4
+    seeded CLIP-L cache with ragged masks and one validation grid at step 3
     through a seeded TAESD. First the remat check (sd15_remat_check). Per
     step: host and CUDA-event times and the kernels' launches (checked
     against SD15_TRAIN_LAUNCHES); step 3 under torch.profiler (device busy
@@ -4101,7 +4185,7 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     t0 = time.monotonic()
     lora_lib.extract_lora = timed_extract
     try:
-        with timed_calls(torch, load_parts) as load_times:
+        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
             train_tdm.main([
                 "--output_dir", out, "--model_family", "sd15", "--max_train_steps",
                 str(SD15_TRAIN_STEPS), "--train_batch_size", str(SD15_B), "--mixed_precision",
@@ -4150,14 +4234,14 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
         with open(os.path.join(run_dir, f"validation_step{SD15_TRAIN_STEPS}_{k}nfe.png"),
                   "rb") as f:
             check_png(f.read(), 1024, 1024)
-    ckpt = os.path.join(run_dir, f"checkpoint-{SD15_TRAIN_STEPS}")
-    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    check(not any(f.startswith("checkpoint-") for f in os.listdir(run_dir)),
+          "train_sd15 wrote a checkpoint")
     check("s" in export, "the LoRA export did not run")
     pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
     check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
                                       f"{export['pieces']}")
     print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
-          f"the run's checkpoint, before its removal", flush=True)
+          f"the run's files, before their removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
@@ -4169,15 +4253,15 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
           flush=True)
     print(f"[train_sd15] SD1.5 TDM at 512² (dmd, batch {SD15_B}, bf16, AdamW, gradient "
           f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
-          f"unprofiled (steps 2 and 4; {3600 / per_step:.0f} iters/hour), first step "
+          f"unprofiled (step 2; {3600 / per_step:.0f} iters/hour), first step "
           f"{steps[0]['host_s']:.3f} s, profiled step 3 {steps[2]['host_s']:.3f} s; peak "
           f"memory {peak_gb:.2f} GiB; launches per step {SD15_TRAIN_LAUNCHES} (checked); "
           f"step 2 CUDA-event span {span:.1f} ms, step 3 device busy "
           + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
           + f", {steps[2].get('all_launches')} device launches; export: rank-32 kohya LoRA "
           f"of {pieces} kernels ({3 * pieces} keys) in {export['s']:.2f} s; validation "
-          f"grids checked; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB checkpoint",
-          flush=True)
+          f"grids checked; main() {total_s:.1f}s (no final checkpoint: "
+          f"`no_final_checkpoint`)", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb, "idle_share": idle,
             "busy_ms": busy, "event_span_ms": span,
@@ -4185,7 +4269,7 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
             "flash_kernels_by_template": by_dim, "launches": launches,
             "launches_per_step": SD15_TRAIN_LAUNCHES, "load_s": load_s, "load": load_times,
             "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces},
-            "checkpoint_gb": ckpt_gb, "main_s": total_s, "remat_check": remat,
+            "checkpoint_gb": None, "main_s": total_s, "remat_check": remat,
             "steps": steps}
 
 
@@ -4208,7 +4292,7 @@ def phase_kernels_cogvideox(torch, seed: int) -> dict:
     """Kernel 1 (no key bias) and kernel 4 at CogVideoX-2B's joint attention,
     [B, 30, 17776, 17776, 64] bf16 at batch 1 and 2, each held against the
     plain version computed head by head (compare(), per batch row), and
-    timed in turns with SDPA (6 rounds of 50 launches; median, min, max),
+    timed in turns with SDPA (2 rounds of 10 launches; median, min, max),
     with the plain version's time (head by head, once) and the bound."""
     import torch.nn.functional as F
 
@@ -4299,7 +4383,7 @@ def phase_kernels_train_cogvideox(torch, seed: int) -> dict:
     to LSE_TOL, Δ to DELTA_TOL), and the backward driven by the forward
     kernel's own output and lse as in training. Then each kernel timed in
     turns with SDPA's forward on inputs that require grad and SDPA's
-    backward alone (6 rounds of 20 launches: median, min, max), with the
+    backward alone (2 rounds of 20 launches: median, min, max), with the
     plain version's time (head by head, once) and the bound."""
     import torch.nn.functional as F
 
@@ -4961,11 +5045,21 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
     del a, b
     rel = cogvideox_forward_check(torch, pipe.transformer, seed)
     conv = conv3d_route_check(torch, seed)
+    # int8 at the served batch and width, 13 frames (4 latent frames): the
+    # smoke's clock; an int8 batch at 49 frames takes 5.1 s against 2.8
+    gated = reckon_gated(torch, cog.CogVideoXTransformer3D(device="meta"), (2, 16, 4, 60, 90),
+                         (2,), (2, 226, 4096))[1]
+    int8 = int8_serving(
+        torch, "cogvideox", pipe, cond, torch.randn(2, 16, 4, 60, 90),
+        torch.from_numpy(np.concatenate([server.batcher.cond_fn(prompts[2])] * 2)),
+        torch.randn(2, 16, 4, 60, 90), gated_per_forward=gated, forwards=4,
+        wrapper="flash_attention_fwd", call=dict(num_frames=13), images=False)
     server.batcher.pipe = None
     del pipe
     torch.cuda.empty_cache()
     print(f"[cogvideox] serving peak device memory {serve_peak_gib:.2f} GiB from the cache, "
           f"no encoder resident", flush=True)
+    gif = generate_gif(torch, cache_served_view(root), cache, prompts[0], workdir)
     tok = HashTokenizer()
 
     def t5_report(p):
@@ -4988,7 +5082,8 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
             "solo_s": [t for _, t in solo], "profile": prof, "decode_ms": dec_ms,
             "decode_tflop": ops / 1e12, "gif_encode_s": gif_s, "gif_mb": len(gif) / 1e6,
             "forward_rel_l2": rel, "conv_route": conv, "phase_s": phase_s,
-            "serve_peak_gib": serve_peak_gib, "raw_prompts": raw}
+            "serve_peak_gib": serve_peak_gib, "raw_prompts": raw, "int8": int8,
+            "generate_gif": gif}
 
 
 # ---------------------------------------------------------------------------
@@ -5141,8 +5236,8 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     the recipe's flags: --model_family cogvideox --num_frames 49 (latents
     [16, 13, 60, 90], 17,550 video + 226 T5 tokens), batch 2 (the video
     pipeline's), bf16 compute on fp32 masters, dmd, a rank-64 LoRA student,
-    8-bit Adam, --gradient_checkpointing, 4 optimizer steps without LR
-    warm-up (so 4 steps move the factors); the teacher read from the
+    8-bit Adam, --gradient_checkpointing, 3 optimizer steps without LR
+    warm-up (so 3 steps move the factors); the teacher read from the
     transformer/ folder of the CogVideoX-2B checkout (written here if the
     cogvideox phase did not run; its load timed by part); a seeded T5 cache
     with ragged masks; $TDM_TAESD_DIR set to a TAESD3 that the video run
@@ -5172,7 +5267,7 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     try:
-        with timed_calls(torch, load_parts) as load_times:
+        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
             train_tdm.main([
                 "--output_dir", out, "--model_family", "cogvideox", "--num_frames", "49",
                 "--max_train_steps", str(COG_TRAIN_STEPS), "--train_batch_size",
@@ -5203,8 +5298,8 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     run_dir = out + "_cfg4.5_steps900"
     grids = [f for f in os.listdir(run_dir) if f.startswith("validation")]
     check(not grids, f"a video run wrote validation grids {grids}")
-    ckpt = os.path.join(run_dir, f"checkpoint-{COG_TRAIN_STEPS}")
-    ckpt_gb = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)) / 1e9
+    check(not any(f.startswith("checkpoint-") for f in os.listdir(run_dir)),
+          "train_cogvideox wrote a checkpoint")
     lora_path = os.path.join(run_dir, "tdm_lora.safetensors")
     pieces = kohya_pieces(torch, lora_path, COG_LORA_RANK)
     torch.cuda.empty_cache()
@@ -5212,7 +5307,7 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     check(lora["adapted_weights"] == pieces,
           f"the kohya file's {pieces} pieces: {lora['adapted_weights']} resolved")
     print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
-          f"the run's checkpoint, before its removal", flush=True)
+          f"the run's files, before their removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
@@ -5228,7 +5323,7 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     print(f"[train_cogvideox] CogVideoX-2B TDM at 49x480x720 (dmd, batch {COG_TRAIN_B}, bf16 "
           f"on fp32 masters, rank-{COG_LORA_RANK} LoRA student, 8-bit Adam, gradient "
           f"checkpointing, seeded weights): {per_step:.3f} s/step after the first, "
-          f"unprofiled (steps 2 and 4; {3600 / per_step:.0f} iters/hour), first step "
+          f"unprofiled (step 2; {3600 / per_step:.0f} iters/hour), first step "
           f"{steps[0]['host_s']:.3f} s, profiled step 3 {steps[2]['host_s']:.3f} s; peak "
           f"memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB of it held before main()); launches "
           f"per step {COG_TRAIN_LAUNCHES} (checked); step "
@@ -5237,7 +5332,7 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
           + f", {steps[2].get('all_launches')} device launches; no validation grid (video); "
           f"kohya file {pieces} rank-{COG_LORA_RANK} pieces, every one resolved and merged by "
           f"the pipeline, its 4-NFE latent {lora['latent_rel_l2_vs_base']:.3e} (rel L2) from "
-          f"the base's; main() {total_s:.1f}s incl. a {ckpt_gb:.2f} GB checkpoint; phase "
+          f"the base's; main() {total_s:.1f}s (no final checkpoint: `no_final_checkpoint`); phase "
           f"{phase_s:.1f}s", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
@@ -5246,8 +5341,630 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
             "all_launches_per_step": steps[2].get("all_launches"),
             "flash_kernels_by_template": by_template, "launches": launches,
             "launches_per_step": COG_TRAIN_LAUNCHES, "load_s": load_s, "load": load_times,
-            "kohya_pieces": pieces, "lora": lora, "checkpoint_gb": ckpt_gb, "main_s": total_s,
+            "kohya_pieces": pieces, "lora": lora, "checkpoint_gb": None, "main_s": total_s,
             "checkout_write_s": write_s, "remat_check": remat, "phase_s": phase_s,
+            "steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# int8 and the offline verbs: --quant int8 in serving, --quant_forwards in
+# training, cli/generate, cli/evaluate with the CLIP score
+# ---------------------------------------------------------------------------
+
+INT8_REL_BOUND = 0.15  # the JAX package's bound of int8 latents against bf16 (tests/test_quant.py)
+
+
+def reckon_gated(torch, model, *shapes, int_arg: int | None = None) -> tuple[int, int]:
+    """(Dense calls, calls the int8 gate admits) in one forward of `model`
+    (a module built on the meta device) at the input `shapes`: the shapes
+    alone decide (tokens = the product of an input's leading dims, K and N
+    from the layer), so the forward runs on meta tensors, with the
+    attention replaced by its output shape. `int_arg` is the index of an
+    int32 input (a mask)."""
+    from tdm_tpu_torch.models import layers
+    from tdm_tpu_torch.ops import quant
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: calls.append((math.prod(a[0].shape[:-1]), m.in_features, m.out_features)))
+        for m in model.modules() if isinstance(m, layers.Dense)]
+    attention = layers.fused_attention
+    layers.fused_attention = lambda q, k, v, key_mask=None, **kw: torch.empty_like(q)
+    t0 = time.monotonic()
+    try:
+        args = [torch.empty(s, device="meta",
+                            dtype=torch.int32 if i == int_arg else torch.float32)
+                for i, s in enumerate(shapes)]
+        with torch.no_grad():
+            model(*args)
+    finally:
+        layers.fused_attention = attention
+        for h in hooks:
+            h.remove()
+    gated = sum(quant.gate(*c) for c in calls)
+    print(f"[int8] {type(model).__name__} at {shapes[0]}: {gated} of {len(calls)} Dense calls "
+          f"a forward pass the gate (reckoned on the meta device in "
+          f"{time.monotonic() - t0:.1f}s)", flush=True)
+    return len(calls), gated
+
+
+def _rows(torch, keep, other):
+    """Conditioning with row 0 of `keep` and the other rows of `other` (a
+    tuple of arrays or tensors, or one)."""
+    if isinstance(keep, (tuple, list)):
+        return tuple(_rows(torch, a, b) for a, b in zip(keep, other))
+    a, b = torch.as_tensor(keep), torch.as_tensor(other)
+    return torch.cat([a[:1], b[1:].to(a.device)])
+
+
+def profile_int8(torch, pipe, cond, noise, call: dict) -> tuple:
+    """One int8 sampler run (latents out) with its first denoiser forward
+    under torch.profiler (one forward: the profiler's own cost grows with
+    the tens of thousands of eager ops an int8 batch launches). Returns the
+    latents and, for that forward, the `aten::_int_mm` calls and their
+    device ms, the device ms of everything a rerouted Dense runs (a
+    record_function range around `quant.dense`: the casts, the quantize
+    passes, the product, the rescale and the bias), and the busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tdm_tpu_torch.ops import quant
+
+    dense, denoiser, held = quant.dense, pipe.denoiser, {}
+    forward = denoiser.forward
+
+    def ranged(*args):
+        with record_function("int8_dense"):
+            return dense(*args)
+
+    def first_profiled(*args, **kw):
+        if "prof" in held:
+            return forward(*args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = forward(*args, **kw)
+            torch.cuda.synchronize()
+        held["prof"] = prof
+        return out
+
+    quant.dense, denoiser.forward, pipe.quant = ranged, first_profiled, "int8"
+    try:
+        latents = pipe(prompt_embeds=cond, latents=noise, output_type="latent", **call).latents
+    finally:
+        quant.dense, pipe.quant = dense, None
+        del denoiser.forward
+    ev = held["prof"].key_averages()
+    busy = sum(e.device_time_total for e in ev if e.device_type == DeviceType.CUDA) / 1e3
+    by = {e.key: e for e in ev if e.device_type == DeviceType.CPU}
+    mm, rng = by.get("aten::_int_mm"), by.get("int8_dense")
+    if not busy or mm is None:
+        return latents, {"int_mm_calls": mm.count if mm else 0, "busy_ms": None}
+    mm_ms = mm.device_time_total / 1e3
+    dot_ms = rng.device_time_total / 1e3 if rng else None
+    return latents, {"int_mm_calls": mm.count, "int_mm_ms": mm_ms, "int8_dense_ms": dot_ms,
+                     "quant_rescale_ms": None if dot_ms is None else dot_ms - mm_ms,
+                     "busy_ms": busy,
+                     "quant_rescale_share": None if dot_ms is None else (dot_ms - mm_ms) / busy}
+
+
+def int8_serving(torch, tag: str, pipe, cond, noise, other_cond, other_noise, *,
+                 gated_per_forward: int, forwards: int, wrapper: str, call=None,
+                 images: bool = True) -> dict:
+    """One family's batch at `pipe.quant = "int8"` against bf16 on the
+    served pipeline (same conditioning, same noise, latents out): the int8
+    products per batch (the wrapper's count, and `aten::_int_mm` in a
+    profiled batch) against `gated_per_forward` × `forwards`, the attention
+    wrapper's launches unchanged, the bf16 bits unchanged after int8
+    batches, row 0's int8 bits the same with other batch-mates, the
+    latents' relative L2 against bf16 under 0.15; the sampler's device ms
+    (CUDA events at the ends of the pipeline's sampler scope) and the
+    batch's wall ms (host clock, the decode included when `images`) of the
+    same 3 batches at bf16, int8, bf16; then an int8 batch with row 0 kept
+    and other batch-mates, its first forward profiled: its `aten::_int_mm`
+    calls (checked against the gate's count) and the share of its busy
+    time in the quantize and rescale passes."""
+    from tdm_tpu_torch.ops import attention as A, quant
+
+    call = dict(call or {})
+    want = gated_per_forward * forwards
+    events = []
+    scope = pipe.sampler_scope
+
+    @contextlib.contextmanager
+    def timed_scope():
+        """The pipeline's sampler scope with CUDA events at its ends: the
+        sampler's device span, decode excluded."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with scope():
+            yield
+        ev[1].record()
+        events.append(ev)
+
+    def run(quant_mode, c, z, out_type):
+        """(latents, sampler ms, batch wall ms, attention launches, int8
+        products) of one batch."""
+        pipe.quant = quant_mode
+        try:
+            A.reset_launches()
+            quant.int8_dot.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = pipe(prompt_embeds=c, latents=z, output_type=out_type, **call)
+            (out.images if out_type == "image" else out.latents).cpu()
+            wall_ms = (time.monotonic() - t0) * 1e3
+            ev = events.pop()
+            return (out.latents, ev[0].elapsed_time(ev[1]), wall_ms, A.launch_counts(),
+                    quant.int8_dot.launches)
+        finally:
+            pipe.quant = None
+
+    ms, walls, runs = {"bf16": [], "int8": []}, {"bf16": [], "int8": []}, {}
+    t0 = time.monotonic()
+    pipe.sampler_scope = timed_scope
+    try:
+        with torch.inference_mode():
+            for mode in ("bf16", "int8", "bf16"):  # in turns
+                out, t, w, attn, n = run("int8" if mode == "int8" else None, cond, noise,
+                                         "image" if images else "latent")
+                ms[mode].append(t)
+                walls[mode].append(w)
+                runs.setdefault(mode, []).append((out, attn, n))
+    finally:
+        del pipe.sampler_scope
+    (base, attn_bf16, n_bf16), (again, _, _) = runs["bf16"]
+    ((q8, attn_int8, n_int8),) = runs["int8"]
+    check(n_bf16 == 0 and n_int8 == want,
+          f"[{tag}] {n_int8} int8 products in a batch (bf16: {n_bf16}), the gate admits "
+          f"{gated_per_forward} a forward x {forwards} forwards = {want}")
+    check(attn_int8 == attn_bf16 and attn_bf16[wrapper] > 0,
+          f"[{tag}] attention launches at int8 {attn_int8} against bf16 {attn_bf16}")
+    check(torch.equal(again, base), f"[{tag}] the bf16 bits moved after an int8 batch")
+    rel = float((q8.float() - base.float()).norm() / base.float().norm())
+    check(math.isfinite(rel) and rel < INT8_REL_BOUND,
+          f"[{tag}] int8 latents {rel:.4f} (relative L2) from bf16, bound {INT8_REL_BOUND}")
+    # the profiled int8 batch is the one with other batch-mates for row 0
+    with torch.inference_mode():
+        mates, prof = profile_int8(torch, pipe, _rows(torch, cond, other_cond),
+                                   torch.cat([noise[:1], other_noise[1:]]), call)
+    check(torch.equal(mates[:1], q8[:1]),
+          f"[{tag}] row 0's int8 bits depend on its batch-mates")
+    if prof.get("busy_ms"):
+        check(prof["int_mm_calls"] == gated_per_forward,
+              f"[{tag}] {prof['int_mm_calls']} aten::_int_mm in a profiled forward, the gate "
+              f"admits {gated_per_forward}")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    wmed = {k: statistics.median(v) for k, v in walls.items()}
+    share = prof.get("quant_rescale_share")
+    check_s = time.monotonic() - t0
+    print(f"[{tag}] int8: {n_int8} int8 products a batch = {gated_per_forward} gated Dense x "
+          f"{forwards} forwards (checked; aten::_int_mm {prof['int_mm_calls']} in a profiled "
+          f"forward); attention launches unchanged {attn_int8[wrapper]}; bf16 bits unchanged "
+          f"after an int8 batch; row 0 the same bits with other batch-mates; latents "
+          f"{rel:.4f} (relative L2) from bf16; sampler device ms int8 "
+          f"{[round(t, 2) for t in ms['int8']]} against bf16 {[round(t, 2) for t in ms['bf16']]}"
+          f" (x{med['int8'] / med['bf16']:.3f})"
+          + f"; batch wall ms ({'decode included' if images else 'latents out'}) int8 "
+            f"{[round(t, 1) for t in walls['int8']]} against bf16 "
+            f"{[round(t, 1) for t in walls['bf16']]}"
+          + (f"; the profiled int8 forward busy {prof['busy_ms']:.1f} ms, _int_mm "
+             f"{prof['int_mm_ms']:.1f} ms, quantize + rescale {prof['quant_rescale_ms']:.1f} ms "
+             f"({share:.3f} of busy)" if share is not None else "; profile: not measured")
+          + f"; the check took {check_s:.1f}s", flush=True)
+    return {"int8_products_per_batch": n_int8, "gated_per_forward": gated_per_forward,
+            "forwards": forwards, "attention_launches": attn_int8[wrapper],
+            "latent_rel_l2": rel, "sampler_ms": ms, "sampler_ms_median": med,
+            "int8_over_bf16": med["int8"] / med["bf16"], "batch_wall_ms": walls,
+            "batch_wall_ms_median": wmed, "profile": prof, "check_s": check_s}
+
+
+def quant_server_request(torch, model_dir: str, cache: str, prompt: str, seed: int) -> dict:
+    """`--quant int8` end to end: a server started with the flag (batch 1,
+    no warm-up) on the PixArt bundle without its T5 (a symlink view, so the
+    load skips the 9.5 GB encoder) serving `cache`, which build_cache wrote
+    from that T5, answers one raw request: a valid 512² PNG, made with the
+    int8 products the gate admits (4 forwards' worth)."""
+    import urllib.request
+
+    from tdm_tpu_torch.ops import quant
+    from tdm_tpu_torch.serve import server as S
+
+    t0 = time.monotonic()
+    server = S.build_server(S.parse_args(["--model", cache_served_view(model_dir), "--port",
+                                          "0", "--batch_size", "1",
+                                          "--embedding_cache", cache, "--quant",
+                                          "int8"])).start()
+    up_s = time.monotonic() - t0
+    try:
+        check(server.batcher.pipe.quant == "int8" and server.batcher.pipe.text_encoder is None,
+              "--quant int8 did not reach the cache-served pipeline")
+        quant.int8_dot.launches = 0
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/generate",
+            data=json.dumps({"prompt": prompt, "seed": seed}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.monotonic()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reply = json.loads(r.read())
+        req_s = time.monotonic() - t0
+        products = quant.int8_dot.launches
+    finally:
+        server.close()
+        server.batcher.pipe = None
+    check_png(base64.b64decode(reply["image"]), 512, 512)
+    want = 4 * pixart_gated(torch, 1)
+    check(products == want, f"the --quant int8 server ran {products} int8 products, the gate "
+                            f"admits {want} (4 forwards at batch 1)")
+    print(f"[serve] `--quant int8`: a server up in {up_s:.1f}s (the bundle without its T5, "
+          f"the build_cache cache) answered a raw request in {req_s:.3f}s with a valid "
+          f"512x512 PNG, {products} int8 products (checked)", flush=True)
+    torch.cuda.empty_cache()
+    return {"up_s": up_s, "request_s": req_s, "int8_products": products}
+
+
+def generate_runs(torch, bundle: str, prompts: list, workdir: str) -> dict:
+    """`tdm_tpu_torch.cli.generate.main` in process on the PixArt bundle
+    from raw prompts to a directory of 4 PNGs at --quant int8, checked
+    (512², not constant); the call's seconds, the bundle's load included.
+    (The single-file output and bf16 are held by the CPU tests against the
+    JAX CLI; one call here keeps the smoke's clock.)"""
+    import numpy as np
+
+    from tdm_tpu_torch.cli import generate
+
+    out, runs = os.path.join(workdir, "generate"), {}
+    os.makedirs(out, exist_ok=True)
+    t0 = time.monotonic()
+    generate.main(["--model", bundle, "--seed", "8888", "--prompt", *prompts[:4],
+                   "--output", os.path.join(out, "four"), "--quant", "int8"])
+    runs["dir_int8"] = {"s": time.monotonic() - t0}
+    files = [os.path.join(out, "four", f"{i:03d}.png") for i in range(4)]
+    stds = []
+    for f in files:
+        with open(f, "rb") as fh:
+            stds.append(float(check_png(fh.read(), 512, 512).astype(np.float32).std()))
+    check(min(stds) > 1.0, f"a generated image is (nearly) constant: std {min(stds)}")
+    check(sorted(os.listdir(os.path.join(out, "four"))) == [f"{i:03d}.png" for i in range(4)],
+          "generate's directory of 4")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[generate] PixArt bundle from raw prompts: a directory of 4 at --quant int8 in "
+          f"{runs['dir_int8']['s']:.1f}s (the bundle's load included); 512x512 PNGs, "
+          f"pixel std {min(stds):.1f}-{max(stds):.1f}", flush=True)
+    return runs
+
+
+GEN_GIF_FRAMES = 13  # 4 latent frames at full width: the smoke's clock, not the recipe's 49
+
+
+def generate_gif(torch, view: str, cache: str, prompt: str, workdir: str) -> dict:
+    """`cli.generate.main` on the CogVideoX checkout's cache-served view
+    with its T5 cache, to one GIF of GEN_GIF_FRAMES frames at 480×720 (fps
+    8), checked with check_gif and two frames decoded."""
+    from tdm_tpu_torch.cli import generate
+
+    path = os.path.join(workdir, "wave.gif")
+    t0 = time.monotonic()
+    generate.main(["--model", view, "--prompt", prompt, "--embedding_cache", cache,
+                   "--num_frames", str(GEN_GIF_FRAMES), "--seed", "8888", "--output", path])
+    s = time.monotonic() - t0
+    with open(path, "rb") as f:
+        gif = f.read()
+    os.remove(path)
+    data = check_gif(gif, GEN_GIF_FRAMES, 720, 480)
+    stds = [gif_frame_std(torch, data[i], 720, 480) for i in (0, GEN_GIF_FRAMES - 1)]
+    check(min(stds) > 1.0, f"a generated frame is (nearly) constant: RGB std {min(stds)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[generate] CogVideoX-2B checkout (cache-served view) to a GIF of "
+          f"{GEN_GIF_FRAMES} frames at 720x480 in {s:.1f}s, the load included ({len(gif) / 1e6:.1f}"
+          f" MB; 12 cs delays, loop block; frame RGB std {min(stds):.1f}-{max(stds):.1f})",
+          flush=True)
+    return {"s": s, "frames": GEN_GIF_FRAMES, "mb": len(gif) / 1e6}
+
+
+def clip_model_layout(text_cfg, vision_cfg) -> dict:
+    """{key: (shape, init)} of a `transformers.CLIPModel` state dict (both
+    towers, both projections, logit_scale), with the transformers inits:
+    the text tower's as `hf_encoder_layout` gives it."""
+    out = hf_encoder_layout(text_cfg)
+    d, ff, v = vision_cfg.hidden, vision_cfg.hidden * vision_cfg.mlp_ratio, "vision_model"
+    p = vision_cfg.patch_size
+    in_std = d ** -0.5 * (2 * vision_cfg.num_layers) ** -0.5
+    out[f"{v}.embeddings.class_embedding"] = ((d,), d ** -0.5)
+    out[f"{v}.embeddings.patch_embedding.weight"] = ((d, 3, p, p), 0.02)
+    n_pos = (vision_cfg.image_size // p) ** 2 + 1
+    out[f"{v}.embeddings.position_embedding.weight"] = ((n_pos, d), 0.02)
+    for n in ("pre_layrnorm", "post_layernorm"):
+        out[f"{v}.{n}.weight"], out[f"{v}.{n}.bias"] = ((d,), "ones"), ((d,), "zeros")
+    for i in range(vision_cfg.num_layers):
+        b = f"{v}.encoder.layers.{i}"
+        for n in ("layer_norm1", "layer_norm2"):
+            out[f"{b}.{n}.weight"], out[f"{b}.{n}.bias"] = ((d,), "ones"), ((d,), "zeros")
+        for q in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[f"{b}.self_attn.{q}.weight"] = ((d, d), d ** -0.5 if q == "out_proj" else in_std)
+            out[f"{b}.self_attn.{q}.bias"] = ((d,), "zeros")
+        out[f"{b}.mlp.fc1.weight"], out[f"{b}.mlp.fc1.bias"] = ((ff, d), (2 * d) ** -0.5), \
+            ((ff,), "zeros")
+        out[f"{b}.mlp.fc2.weight"], out[f"{b}.mlp.fc2.bias"] = ((d, ff), in_std), ((d,), "zeros")
+    out["visual_projection.weight"] = ((vision_cfg.projection_dim, d), d ** -0.5)
+    out["logit_scale"] = ((), "ones")
+    return out
+
+
+def write_clip_model(torch, folder: str, seed: int) -> dict:
+    """A seeded CLIP ViT-L/14 `CLIPModel` folder with the public
+    openai/clip-vit-large-patch14 configuration (text 12 x 768, vision 24 x
+    1024 at patch 14 and 224², projection 768; the legacy eos_token_id 2,
+    which pools at the highest id) at fp16, and a hash tokenizer
+    (`tdm_tokenizer.json`, vocab 49408, EOS 49407 = the highest id)."""
+    import numpy as np
+
+    from tdm_tpu_torch.eval import clip_score
+    from tdm_tpu_torch.io import params as params_io
+    from tdm_tpu_torch.models import clip
+
+    text = clip.CLIPTextConfig(projection_dim=768)
+    vision = clip.CLIPVisionConfig()
+    check((vision.hidden, vision.num_layers, vision.num_heads, vision.patch_size,
+           vision.image_size, vision.projection_dim) == (1024, 24, 16, 14, 224, 768),
+          "CLIP ViT-L/14")
+    layout = clip_model_layout(text, vision)
+    t0 = time.monotonic()
+    os.makedirs(folder, exist_ok=True)
+    config = {
+        "architectures": ["CLIPModel"], "projection_dim": 768, "logit_scale_init_value": 2.6592,
+        "text_config": {"vocab_size": CLIP_VOCAB, "hidden_size": 768, "intermediate_size": 3072,
+                        "num_attention_heads": 12, "num_hidden_layers": 12,
+                        "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                        "eos_token_id": 2},
+        "vision_config": {"hidden_size": 1024, "intermediate_size": 4096,
+                          "num_attention_heads": 16, "num_hidden_layers": 24, "image_size": 224,
+                          "patch_size": 14, "hidden_act": "quick_gelu"}}
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(config, f)
+    with open(os.path.join(folder, clip_score.HASH_TOKENIZER_FILE), "w") as f:
+        json.dump({"kind": "hash", "vocab_size": CLIP_VOCAB, "eos_id": CLIP_EOS}, f)
+    params_io.write_file(os.path.join(folder, "model.safetensors"),
+                         [(k, shape, np.float16) for k, (shape, _) in layout.items()],
+                         _seeded_leaves(torch, layout, seed, set()))
+    n = sum(math.prod(s) for s, _ in layout.values())
+    gb = os.path.getsize(os.path.join(folder, "model.safetensors")) / 1e9
+    s = time.monotonic() - t0
+    print(f"[evaluate] wrote a seeded CLIP ViT-L/14 CLIPModel ({n / 1e6:.1f}M params, {gb:.2f} "
+          f"GB at fp16) with a hash tokenizer in {s:.1f}s", flush=True)
+    return {"params": n, "gb": gb, "write_s": s}
+
+
+def evaluate_runs(torch, view: str, lora_file: str, workdir: str, seed: int) -> dict:
+    """`tdm_tpu_torch.cli.evaluate.main` in process on the SD1.5 checkout's
+    cache-served view with its LoRA (at the recipe's 0.125), 4 prompts of
+    an eval cache (with the empty prompt's rows, for CFG), the seeded
+    CLIP ViT-L/14 folder: `--compare_teacher --teacher_steps 28
+    --teacher_guidance 7.0` (the int8 sampler is held by the sd15 phase's
+    int8 batch and `generate`; one call here keeps the smoke's clock). The
+    JSON's keys, lengths and scores in [0, 100] checked; the teacher run's
+    seconds, the scorer's ms per image, the vision tower in bf16 against
+    fp32 per row. The CLIP folder is deleted after (the disk)."""
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from tdm_tpu_torch.cli import evaluate
+    from tdm_tpu_torch.data.prompts import EmbeddingCache
+    from tdm_tpu_torch.eval import clip_score
+    from tdm_tpu_torch.models import clip as clip_mod
+
+    folder = os.path.join(workdir, "clip-vit-large-patch14")
+    written = write_clip_model(torch, folder, seed + 40)
+    prompts = [f"eval prompt {i}" for i in range(4)]
+    cache = os.path.join(workdir, "eval_cache.npz")
+    rng = np.random.default_rng(seed + 41)
+    EmbeddingCache(rng.standard_normal((4, SD15_TXT, 768)).astype(np.float16),
+                   np.ones((4, SD15_TXT), np.int32), prompts,
+                   uncond_embed=rng.standard_normal((SD15_TXT, 768)).astype(np.float16),
+                   uncond_mask=np.ones(SD15_TXT, np.int32)).save(cache)
+    timing = {}
+    real_score = evaluate._score_run
+
+    def timed_score(pipe, scorer, prompts_, neg, call, cache_, tag, save_dir):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = real_score(pipe, scorer, prompts_, neg, call, cache_, tag, save_dir)
+        timing[tag] = time.monotonic() - t0
+        return out
+
+    runs = {}
+    evaluate._score_run = timed_score
+    try:
+        for name, extra in {"bf16": []}.items():
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                evaluate.main(["--model", view, "--clip_model", folder, "--prompt", *prompts,
+                               "--embedding_cache", cache, "--lora", lora_file,
+                               "--compare_teacher", "--teacher_steps", "28",
+                               "--teacher_guidance", "7.0", *extra])
+            res = json.loads(buf.getvalue().strip().splitlines()[-1])
+            runs[name] = {"result": res, "s": time.monotonic() - t0, **{
+                f"{k}_s": v for k, v in timing.items()}}
+    finally:
+        evaluate._score_run = real_score
+    for name, run in runs.items():
+        res = run["result"]
+        check(set(res) == {"prompts", "student", "teacher", "student_minus_teacher"}
+              and res["prompts"] == prompts, f"[evaluate {name}] keys {sorted(res)}")
+        for role, steps in (("student", 4), ("teacher", 28)):
+            r = res[role]
+            check(r["steps"] == steps and len(r["clip_scores"]) == 4
+                  and all(math.isfinite(s) and 0.0 <= s <= 100.0 for s in r["clip_scores"]),
+                  f"[evaluate {name}] {role}: {r}")
+    # the scorer alone: ms per image, the vision tower bf16 against fp32
+    scorer = clip_score.CLIPScorer.from_pretrained(folder, device="cuda")
+    imgs = torch.rand(4, 512, 512, 3, generator=torch.Generator().manual_seed(seed),
+                      device="cpu").cuda()
+    ids = scorer.tokenize(prompts)
+    score_ms = time_ms(torch, lambda: scorer.score(imgs, input_ids=ids), iters=5, warmup=2) / 4
+    px = clip_score.preprocess_images(imgs, 224)
+    f32 = dataclasses.replace(scorer.vision_cfg, dtype=torch.float32)
+    v32 = clip_mod.CLIPVisionEncoder(f32, device="cuda")
+    v32.load_state_dict({k: v.float() for k, v in scorer.vision_model.state_dict().items()})
+    with torch.inference_mode():
+        a = scorer.vision_model(px).pooled.float()
+        b = v32(px).pooled.float()
+        # 100·cos before the clip at 0: seeded towers give scores near 0
+        # of either sign, which the CLIP score clips; these show the spread
+        img_e = scorer.embed_images(imgs).float()
+        txt_e = scorer.embed_texts(input_ids=ids).float()
+        raw = (100 * torch.nn.functional.cosine_similarity(img_e, txt_e, dim=-1)).tolist()
+    row_rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).tolist()
+    check(max(row_rel) < 0.05, f"the CLIP vision tower in bf16 against fp32: {row_rel}")
+    del scorer, v32
+    shutil.rmtree(folder, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = runs["bf16"]["result"]
+    print(f"[evaluate] SD1.5 (LoRA 0.125) on 4 prompts, CLIP ViT-L/14 (seeded, so the scores "
+          f"show the plumbing, not quality): student {res['student']['clip_score_mean']} "
+          f"teacher {res['teacher']['clip_score_mean']} (28 steps, cfg 7: "
+          f"{runs['bf16']['teacher_s']:.2f}s); evaluate.main "
+          f"{runs['bf16']['s']:.1f}s with the loads; the scorer "
+          f"{score_ms:.2f} ms an image (batch 4 at 512², preprocess and both towers); the vision "
+          f"tower bf16 against fp32 per row {max(row_rel):.4f} at most; 100·cos before the "
+          f"clip on random images {[round(c, 3) for c in raw]}", flush=True)
+    return {"runs": runs, "clip": written, "score_ms_per_image": score_ms,
+            "vision_bf16_rel_l2": row_rel, "raw_100cos": raw}
+
+
+def phase_reference_eval(torch, seed: int) -> dict:
+    """The tiny new modules on the card against the CPU (fp32, TF32 off):
+    int8_dot (the same int8 codes, outputs within one ulp of the output
+    dtype), the CLIP vision tower, preprocess_images (512² and 480×720 to
+    224²), TAESDEncoder and KLEncoder; to 1e-5 of the largest |CPU
+    output| (the same sums in another order), 1e-4 for preprocess's
+    resize products."""
+    import dataclasses
+
+    from tdm_tpu_torch.device import set_fp32_precision
+    from tdm_tpu_torch.eval import clip_score
+    from tdm_tpu_torch.models import clip, vae
+    from tdm_tpu_torch.ops import quant
+
+    set_fp32_precision()
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(300, 1152, generator=gen).to(dtype)
+        w = torch.randn(4608, 1152, generator=gen).to(dtype)
+        x[0] *= 1e3
+        ref = quant.int8_dot(x, w).float()
+        before = quant.int8_dot.launches
+        got = quant.int8_dot(x.cuda(), w.cuda()).float().cpu()
+        quant.int8_dot.launches = before  # a check, not the main path
+        check(torch.equal(quant.quantize_rows(x.cuda())[0].cpu(), quant.quantize_rows(x)[0]),
+              "int8 codes on the card")
+        mant = 23 if dtype == torch.float32 else 7
+        ulp = torch.pow(2.0, torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - mant)
+        check(bool(((got - ref).abs() <= ulp).all()), f"int8_dot {dtype} on the card")
+        out[f"int8_dot_{str(dtype)[6:]}_max_abs_err"] = float((got - ref).abs().max())
+
+    def close(name, got, ref, tol=1e-5):
+        err = float((got.float().cpu() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        check(err <= tol * scale, f"{name} on the card: {err:.3e} of {scale:.3g}")
+        out[name] = err / scale
+
+    def seeded(module):
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) / max(p.shape[-1], 1) ** 0.5)
+        return module
+
+    vcfg = clip.CLIPVisionConfig.tiny()
+    cpu_v = seeded(clip.CLIPVisionEncoder(vcfg, device="cpu"))
+    gpu_v = clip.CLIPVisionEncoder(vcfg, device="cuda")
+    gpu_v.load_state_dict(cpu_v.state_dict())
+    px = torch.randn(3, 3, 16, 16, generator=gen)
+    with torch.no_grad():
+        close("clip_vision_pooled", gpu_v(px.cuda()).pooled, cpu_v(px).pooled)
+    for h, w in ((512, 512), (480, 720)):
+        imgs = torch.rand(2, h, w, 3, generator=gen)
+        close(f"preprocess_{h}x{w}", clip_score.preprocess_images(imgs.cuda()),
+              clip_score.preprocess_images(imgs), 1e-4)
+    tcfg = vae.TAESDConfig(width=16, num_stages=2, blocks_per_stage=1)
+    kcfg = dataclasses.replace(vae.KLVAEConfig.tiny(), latent_channels=4)
+    img = torch.rand(2, 3, 32, 48, generator=gen) * 2 - 1
+    for name, cls, cfg in (("taesd_encoder", vae.TAESDEncoder, tcfg),
+                           ("kl_encoder", vae.KLEncoder, kcfg)):
+        cpu_m = seeded(cls(cfg, device="cpu"))
+        gpu_m = cls(cfg, device="cuda")
+        gpu_m.load_state_dict(cpu_m.state_dict())
+        with torch.no_grad():
+            a, b = gpu_m(img.cuda()), cpu_m(img)
+        if isinstance(b, tuple):
+            a, b = torch.cat(a, 1), torch.cat(b, 1)
+        close(name, a, b)
+    print(f"[reference] the new modules on the card against the CPU: {out}", flush=True)
+    return out
+
+
+@functools.cache
+def pixart_gated(torch, batch: int) -> int:
+    """The Dense calls the int8 gate admits in one full-width PixArt-α-512
+    forward at `batch` rows (512², 120 caption tokens)."""
+    from tdm_tpu_torch.models import pixart
+
+    return reckon_gated(torch, pixart.PixArtTransformer2D(pixart.PixArtConfig(), device="meta"),
+                        (batch, 4, 64, 64), (batch,), (batch, 120, 4096), (batch, 120),
+                        int_arg=3)[1]
+
+
+QF_STEPS = 2
+
+
+def quant_forwards_run(torch, seed: int, workdir: str, teacher_dir: str,
+                       bf16_s_per_step: float) -> dict:
+    """The train phase's main() again with --quant_forwards (QF_STEPS
+    steps, no LoRA export, no final checkpoint): per step the int8
+    products (checked against the
+    gate's count over the forwards the JAX step wraps in q(): the 4-step
+    rollout, the stop-grad x̂₀ and the critic probe at batch 4, the
+    teacher's CFG probe at 8), kernels 1–3's launches unchanged (checked
+    against TRAIN_LAUNCHES), the losses finite; s/step against the bf16
+    run's, peak memory."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.ops import attention as A
+
+    g4, g8 = pixart_gated(torch, 4), pixart_gated(torch, 8)
+    want = 6 * g4 + g8
+    out = os.path.join(workdir, "train_q8")
+    steps = []
+    A.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with no_final_checkpoint():
+        train_tdm.main([
+            "--output_dir", out, "--max_train_steps", str(QF_STEPS), "--train_batch_size",
+            "4", "--mixed_precision", "bf16", "--loss_mode", "dmd", "--seed", str(seed),
+            "--pretrained_model_name_or_path", teacher_dir, "--quant_forwards",
+            "--export_lora_rank", "0",
+        ], step_hook=step_hook(torch, steps, 0, "train_q8"))
+    main_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check_train_records(steps, QF_STEPS)
+    for rec in steps:
+        check(rec["int8_products"] == want,
+              f"--quant_forwards step {rec['step']}: {rec['int8_products']} int8 products, "
+              f"the gate's count over the q() forwards {want}")
+    shutil.rmtree(out + "_cfg4.5_steps900", ignore_errors=True)
+    per_step = steps[-1]["host_s"]
+    print(f"[train] --quant_forwards: {want} int8 products a step (checked: 6 forwards x "
+          f"{g4} + the CFG probe's {g8}), kernels 1-3 "
+          f"launches {TRAIN_LAUNCHES} (checked), losses finite; step 2 {per_step:.3f} s against "
+          f"bf16 {bf16_s_per_step:.3f} s/step (x{per_step / bf16_s_per_step:.3f}); peak "
+          f"{peak_gb:.2f} GiB; main() {main_s:.1f}s", flush=True)
+    return {"int8_products_per_step": want, "s_per_step": per_step,
+            "over_bf16": per_step / bf16_s_per_step, "peak_gib": peak_gb, "main_s": main_s,
             "steps": steps}
 
 
@@ -5335,6 +6052,7 @@ def main(argv=None) -> int:
             timed_phase(phase_reference_sd3, torch, args.seed, workdir)
             timed_phase(phase_reference_cogvideox, torch, args.seed)
             timed_phase(phase_reference_train_cogvideox, torch, args.seed)
+            ref_new = timed_phase(phase_reference_eval, torch, args.seed)
         if "serve" in phases:
             serve = timed_phase(phase_serve, torch, args.seed, workdir)
         if "train" in phases:
@@ -5474,7 +6192,15 @@ def main(argv=None) -> int:
                              "sd15": sd15["raw_prompts"]["peak_gib"],
                              "cogvideox": cogvideox["serve_peak_gib"]},
         "build_cache_rows": serve["cache_rows"]}
-    print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"],
+    int8 = {"int8_dot": "torch._int_mm (cuBLASLt's int8 GEMM), not a TPU kernel: the JAX "
+                        "function is an XLA dot (tdm_tpu/ops/quant.py:47-69)",
+            "pixart": serve["int8"], "sd3": sd3["int8"], "sd15": sd15["int8"],
+            "cogvideox": cogvideox["int8"], "train_quant_forwards": train["quant_forwards"]}
+    offline = {"generate": {"pixart": serve["generate"],
+                            "cogvideox_gif": cogvideox["generate_gif"]},
+               "evaluate": sd15["evaluate"], "reference_new_modules": ref_new}
+    print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"], "int8": int8,
+                      "offline_verbs": offline,
                       "text_encoders": text_encoders,
                       "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
                       "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,

@@ -32,10 +32,12 @@ v-prediction schedule, conditioned on T5 tokens [226, 4096]; the teacher
 directory is a checkout's `transformer/`). Runs on CUDA unless `--device
 cpu` is given, and logs the peak device memory at the end on CUDA; fp32
 products run in full fp32 unless --allow_tf32; `TDM_TINY_MODEL=1` swaps in
-the tiny config.
+the tiny config. --quant_forwards runs the no-grad forwards the JAX step
+wraps in `q()` (the rollout and the probes) on dynamic int8 products
+(`train/tdm.py`, `ops/quant.py`).
 Refused before the first step, each naming its ROADMAP slice:
 --fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
---quant_forwards (slice 4), --moe_experts (slice 6).
+--moe_experts (slice 6).
 """
 
 from __future__ import annotations

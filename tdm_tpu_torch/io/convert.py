@@ -4,8 +4,10 @@ Port of the numpy half of `tdm_tpu/io/convert.py` for the families the port
 builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), the SD1.5 UNet
 (`unet_sd15_params`), TAESD/TAESD3 (`taesd_params`), AutoencoderKL
 (`klvae_params`), the CogVideoX transformer (`cogvideox_params`), its 3D
-VAE's decoder (`vae3d_decoder_params`), and the text encoders: T5
-(`t5_encoder_params`) and CLIP's text tower (`clip_text_params`). Each converter returns
+VAE's decoder (`vae3d_decoder_params`), the text encoders: T5
+(`t5_encoder_params`) and CLIP's text tower (`clip_text_params`), and the
+CLIP score's towers (`clip_vision_params`, and `clip_model_params` for a
+whole `CLIPModel`). Each converter returns
 the same nested numpy tree as its JAX twin before `to_jax`; the weight carry
 (`io/from_jax.load_from_jax` over `flatten`) loads that tree into the
 port's modules, so a diffusers checkpoint and a tdm_tpu-layout directory take
@@ -465,9 +467,8 @@ def klvae_params(
     sd: dict[str, np.ndarray], *, layers_per_block: int = 2, n_stages: int = 4
 ) -> dict:
     """AutoencoderKL → {'encoder': ..., 'decoder': ...} trees, the 1×1
-    quant/post_quant convs under each side's tree. Both sides convert (the
-    encoder's keys count as read for the strict check); the port builds the
-    decoder only."""
+    quant/post_quant convs under each side's tree: the decoder's for
+    `models/vae.KLDecoder`, the encoder's for `KLEncoder`."""
     tree: dict = {"encoder": {}, "decoder": {}}
     enc, dec = tree["encoder"], tree["decoder"]
     if any(k.startswith("decoder.") for k in sd):
@@ -656,3 +657,53 @@ def clip_text_params(sd: dict[str, np.ndarray]) -> dict:
     if "text_projection.weight" in sd:
         _linear(sd, tree, "text_projection", "text_projection", bias=False)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# CLIP vision tower (transformers CLIPVisionModel[WithProjection] →
+# models/clip.CLIPVisionEncoder), the CLIP score's image half
+# ---------------------------------------------------------------------------
+
+
+@_strict_converter(
+    "clip_vision",
+    ignore=(r".*\.position_ids",),
+)
+def clip_vision_params(sd: dict[str, np.ndarray]) -> dict:
+    """HF CLIPVisionModel(WithProjection) state dict → the
+    CLIPVisionEncoder tree; `visual_projection` only where the checkpoint
+    has one."""
+    tree: dict = {}
+    _set(tree, "class_embedding", sd["vision_model.embeddings.class_embedding"])
+    _set(tree, "position_embedding", sd["vision_model.embeddings.position_embedding.weight"])
+    _conv(sd, tree, "vision_model.embeddings.patch_embedding", "patch_embedding")
+    _norm(sd, tree, "vision_model.pre_layrnorm", "pre_layrnorm")
+    for i in range(_n_blocks(sd, r"vision_model\.encoder\.layers\.(\d+)\.")):
+        src, dst = f"vision_model.encoder.layers.{i}", f"layers_{i}"
+        _norm(sd, tree, f"{src}.layer_norm1", f"{dst}/layer_norm1")
+        _norm(sd, tree, f"{src}.layer_norm2", f"{dst}/layer_norm2")
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, tree, f"{src}.self_attn.{p}", f"{dst}/{p}")
+        _linear(sd, tree, f"{src}.mlp.fc1", f"{dst}/fc1")
+        _linear(sd, tree, f"{src}.mlp.fc2", f"{dst}/fc2")
+    _norm(sd, tree, "vision_model.post_layernorm", "post_layernorm")
+    if "visual_projection.weight" in sd:
+        _linear(sd, tree, "visual_projection", "visual_projection", bias=False)
+    return tree
+
+
+def clip_model_params(sd: dict[str, np.ndarray]) -> tuple[dict, dict, float]:
+    """A whole `transformers.CLIPModel` state dict (both towers in one
+    checkpoint, e.g. openai/clip-vit-large-patch14) → (text tree, vision
+    tree, logit scale = exp(logit_scale), 100 without one). Each half goes
+    through its own strict converter, and a key of neither raises."""
+    text_sd = {k: v for k, v in sd.items()
+               if k.startswith("text_model.") or k == "text_projection.weight"}
+    vision_sd = {k: v for k, v in sd.items()
+                 if k.startswith("vision_model.") or k == "visual_projection.weight"}
+    unknown = sorted(set(sd) - set(text_sd) - set(vision_sd) - {"logit_scale"})
+    if unknown:
+        raise ValueError(f"clip_model converter: unrecognized keys: {unknown[:8]}")
+    logit_scale = (float(np.exp(np.asarray(sd["logit_scale"]).reshape(())))
+                   if "logit_scale" in sd else 100.0)
+    return clip_text_params(text_sd), clip_vision_params(vision_sd), logit_scale

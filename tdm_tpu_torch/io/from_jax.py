@@ -16,7 +16,13 @@ encoders' (T5's `shared_embedding`, `block_{i}/SelfAttention/{q,k,v,o}`,
 block 0's `relative_attention_bias`, `ln_attn`, `ln_ff`, `wi_0`, `wi_1`,
 `wo`; CLIP's `token_embedding`, `position_embedding`,
 `layers_{i}/{q,k,v,out}_proj`, `fc1`, `fc2`, `layer_norm1`, `layer_norm2`,
-`text_projection`), which carry by name as they are. The JAX package stores it
+`text_projection`), which carry by name as they are; so do CLIP's vision
+tower (`class_embedding`, `position_embedding`, the `patch_embedding`
+conv, `pre_layrnorm`, `layers_{i}`, `post_layernorm`, `visual_projection`)
+and the image VAE encoders (TAESD's `conv_in`, `block_in`,
+`stage_{s}_down`, `stage_{s}_block_{b}`, `conv_out`; the KL encoder's
+`down_{i}_res_{j}`, `down_{i}_conv`, `mid_*`, `norm_out`, `conv_out`,
+`quant_conv`). The JAX package stores it
 either unrolled (`blocks_{i}/...`) or, under its default `scan_layers=True`,
 as stacks with a leading [L] axis: PixArt's `blocks/...` holds every block;
 SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
@@ -145,7 +151,8 @@ def state_dict_from_jax(
 ) -> dict[str, torch.Tensor]:
     """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
     SD3Transformer2D, UNet2DCondition, CogVideoXTransformer3D, TAESDDecoder,
-    KLDecoder, VAE3DDecoder, T5Encoder or CLIPTextEncoder), from the stacked
+    TAESDEncoder, KLDecoder, KLEncoder, VAE3DDecoder, T5Encoder,
+    CLIPTextEncoder or CLIPVisionEncoder), from the stacked
     or the unrolled layout. Raises KeyError naming every missing and
     unexpected key, and ValueError on a shape mismatch."""
     return {k: torch.from_numpy(np.ascontiguousarray(v))

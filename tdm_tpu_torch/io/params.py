@@ -83,7 +83,9 @@ def write_file(
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
         for (name, shape, dtype), arr in zip(entries, leaves, strict=True):
-            arr = np.ascontiguousarray(arr, dtype=np.dtype(dtype).newbyteorder("<"))
+            # asarray keeps a 0-d leaf 0-d (a CLIPModel's logit_scale);
+            # tobytes writes C order whatever the strides
+            arr = np.asarray(arr, dtype=np.dtype(dtype).newbyteorder("<"))
             if arr.shape != tuple(shape):
                 raise ValueError(f"{name!r} has shape {arr.shape}, its entry {tuple(shape)}")
             f.write(arr.tobytes())

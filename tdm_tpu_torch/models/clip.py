@@ -1,7 +1,8 @@
 """The CLIP text encoder: SD1.5's prompt conditioning (CLIP-L) and two of
-SD3's three encoders (CLIP-L and OpenCLIP-G, with projections).
+SD3's three encoders (CLIP-L and OpenCLIP-G, with projections); and the
+CLIP vision tower, the image half of the CLIP score (`eval/clip_score.py`).
 
-Port of the text half of `tdm_tpu/models/clip.py` (the JAX package's
+Port of `tdm_tpu/models/clip.py` (the JAX package's
 rebuild of `transformers.CLIPTextModel(WithProjection)`): learned token and
 absolute position embeddings (77 positions), added in fp32 and only then
 cast to the compute dtype; a pre-LN transformer with CAUSAL self-attention
@@ -20,7 +21,16 @@ the weight carry moves a tree in by name. Dense weights are held in the
 compute dtype; the embeddings and the LayerNorms' scale and bias stay fp32,
 and the LayerNorms compute in fp32, as in JAX. The attention is two plain
 products around an fp32 softmax, as the JAX package computes it (the flash
-kernel has no causal mask). The vision tower waits for `eval/clip_score`.
+kernel has no causal mask).
+
+`CLIPVisionEncoder` (ViT-L/14 by default): the class token and the stride-p
+patch convolution's tokens, plus the learned positions (held in fp32, cast
+to the compute dtype and added there, as the JAX tower adds them),
+`pre_layrnorm` (HF's spelling), the same `CLIPBlock`s with no causal bias,
+then `post_layernorm` of token 0 times `visual_projection`. Its attention
+is the same two plain products, not `ops/attention.py`. Modules
+`class_embedding`, `position_embedding`, `patch_embedding`, `pre_layrnorm`,
+`layers_{i}`, `post_layernorm`, `visual_projection`, as the JAX tree.
 """
 
 from __future__ import annotations
@@ -146,4 +156,82 @@ class CLIPTextEncoder(nn.Module):
         if c.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return CLIPOutput(last_hidden_state=last, pooled=pooled,
+                          hidden_states=tuple(hidden_states))
+
+
+@dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14  # ViT-L/14, the standard CLIP-score backbone
+    hidden: int = 1024
+    num_heads: int = 16
+    num_layers: int = 24
+    mlp_ratio: int = 4
+    activation: str = "quick_gelu"
+    projection_dim: Optional[int] = 768  # set: the WithProjection variant
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def tiny() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(
+            image_size=16, patch_size=4, hidden=32, num_heads=4,
+            num_layers=2, projection_dim=24, dtype=torch.float32,
+        )
+
+    def block_view(self) -> CLIPTextConfig:
+        """The hyperparameters `CLIPBlock` reads (the vision blocks are the
+        text tower's pre-LN block without the causal mask)."""
+        return CLIPTextConfig(
+            hidden=self.hidden, num_heads=self.num_heads, num_layers=self.num_layers,
+            mlp_ratio=self.mlp_ratio, activation=self.activation,
+            layer_norm_eps=self.layer_norm_eps, dtype=self.dtype,
+        )
+
+
+class CLIPVisionEncoder(nn.Module):
+    """forward(pixel_values [B, 3, H, W], CLIP-normalized) → CLIPOutput:
+    `last_hidden_state` without a final LayerNorm (as HF's
+    CLIPVisionTransformer), `pooled` = post_layernorm(token 0), projected
+    when the config has a `projection_dim`. Built on `device` (CUDA unless
+    the caller passes 'cpu')."""
+
+    def __init__(self, cfg: Optional[CLIPVisionConfig] = None, *, device=None):
+        super().__init__()
+        cfg = cfg or CLIPVisionConfig()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden, device=dev))
+        self.position_embedding = nn.Parameter(torch.zeros(n_pos, cfg.hidden, device=dev))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden, cfg.patch_size, stride=cfg.patch_size,
+                                         bias=False, dtype=cfg.dtype, device=dev)
+        self.pre_layrnorm = L.LayerNorm(cfg.hidden, cfg.layer_norm_eps, device=dev)
+        block_cfg = cfg.block_view()
+        for i in range(cfg.num_layers):
+            self.add_module(f"layers_{i}", CLIPBlock(block_cfg, device=dev))
+        self.post_layernorm = L.LayerNorm(cfg.hidden, cfg.layer_norm_eps, device=dev)
+        if cfg.projection_dim is not None:
+            self.visual_projection = L.Dense(cfg.hidden, cfg.projection_dim, bias=False,
+                                             dtype=cfg.dtype, device=dev)
+
+    def forward(self, pixel_values: torch.Tensor) -> CLIPOutput:
+        c = self.cfg
+        dev = self.class_embedding.device
+        x = torch.as_tensor(pixel_values, device=dev).to(c.dtype)
+        patches = self.patch_embedding(x).flatten(2).transpose(1, 2)  # [B, n, D]
+        b = patches.shape[0]
+        cls = self.class_embedding.to(c.dtype).expand(b, 1, c.hidden)
+        x = torch.cat([cls, patches], dim=1)
+        x = x + self.position_embedding[None, : x.shape[1]].to(c.dtype)
+        x = self.pre_layrnorm(x).to(c.dtype)
+        zero_bias = torch.zeros((1, 1, 1, 1), device=dev)
+        hidden_states = [x]
+        for i in range(c.num_layers):
+            x = getattr(self, f"layers_{i}")(x, zero_bias)
+            hidden_states.append(x)
+        pooled = self.post_layernorm(x[:, 0]).to(c.dtype)
+        if c.projection_dim is not None:
+            pooled = self.visual_projection(pooled)
+        return CLIPOutput(last_hidden_state=x, pooled=pooled,
                           hidden_states=tuple(hidden_states))

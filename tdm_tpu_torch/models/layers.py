@@ -25,6 +25,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils import checkpoint as ckpt
 
+from tdm_tpu_torch.ops import quant
 from tdm_tpu_torch.ops.attention import attention as fused_attention
 
 # the JAX package's remat policies: 'full' recomputes the whole block in the
@@ -72,7 +73,10 @@ def sinusoidal_timestep_embedding(
 class Dense(nn.Linear):
     """A linear layer computing in `dtype` on parameters held in
     `param_dtype` (default: `dtype`), cast at every use; `bias=False`
-    drops the bias (SD1.5's q/k/v projections)."""
+    drops the bias (SD1.5's q/k/v projections). Under an int8 scope on the
+    calling thread (`ops/quant.quant_scope`) a call that passes the gates
+    runs through `quant.int8_dot`, as the JAX interceptor reroutes flax's
+    `nn.Dense`; no other layer reroutes."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True, dtype,
                  param_dtype=None, device=None):
@@ -81,6 +85,9 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        y = quant.dense(x, self.weight, self.bias, dt)
+        if y is not None:
+            return y
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 

@@ -1,6 +1,6 @@
-"""The VAE decoders in PyTorch: TAESD (AutoencoderTiny) and AutoencoderKL.
+"""The image VAEs in PyTorch: TAESD (AutoencoderTiny) and AutoencoderKL.
 
-Port of the decoder side of `tdm_tpu/models/vae.py`:
+Port of `tdm_tpu/models/vae.py`:
   * `TAESDDecoder`: the tiny decoder (`madebyollin/taesd`), and TAESD3 (16
     latent channels, shift 0) for SD3; z [B, C_lat, h, w] → image
     [B, 3, 8h, 8w] in [0, 1]. Modules conv_in, stage_{s}_block_{b}/
@@ -13,10 +13,17 @@ Port of the decoder side of `tdm_tpu/models/vae.py`:
     is fp32 by default, as in JAX; the mid-block's one-head attention at
     D = the last width is its own fp32 matmul and softmax (JAX computes it
     with impl='xla', not a Pallas kernel).
+  * `TAESDEncoder`: image [B, 3, H, W] → z [B, C_lat, H/8, W/8]. Modules
+    conv_in, block_in, stage_{s}_down (stride 2, no bias),
+    stage_{s}_block_{b}, conv_out.
+  * `KLEncoder`: image [B, 3, H, W] in [-1, 1] → (mean, logvar), each
+    [B, C_lat, H/8, W/8], after diffusers' 1×1 quant_conv. Modules conv_in,
+    down_{i}_res_{j}, down_{i}_conv (stride 2, padded on the bottom and
+    right only), mid_block_{1,2}, mid_attn, norm_out, conv_out, quant_conv.
   * `unscale_latents` and `tiled_decode` (overlapping tiles, cross-faded).
 Layout NCHW throughout; module names follow the JAX tree, so the weight
-carry (`io/from_jax.py`) fills them. `KLEncoder` is not ported (ROADMAP.md
-queue 1, slice 4).
+carry (`io/from_jax.py`) fills them. No served or trained path encodes: the
+training is image-free, as in JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +104,37 @@ class TAESDDecoder(nn.Module):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = getattr(self, f"stage_{s}_conv")(x)
         return self.conv_out(self.block_out(x))
+
+
+class TAESDEncoder(nn.Module):
+    def __init__(
+        self,
+        cfg: Optional[TAESDConfig] = None,
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__()
+        c = self.cfg = cfg if cfg is not None else TAESDConfig()
+        dev = resolve_device(device)
+        kw = dict(dtype=c.dtype, device=dev)
+        self.conv_in = nn.Conv2d(c.image_channels, c.width, 3, padding=1, **kw)
+        self.block_in = _TinyBlock(c.width, **kw)
+        for s in range(c.num_stages):
+            self.add_module(f"stage_{s}_down", nn.Conv2d(c.width, c.width, 3, stride=2,
+                                                         padding=1, bias=False, **kw))
+            for b in range(c.blocks_per_stage):
+                self.add_module(f"stage_{s}_block_{b}", _TinyBlock(c.width, **kw))
+        self.conv_out = nn.Conv2d(c.width, c.latent_channels, 3, padding=1, **kw)
+
+    def forward(self, img: torch.Tensor) -> torch.Tensor:
+        """image [B, 3, H, W] → z [B, C_lat, H/8, W/8]."""
+        c = self.cfg
+        x = self.block_in(self.conv_in(img.to(c.dtype)))
+        for s in range(c.num_stages):
+            x = getattr(self, f"stage_{s}_down")(x)
+            for b in range(c.blocks_per_stage):
+                x = getattr(self, f"stage_{s}_block_{b}")(x)
+        return self.conv_out(x)
 
 
 @dataclass(frozen=True)
@@ -210,6 +248,52 @@ class KLDecoder(nn.Module):
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
                 x = getattr(self, f"up_{i}_conv")(x)
         return self.conv_out(F.silu(self.norm_out(x)).to(c.dtype))
+
+
+class KLEncoder(nn.Module):
+    def __init__(
+        self,
+        cfg: Optional[KLVAEConfig] = None,
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__()
+        c = self.cfg = cfg if cfg is not None else KLVAEConfig()
+        dev = resolve_device(device)
+        kw = dict(dtype=c.dtype, device=dev)
+        widths = list(c.block_widths)
+        g = c.norm_groups
+        self.conv_in = nn.Conv2d(c.image_channels, widths[0], 3, padding=1, **kw)
+        ch = widths[0]
+        for i, width in enumerate(widths):
+            for j in range(c.layers_per_block):
+                self.add_module(f"down_{i}_res_{j}", _ResBlock(ch, width, g, **kw))
+                ch = width
+            if i < len(widths) - 1:
+                self.add_module(f"down_{i}_conv", nn.Conv2d(ch, ch, 3, stride=2, **kw))
+        self.mid_block_1 = _ResBlock(widths[-1], widths[-1], g, **kw)
+        self.mid_attn = _MidAttention(widths[-1], g, **kw)
+        self.mid_block_2 = _ResBlock(widths[-1], widths[-1], g, **kw)
+        self.norm_out = GroupNorm(g, widths[-1], 1e-6, device=dev)
+        self.conv_out = nn.Conv2d(widths[-1], 2 * c.latent_channels, 3, padding=1, **kw)
+        # diffusers' 1×1 quant_conv over the (mean, logvar) stack
+        self.quant_conv = nn.Conv2d(2 * c.latent_channels, 2 * c.latent_channels, 1, **kw)
+
+    def forward(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """image [B, 3, H, W] in [-1, 1] → (mean, logvar), each [B, C_lat,
+        H/8, W/8] for four stages, in the config's dtype."""
+        c = self.cfg
+        n = len(c.block_widths)
+        x = self.conv_in(img.to(c.dtype))
+        for i in range(n):
+            for j in range(c.layers_per_block):
+                x = getattr(self, f"down_{i}_res_{j}")(x)
+            if i < n - 1:  # stride 2 over the input padded by one on the bottom and right
+                x = getattr(self, f"down_{i}_conv")(F.pad(x, (0, 1, 0, 1)))
+        x = self.mid_block_2(self.mid_attn(self.mid_block_1(x)))
+        x = self.conv_out(F.silu(self.norm_out(x)).to(c.dtype))
+        mean, logvar = self.quant_conv(x).chunk(2, dim=1)
+        return mean, logvar
 
 
 def unscale_latents(z: torch.Tensor, scaling_factor: float, shift_factor: float = 0.0):

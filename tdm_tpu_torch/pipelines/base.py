@@ -24,6 +24,7 @@ import torch
 
 from tdm_tpu_torch.io import from_jax
 from tdm_tpu_torch.lora import adapter as lora_lib, io as lora_io
+from tdm_tpu_torch.ops import quant as quant_lib
 
 
 VALUE_RANGES = ("unit", "pm1")
@@ -67,6 +68,12 @@ class DiffusionPipelineBase:
         self._loras: dict[str, lora_lib.LoRA] = {}
         self._base: dict[str, torch.Tensor] = {}  # pristine adapted weights
         self._active: tuple = ()  # ((name, scale), ...)
+        self.quant: Optional[str] = None  # None or 'int8': the sampler's products
+
+    def sampler_scope(self):
+        """The scope the sampler runs under: `quant_scope(self.quant)`
+        (an unknown mode raises ValueError here, at the call)."""
+        return quant_lib.quant_scope(self.quant)
 
     @property
     def denoiser(self) -> torch.nn.Module:

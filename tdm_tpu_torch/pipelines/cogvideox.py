@@ -160,11 +160,12 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         if timesteps is None:
             timesteps = (TDM_TRAINED_GRID if num_inference_steps == 4 else
                          sched.fewstep_grid(1000, num_inference_steps).tolist())
-        out = sampling.sample_fewstep(
-            cog.make_denoise_fn(self.transformer), self.schedule, noise, cond,
-            timestep_grid=sched.grid_from_list(timesteps), uncond=uncond,
-            cfg=guidance_scale if use_cfg else None,
-        )
+        with self.sampler_scope():
+            out = sampling.sample_fewstep(
+                cog.make_denoise_fn(self.transformer), self.schedule, noise, cond,
+                timestep_grid=sched.grid_from_list(timesteps), uncond=uncond,
+                cfg=guidance_scale if use_cfg else None,
+            )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         return PipelineOutput(images=to_images(self.decode(out), value_range="pm1"),

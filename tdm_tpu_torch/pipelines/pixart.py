@@ -126,16 +126,17 @@ class PixArtPipeline(DiffusionPipelineBase):
         )
         denoise = pixart.make_denoise_fn(self.transformer)
         cfg = guidance_scale if use_cfg else None
-        if solver == "fewstep":
-            out = sampling.sample_fewstep(
-                denoise, self.schedule, noise, cond,
-                timestep_grid=sched.fewstep_grid(total_steps, num_inference_steps),
-                uncond=uncond, cfg=cfg,
-            )
-        else:
-            sample = solvers.sample_dpm_solver if solver == "dpm" else solvers.sample_unipc
-            out = sample(denoise, solvers.ddpm_grid(self.schedule, num_inference_steps),
-                         noise, cond, uncond=uncond, cfg=cfg)
+        with self.sampler_scope():
+            if solver == "fewstep":
+                out = sampling.sample_fewstep(
+                    denoise, self.schedule, noise, cond,
+                    timestep_grid=sched.fewstep_grid(total_steps, num_inference_steps),
+                    uncond=uncond, cfg=cfg,
+                )
+            else:
+                sample = solvers.sample_dpm_solver if solver == "dpm" else solvers.sample_unipc
+                out = sample(denoise, solvers.ddpm_grid(self.schedule, num_inference_steps),
+                             noise, cond, uncond=uncond, cfg=cfg)
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling)

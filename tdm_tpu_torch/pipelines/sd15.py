@@ -123,11 +123,12 @@ class SD15Pipeline(DiffusionPipelineBase):
             latents, generator_for(seed, generator),
             (b, self.unet.cfg.in_channels, height // 8, width // 8), self.device,
         )
-        out = sample(
-            unet_sd15.make_denoise_fn(self.unet),
-            solvers.ddpm_grid(self.schedule, num_inference_steps), noise, cond,
-            uncond=uncond, cfg=guidance_scale if use_cfg else None,
-        )
+        with self.sampler_scope():
+            out = sample(
+                unet_sd15.make_denoise_fn(self.unet),
+                solvers.ddpm_grid(self.schedule, num_inference_steps), noise, cond,
+                uncond=uncond, cfg=guidance_scale if use_cfg else None,
+            )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling)

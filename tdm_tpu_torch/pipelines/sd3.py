@@ -147,11 +147,12 @@ class SD3Pipeline(DiffusionPipelineBase):
             self.device,
         )
         shift = self.flow_shift if flow_shift is None else flow_shift
-        out = sample(
-            mmdit_sd3.make_denoise_fn(self.transformer),
-            solvers.flow_grid(num_inference_steps, flow_shift=shift), noise, cond,
-            uncond=uncond, cfg=guidance_scale if use_cfg else None,
-        )
+        with self.sampler_scope():
+            out = sample(
+                mmdit_sd3.make_denoise_fn(self.transformer),
+                solvers.flow_grid(num_inference_steps, flow_shift=shift), noise, cond,
+                uncond=uncond, cfg=guidance_scale if use_cfg else None,
+            )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)
         decoded = self.vae_decoder(out.float() / self.vae_scaling + self.vae_shift)

@@ -15,6 +15,11 @@ Threads: `submit` runs on the caller's thread (the prompt's encode, or its
 cache lookup, and the upload); one worker thread calls the pipeline; one resolver thread copies results
 back to the host, so a readback overlaps the next batch's work. The pending
 queue is bounded (`max_queue`); overflow raises `Overloaded` (HTTP 429).
+
+Set `pipe.quant` before wrapping (the server's `--quant int8`): the worker
+thread's pipeline call opens the int8 scope around the sampler alone, and
+the scope is that thread's, so the encodes on the callers' threads keep
+their own route whatever batch is running.
 """
 
 from __future__ import annotations

@@ -17,6 +17,8 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
     python -m tdm_tpu_torch.serve.server --model CogVideoX-2b --lora tdm.safetensors \\
         --embedding_cache t5_cache.npz --num_frames 49   (CogVideoX, 480×720,
                                        a T5 cache of [226, 4096] rows)
+    python -m tdm_tpu_torch.serve.server --model out/sd3 --quant int8 ...
+                                      (int8 products in the sampler)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
@@ -168,7 +170,7 @@ def _lzw(indices: bytes) -> bytes:
                        bitorder="little").tobytes()
 
 
-def encode_gif(frames: np.ndarray) -> bytes:
+def encode_gif(frames: np.ndarray, *, delay_ms: int = GIF_DELAY_MS) -> bytes:
     """[F, H, W, 3] float in [0, 1] → GIF89a bytes: the fixed colour cube as
     the global colour table, the NETSCAPE2.0 block looping forever, and per
     frame a graphic control block (the delay in centiseconds, truncated as
@@ -181,7 +183,7 @@ def encode_gif(frames: np.ndarray) -> bytes:
     parts = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
              b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
     for i in range(n):
-        parts.append(b"\x21\xf9\x04\x04" + struct.pack("<H", GIF_DELAY_MS // 10) + b"\x00\x00")
+        parts.append(b"\x21\xf9\x04\x04" + struct.pack("<H", delay_ms // 10) + b"\x00\x00")
         parts.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08")
         data = _lzw(idx[i].tobytes())
         parts.extend(bytes([len(data[j:j + 255])]) + data[j:j + 255]
@@ -371,9 +373,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="run one discarded batch per bucket before accepting "
                         "traffic; with no PROMPT uses '' (or the first cached "
                         "prompt when serving from --embedding_cache)")
-    # options of the JAX server whose modules are not ported yet
     p.add_argument("--quant", default=None, choices=(None, "int8"),
-                   help="not ported yet (ROADMAP slice 4)")
+                   help="dynamic int8 products for the denoiser's large linear "
+                        "layers in the sampler (ops/quant.py)")
+    # options of the JAX server whose modules are not ported yet
     p.add_argument("--tp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
     p.add_argument("--dp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
     return p.parse_args(argv)
@@ -383,7 +386,6 @@ def build_server(args: argparse.Namespace) -> TDMServer:
     """Load the pipeline, make the batcher and bind the socket (before the
     warm-up, so early clients wait in the listen backlog)."""
     for flag, value, where in (
-        ("--quant", args.quant, "slice 4 (int8)"),
         ("--tp", args.tp > 1, "slice 6 (multi-GPU)"),
         ("--dp", args.dp > 1, "slice 6 (multi-GPU)"),
     ):
@@ -400,6 +402,8 @@ def build_server(args: argparse.Namespace) -> TDMServer:
     if args.lora:
         pipe.load_lora_weights(args.lora, adapter_name="tdm")
         pipe.set_adapters(["tdm"], [args.lora_scale])
+    if args.quant:
+        pipe.quant = args.quant
     call = {"num_inference_steps": args.num_inference_steps,
             "guidance_scale": args.guidance_scale}
     for k in ("height", "width", "num_frames", "flow_shift"):

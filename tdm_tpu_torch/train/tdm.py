@@ -31,7 +31,13 @@ Differences from the JAX step that a caller sees:
     inside its trace; here they are merged once per step without gradient
     (for the rollout and x0_gen_sg) and once under autograd (for the student
     loss). The values are the same: the merge is deterministic.
-  * `quant_forwards` raises NotImplementedError (ROADMAP.md slice 4).
+
+`quant_forwards` runs exactly the forwards the JAX step wraps in `q()`
+(`tdm_tpu/train/tdm.py:203-217`, used at `:239`, `:310`, `:363-364`,
+`:404`, `:410`) under the int8 scope (`ops/quant.py`): the student's K-step
+rollout, the student's stop-grad x̂₀ ('dmd'), the teacher's CFG x₀ probe and
+the critic's ε probe (both loss modes). Every forward under autograd keeps
+the plain products.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from tdm_tpu_torch.core import sampling, schedules as sched
+from tdm_tpu_torch.ops import quant as quant_lib
 from tdm_tpu_torch.train import optim as topt
 
 # denoise_fn(params, x, t, cond) -> the model's output in its schedule's
@@ -189,13 +196,12 @@ def build_train_step(
             "loss_mode='instruct' requires an epsilon-prediction schedule; "
             f"got {schedule.prediction_type!r} — use loss_mode='dmd'"
         )
-    if config.quant_forwards:
-        raise NotImplementedError(
-            "quant_forwards (int8 no-grad forwards) is not ported yet: "
-            "ROADMAP.md queue 1, slice 4 (ops/quant.py)"
-        )
     grid = sched.fewstep_grid(config.total_steps, config.num_steps)
     levels = segment_levels(config)
+    def q():
+        """The scope of a no-grad probe: int8 under quant_forwards (the JAX
+        step's `q()`); never around a forward under autograd."""
+        return quant_lib.quant_scope("int8" if config.quant_forwards else None)
 
     def train_step(state: TrainState, draws: StepDraws, cond, uncond, teacher=None):
         teacher = teacher_params if teacher is None else teacher
@@ -214,6 +220,7 @@ def build_train_step(
         # ---- 1-2. student rollout from pure noise, no gradient ----
         with torch.no_grad():
             student_sg = student_weights(state.student)
+        with torch.no_grad(), q():
             traj = sampling.sample_fewstep(
                 lambda x, t, c: denoise_fn(student_sg, x, t, c),
                 schedule, z, cond, timestep_grid=grid, return_trajectory=True,
@@ -257,7 +264,7 @@ def build_train_step(
                 out = denoise_fn(weights, state_in, t_in, cond)
                 return sched.predicted_origin(schedule, out, t_in, state_in)
 
-            with torch.no_grad():
+            with torch.no_grad(), q():
                 x0_gen_sg = gen_x0(student_sg)
             a_f, s_f = sched.alpha_sigma(schedule, t_fake, z.dim())
             x_t_sg = (a_f * x0_gen_sg + s_f * fresh).to(x0_gen_sg.dtype)
@@ -287,8 +294,9 @@ def build_train_step(
             )
 
             # ---- score probes at (x_t, t_fake), no gradient ----
-            x0_real = teacher_cfg_x0(x_t_sg, t_fake)
-            with torch.no_grad():
+            with q():
+                x0_real = teacher_cfg_x0(x_t_sg, t_fake)
+            with torch.no_grad(), q():
                 eps_fake = denoise_fn(state.critic, x_t_sg, t_fake, cond)
                 x0_fake = sched.predicted_origin(schedule, eps_fake, t_fake, x_t_sg)
 
@@ -311,10 +319,10 @@ def build_train_step(
             updates, critic_opt = critic_tx.update(critic_grads, state.critic_opt, state.critic)
             topt.apply_updates(state.critic, updates)
 
-            with torch.no_grad():
+            with torch.no_grad(), q():
                 eps_fake = denoise_fn(state.critic, x_f, t_fake, cond)
                 x_in = sched.predicted_origin(schedule, eps_fake, t_fake, x_f)
-            target = teacher_cfg_x0(x_in, t_fake)
+                target = teacher_cfg_x0(x_in, t_fake)
 
             def student_loss_fn(student_params):
                 weights = student_weights(student_params)

@@ -6,8 +6,10 @@ under the family's schedule and cond (PixArt's DDPM tables and (text,
 mask); SD3's flow tables and (ctx, pooled)), decodes them with a TAESD
 decoder (TAESD3 for SD3's 16 channels) and writes one PNG grid per K;
 `log_validation` renders the student (K steps, no CFG) beside the teacher
-(28 steps, CFG 7) from the same seed. PNGs go through the port's own
-encoder (`serve.server.encode_png`: the card's machine has no Pillow).
+(28 steps, CFG 7) from the same seed. PNGs and GIFs (`save_video_gif`, the
+CogVideoX recipe's export) go through the port's own stdlib encoders
+(`serve.server.encode_png`/`encode_gif`: the card's machine has no Pillow);
+the GIF's palette is a fixed colour cube where Pillow picks one per image.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from tdm_tpu_torch.core import sampling, schedules as sched
 from tdm_tpu_torch.pipelines.base import to_images
-from tdm_tpu_torch.serve.server import encode_png
+from tdm_tpu_torch.serve.server import encode_gif, encode_png
 
 
 def make_grid(images: np.ndarray, *, cols: Optional[int] = None) -> np.ndarray:
@@ -38,6 +40,18 @@ def make_grid(images: np.ndarray, *, cols: Optional[int] = None) -> np.ndarray:
 def save_png(path: str, array: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(np.ascontiguousarray(array)))
+
+
+def save_video_gif(path: str, frames: np.ndarray, *, fps: int = 8) -> None:
+    """[F, H, W, 3] floats in [0, 1] (or uint8) → an animated GIF looping
+    forever, each frame shown int(1000 / fps) ms (written in whole
+    centiseconds, as Pillow writes a duration): the CogVideoX recipe's
+    `export_to_video(..., fps=8)`."""
+    frames = np.asarray(frames)
+    if frames.dtype == np.uint8:
+        frames = frames.astype(np.float32) / 255.0
+    with open(path, "wb") as f:
+        f.write(encode_gif(np.clip(frames, 0, 1), delay_ms=int(1000 / fps)))
 
 
 @torch.no_grad()

@@ -326,13 +326,15 @@ def test_server_status_endpoints_and_errors(server):
 
 @pytest.mark.parametrize("flag,value,where", [
     ("--tp", "2", "slice 6"), ("--dp", "2", "slice 6"),
-    ("--quant", "int8", "slice 4"), ("--lora", "x.safetensors", None),
+    # the id of this case is kept stable; --quant is ported
+    pytest.param("--quant", "int8", None, id="--quant-int8-slice 4"),
+    ("--lora", "x.safetensors", None),
 ])
 def test_server_refuses_unported_options(flag, value, where):
-    """The options still unported raise naming their slice; --lora is
-    ported (served in tests/test_torch_port_sd3.py), so it passes the
-    check and the missing model (neither a directory nor a hub repo id) is
-    what fails."""
+    """The options still unported raise naming their slice; --lora and
+    --quant are ported (served in tests/test_torch_port_sd3.py and
+    tests/test_torch_port_quant.py), so they pass the check and the missing
+    model (neither a directory nor a hub repo id) is what fails."""
     args = tserver.parse_args(["--model", "unused", "--device", "cpu", flag, value])
     if where is None:
         with pytest.raises(FileNotFoundError, match="neither an existing path"):

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from tdm_tpu_torch import resolve_device
-from tdm_tpu_torch.cli import build_cache as tbuild_cache
+from tdm_tpu_torch.cli import build_cache as tbuild_cache, evaluate as tevaluate
+from tdm_tpu_torch.cli import generate as tgenerate
 from tdm_tpu_torch.core import schedules as tsched
 from tdm_tpu_torch.io import params as params_io
 from tdm_tpu_torch.models import clip as tclip, pixart as tpixart, t5 as tt5, vae as tvae
@@ -96,6 +97,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         tbuild_cache.main(["--pipeline", str(tmp_path), "--prompts", str(tmp_path / "p.txt"),
                            "--out", str(tmp_path / "c.npz")])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tgenerate.main(["--model", str(tmp_path), "--prompt", "a cat"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tevaluate.main(["--model", str(tmp_path), "--clip_model", str(tmp_path),
+                        "--prompt", "a cat"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tvae.KLEncoder(tvae.KLVAEConfig.tiny())
     assert resolve_device("cpu") == torch.device("cpu")
 
 

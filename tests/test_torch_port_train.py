@@ -433,10 +433,16 @@ def test_eight_bit_accumulated_train_step_matches_jax(tiny_pair, monkeypatch):
 
 
 def test_train_step_refuses_unported():
+    """Nothing of the step is refused any more: quant_forwards builds (its
+    step is held against JAX in tests/test_torch_port_quant.py), and an
+    unknown loss mode still raises."""
     tb = tfamilies.build("pixart", tiny=True, device="cpu")
     tx = topt.make_optimizer(1e-4)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttdm.build_train_step(tb.denoise_fn, {}, tb.schedule, ttdm.TDMConfig(quant_forwards=True),
+    assert callable(ttdm.build_train_step(
+        tb.denoise_fn, {}, tb.schedule, ttdm.TDMConfig(quant_forwards=True),
+        tx, tx, sample_shape=tb.sample_shape))
+    with pytest.raises(ValueError, match="loss_mode"):
+        ttdm.build_train_step(tb.denoise_fn, {}, tb.schedule, ttdm.TDMConfig(loss_mode="x"),
                               tx, tx, sample_shape=tb.sample_shape)
     assert tfamilies.build("cogvideox", tiny=True, device="cpu").name == "cogvideox"  # ported
     assert tfamilies.build("sd15", tiny=True, device="cpu").name == "sd15"  # ported
@@ -539,8 +545,11 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     (["--fsdp", "2"], "slice 6"),
     (["--sp", "2"], "slice 6"),
     (["--push_to_hub"], "slice 7"),
-    (["--quant_forwards"], "slice 4"),
-    (["--model_family", "sd15", "--quant_forwards"], "slice 4"),
+    # the ids of these two cases are kept stable; --quant_forwards is
+    # ported, and with a multi-GPU flag the refusal names slice 6
+    pytest.param(["--quant_forwards", "--sp", "2"], "slice 6", id="flags4-slice 4"),
+    pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"], "slice 6",
+                 id="flags5-slice 4"),
     (["--moe_experts", "4"], "slice 6"),
 ])
 def test_cli_refuses_unported_flags_before_the_first_step(tmp_path, monkeypatch, flags, where):
