@@ -10,6 +10,14 @@ PixArt-α-512, SD3-Medium and SD1.5 (`python -m tdm_tpu_torch.cli.train_tdm`).
 Entry points run on the CUDA device unless the caller passes `device="cpu"`.
 """
 
-from tdm_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # imported on first use, so that a host-only entry point (the checkpoint
+    # converter's --src/--dst and --reverse) starts without importing torch
+    if name == "resolve_device":
+        from tdm_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -11,7 +11,8 @@ Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
   → prompt data (an embedding cache from $TDM_EMBEDDING_CACHE, with SD3's
   pooled vectors when it has them; else hash pseudo-embeddings of the
   prompts of --train_data_dir, a .txt/.jsonl file read by the native C++
-  loader where g++ builds it) → the TDM step → loop [a batch per micro-step; per
+  loader where g++ builds it, or an HF dataset name or folder read by
+  `datasets` with --dataset_config_name) → the TDM step → loop [a batch per micro-step; per
   optimizer step: metrics at step 1 and every 10 → validation grids every
   --validation_steps when $TDM_TAESD_DIR names a diffusers AutoencoderTiny
   directory and the latents are images (a video family renders none, as
@@ -34,10 +35,11 @@ cpu` is given, and logs the peak device memory at the end on CUDA; fp32
 products run in full fp32 unless --allow_tf32; `TDM_TINY_MODEL=1` swaps in
 the tiny config. --quant_forwards runs the no-grad forwards the JAX step
 wraps in `q()` (the rollout and the probes) on dynamic int8 products
-(`train/tdm.py`, `ops/quant.py`).
+(`train/tdm.py`, `ops/quant.py`). --push_to_hub uploads the output
+directory at the end of the run (`io/hub.push_to_hub`: --hub_model_id,
+else the directory's name; --hub_token, else $HF_TOKEN).
 Refused before the first step, each naming its ROADMAP slice:
---fsdp/--tp/--pp/--sp/--ep > 1 (slice 6), --push_to_hub (slice 7),
---moe_experts (slice 6).
+--fsdp/--tp/--pp/--sp/--ep > 1 and --moe_experts (slice 6).
 """
 
 from __future__ import annotations
@@ -61,10 +63,6 @@ def refuse_unported(cfg) -> None:
                 f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
                 "ported yet: ROADMAP.md queue 1, slice 6"
             )
-    if cfg.push_to_hub:
-        raise NotImplementedError(
-            "--push_to_hub is not ported yet: ROADMAP.md queue 1, slice 7 (io/hub.py)"
-        )
 
 
 def _load_taesd(vae_dir: str, latent_channels: int, device):
@@ -430,6 +428,15 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     logger.info("exported student.safetensors%s",
                 "" if lora_template is None and cfg.export_lora_rank <= 0
                 else " and tdm_lora.safetensors")
+    if cfg.push_to_hub:
+        # the reference's create_repo + upload_folder (src/main.py:36,125-128);
+        # the repo id defaults to the output directory's name, as there
+        from tdm_tpu_torch.io import hub as hub_io
+
+        repo_id = cfg.hub_model_id or os.path.basename(os.path.normpath(out_dir))
+        url = hub_io.push_to_hub(out_dir, repo_id, token=cfg.hub_token,
+                                 commit_message=f"tdm_tpu checkpoint (step {global_step})")
+        logger.info("pushed %s to hub: %s", out_dir, url)
     metrics_log.close()
     if device.type == "cuda":
         logger.info("peak device memory %.2f GiB (max_memory_allocated)",

@@ -2,8 +2,9 @@
 text-embedding cache and the family conditioning format.
 
 The port's own copy of `tdm_tpu/data/prompts.py` for the PixArt paths (numpy
-only): `load_prompts` reads .txt / .jsonl files and in-memory lists (an HF
-dataset name raises: slice 7), `PromptBatcher` is the shuffling per-host
+only): `load_prompts` reads .txt / .jsonl files, in-memory lists and HF
+datasets (a hub name or a local folder, through `datasets.load_dataset`,
+imported when first needed), `PromptBatcher` is the shuffling per-host
 batcher, and `EmbeddingCache` reads and writes the `.npz` that either
 package's `cli/build_cache` builds — embeds [N, L, D], masks [N, L],
 prompts [N], the empty prompt's `uncond_embed` [L, D] / `uncond_mask` [L]
@@ -32,8 +33,12 @@ def load_prompts(
     max_samples: Optional[int] = None,
     dataset_config_name: Optional[str] = None,
 ) -> list[str]:
-    """Prompt strings from a list, a .txt file (one prompt a line) or a
-    .jsonl file (the caption column of each row)."""
+    """Prompt strings from a list, a .txt file (one prompt a line), a
+    .jsonl file (the caption column of each row), or else an HF dataset:
+    `datasets.load_dataset(source, dataset_config_name, split="train")`'s
+    caption column (the reference's caption-column logic; a missing
+    `datasets` package raises its ImportError). `max_samples` keeps the
+    first N."""
     if isinstance(source, (list, tuple)):
         prompts = [str(p) for p in source]
     elif os.path.isfile(source) and source.endswith(".txt"):
@@ -46,11 +51,12 @@ def load_prompts(
                 if line.strip():
                     prompts.append(str(json.loads(line)[caption_column]))
     else:
-        raise NotImplementedError(
-            f"prompt source {source!r}: HF datasets and other formats are not "
-            "ported yet (ROADMAP.md queue 1, slice 7); pass a .txt or .jsonl "
-            "file, or an embedding cache"
-        )
+        import datasets  # a heavy import, and absent where no dataset is read
+
+        ds = datasets.load_dataset(source, dataset_config_name, split="train")
+        if caption_column not in ds.column_names:
+            raise ValueError(f"caption column {caption_column!r} not in {ds.column_names}")
+        prompts = [str(p) for p in ds[caption_column]]
     if max_samples is not None:
         prompts = prompts[:max_samples]
     if not prompts:

@@ -1,4 +1,4 @@
-"""Checkpoint conversion: diffusers state dicts → the JAX package's trees.
+"""Checkpoint conversion: diffusers state dicts ↔ the JAX package's trees.
 
 Port of the numpy half of `tdm_tpu/io/convert.py` for the families the port
 builds: PixArt (`pixart_params`), SD3/SD3.5 (`sd3_params`), the SD1.5 UNet
@@ -11,7 +11,9 @@ whole `CLIPModel`). Each converter returns
 the same nested numpy tree as its JAX twin before `to_jax`; the weight carry
 (`io/from_jax.load_from_jax` over `flatten`) loads that tree into the
 port's modules, so a diffusers checkpoint and a tdm_tpu-layout directory take
-one weight path.
+one weight path. The reverse direction, a tree back to the diffusers state
+dict, exists for PixArt (`pixart_to_torch`, with `unstack_layers`; the
+`TO_TORCH` table).
 
 torch Linear weights are [out, in] and the tree's Dense kernels [in, out];
 torch Conv2d is [out, in, kh, kw] and the tree's HWIO; torch Conv3d is
@@ -707,3 +709,92 @@ def clip_model_params(sd: dict[str, np.ndarray]) -> tuple[dict, dict, float]:
     logit_scale = (float(np.exp(np.asarray(sd["logit_scale"]).reshape(())))
                    if "logit_scale" in sd else 100.0)
     return clip_text_params(text_sd), clip_vision_params(vision_sd), logit_scale
+
+
+# ---------------------------------------------------------------------------
+# The reverse direction: a tdm_tpu param tree → a diffusers state dict, so a
+# distilled full-weight student loads back into the torch ecosystem. LoRA
+# files interchange through the kohya layout (lora/io.py) instead.
+# ---------------------------------------------------------------------------
+
+
+def _unstacked(node, i: int):
+    if isinstance(node, Mapping):
+        return {k: _unstacked(v, i) for k, v in node.items()}
+    return np.asarray(node[i])
+
+
+def _first_leaf(node):
+    while isinstance(node, Mapping):
+        node = next(iter(node.values()))
+    return node
+
+
+def unstack_layers(tree: dict, prefix: str = "blocks") -> dict:
+    """The inverse of `stack_layers`: a stacked `{prefix}` subtree (leading
+    layer axis L) split back into `{prefix}_0 … {prefix}_{L-1}` siblings
+    (views). A tree without a stacked subtree comes back unchanged."""
+    if not isinstance(tree.get(prefix), Mapping):
+        return tree
+    tree = dict(tree)
+    stacked = tree.pop(prefix)
+    for i in range(np.shape(_first_leaf(stacked))[0]):
+        tree[f"{prefix}_{i}"] = _unstacked(stacked, i)
+    return tree
+
+
+def _get(tree: Mapping, path: str):
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return node
+
+
+def _inv_linear(tree: Mapping, sd: dict, src: str, dst: str) -> None:
+    """dst.{weight, bias} ← src/{kernel, bias}, the kernel transposed back
+    to [out, in] (contiguous)."""
+    node = _get(tree, src)
+    sd[f"{dst}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+
+def _inv_conv(tree: Mapping, sd: dict, src: str, dst: str) -> None:
+    """An HWIO kernel [kh, kw, in, out] → torch Conv2d [out, in, kh, kw]."""
+    node = _get(tree, src)
+    sd[f"{dst}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{dst}.bias"] = np.asarray(node["bias"])
+
+
+def pixart_to_torch(tree: Mapping) -> dict[str, np.ndarray]:
+    """A PixArtTransformer2D tree (stacked or unrolled) → the diffusers
+    PixArt transformer state dict: the exact inverse of `pixart_params`."""
+    tree = unstack_layers(dict(tree))
+    sd: dict[str, np.ndarray] = {}
+    _inv_conv(tree, sd, "pos_embed/proj", "pos_embed.proj")
+    for j in (1, 2):
+        _inv_linear(tree, sd, f"t_embedder/linear_{j}",
+                    f"adaln_single.emb.timestep_embedder.linear_{j}")
+    _inv_linear(tree, sd, "t_block", "adaln_single.linear")
+    _inv_linear(tree, sd, "caption_linear_1", "caption_projection.linear_1")
+    _inv_linear(tree, sd, "caption_linear_2", "caption_projection.linear_2")
+    n_layers = 1 + max((int(m.group(1)) for k in tree if (m := re.match(r"blocks_(\d+)$", k))),
+                       default=-1)
+    for i in range(n_layers):
+        src, dst = f"blocks_{i}", f"transformer_blocks.{i}"
+        sd[f"{dst}.scale_shift_table"] = np.asarray(_get(tree, f"{src}/scale_shift_table"))
+        for attn in ("attn1", "attn2"):
+            for p in ("to_q", "to_k", "to_v"):
+                _inv_linear(tree, sd, f"{src}/{attn}/{p}", f"{dst}.{attn}.{p}")
+            _inv_linear(tree, sd, f"{src}/{attn}/to_out", f"{dst}.{attn}.to_out.0")
+        _inv_linear(tree, sd, f"{src}/ff/proj_in", f"{dst}.ff.net.0.proj")
+        _inv_linear(tree, sd, f"{src}/ff/proj_out", f"{dst}.ff.net.2")
+    sd["scale_shift_table"] = np.asarray(tree["final_scale_shift_table"])
+    _inv_linear(tree, sd, "proj_out", "proj_out")
+    return sd
+
+
+# family → its reverse converter (`cli/convert_checkpoint.py --reverse`)
+TO_TORCH = {"pixart": pixart_to_torch}

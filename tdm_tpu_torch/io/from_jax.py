@@ -22,7 +22,12 @@ conv, `pre_layrnorm`, `layers_{i}`, `post_layernorm`, `visual_projection`)
 and the image VAE encoders (TAESD's `conv_in`, `block_in`,
 `stage_{s}_down`, `stage_{s}_block_{b}`, `conv_out`; the KL encoder's
 `down_{i}_res_{j}`, `down_{i}_conv`, `mid_*`, `norm_out`, `conv_out`,
-`quant_conv`). The JAX package stores it
+`quant_conv`), and the 3D VAE's encoder (`conv_in/conv`,
+`down_{i}_res_{j}/{norm1,norm2}/gn`, `conv1/conv`, `conv2/conv`,
+`shortcut`, the strided `down_{i}_conv/conv`, `mid_block_{1,2}`,
+`norm_out/gn`, `conv_out/conv`, its kernels [kt, kh, kw, in, out] like the
+decoder's). The probe's toy denoiser (`d0`..`d3`, `out`) carries by name
+too. The JAX package stores it
 either unrolled (`blocks_{i}/...`) or, under its default `scan_layers=True`,
 as stacks with a leading [L] axis: PixArt's `blocks/...` holds every block;
 SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
@@ -151,8 +156,9 @@ def state_dict_from_jax(
 ) -> dict[str, torch.Tensor]:
     """Flat JAX params → a state_dict for `module` (PixArtTransformer2D,
     SD3Transformer2D, UNet2DCondition, CogVideoXTransformer3D, TAESDDecoder,
-    TAESDEncoder, KLDecoder, KLEncoder, VAE3DDecoder, T5Encoder,
-    CLIPTextEncoder or CLIPVisionEncoder), from the stacked
+    TAESDEncoder, KLDecoder, KLEncoder, VAE3DDecoder, VAE3DEncoder,
+    T5Encoder, CLIPTextEncoder, CLIPVisionEncoder or the distill probe's
+    ToyLatentDenoiser), from the stacked
     or the unrolled layout. Raises KeyError naming every missing and
     unexpected key, and ValueError on a shape mismatch."""
     return {k: torch.from_numpy(np.ascontiguousarray(v))

@@ -1,6 +1,7 @@
-"""Hub repo ids resolved against the local Hugging Face cache, offline.
+"""Hub repo ids resolved against the local Hugging Face cache, offline,
+and a folder pushed to the hub.
 
-Port of the resolution half of `tdm_tpu/io/hub.py`: `from_pretrained(
+Port of `tdm_tpu/io/hub.py`: `from_pretrained(
 "PixArt-alpha/PixArt-XL-2-512x512")` finds the checkout in the standard
 huggingface_hub cache layout
 
@@ -10,7 +11,9 @@ huggingface_hub cache layout
 
 and nothing here reaches the network: a repo id that is not cached raises
 the JAX package's offline error, naming where the checkout was expected.
-`push_to_hub` is not ported yet (ROADMAP.md queue 1, slice 7).
+`push_to_hub` uploads a folder through `huggingface_hub.HfApi` (the
+trainer's `--push_to_hub`); it is the one function here that needs the
+network and that package.
 """
 
 from __future__ import annotations
@@ -95,3 +98,30 @@ def resolve_pretrained(
         "Populate the cache on a connected host (huggingface-cli "
         "download) or pass a local directory."
     )
+
+
+def push_to_hub(
+    folder: str,
+    repo_id: str,
+    *,
+    token: Optional[str] = None,
+    private: bool = True,
+    commit_message: str = "tdm_tpu checkpoint",
+) -> str:
+    """Create `repo_id` if needed and upload `folder` to it; returns the
+    repo id the hub reports. Needs a token (`token`, else $HF_TOKEN) and the
+    `huggingface_hub` package; either missing raises RuntimeError."""
+    token = token or os.environ.get("HF_TOKEN")
+    if not token:
+        raise RuntimeError(
+            "push_to_hub needs a token: pass token= or set HF_TOKEN "
+            "(reference flag --hub_token, src/args.py)"
+        )
+    try:
+        from huggingface_hub import HfApi
+    except ImportError as e:
+        raise RuntimeError("huggingface_hub is not installed") from e
+    api = HfApi(token=token)
+    url = api.create_repo(repo_id, exist_ok=True, private=private).repo_id
+    api.upload_folder(repo_id=repo_id, folder_path=folder, commit_message=commit_message)
+    return url

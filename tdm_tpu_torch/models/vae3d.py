@@ -1,9 +1,8 @@
-"""The CogVideoX causal 3D VAE decoder in PyTorch.
+"""The CogVideoX causal 3D VAE in PyTorch: its decoder and its encoder.
 
-Port of the decoder side of `tdm_tpu/models/vae3d.py` (diffusers'
-`AutoencoderKLCogVideoX` as the JAX package rebuilds it): 4× temporal and 8×
-spatial compression, 13 latent frames ↔ 49 video frames by F_out =
-(F_lat − 1)·4 + 1.
+Port of `tdm_tpu/models/vae3d.py` (diffusers' `AutoencoderKLCogVideoX` as
+the JAX package rebuilds it): 4× temporal and 8× spatial compression, 13
+latent frames ↔ 49 video frames by F_out = (F_lat − 1)·4 + 1.
   * Every 3D convolution is causal in time: the front is padded with k_t − 1
     copies of frame 0, so frame i never sees a later frame; the spatial pad
     is ((k−1)//2, k//2).
@@ -14,6 +13,15 @@ spatial compression, 13 latent frames ↔ 49 video frames by F_out =
     upsample (frame 0 stays single, every later frame doubles) on stages 1
     .. log2(temporal_factor), and a per-frame (1,3,3) upsampler conv on
     every stage but the last; GroupNorm + SiLU + conv_out. No attention.
+  * Encoder (`VAE3DEncoder`): conv_in → one stage per width
+    (layers_per_block ResBlocks, then a strided causal conv `down_{i}_conv`
+    on the stages whose temporal (the first log2(temporal_factor)) or
+    spatial (the first log2(spatial_factor)) stride is 2) → 2 mid
+    ResBlocks → GroupNorm + SiLU + conv_out to 2·C_lat channels, split
+    into (mean, logvar). A strided conv reads the front-padded frames at
+    stride 2: output frame o reads padded frames 2o … 2o+2, so 1+2k frames
+    become 1+k and frame 0 stays in place; the spatial stride 2 keeps the
+    pad ((k−1)//2, k//2), so H and W halve.
   * `decode_streaming`: temporal chunks with each causal conv's last k_t − 1
     input frames carried to the next chunk: the same convolutions of the
     same frames as the monolithic decode (the library may sum a chunk's
@@ -35,8 +43,10 @@ norm1/gn, conv1/conv, shortcut, up_{i}_upsampler/conv, norm_out/gn,
 conv_out/conv), so the weight carry (`io/from_jax.py`) fills them;
 conv weights are torch's [out, in, kt, kh, kw].
 
-`VAE3DEncoder` is not ported (ROADMAP.md queue 1, item 4): no served path
-encodes.
+The encoder computes as the decoder does (fp32, per-tap conv2d calls, the
+same module names: conv_in/conv, down_{i}_res_{j}, down_{i}_conv/conv,
+mid_block_{1,2}, norm_out/gn, conv_out/conv). No served or trained path
+encodes, as in JAX.
 """
 
 from __future__ import annotations
@@ -92,14 +102,17 @@ class SpatialGroupNorm(nn.Module):
 
 class CausalConv3d(nn.Module):
     """A 3D convolution, causal in time, on [B, F, C, H, W] → [B, F', C',
-    H, W]: the front padded with k_t − 1 copies of frame 0 (or, in a
+    H', W']: the front padded with k_t − 1 copies of frame 0 (or, in a
     streamed chunk after the first, the previous chunk's last input frames
-    from `cache`), the spatial sides with zeros, ((k−1)//2, k//2) each.
-    `conv` holds the weight [out, in, kt, kh, kw] and bias."""
+    from `cache`), the spatial sides with zeros, ((k−1)//2, k//2) each,
+    then `strides` (t, h, w). `conv` holds the weight [out, in, kt, kh, kw]
+    and bias."""
 
-    def __init__(self, cin: int, cout: int, kernel=(3, 3, 3), *, dtype, device=None):
+    def __init__(self, cin: int, cout: int, kernel=(3, 3, 3), *, strides=(1, 1, 1), dtype,
+                 device=None):
         super().__init__()
         self.kernel = tuple(kernel)
+        self.strides = tuple(strides)
         self.dtype = dtype
         self.conv = nn.Conv3d(cin, cout, self.kernel, dtype=dtype, device=device)
 
@@ -115,17 +128,19 @@ class CausalConv3d(nn.Module):
             if cache is not None:
                 cache[self] = x[:, -(kt - 1):].clone()
         return causal_conv3d(x.to(self.dtype), self.conv.weight.to(self.dtype),
-                             self.conv.bias.to(self.dtype), kh, kw)
+                             self.conv.bias.to(self.dtype), kh, kw, self.strides)
 
 
 def causal_conv3d(xp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                  kh: int, kw: int) -> torch.Tensor:
+                  kh: int, kw: int, strides=(1, 1, 1)) -> torch.Tensor:
     """The valid temporal convolution of the front-padded xp [B, F+kt−1, C,
-    H, W] with zero 'same' spatial padding: one conv2d a temporal tap over
-    the frames that tap reads, summed in tap order."""
+    H, W] with zero 'same' spatial padding, at `strides` (t, h, w): one
+    conv2d a temporal tap over the frames that tap reads (tap dt of output
+    frame o reads padded frame st·o + dt), summed in tap order."""
     b, fp, cin, h, w = xp.shape
     kt = weight.shape[2]
-    f = fp - kt + 1
+    st, sh, sw = strides
+    f = (fp - kt) // st + 1
     pad_h, pad_w = (kh - 1) // 2, (kw - 1) // 2
     if kh % 2 == 0 or kw % 2 == 0:  # asymmetric ((k−1)//2, k//2): pad by hand
         xp = F.pad(xp, (pad_w, kw // 2, pad_h, kh // 2))
@@ -133,9 +148,9 @@ def causal_conv3d(xp: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         h, w = xp.shape[-2:]
     out = None
     for dt in range(kt):
-        frames = xp[:, dt:dt + f].reshape(b * f, cin, h, w)
+        frames = xp[:, dt:dt + st * (f - 1) + 1:st].reshape(b * f, cin, h, w)
         y = F.conv2d(frames, weight[:, :, dt], bias if dt == 0 else None,
-                     padding=(pad_h, pad_w))
+                     stride=(sh, sw), padding=(pad_h, pad_w))
         out = y if out is None else out.add_(y)
     return out.reshape(b, f, *out.shape[1:])
 
@@ -221,6 +236,49 @@ class VAE3DDecoder(nn.Module):
                 x = getattr(self, f"up_{i}_upsampler")(x, **kw)
         x = self.conv_out(F.silu(self.norm_out(x)), **kw)
         return x.permute(0, 2, 1, 3, 4).contiguous()  # B, 3, F, H, W
+
+
+class VAE3DEncoder(nn.Module):
+    """forward(video [B, 3, F, H, W] in [-1, 1]) → (mean, logvar), each
+    [B, C_lat, 1 + (F−1)/tf, H/sf, W/sf]."""
+
+    def __init__(self, cfg: Optional[VAE3DConfig] = None, *,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        c = self.cfg = cfg if cfg is not None else VAE3DConfig()
+        dev = resolve_device(device)
+        kw = dict(dtype=c.dtype, device=dev)
+        widths = list(c.block_widths)
+        n_spatial, n_temporal = _N_SPATIAL[c.spatial_factor], _N_TEMPORAL[c.temporal_factor]
+        self.conv_in = CausalConv3d(c.image_channels, widths[0], **kw)
+        self.stages = len(widths)
+        ch = widths[0]
+        for i, w in enumerate(widths):
+            for j in range(c.layers_per_block):
+                self.add_module(f"down_{i}_res_{j}", ResBlock3D(ch, w, c.norm_groups, **kw))
+                ch = w
+            strides = (2 if i < n_temporal else 1,) + (2 if i < n_spatial else 1,) * 2
+            if strides != (1, 1, 1):
+                self.add_module(f"down_{i}_conv", CausalConv3d(w, w, strides=strides, **kw))
+        self.mid_block_1 = ResBlock3D(widths[-1], widths[-1], c.norm_groups, **kw)
+        self.mid_block_2 = ResBlock3D(widths[-1], widths[-1], c.norm_groups, **kw)
+        self.norm_out = SpatialGroupNorm(c.norm_groups, widths[-1], device=dev)
+        self.conv_out = CausalConv3d(widths[-1], 2 * c.latent_channels, **kw)
+
+    def forward(self, video: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        c = self.cfg
+        x = video.to(c.dtype).permute(0, 2, 1, 3, 4).contiguous()  # B, F, 3, H, W
+        x = self.conv_in(x)
+        for i in range(self.stages):
+            for j in range(c.layers_per_block):
+                x = getattr(self, f"down_{i}_res_{j}")(x)
+            down = getattr(self, f"down_{i}_conv", None)
+            if down is not None:
+                x = down(x)
+        x = self.mid_block_2(self.mid_block_1(x))
+        x = self.conv_out(F.silu(self.norm_out(x)))
+        mean, logvar = x.permute(0, 2, 1, 3, 4).chunk(2, dim=1)
+        return mean.contiguous(), logvar.contiguous()
 
 
 def decode_streaming(model: VAE3DDecoder, z: torch.Tensor, *, chunk: int = 2) -> torch.Tensor:

@@ -88,9 +88,10 @@ def _config(cls, conf: dict, default=None):
     return dataclasses.replace(default if default is not None else cls(), **kw)
 
 
-def _config_dict(cfg) -> dict:
-    """Config dataclass → the JSON block the JAX package reads (dtype as its
-    name)."""
+def config_dict(cfg) -> dict:
+    """Model/VAE config dataclass → the JSON-safe dict the JAX package's
+    `config_dict` gives and its loader reads (the dtype as its name, e.g.
+    'bfloat16'; tuples as lists)."""
     out = {}
     for f in dataclasses.fields(cfg):
         v = getattr(cfg, f.name)
@@ -276,17 +277,17 @@ def save_pretrained(path: str, pipe: Pipeline) -> None:
     os.makedirs(path, exist_ok=True)
     model = pipe.denoiser
     cfg = model.cfg
-    meta = {"family": pipe.family, "model": _config_dict(cfg), "vae": {}}
+    meta = {"family": pipe.family, "model": config_dict(cfg), "vae": {}}
     if pipe.vae_decoder is not None:
-        meta["vae"] = _config_dict(pipe.vae_decoder.cfg)
+        meta["vae"] = config_dict(pipe.vae_decoder.cfg)
     elif getattr(pipe, "vae_cfg", None) is not None:  # cogvideox's latent geometry
-        meta["vae"] = _config_dict(pipe.vae_cfg)
+        meta["vae"] = config_dict(pipe.vae_cfg)
     encoder = getattr(pipe, "text_encoder", None)
     tokenizer = getattr(pipe, "tokenizer", None)
     if encoder is not None:
         meta["text_encoder"] = {
             "family": "t5" if isinstance(encoder, t5_lib.T5Encoder) else "clip",
-            "config": _config_dict(encoder.cfg)}
+            "config": config_dict(encoder.cfg)}
         tok_spec = _tokenizer_spec(tokenizer)
         if tok_spec is not None:
             meta["text_encoder"]["tokenizer"] = tok_spec

@@ -7,7 +7,8 @@ mask)`), the deterministic few-step rollout on the reference grid
 (total_steps=900, K=4 → t=[899, 674, 449, 224]) with optional CFG (the
 negative prompt, or "", encoded when no `negative_embeds` are given), or
 DPM-Solver++(2M) / UniPC on the DDPM grid (`solver="dpm"|"unipc"`), and the
-TAESD decode.
+TAESD decode. `default_pixart_pipeline` assembles the reference's
+validation setup (the full DiT and TAESD) from two JAX-layout trees.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from tdm_tpu_torch.core import sampling, schedules as sched, solvers
 from tdm_tpu_torch.device import resolve_device
+from tdm_tpu_torch.io import from_jax
 from tdm_tpu_torch.models import pixart, t5 as t5_lib, vae as vae_lib
 from tdm_tpu_torch.pipelines.base import (
     DiffusionPipelineBase,
@@ -142,3 +144,28 @@ class PixArtPipeline(DiffusionPipelineBase):
         decoded = self.vae_decoder(out.float() / self.vae_scaling)
         return PipelineOutput(images=to_images(decoded, value_range=self.vae_range),
                               latents=out)
+
+
+def default_pixart_pipeline(
+    transformer_params,
+    vae_params,
+    *,
+    cfg: Optional[pixart.PixArtConfig] = None,
+    vae_cfg: Optional[vae_lib.TAESDConfig] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    **kw,
+) -> PixArtPipeline:
+    """The reference's validation setup, the full PixArt DiT and TAESD,
+    from the JAX package's two param trees (nested or flat '/'-joined, the
+    transformer stacked or unrolled, e.g. `io/params.load_params`'s) put
+    into the modules on `device` by the weight carry. `kw` passes on to
+    `PixArtPipeline` (`vae_scaling` is the TAESD config's)."""
+    dev = resolve_device(device)
+    cfg = cfg or pixart.PixArtConfig()
+    vae_cfg = vae_cfg or vae_lib.TAESDConfig()
+    transformer = from_jax.load_from_jax(from_jax.flatten_tree(transformer_params),
+                                         pixart.PixArtTransformer2D(cfg, device=dev))
+    decoder = from_jax.load_from_jax(from_jax.flatten_tree(vae_params),
+                                     vae_lib.TAESDDecoder(vae_cfg, device=dev))
+    return PixArtPipeline(transformer, vae_decoder=decoder,
+                          vae_scaling=vae_cfg.scaling_factor, device=dev, **kw)

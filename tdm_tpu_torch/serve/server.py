@@ -362,6 +362,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="offline text embedding cache (.npz from cli/build_cache; "
                         "SD3 needs its pooled vectors) when the pipeline has no "
                         "text encoders attached")
+    p.add_argument("--compilation_cache", default="auto",
+                   help="the JAX package's XLA compile cache; accepted and "
+                        "ignored (the port compiles nothing ahead of time)")
     p.add_argument("--max_queue", type=int, default=64,
                    help="max pending requests; a full queue answers HTTP 429")
     p.add_argument("--batch_buckets", default=None,

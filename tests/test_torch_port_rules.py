@@ -106,6 +106,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         tclip.CLIPVisionEncoder(tclip.CLIPVisionConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tvae.KLEncoder(tvae.KLVAEConfig.tiny())
+    from tdm_tpu_torch.eval import distill_probe
+    from tdm_tpu_torch.models import vae3d as tvae3d
+    from tdm_tpu_torch.pipelines import default_pixart_pipeline
+
+    for call in (distill_probe.run_probe, distill_probe.train_decoder,
+                 distill_probe.train_teacher, distill_probe.ToyLatentDenoiser,
+                 lambda: tvae3d.VAE3DEncoder(tvae3d.VAE3DConfig.tiny()),
+                 lambda: default_pixart_pipeline({}, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params_io.save_params({"w": np.zeros(2, np.float32)}, str(tmp_path / "w.safetensors"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_io.load_params(str(tmp_path / "w.safetensors"), to_torch=True)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

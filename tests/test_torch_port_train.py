@@ -544,13 +544,13 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     (["--tp", "2"], "slice 6"),
     (["--fsdp", "2"], "slice 6"),
     (["--sp", "2"], "slice 6"),
-    (["--push_to_hub"], "slice 7"),
     # the ids of these two cases are kept stable; --quant_forwards is
     # ported, and with a multi-GPU flag the refusal names slice 6
     pytest.param(["--quant_forwards", "--sp", "2"], "slice 6", id="flags4-slice 4"),
     pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"], "slice 6",
                  id="flags5-slice 4"),
-    (["--moe_experts", "4"], "slice 6"),
+    # its id kept from before the --push_to_hub case (ported) left the list
+    pytest.param(["--moe_experts", "4"], "slice 6", id="flags6-slice 6"),
 ])
 def test_cli_refuses_unported_flags_before_the_first_step(tmp_path, monkeypatch, flags, where):
     from tdm_tpu_torch.cli import train_tdm
@@ -713,7 +713,7 @@ def test_remat_gives_the_same_gradients():
     assert (n0, n1) == (4, 8)  # 2 layers x (self, cross), twice with remat
 
 
-def test_prompt_sources_and_batcher_match_jax(tmp_path):
+def test_prompt_sources_and_batcher_match_jax(tmp_path, monkeypatch):
     from tdm_tpu.data import prompts as jprompts, tokenizer as jtok
     from tdm_tpu_torch.data import prompts as tprompts, tokenizer as ttok
 
@@ -724,8 +724,25 @@ def test_prompt_sources_and_batcher_match_jax(tmp_path):
     for src, kw in ((str(txt), {}), (str(jsonl), {"caption_column": "caption"}),
                     (["one", "two", "three"], {"max_samples": 2})):
         assert tprompts.load_prompts(src, **kw) == jprompts.load_prompts(src, **kw)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tprompts.load_prompts("JourneyDB/JourneyDB")
+    import sys
+    import types
+
+    calls = []
+
+    class _DS:
+        column_names = ["prompt"]
+
+        def __getitem__(self, k):
+            return ["a", "b"]
+
+    fake = types.ModuleType("datasets")
+    fake.load_dataset = lambda name, config=None, split=None: calls.append(
+        (name, config, split)) or _DS()
+    monkeypatch.setitem(sys.modules, "datasets", fake)
+    # a hub name reaches datasets.load_dataset with JAX's arguments
+    got = tprompts.load_prompts("JourneyDB/JourneyDB", dataset_config_name="c")
+    assert got == jprompts.load_prompts("JourneyDB/JourneyDB", dataset_config_name="c")
+    assert got == ["a", "b"] and calls == [("JourneyDB/JourneyDB", "c", "train")] * 2
     prompts = tprompts.load_prompts(str(jsonl), caption_column="caption")
     jb = iter(jprompts.PromptBatcher(prompts, 3, tokenizer=jtok.HashTokenizer(),
                                      max_length=6, seed=4))
