@@ -33,7 +33,12 @@ Phases, one line each, and any failure exits non-zero:
      `python -m tdm_tpu_torch.cli.build_cache --pipeline <the bundle>`
      (its main()) writes the cache the train phases read, each prompt's
      batch-1 encode against its row reported; then one full-width forward
-     with the kernel against plain attention. The seeded encoders (T5-XXL,
+     with the kernel against plain attention; then the pipeline's
+     `data_parallel_devices` = [cuda:0, cuda:0]: a batch of 4 split 2 + 2
+     over two replicas against the undivided batch (bit for bit, or within
+     one bf16 ulp of the latent scale), kernel 1's launches from both
+     replicas' threads, the overlap against the chunks alone. The seeded
+     encoders (T5-XXL,
      CLIP-L, OpenCLIP-G) are written once per run and hardlinked into the
      bundle and the SD3, SD1.5 and CogVideoX checkouts' text_encoder*/;
   6. train: full-width PixArt-α-512 TDM distillation through the training
@@ -42,9 +47,18 @@ Phases, one line each, and any failure exits non-zero:
      the seed (the cache build_cache wrote, batch 4, bf16, dmd, 3 steps): the
      teacher's load seconds by part, seconds per step, peak
      memory, the idle share of a step, and each training kernel's launches
-     per step (checked); then the default rank-32 kohya LoRA export by
-     truncated SVD: its seconds, its keys and one kernel's reconstruction
-     against a float64 SVD (checked);
+     per step (checked), --export_lora_rank 0 (the SVD export is held in
+     phase 12). main() runs inside a world of one
+     process over NCCL formed by the port's initialiser from torchrun's
+     variables, and makes no collective (counted); then, in that world,
+     the one-process reference step at batch 2 of the data-parallel check
+     and the port's allreduce_mean, all_gather and reduce_scatter over its
+     critic gradients, each equal to its input; after the --quant_forwards
+     run, two data-parallel ranks (this script with --dp_rank, gloo, both
+     on cuda:0, batch 1 each, the reference's inputs): their weights equal
+     bit for bit after the step, the reduced gradients and losses within
+     DP_GRAD_TOL of the reference, kernels 1–3's launches per rank, each
+     rank's step seconds and peak memory (checked where stated);
   7. train_lora: the same run with a rank-32 LoRA student, 8-bit Adam and
      gradient accumulation 2 (2 optimizer steps of 2 micro-steps): the
      attention launches of every micro-step, the factors unchanged inside
@@ -122,7 +136,8 @@ Phases, one line each, and any failure exits non-zero:
      again, bit for bit; then seconds per step, peak memory, the idle share
      and top device operations of a profiled step, each training kernel's
      launches per step (checked) and by padded head dim in the profiled
-     step (checked), and the rank-32 export's seconds and keys;
+     step (checked), and the rank-32 export's seconds, keys and one
+     kernel's reconstruction against a float64 SVD (checked);
  13. cogvideox: a full-width CogVideoX-2B diffusers checkout (30 layers,
      30x64 heads, T5 4096, fp16 in the released transformer key layout;
      the AutoencoderKLCogVideoX decoder in tdm_tpu's key layout), written
@@ -221,7 +236,8 @@ the CPU. The kernels phase times 2 rounds of 10 launches in turns;
 train_sd3, train_sd15 and train_cogvideox take 3 steps, and they, train
 and the --quant_forwards run write no final checkpoint
 (`no_final_checkpoint`: the train_lora phase writes the checkpoint path's
-files and times them). For the clock, cogvideox serves its lone request
+files and times them), and all but train write no fp16 student
+(`no_student_export`: train writes PixArt's and sizes it). For the clock, cogvideox serves its lone request
 once (its GIF bytes held against the batch's) and decodes no latent of its
 own: the decode is timed inside the profiled batch, whose first video the
 GIF encode takes (the route's repeatability is
@@ -1867,6 +1883,7 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
         wrapper="flash_attention_fwd")
     int8["server"] = quant_server_request(torch, model_dir, built_cache(seed, workdir),
                                           prompts[0], 100)
+    dp = dp_serving_check(torch, pipe, cond, noise)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1876,7 +1893,7 @@ def phase_serve(torch, seed: int, workdir: str) -> dict:
     return {"launches": launches, "batches": batches, "wall6_s": wall6,
             "images_per_s": 6 / wall6, "batch_s": solo_batch_s, "profile": prof,
             "peak_gib": peak_gb, "t5": t5_rep, "cache_rows": cache_rows, "int8": int8,
-            "generate": gen}
+            "generate": gen, "data_parallel": dp}
 
 
 def cache_against_batch1(torch, pipe, cache_path: str) -> dict:
@@ -3465,7 +3482,9 @@ TRAIN_LAUNCHES = {"flash_attention_fwd": 392, "flash_attention_fwd_lse": 112,
 # optimizer step, 2 optimizer steps
 LORA_RANK, LORA_ACCUM, LORA_STEPS = 32, 2, 2
 # the export's rank-32 reconstruction of one ΔW against float64's optimum
+# (train_sd15: the train phase exports no LoRA, for the clock)
 EXPORT_TOL = 1e-3
+SD15_EXPORT_PATH = "down_0_attn_0/transformer_blocks_0/attn1/to_q"
 
 
 def train_env(seed: int, workdir: str) -> None:
@@ -3567,6 +3586,23 @@ def no_final_checkpoint():
         ckpt_lib.CheckpointManager.save = save
 
 
+@contextlib.contextmanager
+def no_student_export():
+    """train_tdm.main() without its fp16 `student.safetensors`
+    (`train_tdm.write_student` a no-op): the train phase writes and sizes
+    PixArt's; the later families' (1.7-2.0 B parameters re-stacked on the
+    host, cast and written) cost the clock and check nothing; their LoRA
+    files are still written and read back."""
+    from tdm_tpu_torch.cli import train_tdm
+
+    write = train_tdm.write_student
+    train_tdm.write_student = lambda params, stacks, out_dir: None
+    try:
+        yield
+    finally:
+        train_tdm.write_student = write
+
+
 def check_train_records(records: list, n: int) -> None:
     check(len(records) == n, f"{len(records)} micro-steps ran, expected {n}")
     for rec in records:
@@ -3595,25 +3631,30 @@ def kohya_pieces(torch, path: str, rank: int) -> int:
 
 def phase_train(torch, seed: int, workdir: str) -> dict:
     """Full-width PixArt-α-512 TDM training through the CLI's main() at the
-    JAX CLI's default flags, the teacher read from the PixArt checkout's
-    transformer/ folder (--pretrained_model_name_or_path; its load timed
-    by part): seeded weights, the embedding cache the port's build_cache
-    wrote from the PixArt bundle's T5-XXL (`train_env`), batch 4, bf16, dmd,
-    3 steps, then the export of the rank-32
-    kohya LoRA by truncated SVD (--export_lora_rank 32, the default). Per
-    step: host and CUDA-event times and the kernels' launches (checked);
-    step 3 under torch.profiler for device busy time. The export: its
-    seconds, its key count (3 per adapted kernel and layer), and one
-    kernel's rank-32 reconstruction against a float64 SVD of its ΔW. No
-    final checkpoint (`no_final_checkpoint`): the train_lora phase writes
-    and times the checkpoint path."""
-    from tdm_tpu_torch import lora as lora_lib
+    JAX CLI's default flags but --export_lora_rank 0 (the rank-32 SVD export,
+    ~22 s here, is held and timed in train_sd15), the teacher read from the
+    PixArt checkout's transformer/ folder (--pretrained_model_name_or_path;
+    its load timed by part): seeded weights, the embedding cache the port's
+    build_cache wrote from the PixArt bundle's T5-XXL (`train_env`), batch
+    4, bf16, dmd, 3 steps, inside a world of one process over NCCL
+    (`nccl_world_1`; no collective, counted). Per step: host and
+    CUDA-event times and the kernels' launches (checked); step 3 under
+    torch.profiler for device busy time. No final checkpoint
+    (`no_final_checkpoint`): the train_lora phase writes and times the
+    checkpoint path. Then, in the NCCL world, the data-parallel check's
+    one-process reference (`dp_reference`) and the collectives over its
+    gradients (`nccl_collectives_check`); the --quant_forwards run; and the
+    two data-parallel ranks (`dp_ranks`)."""
     from tdm_tpu_torch.cli import train_tdm
-    from tdm_tpu_torch.io import convert, from_jax
     from tdm_tpu_torch.ops import attention as A
 
     teacher_dir = os.path.join(pixart_checkout(workdir, seed), "transformer")
     train_env(seed, workdir)
+    held = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] device memory allocated before the phase {held:.2f} GiB, after a "
+          f"collection {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     out = os.path.join(workdir, "train")
     steps = []
     watch = ("blocks.0.attn1.to_q.weight", "blocks.0.ff.proj_out.weight", "proj_out.weight")
@@ -3626,72 +3667,54 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
             rec["student_changed"] = all(
                 bool((state.student[k] != snap[k]).any()) for k in watch)
 
-    export = {}
-    extract = lora_lib.extract_lora
-
-    def timed_extract(model, base, tuned, rank, **kw):
-        torch.cuda.synchronize()
+    ref_path = os.path.join(workdir, "dp_reference.pt")
+    # main() in a world of one process over NCCL (formed from torchrun's
+    # variables): the step is the one-process step, no collective and the
+    # same launches; then the one-process reference of the 2-rank check,
+    # whose gradients go through the NCCL collectives
+    with nccl_world_1(torch):
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        lora = extract(model, base, tuned, rank, **kw)
-        torch.cuda.synchronize()
-        export["s"] = time.monotonic() - t0
-        key, mpath = "blocks.0.attn1.to_q.weight", "blocks/attn1/to_q"
-        export["delta"] = (tuned[key].float() - base[key].float()).T.double().cpu()
-        export["ab"] = (lora.params[mpath]["a"][0].double()
-                        @ lora.params[mpath]["b"][0].double()).cpu()
-        export["pieces"] = sum(e["a"].shape[0] if e["a"].dim() == 3 else 1
-                               for e in lora.params.values())
-        return lora
-
-    A.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    lora_lib.extract_lora = timed_extract
-    # the teacher's load: the directory's read, the conversion, the carry and
-    # the copy into the module on the card (nothing else in the run loads)
-    load_parts = teacher_load_parts("pixart_params")
-    try:
-        with timed_calls(torch, load_parts) as teacher_times, no_final_checkpoint():
+        # the teacher's load: the directory's read, the conversion, the carry
+        # and the copy into the module on the card (nothing else in the run loads)
+        load_parts = teacher_load_parts("pixart_params")
+        with timed_calls(torch, load_parts) as teacher_times, no_final_checkpoint(), \
+                counted_collectives(torch) as collectives:
             train_tdm.main([
                 "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
-                "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
-                "--seed", str(seed), "--pretrained_model_name_or_path", teacher_dir,
+                "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode",
+                "dmd", "--seed", str(seed), "--pretrained_model_name_or_path", teacher_dir,
+                "--export_lora_rank", "0",
             ], step_hook=step_hook(torch, steps, TRAIN_STEPS, "train", after))
-    finally:
-        lora_lib.extract_lora = extract
-    total_s = time.monotonic() - t0
+        total_s = time.monotonic() - t0
+        launches = A.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        check(not collectives, f"main() in a world of one made collectives: {collectives}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reference = dp_reference(torch, seed, teacher_dir, ref_path)
+        nccl = nccl_collectives_check(torch, reference.pop("critic_grads"))
+    gc.collect()
+    torch.cuda.empty_cache()
     check(set(teacher_times) == {name for _, name in load_parts},
           f"the teacher was not loaded from {teacher_dir}: {teacher_times}")
     teacher_s, parts = teacher_load_report(teacher_times, "pixart_params")
     print(f"[train] teacher from {teacher_dir}: loaded in {teacher_s:.2f}s ({parts})",
           flush=True)
-    launches = A.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     run_dir = out + "_cfg4.5_steps900"
     student_gb = os.path.getsize(os.path.join(run_dir, "student.safetensors")) / 1e9
     check_train_records(steps, TRAIN_STEPS)
     check(steps[1]["student_changed"], "the student did not change in step 2")
-    check("s" in export, "the LoRA export did not run")
-    pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
-    check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
-                                      f"{export['pieces']}")
-    delta = export["delta"]
-    sv = torch.linalg.svdvals(delta)
-    norm = float(delta.norm())
-    opt_err = float(sv[32:].norm()) / norm
-    err = float((delta - export["ab"]).norm()) / norm
-    print(f"[train] export: rank-32 kohya LoRA of {pieces} (kernel, layer) pieces "
-          f"({3 * pieces} keys) in {export['s']:.2f} s; blocks.0 attn1.to_q rank-32 "
-          f"relative error {err:.6f} against the float64 optimum {opt_err:.6f} "
-          f"(limit +-{EXPORT_TOL})", flush=True)
-    check(abs(err - opt_err) <= EXPORT_TOL,
-          f"the rank-32 export of blocks.0 attn1.to_q: relative error {err}, optimum {opt_err}")
+    check(not os.path.exists(os.path.join(run_dir, "tdm_lora.safetensors")),
+          "--export_lora_rank 0 wrote a LoRA")
     shutil.rmtree(run_dir, ignore_errors=True)  # the disk for the later phases
     # steps after the first that ran without the profiler (its own cost
     # inflates the profiled last step's wall time)
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
     qf = quant_forwards_run(torch, seed, workdir, teacher_dir, per_step)
+    dp = dp_ranks(torch, seed, workdir, teacher_dir, ref_path, reference)
     busy = steps[-1]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
@@ -3702,8 +3725,8 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
           f"launches per step {TRAIN_LAUNCHES} (checked); step 2 CUDA-event span "
           f"{span:.1f} ms, step 3 device busy "
           + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
-          + f"; main() {total_s:.1f}s incl. a {student_gb:.2f} GB fp16 student and the "
-          "export, no final checkpoint", flush=True)
+          + f"; main() {total_s:.1f}s incl. a {student_gb:.2f} GB fp16 student, no LoRA "
+          "export (train_sd15 times it), no final checkpoint", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "teacher_load_s": teacher_s, "teacher_load": teacher_times,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
@@ -3711,9 +3734,9 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
             "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
             "all_launches_per_step": steps[-1].get("all_launches"),
             "checkpoint_gb": None, "main_s": total_s,
-            "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces,
-                       "rel_err": err, "optimal_rel_err": opt_err},
-            "steps": steps, "quant_forwards": qf}
+            "steps": steps, "quant_forwards": qf,
+            "data_parallel": {"nccl_world_1": nccl, "collectives_in_main": collectives,
+                              "two_ranks": dp}}
 
 
 def optimizer_work(torch, params: dict, seed: int) -> dict:
@@ -4020,7 +4043,8 @@ def phase_train_sd3(torch, seed: int, workdir: str) -> dict:
     A.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
+    with timed_calls(torch, load_parts) as load_times, no_final_checkpoint(), \
+            no_student_export():
         train_tdm.main([
             "--output_dir", out, "--model_family", "sd3", "--max_train_steps",
             str(SD3_TRAIN_STEPS), "--train_batch_size", str(SD3T_B), "--mixed_precision", "bf16",
@@ -4252,7 +4276,9 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     against SD15_TRAIN_LAUNCHES); step 3 under torch.profiler (device busy
     time, idle share, top device operations, and the flash kernels'
     launches by padded head dim, checked against SD15_CALLS). Then the
-    default rank-32 kohya export by truncated SVD: its seconds and keys."""
+    default rank-32 kohya export by truncated SVD: its seconds and keys,
+    and SD15_EXPORT_PATH's rank-32 reconstruction against a float64 SVD of
+    its ΔW (checked; the train phase exports no LoRA)."""
     from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.cli import train_tdm
     from tdm_tpu_torch.io import convert, from_jax
@@ -4274,6 +4300,10 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
         torch.cuda.synchronize()
         export["s"] = time.monotonic() - t0
         export["pieces"] = len(lora.params)
+        key = SD15_EXPORT_PATH.replace("/", ".") + ".weight"
+        export["delta"] = (tuned[key].float() - base[key].float()).T.double().cpu()
+        export["ab"] = (lora.params[SD15_EXPORT_PATH]["a"].double()
+                        @ lora.params[SD15_EXPORT_PATH]["b"].double()).cpu()
         return lora
 
     load_parts = teacher_load_parts("unet_sd15_params")
@@ -4283,7 +4313,8 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     t0 = time.monotonic()
     lora_lib.extract_lora = timed_extract
     try:
-        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
+        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint(), \
+                no_student_export():
             train_tdm.main([
                 "--output_dir", out, "--model_family", "sd15", "--max_train_steps",
                 str(SD15_TRAIN_STEPS), "--train_batch_size", str(SD15_B), "--mixed_precision",
@@ -4338,6 +4369,15 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
     pieces = kohya_pieces(torch, os.path.join(run_dir, "tdm_lora.safetensors"), 32)
     check(pieces == export["pieces"], f"kohya file: {pieces} pieces, the export made "
                                       f"{export['pieces']}")
+    delta = export["delta"]
+    sv = torch.linalg.svdvals(delta)
+    norm = float(delta.norm())
+    opt_err = float(sv[32:].norm()) / norm
+    err = float((delta - export["ab"]).norm()) / norm
+    print(f"[train_sd15] export: {SD15_EXPORT_PATH} rank-32 relative error {err:.6f} against "
+          f"the float64 optimum {opt_err:.6f} (limit +-{EXPORT_TOL})", flush=True)
+    check(abs(err - opt_err) <= EXPORT_TOL,
+          f"the rank-32 export of {SD15_EXPORT_PATH}: relative error {err}, optimum {opt_err}")
     print(f"[disk] {shutil.disk_usage(run_dir).used / 2**30:.1f} GiB used with "
           f"the run's files, before their removal", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -4366,7 +4406,8 @@ def phase_train_sd15(torch, seed: int, workdir: str) -> dict:
             "all_launches_per_step": steps[2].get("all_launches"),
             "flash_kernels_by_template": by_dim, "launches": launches,
             "launches_per_step": SD15_TRAIN_LAUNCHES, "load_s": load_s, "load": load_times,
-            "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces},
+            "export": {"s": export["s"], "pieces": pieces, "keys": 3 * pieces,
+                       "rel_err": err, "optimal_rel_err": opt_err},
             "checkpoint_gb": None, "main_s": total_s, "remat_check": remat,
             "steps": steps}
 
@@ -5435,7 +5476,8 @@ def phase_train_cogvideox(torch, seed: int, workdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     try:
-        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint():
+        with timed_calls(torch, load_parts) as load_times, no_final_checkpoint(), \
+                no_student_export():
             train_tdm.main([
                 "--output_dir", out, "--model_family", "cogvideox", "--num_frames", "49",
                 "--max_train_steps", str(COG_TRAIN_STEPS), "--train_batch_size",
@@ -6110,7 +6152,8 @@ def quant_forwards_run(torch, seed: int, workdir: str, teacher_dir: str,
     A.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    with no_final_checkpoint():
+    with no_final_checkpoint(), \
+            no_student_export():
         train_tdm.main([
             "--output_dir", out, "--max_train_steps", str(QF_STEPS), "--train_batch_size",
             "4", "--mixed_precision", "bf16", "--loss_mode", "dmd", "--seed", str(seed),
@@ -6134,6 +6177,385 @@ def quant_forwards_run(torch, seed: int, workdir: str, teacher_dir: str,
     return {"int8_products_per_step": want, "s_per_step": per_step,
             "over_bf16": per_step / bf16_s_per_step, "peak_gib": peak_gb, "main_s": main_s,
             "steps": steps}
+
+
+# --- data parallelism: --dp serving and two training ranks on one card -------
+
+# the 2-rank step's constant learning rate (the CLI's default schedule warms
+# up from 0, which would leave the weights, and the bit-for-bit check, idle)
+DP_LR = 2e-5
+# the 2-rank step's reduced gradients against the one-process step at batch 2:
+# relative L2, bf16 GEMMs at M of one row against two
+DP_GRAD_TOL = 2e-2
+DP_RANK_TIMEOUT_S = 300
+
+
+def dp_serving_check(torch, pipe, cond, noise) -> dict:
+    """The served PixArt pipeline with `data_parallel_devices = [cuda:0,
+    cuda:0]`: one batch of 4 split 2 + 2 over two replicas (a copy of the
+    transformer and the decoder for the second), latents out, against the
+    undivided batch (bit for bit, or within one bf16 ulp of the latent
+    scale, the pipeline parity bound; the line says which held); kernel 1's
+    launches counted from both replicas' threads (2 x 224); the overlap: the
+    split call's wall ms against the sum of the two chunks' device ms, each
+    chunk run alone and timed by CUDA events."""
+    from tdm_tpu_torch.ops import attention as A
+
+    call = dict(prompt_embeds=cond, latents=noise, output_type="latent")
+    whole = pipe(**call).latents
+
+    def rows(i):
+        return dict(prompt_embeds=tuple(t[2 * i:2 * i + 2] for t in cond),
+                    latents=noise[2 * i:2 * i + 2], output_type="latent")
+
+    chunk_ms = []
+    for i in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        pipe(**rows(i))
+        ev[1].record()
+        torch.cuda.synchronize()
+        chunk_ms.append(ev[0].elapsed_time(ev[1]))
+    pipe.data_parallel_devices = [torch.device("cuda", 0)] * 2
+    try:
+        pipe(**call)  # the replica's first call
+        torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.monotonic()
+        split = pipe(**call).latents
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        launches = A.flash_attention_fwd.launches
+    finally:
+        pipe.data_parallel_devices = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = float((split.float() - whole.float()).abs().max())
+    ulp = bf16_ulp(float(whole.float().abs().max()))
+    exact = bool(torch.equal(split, whole))
+    check(exact or diff <= ulp,
+          f"--dp 2 latents differ from the undivided batch by {diff} (> one bf16 ulp {ulp})")
+    check(launches == 2 * PIXART_LAUNCHES_PER_BATCH,
+          f"the two replicas launched kernel 1 {launches}x, expected "
+          f"{2 * PIXART_LAUNCHES_PER_BATCH}")
+    held = "bit for bit" if exact else f"max |diff| {diff:.3g} within one bf16 ulp {ulp:.3g}"
+    print(f"[serve] --dp on [cuda:0, cuda:0]: a batch of 4 split 2 + 2 gives the undivided "
+          f"batch's latents {held}; kernel 1 launched {launches}x (2 replicas x 224, "
+          f"counted from their threads); wall {wall_ms:.1f} ms against the chunks' "
+          f"{chunk_ms[0]:.1f} + {chunk_ms[1]:.1f} ms alone (overlap "
+          f"{sum(chunk_ms) / wall_ms:.3f}x)", flush=True)
+    return {"exact": exact, "max_abs_diff": diff, "bf16_ulp": ulp, "launches": launches,
+            "wall_ms": wall_ms, "chunk_ms": chunk_ms, "overlap": sum(chunk_ms) / wall_ms}
+
+
+@contextlib.contextmanager
+def nccl_world_1(torch):
+    """A world of one process over NCCL, formed by the port's initialiser
+    from torchrun's variables (set here, removed after, with the group)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        check(pmesh.maybe_initialize_distributed("cuda"), "no world formed from RANK/WORLD_SIZE")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"world {dist.get_backend()} x {dist.get_world_size()}, expected nccl x 1")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+@contextlib.contextmanager
+def counted_collectives(torch):
+    """Every torch.distributed collective the port calls, counted by name."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+             "reduce_scatter_tensor", "reduce_scatter_single", "broadcast", "barrier")
+    counts, saved = {}, {}
+    for name in names:
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+        saved[name] = fn
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def nccl_collectives_check(torch, grads: dict) -> dict:
+    """In the NCCL world of one: the port's allreduce_mean over a real
+    gradient dict (one flattened all_reduce), and each leaf through the
+    ZeRO-3 all_gather and reduce_scatter; each result equal to its input
+    bit for bit (a sum over one rank), with the seconds."""
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    mean = pmesh.allreduce_mean(grads)
+    torch.cuda.synchronize()
+    ar_s = time.monotonic() - t0
+    check(all(torch.equal(mean[k], g) for k, g in grads.items()),
+          "allreduce_mean at world 1 changed the gradients")
+    t0 = time.monotonic()
+    for k, g in grads.items():
+        flat = g.reshape(-1)
+        check(torch.equal(pmesh.all_gather_flat(flat, None), flat), f"all_gather of {k}")
+        out = torch.empty_like(flat)
+        pmesh.reduce_scatter(out, flat, None)
+        check(torch.equal(out, flat), f"reduce_scatter of {k}")
+    torch.cuda.synchronize()
+    zero_s = time.monotonic() - t0
+    print(f"[train] NCCL world of 1: allreduce_mean of the critic's {len(grads)} gradients "
+          f"({nbytes / 1e9:.2f} GB, one flattened all_reduce) in {ar_s:.3f} s, all_gather and "
+          f"reduce_scatter leaf by leaf in {zero_s:.3f} s, each equal to its input (checked)",
+          flush=True)
+    return {"leaves": len(grads), "gb": nbytes / 1e9, "allreduce_s": ar_s, "zero_s": zero_s}
+
+
+class _Recorder:
+    """The one-process step's reducer: the identity, keeping each role's
+    gradients."""
+
+    def __init__(self):
+        self.grads = {}
+
+    def compute(self, role, params):
+        return params
+
+    def reduce(self, role, grads):
+        self.grads[role] = grads
+        return grads
+
+    def norm(self, role, grads):
+        from tdm_tpu_torch.train import optim as topt
+
+        return topt.global_norm(grads)
+
+    def mean(self, values):
+        return values
+
+
+def dp_setup(torch, seed: int, teacher_dir: str, device, sync):
+    """The 2-rank check's step at global batch 2: the train phase's
+    full-width PixArt-α-512 (28 layers; the teacher read from the checkout's
+    transformer/, bf16 compute on fp32 masters, dmd, cfg 4.5, the CLI's
+    TDM defaults), AdamW at the constant DP_LR; seeded T5-shaped conditions
+    [2, 120, 4096] with ragged masks, the CFG null branch zeros under an
+    all-ones mask (the CLI without a cache), and the draws of one seeded
+    generator. Returns (step, state, draws, cond, uncond)."""
+    import numpy as np
+
+    from tdm_tpu_torch.io import convert
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    bundle = families.build("pixart", seed=seed, device=device, mixed_precision="bf16")
+    teacher = bundle.convert(convert.load_torch_state_dict(teacher_dir))
+    tx = topt.make_optimizer(DP_LR)
+    config = tdm.TDMConfig(use_huber=False, use_separate=False)
+    step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config, tx, tx,
+                                sample_shape=bundle.sample_shape, sync=sync)
+    state = tdm.init_state(teacher, teacher, tx, tx)
+    rng = np.random.default_rng(seed + 17)
+    text = torch.from_numpy(rng.standard_normal((2, 120, 4096)).astype(np.float32) * 0.2)
+    mask = torch.from_numpy((np.arange(120)[None] < np.array([[120], [57]])).astype(np.int32))
+    cond = bundle.cond_of(text.to(device), mask.to(device))
+    uncond = bundle.cond_of(torch.zeros_like(text).to(device), torch.ones_like(mask).to(device))
+    draws = tdm.make_draws(config, 2, bundle.sample_shape,
+                           torch.Generator(device=device).manual_seed(seed + 1), device)
+    return step, state, draws, cond, uncond
+
+
+def bit_checksum(torch, tree: dict) -> list:
+    """Two int64 sums over every tensor's 32-bit words, plain and weighted
+    by position (wrapping): equal trees give equal sums; a changed bit
+    changes them."""
+    total = None
+    for k in sorted(tree):
+        w = tree[k].detach().reshape(-1).contiguous().view(torch.int32).long()
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        s = torch.stack([w.sum(), (w * pos).sum()])
+        total = s if total is None else total + s
+    return [int(v) for v in total.cpu()]
+
+
+def dp_reference(torch, seed: int, teacher_dir: str, path: str) -> dict:
+    """The one-process step at batch 2 on the 2-rank check's inputs: its
+    gradients of each role (the critic's returned for the NCCL check) and
+    metrics written to `path` for rank 0 to hold its reduced gradients
+    against."""
+    rec = _Recorder()
+    step, state, draws, cond, uncond = dp_setup(torch, seed, teacher_dir, "cuda", rec)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, metrics = step(state, draws, cond, uncond)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    metrics = {k: float(v) for k, v in metrics._asdict().items()}
+    torch.save({"grads": {role: {k: v.cpu() for k, v in g.items()}
+                          for role, g in rec.grads.items()}, "metrics": metrics}, path)
+    print(f"[train] the one-process reference step at batch 2: {step_s:.3f} s, {metrics}",
+          flush=True)
+    return {"critic_grads": rec.grads["critic"], "metrics": metrics, "step_s": step_s}
+
+
+def dp_rank_main(rank: int, spec: dict) -> int:
+    """One of the two data-parallel training ranks (`--dp_rank`): the
+    port's initialiser with backend gloo, both ranks on cuda:0; the 2-rank
+    step on this rank's row through the port's DataParallel reducer; the
+    bit checksums of the new student and critic, the step's seconds and
+    peak memory, the kernels' launches; rank 0 also the relative L2 of the
+    reduced gradients against the reference's (from spec['ref'])."""
+    import torch
+    import torch.distributed as dist
+
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.parallel import mesh as pmesh
+    from tdm_tpu_torch.train import tdm
+
+    os.environ.update(TDM_COORDINATOR=spec["store"], TDM_NUM_PROCESSES="2",
+                      TDM_PROCESS_ID=str(rank))
+    check(pmesh.maybe_initialize_distributed("cuda", backend="gloo"), "no gloo world")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    mesh = pmesh.make_mesh()
+
+    class Recording(pmesh.DataParallel):
+        """The port's gradient mean, keeping each role's reduced gradients."""
+
+        def __init__(self, mesh):
+            super().__init__(mesh)
+            self.grads = {}
+
+        def reduce(self, role, grads):
+            out = super().reduce(role, grads)
+            self.grads[role] = out
+            return out
+
+    sync = Recording(mesh)
+    step, state, draws, cond, uncond = dp_setup(torch, spec["seed"], spec["teacher_dir"],
+                                                device, sync)
+    rows = mesh.batch_rows(1)
+    part = tdm.draw_rows(draws, rows)
+    pmesh.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.monotonic()
+    new, metrics = step(state, part, tuple(t[rows] for t in cond),
+                        tuple(t[rows] for t in uncond))
+    torch.cuda.synchronize()
+    out = {"rank": rank, "step_s": time.monotonic() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": A.launch_counts(),
+           "metrics": {k: float(v) for k, v in metrics._asdict().items()},
+           "checksums": {role: bit_checksum(torch, getattr(new, role))
+                         for role in ("student", "critic")}}
+    if rank == 0:
+        ref = torch.load(spec["ref"], map_location="cpu", mmap=True)
+        out["ref_metrics"] = ref["metrics"]
+        out["grad_rel_l2"] = {}
+        for role, grads in sync.grads.items():
+            num = den = 0.0
+            for k, g in grads.items():
+                r = ref["grads"][role][k].to(device)
+                num += float((g.float() - r.float()).square().sum())
+                den += float(r.float().square().sum())
+            out["grad_rel_l2"][role] = math.sqrt(num / den)
+    with open(spec["out"] % rank, "w") as f:
+        json.dump(out, f)
+    pmesh.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
+             reference: dict) -> dict:
+    """Two gloo ranks on cuda:0 (`dp_rank_main`), started together, each
+    with a time limit, killed if either fails: their new student and critic
+    equal bit for bit (checked); the reduced gradients within DP_GRAD_TOL
+    (relative L2) and the losses within it of the one-process step at
+    batch 2 (checked); kernels 1–3's launches per rank as TRAIN_LAUNCHES
+    (checked); each rank's step seconds and peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the two ranks
+    print(f"[train] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
+          f"card when the ranks start", flush=True)
+    spec = {"seed": seed, "teacher_dir": teacher_dir, "ref": ref_path,
+            "store": "file://" + os.path.join(workdir, f"dp_store_{os.getpid()}"),
+            "out": os.path.join(workdir, "dp_rank%d.json")}
+    here = os.path.abspath(__file__)
+    t0 = time.monotonic()
+    # each rank peaks about where the one-process step does (weights, AdamW
+    # moments and the update's temporaries, ~33 GiB): two fit on the card
+    # only without the allocator's fragmentation (~5 GiB a process)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, here, "--dp_rank", str(r), "--dp_spec",
+                               json.dumps(spec)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data-parallel rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(spec["out"] % r) as f:
+            res.append(json.load(f))
+    os.remove(ref_path)
+    check(res[0]["checksums"] == res[1]["checksums"],
+          f"the two ranks' weights differ after the step: {res[0]['checksums']} "
+          f"{res[1]['checksums']}")
+    rel = res[0]["grad_rel_l2"]
+    check(set(rel) == {"student", "critic"} and all(v <= DP_GRAD_TOL for v in rel.values()),
+          f"reduced gradients against the one-process step: relative L2 {rel} "
+          f"(limit {DP_GRAD_TOL})")
+    loss_rel = {k: abs(res[0]["metrics"][k] - reference["metrics"][k])
+                / abs(reference["metrics"][k]) for k in ("loss_student", "loss_critic")}
+    check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
+          f"2-rank losses against the one-process step: {loss_rel}")
+    for r in res:
+        check(r["launches"] == TRAIN_LAUNCHES,
+              f"rank {r['rank']} launched {r['launches']}, expected {TRAIN_LAUNCHES}")
+    print(f"[train] 2 data-parallel ranks on cuda:0 (gloo), PixArt-α-512 at batch 1 each "
+          f"(global 2), one dmd step: weights equal bit for bit across ranks (checked); the "
+          f"reduced gradients' relative L2 against the one-process batch-2 step "
+          f"{rel['student']:.3e} (student), {rel['critic']:.3e} (critic), losses "
+          f"{loss_rel['loss_student']:.3e} / {loss_rel['loss_critic']:.3e} (limit "
+          f"{DP_GRAD_TOL}); step {res[0]['step_s']:.3f} / {res[1]['step_s']:.3f} s, peak "
+          f"{res[0]['peak_gib']:.2f} / {res[1]['peak_gib']:.2f} GiB per rank (the one-process "
+          f"step {reference['step_s']:.3f} s); launches per rank {res[0]['launches']}; "
+          f"{wall:.1f} s with the ranks' start", flush=True)
+    return {"grad_rel_l2": rel, "loss_rel": loss_rel, "ranks": res, "wall_s": wall,
+            "reference_step_s": reference["step_s"]}
 
 
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
@@ -6222,6 +6644,9 @@ PHASES = ("kernels", "reference", "probe", "serve", "train", "train_lora", "sd3"
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # a data-parallel training rank of the train phase (dp_ranks starts them)
+    ap.add_argument("--dp_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp_spec", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (a subset prints no result line)")
@@ -6231,6 +6656,8 @@ def main(argv=None) -> int:
         ap.error(f"--phases: one or more of {PHASES}")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, json.loads(args.dp_spec))
     import torch
 
     if not torch.cuda.is_available():

@@ -1,7 +1,8 @@
 """TDM distillation CLI of the port: `python -m tdm_tpu_torch.cli.train_tdm`.
 
-Port of the single-device path of `tdm_tpu/cli/train_tdm.py` (`main`,
-`:27-817`), with its flag names and defaults (`utils/config.py`):
+Port of `tdm_tpu/cli/train_tdm.py` (`main`, `:27-817`) on one GPU or on a
+('data', 'fsdp') mesh of processes, one per GPU, with its flag names and
+defaults (`utils/config.py`):
 
   schedule tables → student / critic / teacher parameters (the teacher
   from --pretrained_model_name_or_path when that is a directory of the
@@ -38,13 +39,32 @@ wraps in `q()` (the rollout and the probes) on dynamic int8 products
 (`train/tdm.py`, `ops/quant.py`). --push_to_hub uploads the output
 directory at the end of the run (`io/hub.push_to_hub`: --hub_model_id,
 else the directory's name; --hub_token, else $HF_TOKEN).
-Refused before the first step, each naming its ROADMAP slice:
---fsdp/--tp/--pp/--sp/--ep > 1 and --moe_experts (slice 6).
+
+Across GPUs (`parallel/mesh.py`): `torchrun --nproc_per_node N -m
+tdm_tpu_torch.cli.train_tdm ...`, or N processes with TDM_COORDINATOR,
+TDM_NUM_PROCESSES and TDM_PROCESS_ID set, as the JAX CLI reads them; each
+process runs on `cuda:LOCAL_RANK` (NCCL), or on the CPU under `--device
+cpu` (gloo). --train_batch_size is per process, so the global batch is N
+times it; every process draws the global batch's `StepDraws` from the one
+seeded generator and keeps its rows, so a run's numbers do not depend on
+N, and reads its own share of the prompts (host_index = rank). --fsdp K
+shards the student, the critic, their optimizer states and the EMA over K
+processes (ZeRO-3; a ValueError when K does not divide N), else every
+process keeps the whole state and the gradients are averaged (data
+parallelism). Validation and the final gather run on every process; the
+files (logs, grids, checkpoints, the exported student and LoRA) are
+written by process 0, a checkpoint in the one-process layout, so a run
+resumes at another N. Each process logs its peak device memory. The
+output directory is shared by all processes (one host, or a shared file
+system). Refused before the first step, each naming its ROADMAP slice:
+--tp/--pp/--sp/--ep > 1 and --moe_experts (slice 6).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import logging
 import os
 import signal
 import sys
@@ -57,7 +77,7 @@ import torch
 def refuse_unported(cfg) -> None:
     """NotImplementedError for a flag whose path is not ported, before any
     model is built."""
-    for flag in ("fsdp", "tp", "pp", "sp", "ep"):
+    for flag in ("tp", "pp", "sp", "ep"):
         if getattr(cfg, flag) > 1:
             raise NotImplementedError(
                 f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
@@ -92,7 +112,8 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     from tdm_tpu_torch import lora as lora_lib
     from tdm_tpu_torch.data import prompts as data_prompts, tokenizer as tok_lib
     from tdm_tpu_torch.device import resolve_device, set_fp32_precision
-    from tdm_tpu_torch.io import from_jax, params as params_io
+    from tdm_tpu_torch.io import from_jax
+    from tdm_tpu_torch.parallel import mesh as pmesh
     from tdm_tpu_torch.train import families, optim as topt, tdm, validation
     from tdm_tpu_torch.utils import checkpoint as ckpt_lib, config as cfg_lib
     from tdm_tpu_torch.utils import logging as log_lib
@@ -100,14 +121,36 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     cfg = cfg_lib.parse_args(argv)
     refuse_unported(cfg)
     device = resolve_device(cfg.device)
+    # the world of processes the environment asks for (one process per GPU)
+    if not torch.distributed.is_initialized() and pmesh.maybe_initialize_distributed(
+            device.type):
+        closing.callback(torch.distributed.destroy_process_group)
+    device = pmesh.local_device(device)
+    world, rank = pmesh.world_size(), pmesh.rank()
+    if cfg.max_devices > 0 and world > 1:
+        raise ValueError("--max_devices is only supported in single-process runs")
+    n_fsdp = max(cfg.fsdp, 1)
+    if world % n_fsdp:
+        raise ValueError(
+            f"--fsdp {cfg.fsdp} x --tp {cfg.tp} x --pp {cfg.pp} x --ep "
+            f"{cfg.ep} x --sp {cfg.sp} does not divide {world} devices"
+        )
+    mesh = pmesh.make_mesh(world // n_fsdp, n_fsdp) if world > 1 else None
+    main_process = rank == 0
     # fp32 products in full fp32 unless --allow_tf32 (reference src/main.py:197-198)
     set_fp32_precision(cfg.allow_tf32)
     out_dir = cfg.resolved_output_dir()
-    logger = log_lib.setup_logging()
+    logger = log_lib.setup_logging(main_process=main_process)
     logger.info("config: %s", cfg)
     logger.info("device: %s%s", device,
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-    global_batch = local_batch = cfg.train_batch_size  # one device, one process
+    # --train_batch_size is per process (the reference's "per device"), and
+    # every process is a data rank ('fsdp' ones too)
+    local_batch = cfg.train_batch_size
+    global_batch = local_batch * world
+    if mesh is not None:
+        logger.info("mesh: %d data x %d fsdp processes, global batch %d",
+                    mesh.n_data, mesh.n_fsdp, global_batch)
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
@@ -145,7 +188,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     # batches; pooled rides SD3 caches (the CLIP-L/G vectors) ----
     uncond_pair = uncond_pooled = None
     if cache is not None:
-        batches = cache.batches(local_batch, seed=seed)
+        batches = cache.batches(local_batch, seed=seed, host_index=rank, host_count=world)
 
         def get_batch():
             b = next(batches)
@@ -173,6 +216,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
                 batcher = native_loader.NativePromptLoader(
                     src, local_batch, caption_column=cfg.caption_column,
                     tokenizer=tok, max_length=seq_len, seed=seed,
+                    host_index=rank, host_count=world,
                 )
                 closing.callback(batcher.close)
                 dataset_size = batcher.num_prompts
@@ -189,6 +233,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             dataset_size = len(prompt_list)
             batcher = iter(data_prompts.PromptBatcher(
                 prompt_list, local_batch, tokenizer=tok, max_length=seq_len, seed=seed,
+                host_index=rank, host_count=world,
             ))
         proj = np.random.default_rng(0).normal(
             size=(tok.vocab_size, bundle.embed_dim)
@@ -216,18 +261,10 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         n_total_steps = cfg.num_train_epochs * max(-(-batches_per_epoch // accum), 1)
         logger.info("epoch accounting: %d optimizer steps", n_total_steps)
     lr = topt.make_lr_schedule(
-        cfg.lr_scheduler, cfg.effective_lr(1),
+        cfg.lr_scheduler, cfg.effective_lr(world),
         warmup_steps=cfg.lr_warmup_steps, total_steps=n_total_steps,
     )
 
-    def make_tx():
-        return topt.make_optimizer(
-            lr, betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_epsilon,
-            weight_decay=cfg.adam_weight_decay, max_grad_norm=cfg.max_grad_norm,
-            eight_bit=cfg.use_8bit_adam, accumulation_steps=accum,
-        )
-
-    tx_s, tx_c = make_tx(), make_tx()
     tdm_cfg = tdm.TDMConfig(
         cfg=cfg.cfg, total_steps=cfg.total_steps, num_steps=cfg.num_steps,
         use_huber=cfg.use_huber, use_separate=cfg.use_separate,
@@ -250,11 +287,35 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         student_init = {k: v.to(device) for k, v in lora_lib.factors(lora_template).items()}
         logger.info("LoRA training: rank %d, %d adapted modules",
                     cfg.train_lora_rank, len(lora_template.alpha))
+    # the step's reducer across processes: ZeRO-3 over 'fsdp', else the
+    # gradient mean; none in one process
+    sync = None
+    if mesh is not None and mesh.n_fsdp > 1:
+        sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, student_init),
+                           pmesh.ShardLayout(mesh, teacher))
+    elif mesh is not None:
+        sync = pmesh.DataParallel(mesh)
+
+    def make_tx(role):
+        return topt.make_optimizer(
+            lr, betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_epsilon,
+            weight_decay=cfg.adam_weight_decay, max_grad_norm=cfg.max_grad_norm,
+            eight_bit=cfg.use_8bit_adam, accumulation_steps=accum,
+            norm_fn=topt.global_norm if sync is None else functools.partial(sync.norm, role),
+        )
+
+    def local(role, params):
+        """This process's part of a role's parameters (all of them unless
+        ZeRO-3 shards them)."""
+        return params if sync is None else sync.shard(role, params)
+
+    tx_s, tx_c = make_tx("student"), make_tx("critic")
     step_fn = tdm.build_train_step(
         denoise_fn, teacher, schedule, tdm_cfg, tx_s, tx_c, sample_shape=sample_shape,
-        student_denoise_fn=student_fn,
+        student_denoise_fn=student_fn, sync=sync,
     )
-    state = tdm.init_state(student_init, teacher, tx_s, tx_c, use_ema=cfg.use_ema)
+    state = tdm.init_state(local("student", student_init), local("critic", teacher),
+                           tx_s, tx_c, use_ema=cfg.use_ema)
 
     # ---- resume ----
     mgr = ckpt_lib.CheckpointManager(out_dir, total_limit=cfg.checkpoints_total_limit)
@@ -262,14 +323,19 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     if cfg.resume_from_checkpoint:
         step0 = ckpt_lib.resolve_resume_step(out_dir, cfg.resume_from_checkpoint)
         if step0 is not None:
-            state = mgr.restore(state, step0)
+            if sync is None:
+                state = mgr.restore(state, step0)
+            else:  # the one-process checkpoint, each process keeping its part
+                state = sync.shard_state(
+                    mgr.restore(sync.full_template(state, tx_s, tx_c), step0), device)
             global_step = int(step0)
             logger.info("resumed from checkpoint-%d", global_step)
         else:
             logger.info("no checkpoint found; starting fresh")
 
     metrics_log = log_lib.MetricLogger(
-        os.path.join(out_dir, cfg.logging_dir), report_to=cfg.report_to
+        os.path.join(out_dir, cfg.logging_dir), report_to=cfg.report_to,
+        enabled=main_process,
     )
     timer = log_lib.StepTimer()
 
@@ -299,6 +365,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     profiler = None
     micro_step = 0
     stop_signal: dict = {"signum": None}
+    preempted = False
 
     def _graceful(signum, frame):
         stop_signal["signum"] = signum
@@ -316,6 +383,14 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
 
     def pooled_to_device(a):
         return None if a is None else to_device(a, torch.float32)
+
+    def save_checkpoint(step):
+        """Every process takes part (a ZeRO-3 state is gathered); process 0
+        writes the one-process layout and prunes."""
+        full = state if sync is None else sync.gather_state(state)
+        if main_process:
+            mgr.save(step, full)
+        pmesh.barrier()
 
     while global_step < n_total_steps:
         text_np, mask_np, pooled_np = get_batch()
@@ -340,7 +415,9 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
                 u_pooled = None
             uncond = bundle.cond_of(to_device(u_text, torch.float32),
                                     to_device(u_mask, torch.int32), pooled_to_device(u_pooled))
-        draws = tdm.make_draws(tdm_cfg, local_batch, sample_shape, gen, device)
+        draws = tdm.make_draws(tdm_cfg, global_batch, sample_shape, gen, device)
+        if mesh is not None:
+            draws = tdm.draw_rows(draws, mesh.batch_rows(local_batch))
 
         def run():
             return step_fn(state, draws, cond, uncond, teacher)
@@ -363,21 +440,24 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             logger.info("step %d loss_student %.4f loss_critic %.4f",
                         global_step, m["loss_student"], m["loss_critic"])
         if decode_fn is not None and global_step % cfg.validation_steps == 0:
+            # on every process (a ZeRO-3 student is gathered); process 0 writes
             val_params = state.ema if cfg.use_ema else state.student
+            if sync is not None:
+                val_params = sync.compute("student", val_params)
             if student_fn is not None:
                 with torch.no_grad():
                     val_params = student_fn.merge(val_params, teacher)
             grids = validation.save_validation_images(
                 denoise_fn, val_params, schedule,
                 val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
-                total_steps=cfg.total_steps,
+                total_steps=cfg.total_steps, write=main_process,
             )
             for k_nfe, grid in grids.items():
                 metrics_log.log_image(f"validation/{k_nfe}nfe", grid, global_step)
         if global_step % cfg.checkpointing_steps == 0:
-            mgr.save(global_step, state)
+            save_checkpoint(global_step)
             logger.info("saved checkpoint-%d", global_step)
-        if cfg.profile_steps > 0 and global_step == 10:
+        if cfg.profile_steps > 0 and global_step == 10 and main_process:
             # trace the next N steady-state steps (chrome trace under profile/)
             profiler = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -390,7 +470,9 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             profiler.export_chrome_trace(os.path.join(out_dir, "profile", "trace.json"))
             profiler = None
             logger.info("profile written to %s/profile", out_dir)
-        if stop_signal["signum"] is not None:
+        # a signal to any process stops them all at the same step
+        if pmesh.any_rank(stop_signal["signum"] is not None, device):
+            preempted = True
             break
 
     if profiler is not None:
@@ -400,30 +482,57 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     for sig, handler in prev_handlers.items():
         signal.signal(sig, handler)
     if mgr.latest_step() != global_step:
-        mgr.save(global_step, state)
-    if stop_signal["signum"] is not None:
+        save_checkpoint(global_step)
+    if preempted:
         logger.warning(
-            "preempted by signal %d at step %d — checkpoint saved; resume with "
+            "preempted by signal %s at step %d — checkpoint saved; resume with "
             "--resume_from_checkpoint latest", stop_signal["signum"], global_step,
         )
         metrics_log.close()
         return
 
-    # ---- the final artifacts: the student, fp16, in the JAX package's
-    # layout, and the kohya LoRA (the reference's released form) ----
+    # ---- the final artifacts (`_export`) ----
     final = state.ema if cfg.use_ema else state.student
+    if sync is not None:  # gathered on every process; process 0 writes
+        final = sync.compute("student", final)
+    if main_process:
+        _export(cfg, out_dir, final, teacher, bundle.model, stacks, lora_template,
+                global_step, logger)
+    pmesh.barrier()
+    metrics_log.close()
+    if device.type == "cuda":
+        logger.log(logging.INFO if main_process else logging.WARNING,
+                   "peak device memory %.2f GiB (max_memory_allocated) on process %d",
+                   torch.cuda.max_memory_allocated(device) / 2**30, rank)
+    logger.info("done at step %d", global_step)
+
+
+def write_student(params: dict, stacks, out_dir: str) -> None:
+    """`student.safetensors`: the student's weights in fp16, in the JAX
+    package's layout (its stacked layers re-stacked)."""
+    from tdm_tpu_torch.io import from_jax, params as params_io
+
+    flat = from_jax.jax_layout(params, stacks=stacks)
+    params_io.save_file(
+        {k: v.astype(np.float16) for k, v in flat.items()},
+        os.path.join(out_dir, "student.safetensors"),
+    )
+
+
+def _export(cfg, out_dir, final, teacher, model, stacks, lora_template, global_step,
+            logger) -> None:
+    """The final artifacts: the student, fp16, in the JAX package's layout,
+    the kohya LoRA (the reference's released form), and the hub upload."""
+    from tdm_tpu_torch import lora as lora_lib
+
     lora_path = os.path.join(out_dir, "tdm_lora.safetensors")
     if lora_template is not None:
         trained = lora_lib.from_factors(final, lora_template.alpha)
         lora_lib.save_kohya(trained, lora_path, prefix="lora_transformer")
         final = lora_lib.merge(teacher, trained, 1.0, stacks)
-    flat = from_jax.jax_layout(final, stacks=stacks)
-    params_io.save_file(
-        {k: v.astype(np.float16) for k, v in flat.items()},
-        os.path.join(out_dir, "student.safetensors"),
-    )
+    write_student(final, stacks, out_dir)
     if lora_template is None and cfg.export_lora_rank > 0:
-        lora = lora_lib.extract_lora(bundle.model, teacher, final, cfg.export_lora_rank)
+        lora = lora_lib.extract_lora(model, teacher, final, cfg.export_lora_rank)
         lora_lib.save_kohya(lora, lora_path, prefix="lora_transformer")
     logger.info("exported student.safetensors%s",
                 "" if lora_template is None and cfg.export_lora_rank <= 0
@@ -437,11 +546,6 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         url = hub_io.push_to_hub(out_dir, repo_id, token=cfg.hub_token,
                                  commit_message=f"tdm_tpu checkpoint (step {global_step})")
         logger.info("pushed %s to hub: %s", out_dir, url)
-    metrics_log.close()
-    if device.type == "cuda":
-        logger.info("peak device memory %.2f GiB (max_memory_allocated)",
-                    torch.cuda.max_memory_allocated(device) / 2**30)
-    logger.info("done at step %d", global_step)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -449,7 +450,7 @@ def flash_attention_fwd(
     if not _on_card("flash_attention_fwd", q_scaled):
         return plain_attention(q_scaled, k, v, bias)
     out, _ = _fwd(q_scaled, k, v, bias, with_lse=False)
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return out
 
 
@@ -465,7 +466,7 @@ def flash_attention_fwd_lse(
     if not _on_card("flash_attention_fwd_lse", q_scaled):
         return plain_attention_lse(q_scaled, k, v, bias)
     out, lse = _fwd(q_scaled, k, v, bias, with_lse=True)
-    flash_attention_fwd_lse.launches += 1
+    count_launch(flash_attention_fwd_lse)
     return out, lse
 
 
@@ -489,7 +490,7 @@ def flash_attention_bwd_dq(
         dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         b, h, sq, k.shape[2], dp, float(scale), _DTYPE_CODE[q_scaled.dtype],
     )
-    flash_attention_bwd_dq.launches += 1
+    count_launch(flash_attention_bwd_dq)
     if dp != d:
         dq = dq[..., :d].contiguous()
     return dq, delta
@@ -514,7 +515,7 @@ def flash_attention_bwd_dkv(
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, sq, sk, dp, _DTYPE_CODE[q_scaled.dtype],
     )
-    flash_attention_bwd_dkv.launches += 1
+    count_launch(flash_attention_bwd_dkv)
     if dp != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
@@ -536,8 +537,18 @@ def splash_attention_fwd(
         q_scaled.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b * h, sq, k.shape[2], d, _DTYPE_CODE[q_scaled.dtype],
     )
-    splash_attention_fwd.launches += 1
+    count_launch(splash_attention_fwd)
     return out
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel. Under a lock: replicas of a
+    data-parallel pipeline launch from a thread each."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 WRAPPERS = (

@@ -33,6 +33,8 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from tdm_tpu_torch.ops import attention
+
 # the JAX interceptor's gates: quantize only token-level, wide products
 MIN_TOKENS = 256  # rows of x (B·S); per-sample embedders stay exact
 MIN_DIM = 512  # min(K, N); narrow projections stay exact
@@ -105,7 +107,7 @@ def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     if m <= 16:
         xq = F.pad(xq, (0, 0, 0, 17 - m))
     acc = torch._int_mm(xq, wq.t())
-    int8_dot.launches += 1
+    attention.count_launch(int8_dot)
     return acc[:m, :n]
 
 

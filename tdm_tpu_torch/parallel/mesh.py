@@ -1,0 +1,485 @@
+"""Process groups, the ('data', 'fsdp') mesh, the gradient mean and ZeRO-3.
+
+Port of `tdm_tpu/parallel/mesh.py`. The reference's distributed surface is
+data parallelism over N GPUs (accelerate process groups over NCCL, the DDP
+allreduce in `backward`, `src/main.py:93-98,321-323,535`) with optional
+DeepSpeed ZeRO-3 parameter sharding (`:141-160`). The JAX package compiles
+that from shardings; the port makes the collectives itself, with one
+process per GPU (a JAX process drives every local device instead):
+
+  * `maybe_initialize_distributed`: the process group from the JAX
+    package's TDM_COORDINATOR / TDM_NUM_PROCESSES / TDM_PROCESS_ID, or
+    from torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
+    MASTER_PORT; NCCL for CUDA, gloo for the CPU. A world that was asked
+    for and does not form raises; nothing carries on at world 1.
+  * `Mesh`: the ('data', 'fsdp') axes over the world, rank = d·n_fsdp + f
+    (the JAX mesh's row-major order). Every rank is a data rank: 'fsdp'
+    ranks process rows of their own (`batch_rows`), as in
+    `batch_sharding`.
+  * `DataParallel`: the compute copy is the master weights, and gradients
+    are averaged over the world with one flattened all_reduce per dict
+    (the JAX step's psum).
+  * `ZeRO3` over a `ShardLayout` per role: `fsdp_spec`'s selection rule
+    (each leaf of at least 2¹⁶ elements is sharded, smaller ones stay
+    replicated) with a layout of the port's own: the leaf flattened,
+    zero-padded and cut into n_fsdp equal contiguous chunks, one per
+    'fsdp' rank, each a whole number of 8-bit Adam's 256-element blocks.
+    Master weights, optimizer state and the EMA live on the chunks; the
+    whole compute copy is gathered before the forwards that read it (not
+    layer by layer), gradients are reduce-scattered onto the chunks and
+    averaged over the data axis, and the clip's global norm sums the
+    chunks' squares with one all_reduce. The arithmetic per element is the
+    unsharded step's, so the numbers are its own up to the order of the
+    norm's sum.
+
+At world 1 nothing here runs: the training CLI passes the step no reducer,
+so the single-GPU step issues no collective and makes no copy.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from tdm_tpu_torch.train import optim as topt
+
+# fsdp_spec's size gate: smaller leaves stay replicated
+SHARD_MIN_SIZE = 2**16
+
+
+def maybe_initialize_distributed(
+    device_type: str = "cuda",
+    *,
+    backend: Optional[str] = None,
+    timeout: Optional[datetime.timedelta] = None,
+) -> bool:
+    """Form the process group the environment asks for, the `accelerate
+    launch --num_processes=N` equivalent (reference `README.md:158-162`):
+    TDM_COORDINATOR (host:port, or an init URL such as tcp://host:port or
+    file:///path) with TDM_NUM_PROCESSES and TDM_PROCESS_ID, as the JAX
+    package reads them; else torchrun's RANK and WORLD_SIZE with
+    MASTER_ADDR and MASTER_PORT. `backend` defaults to NCCL for CUDA and
+    gloo for the CPU (gloo also takes CUDA tensors in all_reduce, which is
+    how two processes share one card in a test). Returns False when the
+    environment asks for nothing, True when a group is up (formed here or
+    before); a group that does not form raises."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    if env.get("TDM_COORDINATOR"):
+        coord = env["TDM_COORDINATOR"]
+        init_method = coord if "://" in coord else f"tcp://{coord}"
+        world = int(env["TDM_NUM_PROCESSES"])
+        me = int(env["TDM_PROCESS_ID"])
+    elif "WORLD_SIZE" in env and "RANK" in env:
+        init_method = "env://"
+        world, me = int(env["WORLD_SIZE"]), int(env["RANK"])
+    else:
+        return False
+    if not 0 <= me < world:
+        raise ValueError(f"process {me} outside a world of {world} processes")
+    dist.init_process_group(
+        backend or ("nccl" if device_type == "cuda" else "gloo"),
+        init_method=init_method, world_size=world, rank=me, timeout=timeout,
+    )
+    return True
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def barrier() -> None:
+    """Wait for every rank (nothing at world 1)."""
+    if world_size() > 1:
+        dist.barrier()
+
+
+def any_rank(flag: bool, device: torch.device) -> bool:
+    """Whether `flag` holds on any rank (one all_reduce; `flag` itself at
+    world 1): a signal to one process stops every process at one step."""
+    if world_size() == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def local_device(device: torch.device) -> torch.device:
+    """This process's device: one process per GPU, so in a world of more
+    than one process a CUDA device without an index is `cuda:LOCAL_RANK`
+    (the rank when LOCAL_RANK is unset), which must exist: no rank falls
+    back to another card or the CPU. At world 1 `device` is returned as
+    it is."""
+    if device.type != "cuda" or world_size() == 1:
+        return device
+    index = device.index
+    if index is None:
+        index = int(os.environ.get("LOCAL_RANK", rank()))
+    count = torch.cuda.device_count()
+    if index >= count:
+        raise ValueError(
+            f"rank {rank()} wants cuda:{index} and {count} CUDA device(s) are "
+            "visible: the port runs one process per GPU"
+        )
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The ('data', 'fsdp') mesh over the world: rank = d·n_fsdp + f. The
+    groups are None where the axis has size 1 (no collective over it) and
+    `dist.group.WORLD` where it spans the world."""
+
+    n_data: int
+    n_fsdp: int
+    rank: int
+    data_group: Any = None
+    fsdp_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.n_data * self.n_fsdp
+
+    @property
+    def fsdp_index(self) -> int:
+        return self.rank % self.n_fsdp
+
+    def batch_rows(self, local_batch: int) -> slice:
+        """This rank's rows of the global batch: every rank is a data rank
+        ('fsdp' ranks too, as `batch_sharding` shards rows over both)."""
+        return slice(self.rank * local_batch, (self.rank + 1) * local_batch)
+
+
+def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1) -> Mesh:
+    """('data', 'fsdp') mesh over the world (all of it on 'data' by
+    default, the reference's topology). Every rank calls it, in the same
+    order, since it forms the axes' process groups."""
+    world, me = world_size(), rank()
+    if n_fsdp < 1 or world % n_fsdp:
+        raise ValueError(f"fsdp {n_fsdp} does not divide the world of {world} processes")
+    if n_data is None:
+        n_data = world // n_fsdp
+    if n_data * n_fsdp != world:
+        raise ValueError(
+            f"mesh {n_data}x{n_fsdp} does not divide the world of {world} processes")
+
+    def groups(members: list[list[int]]):
+        """This rank's group of `members` (each rank in exactly one)."""
+        if len(members[0]) == 1:
+            return None
+        if len(members[0]) == world:
+            return dist.group.WORLD
+        mine = None
+        for ranks in members:  # every rank forms every group
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine = g
+        return mine
+
+    fsdp = groups([list(range(d * n_fsdp, (d + 1) * n_fsdp)) for d in range(n_data)])
+    data = groups([list(range(f, world, n_fsdp)) for f in range(n_fsdp)])
+    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, data_group=data, fsdp_group=fsdp)
+
+
+def _allreduce_sum(tree: dict, group) -> dict:
+    """Every leaf summed over `group`: one all_reduce of the leaves
+    flattened into one buffer per dtype; the results are views of it."""
+    out = {}
+    by_dtype: dict = {}
+    for k, t in tree.items():
+        by_dtype.setdefault(t.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = torch.cat([tree[k].reshape(-1) for k in keys])
+        dist.all_reduce(flat, group=group)
+        off = 0
+        for k in keys:
+            n = tree[k].numel()
+            out[k] = flat[off:off + n].view(tree[k].shape)
+            off += n
+    return {k: out[k] for k in tree}
+
+
+def allreduce_mean(tree: dict) -> dict:
+    """The mean of each leaf over the world: one flattened all_reduce per
+    dtype, then a divide by the world's size."""
+    out = _allreduce_sum(tree, None)
+    torch._foreach_div_(list(out.values()), dist.get_world_size())
+    return out
+
+
+def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """`out` ← this rank's chunk of the sum of `t` over `group`
+    (reduce_scatter_single where torch has it, its older name before)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, t, group=group)
+
+
+def all_gather_flat(t: torch.Tensor, group) -> torch.Tensor:
+    """The 1-D chunks of every rank of `group`, concatenated in rank order
+    (all_gather_single where torch has it, its older name before)."""
+    out = t.new_empty(t.numel() * dist.get_world_size(group))
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, t.contiguous(), group=group)
+    return out
+
+
+class ShardLayout:
+    """The ZeRO-3 layout of one role's parameter dict on a mesh: a leaf of
+    at least SHARD_MIN_SIZE elements (and at least Q8_MIN_SIZE per 'fsdp' rank,
+    so that 8-bit Adam quantizes a chunk as it does the whole leaf) is
+    flattened, zero-padded to n_fsdp equal chunks of whole 256-element
+    blocks, and rank f keeps chunk f; the other leaves are replicated. The
+    zero padding stays zero through AdamW, 8-bit Adam and the EMA (a zero
+    gradient and weight give a zero update)."""
+
+    def __init__(self, mesh: Mesh, params: dict):
+        self.mesh = mesh
+        self.shapes = {k: tuple(p.shape) for k, p in params.items()}
+        nf = mesh.n_fsdp
+        self.chunks: dict[str, int] = {}  # sharded leaf -> elements per rank
+        for k, p in params.items():
+            n = p.numel()
+            if nf > 1 and n >= max(SHARD_MIN_SIZE, nf * topt.Q8_MIN_SIZE):
+                per = -(-n // nf)
+                self.chunks[k] = per + (-per) % topt.Q8_BLOCK
+
+    def _padded(self, k: str, flat: torch.Tensor) -> torch.Tensor:
+        """A sharded leaf's flat elements zero-padded to n_fsdp chunks."""
+        return F.pad(flat, (0, self.mesh.n_fsdp * self.chunks[k] - flat.numel()))
+
+    def _chunk(self, k: str, t: torch.Tensor) -> torch.Tensor:
+        c, f = self.chunks[k], self.mesh.fsdp_index
+        return self._padded(k, t.reshape(-1))[f * c:(f + 1) * c].clone()
+
+    def shard(self, full: dict) -> dict:
+        """This rank's part of a full dict: its chunk of each sharded leaf
+        (1-D), the replicated leaves as they are."""
+        return {k: self._chunk(k, v) if k in self.chunks else v for k, v in full.items()}
+
+    def gather(self, local: dict) -> dict:
+        """The full dict from every 'fsdp' rank's chunks: one all_gather
+        per sharded leaf; the replicated leaves as they are."""
+        out = {}
+        for k, v in local.items():
+            if k in self.chunks:
+                n = int(torch.Size(self.shapes[k]).numel())
+                v = all_gather_flat(v, self.mesh.fsdp_group)[:n].view(self.shapes[k])
+            out[k] = v
+        return out
+
+    def reduce(self, grads: dict) -> dict:
+        """Full gradients of this rank's rows → the world's mean gradient:
+        each sharded leaf reduce-scattered onto this rank's chunk over
+        'fsdp', then all-reduced over 'data'; the replicated leaves in one
+        flattened all_reduce over the world."""
+        m = self.mesh
+        rep = {k: g for k, g in grads.items() if k not in self.chunks}
+        out = _allreduce_sum(rep, None) if rep else {}
+        shards = {}
+        for k, c in self.chunks.items():
+            s = grads[k].new_empty(c)
+            reduce_scatter(s, self._padded(k, grads[k].reshape(-1)), group=m.fsdp_group)
+            shards[k] = s
+        if shards and m.data_group is not None:
+            shards = _allreduce_sum(shards, m.data_group)
+        out.update(shards)
+        torch._foreach_div_(list(out.values()), m.world)
+        return {k: out[k] for k in grads}
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """optax.global_norm of the full gradient from this rank's part:
+        the chunks' squares summed over 'fsdp' in one all_reduce, each
+        replicated leaf counted once."""
+        def squares(leaves):
+            return torch.stack(torch._foreach_norm([g.float() for g in leaves])).square().sum()
+
+        sharded = [grads[k] for k in self.chunks]
+        rep = [g for k, g in grads.items() if k not in self.chunks]
+        total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+        if sharded:
+            s = squares(sharded)
+            dist.all_reduce(s, group=self.mesh.fsdp_group)
+            total = total + s
+        if rep:
+            total = total + squares(rep)
+        return torch.sqrt(total)
+
+    def meta(self, *, local: bool) -> dict:
+        """Tensors of the local (chunk) or full shapes on the meta device,
+        for the 8-bit optimizer's packed layout."""
+        return {k: torch.empty((self.chunks[k],) if local and k in self.chunks else s,
+                               device="meta")
+                for k, s in self.shapes.items()}
+
+    # ---- the optimizer state between its local and its full form ----
+
+    def _q8_sizes(self, k: str) -> tuple[int, int]:
+        """(codes of the whole leaf padded to whole blocks, n_fsdp chunks)."""
+        n = int(torch.Size(self.shapes[k]).numel())
+        return n + (-n) % topt.Q8_BLOCK, self.mesh.n_fsdp * self.chunks[k]
+
+    def gather_opt(self, node):
+        """An optimizer state of the local dict → the state the optimizer
+        keeps for the full dict, on the CPU (every 'fsdp' rank calls it)."""
+        def leaves(d):
+            return {k: v.cpu() for k, v in self.gather(d).items()}
+
+        def q8(moments):
+            full = {}
+            for k, v in topt.leaf_moments(moments, self.meta(local=True)).items():
+                if k in self.chunks:
+                    size, _ = self._q8_sizes(k)
+                    g = self.mesh.fsdp_group
+                    v = topt.Q8Moment(all_gather_flat(v.values, g)[:size],
+                                      all_gather_flat(v.scales, g)[:size // topt.Q8_BLOCK])
+                full[k] = v
+            return topt.q8_pack_leaves(full, self.meta(local=False), torch.device("cpu"))
+
+        return _map_opt(node, leaves, q8)
+
+    def shard_opt(self, node, device: torch.device):
+        """The inverse of `gather_opt`: a full optimizer state → this
+        rank's, on `device`."""
+        def leaves(d):
+            return {k: v.to(device) for k, v in self.shard(d).items()}
+
+        def q8(moments):
+            local = {}
+            f = self.mesh.fsdp_index
+            for k, v in topt.leaf_moments(moments, self.meta(local=False)).items():
+                if k in self.chunks:
+                    size, padded = self._q8_sizes(k)
+                    c = self.chunks[k]
+                    codes = F.pad(v.values, (0, padded - size))[f * c:(f + 1) * c]
+                    scales = F.pad(v.scales, (0, (padded - size) // topt.Q8_BLOCK))
+                    cb = c // topt.Q8_BLOCK
+                    v = topt.Q8Moment(codes, scales[f * cb:(f + 1) * cb])
+                local[k] = v
+            return topt.q8_pack_leaves(local, self.meta(local=True), device)
+
+        return _map_opt(node, leaves, q8)
+
+
+def _map_opt(node, leaves_fn, q8_fn):
+    """An optimizer state (named tuples of ints, dicts of per-leaf tensors
+    and packed 8-bit moments) with each dict through `leaves_fn` and each
+    Q8Moments through `q8_fn`."""
+    if isinstance(node, topt.Q8Moments):
+        return q8_fn(node)
+    if isinstance(node, dict):
+        return leaves_fn(node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_map_opt(getattr(node, f), leaves_fn, q8_fn) for f in node._fields))
+    return node
+
+
+class DataParallel:
+    """The step's reducer under plain data parallelism: the compute copy is
+    the master weights, gradients are averaged over the world (one
+    flattened all_reduce per dict) and the metrics too. Every rank holds
+    the whole state, so the state's full form is the state itself."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def shard(self, role: str, params: dict) -> dict:
+        """This rank's part of a role's full parameters."""
+        return params
+
+    def compute(self, role: str, params: dict) -> dict:
+        return params
+
+    def reduce(self, role: str, grads: dict) -> dict:
+        return allreduce_mean(grads)
+
+    def norm(self, role: str, grads: dict) -> torch.Tensor:
+        return topt.global_norm(grads)
+
+    def mean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean of a tensor over the world (the metrics for the log)."""
+        out = values.clone()
+        dist.all_reduce(out)
+        return out / self.mesh.world
+
+    def gather_state(self, state):
+        return state
+
+    def full_template(self, state, student_tx, critic_tx):
+        return state
+
+    def shard_state(self, full, device: torch.device):
+        return full
+
+
+class ZeRO3(DataParallel):
+    """The step's reducer under ZeRO-3: a `ShardLayout` for the student
+    (its EMA too) and one for the critic; the frozen teacher is
+    replicated, as the reference's ZeRO-3 leaves frozen models out."""
+
+    def __init__(self, mesh: Mesh, student: ShardLayout, critic: ShardLayout):
+        super().__init__(mesh)
+        self.layouts = {"student": student, "critic": critic}
+
+    def shard(self, role: str, params: dict) -> dict:
+        return self.layouts[role].shard(params)
+
+    def compute(self, role: str, params: dict) -> dict:
+        return self.layouts[role].gather(params)
+
+    def reduce(self, role: str, grads: dict) -> dict:
+        return self.layouts[role].reduce(grads)
+
+    def norm(self, role: str, grads: dict) -> torch.Tensor:
+        return self.layouts[role].global_norm(grads)
+
+    def gather_state(self, state):
+        """The TrainState of one unsharded process, on the CPU: what a
+        checkpoint holds (every 'fsdp' rank calls it)."""
+        s, c = self.layouts["student"], self.layouts["critic"]
+
+        def host(layout, tree):
+            return None if tree is None else {k: v.cpu() for k, v in layout.gather(tree).items()}
+
+        return state._replace(
+            student=host(s, state.student), critic=host(c, state.critic),
+            ema=host(s, state.ema), student_opt=s.gather_opt(state.student_opt),
+            critic_opt=c.gather_opt(state.critic_opt))
+
+    def full_template(self, state, student_tx, critic_tx):
+        """Zeros of the unsharded TrainState's form on the CPU (a checkpoint
+        restores into it)."""
+        s, c = self.layouts["student"], self.layouts["critic"]
+
+        def zeros(layout, like):
+            return {k: torch.zeros(layout.shapes[k], dtype=v.dtype) for k, v in like.items()}
+
+        student, critic = zeros(s, state.student), zeros(c, state.critic)
+        return state._replace(
+            student=student, critic=critic,
+            ema=None if state.ema is None else zeros(s, state.ema),
+            student_opt=student_tx.init(student), critic_opt=critic_tx.init(critic))
+
+    def shard_state(self, full, device: torch.device):
+        """This rank's part of an unsharded TrainState, on `device`."""
+        s, c = self.layouts["student"], self.layouts["critic"]
+
+        def local(layout, tree):
+            return None if tree is None else {
+                k: v.to(device) for k, v in layout.shard(tree).items()}
+
+        return full._replace(
+            student=local(s, full.student), critic=local(c, full.critic),
+            ema=local(s, full.ema), student_opt=s.shard_opt(full.student_opt, device),
+            critic_opt=c.shard_opt(full.critic_opt, device))

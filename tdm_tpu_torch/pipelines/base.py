@@ -13,10 +13,24 @@ Noise: with no `latents=`, a pipeline draws its initial noise from a
 noise on every device). JAX's `PRNGKey(seed)` draws different numbers by
 construction: the same seed gives different images in the two packages;
 pass `latents=` to feed both the same noise.
+
+Data-parallel serving (`data_parallel_devices`, the counterpart of the JAX
+package's `data_parallel_mesh`, `tdm_tpu/pipelines/base.py:71-97`): one
+process drives N local devices, as the JAX server does. Each device gets a
+replica of the denoiser and the decoder when the attribute is set (the
+pipeline's own modules serve the first entry on its device); a call
+encodes its prompts and draws its noise for the whole batch, then its rows
+split into N equal chunks, which run concurrently (a thread per device,
+each on a CUDA stream of its own) and are concatenated in order. So a
+row's image does not depend on N. A repeated device is allowed.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -69,6 +83,7 @@ class DiffusionPipelineBase:
         self._base: dict[str, torch.Tensor] = {}  # pristine adapted weights
         self._active: tuple = ()  # ((name, scale), ...)
         self.quant: Optional[str] = None  # None or 'int8': the sampler's products
+        self._replicas: list = []  # one pipeline per data_parallel_devices entry
 
     def sampler_scope(self):
         """The scope the sampler runs under: `quant_scope(self.quant)`
@@ -78,6 +93,96 @@ class DiffusionPipelineBase:
     @property
     def denoiser(self) -> torch.nn.Module:
         return denoiser_of(self)
+
+    @property
+    def data_parallel_devices(self) -> Optional[list]:
+        """The devices a call's rows are split over (None: this pipeline's
+        device alone)."""
+        return [r.device for r in self._replicas] or None
+
+    @data_parallel_devices.setter
+    def data_parallel_devices(self, devices: Optional[Sequence]) -> None:
+        replicas, own = [], False
+        for dev in devices or ():
+            dev = torch.device(dev)
+            if dev == self.device and not own:
+                own = True
+                replicas.append(self)
+            else:
+                replicas.append(self._replica(dev))
+        self._replicas = replicas
+
+    def _replica(self, device: torch.device) -> "DiffusionPipelineBase":
+        """This pipeline with its denoiser, decoder and schedule copied to
+        `device`; the text encoders stay behind (prompts are encoded
+        before the split)."""
+        rep = copy.copy(self)
+        rep._replicas = []
+        rep.device = device
+        for name in ("transformer", "unet", "vae_decoder"):
+            module = getattr(self, name, None)
+            if module is not None:
+                setattr(rep, name, copy.deepcopy(module).to(device))
+        schedule = getattr(self, "schedule", None)
+        if schedule is not None:
+            rep.schedule = dataclasses.replace(
+                schedule, alphas=schedule.alphas.to(device), sigmas=schedule.sigmas.to(device))
+        return rep
+
+    def run_rows(self, noise: torch.Tensor, cond: Any, uncond: Any, **kw) -> PipelineOutput:
+        """The family's `_run(noise, cond, uncond, **kw)` (sampler and
+        decode) on these rows, or, with `data_parallel_devices`, on N equal
+        chunks of them at once, one per device, concatenated in order.
+        Raises ValueError when N does not divide the batch."""
+        if not self._replicas:
+            return self._run(noise, cond, uncond, **kw)
+        n, b = len(self._replicas), noise.shape[0]
+        if b % n:
+            raise ValueError(
+                f"batch {b} does not divide the {n} data-parallel devices — pad the "
+                "prompt list"
+            )
+        per = b // n
+        main_stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" \
+            else None
+        if main_stream is not None and any(r.device != self.device for r in self._replicas):
+            main_stream.synchronize()  # the inputs, before another card copies them
+
+        def rows(tree, i, dev):
+            if tree is None:
+                return None
+            if isinstance(tree, torch.Tensor):
+                return tree[i * per:(i + 1) * per].to(dev)
+            return tuple(rows(t, i, dev) for t in tree)
+
+        def work(i):
+            rep = self._replicas[i]
+            rep.quant = self.quant
+            with torch.inference_mode(), _on_stream(rep.device, main_stream) as stream:
+                out = rep._run(rows(noise, i, rep.device), rows(cond, i, rep.device),
+                               rows(uncond, i, rep.device), **kw)
+                if stream is not None and rep.device == self.device:
+                    # the caller's stream reads the results (it waits on this
+                    # stream below); the allocator must not hand them out first
+                    for t in (out.images, out.latents):
+                        if t is not None:
+                            t.record_stream(main_stream)
+                elif stream is not None:  # another card: done before the copy back
+                    stream.synchronize()
+            return out, stream
+
+        with ThreadPoolExecutor(max_workers=n, thread_name_prefix="tdm-dp") as pool:
+            results = [f.result() for f in [pool.submit(work, i) for i in range(n)]]
+        for _, stream in results:
+            if stream is not None and stream.device == self.device:
+                main_stream.wait_stream(stream)
+        outs = [out for out, _ in results]
+
+        def cat(ts):
+            return None if ts[0] is None else torch.cat([t.to(self.device) for t in ts])
+
+        return PipelineOutput(images=cat([o.images for o in outs]),
+                              latents=cat([o.latents for o in outs]))
 
     def load_lora_weights(self, path: str, adapter_name: str = "default") -> None:
         """Read a kohya or peft safetensors LoRA and make it the one active
@@ -107,10 +212,26 @@ class DiffusionPipelineBase:
         for name, scale in zip(names, scales):
             if scale != 0.0:
                 merged = lora_lib.merge(merged, self._loras[name], scale, stacks)
-        weights = dict(model.named_parameters())
-        for key, value in merged.items():
-            weights[key].copy_(value)
+        for pipe in [self, *(r for r in self._replicas if r is not self)]:
+            weights = dict(pipe.denoiser.named_parameters())
+            for key, value in merged.items():
+                weights[key].copy_(value)
         self._active = tuple(zip(names, scales))
+
+
+@contextlib.contextmanager
+def _on_stream(device: torch.device, main):
+    """On CUDA: a side stream of `device`, current for the block, that first
+    waits for the work queued on `main` when `main` is on `device` (the
+    inputs); elsewhere nothing (yields None)."""
+    if device.type != "cuda":
+        yield None
+        return
+    stream = torch.cuda.Stream(device)
+    if main is not None and main.device == stream.device:
+        stream.wait_stream(main)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield stream
 
 
 def check_negative_prompt(

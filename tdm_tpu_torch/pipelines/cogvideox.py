@@ -160,11 +160,15 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         if timesteps is None:
             timesteps = (TDM_TRAINED_GRID if num_inference_steps == 4 else
                          sched.fewstep_grid(1000, num_inference_steps).tolist())
+        return self.run_rows(noise, cond, uncond, cfg=guidance_scale if use_cfg else None,
+                             timesteps=timesteps, output_type=output_type)
+
+    def _run(self, noise, cond, uncond, *, cfg, timesteps, output_type) -> PipelineOutput:
+        """The sampler and the decode of a call's rows (`run_rows`)."""
         with self.sampler_scope():
             out = sampling.sample_fewstep(
                 cog.make_denoise_fn(self.transformer), self.schedule, noise, cond,
-                timestep_grid=sched.grid_from_list(timesteps), uncond=uncond,
-                cfg=guidance_scale if use_cfg else None,
+                timestep_grid=sched.grid_from_list(timesteps), uncond=uncond, cfg=cfg,
             )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)

@@ -126,8 +126,14 @@ class PixArtPipeline(DiffusionPipelineBase):
             (b, self.transformer.cfg.in_channels, height // 8, width // 8),
             self.device,
         )
+        return self.run_rows(noise, cond, uncond, cfg=guidance_scale if use_cfg else None,
+                             solver=solver, num_inference_steps=num_inference_steps,
+                             total_steps=total_steps, output_type=output_type)
+
+    def _run(self, noise, cond, uncond, *, cfg, solver, num_inference_steps, total_steps,
+             output_type) -> PipelineOutput:
+        """The sampler and the decode of a call's rows (`run_rows`)."""
         denoise = pixart.make_denoise_fn(self.transformer)
-        cfg = guidance_scale if use_cfg else None
         with self.sampler_scope():
             if solver == "fewstep":
                 out = sampling.sample_fewstep(

@@ -123,11 +123,18 @@ class SD15Pipeline(DiffusionPipelineBase):
             latents, generator_for(seed, generator),
             (b, self.unet.cfg.in_channels, height // 8, width // 8), self.device,
         )
+        return self.run_rows(noise, cond, uncond, cfg=guidance_scale if use_cfg else None,
+                             sample=sample, num_inference_steps=num_inference_steps,
+                             output_type=output_type)
+
+    def _run(self, noise, cond, uncond, *, cfg, sample, num_inference_steps,
+             output_type) -> PipelineOutput:
+        """The sampler and the decode of a call's rows (`run_rows`)."""
         with self.sampler_scope():
             out = sample(
                 unet_sd15.make_denoise_fn(self.unet),
                 solvers.ddpm_grid(self.schedule, num_inference_steps), noise, cond,
-                uncond=uncond, cfg=guidance_scale if use_cfg else None,
+                uncond=uncond, cfg=cfg,
             )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)

@@ -146,12 +146,19 @@ class SD3Pipeline(DiffusionPipelineBase):
             (b, self.transformer.cfg.in_channels, height // 8, width // 8),
             self.device,
         )
-        shift = self.flow_shift if flow_shift is None else flow_shift
+        return self.run_rows(noise, cond, uncond, cfg=guidance_scale if use_cfg else None,
+                             sample=sample, num_inference_steps=num_inference_steps,
+                             shift=self.flow_shift if flow_shift is None else flow_shift,
+                             output_type=output_type)
+
+    def _run(self, noise, cond, uncond, *, cfg, sample, num_inference_steps, shift,
+             output_type) -> PipelineOutput:
+        """The sampler and the decode of a call's rows (`run_rows`)."""
         with self.sampler_scope():
             out = sample(
                 mmdit_sd3.make_denoise_fn(self.transformer),
                 solvers.flow_grid(num_inference_steps, flow_shift=shift), noise, cond,
-                uncond=uncond, cfg=guidance_scale if use_cfg else None,
+                uncond=uncond, cfg=cfg,
             )
         if output_type == "latent" or self.vae_decoder is None:
             return PipelineOutput(images=None, latents=out)

@@ -19,6 +19,9 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
                                        a T5 cache of [226, 4096] rows)
     python -m tdm_tpu_torch.serve.server --model out/sd3 --quant int8 ...
                                       (int8 products in the sampler)
+    python -m tdm_tpu_torch.serve.server --model out/pixart_tdm --dp 4 \
+        --batch_size 8   (a replica on each of 4 local GPUs; each batch's
+                          rows split 2 per GPU, `pipelines/base.py`)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
@@ -379,23 +382,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--quant", default=None, choices=(None, "int8"),
                    help="dynamic int8 products for the denoiser's large linear "
                         "layers in the sampler (ops/quant.py)")
-    # options of the JAX server whose modules are not ported yet
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel replicas, one per local GPU (cuda:0..N-1; N "
+                        "replicas on the CPU under --device cpu): each batch's rows "
+                        "split N ways; --batch_size and every bucket must be multiples")
+    # an option of the JAX server whose module is not ported yet
     p.add_argument("--tp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
-    p.add_argument("--dp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
     return p.parse_args(argv)
 
 
 def build_server(args: argparse.Namespace) -> TDMServer:
     """Load the pipeline, make the batcher and bind the socket (before the
     warm-up, so early clients wait in the listen backlog)."""
-    for flag, value, where in (
-        ("--tp", args.tp > 1, "slice 6 (multi-GPU)"),
-        ("--dp", args.dp > 1, "slice 6 (multi-GPU)"),
-    ):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md queue 1, {where}"
-            )
+    if args.tp > 1:
+        raise NotImplementedError(
+            "--tp is not ported yet: ROADMAP.md queue 1, slice 6 (multi-GPU)")
+    if args.tp and args.dp:
+        raise SystemExit("--tp and --dp are mutually exclusive")
+    dp_devices = _dp_devices(args) if args.dp and args.dp > 1 else None
     from tdm_tpu_torch.device import set_fp32_precision
     from tdm_tpu_torch.pipelines import from_pretrained
     from tdm_tpu_torch.serve.batcher import MicroBatcher
@@ -407,6 +411,8 @@ def build_server(args: argparse.Namespace) -> TDMServer:
         pipe.set_adapters(["tdm"], [args.lora_scale])
     if args.quant:
         pipe.quant = args.quant
+    if dp_devices is not None:
+        pipe.data_parallel_devices = dp_devices
     call = {"num_inference_steps": args.num_inference_steps,
             "guidance_scale": args.guidance_scale}
     for k in ("height", "width", "num_frames", "flow_shift"):
@@ -443,6 +449,34 @@ def build_server(args: argparse.Namespace) -> TDMServer:
         print(f"tdm-serve: warmed {len(batcher.batch_buckets)} batch shape(s) "
               f"in {time.monotonic() - t0:.1f}s", flush=True)
     return server
+
+
+def _dp_devices(args: argparse.Namespace) -> list:
+    """The --dp devices, checked before any model loads (the JAX server's
+    rules, `tdm_tpu/serve/server.py:334-362`): --batch_size and every
+    --batch_buckets entry multiples of N; on CUDA, cuda:0..N-1, all of which must exist (no smaller mesh);
+    under --device cpu, N replicas on the CPU."""
+    import torch
+
+    from tdm_tpu_torch.device import resolve_device
+
+    if args.batch_size % args.dp:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} must be a multiple of "
+            f"--dp {args.dp} (the batch shards over the mesh)"
+        )
+    if args.batch_buckets and any(int(b) % args.dp for b in args.batch_buckets.split(",")):
+        raise SystemExit(
+            f"--batch_buckets {args.batch_buckets} must all be multiples "
+            f"of --dp {args.dp} (each bucket batch shards over the mesh)"
+        )
+    device = resolve_device(args.device)
+    if device.type != "cuda":
+        return [device] * args.dp
+    count = torch.cuda.device_count()
+    if args.dp > count:
+        raise ValueError(f"--dp {args.dp} needs {args.dp} CUDA devices; {count} visible")
+    return [torch.device("cuda", i) for i in range(args.dp)]
 
 
 def main(argv=None) -> None:

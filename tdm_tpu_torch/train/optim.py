@@ -101,13 +101,16 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(inner: Optimizer, max_norm: float) -> Optimizer:
+def clip_by_global_norm(
+    inner: Optimizer, max_norm: float, norm_fn: Callable[[Params], torch.Tensor] = global_norm
+) -> Optimizer:
     """optax.clip_by_global_norm before `inner`: g ← g / ‖g‖ · max_norm only
-    where ‖g‖ ≥ max_norm (no epsilon)."""
+    where ‖g‖ ≥ max_norm (no epsilon). `norm_fn` gives ‖g‖: under ZeRO-3 a
+    rank holds part of g, and its layout's `global_norm` sums the parts."""
 
     @torch.no_grad()
     def update(grads: Params, state, params: Params):
-        norm = global_norm(grads)
+        norm = norm_fn(grads)
         if not bool(norm < max_norm):
             keys = list(grads)
             scaled = torch._foreach_div([grads[k] for k in keys], norm)
@@ -285,27 +288,34 @@ def leaf_moments(moments: Q8Moments, params: Params) -> dict:
     return out
 
 
+def q8_pack_leaves(leaves: dict, params: Params, device) -> Q8Moments:
+    """The inverse of `leaf_moments`: name → Q8Moment for each quantized
+    leaf of `params` and name → fp32 tensor for the others, packed in the
+    layout `adam8bit` keeps for `params` (which only lend their names and
+    shapes: meta tensors do), on `device`."""
+    codes, scales, small = [], [], []
+    for span in _layout(params)[0]:
+        for name, _, _, _ in span.leaves:
+            if span.quantized:
+                codes.append(leaves[name].values.to(device))
+                scales.append(leaves[name].scales.to(device))
+            else:
+                small.append(leaves[name].reshape(-1).float().to(device))
+
+    def cat(parts, dtype):
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=device)
+
+    return Q8Moments(codes=cat(codes, torch.int8), scales=cat(scales, torch.float32),
+                     small=cat(small, torch.float32))
+
+
 def q8_pack(moments: Params, params: Params) -> Q8Moments:
     """One fp32 moment per leaf of `params` (name → tensor of its shape) →
     the packed Q8Moments that `adam8bit` keeps for `params`: each quantized
     leaf through `q8_quantize` on its own, the others as they are."""
-    codes, scales, small = [], [], []
-    for span in _layout(params)[0]:
-        for name, _, _, _ in span.leaves:
-            m = moments[name].float()
-            if span.quantized:
-                q = q8_quantize(m)
-                codes.append(q.values)
-                scales.append(q.scales)
-            else:
-                small.append(m.reshape(-1))
-    dev = next(iter(params.values())).device
-
-    def cat(parts, dtype):
-        return torch.cat(parts).to(dev) if parts else torch.zeros(0, dtype=dtype, device=dev)
-
-    return Q8Moments(codes=cat(codes, torch.int8), scales=cat(scales, torch.float32),
-                     small=cat(small, torch.float32))
+    leaves = {name: q8_quantize(m) if m.numel() >= Q8_MIN_SIZE else m
+              for name, m in moments.items() if name in params}
+    return q8_pack_leaves(leaves, params, next(iter(params.values())).device)
 
 
 def adam8bit(
@@ -441,18 +451,20 @@ def make_optimizer(
     low_precision_moments: bool = False,
     eight_bit: bool = False,
     accumulation_steps: int = 1,
+    norm_fn: Callable[[Params], torch.Tensor] = global_norm,
 ) -> Optimizer:
     """clip(max_grad_norm) → AdamW, the reference's update rule
     (`src/main.py:206-224, 537`); `eight_bit` takes `adam8bit` for AdamW and
     `accumulation_steps > 1` wraps the chain in `multi_steps` (the clip then
-    sees the window's mean gradient)."""
+    sees the window's mean gradient). `norm_fn`: the clip's global norm
+    (`parallel.mesh.ShardLayout.global_norm` under ZeRO-3)."""
     if eight_bit:
         tx = adam8bit(lr, b1=betas[0], b2=betas[1], eps=eps, weight_decay=weight_decay)
     else:
         tx = adamw(lr, b1=betas[0], b2=betas[1], eps=eps, weight_decay=weight_decay,
                    mu_dtype=torch.bfloat16 if low_precision_moments else None)
     if max_grad_norm is not None:
-        tx = clip_by_global_norm(tx, max_grad_norm)
+        tx = clip_by_global_norm(tx, max_grad_norm, norm_fn)
     return multi_steps(tx, accumulation_steps) if accumulation_steps > 1 else tx
 
 

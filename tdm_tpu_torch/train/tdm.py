@@ -32,6 +32,16 @@ Differences from the JAX step that a caller sees:
     (for the rollout and x0_gen_sg) and once under autograd (for the student
     loss). The values are the same: the merge is deterministic.
 
+Across processes (`parallel/mesh.py`) the step takes a reducer (`sync`):
+the weights every forward reads come from `sync.compute` (the master
+weights themselves under data parallelism, the gathered compute copy under
+ZeRO-3), every gradient goes through `sync.reduce` (the world's mean)
+before its optimizer sees it, and the metrics are averaged over the
+ranks. The losses are means over a rank's rows, with per-sample
+normalizers, so the mean of the ranks' gradients is the gradient of the
+global batch, as under the JAX step's psum. Without `sync` (one process)
+the step issues no collective and makes no copy.
+
 `quant_forwards` runs exactly the forwards the JAX step wraps in `q()`
 (`tdm_tpu/train/tdm.py:203-217`, used at `:239`, `:310`, `:363-364`,
 `:404`, `:410`) under the int8 scope (`ops/quant.py`): the student's K-step
@@ -128,6 +138,16 @@ def make_draws(
     )
 
 
+def draw_rows(draws: StepDraws, rows: slice) -> StepDraws:
+    """The draws of `rows` of the batch (a rank's rows of the global
+    batch's draws: every rank draws the global batch from one shared
+    generator, so a run's numbers do not depend on the world size)."""
+    return StepDraws(
+        z=draws.z[rows], seg=draws.seg[rows], u=draws.u[rows], fresh=draws.fresh[rows],
+        critic_u=draws.critic_u[:, rows], critic_eps=draws.critic_eps[:, rows],
+    )
+
+
 def segment_levels(config: TDMConfig) -> torch.Tensor:
     """Noise level of each trajectory source point, s ∈ {0..K}: grid[s] for
     s < K, 0 for s = K (the final x₀). Host int64."""
@@ -181,9 +201,13 @@ def build_train_step(
     *,
     sample_shape: tuple[int, ...],
     student_denoise_fn: Optional[ParamDenoiseFn] = None,
+    sync=None,
 ):
     """Returns `train_step(state, draws, cond, uncond, teacher=None) ->
     (state, metrics)`; `teacher` defaults to `teacher_params`.
+
+    `sync`: the reducer of a step across processes
+    (`parallel.mesh.DataParallel` or `ZeRO3`), None in one process.
 
     `student_denoise_fn`: the LoRA student (`lora.wrap_denoise_fn`), whose
     state.student holds only the adapter factors; the step's teacher is its
@@ -198,6 +222,17 @@ def build_train_step(
         )
     grid = sched.fewstep_grid(config.total_steps, config.num_steps)
     levels = segment_levels(config)
+
+    def compute(role: str, master: dict) -> dict:
+        """The weights a role's forwards read."""
+        return master if sync is None else sync.compute(role, master)
+
+    def reduce(role: str, grads: dict) -> dict:
+        return grads if sync is None else sync.reduce(role, grads)
+
+    def norm(role: str, grads: dict) -> torch.Tensor:
+        return topt.global_norm(grads) if sync is None else sync.norm(role, grads)
+
     def q():
         """The scope of a no-grad probe: int8 under quant_forwards (the JAX
         step's `q()`); never around a forward under autograd."""
@@ -217,9 +252,12 @@ def build_train_step(
                 return student_params
             return student_denoise_fn.merge(student_params, teacher)
 
+        student_w = compute("student", state.student)
+        critic_w = compute("critic", state.critic)
+
         # ---- 1-2. student rollout from pure noise, no gradient ----
         with torch.no_grad():
-            student_sg = student_weights(state.student)
+            student_sg = student_weights(student_w)
         with torch.no_grad(), q():
             traj = sampling.sample_fewstep(
                 lambda x, t, c: denoise_fn(student_sg, x, t, c),
@@ -270,15 +308,19 @@ def build_train_step(
             x_t_sg = (a_f * x0_gen_sg + s_f * fresh).to(x0_gen_sg.dtype)
 
             def one_critic_update(critic_opt, x_t_i, t_i, eps_i):
+                nonlocal critic_w
                 target_i = sched.native_target(schedule, x0_gen_sg, eps_i, t_i)
 
                 def critic_loss_fn(critic_params):
                     out_pred = denoise_fn(critic_params, x_t_i, t_i, cond)
                     return ((out_pred.float() - target_i) ** 2).mean()
 
-                loss, grads = _value_and_grad(critic_loss_fn, state.critic)
+                loss, grads = _value_and_grad(critic_loss_fn, critic_w)
+                grads = reduce("critic", grads)
                 updates, critic_opt = critic_tx.update(grads, critic_opt, state.critic)
                 topt.apply_updates(state.critic, updates)
+                if updates is not None:
+                    critic_w = compute("critic", state.critic)
                 return critic_opt, loss, grads
 
             critic_opt = state.critic_opt
@@ -297,7 +339,7 @@ def build_train_step(
             with q():
                 x0_real = teacher_cfg_x0(x_t_sg, t_fake)
             with torch.no_grad(), q():
-                eps_fake = denoise_fn(state.critic, x_t_sg, t_fake, cond)
+                eps_fake = denoise_fn(critic_w, x_t_sg, t_fake, cond)
                 x0_fake = sched.predicted_origin(schedule, eps_fake, t_fake, x_t_sg)
 
             def student_loss_fn(student_params):
@@ -315,12 +357,15 @@ def build_train_step(
                 eps_pred = denoise_fn(critic_params, x_f, t_fake, cond)
                 return ((eps_pred - eps_mix) ** 2).mean()
 
-            loss_critic, critic_grads = _value_and_grad(critic_loss_fn, state.critic)
+            loss_critic, critic_grads = _value_and_grad(critic_loss_fn, critic_w)
+            critic_grads = reduce("critic", critic_grads)
             updates, critic_opt = critic_tx.update(critic_grads, state.critic_opt, state.critic)
             topt.apply_updates(state.critic, updates)
+            if updates is not None:
+                critic_w = compute("critic", state.critic)
 
             with torch.no_grad(), q():
-                eps_fake = denoise_fn(state.critic, x_f, t_fake, cond)
+                eps_fake = denoise_fn(critic_w, x_f, t_fake, cond)
                 x_in = sched.predicted_origin(schedule, eps_fake, t_fake, x_f)
                 target = teacher_cfg_x0(x_in, t_fake)
 
@@ -337,7 +382,9 @@ def build_train_step(
                 return weighted_loss(x0_s, target, x0_s.float() - target.float())
 
         student_sg = None  # a LoRA student's merged weights, before the loss merges again
-        loss_student, student_grads = _value_and_grad(student_loss_fn, state.student)
+        loss_student, student_grads = _value_and_grad(student_loss_fn, student_w)
+        student_w = critic_w = None  # a gathered compute copy is freed before the update
+        student_grads = reduce("student", student_grads)
         updates, student_opt = student_tx.update(
             student_grads, state.student_opt, state.student
         )
@@ -357,10 +404,12 @@ def build_train_step(
         metrics = StepMetrics(
             loss_student=loss_student,
             loss_critic=loss_critic,
-            grad_norm_student=topt.global_norm(student_grads),
-            grad_norm_critic=topt.global_norm(critic_grads),
+            grad_norm_student=norm("student", student_grads),
+            grad_norm_critic=norm("critic", critic_grads),
             t_fake_mean=t_fake.float().mean(),
         )
+        if sync is not None:  # the ranks' mean, for the log
+            metrics = StepMetrics(*sync.mean(torch.stack(list(metrics))).unbind())
         return new_state, metrics
 
     return train_step

@@ -76,16 +76,19 @@ def save_validation_images(
     step: int,
     total_steps: int = 900,
     steps_list: tuple = (4, 1),
+    write: bool = True,
 ) -> dict[int, np.ndarray]:
     """K-step rollouts on fixed (cond, noise) → decoded grids, written as
-    `validation_step{step}_{K}nfe.png`; returns {K: grid}.
+    `validation_step{step}_{K}nfe.png` when `write` (the main process, as
+    the JAX CLI's `write=main_process`); returns {K: grid}.
     decode_fn(latents) → [B, 3, H, W] in [0, 1]."""
-    os.makedirs(output_dir, exist_ok=True)
     grids = {}
     for k in steps_list:
         grids[k] = _grid(denoise_fn, params, schedule, cond, fixed_noise, decode_fn, k,
                          total_steps)
-        save_png(os.path.join(output_dir, f"validation_step{step}_{k}nfe.png"), grids[k])
+        if write:
+            os.makedirs(output_dir, exist_ok=True)
+            save_png(os.path.join(output_dir, f"validation_step{step}_{k}nfe.png"), grids[k])
     return grids
 
 

@@ -24,6 +24,11 @@ role and field path: `student_count` for AdamW and 8-bit Adam;
 `student_mini_step`, `student_gradient_step` and `student_inner_count`
 under accumulation. A directory is written under a temporary name and
 renamed when complete. The format is the port's own; orbax cannot read it.
+Across processes (`cli/train_tdm.py`) every process takes part in a save
+and process 0 alone writes the one-process state (a ZeRO-3 state gathered
+by `parallel.mesh.ZeRO3.gather_state`) and prunes; a restore loads the
+same files into the one-process form and each process keeps its part, so a
+checkpoint moves between world sizes.
 """
 
 from __future__ import annotations

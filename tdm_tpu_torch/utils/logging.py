@@ -15,19 +15,25 @@ import time
 from typing import Optional
 
 
-def setup_logging(name: str = "tdm_tpu_torch") -> logging.Logger:
+def setup_logging(name: str = "tdm_tpu_torch", *, main_process: bool = True) -> logging.Logger:
+    """Per-process logger; processes other than the main one log warnings
+    only (the accelerate `is_local_main_process` split, `src/main.py:100-114`)."""
     logging.basicConfig(
-        format="%(asctime)s [%(levelname)s] %(name)s: %(message)s", level=logging.INFO
+        format="%(asctime)s [%(levelname)s] %(name)s: %(message)s",
+        level=logging.INFO if main_process else logging.WARNING,
     )
     return logging.getLogger(name)
 
 
 class MetricLogger:
     """Scalar tracker: a metrics.jsonl file under `logdir`, and tensorboard
-    when `report_to` asks for it and tensorboardX is installed."""
+    when `report_to` asks for it and tensorboardX is installed; a disabled
+    one (a process other than the main one) writes nothing."""
 
-    def __init__(self, logdir: str, *, report_to: str = "tensorboard"):
-        self._tb = None
+    def __init__(self, logdir: str, *, report_to: str = "tensorboard", enabled: bool = True):
+        self._tb = self._jsonl = None
+        if not enabled:
+            return
         os.makedirs(logdir, exist_ok=True)
         if report_to in ("tensorboard", "all"):
             try:
@@ -39,6 +45,8 @@ class MetricLogger:
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
     def log(self, metrics: dict, step: int) -> None:
+        if self._jsonl is None:
+            return
         scalars = {k: float(v) for k, v in metrics.items()}
         if self._tb is not None:
             for k, v in scalars.items():
@@ -54,7 +62,8 @@ class MetricLogger:
     def close(self) -> None:
         if self._tb is not None:
             self._tb.close()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class StepTimer:

@@ -325,16 +325,20 @@ def test_server_status_endpoints_and_errors(server):
 
 
 @pytest.mark.parametrize("flag,value,where", [
-    ("--tp", "2", "slice 6"), ("--dp", "2", "slice 6"),
+    ("--tp", "2", "slice 6"),
+    # its id kept from before --dp was ported (tests/test_torch_port_parallel_serve.py):
+    # two CPU replicas pass the check
+    pytest.param("--dp", "2", None, id="--dp-2-slice 6"),
     # the id of this case is kept stable; --quant is ported
     pytest.param("--quant", "int8", None, id="--quant-int8-slice 4"),
     ("--lora", "x.safetensors", None),
 ])
 def test_server_refuses_unported_options(flag, value, where):
-    """The options still unported raise naming their slice; --lora and
-    --quant are ported (served in tests/test_torch_port_sd3.py and
-    tests/test_torch_port_quant.py), so they pass the check and the missing
-    model (neither a directory nor a hub repo id) is what fails."""
+    """The options still unported raise naming their slice; --lora,
+    --quant and --dp are ported (served in tests/test_torch_port_sd3.py,
+    tests/test_torch_port_quant.py and tests/test_torch_port_parallel_serve.py),
+    so they pass the check and the missing model (neither a directory nor a
+    hub repo id) is what fails."""
     args = tserver.parse_args(["--model", "unused", "--device", "cpu", flag, value])
     if where is None:
         with pytest.raises(FileNotFoundError, match="neither an existing path"):

@@ -39,6 +39,7 @@ GPU_ONLY = {"triton", "pycuda", "cupy"}
 def _port_files():
     files = sorted((REPO / "tdm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert REPO / "tdm_tpu_torch" / "parallel" / "mesh.py" in files
     return files
 
 
