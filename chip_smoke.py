@@ -52,13 +52,30 @@ Phases, one line each, and any failure exits non-zero:
      process over NCCL formed by the port's initialiser from torchrun's
      variables, and makes no collective (counted); then, in that world,
      the one-process reference step at batch 2 of the data-parallel check
-     and the port's allreduce_mean, all_gather and reduce_scatter over its
-     critic gradients, each equal to its input; after the --quant_forwards
-     run, two data-parallel ranks (this script with --dp_rank, gloo, both
-     on cuda:0, batch 1 each, the reference's inputs): their weights equal
+     (full width, the checkout's first RANK_LAYERS blocks) and the port's
+     allreduce_mean, all_gather and reduce_scatter over its critic
+     gradients, each equal to its input; after the --quant_forwards run,
+     two data-parallel ranks (this script with --dp_rank, gloo, both on
+     cuda:0, batch 1 each, the reference's inputs): their weights equal
      bit for bit after the step, the reduced gradients and losses within
      DP_GRAD_TOL of the reference, kernels 1–3's launches per rank, each
-     rank's step seconds and peak memory (checked where stated);
+     rank's step seconds and peak memory (checked where stated); with the
+     `moe` phase, the same two processes then take one --ep 2 step of the
+     MoE PixArt-α-512 at RANK_LAYERS blocks (4 experts, 2 a rank, batch
+     4 on both) against the one-process step: the leaves other than the
+     expert stacks equal bit for bit, the reduced gradients and the
+     gathered update within DP_GRAD_TOL, launches, seconds and peaks;
+  6b. moe: the mixture-of-experts PixArt (`models/moe.py`, no kernel of its
+     own): a tiny MoE TDM step (capacity factor 0.6) on the card against
+     the CPU with its dropped pairs and the tokens routed otherwise
+     counted; main() with --moe_experts 4 --use_8bit_adam at batch 4,
+     512², full width (1.50 B parameters a model copy), 3 steps: s/step,
+     the idle share, peak memory, kernels 1–3's launches per step
+     (checked, the dense step's), the dropped share of pairs per call, the
+     MoE parts' device ms in the profiled step beside their bound; the
+     exported fp16 student (JAX layout) served through from_pretrained, a
+     batch of 4 at 4 NFE against the student's own sampler (one bf16 ulp
+     of the latents' scale; the files deleted after);
   7. train_lora: the same run with a rank-32 LoRA student, 8-bit Adam and
      gradient accumulation 2 (2 optimizer steps of 2 micro-steps): the
      attention launches of every micro-step, the factors unchanged inside
@@ -241,7 +258,9 @@ files and times them), and all but train write no fp16 student
 once (its GIF bytes held against the batch's) and decodes no latent of its
 own: the decode is timed inside the profiled batch, whose first video the
 GIF encode takes (the route's repeatability is
-conv3d_route_check's).
+conv3d_route_check's). The train phases' profiled step records the card's
+activity alone (the `moe` phase the CPU's ops too, for its parts' ranges),
+and the two ranks' checks run at RANK_LAYERS blocks.
 
 Then a JSON line of per-kernel
 numbers, the nvidia-smi line, and as the last line {"ok": true, "device":
@@ -3513,12 +3532,14 @@ def count_device_work(torch, fn) -> tuple:
     return out, sum(e.count for e in kern), sum(e.device_time_total for e in kern) / 1e3
 
 
-def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
+def step_hook(torch, records: list, profile_at: int, tag: str, after=None, profiled=None):
     """A `step_hook` for train_tdm.main: each call (a micro-step) timed by
     the host clock and CUDA events, its kernels' launches counted, the
     `profile_at`-th call under torch.profiler (device busy time, every
-    device launch, the top kernels), and its int8 products (`int8_dot`'s
-    count); `after(rec, state)` sees each call's record and state."""
+    device launch, the top kernels, from the card's activity; with
+    `profiled(prof, rec)`, which reads the profile, the CPU's ops too),
+    and its int8 products (`int8_dot`'s count); `after(rec, state)` sees
+    each call's record and state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3530,8 +3551,11 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
         q8_before = quant.int8_dot.launches
         torch.cuda.synchronize()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            if n == profile_at else None
+        # the card's activity alone unless `profiled` reads the CPU ops: the
+        # profile's own processing grows with its events (tens of
+        # thousands of ops a step)
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if profiled else [])
+        prof = profile(activities=activities) if n == profile_at else None
         if prof is not None:
             prof.__enter__()
         t0 = time.monotonic()
@@ -3559,6 +3583,8 @@ def step_hook(torch, records: list, profile_at: int, tag: str, after=None):
             print(f"[profile] {tag} micro-step {n}: device busy {rec['busy_ms']:.1f} ms, "
                   f"the flash kernels {sum(e.device_time_total for e in flash) / 1e3:.1f} "
                   f"ms, {rec['all_launches']} device launches", flush=True)
+            if profiled is not None:
+                profiled(prof, rec)
         if after is not None:
             after(rec, state)
         records.append(rec)
@@ -3629,7 +3655,7 @@ def kohya_pieces(torch, path: str, rank: int) -> int:
     return len(downs)
 
 
-def phase_train(torch, seed: int, workdir: str) -> dict:
+def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict:
     """Full-width PixArt-α-512 TDM training through the CLI's main() at the
     JAX CLI's default flags but --export_lora_rank 0 (the rank-32 SVD export,
     ~22 s here, is held and timed in train_sd15), the teacher read from the
@@ -3644,7 +3670,8 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     checkpoint path. Then, in the NCCL world, the data-parallel check's
     one-process reference (`dp_reference`) and the collectives over its
     gradients (`nccl_collectives_check`); the --quant_forwards run; and the
-    two data-parallel ranks (`dp_ranks`)."""
+    two data-parallel ranks (`dp_ranks`), which with `moe_ranks` then take
+    the --ep 2 step against `moe_ep_reference`'s."""
     from tdm_tpu_torch.cli import train_tdm
     from tdm_tpu_torch.ops import attention as A
 
@@ -3714,7 +3741,11 @@ def phase_train(torch, seed: int, workdir: str) -> dict:
     plain = [r["host_s"] for r in steps[1:] if r["busy_ms"] is None]
     per_step = sum(plain) / len(plain)
     qf = quant_forwards_run(torch, seed, workdir, teacher_dir, per_step)
-    dp = dp_ranks(torch, seed, workdir, teacher_dir, ref_path, reference)
+    moe_ref = None
+    if moe_ranks:
+        moe_path = os.path.join(workdir, "moe_ep_reference.pt")
+        moe_ref = {**moe_ep_reference(torch, seed, moe_path), "path": moe_path}
+    dp = dp_ranks(torch, seed, workdir, teacher_dir, ref_path, reference, moe_ref)
     busy = steps[-1]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
@@ -6356,34 +6387,79 @@ class _Recorder:
     def mean(self, values):
         return values
 
+    def moe_scope(self, rows):
+        return contextlib.nullcontext()
 
-def dp_setup(torch, seed: int, teacher_dir: str, device, sync):
-    """The 2-rank check's step at global batch 2: the train phase's
-    full-width PixArt-α-512 (28 layers; the teacher read from the checkout's
-    transformer/, bf16 compute on fp32 masters, dmd, cfg 4.5, the CLI's
-    TDM defaults), AdamW at the constant DP_LR; seeded T5-shaped conditions
-    [2, 120, 4096] with ragged masks, the CFG null branch zeros under an
+
+# the two ranks' checks: full width at RANK_LAYERS blocks, so that two
+# ranks fit on the card and start quickly (the dense check took all 28
+# blocks of the checkout before this cut for the smoke's clock)
+RANK_LAYERS = 8
+RANK_LAUNCHES = {k: v * RANK_LAYERS // 28 for k, v in TRAIN_LAUNCHES.items()}
+
+
+def rank_setup(torch, seed: int, device, sync, experts: int = 0, teacher_dir=None):
+    """The 2-rank checks' step: PixArt-α-512 at full width and RANK_LAYERS
+    blocks (the teacher, the student and the critic start equal), dense at
+    global batch 2 (a data-parallel rank's row each) with the first blocks
+    of the checkout's transformer/ at `teacher_dir`, or seeded with
+    `experts` top-2 experts a block at global batch
+    MOE_EP_BATCH (all rows on both --ep ranks); bf16 compute on fp32
+    masters, dmd, cfg 4.5, the CLI's TDM defaults, AdamW at the constant
+    DP_LR with the clip's norm through `sync`; seeded T5-shaped conditions
+    [B, 120, 4096] with ragged masks, the CFG null branch zeros under an
     all-ones mask (the CLI without a cache), and the draws of one seeded
-    generator. Returns (step, state, draws, cond, uncond)."""
+    generator. Under a reducer with layouts (`ZeRO3`) each role and the
+    teacher keep this rank's experts. Returns (step, state, draws, cond,
+    uncond)."""
+    import dataclasses
+    import functools
+
     import numpy as np
+    from torch.func import functional_call
 
-    from tdm_tpu_torch.io import convert
-    from tdm_tpu_torch.train import families, optim as topt, tdm
+    from tdm_tpu_torch.core import schedules as sched
+    from tdm_tpu_torch.io import convert, from_jax
+    from tdm_tpu_torch.models import pixart
+    from tdm_tpu_torch.train import optim as topt, tdm
 
-    bundle = families.build("pixart", seed=seed, device=device, mixed_precision="bf16")
-    teacher = bundle.convert(convert.load_torch_state_dict(teacher_dir))
-    tx = topt.make_optimizer(DP_LR)
+    cfg = dataclasses.replace(pixart.PixArtConfig(), num_layers=RANK_LAYERS,
+                              moe_experts=experts, moe_top_k=MOE_K)
+    torch.manual_seed(seed + 23)
+    model = pixart.PixArtTransformer2D(cfg, device=device, param_dtype=torch.float32)
+    model.requires_grad_(False)
+    if teacher_dir is not None:
+        tree = convert.pixart_params(convert.load_torch_state_dict(teacher_dir),
+                                     scan_layers=False)
+        from_jax.load_from_jax({k: v for k, v in convert.flatten(tree).items()
+                                if not k.startswith("blocks_")
+                                or int(k.split("/")[0][len("blocks_"):]) < RANK_LAYERS}, model)
+    full = {k: p.detach() for k, p in model.named_parameters()}
+
+    def denoise_fn(params, x, t, cond):
+        text, mask = cond
+        return pixart.epsilon(functional_call(model, params, (x, t, text, mask)))
+
+    sharded = hasattr(sync, "layouts")
+    tx_s, tx_c = (topt.make_optimizer(DP_LR, norm_fn=functools.partial(sync.norm, role))
+                  for role in ("student", "critic"))
     config = tdm.TDMConfig(use_huber=False, use_separate=False)
-    step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config, tx, tx,
-                                sample_shape=bundle.sample_shape, sync=sync)
-    state = tdm.init_state(teacher, teacher, tx, tx)
+    shape = (cfg.in_channels, cfg.sample_size, cfg.sample_size)
+    step = tdm.build_train_step(denoise_fn, sync.teacher(full) if sharded else full,
+                                sched.ddpm_linear(device=device), config, tx_s, tx_c,
+                                sample_shape=shape, sync=sync)
+    state = tdm.init_state(sync.shard("student", full) if sharded else full,
+                           sync.shard("critic", full) if sharded else full, tx_s, tx_c)
+    lengths = [[120], [57], [9], [1]][:2 if experts == 0 else MOE_EP_BATCH]
+    b = len(lengths)
     rng = np.random.default_rng(seed + 17)
-    text = torch.from_numpy(rng.standard_normal((2, 120, 4096)).astype(np.float32) * 0.2)
-    mask = torch.from_numpy((np.arange(120)[None] < np.array([[120], [57]])).astype(np.int32))
-    cond = bundle.cond_of(text.to(device), mask.to(device))
-    uncond = bundle.cond_of(torch.zeros_like(text).to(device), torch.ones_like(mask).to(device))
-    draws = tdm.make_draws(config, 2, bundle.sample_shape,
-                           torch.Generator(device=device).manual_seed(seed + 1), device)
+    text = torch.from_numpy(rng.standard_normal((b, 120, cfg.caption_dim)).astype(np.float32)
+                            * 0.2)
+    mask = torch.from_numpy((np.arange(120)[None] < np.array(lengths)).astype(np.int32))
+    cond = (text.to(device), mask.to(device))
+    uncond = (torch.zeros_like(text).to(device), torch.ones_like(mask).to(device))
+    draws = tdm.make_draws(config, b, shape, torch.Generator(device=device).manual_seed(seed + 1),
+                           device)
     return step, state, draws, cond, uncond
 
 
@@ -6406,7 +6482,8 @@ def dp_reference(torch, seed: int, teacher_dir: str, path: str) -> dict:
     metrics written to `path` for rank 0 to hold its reduced gradients
     against."""
     rec = _Recorder()
-    step, state, draws, cond, uncond = dp_setup(torch, seed, teacher_dir, "cuda", rec)
+    step, state, draws, cond, uncond = rank_setup(torch, seed, "cuda", rec,
+                                                  teacher_dir=teacher_dir)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     _, metrics = step(state, draws, cond, uncond)
@@ -6454,8 +6531,8 @@ def dp_rank_main(rank: int, spec: dict) -> int:
             return out
 
     sync = Recording(mesh)
-    step, state, draws, cond, uncond = dp_setup(torch, spec["seed"], spec["teacher_dir"],
-                                                device, sync)
+    step, state, draws, cond, uncond = rank_setup(torch, spec["seed"], device, sync,
+                                                  teacher_dir=spec["teacher_dir"])
     rows = mesh.batch_rows(1)
     part = tdm.draw_rows(draws, rows)
     pmesh.barrier()
@@ -6483,6 +6560,11 @@ def dp_rank_main(rank: int, spec: dict) -> int:
                 num += float((g.float() - r.float()).square().sum())
                 den += float(r.float().square().sum())
             out["grad_rel_l2"][role] = math.sqrt(num / den)
+    if spec.get("moe_ref"):  # the same two processes take the --ep 2 step
+        del step, state, new, metrics, sync, draws, part, cond, uncond
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe"] = moe_rank_step(torch, rank, spec)
     with open(spec["out"] % rank, "w") as f:
         json.dump(out, f)
     pmesh.barrier()
@@ -6491,20 +6573,28 @@ def dp_rank_main(rank: int, spec: dict) -> int:
 
 
 def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
-             reference: dict) -> dict:
+             reference: dict, moe_ref: dict | None = None) -> dict:
     """Two gloo ranks on cuda:0 (`dp_rank_main`), started together, each
     with a time limit, killed if either fails: their new student and critic
     equal bit for bit (checked); the reduced gradients within DP_GRAD_TOL
     (relative L2) and the losses within it of the one-process step at
-    batch 2 (checked); kernels 1–3's launches per rank as TRAIN_LAUNCHES
-    (checked); each rank's step seconds and peak memory."""
+    batch 2 (checked); kernels 1–3's launches per rank as RANK_LAUNCHES
+    (checked); each rank's step seconds and peak memory. With `moe_ref`
+    (`moe_ep_reference`'s, its file at moe_ref['path']) the same two
+    processes then take the --ep 2 step (`moe_rank_step`): the leaves
+    other than the expert stacks equal bit for bit across the ranks, the
+    reduced gradients (each rank's experts) and rank 0's gathered update
+    within DP_GRAD_TOL of the one-process step, the losses too, kernels
+    1–3's launches per rank (checked); each rank's
+    step seconds and peak memory."""
     gc.collect()
     torch.cuda.empty_cache()  # the card's memory to the two ranks
     print(f"[train] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
           f"card when the ranks start", flush=True)
     spec = {"seed": seed, "teacher_dir": teacher_dir, "ref": ref_path,
             "store": "file://" + os.path.join(workdir, f"dp_store_{os.getpid()}"),
-            "out": os.path.join(workdir, "dp_rank%d.json")}
+            "out": os.path.join(workdir, "dp_rank%d.json"),
+            "moe_ref": moe_ref and moe_ref["path"]}
     here = os.path.abspath(__file__)
     t0 = time.monotonic()
     # each rank peaks about where the one-process step does (weights, AdamW
@@ -6543,9 +6633,10 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
     check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
           f"2-rank losses against the one-process step: {loss_rel}")
     for r in res:
-        check(r["launches"] == TRAIN_LAUNCHES,
-              f"rank {r['rank']} launched {r['launches']}, expected {TRAIN_LAUNCHES}")
-    print(f"[train] 2 data-parallel ranks on cuda:0 (gloo), PixArt-α-512 at batch 1 each "
+        check(r["launches"] == RANK_LAUNCHES,
+              f"rank {r['rank']} launched {r['launches']}, expected {RANK_LAUNCHES}")
+    print(f"[train] 2 data-parallel ranks on cuda:0 (gloo), PixArt-α-512 at {RANK_LAYERS} "
+          f"blocks (the checkout's first), batch 1 each "
           f"(global 2), one dmd step: weights equal bit for bit across ranks (checked); the "
           f"reduced gradients' relative L2 against the one-process batch-2 step "
           f"{rel['student']:.3e} (student), {rel['critic']:.3e} (critic), losses "
@@ -6554,8 +6645,483 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
           f"{res[0]['peak_gib']:.2f} / {res[1]['peak_gib']:.2f} GiB per rank (the one-process "
           f"step {reference['step_s']:.3f} s); launches per rank {res[0]['launches']}; "
           f"{wall:.1f} s with the ranks' start", flush=True)
-    return {"grad_rel_l2": rel, "loss_rel": loss_rel, "ranks": res, "wall_s": wall,
-            "reference_step_s": reference["step_s"]}
+    out = {"grad_rel_l2": rel, "loss_rel": loss_rel, "ranks": res, "wall_s": wall,
+           "reference_step_s": reference["step_s"]}
+    if moe_ref:
+        out["moe_ep"] = moe_ep_check(res, moe_ref)
+    return out
+
+
+def moe_ep_check(res: list, moe_ref: dict) -> dict:
+    """The two ranks' --ep 2 results against the one-process MoE step."""
+    os.remove(moe_ref["path"])
+    m = [r["moe"] for r in res]
+    check(m[0]["replicated_checksums"] == m[1]["replicated_checksums"],
+          f"--ep 2: the ranks' leaves other than the experts differ: "
+          f"{m[0]['replicated_checksums']} {m[1]['replicated_checksums']}")
+    grads = [r["grad_rel_l2"] for r in m]
+    check(all(g <= DP_GRAD_TOL for g in grads) and m[0]["update_rel_l2"] <= DP_GRAD_TOL,
+          f"--ep 2 against the one-process step: gradients {grads}, update "
+          f"{m[0]['update_rel_l2']} (relative L2, limit {DP_GRAD_TOL})")
+    loss_rel = {k: abs(m[0]["metrics"][k] - moe_ref["metrics"][k]) / abs(moe_ref["metrics"][k])
+                for k in ("loss_student", "loss_critic")}
+    check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
+          f"--ep 2 losses against the one-process step: {loss_rel}")
+    for r in m:
+        check(r["launches"] == RANK_LAUNCHES,
+              f"an --ep 2 rank launched {r['launches']}, expected {RANK_LAUNCHES}")
+    print(f"[train] 2 --ep 2 ranks on cuda:0 (gloo), MoE PixArt-α-512 at {RANK_LAYERS} blocks "
+          f"(4 experts, 2 a rank), batch {MOE_EP_BATCH} on both, one dmd step: the leaves other "
+          f"than the experts equal bit for bit across ranks (checked); reduced gradients "
+          f"{grads[0]:.3e} / {grads[1]:.3e} and the gathered student's update "
+          f"{m[0]['update_rel_l2']:.3e} relative L2 from the one-process step, losses "
+          f"{loss_rel['loss_student']:.3e} / {loss_rel['loss_critic']:.3e} (limit {DP_GRAD_TOL}); "
+          f"step {m[0]['step_s']:.3f} / {m[1]['step_s']:.3f} s (one process "
+          f"{moe_ref['step_s']:.3f} s), peak {m[0]['peak_gib']:.2f} / {m[1]['peak_gib']:.2f} "
+          f"GiB per rank; launches per rank {m[0]['launches']}", flush=True)
+    return {"grad_rel_l2": grads, "update_rel_l2": m[0]["update_rel_l2"], "loss_rel": loss_rel,
+            "ranks": m, "reference_step_s": moe_ref["step_s"]}
+
+
+# ---- the mixture-of-experts PixArt (models/moe.py) ----
+
+# PixArt-α-512 with each block's MLP a top-2 mixture of 4 experts at
+# capacity factor 1.25 (the JAX test's --moe_experts 4 --ep 2,
+# tests/test_moe.py:190-224); main() at batch 4 with 8-bit Adam, 3 steps
+MOE_E, MOE_K, MOE_CF, MOE_STEPS = 4, 2, 1.25, 3
+# the tiny step card against CPU: capacity factor 0.6, so that pairs drop
+MOE_TINY_CF = 0.6
+# the two --ep 2 ranks on one card (at RANK_LAYERS blocks): batch 4 shared
+MOE_EP_BATCH = 4
+MOE_PARTS = ("route", "dispatch", "experts", "combine")
+# the backward's nodes of the MoE parts (autograd's evaluate_function rows)
+MOE_BWD = {"experts": ("BaddbmmBackward0",), "dispatch": ("IndexCopyBackward0",),
+           "combine": ("IndexBackward0", "BmmBackward0"),
+           "route": ("SoftmaxBackward0", "SortBackward1")}
+
+
+@contextlib.contextmanager
+def moe_parts(torch, drops: list):
+    """Every MoE layer's four parts (`MoEFeedForward._route`, `_dispatch`,
+    `_experts`, `_combine`) each inside a record_function range
+    'moe.<part>', and each call's dropped pairs (a device tensor) and
+    pairs appended to `drops`."""
+    from tdm_tpu_torch.models import moe
+
+    saved = {p: getattr(moe.MoEFeedForward, "_" + p) for p in MOE_PARTS}
+
+    def ranged(part):
+        fn = saved[part]
+
+        def wrapped(self, *args):
+            with torch.profiler.record_function(f"moe.{part}"):
+                out = fn(self, *args)
+            if part == "route":
+                gates, _, pos, cap = out
+                drops.append(((pos >= cap).sum(), pos.numel()))
+            return out
+        return wrapped
+
+    for p in MOE_PARTS:
+        setattr(moe.MoEFeedForward, "_" + p, ranged(p))
+    try:
+        yield
+    finally:
+        for p, fn in saved.items():
+            setattr(moe.MoEFeedForward, "_" + p, fn)
+
+
+def moe_work(batch: int, layers: int, hidden: int = 1152, mult: int = 4) -> dict:
+    """(expert-product operations, routing/dispatch/combine bytes) of one
+    TDM step at `batch` (dmd, cfg 4.5, one critic update, no remat): 7
+    forwards without grad, one of them the teacher's CFG call at 2·batch,
+    and 2 with grad, whose backward does twice a forward's products; the
+    [E, C] slots computed whole, as the JAX einsums compute them. Bytes:
+    x read for the router and its [T, E] probabilities written, the k·T
+    rows copied into the [E, C, D] buffer, the k·T output rows gathered and
+    [T, D] written, bf16 (the forwards only)."""
+    ops = nbytes = 0.0
+    for rows, forwards in ((batch, 8), (2 * batch, 1)):  # 8 = 6 no-grad + 2 grad
+        t = rows * 1024
+        cap = max(1, min(math.ceil(MOE_CF * MOE_K * t / MOE_E), t))
+        fwd_ops = 2 * 2 * MOE_E * cap * hidden * hidden * mult
+        ops += forwards * fwd_ops + (2 * 2 * fwd_ops if rows == batch else 0)
+        nbytes += forwards * (t * hidden * 2 + t * MOE_E * 4 + MOE_K * t * hidden * 2
+                              + MOE_E * cap * hidden * 2 + MOE_K * t * hidden * 2
+                              + t * hidden * 2)
+    return {"expert_ops": ops * layers, "routing_bytes": nbytes * layers}
+
+
+def moe_reference_step(torch, seed: int) -> dict:
+    """One tiny MoE-PixArt TDM step (4 experts, top-2, capacity factor 0.6,
+    fp32, dmd) on the card (the kernels) against the same step on the CPU
+    (the plain versions) from one state with the same draws: the pairs each
+    MoE call drops (counted), the tokens whose chosen experts differ
+    between the two (counted, checked ≤ 1%), and then the bounds of
+    phase_reference_train (metrics to 1e-4 relative, each role's update to
+    5e-3 relative L2 and 25% of lr a weight)."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import moe, pixart
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    lr = 1e-4
+    tiny = pixart.PixArtConfig.tiny
+    pixart.PixArtConfig.tiny = staticmethod(
+        lambda: dataclasses.replace(tiny(), moe_capacity_factor=MOE_TINY_CF))
+    routes: dict = {}
+    route = moe.MoEFeedForward._route
+
+    def recorded(self, *args):
+        out = route(self, *args)
+        _, idx, pos, cap = out
+        routes[dev].append((idx.cpu(), int((pos >= cap).sum())))
+        return out
+
+    runs, cpu_params = {}, None
+    moe.MoEFeedForward._route = recorded
+    try:
+        for dev in ("cpu", "cuda"):
+            routes[dev] = []
+            bundle = families.build("pixart", tiny=True, moe_experts=MOE_E, seed=seed, device=dev)
+            if cpu_params is None:
+                cpu_params = bundle.init_params()
+            teacher = {k: v.to(dev) for k, v in cpu_params.items()}
+            gen = torch.Generator(device="cpu").manual_seed(seed + 3)
+            config = tdm.TDMConfig()
+            draws, cond, uncond = tiny_step_inputs(torch, config, bundle, gen, dev)
+            tx = topt.make_optimizer(lr, eps=1e-4)
+            state = tdm.init_state(teacher, teacher, tx, tx)
+            start = {r: {k: v.clone() for k, v in getattr(state, r).items()}
+                     for r in ("student", "critic")}
+            step = tdm.build_train_step(bundle.denoise_fn, teacher, bundle.schedule, config,
+                                        tx, tx, sample_shape=bundle.sample_shape)
+            (state, metrics), launched = uncounted(A, lambda: step(state, draws, cond, uncond))
+            runs[dev] = (state, metrics, start, launched)
+    finally:
+        moe.MoEFeedForward._route = route
+        pixart.PixArtConfig.tiny = tiny
+    (cs, cm, cstart, _), (gs, gm, gstart, glaunch) = runs["cpu"], runs["cuda"]
+    calls = len(routes["cpu"])
+    check(calls == len(routes["cuda"]) and calls > 0, "the MoE calls differ in number")
+    dropped = [d for _, d in routes["cuda"]]
+    differ = sum(int((a != b).any(-1).sum()) for (a, _), (b, _) in zip(routes["cpu"],
+                                                                       routes["cuda"]))
+    tokens = sum(a.shape[0] for a, _ in routes["cpu"])
+    check(min(dropped) > 0, f"a tiny MoE call dropped no pair: {dropped}")
+    check(differ <= 0.01 * tokens, f"{differ} of {tokens} tokens chose other experts")
+    worst = {}
+    for name in tdm.StepMetrics._fields:
+        c, g = float(getattr(cm, name)), float(getattr(gm, name))
+        worst[name] = abs(c - g) / max(abs(c), 1e-12)
+        check(math.isfinite(g) and abs(c - g) <= 1e-4 * abs(c) + 1e-7,
+              f"tiny MoE step {name}: card {g} vs cpu {c}")
+    upd = {}
+    for role in ("student", "critic"):
+        d_c = torch.cat([(getattr(cs, role)[k] - cstart[role][k]).flatten()
+                         for k in cstart[role]])
+        d_g = torch.cat([(getattr(gs, role)[k] - gstart[role][k]).cpu().flatten()
+                         for k in cstart[role]])
+        rel = float((d_g - d_c).norm() / d_c.norm())
+        top = float((d_g - d_c).abs().max())
+        upd[role] = (rel, top)
+        check(rel <= 5e-3 and top <= 0.25 * lr,
+              f"tiny MoE step {role} update: rel L2 {rel:.3e}, max {top:.3e}")
+    print(f"[moe] tiny MoE TDM step (4 experts, top-2, cf {MOE_TINY_CF}, dmd) cuda vs cpu: "
+          f"{calls} MoE calls, pairs dropped per call {min(dropped)}-{max(dropped)} (of "
+          f"{2 * routes['cpu'][0][0].shape[0]}-{2 * max(a.shape[0] for a, _ in routes['cpu'])}"
+          f"); {differ} of {tokens} tokens chose other experts; metrics max rel err "
+          f"{max(worst.values()):.3e} (limit 1e-4); update rel L2 / max: student "
+          f"{upd['student'][0]:.3e} / {upd['student'][1]:.3e}, critic {upd['critic'][0]:.3e} "
+          f"/ {upd['critic'][1]:.3e}; launches {glaunch}", flush=True)
+    return {"calls": calls, "dropped_per_call": [min(dropped), max(dropped)],
+            "tokens_routed_otherwise": differ, "tokens": tokens,
+            "metrics_max_rel_err": max(worst.values()), "update": upd}
+
+
+def moe_served(torch, seed: int, run_dir: str, workdir: str) -> dict:
+    """The student main() exported (fp16, the JAX layout) served: a
+    tdm_tpu-layout directory of it (pipeline.json with moe_experts 4, the
+    file as transformer.safetensors, no decoder) through from_pretrained,
+    one batch of 4 at 4 NFE to latents; against the trained student's own
+    sampler (`sample_fewstep` on the trainer's denoise_fn with the exported
+    weights as its fp32 masters): within one bf16 ulp of the latents'
+    scale. 224 kernel-1 launches a batch (checked). The directory is
+    deleted after."""
+    import dataclasses
+
+    import numpy as np
+
+    from tdm_tpu_torch.core import sampling, schedules as sched
+    from tdm_tpu_torch.io import from_jax, params as params_io
+    from tdm_tpu_torch.models import moe, pixart
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.pipelines import from_pretrained, loading
+    from tdm_tpu_torch.train import families
+
+    root = os.path.join(workdir, "moe_student")
+    os.makedirs(root, exist_ok=True)
+    weights = os.path.join(root, "transformer.safetensors")
+    os.replace(os.path.join(run_dir, "student.safetensors"), weights)
+    cfg = dataclasses.replace(pixart.PixArtConfig(), moe_experts=MOE_E, moe_top_k=MOE_K)
+    with open(os.path.join(root, "pipeline.json"), "w") as f:
+        json.dump({"family": "pixart", "model": loading.config_dict(cfg)}, f)
+    rng = np.random.default_rng(seed + 29)
+    text = torch.from_numpy(rng.standard_normal((4, 120, 4096)).astype(np.float32) * 0.2)
+    mask = torch.from_numpy((np.arange(120)[None] < np.array([[120], [77], [13], [1]]))
+                            .astype(np.int32))
+    noise = torch.from_numpy(rng.standard_normal((4, 4, 64, 64)).astype(np.float32)).cuda()
+    t0 = time.monotonic()
+    pipe = from_pretrained(root, device="cuda")
+    load_s = time.monotonic() - t0
+    check(isinstance(pipe.transformer.blocks[0].ff, moe.MoEFeedForward), "no MoE block served")
+    before = A.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    served = pipe(prompt_embeds=(text, mask), latents=noise, num_inference_steps=4,
+                  output_type="latent").latents.float()
+    torch.cuda.synchronize()
+    batch_s = time.monotonic() - t0
+    launched = A.launch_counts()["flash_attention_fwd"] - before["flash_attention_fwd"]
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = families.build("pixart", moe_experts=MOE_E, mixed_precision="bf16", seed=seed,
+                            device="cuda")
+    from_jax.load_from_jax(params_io.load_file(weights), bundle.model)
+    w = bundle.init_params()
+    with torch.no_grad():  # from the pipeline's bf16 noise (`initial_noise`)
+        own = sampling.sample_fewstep(
+            lambda x, t, c: bundle.denoise_fn(w, x, t, c), bundle.schedule, noise.bfloat16(),
+            (text.cuda(), mask.cuda()), timestep_grid=sched.fewstep_grid(900, 4)).float()
+    A.reset_launches()
+    del bundle, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    size_gb = os.path.getsize(weights) / 1e9
+    shutil.rmtree(root, ignore_errors=True)
+    diff = float((served - own).abs().max())
+    scale = float(own.abs().max())
+    check(torch.isfinite(served).all() and served.shape == (4, 4, 64, 64),
+          "the served MoE latents are not finite [4, 4, 64, 64]")
+    check(diff <= bf16_ulp(scale), f"served MoE latents {diff:.3e} from the student's own "
+          f"sampler (one bf16 ulp of {scale:.3f} is {bf16_ulp(scale):.3e})")
+    check(launched == PIXART_LAUNCHES_PER_BATCH,
+          f"{launched} kernel-1 launches a MoE batch, expected {PIXART_LAUNCHES_PER_BATCH}")
+    print(f"[moe] the exported student ({size_gb:.2f} GB fp16) served through from_pretrained "
+          f"(load {load_s:.2f}s): a batch of 4 at 4 NFE in {batch_s:.3f}s, {launched} kernel-1 "
+          f"launches, latents {diff:.3e} from the student's own sampler (one bf16 ulp of the "
+          f"scale {scale:.3f}: {bf16_ulp(scale):.3e})", flush=True)
+    return {"student_gb": size_gb, "load_s": load_s, "batch_s": batch_s,
+            "launches": launched, "max_abs_diff": diff, "scale": scale}
+
+
+def phase_moe(torch, seed: int, workdir: str) -> dict:
+    """The mixture-of-experts PixArt: the tiny step on the card against the
+    CPU (`moe_reference_step`); then full-width PixArt-α-512 with 4 experts
+    a block, top-2, capacity factor 1.25 (1.50 B parameters a model copy),
+    trained through the CLI's main() with --moe_experts 4 --use_8bit_adam
+    at batch 4, 512², bf16, dmd, 3 steps, the teacher seeded (no MoE
+    checkout exists; the JAX CLI converts only dense ones), hash prompt
+    embeddings (no cache: the phase stands alone), --export_lora_rank 0,
+    no final checkpoint: s/step after the first, the idle share of the
+    profiled step 3, peak memory, kernels 1–3's launches per step (checked:
+    TRAIN_LAUNCHES, the dense step's), the dropped share of pairs per
+    call, and the MoE parts' device ms in the profiled step (forward by
+    their record_function ranges, backward by autograd's nodes) beside
+    their bound (`moe_work`); then the exported student served
+    (`moe_served`). The two --ep 2 ranks run in the train phase's
+    `dp_ranks`."""
+    from torch.autograd import DeviceType
+
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.ops import attention as A
+
+    tiny = moe_reference_step(torch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved_env = {v: os.environ.pop(v, None)
+                 for v in ("TDM_EMBEDDING_CACHE", "TDM_TINY_MODEL", "TDM_TAESD_DIR")}
+    out = os.path.join(workdir, "train_moe")
+    steps, drops, parts = [], [], {}
+
+    def profiled(prof, rec):
+        """The kernels under each part's CPU range (its record_function's
+        span on the card's timeline would count the idle gaps between its
+        kernels too), and the step's busy time without those spans."""
+        t0 = time.monotonic()
+        for p in MOE_PARTS:
+            parts[p] = {"forward_ms": 0.0, "backward_ms": 0.0}
+        for ev in prof.events():
+            name = ev.name
+            if ev.device_type != DeviceType.CPU:
+                if name.startswith("moe."):  # a range's span, not a kernel
+                    rec["busy_ms"] -= ev.device_time_total / 1e3
+                    rec["all_launches"] -= 1
+                continue
+            if name.startswith("moe."):
+                parts[name[4:]]["forward_ms"] += ev.device_time_total / 1e3
+            elif name.startswith("autograd::engine::evaluate_function"):
+                node = name.rsplit(" ", 1)[-1]
+                for p, nodes in MOE_BWD.items():
+                    if node in nodes:
+                        parts[p]["backward_ms"] += ev.device_time_total / 1e3
+        rec["moe_parts_ms"] = parts
+        print(f"[moe] the profile read in {time.monotonic() - t0:.1f}s: busy "
+              f"{rec['busy_ms']:.1f} ms, {rec['all_launches']} device launches", flush=True)
+
+    A.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        with moe_parts(torch, drops), no_final_checkpoint(), \
+                timed_calls(torch, [(train_tdm, "write_student")]) as export_s:
+            train_tdm.main([
+                "--output_dir", out, "--max_train_steps", str(MOE_STEPS),
+                "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode", "dmd",
+                "--seed", str(seed), "--export_lora_rank", "0",
+                "--moe_experts", str(MOE_E), "--moe_top_k", str(MOE_K), "--use_8bit_adam",
+            ], step_hook=step_hook(torch, steps, MOE_STEPS, "moe", profiled=profiled))
+    finally:
+        for k, v in saved_env.items():
+            if v is not None:
+                os.environ[k] = v
+    main_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = A.launch_counts()
+    check_train_records(steps, MOE_STEPS)
+    shares = [float(d) / n for d, n in drops]
+    per_step = steps[1]["host_s"]
+    busy, span = steps[-1]["busy_ms"], steps[1]["event_ms"]
+    idle = None if not busy else 1 - busy / span
+    work = moe_work(4, 28)
+    experts_bound, _ = bound_ms(0, work["expert_ops"])
+    routing_bound, _ = bound_ms(work["routing_bytes"], 0)
+    experts_ms = parts["experts"]["forward_ms"] + parts["experts"]["backward_ms"]
+    routing_ms = sum(parts[p]["forward_ms"] for p in ("route", "dispatch", "combine"))
+    print(f"[moe] PixArt-α-512 MoE (4 experts, top-2, cf {MOE_CF}) TDM with 8-bit Adam, batch "
+          f"4, bf16, seeded: {per_step:.3f} s/step after the first ({3600 / per_step:.0f} "
+          f"iters/hour), first {steps[0]['host_s']:.3f} s, profiled step "
+          f"{steps[-1]['host_s']:.3f} s, device busy "
+          + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
+          + f"; peak memory {peak_gb:.2f} GiB; launches per step {TRAIN_LAUNCHES} (checked, the "
+          f"dense step's); dropped share of pairs per call {min(shares):.4f}-{max(shares):.4f} "
+          f"(mean {sum(shares) / len(shares):.4f}, {len(shares)} calls); main() {main_s:.1f}s "
+          f"incl. the fp16 student's export {export_s.get('write_student', 0.0):.1f}s",
+          flush=True)
+    print(f"[moe] MoE parts' device ms in the profiled step: " + ", ".join(
+        f"{p} {v['forward_ms']:.1f} fwd + {v['backward_ms']:.1f} bwd" for p, v in parts.items())
+        + f"; the expert products {experts_ms:.1f} ms against their bound {experts_bound:.1f} ms"
+        f" ({work['expert_ops'] / 1e12:.1f} TFLOP bf16), route + dispatch + combine forward "
+        f"{routing_ms:.1f} ms against {routing_bound:.2f} ms (bytes)", flush=True)
+    served = moe_served(torch, seed, out + "_cfg4.5_steps900", workdir)
+    shutil.rmtree(out + "_cfg4.5_steps900", ignore_errors=True)
+    return {"tiny_step": tiny, "s_per_step": per_step, "first_step_s": steps[0]["host_s"],
+            "peak_gib": peak_gb, "idle_share": idle, "busy_ms": busy, "event_span_ms": span,
+            "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
+            "dropped_share": {"min": min(shares), "max": max(shares),
+                              "mean": sum(shares) / len(shares), "calls": len(shares)},
+            "parts_ms": parts, "experts_ms": experts_ms, "experts_bound_ms": experts_bound,
+            "routing_ms": routing_ms, "routing_bound_ms": routing_bound, "main_s": main_s,
+            "export_s": export_s.get("write_student"),
+            "steps": steps, "served": served}
+
+
+def moe_ep_reference(torch, seed: int, path: str, device="cuda") -> dict:
+    """The one-process step of the --ep 2 check (all 4 experts): its
+    gradients of each role, the weights before and after and the metrics
+    written to `path` for the ranks to hold theirs against."""
+    rec = _Recorder()
+    step, state, draws, cond, uncond = rank_setup(torch, seed, device, rec, MOE_E)
+    before = {k: v.to("cpu", copy=True) for k, v in state.student.items()}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.monotonic()
+    new, metrics = step(state, draws, cond, uncond)
+    sync()
+    step_s = time.monotonic() - t0
+    metrics = {k: float(v) for k, v in metrics._asdict().items()}
+    torch.save({"grads": {role: {k: v.cpu() for k, v in g.items()}
+                          for role, g in rec.grads.items()},
+                "before": before, "student": {k: v.cpu() for k, v in new.student.items()},
+                "metrics": metrics}, path)
+    print(f"[train] the one-process MoE reference step ({RANK_LAYERS} blocks, batch "
+          f"{MOE_EP_BATCH}): {step_s:.3f} s, {metrics}", flush=True)
+    return {"metrics": metrics, "step_s": step_s}
+
+
+def moe_rank_step(torch, rank: int, spec: dict) -> dict:
+    """One --ep 2 rank (`dp_rank_main`, after its dense step): the ('data',
+    'fsdp', 'ep') = (1, 1, 2) mesh, the ZeRO3 reducer of two expert
+    layouts, the step on all rows with this rank's 2 of 4 experts; the bit
+    checksums of the new student's and critic's leaves other than the
+    expert stacks, the step's seconds and peak memory, kernels 1–3's
+    launches; the relative L2 of the reduced gradients against the
+    reference's (this rank's experts of them), and rank 0 that of the
+    gathered student's update."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import moe, pixart
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(1, 1, 2)
+    device = torch.device(spec.get("device", "cuda:0"))
+    on_card = device.type == "cuda"
+
+    class Recording(pmesh.ZeRO3):
+        def reduce(self, role, grads):
+            out = super().reduce(role, grads)
+            self.grads[role] = out
+            return out
+
+    # the layouts take the parameters' shapes: the model's on the meta device
+    cfg = dataclasses.replace(pixart.PixArtConfig(), num_layers=RANK_LAYERS,
+                              moe_experts=MOE_E, moe_top_k=MOE_K)
+    shapes = dict(pixart.PixArtTransformer2D(cfg, device="meta").named_parameters())
+    sync = Recording(mesh, pmesh.ShardLayout(mesh, shapes), pmesh.ShardLayout(mesh, shapes))
+    sync.grads = {}
+    step, state, draws, cond, uncond = rank_setup(torch, spec["seed"], device, sync, MOE_E)
+    pmesh.barrier()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.monotonic()
+    new, metrics = step(state, draws, cond, uncond)
+    if on_card:
+        torch.cuda.synchronize()
+    out = {"step_s": time.monotonic() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+           "launches": A.launch_counts(),
+           "metrics": {k: float(v) for k, v in metrics._asdict().items()},
+           "replicated_checksums": {role: bit_checksum(torch, {
+               k: v for k, v in getattr(new, role).items() if not moe.is_expert_key(k)})
+               for role in ("student", "critic")}}
+    ref = torch.load(spec["moe_ref"], map_location="cpu", mmap=True)
+    n = MOE_E // mesh.n_ep
+    num = den = 0.0
+    for role, grads in sync.grads.items():
+        for k, g in grads.items():
+            r = ref["grads"][role][k]
+            if moe.is_expert_key(k):
+                r = r[mesh.ep_index * n:(mesh.ep_index + 1) * n]
+            r = r.to(device).float()
+            num += float((g.float() - r).square().sum())
+            den += float(r.square().sum())
+    out["grad_rel_l2"] = math.sqrt(num / den)
+    student = sync.full("student", new.student)  # both ranks: a collective
+    if rank == 0:
+        num = den = 0.0
+        for k, v in student.items():
+            want = ref["student"][k].to(device) - ref["before"][k].to(device)
+            got = v - ref["before"][k].to(device)
+            num += float((got - want).square().sum())
+            den += float(want.square().sum())
+        out["update_rel_l2"] = math.sqrt(num / den)
+        out["ref_metrics"] = ref["metrics"]
+    return out
 
 
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
@@ -6637,8 +7203,8 @@ def timed_phase(fn, *args):
     return out
 
 
-PHASES = ("kernels", "reference", "probe", "serve", "train", "train_lora", "sd3", "diffusers",
-          "train_sd3", "sd15", "train_sd15", "cogvideox", "train_cogvideox")
+PHASES = ("kernels", "reference", "probe", "serve", "train", "moe", "train_lora", "sd3",
+          "diffusers", "train_sd3", "sd15", "train_sd15", "cogvideox", "train_cogvideox")
 
 
 def main(argv=None) -> int:
@@ -6690,7 +7256,9 @@ def main(argv=None) -> int:
         if "serve" in phases:
             serve = timed_phase(phase_serve, torch, args.seed, workdir)
         if "train" in phases:
-            train = timed_phase(phase_train, torch, args.seed, workdir)
+            train = timed_phase(phase_train, torch, args.seed, workdir, "moe" in phases)
+        if "moe" in phases:
+            moe = timed_phase(phase_moe, torch, args.seed, workdir)
         if "train_lora" in phases:
             train_lora = timed_phase(phase_train_lora, torch, args.seed, workdir)
         if "sd3" in phases:
@@ -6728,7 +7296,7 @@ def main(argv=None) -> int:
     sd3_step = train_sd3["launches_per_step"]
 
     def by_path(wrapper):
-        return {"train": train["launches"][wrapper],
+        return {"train": train["launches"][wrapper], "train_moe": moe["launches"][wrapper],
                 "train_sd3": train_sd3["launches"][wrapper],
                 "train_sd15": train_sd15["launches"][wrapper],
                 "train_cogvideox": train_cogvideox["launches"][wrapper]}
@@ -6838,7 +7406,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "training_attention": ktrain["pair"], "int8": int8,
                       "offline_verbs": offline, "distill_probe": probe,
                       "text_encoders": text_encoders,
-                      "serve": serve, "train": train, "train_lora": train_lora, "sd3": sd3,
+                      "serve": serve, "train": train, "moe": moe, "train_lora": train_lora,
+                      "sd3": sd3,
                       "diffusers": diffusers, "train_sd3": train_sd3, "sd15": sd15,
                       "train_sd15": train_sd15, "cogvideox": cogvideox,
                       "cogvideox_train_attention": {

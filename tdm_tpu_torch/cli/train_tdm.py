@@ -21,8 +21,14 @@ defaults (`utils/config.py`):
   `student.safetensors` (fp16, the JAX package's layout) and the kohya
   LoRA `tdm_lora.safetensors`: the trained factors in LoRA mode, else the
   truncated SVD of student − teacher at --export_lora_rank (0 skips it).
+A teacher directory in the tdm_tpu layout (a `pipeline.json` beside
+`transformer.safetensors` in the JAX package's keys, as `save_pretrained`
+or an exported student makes it) is read through the weight carry, which
+is how a MoE teacher with its expert leaves loads.
 
---model_family pixart (PixArt-α), sd15 (the SD1.5 UNet under the
+--model_family pixart (PixArt-α; --moe_experts E > 0 swaps each block's
+MLP for a top---moe_top_k mixture of E experts, `models/moe.py`, in the
+student, the critic and the teacher), sd15 (the SD1.5 UNet under the
 scaled-linear schedule, conditioned on CLIP-L tokens; the teacher directory
 is the `unet/` folder of an SD1.5 diffusers checkout), sd3 (SD3-Medium
 under the shifted flow schedule, conditioned on T5 tokens and the pooled
@@ -44,10 +50,12 @@ Across GPUs (`parallel/mesh.py`): `torchrun --nproc_per_node N -m
 tdm_tpu_torch.cli.train_tdm ...`, or N processes with TDM_COORDINATOR,
 TDM_NUM_PROCESSES and TDM_PROCESS_ID set, as the JAX CLI reads them; each
 process runs on `cuda:LOCAL_RANK` (NCCL), or on the CPU under `--device
-cpu` (gloo). --train_batch_size is per process, so the global batch is N
-times it; every process draws the global batch's `StepDraws` from the one
-seeded generator and keeps its rows, so a run's numbers do not depend on
-N, and reads its own share of the prompts (host_index = rank). --fsdp K
+cpu` (gloo). --train_batch_size is per data rank (a process, but the
+--ep ranks of one row index share their rows), so the global batch is
+N/ep times it; every process draws the global batch's `StepDraws` from the
+one seeded generator and keeps its rows, so a run's numbers do not depend
+on N, and reads its rows' share of the prompts (host_index = its row
+index). --fsdp K
 shards the student, the critic, their optimizer states and the EMA over K
 processes (ZeRO-3; a ValueError when K does not divide N), else every
 process keeps the whole state and the gradients are averaged (data
@@ -56,8 +64,14 @@ files (logs, grids, checkpoints, the exported student and LoRA) are
 written by process 0, a checkpoint in the one-process layout, so a run
 resumes at another N. Each process logs its peak device memory. The
 output directory is shared by all processes (one host, or a shared file
-system). Refused before the first step, each naming its ROADMAP slice:
---tp/--pp/--sp/--ep > 1 and --moe_experts (slice 6).
+system). --ep K (with --moe_experts) splits every expert leaf of the
+student, the critic, their optimizer states, the EMA and the teacher over K
+processes that share their rows (the JAX CLI's ('data', 'fsdp', 'ep')
+mesh: the global batch is N/K times --train_batch_size), composed with
+--fsdp; the JAX CLI's checks come first ("--ep requires --moe_experts > 0",
+"--ep composes with --fsdp only", "not divisible", "does not divide N
+devices"). Refused before the first step, each naming ROADMAP.md's queue
+1, slice 6: --tp/--pp/--sp > 1, and expert parallelism with 8-bit Adam.
 """
 
 from __future__ import annotations
@@ -75,14 +89,40 @@ import torch
 
 
 def refuse_unported(cfg) -> None:
-    """NotImplementedError for a flag whose path is not ported, before any
-    model is built."""
-    for flag in ("tp", "pp", "sp", "ep"):
+    """The JAX CLI's --ep checks (ValueError, its messages,
+    `tdm_tpu/cli/train_tdm.py:71-82`), then NotImplementedError for a flag
+    whose path is not ported, before any model is built."""
+    n_ep = max(cfg.ep, 1)
+    if n_ep > 1:
+        if cfg.moe_experts <= 0:
+            raise ValueError("--ep requires --moe_experts > 0")
+        if cfg.tp > 1 or cfg.pp > 1:
+            raise ValueError("--ep composes with --fsdp only (tp/pp x ep is unsupported)")
+        if cfg.moe_experts % n_ep:
+            raise ValueError(f"--moe_experts {cfg.moe_experts} not divisible by --ep {n_ep}")
+    for flag in ("tp", "pp", "sp"):
         if getattr(cfg, flag) > 1:
             raise NotImplementedError(
                 f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
                 "ported yet: ROADMAP.md queue 1, slice 6"
             )
+    if n_ep > 1 and cfg.use_8bit_adam:
+        raise NotImplementedError(
+            "--ep with --use_8bit_adam: 8-bit moments of experts split over 'ep' are not "
+            "ported yet: ROADMAP.md queue 1, slice 6")
+
+
+def _hold_experts(model, teacher: dict) -> None:
+    """Point the module's own expert parameters at this rank's experts of
+    the teacher, so that the whole stacks it was built with are freed (its
+    forwards read the dicts they are given)."""
+    from tdm_tpu_torch.models import moe
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, moe.MoEFeedForward):
+            for leaf in ("experts_in", "experts_in_bias", "experts_out", "experts_out_bias"):
+                setattr(mod, leaf, torch.nn.Parameter(teacher[f"{name}.{leaf}"],
+                                                      requires_grad=False))
 
 
 def _load_taesd(vae_dir: str, latent_channels: int, device):
@@ -129,13 +169,13 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     world, rank = pmesh.world_size(), pmesh.rank()
     if cfg.max_devices > 0 and world > 1:
         raise ValueError("--max_devices is only supported in single-process runs")
-    n_fsdp = max(cfg.fsdp, 1)
-    if world % n_fsdp:
+    n_fsdp, n_ep = max(cfg.fsdp, 1), max(cfg.ep, 1)
+    if world % (n_fsdp * n_ep):
         raise ValueError(
             f"--fsdp {cfg.fsdp} x --tp {cfg.tp} x --pp {cfg.pp} x --ep "
             f"{cfg.ep} x --sp {cfg.sp} does not divide {world} devices"
         )
-    mesh = pmesh.make_mesh(world // n_fsdp, n_fsdp) if world > 1 else None
+    mesh = pmesh.make_mesh(world // (n_fsdp * n_ep), n_fsdp, n_ep) if world > 1 else None
     main_process = rank == 0
     # fp32 products in full fp32 unless --allow_tf32 (reference src/main.py:197-198)
     set_fp32_precision(cfg.allow_tf32)
@@ -144,13 +184,15 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     logger.info("config: %s", cfg)
     logger.info("device: %s%s", device,
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-    # --train_batch_size is per process (the reference's "per device"), and
-    # every process is a data rank ('fsdp' ones too)
+    # --train_batch_size is per data rank (the reference's "per device"):
+    # every process is one ('fsdp' ones too) but the 'ep' ranks of a row
+    # index, which share its rows
     local_batch = cfg.train_batch_size
-    global_batch = local_batch * world
+    n_rows, row_index = (mesh.n_rows, mesh.row_index) if mesh is not None else (1, 0)
+    global_batch = local_batch * n_rows
     if mesh is not None:
-        logger.info("mesh: %d data x %d fsdp processes, global batch %d",
-                    mesh.n_data, mesh.n_fsdp, global_batch)
+        logger.info("mesh: %d data x %d fsdp x %d ep processes, global batch %d",
+                    mesh.n_data, mesh.n_fsdp, mesh.n_ep, global_batch)
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
@@ -168,10 +210,19 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         cfg.model_family, tiny=tiny, resolution=cfg.resolution, num_frames=cfg.num_frames,
         gradient_checkpointing=cfg.gradient_checkpointing,
         mixed_precision=cfg.mixed_precision, moe_experts=cfg.moe_experts,
-        allow_pooled_standin=cfg.allow_pooled_standin, seed=seed, device=device,
+        moe_top_k=cfg.moe_top_k, allow_pooled_standin=cfg.allow_pooled_standin, seed=seed,
+        device=device,
     )
     path = cfg.pretrained_model_name_or_path
-    if os.path.isdir(path):
+    if os.path.isfile(os.path.join(path, "pipeline.json")):
+        # the tdm_tpu layout: the denoiser in the JAX package's keys
+        from tdm_tpu_torch.io import params as params_io
+
+        from_jax.load_from_jax(
+            params_io.load_file(os.path.join(path, "transformer.safetensors")), bundle.model)
+        teacher = bundle.init_params()
+        logger.info("loaded teacher weights from %s (tdm_tpu layout)", path)
+    elif os.path.isdir(path):
         from tdm_tpu_torch.io import convert
 
         teacher = bundle.convert(convert.load_torch_state_dict(path))
@@ -188,7 +239,8 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     # batches; pooled rides SD3 caches (the CLIP-L/G vectors) ----
     uncond_pair = uncond_pooled = None
     if cache is not None:
-        batches = cache.batches(local_batch, seed=seed, host_index=rank, host_count=world)
+        batches = cache.batches(local_batch, seed=seed, host_index=row_index,
+                                host_count=n_rows)
 
         def get_batch():
             b = next(batches)
@@ -216,7 +268,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
                 batcher = native_loader.NativePromptLoader(
                     src, local_batch, caption_column=cfg.caption_column,
                     tokenizer=tok, max_length=seq_len, seed=seed,
-                    host_index=rank, host_count=world,
+                    host_index=row_index, host_count=n_rows,
                 )
                 closing.callback(batcher.close)
                 dataset_size = batcher.num_prompts
@@ -233,7 +285,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             dataset_size = len(prompt_list)
             batcher = iter(data_prompts.PromptBatcher(
                 prompt_list, local_batch, tokenizer=tok, max_length=seq_len, seed=seed,
-                host_index=rank, host_count=world,
+                host_index=row_index, host_count=n_rows,
             ))
         proj = np.random.default_rng(0).normal(
             size=(tok.vocab_size, bundle.embed_dim)
@@ -261,7 +313,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         n_total_steps = cfg.num_train_epochs * max(-(-batches_per_epoch // accum), 1)
         logger.info("epoch accounting: %d optimizer steps", n_total_steps)
     lr = topt.make_lr_schedule(
-        cfg.lr_scheduler, cfg.effective_lr(world),
+        cfg.lr_scheduler, cfg.effective_lr(n_rows),
         warmup_steps=cfg.lr_warmup_steps, total_steps=n_total_steps,
     )
 
@@ -287,10 +339,10 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         student_init = {k: v.to(device) for k, v in lora_lib.factors(lora_template).items()}
         logger.info("LoRA training: rank %d, %d adapted modules",
                     cfg.train_lora_rank, len(lora_template.alpha))
-    # the step's reducer across processes: ZeRO-3 over 'fsdp', else the
-    # gradient mean; none in one process
+    # the step's reducer across processes: ZeRO-3 over 'fsdp' and the
+    # experts over 'ep', else the gradient mean; none in one process
     sync = None
-    if mesh is not None and mesh.n_fsdp > 1:
+    if mesh is not None and (mesh.n_fsdp > 1 or mesh.n_ep > 1):
         sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, student_init),
                            pmesh.ShardLayout(mesh, teacher))
     elif mesh is not None:
@@ -310,12 +362,18 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         return params if sync is None else sync.shard(role, params)
 
     tx_s, tx_c = make_tx("student"), make_tx("critic")
+    state = tdm.init_state(local("student", student_init), local("critic", teacher),
+                           tx_s, tx_c, use_ema=cfg.use_ema)
+    if sync is not None and mesh.n_ep > 1:
+        # the teacher keeps this rank's experts alone; the whole stacks it
+        # was built with (the module's, the student's start) go
+        teacher = {k: v.clone() for k, v in sync.teacher(teacher).items()}
+        student_init = None
+        _hold_experts(bundle.model, teacher)
     step_fn = tdm.build_train_step(
         denoise_fn, teacher, schedule, tdm_cfg, tx_s, tx_c, sample_shape=sample_shape,
         student_denoise_fn=student_fn, sync=sync,
     )
-    state = tdm.init_state(local("student", student_init), local("critic", teacher),
-                           tx_s, tx_c, use_ema=cfg.use_ema)
 
     # ---- resume ----
     mgr = ckpt_lib.CheckpointManager(out_dir, total_limit=cfg.checkpoints_total_limit)
@@ -447,11 +505,13 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             if student_fn is not None:
                 with torch.no_grad():
                     val_params = student_fn.merge(val_params, teacher)
-            grids = validation.save_validation_images(
-                denoise_fn, val_params, schedule,
-                val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
-                total_steps=cfg.total_steps, write=main_process,
-            )
+            # every rank runs the same rows; the experts stay split
+            with contextlib.nullcontext() if sync is None else sync.moe_scope(None):
+                grids = validation.save_validation_images(
+                    denoise_fn, val_params, schedule,
+                    val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
+                    total_steps=cfg.total_steps, write=main_process,
+                )
             for k_nfe, grid in grids.items():
                 metrics_log.log_image(f"validation/{k_nfe}nfe", grid, global_step)
         if global_step % cfg.checkpointing_steps == 0:
@@ -494,7 +554,8 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     # ---- the final artifacts (`_export`) ----
     final = state.ema if cfg.use_ema else state.student
     if sync is not None:  # gathered on every process; process 0 writes
-        final = sync.compute("student", final)
+        final = sync.full("student", final)
+        teacher = sync.full_teacher(teacher)
     if main_process:
         _export(cfg, out_dir, final, teacher, bundle.model, stacks, lora_template,
                 global_step, logger)
@@ -512,11 +573,8 @@ def write_student(params: dict, stacks, out_dir: str) -> None:
     package's layout (its stacked layers re-stacked)."""
     from tdm_tpu_torch.io import from_jax, params as params_io
 
-    flat = from_jax.jax_layout(params, stacks=stacks)
-    params_io.save_file(
-        {k: v.astype(np.float16) for k, v in flat.items()},
-        os.path.join(out_dir, "student.safetensors"),
-    )
+    flat = from_jax.jax_layout(params, stacks=stacks, dtype=torch.float16)
+    params_io.save_file(flat, os.path.join(out_dir, "student.safetensors"))
 
 
 def _export(cfg, out_dir, final, teacher, model, stacks, lora_template, global_step,

@@ -211,10 +211,13 @@ def jax_layout(
     *,
     scan_layers: bool = True,
     stacks: Optional[Stacks] = None,
+    dtype: torch.dtype = torch.float32,
 ) -> dict[str, np.ndarray]:
-    """The inverse carry: a port state_dict → flat fp32 JAX params, with the
-    layer stack stacked as `stacks` says (`layer_stacks(cfg)`); without
-    `stacks`, every block under 'blocks' (scan_layers) or none."""
+    """The inverse carry: a port state_dict → flat JAX params in `dtype`
+    (fp32 by default; each tensor cast where it lies, so a half-precision
+    export moves half the bytes), with the layer stack stacked as `stacks`
+    says (`layer_stacks(cfg)`); without `stacks`, every block under
+    'blocks' (scan_layers) or none."""
     if stacks is None:
         n = 1 + max((int(k.split(".")[1]) for k in state_dict
                      if k.startswith("blocks.")), default=-1)
@@ -222,7 +225,7 @@ def jax_layout(
     flat: dict[str, np.ndarray] = {}
     stacked: dict[str, dict[int, np.ndarray]] = {}
     for key, t in state_dict.items():
-        arr = t.detach().float().cpu().numpy()
+        arr = t.detach().to(dtype).cpu().numpy()
         if key.endswith(".weight"):
             arr = {2: lambda a: a.T, 4: lambda a: a.transpose(2, 3, 1, 0),
                    5: lambda a: a.transpose(2, 3, 4, 1, 0)}[arr.ndim](arr)

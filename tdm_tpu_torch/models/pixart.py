@@ -7,7 +7,9 @@ its learned `scale_shift_table`); per block: modulated LayerNorm →
 self-attention → gate, cross-attention to the projected T5 tokens on the
 RAW residual (no pre-norm, a PixArt quirk), modulated LayerNorm → gelu-tanh
 MLP → gate. The output has 8 channels (ε plus learned variance);
-`epsilon()` keeps the first 4.
+`epsilon()` keeps the first 4. With `moe_experts > 0` each block's MLP is
+a top-k mixture of experts (`models/moe.py`), as the JAX config's research
+option.
 
 The model computes in `cfg.dtype`. Serving holds its parameters in that
 dtype; training builds it with `param_dtype=torch.float32` (fp32 master
@@ -15,7 +17,11 @@ weights, cast to the compute dtype inside each layer, as Flax does), and
 `cfg.remat` checkpoints each block (`torch.utils.checkpoint`, recomputed in
 the backward) when autograd records the forward: the whole block under
 `remat_policy='full'`, all but the Dense layers' matmul outputs under
-'dots' (`layers.checkpoint_block`).
+'dots' (`layers.checkpoint_block`). A MoE block is remat'd whole as well;
+under 'dots' its router product (an mm) is kept and its expert products
+(batched, baddbmm) are recomputed with the routing, as JAX's
+`dots_with_no_batch_dims_saveable` keeps the router's dot and not the
+batched expert einsums.
 
 The blocks are a ModuleList; the weight carry (`io/from_jax.py`) reads the
 JAX package's stacked `blocks/...` tree and its unrolled `blocks_{i}/...`
@@ -32,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdm_tpu_torch.device import resolve_device
-from tdm_tpu_torch.models import layers as L
+from tdm_tpu_torch.models import layers as L, moe
 
 
 @dataclass(frozen=True)
@@ -55,8 +61,8 @@ class PixArtConfig:
     # --gradient_checkpointing) under one of layers.REMAT_POLICIES
     remat: bool = False
     remat_policy: str = "full"
-    # research option of the JAX config: accepted so its pipeline.json
-    # loads, refused when switched on
+    # research option of the JAX config: > 0 swaps each block's MLP for a
+    # top-k mixture of experts (models/moe.py)
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -89,7 +95,12 @@ class PixArtBlock(nn.Module):
         self.scale_shift_table = _table(6, c.hidden, device)
         self.attn1 = L.Attention(c.hidden, c.num_heads, c.head_dim, **kw)
         self.attn2 = L.Attention(c.hidden, c.num_heads, c.head_dim, **kw)
-        self.ff = L.FeedForward(c.hidden, c.mlp_ratio, **kw)
+        if c.moe_experts > 0:
+            self.ff = moe.MoEFeedForward(
+                c.hidden, c.moe_experts, c.moe_top_k, mult=c.mlp_ratio,
+                capacity_factor=c.moe_capacity_factor, activation="gelu-approximate", **kw)
+        else:
+            self.ff = L.FeedForward(c.hidden, c.mlp_ratio, **kw)
 
     def forward(self, x, text, text_mask, t6):
         """x [B,S,D] tokens, text [B,L,D] projected caption, t6 [B,6,D]."""
@@ -120,11 +131,6 @@ class PixArtTransformer2D(nn.Module):
     ):
         super().__init__()
         c = self.cfg = cfg if cfg is not None else PixArtConfig()
-        if c.moe_experts > 0:
-            raise NotImplementedError(
-                "PixArt MoE blocks (moe_experts > 0) are not ported yet: "
-                "ROADMAP.md queue 1, slice 6 (multi-GPU, models/moe.py)"
-            )
         if c.remat_policy not in L.REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat_policy {c.remat_policy!r} (one of {L.REMAT_POLICIES})")

@@ -1,4 +1,5 @@
-"""Process groups, the ('data', 'fsdp') mesh, the gradient mean and ZeRO-3.
+"""Process groups, the ('data', 'fsdp', 'ep') mesh, the gradient mean,
+ZeRO-3 and expert parallelism.
 
 Port of `tdm_tpu/parallel/mesh.py`. The reference's distributed surface is
 data parallelism over N GPUs (accelerate process groups over NCCL, the DDP
@@ -12,10 +13,11 @@ process per GPU (a JAX process drives every local device instead):
     from torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
     MASTER_PORT; NCCL for CUDA, gloo for the CPU. A world that was asked
     for and does not form raises; nothing carries on at world 1.
-  * `Mesh`: the ('data', 'fsdp') axes over the world, rank = d·n_fsdp + f
-    (the JAX mesh's row-major order). Every rank is a data rank: 'fsdp'
-    ranks process rows of their own (`batch_rows`), as in
-    `batch_sharding`.
+  * `Mesh`: the ('data', 'fsdp', 'ep') axes over the world, rank =
+    (d·n_fsdp + f)·n_ep + e (the JAX mesh's row-major order,
+    `tdm_tpu/cli/train_tdm.py:137-151`). 'fsdp' ranks process rows of their
+    own (`batch_rows`), as in `batch_sharding`; 'ep' ranks share their rows
+    (the JAX CLI's data ranks are world // ep) and split the experts.
   * `DataParallel`: the compute copy is the master weights, and gradients
     are averaged over the world with one flattened all_reduce per dict
     (the JAX step's psum).
@@ -31,6 +33,18 @@ process per GPU (a JAX process drives every local device instead):
     chunks' squares with one all_reduce. The arithmetic per element is the
     unsharded step's, so the numbers are its own up to the order of the
     norm's sum.
+  * Expert parallelism (`--ep`, the port's `ep_shardings`,
+    `tdm_tpu/models/moe.py:181-248`): each 'ep' rank holds experts
+    [e·E/n_ep, (e+1)·E/n_ep) of every expert leaf (`models/moe.is_expert_key`)
+    of the student, the critic, their optimizer states, the EMA and the
+    teacher; under --fsdp its slices are then chunked over 'fsdp' by the
+    rule above. An expert leaf's gradient is averaged over the data×fsdp
+    ranks only; every other leaf's over the world, where the 'ep' ranks'
+    copies are equal (the MoE layer makes x's and the router's gradients
+    whole on each). The MoE layer's drops follow the global batch
+    (`moe_scope`, `models/moe.Dispatch`), under plain data parallelism too.
+    Checkpoints keep the one-process layout: the experts are gathered over
+    'ep' for process 0's write and cut again on resume.
 
 At world 1 nothing here runs: the training CLI passes the step no reducer,
 so the single-GPU step issues no collective and makes no copy.
@@ -39,6 +53,7 @@ so the single-GPU step issues no collective and makes no copy.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -47,6 +62,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from tdm_tpu_torch.models import moe
 from tdm_tpu_torch.train import optim as topt
 
 # fsdp_spec's size gate: smaller leaves stay replicated
@@ -136,61 +152,110 @@ def local_device(device: torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
+AXES = ("data", "fsdp", "ep")
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The ('data', 'fsdp') mesh over the world: rank = d·n_fsdp + f. The
-    groups are None where the axis has size 1 (no collective over it) and
-    `dist.group.WORLD` where it spans the world."""
+    """The ('data', 'fsdp', 'ep') mesh over the world: rank = (d·n_fsdp +
+    f)·n_ep + e. `groups` maps a tuple of axes to this rank's process group
+    over them (the ranks that differ only along those axes): None where it
+    has one rank (no collective over it), `dist.group.WORLD` where it spans
+    the world."""
 
     n_data: int
     n_fsdp: int
     rank: int
-    data_group: Any = None
-    fsdp_group: Any = None
+    n_ep: int = 1
+    groups: Any = None
 
     @property
     def world(self) -> int:
+        return self.n_data * self.n_fsdp * self.n_ep
+
+    @property
+    def n_rows(self) -> int:
+        """The ranks that hold rows of their own (data x fsdp)."""
         return self.n_data * self.n_fsdp
 
     @property
+    def row_index(self) -> int:
+        return self.rank // self.n_ep
+
+    @property
     def fsdp_index(self) -> int:
-        return self.rank % self.n_fsdp
+        return self.row_index % self.n_fsdp
+
+    @property
+    def ep_index(self) -> int:
+        return self.rank % self.n_ep
+
+    def group(self, *axes: str):
+        return self.groups[tuple(a for a in AXES if a in axes)]
+
+    @property
+    def data_group(self):
+        return self.group("data")
+
+    @property
+    def fsdp_group(self):
+        return self.group("fsdp")
 
     def batch_rows(self, local_batch: int) -> slice:
-        """This rank's rows of the global batch: every rank is a data rank
-        ('fsdp' ranks too, as `batch_sharding` shards rows over both)."""
-        return slice(self.rank * local_batch, (self.rank + 1) * local_batch)
+        """This rank's rows of the global batch: every 'data' and 'fsdp'
+        rank holds rows of its own (as `batch_sharding` shards rows over
+        both); the 'ep' ranks of one row index share them."""
+        i = self.row_index
+        return slice(i * local_batch, (i + 1) * local_batch)
+
+    def moe_scope(self, rows: Optional[int]):
+        """The MoE calls' `Dispatch` inside a block: a call's `rows` rows a
+        block are this rank's of the global batch; None when every rank
+        runs the same rows (validation), which still splits the experts."""
+        spread = rows is not None and self.n_rows > 1
+        return moe.dispatching(moe.Dispatch(
+            rows=rows or 0, index=self.row_index if spread else 0,
+            count=self.n_rows if spread else 1,
+            group=self.group("data", "fsdp") if spread else None,
+            ep_index=self.ep_index, n_ep=self.n_ep, ep_group=self.group("ep")))
 
 
-def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1) -> Mesh:
-    """('data', 'fsdp') mesh over the world (all of it on 'data' by
+def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1) -> Mesh:
+    """('data', 'fsdp', 'ep') mesh over the world (all of it on 'data' by
     default, the reference's topology). Every rank calls it, in the same
     order, since it forms the axes' process groups."""
     world, me = world_size(), rank()
-    if n_fsdp < 1 or world % n_fsdp:
-        raise ValueError(f"fsdp {n_fsdp} does not divide the world of {world} processes")
-    if n_data is None:
-        n_data = world // n_fsdp
-    if n_data * n_fsdp != world:
+    if n_fsdp < 1 or n_ep < 1 or world % (n_fsdp * n_ep):
         raise ValueError(
-            f"mesh {n_data}x{n_fsdp} does not divide the world of {world} processes")
+            f"fsdp {n_fsdp} x ep {n_ep} does not divide the world of {world} processes")
+    if n_data is None:
+        n_data = world // (n_fsdp * n_ep)
+    if n_data * n_fsdp * n_ep != world:
+        raise ValueError(
+            f"mesh {n_data}x{n_fsdp}x{n_ep} does not divide the world of {world} processes")
+    sizes = dict(zip(AXES, (n_data, n_fsdp, n_ep)))
 
-    def groups(members: list[list[int]]):
-        """This rank's group of `members` (each rank in exactly one)."""
-        if len(members[0]) == 1:
-            return None
-        if len(members[0]) == world:
-            return dist.group.WORLD
-        mine = None
-        for ranks in members:  # every rank forms every group
+    def coords(r: int) -> dict:
+        return {"data": r // (n_fsdp * n_ep), "fsdp": (r // n_ep) % n_fsdp, "ep": r % n_ep}
+
+    groups = {}
+    for axes in (("data",), ("fsdp",), ("ep",), ("data", "fsdp"), ("data", "ep")):
+        size = math.prod(sizes[a] for a in axes)
+        if size == 1:
+            groups[axes] = None
+            continue
+        if size == world:
+            groups[axes] = dist.group.WORLD
+            continue
+        members: dict = {}
+        for r in range(world):  # every rank forms every group, in one order
+            key = tuple(v for a, v in coords(r).items() if a not in axes)
+            members.setdefault(key, []).append(r)
+        for ranks in members.values():
             g = dist.new_group(ranks)
             if me in ranks:
-                mine = g
-        return mine
-
-    fsdp = groups([list(range(d * n_fsdp, (d + 1) * n_fsdp)) for d in range(n_data)])
-    data = groups([list(range(f, world, n_fsdp)) for f in range(n_fsdp)])
-    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, data_group=data, fsdp_group=fsdp)
+                groups[axes] = g
+    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, n_ep=n_ep, groups=groups)
 
 
 def _allreduce_sum(tree: dict, group) -> dict:
@@ -236,21 +301,29 @@ def all_gather_flat(t: torch.Tensor, group) -> torch.Tensor:
 
 
 class ShardLayout:
-    """The ZeRO-3 layout of one role's parameter dict on a mesh: a leaf of
-    at least SHARD_MIN_SIZE elements (and at least Q8_MIN_SIZE per 'fsdp' rank,
-    so that 8-bit Adam quantizes a chunk as it does the whole leaf) is
-    flattened, zero-padded to n_fsdp equal chunks of whole 256-element
-    blocks, and rank f keeps chunk f; the other leaves are replicated. The
-    zero padding stays zero through AdamW, 8-bit Adam and the EMA (a zero
-    gradient and weight give a zero update)."""
+    """The layout of one role's parameter dict on a mesh. Under 'ep' each
+    expert leaf is cut to this rank's experts (its leading axis, in n_ep
+    equal parts). Then ZeRO-3: a leaf of at least SHARD_MIN_SIZE elements
+    (and at least Q8_MIN_SIZE per 'fsdp' rank, so that 8-bit Adam
+    quantizes a chunk as it does the whole leaf) is flattened, zero-padded
+    to n_fsdp equal chunks of whole 256-element blocks, and rank f keeps
+    chunk f; the other leaves are replicated. The zero padding stays zero
+    through AdamW, 8-bit Adam and the EMA (a zero gradient and weight give
+    a zero update)."""
 
     def __init__(self, mesh: Mesh, params: dict):
         self.mesh = mesh
-        self.shapes = {k: tuple(p.shape) for k, p in params.items()}
+        ne = mesh.n_ep
+        self.full_shapes = {k: tuple(p.shape) for k, p in params.items()}
+        # the leaves cut over 'ep', and every leaf's shape on this rank
+        # (in the dict's order: every rank makes the collectives in one order)
+        self.experts = tuple(k for k in params if ne > 1 and moe.is_expert_key(k))
+        self.shapes = {k: tuple(moe.expert_slice(k, p, 0, ne).shape) if k in self.experts
+                       else tuple(p.shape) for k, p in params.items()}
         nf = mesh.n_fsdp
         self.chunks: dict[str, int] = {}  # sharded leaf -> elements per rank
-        for k, p in params.items():
-            n = p.numel()
+        for k, shape in self.shapes.items():
+            n = math.prod(shape)
             if nf > 1 and n >= max(SHARD_MIN_SIZE, nf * topt.Q8_MIN_SIZE):
                 per = -(-n // nf)
                 self.chunks[k] = per + (-per) % topt.Q8_BLOCK
@@ -264,57 +337,91 @@ class ShardLayout:
         return self._padded(k, t.reshape(-1))[f * c:(f + 1) * c].clone()
 
     def shard(self, full: dict) -> dict:
-        """This rank's part of a full dict: its chunk of each sharded leaf
-        (1-D), the replicated leaves as they are."""
-        return {k: self._chunk(k, v) if k in self.chunks else v for k, v in full.items()}
+        """This rank's part of a full dict: its experts of each expert leaf,
+        then its chunk of each sharded leaf (1-D); the rest as it is."""
+        out = {}
+        for k, v in full.items():
+            if k in self.experts:
+                v = moe.expert_slice(k, v, self.mesh.ep_index, self.mesh.n_ep)
+            out[k] = self._chunk(k, v) if k in self.chunks else v
+        return out
 
     def gather(self, local: dict) -> dict:
-        """The full dict from every 'fsdp' rank's chunks: one all_gather
-        per sharded leaf; the replicated leaves as they are."""
+        """The compute copy from every 'fsdp' rank's chunks (one all_gather
+        per sharded leaf); this rank's experts stay its own."""
         out = {}
         for k, v in local.items():
             if k in self.chunks:
-                n = int(torch.Size(self.shapes[k]).numel())
+                n = math.prod(self.shapes[k])
                 v = all_gather_flat(v, self.mesh.fsdp_group)[:n].view(self.shapes[k])
             out[k] = v
         return out
 
+    def full(self, local: dict) -> dict:
+        """The whole dict: the compute copy with every expert leaf gathered
+        over 'ep' (every rank calls it)."""
+        out = self.gather(local)
+        for k in self.experts:
+            out[k] = all_gather_flat(out[k].reshape(-1), self.mesh.group("ep")).view(
+                self.full_shapes[k])
+        return out
+
     def reduce(self, grads: dict) -> dict:
-        """Full gradients of this rank's rows → the world's mean gradient:
-        each sharded leaf reduce-scattered onto this rank's chunk over
-        'fsdp', then all-reduced over 'data'; the replicated leaves in one
-        flattened all_reduce over the world."""
+        """Full gradients of this rank's rows → the mean gradient of the
+        global batch: each sharded leaf reduce-scattered onto this rank's
+        chunk over 'fsdp', then summed over the rest of its ranks; an
+        expert leaf over the data x fsdp ranks that hold its experts, every
+        other leaf over the world (the 'ep' ranks' copies are equal);
+        one flattened all_reduce per group and dtype."""
         m = self.mesh
-        rep = {k: g for k, g in grads.items() if k not in self.chunks}
-        out = _allreduce_sum(rep, None) if rep else {}
-        shards = {}
-        for k, c in self.chunks.items():
-            s = grads[k].new_empty(c)
-            reduce_scatter(s, self._padded(k, grads[k].reshape(-1)), group=m.fsdp_group)
-            shards[k] = s
-        if shards and m.data_group is not None:
-            shards = _allreduce_sum(shards, m.data_group)
-        out.update(shards)
-        torch._foreach_div_(list(out.values()), m.world)
+        rep, shards = {}, {}
+        for k, g in grads.items():
+            if k in self.chunks:
+                s = g.new_empty(self.chunks[k])
+                reduce_scatter(s, self._padded(k, g.reshape(-1)), group=m.fsdp_group)
+                shards[k] = s
+            else:
+                rep[k] = g
+        out = {}
+        for tree, exp_group, dense_group in (
+                (rep, m.group("data", "fsdp"), dist.group.WORLD),
+                (shards, m.group("data"), m.group("data", "ep"))):
+            exp = {k: g for k, g in tree.items() if k in self.experts}
+            dense = {k: g for k, g in tree.items() if k not in self.experts}
+            out.update(_allreduce_sum(exp, exp_group) if exp and exp_group is not None else exp)
+            out.update(_allreduce_sum(dense, dense_group)
+                       if dense and dense_group is not None else dense)
+        exp = [out[k] for k in self.experts]
+        dense = [v for k, v in out.items() if k not in self.experts]
+        if dense:
+            torch._foreach_div_(dense, m.world)
+        if exp and m.n_rows > 1:
+            torch._foreach_div_(exp, m.n_rows)
         return {k: out[k] for k in grads}
 
     def global_norm(self, grads: dict) -> torch.Tensor:
         """optax.global_norm of the full gradient from this rank's part:
-        the chunks' squares summed over 'fsdp' in one all_reduce, each
-        replicated leaf counted once."""
-        def squares(leaves):
-            return torch.stack(torch._foreach_norm([g.float() for g in leaves])).square().sum()
+        the chunks' squares summed over 'fsdp', the experts' over 'ep',
+        each replicated leaf counted once."""
+        def squares(keys):
+            if not keys:
+                return torch.zeros((), dtype=torch.float32, device=dev)
+            return torch.stack(
+                torch._foreach_norm([grads[k].float() for k in keys])).square().sum()
 
-        sharded = [grads[k] for k in self.chunks]
-        rep = [g for k, g in grads.items() if k not in self.chunks]
-        total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
-        if sharded:
-            s = squares(sharded)
-            dist.all_reduce(s, group=self.mesh.fsdp_group)
-            total = total + s
-        if rep:
-            total = total + squares(rep)
-        return torch.sqrt(total)
+        m = self.mesh
+        dev = next(iter(grads.values())).device
+        parts = {(c, e): squares([k for k in grads
+                                  if (k in self.chunks) == c and (k in self.experts) == e])
+                 for c in (False, True) for e in (False, True)}
+        if self.chunks:  # the chunks' sums over 'fsdp'
+            s = torch.stack([parts[True, False], parts[True, True]])
+            dist.all_reduce(s, group=m.fsdp_group)
+            parts[True, False], parts[True, True] = s.unbind()
+        exp = parts[False, True] + parts[True, True]
+        if self.experts:  # the experts' over 'ep'
+            dist.all_reduce(exp, group=m.group("ep"))
+        return torch.sqrt(parts[False, False] + parts[True, False] + exp)
 
     def meta(self, *, local: bool) -> dict:
         """Tensors of the local (chunk) or full shapes on the meta device,
@@ -325,18 +432,25 @@ class ShardLayout:
 
     # ---- the optimizer state between its local and its full form ----
 
+    def _refuse_q8_experts(self) -> None:
+        if self.experts:
+            raise NotImplementedError(
+                "8-bit Adam moments of expert leaves split over 'ep' have no one-process "
+                "form yet: ROADMAP.md queue 1, slice 6")
+
     def _q8_sizes(self, k: str) -> tuple[int, int]:
         """(codes of the whole leaf padded to whole blocks, n_fsdp chunks)."""
-        n = int(torch.Size(self.shapes[k]).numel())
+        n = math.prod(self.shapes[k])
         return n + (-n) % topt.Q8_BLOCK, self.mesh.n_fsdp * self.chunks[k]
 
     def gather_opt(self, node):
         """An optimizer state of the local dict → the state the optimizer
         keeps for the full dict, on the CPU (every 'fsdp' rank calls it)."""
         def leaves(d):
-            return {k: v.cpu() for k, v in self.gather(d).items()}
+            return {k: v.cpu() for k, v in self.full(d).items()}
 
         def q8(moments):
+            self._refuse_q8_experts()
             full = {}
             for k, v in topt.leaf_moments(moments, self.meta(local=True)).items():
                 if k in self.chunks:
@@ -356,6 +470,7 @@ class ShardLayout:
             return {k: v.to(device) for k, v in self.shard(d).items()}
 
         def q8(moments):
+            self._refuse_q8_experts()
             local = {}
             f = self.mesh.fsdp_index
             for k, v in topt.leaf_moments(moments, self.meta(local=False)).items():
@@ -401,6 +516,22 @@ class DataParallel:
     def compute(self, role: str, params: dict) -> dict:
         return params
 
+    def full(self, role: str, params: dict) -> dict:
+        """A role's whole parameters from this rank's part (every rank
+        calls it): for the export."""
+        return params
+
+    def teacher(self, params: dict) -> dict:
+        """This rank's part of the frozen teacher."""
+        return params
+
+    def full_teacher(self, params: dict) -> dict:
+        return params
+
+    def moe_scope(self, rows: Optional[int]):
+        """The MoE layers' dispatch over the mesh (`Mesh.moe_scope`)."""
+        return self.mesh.moe_scope(rows)
+
     def reduce(self, role: str, grads: dict) -> dict:
         return allreduce_mean(grads)
 
@@ -424,8 +555,10 @@ class DataParallel:
 
 
 class ZeRO3(DataParallel):
-    """The step's reducer under ZeRO-3: a `ShardLayout` for the student
-    (its EMA too) and one for the critic; the frozen teacher is
+    """The step's reducer under ZeRO-3 and/or expert parallelism: a
+    `ShardLayout` for the student (its EMA too) and one for the critic.
+    The frozen teacher keeps its experts of each expert leaf under 'ep'
+    (as `ep_shardings` puts the teacher's stacks on 'ep') and is otherwise
     replicated, as the reference's ZeRO-3 leaves frozen models out."""
 
     def __init__(self, mesh: Mesh, student: ShardLayout, critic: ShardLayout):
@@ -437,6 +570,24 @@ class ZeRO3(DataParallel):
 
     def compute(self, role: str, params: dict) -> dict:
         return self.layouts[role].gather(params)
+
+    def full(self, role: str, params: dict) -> dict:
+        return self.layouts[role].full(params)
+
+    def teacher(self, params: dict) -> dict:
+        m = self.mesh
+        if m.n_ep == 1:
+            return params
+        return {k: moe.expert_slice(k, v, m.ep_index, m.n_ep) if moe.is_expert_key(k) else v
+                for k, v in params.items()}
+
+    def full_teacher(self, params: dict) -> dict:
+        m = self.mesh
+        if m.n_ep == 1:
+            return params
+        return {k: all_gather_flat(v.reshape(-1), m.group("ep")).view(v.shape[0] * m.n_ep,
+                                                                       *v.shape[1:])
+                if moe.is_expert_key(k) else v for k, v in params.items()}
 
     def reduce(self, role: str, grads: dict) -> dict:
         return self.layouts[role].reduce(grads)
@@ -450,7 +601,7 @@ class ZeRO3(DataParallel):
         s, c = self.layouts["student"], self.layouts["critic"]
 
         def host(layout, tree):
-            return None if tree is None else {k: v.cpu() for k, v in layout.gather(tree).items()}
+            return None if tree is None else {k: v.cpu() for k, v in layout.full(tree).items()}
 
         return state._replace(
             student=host(s, state.student), critic=host(c, state.critic),
@@ -463,7 +614,7 @@ class ZeRO3(DataParallel):
         s, c = self.layouts["student"], self.layouts["critic"]
 
         def zeros(layout, like):
-            return {k: torch.zeros(layout.shapes[k], dtype=v.dtype) for k, v in like.items()}
+            return {k: torch.zeros(layout.full_shapes[k], dtype=v.dtype) for k, v in like.items()}
 
         student, critic = zeros(s, state.student), zeros(c, state.critic)
         return state._replace(

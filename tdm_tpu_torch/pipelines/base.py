@@ -22,7 +22,10 @@ pipeline's own modules serve the first entry on its device); a call
 encodes its prompts and draws its noise for the whole batch, then its rows
 split into N equal chunks, which run concurrently (a thread per device,
 each on a CUDA stream of its own) and are concatenated in order. So a
-row's image does not depend on N. A repeated device is allowed.
+row's image does not depend on N. A repeated device is allowed. A
+mixture-of-experts denoiser is refused (NotImplementedError): its capacity
+drops depend on the whole batch, which the JAX server shards as one global
+batch, and a split here would drop other pairs.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from tdm_tpu_torch.io import from_jax
 from tdm_tpu_torch.lora import adapter as lora_lib, io as lora_io
+from tdm_tpu_torch.models import moe
 from tdm_tpu_torch.ops import quant as quant_lib
 
 
@@ -102,6 +106,12 @@ class DiffusionPipelineBase:
 
     @data_parallel_devices.setter
     def data_parallel_devices(self, devices: Optional[Sequence]) -> None:
+        if len(devices or ()) > 1 and any(
+                isinstance(m, moe.MoEFeedForward) for m in self.denoiser.modules()):
+            raise NotImplementedError(
+                "--dp with a mixture-of-experts denoiser: a row's capacity drops depend on "
+                "the whole batch, and the replicas would split it (ROADMAP.md queue 1, "
+                "slice 6)")
         replicas, own = [], False
         for dev in devices or ():
             dev = torch.device(dev)

@@ -132,6 +132,7 @@ def build(
     mixed_precision: Optional[str] = None,
     allow_pooled_standin: bool = False,
     moe_experts: int = 0,
+    moe_top_k: int = 2,
     seed: int = 0,
     device=None,
 ) -> FamilyBundle:
@@ -140,16 +141,13 @@ def build(
     for the config's own) sets cogvideox's latent frames; the image
     families take `resolution`. `allow_pooled_standin` lets a full-size sd3
     run fold the pooled stand-in when a batch carries no pooled vectors
-    (tiny runs always may)."""
+    (tiny runs always may). `moe_experts > 0` (pixart only) swaps each
+    block's MLP for a top-`moe_top_k` mixture of experts (`models/moe.py`);
+    the teacher and the critic share the student's layout."""
     if family not in FAMILIES:
         raise ValueError(f"unknown --model_family {family!r}; choose from {FAMILIES}")
-    if moe_experts > 0:
-        if family != "pixart":
-            raise ValueError(f"--moe_experts is a pixart-family extension (got {family!r})")
-        raise NotImplementedError(
-            "a mixture-of-experts PixArt (--moe_experts > 0) is not ported yet: "
-            "ROADMAP.md queue 1, slice 6 (models/moe.py)"
-        )
+    if moe_experts > 0 and family != "pixart":
+        raise ValueError(f"--moe_experts is a pixart-family extension (got {family!r})")
     lat = 8 if tiny else max(resolution // 8, 8)
     if family == "sd15":
         return _build_sd15(tiny, lat, gradient_checkpointing, mixed_precision, seed, device)
@@ -164,6 +162,8 @@ def build(
         mcfg = dataclasses.replace(mcfg, sample_size=lat)
     if gradient_checkpointing:
         mcfg = dataclasses.replace(mcfg, remat=True)
+    if moe_experts > 0:
+        mcfg = dataclasses.replace(mcfg, moe_experts=moe_experts, moe_top_k=moe_top_k)
     mcfg = _compute_dtype(mcfg, mixed_precision, tiny)
     torch.manual_seed(seed)
     shape = (mcfg.in_channels, mcfg.sample_size, mcfg.sample_size)

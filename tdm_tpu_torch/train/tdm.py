@@ -39,8 +39,10 @@ ZeRO-3), every gradient goes through `sync.reduce` (the world's mean)
 before its optimizer sees it, and the metrics are averaged over the
 ranks. The losses are means over a rank's rows, with per-sample
 normalizers, so the mean of the ranks' gradients is the gradient of the
-global batch, as under the JAX step's psum. Without `sync` (one process)
-the step issues no collective and makes no copy.
+global batch, as under the JAX step's psum. A MoE denoiser's calls run
+under `sync.moe_scope(rows)`: their capacity drops are those of the global
+batch, and under 'ep' each rank computes its own experts. Without `sync`
+(one process) the step issues no collective and makes no copy.
 
 `quant_forwards` runs exactly the forwards the JAX step wraps in `q()`
 (`tdm_tpu/train/tdm.py:203-217`, used at `:239`, `:310`, `:363-364`,
@@ -239,6 +241,12 @@ def build_train_step(
         return quant_lib.quant_scope("int8" if config.quant_forwards else None)
 
     def train_step(state: TrainState, draws: StepDraws, cond, uncond, teacher=None):
+        if sync is None:
+            return one_step(state, draws, cond, uncond, teacher)
+        with sync.moe_scope(draws.z.shape[0]):
+            return one_step(state, draws, cond, uncond, teacher)
+
+    def one_step(state: TrainState, draws: StepDraws, cond, uncond, teacher):
         teacher = teacher_params if teacher is None else teacher
         z = draws.z
         dev = z.device

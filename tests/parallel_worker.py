@@ -49,7 +49,12 @@ def launch(job: str, args: dict, world: int, tmp_dir, *, timeout: float = 240.0,
 
 def _lower_gates(args: dict) -> None:
     """The tiny models' leaves are small: the tests lower ZeRO-3's size
-    gate (and 8-bit Adam's) so that tiny leaves are sharded (quantized)."""
+    gate (and 8-bit Adam's) so that tiny leaves are sharded (quantized),
+    and the MoE capacity factor of the tiny PixArt (`moe_cf`) so that
+    pairs drop."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import pixart
     from tdm_tpu_torch.parallel import mesh as pmesh
     from tdm_tpu_torch.train import optim as topt
 
@@ -57,6 +62,10 @@ def _lower_gates(args: dict) -> None:
         pmesh.SHARD_MIN_SIZE = args["shard_min"]
     if "q8_min" in args:
         topt.Q8_MIN_SIZE = args["q8_min"]
+    if "moe_cf" in args:
+        tiny = pixart.PixArtConfig.tiny
+        pixart.PixArtConfig.tiny = staticmethod(
+            lambda: dataclasses.replace(tiny(), moe_capacity_factor=args["moe_cf"]))
 
 
 def job_cli(args: dict) -> None:
@@ -68,10 +77,12 @@ def job_cli(args: dict) -> None:
 
 
 def job_step(args: dict) -> None:
-    """One TDM step of the tiny PixArt from the state and the global draws
-    in args['inputs'] (torch.save'd by the test), each rank on its rows,
-    under DataParallel (fsdp 1) or ZeRO3 (fsdp 2); rank 0 saves the
-    unsharded new state and the metrics to args['out']."""
+    """One TDM step of the tiny PixArt (a MoE one with args['moe'] experts)
+    from the state and the global draws in args['inputs'] (torch.save'd by
+    the test), each rank on its rows, under DataParallel (fsdp 1, ep 1) or
+    ZeRO3 (fsdp and/or ep > 1); rank 0 saves the unsharded new state and
+    the metrics to args['out'], and every rank its own part of the new
+    state to args['out'] + '.<rank>'."""
     import functools
 
     from tdm_tpu_torch.parallel import mesh as pmesh
@@ -80,28 +91,31 @@ def job_step(args: dict) -> None:
     _lower_gates(args)
     inp = torch.load(args["inputs"], weights_only=False)
     assert pmesh.maybe_initialize_distributed("cpu")
-    mesh = pmesh.make_mesh(pmesh.world_size() // args["fsdp"], args["fsdp"])
+    ep = args.get("ep", 1)
+    mesh = pmesh.make_mesh(pmesh.world_size() // (args["fsdp"] * ep), args["fsdp"], ep)
     full = inp["state"]
-    if args["fsdp"] > 1:
+    if args["fsdp"] > 1 or ep > 1:
         sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, full.student),
                            pmesh.ShardLayout(mesh, full.critic))
-        assert sync.layouts["critic"].chunks, "no leaf is sharded"
+        assert sync.layouts["critic"].chunks or args["fsdp"] == 1, "no leaf is sharded"
     else:
         sync = pmesh.DataParallel(mesh)
     tx_s, tx_c = (topt.make_optimizer(inp["lr"], eps=inp["eps"],
                                       norm_fn=functools.partial(sync.norm, role))
                   for role in ("student", "critic"))
-    bundle = families.build("pixart", tiny=True, device="cpu")
-    step = tdm.build_train_step(bundle.denoise_fn, inp["teacher"], bundle.schedule,
+    bundle = families.build("pixart", tiny=True, moe_experts=args.get("moe", 0), device="cpu")
+    step = tdm.build_train_step(bundle.denoise_fn, sync.teacher(inp["teacher"]), bundle.schedule,
                                 tdm.TDMConfig(**inp["config"]), tx_s, tx_c,
                                 sample_shape=bundle.sample_shape, sync=sync)
-    local = inp["draws"].z.shape[0] // mesh.world
+    local = inp["draws"].z.shape[0] // mesh.n_rows
     rows = mesh.batch_rows(local)
     draws = tdm.draw_rows(inp["draws"], rows)
     cond = tuple(t[rows] for t in inp["cond"])
     uncond = tuple(t[rows] for t in inp["uncond"])
     state = sync.shard_state(full, torch.device("cpu"))
     new, metrics = step(state, draws, cond, uncond)
+    torch.save({role: getattr(new, role) for role in ("student", "critic", "ema")},
+               f"{args['out']}.{mesh.rank}")
     new = sync.gather_state(new)
     if mesh.rank == 0:
         torch.save({"state": new, "metrics": {k: float(v) for k, v in metrics._asdict().items()}},

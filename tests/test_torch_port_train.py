@@ -551,15 +551,18 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     pytest.param(["--quant_forwards", "--sp", "2"], "slice 6", id="flags4-slice 4"),
     pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"], "slice 6",
                  id="flags5-slice 4"),
-    # its id kept from before the --push_to_hub case (ported) left the list
-    pytest.param(["--moe_experts", "4"], "slice 6", id="flags6-slice 6"),
+    # its id kept from before --moe_experts and --ep were ported
+    # (tests/test_torch_port_moe.py): --ep without experts raises the JAX
+    # CLI's ValueError
+    pytest.param(["--ep", "2"], "--ep requires --moe_experts > 0", id="flags6-slice 6"),
 ])
 def test_cli_refuses_unported_flags_before_the_first_step(tmp_path, monkeypatch, flags, where):
     from tdm_tpu_torch.cli import train_tdm
 
     monkeypatch.setenv("TDM_TINY_MODEL", "1")
     argv = ["--device", "cpu", "--output_dir", str(tmp_path / "run"), *flags]
-    error = ValueError if where.startswith("does not divide") else NotImplementedError
+    error = (ValueError if where.startswith(("does not divide", "--ep requires"))
+             else NotImplementedError)
     with pytest.raises(error, match=where):
         train_tdm.main(argv)
     assert not (tmp_path / "run_cfg4.5_steps900" / "logs").exists()
