@@ -65,6 +65,27 @@ Phases, one line each, and any failure exits non-zero:
      4 on both) against the one-process step: the leaves other than the
      expert stacks equal bit for bit, the reduced gradients and the
      gathered update within DP_GRAD_TOL, launches, seconds and peaks;
+     then the --tp 2 checks in the same two processes (`tp_rank_step`,
+     `tp_serve_rank`): one --quant int8 forward of the 8-block model at
+     batch 4 cut for each rank, its int8 codes and scales equal to the
+     one-process int8 forward's; one --tp 2 dmd step on both rows against
+     the one-process batch-2 step (the leaves tp does not cut bit for bit
+     across the ranks, the gathered gradients within TP_GRAD_TOL and the
+     losses within DP_GRAD_TOL, the gathered update equal to the
+     one-process AdamW update of the gathered gradient, launches,
+     all-reduces, seconds, peaks); the same step in fp32 within
+     TP_FP32_TOL of the one-process fp32 step, and its control (rank 1's
+     f backward all-reduce dropped) beyond it; `train_tdm.main --tp 2
+     --device cuda:0` for one step at 28 blocks (launches, all-reduces,
+     the student written whole by rank 0 alone); the `--tp 2` server of
+     the 28-block checkout (rank 0 by `build_server`, rank 1 by
+     `serve.server.main`, the follower's path) against the one-process
+     pipeline (relative L2 ≤ TP_SERVE_TOL), a served row with another
+     batch-mate bit for bit, 224 kernel-1 launches a batch a rank, each
+     rank's sampler device ms, all-reduces and peak memory; meanwhile
+     this process runs `generate --tp 2 --device cuda:0`, whose follower
+     `tp.launch` starts (a PNG, 224 launches and 336 all-reduces on rank
+     0). main() itself runs with --tp 1 in the NCCL world;
   6b. moe: the mixture-of-experts PixArt (`models/moe.py`, no kernel of its
      own): a tiny MoE TDM step (capacity factor 0.6) on the card against
      the CPU with its dropped pairs and the tokens routed otherwise
@@ -166,7 +187,7 @@ Phases, one line each, and any failure exits non-zero:
      without an imaging package and two frames of each decoded, per-seed
      determinism (the same GIF bytes alone and in the batch),
      exactly 120 kernel-1 launches and nothing else per batch; a profiled
-     batch (kernel 1's ms a call, the transformer's and the 3D decode's
+     batch of one video (kernel 1's ms a call, the transformer's and the 3D decode's
      device time by CUDA events, the idle share, peak memory), the load
      seconds, a video's decode timed in the profiled batch, the decode's
      operations and the GIF encode's seconds, one full-width forward
@@ -3712,7 +3733,7 @@ def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict
                 "--output_dir", out, "--max_train_steps", str(TRAIN_STEPS),
                 "--train_batch_size", "4", "--mixed_precision", "bf16", "--loss_mode",
                 "dmd", "--seed", str(seed), "--pretrained_model_name_or_path", teacher_dir,
-                "--export_lora_rank", "0",
+                "--export_lora_rank", "0", "--tp", "1",
             ], step_hook=step_hook(torch, steps, TRAIN_STEPS, "train", after))
         total_s = time.monotonic() - t0
         launches = A.launch_counts()
@@ -3757,7 +3778,8 @@ def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict
           f"{span:.1f} ms, step 3 device busy "
           + (f"{busy:.1f} ms -> idle share {idle:.3f}" if busy else "not measured")
           + f"; main() {total_s:.1f}s incl. a {student_gb:.2f} GB fp16 student, no LoRA "
-          "export (train_sd15 times it), no final checkpoint", flush=True)
+          "export (train_sd15 times it), no final checkpoint; main() ran with --tp 1 in an "
+          "NCCL world of one and made no collective (checked)", flush=True)
     return {"s_per_step": per_step, "iters_per_hour": 3600 / per_step,
             "teacher_load_s": teacher_s, "teacher_load": teacher_times,
             "first_step_s": steps[0]["host_s"], "peak_gib": peak_gb,
@@ -5265,20 +5287,23 @@ def phase_cogvideox(torch, seed: int, workdir: str) -> dict:
           f"{batches} batches ({time.monotonic() - t_phase:.1f}s into the phase)", flush=True)
     cond = torch.from_numpy(np.concatenate([server.batcher.cond_fn(prompts[1])] * 2))
     noise = torch.randn(2, 16, 13, 60, 90)
-    prof, videos = profile_cogvideox(torch, pipe, cond, noise, num_frames=49, height=480,
-                                     width=720)
+    # one video, not the served batch of 2: a video's decode takes ~10 s
+    # (the smoke's clock); the batch's time is the served pair's above
+    prof, videos = profile_cogvideox(torch, pipe, cond[:1], noise[:1], num_frames=49,
+                                     height=480, width=720)
     # the decode in the profiled batch, one video at a time: a video's time
     # and operations (the route's repeatability is conv3d_route_check's, and
     # the same GIF bytes alone and in a batch); the GIF encode of video 0
     t0 = time.monotonic()
     gif = S.encode_gif(videos[0].numpy())
     gif_s = time.monotonic() - t0
+    n_videos = len(videos)
     del videos
     ops = vae3d_conv_ops(torch, pipe, (1, *noise.shape[1:]))
-    dec_ms = prof["decode_ms"] / noise.shape[0]
+    dec_ms = prof["decode_ms"] / n_videos
     print(f"[cogvideox] 3D decode (8 tiles of 32x32 latents a video, 13 -> 49 frames, fp32) "
           f"in the profiled batch: {prof['decode_ms']:.1f} ms by CUDA events for "
-          f"{noise.shape[0]} videos, {dec_ms:.1f} ms a video; {ops / 1e12:.1f} TFLOP a video "
+          f"{n_videos} video(s), {dec_ms:.1f} ms a video; {ops / 1e12:.1f} TFLOP a video "
           f"in its convs ({ops / (dec_ms * 1e-3) / 1e12:.1f} TFLOP/s); GIF encode "
           f"{gif_s:.2f}s on the host ({len(gif) / 1e6:.1f} MB) "
           f"({time.monotonic() - t_phase:.1f}s into the phase)", flush=True)
@@ -5654,9 +5679,9 @@ def profile_int8(torch, pipe, cond, noise, call: dict) -> tuple:
     dense, denoiser, held = quant.dense, pipe.denoiser, {}
     forward = denoiser.forward
 
-    def ranged(*args):
+    def ranged(*args, **kw):
         with record_function("int8_dense"):
-            return dense(*args)
+            return dense(*args, **kw)
 
     def first_profiled(*args, **kw):
         if "prof" in held:
@@ -6218,7 +6243,7 @@ DP_LR = 2e-5
 # the 2-rank step's reduced gradients against the one-process step at batch 2:
 # relative L2, bf16 GEMMs at M of one row against two
 DP_GRAD_TOL = 2e-2
-DP_RANK_TIMEOUT_S = 300
+DP_RANK_TIMEOUT_S = 480
 
 
 def dp_serving_check(torch, pipe, cond, noise) -> dict:
@@ -6398,19 +6423,22 @@ RANK_LAYERS = 8
 RANK_LAUNCHES = {k: v * RANK_LAYERS // 28 for k, v in TRAIN_LAUNCHES.items()}
 
 
-def rank_setup(torch, seed: int, device, sync, experts: int = 0, teacher_dir=None):
+def rank_setup(torch, seed: int, device, sync, experts: int = 0, teacher_dir=None, tp=None,
+               before_tp=None, dtype=None):
     """The 2-rank checks' step: PixArt-α-512 at full width and RANK_LAYERS
     blocks (the teacher, the student and the critic start equal), dense at
     global batch 2 (a data-parallel rank's row each) with the first blocks
     of the checkout's transformer/ at `teacher_dir`, or seeded with
     `experts` top-2 experts a block at global batch
-    MOE_EP_BATCH (all rows on both --ep ranks); bf16 compute on fp32
-    masters, dmd, cfg 4.5, the CLI's TDM defaults, AdamW at the constant
+    MOE_EP_BATCH (all rows on both --ep ranks); bf16 compute (or `dtype`)
+    on fp32 masters, dmd, cfg 4.5, the CLI's TDM defaults, AdamW at the constant
     DP_LR with the clip's norm through `sync`; seeded T5-shaped conditions
     [B, 120, 4096] with ragged masks, the CFG null branch zeros under an
     all-ones mask (the CLI without a cache), and the draws of one seeded
     generator. Under a reducer with layouts (`ZeRO3`) each role and the
-    teacher keep this rank's experts. Returns (step, state, draws, cond,
+    teacher keep this rank's experts (and tp slices). `before_tp(model,
+    full)` runs on the whole model; then, with `tp` (a `TPGroup`), the
+    model is cut for this rank. Returns (step, state, draws, cond,
     uncond)."""
     import dataclasses
     import functools
@@ -6425,6 +6453,8 @@ def rank_setup(torch, seed: int, device, sync, experts: int = 0, teacher_dir=Non
 
     cfg = dataclasses.replace(pixart.PixArtConfig(), num_layers=RANK_LAYERS,
                               moe_experts=experts, moe_top_k=MOE_K)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     torch.manual_seed(seed + 23)
     model = pixart.PixArtTransformer2D(cfg, device=device, param_dtype=torch.float32)
     model.requires_grad_(False)
@@ -6435,6 +6465,12 @@ def rank_setup(torch, seed: int, device, sync, experts: int = 0, teacher_dir=Non
                                 if not k.startswith("blocks_")
                                 or int(k.split("/")[0][len("blocks_"):]) < RANK_LAYERS}, model)
     full = {k: p.detach() for k, p in model.named_parameters()}
+    if before_tp is not None:
+        before_tp(model, full)
+    if tp is not None:  # the model's modules run this rank's share (--tp)
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        tp_lib.parallelize(model, tp)
 
     def denoise_fn(params, x, t, cond):
         text, mask = cond
@@ -6476,23 +6512,34 @@ def bit_checksum(torch, tree: dict) -> list:
     return [int(v) for v in total.cpu()]
 
 
-def dp_reference(torch, seed: int, teacher_dir: str, path: str) -> dict:
+def dp_reference(torch, seed: int, teacher_dir: str, path: str, dtype=None) -> dict:
     """The one-process step at batch 2 on the 2-rank check's inputs: its
-    gradients of each role (the critic's returned for the NCCL check) and
-    metrics written to `path` for rank 0 to hold its reduced gradients
-    against."""
+    gradients of each role (the critic's returned for the NCCL check), the
+    student before and after, and the metrics written to `path` for the
+    data-parallel and the --tp 2 ranks to hold theirs against. With
+    `dtype` float32, the step computes in fp32 with TF32 off (the --tp 2
+    fp32 witness's reference)."""
+    if dtype == torch.float32:
+        from tdm_tpu_torch.device import set_fp32_precision
+
+        set_fp32_precision(False)
     rec = _Recorder()
     step, state, draws, cond, uncond = rank_setup(torch, seed, "cuda", rec,
-                                                  teacher_dir=teacher_dir)
+                                                  teacher_dir=teacher_dir, dtype=dtype)
+    before = {k: v.to("cpu", copy=True) for k, v in state.student.items()}
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    _, metrics = step(state, draws, cond, uncond)
+    new, metrics = step(state, draws, cond, uncond)
     torch.cuda.synchronize()
     step_s = time.monotonic() - t0
     metrics = {k: float(v) for k, v in metrics._asdict().items()}
     torch.save({"grads": {role: {k: v.cpu() for k, v in g.items()}
-                          for role, g in rec.grads.items()}, "metrics": metrics}, path)
-    print(f"[train] the one-process reference step at batch 2: {step_s:.3f} s, {metrics}",
+                          for role, g in rec.grads.items()}, "metrics": metrics,
+                "before": before, "student": {k: v.cpu() for k, v in new.student.items()}},
+               path + ".tmp")
+    os.replace(path + ".tmp", path)  # whole when a rank finds it
+    print(f"[train] the one-process reference step at batch 2"
+          f"{' in fp32' if dtype == torch.float32 else ''}: {step_s:.3f} s, {metrics}",
           flush=True)
     return {"critic_grads": rec.grads["critic"], "metrics": metrics, "step_s": step_s}
 
@@ -6560,15 +6607,34 @@ def dp_rank_main(rank: int, spec: dict) -> int:
                 num += float((g.float() - r.float()).square().sum())
                 den += float(r.float().square().sum())
             out["grad_rel_l2"][role] = math.sqrt(num / den)
+        # the update against the one-process step's, for the record beside
+        # the --tp one (Adam's first step is lr·sign(g) wherever |g| ≫ eps)
+        num = den = 0.0
+        for k, v in new.student.items():
+            want = ref["student"][k].to(device) - ref["before"][k].to(device)
+            got = v - ref["before"][k].to(device)
+            num += float((got - want).square().sum())
+            den += float(want.square().sum())
+        out["update_rel_l2"] = math.sqrt(num / den)
+    del step, state, new, metrics, sync, draws, part, cond, uncond
+    gc.collect()
+    torch.cuda.empty_cache()
     if spec.get("moe_ref"):  # the same two processes take the --ep 2 step
-        del step, state, new, metrics, sync, draws, part, cond, uncond
+        out["moe"] = moe_rank_step(torch, rank, spec)
         gc.collect()
         torch.cuda.empty_cache()
-        out["moe"] = moe_rank_step(torch, rank, spec)
+    out["tp"] = tp_rank_step(torch, rank, spec)  # then the --tp 2 checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp_main"] = tp_main_rank(torch, rank, spec)  # train_tdm.main --tp 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    pmesh.barrier()
+    out["tp_serve"] = tp_serve_rank(torch, rank, spec)  # its close ends the world
     with open(spec["out"] % rank, "w") as f:
         json.dump(out, f)
-    pmesh.barrier()
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 
@@ -6594,7 +6660,11 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
     spec = {"seed": seed, "teacher_dir": teacher_dir, "ref": ref_path,
             "store": "file://" + os.path.join(workdir, f"dp_store_{os.getpid()}"),
             "out": os.path.join(workdir, "dp_rank%d.json"),
-            "moe_ref": moe_ref and moe_ref["path"]}
+            "moe_ref": moe_ref and moe_ref["path"],
+            "serve_model": cache_served_view(os.path.dirname(teacher_dir)),
+            "serve_cache": pixart_cache(workdir, seed)[0],
+            "serve_ref": os.path.join(workdir, "tp_serve_reference.pt"),
+            "ref32": os.path.join(workdir, "tp_fp32_reference.pt"), "workdir": workdir}
     here = os.path.abspath(__file__)
     t0 = time.monotonic()
     # each rank peaks about where the one-process step does (weights, AdamW
@@ -6606,6 +6676,13 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
                               stderr=subprocess.STDOUT, text=True, env=env) for r in range(2)]
     logs = []
     try:
+        # while the ranks start and take their steps: the references of the
+        # --tp 2 server and fp32 witness, then `generate --tp 2`
+        tp_serve_reference(torch, spec)
+        dp_reference(torch, seed, teacher_dir, spec["ref32"], dtype=torch.float32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        generated = tp_generate(torch, spec)
         for p in procs:
             logs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
     finally:
@@ -6621,6 +6698,10 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
         with open(spec["out"] % r) as f:
             res.append(json.load(f))
     os.remove(ref_path)
+    os.remove(spec["ref32"])
+    for d in os.listdir(workdir):
+        if d.startswith("tp_main"):
+            shutil.rmtree(os.path.join(workdir, d), ignore_errors=True)
     check(res[0]["checksums"] == res[1]["checksums"],
           f"the two ranks' weights differ after the step: {res[0]['checksums']} "
           f"{res[1]['checksums']}")
@@ -6641,7 +6722,8 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
           f"reduced gradients' relative L2 against the one-process batch-2 step "
           f"{rel['student']:.3e} (student), {rel['critic']:.3e} (critic), losses "
           f"{loss_rel['loss_student']:.3e} / {loss_rel['loss_critic']:.3e} (limit "
-          f"{DP_GRAD_TOL}); step {res[0]['step_s']:.3f} / {res[1]['step_s']:.3f} s, peak "
+          f"{DP_GRAD_TOL}), the update {res[0]['update_rel_l2']:.3e} (not checked); step "
+          f"{res[0]['step_s']:.3f} / {res[1]['step_s']:.3f} s, peak "
           f"{res[0]['peak_gib']:.2f} / {res[1]['peak_gib']:.2f} GiB per rank (the one-process "
           f"step {reference['step_s']:.3f} s); launches per rank {res[0]['launches']}; "
           f"{wall:.1f} s with the ranks' start", flush=True)
@@ -6649,6 +6731,7 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
            "reference_step_s": reference["step_s"]}
     if moe_ref:
         out["moe_ep"] = moe_ep_check(res, moe_ref)
+    out["tp"] = tp_check(res, reference, generated)
     return out
 
 
@@ -7124,6 +7207,544 @@ def moe_rank_step(torch, rank: int, spec: dict) -> dict:
     return out
 
 
+# the --tp 2 checks run in the two rank processes after the dense
+# and --ep 2 steps: the tp TDM step against the one-process batch-2 step,
+# one int8 forward against the one-process int8 forward, then the --tp 2
+# server on [cuda:0, cuda:0] against the one-process pipeline
+TP_SERVE_TOL = 1e-2  # the served latents' relative L2 against one process (bf16)
+
+
+@contextlib.contextmanager
+def int8_records(torch):
+    """Every int8 operand's codes and scales, in call order, with whether
+    its absmax was reduced over 'tp' (a row-parallel layer)."""
+    from tdm_tpu_torch.ops import quant
+
+    real, recs = quant.quantize_rows, []
+
+    def rec(t, tp=None):
+        codes, scale = real(t, tp)
+        recs.append((codes, scale, tp is not None))
+        return codes, scale
+
+    quant.quantize_rows = rec
+    try:
+        yield recs
+    finally:
+        quant.quantize_rows = real
+
+
+def int8_same(torch, one, mine, index: int, n: int) -> bool:
+    """One operand's codes and scales under 'tp' against the one-process
+    ones: equal, or equal to this rank's cut of them (a row layer's K
+    slice, a column layer's output rows)."""
+    (c1, s1, _), (c2, s2, row) = one, mine
+    if c1.shape == c2.shape:
+        return torch.equal(c1, c2) and torch.equal(s1, s2)
+    if row:
+        return torch.equal(c1.chunk(n, -1)[index], c2) and torch.equal(s1, s2)
+    return torch.equal(c1.chunk(n, 0)[index], c2) and torch.equal(s1.chunk(n, 0)[index], s2)
+
+
+def wait_for(path: str, what: str, limit_s: float = 180) -> None:
+    """Wait until the parent has written `path` (it writes whole files)."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        check(time.monotonic() - t0 < limit_s, f"no {what} at {path}")
+        time.sleep(0.5)
+
+
+def tp_rank_step(torch, rank: int, spec: dict) -> dict:
+    """One --tp 2 rank (`dp_rank_main`, after its other steps): the ('data',
+    'fsdp', 'ep', 'tp') = (1, 1, 1, 2) mesh over the same two processes, the
+    dense 8-block model of the data-parallel check cut for this rank
+    (`tp.parallelize`: 8 of 16 heads, half of each projection and of the
+    FF), the ZeRO3 reducer of two tp layouts, the step on both rows (the
+    'tp' ranks share them) against the one-process batch-2 step; before the
+    cut, one --quant int8 forward whose codes and scales the cut forward
+    must give again. Then the fp32 witness, the same step computed in fp32
+    (TF32 off) against the one-process fp32 step (spec['ref32'], which the
+    parent writes while the ranks run), and from the witness's start its
+    control, in which rank 1 keeps its own partial gradient at every f (its
+    backward all-reduce dropped; it still joins the collective). Returns the step's seconds, peak memory, launches and
+    all-reduces, the replicated leaves' bit checksums, the gathered
+    gradients' relative L2 (the step, the control, the witness), the int8
+    result, and rank 0's gathered update: against the one-process AdamW
+    update of the gathered gradient (its largest difference) and against
+    the one-process step's update (relative L2)."""
+    import copy
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from tdm_tpu_torch.device import set_fp32_precision
+    from tdm_tpu_torch.models import pixart
+    from tdm_tpu_torch.ops import attention as A, quant
+    from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
+    from tdm_tpu_torch.train import optim as topt
+
+    mesh = pmesh.make_mesh(1, 1, 1, 2)
+    device = torch.device("cuda", 0)
+    cfg = dataclasses.replace(pixart.PixArtConfig(), num_layers=RANK_LAYERS)
+    meta = pixart.PixArtTransformer2D(cfg, device="meta")
+    shapes, plan = dict(meta.named_parameters()), tp_lib.plan(meta, 2)
+
+    class Recording(pmesh.ZeRO3):
+        def reduce(self, role, grads):
+            out = super().reduce(role, grads)
+            self.grads[role] = out
+            return out
+
+    def recording():
+        sync = Recording(mesh, pmesh.ShardLayout(mesh, shapes, plan),
+                         pmesh.ShardLayout(mesh, shapes, plan))
+        sync.grads = {}
+        return sync
+
+    def gathered_grads(sync, ref) -> tuple:
+        """Each role's gradient gathered whole (both ranks: a collective)
+        and its relative L2 against the one-process step's."""
+        rel, whole = {}, {}
+        for role, grads in sync.grads.items():
+            whole[role] = sync.layouts[role].uncut_model(grads)
+            num = den = 0.0
+            for k, g in whole[role].items():
+                r = ref["grads"][role][k].to(device).float()
+                num += float((g.float() - r).square().sum())
+                den += float(r.square().sum())
+            rel[role] = math.sqrt(num / den)
+        return rel, whole
+
+    sync = recording()
+    rng = torch.Generator(device=device).manual_seed(spec["seed"] + 31)
+    # batch 4: every cut layer passes the int8 gates (the cross-attention's
+    # k/v at 4 x 120 text rows), so the cut forward is the one-process one
+    x = torch.randn((4, 4, 64, 64), generator=rng, device=device)
+    t = torch.tensor([700, 250, 500, 999], device=device)
+    text = torch.randn((4, 120, 4096), generator=rng, device=device) * 0.2
+    mask = (torch.arange(120, device=device)[None]
+            < torch.tensor([[120], [40], [77], [9]], device=device))
+    box = {}
+
+    def before_tp(model, full):
+        """The one-process int8 forward, on the whole weights."""
+        with torch.no_grad(), quant.quantize_int8(), int8_records(torch) as recs:
+            box["one"] = functional_call(model, full, (x, t, text, mask.int()))
+        box["one_recs"], box["model"] = recs, model
+
+    step, state, draws, cond, uncond = rank_setup(
+        torch, spec["seed"], device, sync, teacher_dir=spec["teacher_dir"], tp=mesh.tp,
+        before_tp=before_tp)
+    model = box.pop("model")
+    tp_lib.reset_counts()
+    with torch.no_grad(), quant.quantize_int8(), int8_records(torch) as recs:
+        mine = model(x, t, text, mask.int())
+    int8_calls = len(recs)
+    same = int8_calls == len(box["one_recs"]) and all(
+        int8_same(torch, a, b, mesh.tp.index, 2) for a, b in zip(box["one_recs"], recs))
+    out = {"int8": {"calls": int8_calls, "codes_and_scales_equal": same,
+                    "out_max_abs_diff": float((mine.float() - box["one"].float()).abs().max()),
+                    "all_reduces": tp_lib.reduce_from_tp.calls}}
+    del recs, box, mine
+    before = {k: v.clone() for k, v in state.student.items()}
+    pmesh.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    tp_lib.reset_counts()
+    t0 = time.monotonic()
+    new, metrics = step(state, draws, cond, uncond)
+    torch.cuda.synchronize()
+    out.update({
+        "step_s": time.monotonic() - t0,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": A.launch_counts(),
+        "all_reduces": tp_lib.reduce_from_tp.calls, "backward_all_reduces": tp_lib.copy_to_tp.calls,
+        "metrics": {k: float(v) for k, v in metrics._asdict().items()},
+        "replicated_checksums": {role: bit_checksum(torch, {
+            k: v for k, v in getattr(new, role).items() if k not in plan})
+            for role in ("student", "critic")}})
+    ref = torch.load(spec["ref"], map_location="cpu", mmap=True)
+    out["grad_rel_l2"], whole = gathered_grads(sync, ref)
+    student = sync.full("student", new.student)
+    gathered_before = sync.full("student", before)
+    if rank == 0:
+        # the update path across ranks: the gathered update against the
+        # one-process AdamW update of the gathered gradient (bit for bit)
+        tx = topt.make_optimizer(DP_LR)
+        own = {k: v.clone() for k, v in gathered_before.items()}
+        upd, _ = tx.update(whole["student"], tx.init(own), own)
+        topt.apply_updates(own, upd)
+        out["update_own_max_diff"] = max(float((student[k] - own[k]).abs().max()) for k in own)
+        # and against the one-process step's update, for the record
+        num = den = 0.0
+        for k, v in student.items():
+            want = ref["student"][k].to(device) - ref["before"][k].to(device)
+            got = v - gathered_before[k]
+            num += float((got - want).square().sum())
+            den += float(want.square().sum())
+        out["update_rel_l2"] = math.sqrt(num / den)
+        out["ref_metrics"] = ref["metrics"]
+    del new, student, gathered_before, before, whole, state, step, sync, model, ref
+    del draws, cond, uncond
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fp32 witness: the same step with no bf16 rounding
+    set_fp32_precision(False)
+    sync = recording()
+    step, state, draws, cond, uncond = rank_setup(
+        torch, spec["seed"], device, sync, teacher_dir=spec["teacher_dir"], tp=mesh.tp,
+        dtype=torch.float32)
+    start = copy.deepcopy(state)  # the control's start (the step updates in place)
+    t0 = time.monotonic()
+    step(state, draws, cond, uncond)
+    torch.cuda.synchronize()
+    out["fp32_step_s"] = time.monotonic() - t0
+    wait_for(spec["ref32"], "one-process fp32 reference")
+    ref = torch.load(spec["ref32"], map_location="cpu", mmap=True)
+    out["fp32_grad_rel_l2"], _ = gathered_grads(sync, ref)
+    # its control: rank 1 drops f's backward all-reduce (it joins the
+    # collective and keeps its own partial), which the limit must catch
+    real = tp_lib._CopyToTP.backward
+
+    def dropped(ctx, grad):
+        tp_lib.copy_to_tp.calls += 1
+        tp_lib._all_reduce(grad.clone(), ctx.group)  # rank 0's sum stays whole
+        return grad, None
+
+    if rank == 1:
+        tp_lib._CopyToTP.backward = staticmethod(dropped)
+    try:
+        step(start, draws, cond, uncond)
+    finally:
+        tp_lib._CopyToTP.backward = real
+    out["control_grad_rel_l2"], _ = gathered_grads(sync, ref)
+    return out
+
+
+def tp_main_rank(torch, rank: int, spec: dict) -> dict:
+    """`train_tdm.main` with --tp 2 in the two rank processes' world (gloo,
+    both on cuda:0): the CLI's own mesh, cut model, ZeRO3 layouts over the
+    tp plan and teacher slices, one dmd step of PixArt-α-512 at all 28
+    blocks from the checkout's transformer/ at batch 1 (the 'tp' ranks
+    share their row; gloo stages each of the step's all-reduces through
+    the host), the final gather on both ranks and the fp16 student written
+    by rank 0 alone (`write_student` recorded: each leaf's shape), no
+    final checkpoint, nor its gather of the whole state (student, critic
+    and their AdamW moments, ~15 GB through gloo: the CPU tests resume
+    such a checkpoint). Returns the step's record (launches, metrics,
+    seconds), the all-reduces of the run, main()'s seconds, peak memory
+    and the written leaves' shapes."""
+    from tdm_tpu_torch.cli import train_tdm
+    from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
+
+    out_dir = os.path.join(spec["workdir"], "tp_main")
+    steps, written = [], []
+    write = train_tdm.write_student
+
+    def recorded(params, stacks, path):
+        written.append({k: list(v.shape) for k, v in params.items()})
+        return write(params, stacks, path)
+
+    train_tdm.write_student = recorded
+    gather_state = pmesh.ZeRO3.gather_state
+    pmesh.ZeRO3.gather_state = lambda self, state: state  # only for the no-op save
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tp_lib.reset_counts()
+    t0 = time.monotonic()
+    try:
+        with no_final_checkpoint():
+            train_tdm.main([
+                "--output_dir", out_dir, "--max_train_steps", "1", "--train_batch_size", "1",
+                "--mixed_precision", "bf16", "--loss_mode", "dmd", "--seed", str(spec["seed"]),
+                "--pretrained_model_name_or_path", spec["teacher_dir"],
+                "--export_lora_rank", "0", "--tp", "2", "--device", "cuda:0",
+            ], step_hook=step_hook(torch, steps, 0, f"train --tp 2 rank {rank}"))
+    finally:
+        train_tdm.write_student = write
+        pmesh.ZeRO3.gather_state = gather_state
+    return {"main_s": time.monotonic() - t0, "steps": steps,
+            "all_reduces": tp_lib.reduce_from_tp.calls,
+            "backward_all_reduces": tp_lib.copy_to_tp.calls,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "written": written}
+
+
+TP_SERVED = (("prompt 0", 3), ("prompt 1", 11), ("prompt 2", 5))  # (cached prompt, seed)
+
+
+def tp_serve_rows(torch, pipe, cache_path: str, rows) -> tuple:
+    """The conditioning and noise a `MicroBatcher` over `pipe` builds for
+    these (prompt, seed) requests, batched: the cache's rows in the
+    model's dtype and each seed's noise (`serve.batcher.request_noise`)."""
+    from tdm_tpu_torch.serve import batcher as B
+
+    dev = pipe.device
+    dtype = torch.bfloat16 if B.denoiser_of(pipe).cfg.dtype == torch.bfloat16 else None
+    cond_fn = B.make_cond_fn(pipe, cache_path)
+    cond = B._cat_rows([B._to_device(cond_fn(p), dev, dtype) for p, _ in rows])
+    shape = B.latent_shape(pipe, {})
+    noise = torch.cat([B.request_noise(seed, shape) for _, seed in rows]).to(dev)
+    return cond, noise
+
+
+def tp_serve_reference(torch, spec: dict) -> None:
+    """The one-process pipeline's latents for the --tp 2 server's first two
+    requests, written to spec['serve_ref'] (the parent process runs it
+    while the ranks start)."""
+    from tdm_tpu_torch.pipelines import from_pretrained
+
+    pipe = from_pretrained(spec["serve_model"], device="cuda")
+    cond, noise = tp_serve_rows(torch, pipe, spec["serve_cache"], TP_SERVED[:2])
+    latents = pipe(prompt_embeds=cond, latents=noise, output_type="latent").latents
+    torch.save(latents.cpu(), spec["serve_ref"] + ".tmp")
+    os.replace(spec["serve_ref"] + ".tmp", spec["serve_ref"])
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_serve_rank(torch, rank: int, spec: dict) -> dict:
+    """The `--tp 2` server of the full-width PixArt checkout on [cuda:0,
+    cuda:0] in the two rank processes' world (gloo): rank 0 builds the
+    server with `serve.server.build_server` (its pipeline cut for rank 0)
+    and calls its pipeline on the first two requests' conditioning and
+    noise, as its batcher would build them (`tp_serve_rows`): latents
+    against the one-process pipeline's (`tp_serve_reference`; relative L2
+    ≤ TP_SERVE_TOL) and the first row's image; then serves the first and
+    third requests through its batcher: the first row's PNG image the
+    same bits with another batch-mate (batch 2, not 4, for the smoke's
+    clock: gloo stages each all-reduce through the host). Rank 1 runs
+    `serve.server.main` with the same flags, the follower's path, until
+    the server's close stops it. Each rank: its sampler's device ms (CUDA
+    events around a batch), peak memory, kernel 1's launches and its
+    all-reduces per batch. The last use of the world: the server's close
+    takes it down."""
+    import numpy as np
+
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.parallel import tp as tp_lib
+    from tdm_tpu_torch.serve import server as tserver
+
+    argv = ["--model", spec["serve_model"], "--embedding_cache", spec["serve_cache"],
+            "--device", "cuda:0", "--tp", "2", "--port", "0", "--batch_size", "2",
+            "--max_delay_ms", "200"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 1:
+        times, calls = [], []
+        real_follow = tp_lib.follow
+
+        def timed_follow(pipe, tp):
+            real_run = pipe._run
+
+            def run(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                tp_lib.reset_counts()
+                A.reset_launches()
+                ev[0].record()
+                res = real_run(*a, **k)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+                calls.append({"launches": A.flash_attention_fwd.launches,
+                              "all_reduces": tp_lib.reduce_from_tp.calls,
+                              "rows": int(a[0].shape[0])})
+                return res
+
+            pipe._run = run
+            return real_follow(pipe, tp)
+
+        tp_lib.follow = timed_follow
+        try:
+            tserver.main(argv)
+        finally:
+            tp_lib.follow = real_follow
+        return {"device_ms": times, "calls": calls,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    server = tserver.build_server(tserver.parse_args(argv)).start()
+    try:
+        pipe = server.batcher.pipe
+        check(pipe.tensor_parallel is not None and pipe.tensor_parallel.n == 2,
+              "the --tp 2 server's pipeline is not cut")
+        cond, noise = tp_serve_rows(torch, pipe, spec["serve_cache"], TP_SERVED[:2])
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        tp_lib.reset_counts()
+        A.reset_launches()
+        ev[0].record()
+        got = pipe(prompt_embeds=cond, latents=noise)
+        ev[1].record()
+        torch.cuda.synchronize()
+        device_ms = ev[0].elapsed_time(ev[1])
+        launches, all_reduces = A.flash_attention_fwd.launches, tp_lib.reduce_from_tp.calls
+        futures = [server.batcher.submit(p, seed=s) for p, s in TP_SERVED[::2]]
+        served = [np.asarray(f.result(timeout=300)) for f in futures]
+    finally:
+        server.close()
+    t0 = time.monotonic()
+    while not os.path.exists(spec["serve_ref"]):  # the parent writes it while the ranks start
+        check(time.monotonic() - t0 < 120, "no one-process reference for the --tp 2 server")
+        time.sleep(0.5)
+    ref = torch.load(spec["serve_ref"]).to(got.latents.device)
+    rel = float((got.latents.float() - ref.float()).norm() / ref.float().norm())
+    first = got.images[0].float().cpu().numpy()
+    return {"rel_l2": rel, "mates_equal": bool(np.array_equal(served[0], first)),
+            "device_ms": device_ms, "launches": launches, "all_reduces": all_reduces,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "served": [list(x.shape) for x in served],
+            "finite": bool(torch.isfinite(got.latents.float()).all())}
+
+
+def tp_generate(torch, spec: dict) -> dict:
+    """`python -m tdm_tpu_torch.cli.generate --tp 2 --device cuda:0` in
+    this process (rank 0: it encodes from the cache, draws the noise and
+    decodes) on the 28-block PixArt checkout's cache-served view: `launch`
+    starts rank 1 as a `generate` process of its own over gloo on a free
+    port, and its exit is checked when the call ends. One prompt at batch
+    1 to a PNG; rank 0's kernel-1 launches and all-reduces of the call,
+    its seconds (the follower's start and load included)."""
+    import numpy as np
+
+    from tdm_tpu_torch.cli import generate
+    from tdm_tpu_torch.ops import attention as A
+    from tdm_tpu_torch.parallel import tp as tp_lib
+
+    path = os.path.join(spec["workdir"], "tp_generate.png")
+    launches, reduces = A.flash_attention_fwd.launches, tp_lib.reduce_from_tp.calls
+    t0 = time.monotonic()
+    generate.main(["--model", spec["serve_model"], "--embedding_cache", spec["serve_cache"],
+                   "--prompt", TP_SERVED[0][0], "--seed", str(TP_SERVED[0][1]), "--tp", "2",
+                   "--device", "cuda:0", "--output", path])
+    wall = time.monotonic() - t0
+    with open(path, "rb") as f:
+        std = float(check_png(f.read(), 512, 512).astype(np.float32).std())
+    os.remove(path)
+    return {"s": wall, "launches": A.flash_attention_fwd.launches - launches,
+            "all_reduces": tp_lib.reduce_from_tp.calls - reduces, "pixel_std": std}
+
+
+# the --tp 2 step's gathered gradients against the one-process step
+# (relative L2): a bound on rounding, not a test of the wiring. bf16
+# partial products are summed over 'tp' after they round, as the JAX
+# package's sharded dots are, so the cut step rounds elsewhere than the
+# whole one (2.317e-02 on the student; its control with a dropped f read
+# 2.381e-02, `PERF.md` §6, PR 19)
+TP_GRAD_TOL = 5e-2
+# the same step in fp32 against the one-process fp32 step: the wiring's
+# test, set between the sound step (1.583e-05) and its control (a dropped
+# f; `PERF.md` §6, PR 19)
+TP_FP32_TOL = 1e-4
+
+
+def tp_check(res: list, reference: dict, generated: dict) -> dict:
+    """The two ranks' --tp 2 results: the training step against the
+    one-process batch-2 step (with its control and fp32 witness), int8
+    against the one-process int8 forward, train_tdm.main --tp 2, the
+    served batch against the one-process pipeline, and `generate --tp 2`:
+    printed, then each checked."""
+    from tdm_tpu_torch.models import pixart
+
+    t = [r["tp"] for r in res]
+    m = [r["tp_main"] for r in res]
+    loss_rel = {k: abs(t[0]["metrics"][k] - reference["metrics"][k])
+                / abs(reference["metrics"][k]) for k in ("loss_student", "loss_critic")}
+    s0, s1 = res[0]["tp_serve"], res[1]["tp_serve"]
+    g, c, w = t[0]["grad_rel_l2"], t[0]["control_grad_rel_l2"], t[0]["fp32_grad_rel_l2"]
+    print(f"[train] --tp 2 on [cuda:0, cuda:0] (gloo), PixArt-α-512 at {RANK_LAYERS} blocks, "
+          f"8 of 16 heads a rank, batch 2 on both ranks, one dmd step: the leaves tp does not "
+          f"cut equal bit for bit across ranks (checked); gathered gradients' relative L2 "
+          f"against the one-process step {g['student']:.3e} (student), {g['critic']:.3e} "
+          f"(critic) (limit {TP_GRAD_TOL}); the fp32 witness against the one-process fp32 step "
+          f"{w['student']:.3e} / {w['critic']:.3e} (limit {TP_FP32_TOL}, step "
+          f"{t[0]['fp32_step_s']:.3f} s), its control (rank 1's f backward all-reduce dropped) "
+          f"{c['student']:.3e} / {c['critic']:.3e} (must exceed the limit); losses "
+          f"{loss_rel['loss_student']:.3e} / {loss_rel['loss_critic']:.3e} (limit "
+          f"{DP_GRAD_TOL}); the gathered update is the one-process AdamW update of the "
+          f"gathered gradient (max |diff| {t[0]['update_own_max_diff']:.3g}, checked), and "
+          f"{t[0]['update_rel_l2']:.3e} from the one-process step's (not checked: Adam's first "
+          f"step is lr·sign(g) wherever |g| ≫ eps); step {t[0]['step_s']:.3f} / "
+          f"{t[1]['step_s']:.3f} s, peak {t[0]['peak_gib']:.2f} / {t[1]['peak_gib']:.2f} GiB a "
+          f"rank, all-reduces {t[0]['all_reduces']} forward + {t[0]['backward_all_reduces']} "
+          f"backward a rank, launches a rank {t[0]['launches']} (checked)", flush=True)
+    print(f"[train] --tp 2 int8 forward: {t[0]['int8']['calls']} quantized operands a rank, "
+          f"codes and scales equal to the one-process int8 forward's (checked), output max "
+          f"|diff| {t[0]['int8']['out_max_abs_diff']:.3g} / {t[1]['int8']['out_max_abs_diff']:.3g}, "
+          f"{t[0]['int8']['all_reduces']} sum all-reduces a rank", flush=True)
+    print(f"[train] train_tdm.main --tp 2 --device cuda:0 in the ranks' world, PixArt-α-512 at "
+          f"28 blocks, batch 1, one step: {m[0]['steps'][0]['host_s']:.3f} / "
+          f"{m[1]['steps'][0]['host_s']:.3f} s, main() {m[0]['main_s']:.1f} / "
+          f"{m[1]['main_s']:.1f} s, peak {m[0]['peak_gib']:.2f} / {m[1]['peak_gib']:.2f} GiB a "
+          f"rank, all-reduces {m[0]['all_reduces']} forward + {m[0]['backward_all_reduces']} "
+          f"backward a rank, launches {m[0]['steps'][0]['launches']}, "
+          f"{m[0]['steps'][0]['metrics']}; the student written once, by rank 0, whole "
+          f"(checked)", flush=True)
+    print(f"[serve] --tp 2 server (serve.server on [cuda:0, cuda:0], gloo, the follower by "
+          f"serve.server.main), PixArt-α-512 28 blocks, a batch of 2 latents: relative L2 "
+          f"{s0['rel_l2']:.3e} against the one-process pipeline (limit {TP_SERVE_TOL}); a row "
+          f"with other batch-mates bit for bit (checked); kernel 1 {s0['launches']} launches "
+          f"a batch a rank (checked); sampler device ms (CUDA events) rank 0 "
+          f"{s0['device_ms']:.1f}, rank 1 "
+          f"{', '.join(f'{m:.1f}' for m in s1['device_ms'])}; all-reduces a batch "
+          f"{s0['all_reduces']} / {s1['calls'][-1]['all_reduces']}; peak "
+          f"{s0['peak_gib']:.2f} / {s1['peak_gib']:.2f} GiB; two PNG requests through the "
+          f"batcher {s0['served']}", flush=True)
+    print(f"[generate] --tp 2 --device cuda:0 (rank 1 started by the command, gloo): one "
+          f"512x512 PNG in {generated['s']:.1f} s, the follower's start and load included "
+          f"(pixel std {generated['pixel_std']:.1f}); rank 0 kernel 1 {generated['launches']} "
+          f"launches, {generated['all_reduces']} all-reduces", flush=True)
+    check(t[0]["replicated_checksums"] == t[1]["replicated_checksums"],
+          f"--tp 2: the leaves 'tp' does not cut differ across the ranks: "
+          f"{t[0]['replicated_checksums']} {t[1]['replicated_checksums']}")
+    for r in t:
+        check(all(v <= TP_GRAD_TOL for v in r["grad_rel_l2"].values()),
+              f"--tp 2 gathered gradients against the one-process step: {r['grad_rel_l2']}")
+        check(min(r["control_grad_rel_l2"].values()) > TP_FP32_TOL,
+              f"--tp 2 fp32 control (f's all-reduce dropped on rank 1) within the limit: "
+              f"{r['control_grad_rel_l2']}")
+        check(all(v <= TP_FP32_TOL for v in r["fp32_grad_rel_l2"].values()),
+              f"--tp 2 fp32 witness against the one-process fp32 step: {r['fp32_grad_rel_l2']}")
+        check(r["launches"] == RANK_LAUNCHES,
+              f"--tp 2 rank launched {r['launches']}, expected {RANK_LAUNCHES}")
+        check(r["int8"]["codes_and_scales_equal"] and r["int8"]["calls"] > 0,
+              f"--tp 2 int8: codes and scales differ from one process: {r['int8']}")
+    check(t[0]["update_own_max_diff"] == 0.0,
+          f"--tp 2 gathered update against the one-process AdamW update of the gathered "
+          f"gradient: max |diff| {t[0]['update_own_max_diff']}")
+    check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
+          f"--tp 2 losses against the one-process step: {loss_rel}")
+    whole = {k: list(p.shape) for k, p in pixart.PixArtTransformer2D(
+        pixart.PixArtConfig(), device="meta").named_parameters()}
+    for r, mr in enumerate(m):
+        check(len(mr["steps"]) == 1 and mr["steps"][0]["launches"] == TRAIN_LAUNCHES
+              and all(math.isfinite(v) for v in mr["steps"][0]["metrics"].values()),
+              f"train_tdm.main --tp 2 rank {r}: {mr['steps']}")
+        check(mr["backward_all_reduces"] == 224 and mr["all_reduces"] >= 756
+              and mr["all_reduces"] % 84 == 0,
+              f"train_tdm.main --tp 2 rank {r} all-reduces {mr['all_reduces']} + "
+              f"{mr['backward_all_reduces']}, expected 84 a forward and 224 a step's backwards")
+    check(m[0]["written"] == [whole] and m[1]["written"] == [],
+          "train_tdm.main --tp 2: the student is not written once, whole, by rank 0")
+    check(s0["finite"] and s0["rel_l2"] <= TP_SERVE_TOL,
+          f"--tp 2 served latents against one process: rel L2 {s0['rel_l2']} "
+          f"(limit {TP_SERVE_TOL})")
+    check(s0["mates_equal"], "--tp 2: a served row changed with its batch-mates")
+    check(s0["launches"] == PIXART_LAUNCHES_PER_BATCH,
+          f"--tp 2 rank 0 launched kernel 1 {s0['launches']}x a batch, expected "
+          f"{PIXART_LAUNCHES_PER_BATCH}")
+    check(s1["calls"] and all(c["launches"] == PIXART_LAUNCHES_PER_BATCH for c in s1["calls"]),
+          f"--tp 2 follower launches per batch: {s1['calls']}")
+    check(s0["served"] and all(s == [512, 512, 3] for s in s0["served"]),
+          f"--tp 2 served images: {s0['served']}")
+    check(generated["launches"] == PIXART_LAUNCHES_PER_BATCH
+          and generated["all_reduces"] == 4 * 84 and generated["pixel_std"] > 1.0,
+          f"generate --tp 2: {generated}")
+    return {"step": t, "loss_rel": loss_rel, "main": m, "serve": [s0, s1],
+            "generate": generated}
+
+
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
               "bound_ms", "bound_by")
 
@@ -7222,6 +7843,10 @@ def main(argv=None) -> int:
         ap.error(f"--phases: one or more of {PHASES}")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    # the processes the port starts itself (`python -m ...`: the --tp
+    # followers) import it from this checkout too
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, json.loads(args.dp_spec))
     import torch

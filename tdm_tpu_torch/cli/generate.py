@@ -19,8 +19,14 @@ with `python -m tdm_tpu_torch.cli.build_cache`. One output is written to
 writes the fp32 latents as one .npy. PNGs and GIFs go through the port's
 stdlib encoders (`train/validation.py`).
 
-Runs on the CUDA device unless `--device cpu` is given. `--tp` above 1 is
-refused (slice 6); `--compilation_cache` is accepted so that the JAX
+Runs on the CUDA device unless `--device cpu` is given. `--tp N` runs the
+denoiser Megatron-cut over N processes (`parallel/tp.py`), one per local
+GPU (cuda:0..N-1; every rank on the named card under `--device cuda:K`,
+or on the CPU under `--device cpu`): this process is rank 0, encodes,
+draws the noise and decodes, and starts the N−1 followers itself once the
+conditioning is ready (or joins the world torchrun or TDM_* formed); the
+JAX CLI's checks come first ("--tp N: only M local devices", "--tp N
+shards nothing"). `--compilation_cache` is accepted so that the JAX
 package's commands run unchanged, and does nothing here.
 """
 
@@ -67,7 +73,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
                    help="output file (single output) or directory")
     p.add_argument("--output_type", default=None, choices=(None, "image", "video", "latent"))
     p.add_argument("--tp", type=int, default=0,
-                   help="tensor-parallel serving: not ported yet (ROADMAP slice 6)")
+                   help="tensor-parallel over N processes, one per local GPU")
     p.add_argument("--quant", default=None, choices=(None, "int8"),
                    help="dynamic int8 products for the denoiser's large linear "
                         "layers (ops/quant.py)")
@@ -103,11 +109,14 @@ def _cached_embeds(cache, cache_path: str, prompts: list[str]):
 
 
 def run_pipeline(pipe, prompts: list[str], neg_prompts: Optional[list[str]], call: dict, *,
-                 embedding_cache: Optional[str] = None):
+                 embedding_cache: Optional[str] = None, before_call=None):
     """prompts → PipelineOutput, the conditioning from the pipeline's
     attached text encoders or, failing that, an offline embedding cache.
     `call` holds pipeline kwargs (steps, cfg, seed, ...); keys the pipeline
-    does not take are dropped. Shared by the generate and evaluate CLIs."""
+    does not take are dropped; `before_call()`, when given, runs once the
+    conditioning's checks have passed, just before the pipeline's call.
+    Shared by the generate and evaluate CLIs."""
+    before_call = before_call or (lambda: None)
     import numpy as np
 
     from tdm_tpu_torch.data.prompts import EmbeddingCache, pack_family_cond
@@ -120,6 +129,7 @@ def run_pipeline(pipe, prompts: list[str], neg_prompts: Optional[list[str]], cal
             if "negative_prompt" not in accepted:
                 raise SystemExit(f"{type(pipe).__name__} does not take a negative prompt")
             call["negative_prompt"] = neg_prompts
+        before_call()
         return pipe(prompts, **call)
     if not embedding_cache:
         raise SystemExit(
@@ -150,11 +160,12 @@ def run_pipeline(pipe, prompts: list[str], neg_prompts: Optional[list[str]], cal
         if "negative_embeds" not in accepted:
             raise SystemExit(f"{type(pipe).__name__} does not take negative embeds")
         call["negative_embeds"] = negative
+    before_call()
     return pipe(prompt_embeds=pack(embeds, masks, pooled), **call)
 
 
 def load_pipeline(model: str, *, device=None, revision=None, model_config=None, lora=None,
-                  lora_scale: float = 1.0, quant=None):
+                  lora_scale: float = 1.0, quant=None, denoiser_only: bool = False):
     """`from_pretrained` with the fp32 precision rule set first (as the
     server sets it), the LoRA loaded as adapter 'tdm' at its scale, and
     `pipe.quant` set. Shared by the generate and evaluate CLIs."""
@@ -163,7 +174,8 @@ def load_pipeline(model: str, *, device=None, revision=None, model_config=None, 
 
     set_fp32_precision()  # the decoders' fp32 convolutions in full fp32, as in JAX
     kwargs = {"model_config": model_config} if model_config else {}
-    pipe = from_pretrained(model, device=device, revision=revision, **kwargs)
+    pipe = from_pretrained(model, device=device, revision=revision,
+                           denoiser_only=denoiser_only, **kwargs)
     if lora:
         pipe.load_lora_weights(lora, adapter_name="tdm")
         pipe.set_adapters(["tdm"], [lora_scale])
@@ -175,19 +187,48 @@ def load_pipeline(model: str, *, device=None, revision=None, model_config=None, 
 def main(argv: Optional[list[str]] = None) -> None:
     args = parse_args(argv)
     import numpy as np
+    import torch
 
     from tdm_tpu_torch.device import resolve_device
     from tdm_tpu_torch.train import validation
 
     device = resolve_device(args.device)  # CUDA unless asked otherwise, before any load
-    if args.tp and args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel serving is not ported yet: "
-            "ROADMAP.md queue 1, slice 6 (multi-GPU)")
-    pipe = load_pipeline(
-        args.model, device=device, revision=args.revision,
-        model_config=json.loads(args.model_config) if args.model_config else None,
-        lora=args.lora, lora_scale=args.lora_scale, quant=args.quant)
+    n_tp = args.tp if args.tp and args.tp > 1 else 1
+
+    def load(dev, denoiser_only=False):
+        return load_pipeline(
+            args.model, device=dev, revision=args.revision,
+            model_config=json.loads(args.model_config) if args.model_config else None,
+            lora=args.lora, lora_scale=args.lora_scale, quant=args.quant,
+            denoiser_only=denoiser_only)
+
+    if n_tp > 1:
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        if tp_lib.is_follower():  # a rank of the world rank 0 started: its calls
+            tp_lib.run_follower(n_tp, device, lambda dev: load(dev, True))
+            return
+        if device.type == "cuda" and device.index is None:
+            n_dev = torch.cuda.device_count()
+            if n_tp > n_dev:
+                raise SystemExit(f"--tp {args.tp}: only {n_dev} local devices")
+    pipe = load(device)
+    world = None
+    if n_tp > 1:
+        if not tp_lib.plan(pipe.denoiser, n_tp):
+            raise SystemExit(
+                f"--tp {args.tp} shards nothing: no attention/FF projection "
+                f"dim is divisible by {args.tp} — the run would be "
+                "replicated with zero speedup. Pick a divisor of the "
+                "model's head and FF dims"
+            )
+
+    def start_tp():
+        nonlocal world
+        if n_tp > 1:
+            world = tp_lib.launch("tdm_tpu_torch.cli.generate",
+                                  list(sys.argv[1:] if argv is None else argv), n_tp, device)
+            pipe.tensor_parallel = world.tp
 
     call = dict(num_inference_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale, seed=args.seed)
@@ -208,8 +249,12 @@ def main(argv: Optional[list[str]] = None) -> None:
             raise SystemExit(f"{type(pipe).__name__} has no --solver knob")
         call["solver"] = args.solver
     neg = list(args.negative_prompt) if args.negative_prompt is not None else None
-    out = run_pipeline(pipe, list(args.prompt), neg, call,
-                       embedding_cache=args.embedding_cache)
+    try:
+        out = run_pipeline(pipe, list(args.prompt), neg, call,
+                           embedding_cache=args.embedding_cache, before_call=start_tp)
+    finally:
+        if world is not None:
+            world.stop()
 
     result = out.images if out.images is not None else out.latents
     imgs = result.float().cpu().numpy()

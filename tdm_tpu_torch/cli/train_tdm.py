@@ -1,7 +1,7 @@
 """TDM distillation CLI of the port: `python -m tdm_tpu_torch.cli.train_tdm`.
 
 Port of `tdm_tpu/cli/train_tdm.py` (`main`, `:27-817`) on one GPU or on a
-('data', 'fsdp') mesh of processes, one per GPU, with its flag names and
+('data', 'fsdp', 'ep', 'tp') mesh of processes, one per GPU, with its flag names and
 defaults (`utils/config.py`):
 
   schedule tables → student / critic / teacher parameters (the teacher
@@ -51,11 +51,11 @@ tdm_tpu_torch.cli.train_tdm ...`, or N processes with TDM_COORDINATOR,
 TDM_NUM_PROCESSES and TDM_PROCESS_ID set, as the JAX CLI reads them; each
 process runs on `cuda:LOCAL_RANK` (NCCL), or on the CPU under `--device
 cpu` (gloo). --train_batch_size is per data rank (a process, but the
---ep ranks of one row index share their rows), so the global batch is
-N/ep times it; every process draws the global batch's `StepDraws` from the
-one seeded generator and keeps its rows, so a run's numbers do not depend
-on N, and reads its rows' share of the prompts (host_index = its row
-index). --fsdp K
+--ep and --tp ranks of one row index share their rows), so the global
+batch is N/(ep·tp) times it; every process draws the global batch's
+`StepDraws` from the one seeded generator and keeps its rows, so a run's
+numbers do not depend on N, and reads its rows' share of the prompts
+(host_index = its row index). --fsdp K
 shards the student, the critic, their optimizer states and the EMA over K
 processes (ZeRO-3; a ValueError when K does not divide N), else every
 process keeps the whole state and the gradients are averaged (data
@@ -70,8 +70,15 @@ processes that share their rows (the JAX CLI's ('data', 'fsdp', 'ep')
 mesh: the global batch is N/K times --train_batch_size), composed with
 --fsdp; the JAX CLI's checks come first ("--ep requires --moe_experts > 0",
 "--ep composes with --fsdp only", "not divisible", "does not divide N
-devices"). Refused before the first step, each naming ROADMAP.md's queue
-1, slice 6: --tp/--pp/--sp > 1, and expert parallelism with 8-bit Adam.
+devices"). --tp K cuts the model Megatron-style over K processes that share
+their rows (`parallel/tp.py`: each runs its share of every attention's
+heads and feed-forward's width where K divides them, and holds those
+slices of the student, the critic, their optimizer states, the EMA and
+the teacher; a LoRA student's factors stay whole and each merge is cut),
+composed with --fsdp on the ('data', 'fsdp', 'tp') mesh, --quant_forwards,
+--use_ema and the LoRA flags. Refused before the first step, each naming
+ROADMAP.md's queue 1, slice 6: --pp/--sp > 1, and expert or tensor
+parallelism with 8-bit Adam.
 """
 
 from __future__ import annotations
@@ -89,9 +96,9 @@ import torch
 
 
 def refuse_unported(cfg) -> None:
-    """The JAX CLI's --ep checks (ValueError, its messages,
-    `tdm_tpu/cli/train_tdm.py:71-82`), then NotImplementedError for a flag
-    whose path is not ported, before any model is built."""
+    """The JAX CLI's --ep and --sp composition checks (ValueError, its
+    messages, `tdm_tpu/cli/train_tdm.py:71-95`), then NotImplementedError
+    for a flag whose path is not ported, before any model is built."""
     n_ep = max(cfg.ep, 1)
     if n_ep > 1:
         if cfg.moe_experts <= 0:
@@ -100,16 +107,19 @@ def refuse_unported(cfg) -> None:
             raise ValueError("--ep composes with --fsdp only (tp/pp x ep is unsupported)")
         if cfg.moe_experts % n_ep:
             raise ValueError(f"--moe_experts {cfg.moe_experts} not divisible by --ep {n_ep}")
-    for flag in ("tp", "pp", "sp"):
+    if cfg.sp > 1 and (cfg.tp > 1 or cfg.pp > 1 or n_ep > 1):
+        raise ValueError("--sp composes with --fsdp only (tp/pp/ep x sp is unsupported)")
+    for flag in ("pp", "sp"):
         if getattr(cfg, flag) > 1:
             raise NotImplementedError(
                 f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
                 "ported yet: ROADMAP.md queue 1, slice 6"
             )
-    if n_ep > 1 and cfg.use_8bit_adam:
-        raise NotImplementedError(
-            "--ep with --use_8bit_adam: 8-bit moments of experts split over 'ep' are not "
-            "ported yet: ROADMAP.md queue 1, slice 6")
+    for flag in ("ep", "tp"):
+        if getattr(cfg, flag) > 1 and cfg.use_8bit_adam:
+            raise NotImplementedError(
+                f"--{flag} with --use_8bit_adam: 8-bit moments of leaves split over "
+                f"'{flag}' are not ported yet: ROADMAP.md queue 1, slice 6")
 
 
 def _hold_experts(model, teacher: dict) -> None:
@@ -169,13 +179,14 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     world, rank = pmesh.world_size(), pmesh.rank()
     if cfg.max_devices > 0 and world > 1:
         raise ValueError("--max_devices is only supported in single-process runs")
-    n_fsdp, n_ep = max(cfg.fsdp, 1), max(cfg.ep, 1)
-    if world % (n_fsdp * n_ep):
+    n_fsdp, n_ep, n_tp = max(cfg.fsdp, 1), max(cfg.ep, 1), max(cfg.tp, 1)
+    n_model = n_fsdp * n_ep * n_tp
+    if world % n_model:
         raise ValueError(
             f"--fsdp {cfg.fsdp} x --tp {cfg.tp} x --pp {cfg.pp} x --ep "
             f"{cfg.ep} x --sp {cfg.sp} does not divide {world} devices"
         )
-    mesh = pmesh.make_mesh(world // (n_fsdp * n_ep), n_fsdp, n_ep) if world > 1 else None
+    mesh = pmesh.make_mesh(world // n_model, n_fsdp, n_ep, n_tp) if world > 1 else None
     main_process = rank == 0
     # fp32 products in full fp32 unless --allow_tf32 (reference src/main.py:197-198)
     set_fp32_precision(cfg.allow_tf32)
@@ -185,14 +196,14 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     logger.info("device: %s%s", device,
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
     # --train_batch_size is per data rank (the reference's "per device"):
-    # every process is one ('fsdp' ones too) but the 'ep' ranks of a row
-    # index, which share its rows
+    # every process is one ('fsdp' ones too) but the 'ep' and 'tp' ranks of
+    # a row index, which share its rows
     local_batch = cfg.train_batch_size
     n_rows, row_index = (mesh.n_rows, mesh.row_index) if mesh is not None else (1, 0)
     global_batch = local_batch * n_rows
     if mesh is not None:
-        logger.info("mesh: %d data x %d fsdp x %d ep processes, global batch %d",
-                    mesh.n_data, mesh.n_fsdp, mesh.n_ep, global_batch)
+        logger.info("mesh: %d data x %d fsdp x %d ep x %d tp processes, global batch %d",
+                    mesh.n_data, mesh.n_fsdp, mesh.n_ep, mesh.n_tp, global_batch)
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
@@ -335,16 +346,27 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             bundle.model, cfg.train_lora_rank,
             generator=torch.Generator().manual_seed(seed + 99),
         )
-        student_fn = lora_lib.wrap_denoise_fn(denoise_fn, lora_template, stacks=stacks)
         student_init = {k: v.to(device) for k, v in lora_lib.factors(lora_template).items()}
         logger.info("LoRA training: rank %d, %d adapted modules",
                     cfg.train_lora_rank, len(lora_template.alpha))
-    # the step's reducer across processes: ZeRO-3 over 'fsdp' and the
-    # experts over 'ep', else the gradient mean; none in one process
+    # tensor parallelism: the model's attention and feed-forward modules cut
+    # for this rank (`parallel/tp.py`); the dicts are cut by the layouts below
+    tp_plan = {}
+    if mesh is not None and mesh.n_tp > 1:
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        tp_plan = tp_lib.parallelize(bundle.model, mesh.tp)
+        logger.info("tp: %d leaves cut over %d processes", len(tp_plan), mesh.n_tp)
+    if lora_template is not None:
+        cut = tp_lib.lora_cutter(tp_plan, mesh.tp) if tp_plan else None
+        student_fn = lora_lib.wrap_denoise_fn(denoise_fn, lora_template, stacks=stacks, cut=cut)
+    # the step's reducer across processes: ZeRO-3 over 'fsdp', the experts
+    # over 'ep' and the tp slices over 'tp', else the gradient mean; none in
+    # one process
     sync = None
-    if mesh is not None and (mesh.n_fsdp > 1 or mesh.n_ep > 1):
-        sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, student_init),
-                           pmesh.ShardLayout(mesh, teacher))
+    if mesh is not None and (mesh.n_fsdp > 1 or mesh.n_ep > 1 or mesh.n_tp > 1):
+        sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, student_init, tp_plan),
+                           pmesh.ShardLayout(mesh, teacher, tp_plan))
     elif mesh is not None:
         sync = pmesh.DataParallel(mesh)
 
@@ -364,12 +386,13 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     tx_s, tx_c = make_tx("student"), make_tx("critic")
     state = tdm.init_state(local("student", student_init), local("critic", teacher),
                            tx_s, tx_c, use_ema=cfg.use_ema)
-    if sync is not None and mesh.n_ep > 1:
-        # the teacher keeps this rank's experts alone; the whole stacks it
-        # was built with (the module's, the student's start) go
+    if sync is not None and (mesh.n_ep > 1 or mesh.n_tp > 1):
+        # the teacher keeps this rank's experts and tp slices alone; the
+        # whole leaves it was built with (the module's, the student's start) go
         teacher = {k: v.clone() for k, v in sync.teacher(teacher).items()}
         student_init = None
-        _hold_experts(bundle.model, teacher)
+        if mesh.n_ep > 1:
+            _hold_experts(bundle.model, teacher)
     step_fn = tdm.build_train_step(
         denoise_fn, teacher, schedule, tdm_cfg, tx_s, tx_c, sample_shape=sample_shape,
         student_denoise_fn=student_fn, sync=sync,

@@ -34,7 +34,10 @@ SD3's `blocks_dual/...` (the SD3.5 dual-attention prefix) and `blocks/...`
 hold blocks 0..N-2 in that order, and the last block stays unrolled as
 `blocks_{N-1}/...` (`layer_stacks`). The check is strict: every key of the
 module is filled and every given key is used. `jax_name` and `port_key` map
-single names both ways, for the LoRA merge (`lora/adapter.py`).
+single names both ways, for the LoRA merge (`lora/adapter.py`). Under
+tensor parallelism weights are carried whole into the one-process layout
+and then cut for a rank (`parallel/tp.shard_params_tp`), so a JAX tree
+and a tp world are fed the same parameters.
 
 `train_state_from_jax` carries a whole training state of the JAX package
 (`tdm_tpu.train.tdm.TrainState`) of PixArt, SD3, the SD1.5 UNet or the

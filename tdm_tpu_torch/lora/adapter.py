@@ -131,10 +131,13 @@ def from_factors(flat: Mapping[str, torch.Tensor], alpha: tuple) -> LoRA:
     return LoRA(params=params, alpha=alpha)
 
 
-def _merge(weights: Mapping[str, torch.Tensor], lora: LoRA, scale: float, stacks):
+def _merge(weights: Mapping[str, torch.Tensor], lora: LoRA, scale: float, stacks, cut=None):
     """The merge's arithmetic: one (batched) a@b per entry on the weights'
     device, its layers split off by `unbind` (whose backward stacks the
-    layers' gradients once)."""
+    layers' gradients once). `cut(key, delta)`, under tensor parallelism,
+    turns a whole weight's delta into this rank's slice of it
+    (`parallel/tp.lora_cutter`): the LoRA is merged into the whole weight,
+    then cut."""
     out = dict(weights)
     places: dict[str, list] = {}
     for key, (mpath, layer) in adapted_keys(lora, stacks).items():
@@ -150,20 +153,23 @@ def _merge(weights: Mapping[str, torch.Tensor], lora: LoRA, scale: float, stacks
         delta = (eff * (a.to(dev, torch.float32) @ b.to(dev, torch.float32))).transpose(-1, -2)
         per_layer = {None: delta} if a.dim() == 2 else dict(enumerate(delta.unbind(0)))
         for key, layer in keys:
-            w = out[key]
-            out[key] = (w.float() + per_layer[layer]).to(w.dtype)
+            w, d = out[key], per_layer[layer]
+            if cut is not None:
+                d = cut(key, d)
+            out[key] = (w.float() + d).to(w.dtype)
     return out
 
 
 @torch.no_grad()
 def merge(
-    weights: Mapping[str, torch.Tensor], lora: LoRA, scale: float, stacks
+    weights: Mapping[str, torch.Tensor], lora: LoRA, scale: float, stacks, cut=None
 ) -> dict[str, torch.Tensor]:
     """`weights` (port state_dict names) with every adapted weight replaced
     by W + scale·(α/r)·(a@b)ᵀ, computed in fp32 on the weight's device and
     cast to its dtype; the others are passed through. A LoRA entry with no
-    weight in `weights` raises KeyError."""
-    return _merge(weights, lora, scale, stacks)
+    weight in `weights` raises KeyError. `cut`: a tp rank's slices
+    (`_merge`)."""
+    return _merge(weights, lora, scale, stacks, cut)
 
 
 @torch.no_grad()
@@ -204,22 +210,25 @@ class LoRADenoiseFn:
     factors and never the base. `merge(factors, base)` gives the merged
     weights alone, so a caller can merge once and run several forwards."""
 
-    def __init__(self, denoise_fn: Callable, lora_template: LoRA, stacks):
+    def __init__(self, denoise_fn: Callable, lora_template: LoRA, stacks, cut=None):
         self.denoise_fn = denoise_fn
         self.alpha = lora_template.alpha
         self.stacks = stacks
+        self.cut = cut
 
     def merge(self, flat: Mapping[str, torch.Tensor], base: Mapping[str, torch.Tensor]):
         frozen = {k: v.detach() for k, v in base.items()}
-        return _merge(frozen, from_factors(flat, self.alpha), 1.0, self.stacks)
+        return _merge(frozen, from_factors(flat, self.alpha), 1.0, self.stacks, self.cut)
 
     def __call__(self, flat, x, t, cond, base):
         return self.denoise_fn(self.merge(flat, base), x, t, cond)
 
 
-def wrap_denoise_fn(denoise_fn: Callable, lora_template: LoRA, *, stacks) -> LoRADenoiseFn:
+def wrap_denoise_fn(denoise_fn: Callable, lora_template: LoRA, *, stacks,
+                    cut=None) -> LoRADenoiseFn:
     """The LoRA-training adapter of `denoise_fn(params, x, t, cond)` over a
     model whose `layer_stacks` are `stacks`; `train.tdm.build_train_step`
     takes it as `student_denoise_fn` and threads its teacher through as the
-    base."""
-    return LoRADenoiseFn(denoise_fn, lora_template, stacks)
+    base. Under tensor parallelism `cut` gives a rank's slices of each
+    merged delta (`parallel/tp.lora_cutter`); the factors stay whole."""
+    return LoRADenoiseFn(denoise_fn, lora_template, stacks, cut)

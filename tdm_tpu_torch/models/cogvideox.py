@@ -53,6 +53,7 @@ from torch import nn
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
+from tdm_tpu_torch.parallel import tp as tp_lib
 
 _SLICE6 = "ROADMAP.md queue 1, slice 6 (multi-GPU)"
 
@@ -163,6 +164,13 @@ class CogLayerNormZero(nn.Module):
 
 
 class CogVideoXBlock(nn.Module):
+    """One expert-adaLN block. Under 'tp' (`parallel/tp.py`) a rank runs
+    heads/n of the heads: to_q/to_k/to_v column-parallel behind f, to_out
+    row-parallel; norm_q/norm_k are per head and stay local."""
+
+    tp = None
+    _COLUMNS, _ROWS = ("to_q", "to_k", "to_v"), ("to_out",)
+
     def __init__(self, cfg: CogVideoXConfig, device=None, param_dtype=None):
         super().__init__()
         c = self.cfg = cfg
@@ -179,6 +187,12 @@ class CogVideoXBlock(nn.Module):
         self.norm2 = CogLayerNormZero(c.time_embed_dim, inner, **kw)
         self.ff = L.FeedForward(inner, 4, **kw)
 
+    def tp_cuts(self, n: int) -> dict:
+        return L.tp_cuts(self, n, self.cfg.num_heads % n == 0, self._COLUMNS, self._ROWS)
+
+    def set_tp(self, tp) -> None:
+        L.set_tp(self, tp, self._COLUMNS, self._ROWS, ("norm_q", "norm_k"))
+
     def forward(self, x, ctx, temb, rotary=None):
         """x [B, S_vid, D] video tokens, ctx [B, S_txt, D] text tokens;
         rotary: the (cos, sin) tables of the video rows, or None."""
@@ -187,9 +201,13 @@ class CogVideoXBlock(nn.Module):
         s_txt = ctx.shape[1]
         hx, hc, gate, c_gate = self.norm1(x, ctx, temb)
         h = torch.cat([hc, hx], dim=1)  # text first
+        heads = c.num_heads
+        if self.tp is not None:
+            heads //= self.tp.n
+            h = tp_lib.copy_to_tp(h, self.tp)
 
         def split(t):
-            return t.reshape(b, -1, c.num_heads, c.head_dim).transpose(1, 2)
+            return t.reshape(b, -1, heads, c.head_dim).transpose(1, 2)
 
         q = self.norm_q(split(self.to_q(h))).to(c.dtype)
         k = self.norm_k(split(self.to_k(h))).to(c.dtype)
@@ -198,7 +216,7 @@ class CogVideoXBlock(nn.Module):
             q = torch.cat([q[:, :, :s_txt], L.apply_rotary(q[:, :, s_txt:], rotary)], dim=2)
             k = torch.cat([k[:, :, :s_txt], L.apply_rotary(k[:, :, s_txt:], rotary)], dim=2)
         out = L.fused_attention(q.contiguous(), k.contiguous(), v, None, impl=self.impl)
-        out = self.to_out(out.transpose(1, 2).reshape(b, s_txt + s_vid, inner))
+        out = self.to_out(out.transpose(1, 2).reshape(b, s_txt + s_vid, heads * c.head_dim))
         ctx = ctx + c_gate * out[:, :s_txt]
         x = x + gate * out[:, s_txt:]
 

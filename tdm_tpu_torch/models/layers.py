@@ -27,6 +27,7 @@ from torch.utils import checkpoint as ckpt
 
 from tdm_tpu_torch.ops import quant
 from tdm_tpu_torch.ops.attention import attention as fused_attention
+from tdm_tpu_torch.parallel import tp as tp_lib
 
 # the JAX package's remat policies: 'full' recomputes the whole block in the
 # backward; 'dots' (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
@@ -76,7 +77,18 @@ class Dense(nn.Linear):
     drops the bias (SD1.5's q/k/v projections). Under an int8 scope on the
     calling thread (`ops/quant.quant_scope`) a call that passes the gates
     runs through `quant.int8_dot`, as the JAX interceptor reroutes flax's
-    `nn.Dense`; no other layer reroutes."""
+    `nn.Dense`; no other layer reroutes.
+
+    Under tensor parallelism (`parallel/tp.py`, `tp_mode` set by its
+    module's `set_tp`) the layer holds a local weight: 'column' its slice of
+    the output features (the input whole), 'row' its slice of the input
+    features, whose partial product, in the layer's dtype as the JAX
+    package's sharded dot leaves it, is summed over 'tp' before the bias is
+    added once. `in_features`/`out_features` stay the whole layer's, which
+    the int8 gates read."""
+
+    tp_mode: Optional[str] = None  # None, 'column' or 'row'
+    tp: Optional[tp_lib.TPGroup] = None
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True, dtype,
                  param_dtype=None, device=None):
@@ -85,11 +97,58 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = quant.dense(x, self.weight, self.bias, dt)
+        if self.tp_mode is None:
+            y = quant.dense(x, self.weight, self.bias, dt)
+        else:  # the gates read the whole layer's N and K
+            shape = (self.out_features, self.in_features)
+            if self.tp_mode == "row":
+                y = quant.dense(x, self.weight, None, dt, shape=shape, tp=self.tp)
+                if y is None:
+                    y = tp_lib.reduce_from_tp(F.linear(x.to(dt), self.weight.to(dt)), self.tp)
+                return y if self.bias is None else y + self.bias.to(dt)
+            y = quant.dense(x, self.weight, self.bias, dt, shape=shape)
         if y is not None:
             return y
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def set_tp(module: nn.Module, tp: tp_lib.TPGroup, columns=(), rows=(), norms=()) -> None:
+    """A module's tensor-parallel mode (`parallel/tp.parallelize`): its
+    `tp`, the named Dense children in column and row mode, and the named
+    per-head norms, whose weights pass Megatron's f."""
+    module.tp = tp
+    for names, mode in ((columns, "column"), (rows, "row")):
+        for name in names:
+            dense = getattr(module, name)
+            dense.tp_mode, dense.tp = mode, tp
+    for name in norms:
+        norm = getattr(module, name, None)
+        if norm is not None:
+            norm.tp = tp
+
+
+def tp_cuts(module: nn.Module, n: int, divides: bool, columns=(), rows=()) -> dict:
+    """The `tp_cuts` of a module with these column and row Dense children:
+    {} unless n > 1 divides its heads (`divides`); the column layers' weight
+    and bias cut over their outputs, the row layers' weight over its
+    inputs."""
+    if n <= 1 or not divides:
+        return {}
+    out = {}
+    for name in columns:
+        out[f"{name}.weight"] = tp_lib.COLUMN
+        if getattr(module, name).bias is not None:
+            out[f"{name}.bias"] = tp_lib.COLUMN
+    for name in rows:
+        out[f"{name}.weight"] = tp_lib.ROW
+    return out
+
+
+def tp_param(p: torch.Tensor, tp: Optional[tp_lib.TPGroup]) -> torch.Tensor:
+    """A per-head norm's weight as it is used under 'tp': through f, whose
+    backward sums the ranks' shares of its gradient."""
+    return p if tp is None else tp_lib.copy_to_tp(p, tp)
 
 
 class Conv2d(nn.Conv2d):
@@ -239,6 +298,8 @@ class RMSNorm(nn.Module):
     """RMS norm over the last axis in fp32 with a learned fp32 `scale`, cast
     to the compute dtype (the qk norm of SD3.5)."""
 
+    tp: Optional[tp_lib.TPGroup] = None  # set on a per-head qk norm under 'tp'
+
     def __init__(self, dim: int, eps: float = 1e-6, *, dtype, device=None):
         super().__init__()
         self.eps, self.compute_dtype = eps, dtype
@@ -247,7 +308,7 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         out = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
-        return (out * self.scale).to(self.compute_dtype)
+        return (out * tp_param(self.scale, self.tp)).to(self.compute_dtype)
 
 
 class Attention(nn.Module):
@@ -256,7 +317,11 @@ class Attention(nn.Module):
     'splash'), and an optional RMS qk norm ('rms'). `context_dim` is the
     width of the tokens k and v are made from (default `dim`: PixArt's and
     SD3's projected context); `qkv_bias=False` drops the q/k/v biases
-    (SD1.5)."""
+    (SD1.5). Under 'tp' (`tp_cuts`, `set_tp`) a rank runs heads/n of the
+    heads: q/k/v column-parallel behind f, to_out row-parallel."""
+
+    tp: Optional[tp_lib.TPGroup] = None
+    _COLUMNS, _ROWS = ("to_q", "to_k", "to_v"), ("to_out",)
 
     def __init__(
         self,
@@ -288,23 +353,35 @@ class Attention(nn.Module):
         self.qk_norm = qk_norm
         self.to_out = Dense(inner, dim, **kw)
 
+    def tp_cuts(self, n: int) -> dict:
+        return tp_cuts(self, n, self.heads % n == 0, self._COLUMNS, self._ROWS)
+
+    def set_tp(self, tp: tp_lib.TPGroup) -> None:
+        set_tp(self, tp, self._COLUMNS, self._ROWS, ("norm_q", "norm_k"))
+
     def forward(
         self,
         x: torch.Tensor,
         context: Optional[torch.Tensor] = None,
         key_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        heads = self.heads
+        if self.tp is not None:
+            heads //= self.tp.n
+            x = tp_lib.copy_to_tp(x, self.tp)
+            if context is not None:
+                context = tp_lib.copy_to_tp(context, self.tp)
         ctx = x if context is None else context
         b, s, _ = x.shape
 
         def split(t):
-            return t.reshape(b, -1, self.heads, self.head_dim).transpose(1, 2).contiguous()
+            return t.reshape(b, -1, heads, self.head_dim).transpose(1, 2).contiguous()
 
         q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
         if self.qk_norm == "rms":
             q, k = self.norm_q(q), self.norm_k(k)
         out = fused_attention(q, k, v, key_mask, impl=self.impl)
-        out = out.transpose(1, 2).reshape(b, s, self.heads * self.head_dim)
+        out = out.transpose(1, 2).reshape(b, s, heads * self.head_dim)
         return self.to_out(out)
 
 
@@ -326,6 +403,8 @@ class LayerNorm(nn.Module):
     """LayerNorm over the last axis in fp32 with fp32 `scale`/`bias` (Flax's
     LayerNorm(dtype=float32)); the output is fp32."""
 
+    tp: Optional[tp_lib.TPGroup] = None  # set on a per-head qk norm under 'tp'
+
     def __init__(self, width: int, eps: float, *, device=None):
         super().__init__()
         self.eps = eps
@@ -333,7 +412,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, eps=self.eps)
+        return F.layer_norm(x.float(), self.scale.shape, tp_param(self.scale, self.tp),
+                            tp_param(self.bias, self.tp), eps=self.eps)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -350,7 +430,12 @@ FF_ACTIVATIONS = ("gelu-approximate", "geglu")
 class FeedForward(nn.Module):
     """Transformer MLP, mult× expansion: the tanh-approximated GELU
     ('gelu-approximate', PixArt and SD3) or GEGLU ('geglu', SD1.5: proj_in
-    to twice the inner width, h · gelu(gate) with the exact erf GELU)."""
+    to twice the inner width, h · gelu(gate) with the exact erf GELU). Under
+    'tp' a rank holds its slice of the inner width (GEGLU: the matching
+    slices of h and gate): proj_in column-parallel behind f, proj_out
+    row-parallel."""
+
+    tp: Optional[tp_lib.TPGroup] = None
 
     def __init__(self, dim: int, mult: int = 4, *, activation: str = "gelu-approximate",
                  dtype, param_dtype=None, device=None):
@@ -363,7 +448,18 @@ class FeedForward(nn.Module):
         self.proj_in = Dense(dim, 2 * inner if activation == "geglu" else inner, **kw)
         self.proj_out = Dense(inner, dim, **kw)
 
+    def tp_cuts(self, n: int) -> dict:
+        if n <= 1 or self.proj_out.in_features % n:
+            return {}
+        c = tp_lib.Cut(0, 2 if self.activation == "geglu" else 1)
+        return {"proj_in.weight": c, "proj_in.bias": c, "proj_out.weight": tp_lib.ROW}
+
+    def set_tp(self, tp: tp_lib.TPGroup) -> None:
+        set_tp(self, tp, ("proj_in",), ("proj_out",))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = tp_lib.copy_to_tp(x, self.tp)
         h = self.proj_in(x)
         if self.activation == "geglu":
             h, gate = h.chunk(2, dim=-1)

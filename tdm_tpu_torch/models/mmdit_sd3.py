@@ -39,6 +39,7 @@ from torch import nn
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
+from tdm_tpu_torch.parallel import tp as tp_lib
 
 @dataclass(frozen=True)
 class MMDiTConfig:
@@ -108,6 +109,14 @@ class AdaLNZero(nn.Module):
 
 
 class JointBlock(nn.Module):
+    """One MMDiT joint block. Under 'tp' (`parallel/tp.py`) a rank runs
+    heads/n of the joint attention's heads: the six q/k/v projections
+    column-parallel behind f, to_out and to_add_out row-parallel; the RMS
+    qk norm is per head and stays local."""
+
+    tp = None
+    _COLUMNS = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj")
+
     def __init__(self, cfg: MMDiTConfig, *, context_pre_only: bool = False,
                  dual_attention: bool = False, device=None, param_dtype=None):
         super().__init__()
@@ -134,6 +143,15 @@ class JointBlock(nn.Module):
             self.to_add_out = L.Dense(inner, inner, **kw)
             self.ff_context = L.FeedForward(inner, 4, **kw)
 
+    def _rows(self) -> tuple:
+        return ("to_out",) if self.context_pre_only else ("to_out", "to_add_out")
+
+    def tp_cuts(self, n: int) -> dict:
+        return L.tp_cuts(self, n, self.cfg.num_heads % n == 0, self._COLUMNS, self._rows())
+
+    def set_tp(self, tp) -> None:
+        L.set_tp(self, tp, self._COLUMNS, self._rows(), ("norm_q", "norm_k"))
+
     def forward(self, x, ctx, temb):
         """x [B,S,D] image tokens, ctx [B,L,D] text tokens, temb [B,D] →
         (x, ctx), ctx None after the context_pre_only block."""
@@ -151,9 +169,13 @@ class JointBlock(nn.Module):
 
         hx = L.layer_norm(x) * (1 + sc_msa) + sh_msa
         hc = L.layer_norm(ctx) * (1 + csc) + csh
+        heads = c.num_heads
+        if self.tp is not None:
+            heads //= self.tp.n
+            hx, hc = tp_lib.copy_to_tp(hx, self.tp), tp_lib.copy_to_tp(hc, self.tp)
 
         def split(t):
-            return t.reshape(b, -1, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
+            return t.reshape(b, -1, heads, c.head_dim).transpose(1, 2).contiguous()
 
         q = split(torch.cat([self.to_q(hx), self.add_q_proj(hc)], dim=1))
         k = split(torch.cat([self.to_k(hx), self.add_k_proj(hc)], dim=1))
@@ -161,7 +183,7 @@ class JointBlock(nn.Module):
         if c.qk_norm == "rms":
             q, k = self.norm_q(q), self.norm_k(k)
         out = L.fused_attention(q, k, v, impl=self.impl)
-        out = out.transpose(1, 2).reshape(b, -1, inner)
+        out = out.transpose(1, 2).reshape(b, -1, heads * c.head_dim)
         out_x, out_c = out[:, :s], out[:, s:]
 
         x_in = x

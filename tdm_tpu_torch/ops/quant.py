@@ -22,6 +22,16 @@ scope around a sampler on one thread leaves an encoder running on another
 thread on its own route (the server encodes on its handler threads while
 its worker samples). The gates are module constants that tests lower to
 reach tiny models, as the JAX tests do.
+
+Under tensor parallelism (`parallel/tp.py`) the JAX package traces global
+shapes, so its absmax reductions over a cut K become all-reduce-max
+collectives (`tdm_tpu/pipelines/base.py:197-202`). The port does the same:
+the gates read the whole layer's K and N, and a row-parallel layer (K cut
+over 'tp') takes the per-row absmax of x and the per-output-channel absmax
+of w over its K slice, then the max over the ranks, before it makes the
+codes; its int32 accumulators are summed over the ranks (exact) before
+the rescale. So the scales, the codes and the result are the
+one-process ones.
 """
 
 from __future__ import annotations
@@ -75,11 +85,17 @@ def quant_scope(mode):
     raise ValueError(f"unknown quant mode {mode!r} (expected 'int8')")
 
 
-def quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(t: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 codes of t [..., K] and their fp32 scales
-    [..., 1]: absmax / 127 clamped at 1e-12, round half to even."""
+    [..., 1]: absmax / 127 clamped at 1e-12, round half to even. With `tp`
+    (a `parallel.tp.TPGroup`; K cut over its ranks) the absmax is the max
+    over the ranks' slices."""
     tf = t.float()
     amax = tf.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        amax = tp_lib.all_reduce_max(amax, tp)
     # divided by a tensor: CUDA divides by a Python scalar as a product with
     # its reciprocal, which moves a code across a rounding edge now and then
     scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-12)
@@ -111,16 +127,22 @@ def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return acc[:m, :n]
 
 
-def int8_dot(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def int8_dot(x: torch.Tensor, weight: torch.Tensor, tp=None) -> torch.Tensor:
     """x [..., K] @ weight[N, K]ᵀ with dynamic symmetric int8 quantization
-    of both operands; the result in x's dtype (fp32 for an integer x)."""
+    of both operands; the result in x's dtype (fp32 for an integer x). With
+    `tp`, K is cut over its ranks (a row-parallel layer): the scales come
+    from the whole K and the int32 accumulators are summed over the ranks."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no int8 product for device {x.device}")
-    xq, sx = quantize_rows(x)
-    wq, sw = quantize_rows(weight)
+    xq, sx = quantize_rows(x, tp)
+    wq, sw = quantize_rows(weight, tp)
     lead, k = x.shape[:-1], x.shape[-1]
     xq2 = xq.reshape(-1, k)
     acc = _int_mm(xq2, wq) if x.device.type == "cuda" else plain_int8_mm(xq2, wq)
+    if tp is not None:
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        acc = tp_lib.all_reduce_sum(acc, tp)
     out = acc.reshape(*lead, -1).float() * sx * sw.reshape(-1)
     return out.to(x.dtype if x.dtype.is_floating_point else torch.float32)
 
@@ -128,16 +150,20 @@ def int8_dot(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 int8_dot.launches = 0
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor, bias, dtype: torch.dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, weight: torch.Tensor, bias, dtype: torch.dtype, *,
+          shape=None, tp=None) -> torch.Tensor:
     """A linear layer's output on the int8 route when a scope is open and
-    the gate passes (tokens = the product of x's leading dims, K and N from
-    the weight), else None: x and the weight cast to the layer's dtype,
-    `int8_dot`, then the bias added in that dtype."""
+    the gate passes (tokens = the product of x's leading dims; N and K the
+    whole layer's `shape`, default the weight's), else None: x and the
+    weight cast to the layer's dtype, `int8_dot` (over K cut on `tp`'s
+    ranks when given), then the bias added in that dtype."""
     if not active():
         return None
-    n, k = weight.shape
+    n, k = weight.shape if shape is None else shape
     tokens = math.prod(x.shape[:-1]) if x.dim() > 1 else 1
     if not gate(tokens, k, n):
         return None
-    y = int8_dot(x.to(dtype), weight.to(dtype))
+    x, weight = x.to(dtype), weight.to(dtype)
+    # a layer whose K is whole calls int8_dot(x, w), as callers that wrap it expect
+    y = int8_dot(x, weight) if tp is None else int8_dot(x, weight, tp)
     return y if bias is None else y + bias.to(dtype)

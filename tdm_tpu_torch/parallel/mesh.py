@@ -1,5 +1,5 @@
-"""Process groups, the ('data', 'fsdp', 'ep') mesh, the gradient mean,
-ZeRO-3 and expert parallelism.
+"""Process groups, the ('data', 'fsdp', 'ep', 'tp') mesh, the gradient
+mean, ZeRO-3, expert parallelism and the state under tensor parallelism.
 
 Port of `tdm_tpu/parallel/mesh.py`. The reference's distributed surface is
 data parallelism over N GPUs (accelerate process groups over NCCL, the DDP
@@ -45,6 +45,19 @@ process per GPU (a JAX process drives every local device instead):
     (`moe_scope`, `models/moe.Dispatch`), under plain data parallelism too.
     Checkpoints keep the one-process layout: the experts are gathered over
     'ep' for process 0's write and cut again on resume.
+  * Tensor parallelism (`--tp`, `parallel/tp.py`): 'tp' is the innermost
+    axis, rank = ((d·n_fsdp + f)·n_ep + e)·n_tp + t (JAX's
+    `make_train_mesh` order; 'ep' and 'tp' never both exceed 1). The 'tp'
+    ranks share their rows. Each holds its slice of every leaf the model's
+    tp plan cuts (`ShardLayout(..., tp_plan=)`), in the student, the critic,
+    their optimizer states, the EMA and the teacher; under --fsdp the slice
+    is then chunked over 'fsdp'. A tp leaf's gradient is averaged over the
+    data×fsdp ranks only; a replicated leaf's over the world, where its
+    copies are equal (f's backward all-reduce makes them whole). The clip's
+    norm counts each tp slice once. The checkpoint gathers the slices.
+  * Under --fsdp the shared adaLN heads (`t_block`, `norm_out`) stay
+    replicated, as the JAX CLI's `tp_fsdp_spec` keeps them with or without
+    'tp'.
 
 At world 1 nothing here runs: the training CLI passes the step no reducer,
 so the single-GPU step issues no collective and makes no copy.
@@ -63,6 +76,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tdm_tpu_torch.models import moe
+from tdm_tpu_torch.parallel import tp as tp_lib
 from tdm_tpu_torch.train import optim as topt
 
 # fsdp_spec's size gate: smaller leaves stay replicated
@@ -152,26 +166,27 @@ def local_device(device: torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
-AXES = ("data", "fsdp", "ep")
+AXES = ("data", "fsdp", "ep", "tp")
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ('data', 'fsdp', 'ep') mesh over the world: rank = (d·n_fsdp +
-    f)·n_ep + e. `groups` maps a tuple of axes to this rank's process group
-    over them (the ranks that differ only along those axes): None where it
-    has one rank (no collective over it), `dist.group.WORLD` where it spans
-    the world."""
+    """The ('data', 'fsdp', 'ep', 'tp') mesh over the world: rank =
+    ((d·n_fsdp + f)·n_ep + e)·n_tp + t. `groups` maps a tuple of axes to
+    this rank's process group over them (the ranks that differ only along
+    those axes): None where it has one rank (no collective over it),
+    `dist.group.WORLD` where it spans the world."""
 
     n_data: int
     n_fsdp: int
     rank: int
     n_ep: int = 1
     groups: Any = None
+    n_tp: int = 1
 
     @property
     def world(self) -> int:
-        return self.n_data * self.n_fsdp * self.n_ep
+        return self.n_data * self.n_fsdp * self.n_ep * self.n_tp
 
     @property
     def n_rows(self) -> int:
@@ -180,7 +195,7 @@ class Mesh:
 
     @property
     def row_index(self) -> int:
-        return self.rank // self.n_ep
+        return self.rank // (self.n_ep * self.n_tp)
 
     @property
     def fsdp_index(self) -> int:
@@ -188,7 +203,12 @@ class Mesh:
 
     @property
     def ep_index(self) -> int:
-        return self.rank % self.n_ep
+        return (self.rank // self.n_tp) % self.n_ep
+
+    @property
+    def tp(self) -> tp_lib.TPGroup:
+        """This rank's place on the 'tp' axis."""
+        return tp_lib.TPGroup(self.n_tp, self.rank % self.n_tp, self.group("tp"))
 
     def group(self, *axes: str):
         return self.groups[tuple(a for a in AXES if a in axes)]
@@ -204,7 +224,7 @@ class Mesh:
     def batch_rows(self, local_batch: int) -> slice:
         """This rank's rows of the global batch: every 'data' and 'fsdp'
         rank holds rows of its own (as `batch_sharding` shards rows over
-        both); the 'ep' ranks of one row index share them."""
+        both); the 'ep' and 'tp' ranks of one row index share them."""
         i = self.row_index
         return slice(i * local_batch, (i + 1) * local_batch)
 
@@ -220,26 +240,33 @@ class Mesh:
             ep_index=self.ep_index, n_ep=self.n_ep, ep_group=self.group("ep")))
 
 
-def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1) -> Mesh:
-    """('data', 'fsdp', 'ep') mesh over the world (all of it on 'data' by
-    default, the reference's topology). Every rank calls it, in the same
+def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1,
+              n_tp: int = 1) -> Mesh:
+    """('data', 'fsdp', 'ep', 'tp') mesh over the world (all of it on 'data'
+    by default, the reference's topology). Every rank calls it, in the same
     order, since it forms the axes' process groups."""
     world, me = world_size(), rank()
-    if n_fsdp < 1 or n_ep < 1 or world % (n_fsdp * n_ep):
+    inner = n_fsdp * n_ep * n_tp
+    if n_fsdp < 1 or n_ep < 1 or n_tp < 1 or world % inner:
         raise ValueError(
-            f"fsdp {n_fsdp} x ep {n_ep} does not divide the world of {world} processes")
+            f"fsdp {n_fsdp} x ep {n_ep} x tp {n_tp} does not divide the world of "
+            f"{world} processes")
     if n_data is None:
-        n_data = world // (n_fsdp * n_ep)
-    if n_data * n_fsdp * n_ep != world:
+        n_data = world // inner
+    if n_data * inner != world:
         raise ValueError(
-            f"mesh {n_data}x{n_fsdp}x{n_ep} does not divide the world of {world} processes")
-    sizes = dict(zip(AXES, (n_data, n_fsdp, n_ep)))
+            f"mesh {n_data}x{n_fsdp}x{n_ep}x{n_tp} does not divide the world of {world} "
+            "processes")
+    sizes = dict(zip(AXES, (n_data, n_fsdp, n_ep, n_tp)))
 
     def coords(r: int) -> dict:
-        return {"data": r // (n_fsdp * n_ep), "fsdp": (r // n_ep) % n_fsdp, "ep": r % n_ep}
+        return {"data": r // inner, "fsdp": (r // (n_ep * n_tp)) % n_fsdp,
+                "ep": (r // n_tp) % n_ep, "tp": r % n_tp}
 
-    groups = {}
-    for axes in (("data",), ("fsdp",), ("ep",), ("data", "fsdp"), ("data", "ep")):
+    groups, made = {}, {}
+    subsets = [tuple(a for i, a in enumerate(AXES) if m >> i & 1)
+               for m in range(1, 2 ** len(AXES))]
+    for axes in subsets:  # every rank forms every group, in one order
         size = math.prod(sizes[a] for a in axes)
         if size == 1:
             groups[axes] = None
@@ -248,14 +275,16 @@ def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1) -> M
             groups[axes] = dist.group.WORLD
             continue
         members: dict = {}
-        for r in range(world):  # every rank forms every group, in one order
+        for r in range(world):
             key = tuple(v for a, v in coords(r).items() if a not in axes)
             members.setdefault(key, []).append(r)
         for ranks in members.values():
-            g = dist.new_group(ranks)
+            ranks = tuple(ranks)
+            if ranks not in made:  # one group per set of ranks
+                made[ranks] = dist.new_group(list(ranks))
             if me in ranks:
-                groups[axes] = g
-    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, n_ep=n_ep, groups=groups)
+                groups[axes] = made[ranks]
+    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, n_ep=n_ep, groups=groups, n_tp=n_tp)
 
 
 def _allreduce_sum(tree: dict, group) -> dict:
@@ -303,28 +332,34 @@ def all_gather_flat(t: torch.Tensor, group) -> torch.Tensor:
 class ShardLayout:
     """The layout of one role's parameter dict on a mesh. Under 'ep' each
     expert leaf is cut to this rank's experts (its leading axis, in n_ep
-    equal parts). Then ZeRO-3: a leaf of at least SHARD_MIN_SIZE elements
-    (and at least Q8_MIN_SIZE per 'fsdp' rank, so that 8-bit Adam
-    quantizes a chunk as it does the whole leaf) is flattened, zero-padded
-    to n_fsdp equal chunks of whole 256-element blocks, and rank f keeps
-    chunk f; the other leaves are replicated. The zero padding stays zero
-    through AdamW, 8-bit Adam and the EMA (a zero gradient and weight give
-    a zero update)."""
+    equal parts); under 'tp' each leaf of `tp_plan` (`parallel/tp.plan`) to
+    this rank's slice. Then ZeRO-3: a leaf of at least SHARD_MIN_SIZE
+    elements (and at least Q8_MIN_SIZE per 'fsdp' rank, so that 8-bit Adam
+    quantizes a chunk as it does the whole leaf), other than the shared
+    adaLN heads (`tp.is_modulation_head`), is flattened, zero-padded to
+    n_fsdp equal chunks of whole 256-element blocks, and rank f keeps chunk
+    f; the other leaves are replicated. The zero padding stays zero through
+    AdamW, 8-bit Adam and the EMA (a zero gradient and weight give a zero
+    update)."""
 
-    def __init__(self, mesh: Mesh, params: dict):
+    def __init__(self, mesh: Mesh, params: dict, tp_plan: Optional[dict] = None):
         self.mesh = mesh
-        ne = mesh.n_ep
+        ne, tp = mesh.n_ep, mesh.tp
         self.full_shapes = {k: tuple(p.shape) for k, p in params.items()}
-        # the leaves cut over 'ep', and every leaf's shape on this rank
-        # (in the dict's order: every rank makes the collectives in one order)
+        # the leaves cut over 'ep' and over 'tp', and every leaf's shape on
+        # this rank (in the dict's order: every rank makes the collectives
+        # in one order)
         self.experts = tuple(k for k in params if ne > 1 and moe.is_expert_key(k))
-        self.shapes = {k: tuple(moe.expert_slice(k, p, 0, ne).shape) if k in self.experts
-                       else tuple(p.shape) for k, p in params.items()}
+        self.tp_cuts = {k: c for k, c in (tp_plan or {}).items()
+                        if tp.n > 1 and k in params}
+        self.shapes = {k: tuple(self.cut_model({k: torch.empty(p.shape, device="meta")})[k].shape)
+                       for k, p in params.items()}
         nf = mesh.n_fsdp
         self.chunks: dict[str, int] = {}  # sharded leaf -> elements per rank
         for k, shape in self.shapes.items():
             n = math.prod(shape)
-            if nf > 1 and n >= max(SHARD_MIN_SIZE, nf * topt.Q8_MIN_SIZE):
+            if (nf > 1 and n >= max(SHARD_MIN_SIZE, nf * topt.Q8_MIN_SIZE)
+                    and not tp_lib.is_modulation_head(k)):
                 per = -(-n // nf)
                 self.chunks[k] = per + (-per) % topt.Q8_BLOCK
 
@@ -336,19 +371,42 @@ class ShardLayout:
         c, f = self.chunks[k], self.mesh.fsdp_index
         return self._padded(k, t.reshape(-1))[f * c:(f + 1) * c].clone()
 
-    def shard(self, full: dict) -> dict:
-        """This rank's part of a full dict: its experts of each expert leaf,
-        then its chunk of each sharded leaf (1-D); the rest as it is."""
+    def cut_model(self, full: dict) -> dict:
+        """This rank's experts of each expert leaf and its slice of each tp
+        leaf (the module's layout on this rank); the rest as it is."""
+        m, tp = self.mesh, self.mesh.tp
         out = {}
         for k, v in full.items():
             if k in self.experts:
-                v = moe.expert_slice(k, v, self.mesh.ep_index, self.mesh.n_ep)
-            out[k] = self._chunk(k, v) if k in self.chunks else v
+                v = moe.expert_slice(k, v, m.ep_index, m.n_ep)
+            if k in self.tp_cuts:
+                v = tp_lib.cut(v, self.tp_cuts[k], tp.index, tp.n)
+            out[k] = v
         return out
+
+    def uncut_model(self, local: dict) -> dict:
+        """The inverse of `cut_model` (every rank calls it): the experts
+        gathered over 'ep', the tp slices over 'tp'."""
+        out = dict(local)
+        for k in self.experts:
+            out[k] = all_gather_flat(out[k].reshape(-1), self.mesh.group("ep")).view(
+                self.full_shapes[k])
+        for k, c in self.tp_cuts.items():
+            if k in out:
+                out[k] = tp_lib.gather_leaf(out[k], c, self.mesh.tp)
+        return out
+
+    def shard(self, full: dict) -> dict:
+        """This rank's part of a full dict: its experts of each expert leaf
+        and its slice of each tp leaf, then its chunk of each sharded leaf
+        (1-D); the rest as it is."""
+        out = self.cut_model(full)
+        return {k: self._chunk(k, v) if k in self.chunks else v.clone() if k in self.tp_cuts
+                else v for k, v in out.items()}
 
     def gather(self, local: dict) -> dict:
         """The compute copy from every 'fsdp' rank's chunks (one all_gather
-        per sharded leaf); this rank's experts stay its own."""
+        per sharded leaf); this rank's experts and tp slices stay its own."""
         out = {}
         for k, v in local.items():
             if k in self.chunks:
@@ -359,20 +417,21 @@ class ShardLayout:
 
     def full(self, local: dict) -> dict:
         """The whole dict: the compute copy with every expert leaf gathered
-        over 'ep' (every rank calls it)."""
-        out = self.gather(local)
-        for k in self.experts:
-            out[k] = all_gather_flat(out[k].reshape(-1), self.mesh.group("ep")).view(
-                self.full_shapes[k])
-        return out
+        over 'ep' and every tp leaf over 'tp' (every rank calls it)."""
+        return self.uncut_model(self.gather(local))
+
+    def _split(self, k: str) -> bool:
+        """Whether a leaf's copies differ across the model axis: an expert
+        leaf ('ep') or a tp slice ('tp')."""
+        return k in self.experts or k in self.tp_cuts
 
     def reduce(self, grads: dict) -> dict:
         """Full gradients of this rank's rows → the mean gradient of the
         global batch: each sharded leaf reduce-scattered onto this rank's
         chunk over 'fsdp', then summed over the rest of its ranks; an
-        expert leaf over the data x fsdp ranks that hold its experts, every
-        other leaf over the world (the 'ep' ranks' copies are equal);
-        one flattened all_reduce per group and dtype."""
+        expert leaf or a tp slice over the data x fsdp ranks that hold it,
+        every other leaf over the world (the 'ep' and 'tp' ranks' copies
+        are equal); one flattened all_reduce per group and dtype."""
         m = self.mesh
         rep, shards = {}, {}
         for k, g in grads.items():
@@ -383,45 +442,43 @@ class ShardLayout:
             else:
                 rep[k] = g
         out = {}
-        for tree, exp_group, dense_group in (
+        for tree, split_group, dense_group in (
                 (rep, m.group("data", "fsdp"), dist.group.WORLD),
-                (shards, m.group("data"), m.group("data", "ep"))):
-            exp = {k: g for k, g in tree.items() if k in self.experts}
-            dense = {k: g for k, g in tree.items() if k not in self.experts}
-            out.update(_allreduce_sum(exp, exp_group) if exp and exp_group is not None else exp)
+                (shards, m.group("data"), m.group("data", "ep", "tp"))):
+            split = {k: g for k, g in tree.items() if self._split(k)}
+            dense = {k: g for k, g in tree.items() if not self._split(k)}
+            out.update(_allreduce_sum(split, split_group)
+                       if split and split_group is not None else split)
             out.update(_allreduce_sum(dense, dense_group)
                        if dense and dense_group is not None else dense)
-        exp = [out[k] for k in self.experts]
-        dense = [v for k, v in out.items() if k not in self.experts]
+        split = [out[k] for k in grads if self._split(k)]
+        dense = [out[k] for k in grads if not self._split(k)]
         if dense:
             torch._foreach_div_(dense, m.world)
-        if exp and m.n_rows > 1:
-            torch._foreach_div_(exp, m.n_rows)
+        if split and m.n_rows > 1:
+            torch._foreach_div_(split, m.n_rows)
         return {k: out[k] for k in grads}
 
     def global_norm(self, grads: dict) -> torch.Tensor:
         """optax.global_norm of the full gradient from this rank's part:
-        the chunks' squares summed over 'fsdp', the experts' over 'ep',
-        each replicated leaf counted once."""
-        def squares(keys):
-            if not keys:
-                return torch.zeros((), dtype=torch.float32, device=dev)
-            return torch.stack(
-                torch._foreach_norm([grads[k].float() for k in keys])).square().sum()
-
+        each leaf's squares summed over the axes it is cut along ('fsdp'
+        for a chunk, 'ep' for experts, 'tp' for a tp slice), each
+        replicated leaf counted once."""
         m = self.mesh
         dev = next(iter(grads.values())).device
-        parts = {(c, e): squares([k for k in grads
-                                  if (k in self.chunks) == c and (k in self.experts) == e])
-                 for c in (False, True) for e in (False, True)}
-        if self.chunks:  # the chunks' sums over 'fsdp'
-            s = torch.stack([parts[True, False], parts[True, True]])
-            dist.all_reduce(s, group=m.fsdp_group)
-            parts[True, False], parts[True, True] = s.unbind()
-        exp = parts[False, True] + parts[True, True]
-        if self.experts:  # the experts' over 'ep'
-            dist.all_reduce(exp, group=m.group("ep"))
-        return torch.sqrt(parts[False, False] + parts[True, False] + exp)
+        by_axes: dict = {}
+        for k in grads:
+            axes = tuple(a for a, cut in (("fsdp", k in self.chunks), ("ep", k in self.experts),
+                                          ("tp", k in self.tp_cuts)) if cut)
+            by_axes.setdefault(axes, []).append(k)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for axes, keys in by_axes.items():  # the dict's order: the same on every rank
+            part = torch.stack(
+                torch._foreach_norm([grads[k].float() for k in keys])).square().sum()
+            if axes and m.group(*axes) is not None:
+                dist.all_reduce(part, group=m.group(*axes))
+            total = total + part
+        return torch.sqrt(total)
 
     def meta(self, *, local: bool) -> dict:
         """Tensors of the local (chunk) or full shapes on the meta device,
@@ -433,9 +490,9 @@ class ShardLayout:
     # ---- the optimizer state between its local and its full form ----
 
     def _refuse_q8_experts(self) -> None:
-        if self.experts:
+        if self.experts or self.tp_cuts:
             raise NotImplementedError(
-                "8-bit Adam moments of expert leaves split over 'ep' have no one-process "
+                "8-bit Adam moments of leaves split over 'ep' or 'tp' have no one-process "
                 "form yet: ROADMAP.md queue 1, slice 6")
 
     def _q8_sizes(self, k: str) -> tuple[int, int]:
@@ -555,11 +612,12 @@ class DataParallel:
 
 
 class ZeRO3(DataParallel):
-    """The step's reducer under ZeRO-3 and/or expert parallelism: a
-    `ShardLayout` for the student (its EMA too) and one for the critic.
-    The frozen teacher keeps its experts of each expert leaf under 'ep'
-    (as `ep_shardings` puts the teacher's stacks on 'ep') and is otherwise
-    replicated, as the reference's ZeRO-3 leaves frozen models out."""
+    """The step's reducer under ZeRO-3, expert parallelism and/or tensor
+    parallelism: a `ShardLayout` for the student (its EMA too) and one for
+    the critic. The frozen teacher keeps its experts of each expert leaf
+    under 'ep' (as `ep_shardings` puts the teacher's stacks on 'ep') and
+    its slice of each tp leaf under 'tp', and is otherwise replicated, as
+    the reference's ZeRO-3 leaves frozen models out."""
 
     def __init__(self, mesh: Mesh, student: ShardLayout, critic: ShardLayout):
         super().__init__(mesh)
@@ -575,19 +633,12 @@ class ZeRO3(DataParallel):
         return self.layouts[role].full(params)
 
     def teacher(self, params: dict) -> dict:
-        m = self.mesh
-        if m.n_ep == 1:
-            return params
-        return {k: moe.expert_slice(k, v, m.ep_index, m.n_ep) if moe.is_expert_key(k) else v
-                for k, v in params.items()}
+        """The teacher cut as the critic's module layout (its experts under
+        'ep', its tp slices under 'tp'), not chunked."""
+        return self.layouts["critic"].cut_model(params)
 
     def full_teacher(self, params: dict) -> dict:
-        m = self.mesh
-        if m.n_ep == 1:
-            return params
-        return {k: all_gather_flat(v.reshape(-1), m.group("ep")).view(v.shape[0] * m.n_ep,
-                                                                       *v.shape[1:])
-                if moe.is_expert_key(k) else v for k, v in params.items()}
+        return self.layouts["critic"].uncut_model(params)
 
     def reduce(self, role: str, grads: dict) -> dict:
         return self.layouts[role].reduce(grads)

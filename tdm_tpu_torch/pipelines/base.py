@@ -26,6 +26,16 @@ row's image does not depend on N. A repeated device is allowed. A
 mixture-of-experts denoiser is refused (NotImplementedError): its capacity
 drops depend on the whole batch, which the JAX server shards as one global
 batch, and a split here would drop other pairs.
+
+Tensor-parallel serving (`tensor_parallel`, the counterpart of the JAX
+package's `tensor_parallel_mesh`): set to this process's `TPGroup`
+(`parallel/tp.py`), it cuts the denoiser for this rank (its attention and
+feed-forward modules run their share of the heads) and the pristine LoRA
+weights with it, so a later `set_adapters` merges into the whole weight and
+then cuts. On rank 0 every call broadcasts its noise, conditioning and
+settings to the followers (`tp.lead`), which run the sampler in step
+(`tp.follow`); rank 0 decodes. It is mutually exclusive with
+`data_parallel_devices`, with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from tdm_tpu_torch.io import from_jax
 from tdm_tpu_torch.lora import adapter as lora_lib, io as lora_io
 from tdm_tpu_torch.models import moe
 from tdm_tpu_torch.ops import quant as quant_lib
+from tdm_tpu_torch.parallel import tp as tp_lib
 
 
 VALUE_RANGES = ("unit", "pm1")
@@ -88,6 +99,8 @@ class DiffusionPipelineBase:
         self._active: tuple = ()  # ((name, scale), ...)
         self.quant: Optional[str] = None  # None or 'int8': the sampler's products
         self._replicas: list = []  # one pipeline per data_parallel_devices entry
+        self._tp: Optional[tp_lib.TPGroup] = None
+        self._tp_plan: dict = {}  # the denoiser's tp leaves (parallel/tp.plan)
 
     def sampler_scope(self):
         """The scope the sampler runs under: `quant_scope(self.quant)`
@@ -106,6 +119,8 @@ class DiffusionPipelineBase:
 
     @data_parallel_devices.setter
     def data_parallel_devices(self, devices: Optional[Sequence]) -> None:
+        if devices and self._tp is not None:
+            raise ValueError(_EXCLUSIVE)
         if len(devices or ()) > 1 and any(
                 isinstance(m, moe.MoEFeedForward) for m in self.denoiser.modules()):
             raise NotImplementedError(
@@ -121,6 +136,24 @@ class DiffusionPipelineBase:
             else:
                 replicas.append(self._replica(dev))
         self._replicas = replicas
+
+    @property
+    def tensor_parallel(self) -> Optional[tp_lib.TPGroup]:
+        """This process's place on the 'tp' axis of a tensor-parallel world
+        (None: the denoiser runs whole here)."""
+        return self._tp
+
+    @tensor_parallel.setter
+    def tensor_parallel(self, tp: Optional[tp_lib.TPGroup]) -> None:
+        if tp is not None and self._replicas:
+            raise ValueError(_EXCLUSIVE)
+        if self._tp is not None:
+            raise ValueError("the denoiser is already cut for tensor parallelism")
+        if tp is None:
+            return
+        plan = tp_lib.parallelize(self.denoiser, tp)
+        self._base = tp_lib.shard_params_tp(self._base, plan, tp)
+        self._tp, self._tp_plan = tp, plan
 
     def _replica(self, device: torch.device) -> "DiffusionPipelineBase":
         """This pipeline with its denoiser, decoder and schedule copied to
@@ -143,7 +176,11 @@ class DiffusionPipelineBase:
         """The family's `_run(noise, cond, uncond, **kw)` (sampler and
         decode) on these rows, or, with `data_parallel_devices`, on N equal
         chunks of them at once, one per device, concatenated in order.
-        Raises ValueError when N does not divide the batch."""
+        Raises ValueError when N does not divide the batch. Under
+        `tensor_parallel` (rank 0) the rows and settings go to the
+        followers first, which run the sampler in step."""
+        if self._tp is not None and self._tp.n > 1:
+            tp_lib.lead(self._tp, noise, cond, uncond, kw)
         if not self._replicas:
             return self._run(noise, cond, uncond, **kw)
         n, b = len(self._replicas), noise.shape[0]
@@ -219,14 +256,22 @@ class DiffusionPipelineBase:
         model = self.denoiser
         stacks = from_jax.layer_stacks(model.cfg)
         merged = dict(self._base)
+        cut = tp_lib.lora_cutter(self._tp_plan, self._tp) if self._tp_plan else None
         for name, scale in zip(names, scales):
             if scale != 0.0:
-                merged = lora_lib.merge(merged, self._loras[name], scale, stacks)
+                merged = lora_lib.merge(merged, self._loras[name], scale, stacks, cut)
         for pipe in [self, *(r for r in self._replicas if r is not self)]:
             weights = dict(pipe.denoiser.named_parameters())
             for key, value in merged.items():
                 weights[key].copy_(value)
         self._active = tuple(zip(names, scales))
+
+
+_EXCLUSIVE = (
+    "data_parallel_mesh and tensor_parallel_mesh are mutually "
+    "exclusive — a ('data','tp') tensor_parallel_mesh already "
+    "carries the batch axis"
+)
 
 
 @contextlib.contextmanager

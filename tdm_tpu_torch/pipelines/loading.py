@@ -109,19 +109,21 @@ def from_pretrained(
     device: Optional[Union[str, torch.device]] = None,
     revision: Optional[str] = None,
     cache_dir: Optional[str] = None,
+    denoiser_only: bool = False,
     **kwargs,
 ) -> Pipeline:
     """Assemble the pipeline of a tdm_tpu-layout directory, a diffusers
     checkout or a cached `org/name` repo id on `device` (CUDA unless the
     caller passes 'cpu'). For a diffusers checkout `model_config=` overrides
     fields its config does not carry (e.g. {"dtype": "float32"}); other
-    kwargs go to the pipeline."""
+    kwargs go to the pipeline. `denoiser_only` loads neither text encoders
+    nor a VAE (a tensor-parallel follower's pipeline)."""
     dev = resolve_device(device)
     path = hub.resolve_pretrained(path, revision=revision, cache_dir=cache_dir)
     meta_file = os.path.join(path, "pipeline.json")
     if not os.path.exists(meta_file):
         if os.path.exists(os.path.join(path, "model_index.json")):
-            return _from_diffusers(path, dev, **kwargs)
+            return _from_diffusers(path, dev, denoiser_only=denoiser_only, **kwargs)
         raise FileNotFoundError(
             f"{path!r} has neither pipeline.json (tdm_tpu layout) nor "
             "model_index.json (diffusers layout)"
@@ -130,11 +132,14 @@ def from_pretrained(
         meta = json.load(f)
     family = meta["family"]
     _check_family(family)
-    kwargs = {**_load_bundled_text_encoder(path, meta, family, dev, kwargs), **kwargs}
+    if not denoiser_only:
+        kwargs = {**_load_bundled_text_encoder(path, meta, family, dev, kwargs), **kwargs}
+    vae_file = os.path.join(path, "vae_decoder.safetensors")
+    load_vae = os.path.exists(vae_file) and not denoiser_only
     if family == "sd15":
-        return _sd15_from_layout(path, meta, dev, **kwargs)
+        return _sd15_from_layout(path, meta, dev, load_vae, **kwargs)
     if family == "cogvideox":
-        return _cogvideox_from_layout(path, meta, dev, **kwargs)
+        return _cogvideox_from_layout(path, meta, dev, load_vae, **kwargs)
     if family == "sd3":
         cfg = _config(mmdit_sd3.MMDiTConfig, meta.get("model", {}))
         transformer = mmdit_sd3.SD3Transformer2D(cfg, device=dev)
@@ -145,9 +150,8 @@ def from_pretrained(
         vcfg = _config(vae_lib.TAESDConfig, meta.get("vae", {}))
     from_jax.load_from_jax(
         params_io.load_file(os.path.join(path, "transformer.safetensors")), transformer)
-    vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
-    if os.path.exists(vae_file):
+    if load_vae:
         vae = vae_lib.TAESDDecoder(vcfg, device=dev)
         from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     if family == "sd3":
@@ -161,9 +165,10 @@ def from_pretrained(
     )
 
 
-def _sd15_from_layout(path: str, meta: dict, dev: torch.device, **kwargs) -> SD15Pipeline:
+def _sd15_from_layout(path: str, meta: dict, dev: torch.device, load_vae: bool,
+                      **kwargs) -> SD15Pipeline:
     """The sd15 branch of layout 1 (`tdm_tpu/pipelines/loading.py:171-180`):
-    the UNet from transformer.safetensors and, when there is one, the KL
+    the UNet from transformer.safetensors and, with `load_vae`, the KL
     decoder from vae_decoder.safetensors."""
     cfg = _config(unet_sd15.UNetConfig, meta.get("model", {}))
     unet = unet_sd15.UNet2DCondition(cfg, device=dev)
@@ -172,17 +177,17 @@ def _sd15_from_layout(path: str, meta: dict, dev: torch.device, **kwargs) -> SD1
     vcfg = _config(vae_lib.KLVAEConfig, meta.get("vae", {}))
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
-    if os.path.exists(vae_file):
+    if load_vae:
         vae = vae_lib.KLDecoder(vcfg, device=dev)
         from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     return SD15Pipeline(unet, vae_decoder=vae, vae_scaling=vcfg.scaling_factor, device=dev,
                         **kwargs)
 
 
-def _cogvideox_from_layout(path: str, meta: dict, dev: torch.device,
+def _cogvideox_from_layout(path: str, meta: dict, dev: torch.device, load_vae: bool,
                            **kwargs) -> CogVideoXPipeline:
     """The cogvideox branch of layout 1 (`tdm_tpu/pipelines/loading.py:
-    182-191`): the transformer and, when there is one, the 3D VAE's
+    182-191`): the transformer and, with `load_vae`, the 3D VAE's
     decoder."""
     cfg = _config(cog.CogVideoXConfig, meta.get("model", {}))
     transformer = cog.CogVideoXTransformer3D(cfg, device=dev)
@@ -191,7 +196,7 @@ def _cogvideox_from_layout(path: str, meta: dict, dev: torch.device,
     vcfg = _config(vae3d.VAE3DConfig, meta.get("vae", {}))
     vae_file = os.path.join(path, "vae_decoder.safetensors")
     vae = None
-    if os.path.exists(vae_file):
+    if load_vae:
         vae = vae3d.VAE3DDecoder(vcfg, device=dev)
         from_jax.load_from_jax(params_io.load_file(vae_file), vae)
     return CogVideoXPipeline(transformer, vae_decoder=vae, vae_cfg=vcfg, device=dev, **kwargs)
@@ -547,7 +552,7 @@ def _load_diffusers_vae(path: str, dev: torch.device):
 
 
 def _from_diffusers(path: str, dev: torch.device, model_config: Optional[dict] = None,
-                    **kwargs):
+                    denoiser_only: bool = False, **kwargs):
     """A pipeline from a diffusers checkout: config.json → the port's
     config (`model_config` overrides, in pipeline.json's 'model' form),
     the torch safetensors → the strict converters → the modules. The
@@ -560,9 +565,10 @@ def _from_diffusers(path: str, dev: torch.device, model_config: Optional[dict] =
     sub = "unet" if family == "sd15" else "transformer"
     hf = _subconfig(path, sub)
     sd = convert.load_torch_state_dict(os.path.join(path, sub))
-    vae, vae_kw = _load_diffusers_vae(path, dev)
+    vae, vae_kw = (None, {}) if denoiser_only else _load_diffusers_vae(path, dev)
     common = {k: v for k, v in (model_config or {}).items() if k in ("dtype", "attn_impl")}
-    vae_kw.update(_load_diffusers_text_encoders(path, family, common, dev, kwargs))
+    if not denoiser_only:
+        vae_kw.update(_load_diffusers_text_encoders(path, family, common, dev, kwargs))
     vae_kw.update(kwargs)  # explicit kwargs win over derived settings
     if family == "cogvideox":
         cfg = _config(cog.CogVideoXConfig, model_config or {}, _cogvideox_config(hf))

@@ -22,6 +22,12 @@ Port of `tdm_tpu/serve/server.py` (stdlib `http.server`, JSON API):
     python -m tdm_tpu_torch.serve.server --model out/pixart_tdm --dp 4 \
         --batch_size 8   (a replica on each of 4 local GPUs; each batch's
                           rows split 2 per GPU, `pipelines/base.py`)
+    python -m tdm_tpu_torch.serve.server --model out/pixart_tdm --tp 2
+                         (Megatron tensor parallelism over cuda:0 and cuda:1,
+                          `parallel/tp.py`: this process answers HTTP and
+                          starts the follower process itself; with
+                          --device cuda:0 both ranks share that card over
+                          gloo; under torchrun or TDM_* it joins that world)
 
     POST /generate   {"prompt": "...", "seed": 8888, "negative_prompt": "..."}
                      → {"image": <base64 PNG>, "format": "png",
@@ -43,6 +49,7 @@ import base64
 import io
 import json
 import struct
+import sys
 import threading
 import time
 import zlib
@@ -308,8 +315,10 @@ class TDMServer:
         port: int = 8000,
         *,
         request_timeout_s: float = 600.0,
+        tp_world=None,
     ):
         self.batcher = batcher
+        self.tp_world = tp_world  # rank 0's tensor-parallel world (parallel/tp.TPWorld)
         self.httpd = ThreadingHTTPServer((host, port), make_handler(batcher, request_timeout_s))
         self._thread: Optional[threading.Thread] = None
 
@@ -333,6 +342,8 @@ class TDMServer:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
         self.batcher.close()
+        if self.tp_world is not None:
+            self.tp_world.stop()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -386,31 +397,36 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="data-parallel replicas, one per local GPU (cuda:0..N-1; N "
                         "replicas on the CPU under --device cpu): each batch's rows "
                         "split N ways; --batch_size and every bucket must be multiples")
-    # an option of the JAX server whose module is not ported yet
-    p.add_argument("--tp", type=int, default=0, help="not ported yet (ROADMAP slice 6)")
-    return p.parse_args(argv)
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel serving over N processes, one per local GPU "
+                        "(cuda:0..N-1; every rank on the named card under --device "
+                        "cuda:K, or on the CPU under --device cpu)")
+    args = p.parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)  # the followers' command
+    return args
 
 
 def build_server(args: argparse.Namespace) -> TDMServer:
     """Load the pipeline, make the batcher and bind the socket (before the
-    warm-up, so early clients wait in the listen backlog)."""
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp is not ported yet: ROADMAP.md queue 1, slice 6 (multi-GPU)")
+    warm-up, so early clients wait in the listen backlog). Under --tp N this
+    process is rank 0: it starts the followers once its pipeline is loaded
+    (`parallel/tp.launch`), and the server's close stops them."""
     if args.tp and args.dp:
         raise SystemExit("--tp and --dp are mutually exclusive")
     dp_devices = _dp_devices(args) if args.dp and args.dp > 1 else None
-    from tdm_tpu_torch.device import set_fp32_precision
-    from tdm_tpu_torch.pipelines import from_pretrained
+    n_tp = args.tp if args.tp and args.tp > 1 else 1
+    from tdm_tpu_torch.device import resolve_device
+    from tdm_tpu_torch.parallel import tp as tp_lib
     from tdm_tpu_torch.serve.batcher import MicroBatcher
 
-    set_fp32_precision()  # the decoders' fp32 convolutions in full fp32, as in JAX
-    pipe = from_pretrained(args.model, device=args.device)
-    if args.lora:
-        pipe.load_lora_weights(args.lora, adapter_name="tdm")
-        pipe.set_adapters(["tdm"], [args.lora_scale])
-    if args.quant:
-        pipe.quant = args.quant
+    if n_tp > 1:
+        tp_lib.check_devices(n_tp, resolve_device(args.device))
+    pipe = _load(args, args.device)
+    world = None
+    if n_tp > 1:
+        world = tp_lib.launch("tdm_tpu_torch.serve.server", args.argv, n_tp,
+                              resolve_device(args.device))
+        pipe.tensor_parallel = world.tp
     if dp_devices is not None:
         pipe.data_parallel_devices = dp_devices
     call = {"num_inference_steps": args.num_inference_steps,
@@ -437,7 +453,7 @@ def build_server(args: argparse.Namespace) -> TDMServer:
         batch_buckets=buckets,
         readback_dtype=args.readback_dtype,
     )
-    server = TDMServer(batcher, args.host, args.port)
+    server = TDMServer(batcher, args.host, args.port, tp_world=world)
     if args.warmup is not None:
         wp = args.warmup
         if not wp and args.embedding_cache:
@@ -449,6 +465,22 @@ def build_server(args: argparse.Namespace) -> TDMServer:
         print(f"tdm-serve: warmed {len(batcher.batch_buckets)} batch shape(s) "
               f"in {time.monotonic() - t0:.1f}s", flush=True)
     return server
+
+
+def _load(args: argparse.Namespace, device, *, denoiser_only: bool = False):
+    """The served pipeline (a tp follower's: the denoiser alone) with the
+    LoRA merged at its scale and the int8 route set."""
+    from tdm_tpu_torch.device import set_fp32_precision
+    from tdm_tpu_torch.pipelines import from_pretrained
+
+    set_fp32_precision()  # the decoders' fp32 convolutions in full fp32, as in JAX
+    pipe = from_pretrained(args.model, device=device, denoiser_only=denoiser_only)
+    if args.lora:
+        pipe.load_lora_weights(args.lora, adapter_name="tdm")
+        pipe.set_adapters(["tdm"], [args.lora_scale])
+    if args.quant:
+        pipe.quant = args.quant
+    return pipe
 
 
 def _dp_devices(args: argparse.Namespace) -> list:
@@ -481,6 +513,15 @@ def _dp_devices(args: argparse.Namespace) -> list:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.tp and args.tp > 1 and not args.dp:
+        from tdm_tpu_torch.parallel import tp as tp_lib
+
+        if tp_lib.is_follower():  # a rank of a --tp world: no HTTP, rank 0's calls
+            from tdm_tpu_torch.device import resolve_device
+
+            tp_lib.run_follower(args.tp, resolve_device(args.device),
+                                lambda dev: _load(args, dev, denoiser_only=True))
+            return
     server = build_server(args)
     print(f"tdm-serve: {type(server.batcher.pipe).__name__} on "
           f"{server.batcher.device} at http://{args.host}:{server.port} "

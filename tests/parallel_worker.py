@@ -11,6 +11,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,22 +89,26 @@ def job_step(args: dict) -> None:
     from tdm_tpu_torch.parallel import mesh as pmesh
     from tdm_tpu_torch.train import families, optim as topt, tdm
 
+    from tdm_tpu_torch.parallel import tp as tp_lib
+
     _lower_gates(args)
     inp = torch.load(args["inputs"], weights_only=False)
     assert pmesh.maybe_initialize_distributed("cpu")
-    ep = args.get("ep", 1)
-    mesh = pmesh.make_mesh(pmesh.world_size() // (args["fsdp"] * ep), args["fsdp"], ep)
+    ep, tp = args.get("ep", 1), args.get("tp", 1)
+    mesh = pmesh.make_mesh(pmesh.world_size() // (args["fsdp"] * ep * tp), args["fsdp"], ep, tp)
     full = inp["state"]
-    if args["fsdp"] > 1 or ep > 1:
-        sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, full.student),
-                           pmesh.ShardLayout(mesh, full.critic))
+    bundle = families.build("pixart", tiny=True, moe_experts=args.get("moe", 0), device="cpu")
+    plan = tp_lib.parallelize(bundle.model, mesh.tp) if tp > 1 else {}
+    if args["fsdp"] > 1 or ep > 1 or tp > 1:
+        sync = pmesh.ZeRO3(mesh, pmesh.ShardLayout(mesh, full.student, plan),
+                           pmesh.ShardLayout(mesh, full.critic, plan))
         assert sync.layouts["critic"].chunks or args["fsdp"] == 1, "no leaf is sharded"
+        assert bool(sync.layouts["critic"].tp_cuts) == (tp > 1)
     else:
         sync = pmesh.DataParallel(mesh)
     tx_s, tx_c = (topt.make_optimizer(inp["lr"], eps=inp["eps"],
                                       norm_fn=functools.partial(sync.norm, role))
                   for role in ("student", "critic"))
-    bundle = families.build("pixart", tiny=True, moe_experts=args.get("moe", 0), device="cpu")
     step = tdm.build_train_step(bundle.denoise_fn, sync.teacher(inp["teacher"]), bundle.schedule,
                                 tdm.TDMConfig(**inp["config"]), tx_s, tx_c,
                                 sample_shape=bundle.sample_shape, sync=sync)
@@ -116,6 +121,15 @@ def job_step(args: dict) -> None:
     new, metrics = step(state, draws, cond, uncond)
     torch.save({role: getattr(new, role) for role in ("student", "critic", "ema")},
                f"{args['out']}.{mesh.rank}")
+    if tp > 1:  # the leaves that 'tp' does not cut: equal bit for bit on every rank
+        for role in ("student", "critic"):
+            rep = {k: v for k, v in getattr(new, role).items()
+                   if k not in sync.layouts[role].tp_cuts}
+            sums = torch.stack([torch.stack([v.double().sum(), v.double().square().sum()])
+                                for v in rep.values()])
+            others = [torch.empty_like(sums) for _ in range(mesh.world)]
+            torch.distributed.all_gather(others, sums)
+            assert all(torch.equal(o, sums) for o in others), role
     new = sync.gather_state(new)
     if mesh.rank == 0:
         torch.save({"state": new, "metrics": {k: float(v) for k, v in metrics._asdict().items()}},
@@ -191,7 +205,155 @@ def job_collectives(args: dict) -> None:
     print("collectives ok", me, flush=True)
 
 
+def job_tp(args: dict) -> None:
+    """The checks of a 2-rank 'tp' world (`--tp 2`), in one launch, each
+    against the inputs and references the test saved in args['inputs']:
+
+    * each family's tiny denoiser cut for this rank (`tp.parallelize`): the
+      forward and every parameter's gradient of mean(out²) (the tp slices
+      gathered) against the JAX unsharded model's, at JAX's tp tolerances;
+    * the int8 forward under 'tp' (gates lowered) against the one-process
+      int8 forward of the same weights, with the same rerouted calls;
+    * a LoRA student's merge cut per rank (`tp.lora_cutter`): the loss and
+      the factors' gradients against the one-process merge's;
+    * ShardLayout under 'tp': shard, gather, reduce and norm against the
+      unsharded arithmetic."""
+    from torch.func import functional_call
+
+    from tdm_tpu_torch import lora as lora_lib
+    from tdm_tpu_torch.io import from_jax
+    from tdm_tpu_torch.ops import quant
+    from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
+    from tdm_tpu_torch.train import families, optim as topt
+
+    inp = torch.load(args["inputs"], weights_only=False)
+    assert pmesh.maybe_initialize_distributed("cpu")
+    mesh = pmesh.make_mesh(1, 1, 1, 2)
+    tp = mesh.tp
+    assert tp.n == 2 and tp.index == mesh.rank
+
+    def grads_of(model, params, inputs):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        out = functional_call(model, params, inputs)
+        loss = out.square().mean()
+        return out.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+    for fam, case in inp["families"].items():
+        model = families.build(fam, tiny=True, device="cpu").model
+        model.load_state_dict(case["params"])
+        plan = tp_lib.parallelize(model, tp)
+        assert plan, fam
+        local = tp_lib.shard_params_tp(case["params"], plan, tp)
+        assert all(local[k].shape == p.shape for k, p in model.named_parameters()), fam
+        tp_lib.reset_counts()
+        out, grads = grads_of(model, local, case["inputs"])
+        assert tp_lib.reduce_from_tp.calls > 0 and tp_lib.copy_to_tp.calls > 0, fam
+        np.testing.assert_allclose(out.numpy(), case["out"], atol=2e-5, err_msg=fam)
+        whole = {k: tp_lib.gather_leaf(g, plan[k], tp) if k in plan else g
+                 for k, g in grads.items()}
+        assert set(whole) == set(case["grads"]), fam
+        for k, ref in case["grads"].items():
+            assert whole[k].shape == ref.shape, (fam, k)
+            np.testing.assert_allclose(whole[k].numpy(), ref.numpy(), atol=3e-5,
+                                       err_msg=f"{fam} {k}")
+        print(f"{fam} ok {mesh.rank}: {len(plan)} leaves cut", flush=True)
+
+    # int8 under tp: the same scales and codes, so the one-process result
+    pix = inp["families"]["pixart"]
+    quant.MIN_TOKENS, quant.MIN_DIM, quant.WIDE_DIM = 1, 1, 1
+    calls = {"one": [], "tp": []}
+    real = quant.int8_dot
+    results = {}
+    for mode in ("one", "tp"):
+        model = families.build("pixart", tiny=True, device="cpu").model
+        model.load_state_dict(pix["params"])
+        if mode == "tp":
+            tp_lib.parallelize(model, tp)
+
+        def counted(x, w, tp_group=None, _mode=mode):
+            calls[_mode].append(tuple(x.shape[-1:]) + (tp_group is not None,))
+            return real(x, w, tp_group)
+
+        quant.int8_dot = counted
+        try:
+            with torch.no_grad(), quant.quantize_int8():
+                results[mode] = model(*pix["inputs"])
+        finally:
+            quant.int8_dot = real
+    assert len(calls["one"]) == len(calls["tp"]) > 0
+    assert sum(c[-1] for c in calls["tp"]) > 0  # row-parallel calls reduce over 'tp'
+    np.testing.assert_allclose(results["tp"].numpy(), results["one"].numpy(), atol=1e-4,
+                               rtol=1e-4)
+    print(f"int8 ok {mesh.rank}: {len(calls['tp'])} rerouted calls, max |diff| "
+          f"{float((results['tp'] - results['one']).abs().max())}", flush=True)
+
+    # a LoRA student under tp: merged whole, then cut
+    model = families.build("pixart", tiny=True, device="cpu").model
+    model.load_state_dict(pix["params"])
+    template = lora_lib.init_lora(model, 4, generator=torch.Generator().manual_seed(3))
+    factors = {k: v + 0.05 * torch.randn(v.shape, generator=torch.Generator().manual_seed(i))
+               for i, (k, v) in enumerate(lora_lib.factors(template).items())}
+    stacks = from_jax.layer_stacks(model.cfg)
+
+    def lora_loss(m, base, cut):
+        fn = lora_lib.wrap_denoise_fn(
+            lambda p, x, t, cond: functional_call(m, p, (x, t, *cond)), template,
+            stacks=stacks, cut=cut)
+        f = {k: v.clone().requires_grad_(True) for k, v in factors.items()}
+        x, t, *cond = pix["inputs"]
+        loss = fn(f, x, t, tuple(cond), base).square().mean()
+        return loss.detach(), dict(zip(f, torch.autograd.grad(loss, list(f.values()))))
+
+    ref_loss, ref_g = lora_loss(model, pix["params"], None)
+    plan = tp_lib.parallelize(model, tp)
+    loss, g = lora_loss(model, tp_lib.shard_params_tp(pix["params"], plan, tp),
+                        tp_lib.lora_cutter(plan, tp))
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    for k in ref_g:
+        np.testing.assert_allclose(g[k].numpy(), ref_g[k].numpy(), atol=3e-5, err_msg=k)
+    print(f"lora ok {mesh.rank}", flush=True)
+
+    # ShardLayout under tp against the unsharded arithmetic
+    params = {k: v.clone() for k, v in pix["params"].items()}
+    layout = pmesh.ShardLayout(mesh, params, plan)
+    assert set(layout.tp_cuts) == set(plan)
+    local = layout.shard(params)
+    assert all(torch.equal(a, b) for a, b in zip(layout.full(local).values(), params.values()))
+    gen = torch.Generator().manual_seed(11)
+    g_full = {k: torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    mine = layout.shard(g_full)
+    mine = {k: v * (1 + tp.index) if k not in plan else v for k, v in mine.items()}
+    red = layout.reduce(mine)
+    want = layout.shard(g_full)
+    for k, v in red.items():
+        scale = 1.5 if k not in plan else 1.0  # replicated leaves: the mean of the ranks'
+        torch.testing.assert_close(v, want[k] * scale, rtol=1e-6, atol=1e-7)
+    norm = layout.global_norm(layout.shard(g_full))
+    torch.testing.assert_close(norm, topt.global_norm(g_full), rtol=1e-6, atol=0)
+    print(f"layout ok {mesh.rank}", flush=True)
+
+
+def job_cli_runs(args: dict) -> None:
+    """The training CLI's main() once per argv of args['argvs'], in one
+    world formed here (main() leaves a world it did not form standing)."""
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    _lower_gates(args)
+    assert pmesh.maybe_initialize_distributed("cpu")
+    from tdm_tpu_torch.cli import train_tdm
+
+    for argv in args["argvs"]:
+        train_tdm.main(argv)
+        pmesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    {"cli": job_cli, "step": job_step, "collectives": job_collectives}[sys.argv[1]](
-        json.loads(sys.argv[2]))
+    try:
+        {"cli": job_cli, "step": job_step, "collectives": job_collectives, "tp": job_tp,
+         "cli_runs": job_cli_runs}[sys.argv[1]](json.loads(sys.argv[2]))
+    finally:
+        # a group left standing at exit can abort the process in gloo's teardown
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

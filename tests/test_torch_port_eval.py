@@ -450,8 +450,11 @@ def test_generate_errors_match_jax_cli(pixart_dir, cache_path, tmp_path, case):
     with pytest.raises(SystemExit) as terr:
         tgenerate.main([*args, "--device", "cpu"])
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # --tp is ported: the conditioning's checks come before the world forms
+    # (no follower process starts), with the same message
+    with pytest.raises(SystemExit) as tperr:
         tgenerate.main([*args, "--device", "cpu", "--tp", "2"])
+    assert str(tperr.value) == str(jerr.value)
 
 
 def _read_gif(path):

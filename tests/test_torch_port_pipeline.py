@@ -325,7 +325,9 @@ def test_server_status_endpoints_and_errors(server):
 
 
 @pytest.mark.parametrize("flag,value,where", [
-    ("--tp", "2", "slice 6"),
+    # its id kept from before --tp was ported (tests/test_torch_port_tp.py):
+    # the check passes and no follower starts before the model loads
+    pytest.param("--tp", "2", None, id="--tp-2-slice 6"),
     # its id kept from before --dp was ported (tests/test_torch_port_parallel_serve.py):
     # two CPU replicas pass the check
     pytest.param("--dp", "2", None, id="--dp-2-slice 6"),
@@ -335,10 +337,10 @@ def test_server_status_endpoints_and_errors(server):
 ])
 def test_server_refuses_unported_options(flag, value, where):
     """The options still unported raise naming their slice; --lora,
-    --quant and --dp are ported (served in tests/test_torch_port_sd3.py,
-    tests/test_torch_port_quant.py and tests/test_torch_port_parallel_serve.py),
-    so they pass the check and the missing model (neither a directory nor a
-    hub repo id) is what fails."""
+    --quant, --dp and --tp are ported (served in tests/test_torch_port_sd3.py,
+    tests/test_torch_port_quant.py, tests/test_torch_port_parallel_serve.py
+    and tests/test_torch_port_tp.py), so they pass the check and the missing
+    model (neither a directory nor a hub repo id) is what fails."""
     args = tserver.parse_args(["--model", "unused", "--device", "cpu", flag, value])
     if where is None:
         with pytest.raises(FileNotFoundError, match="neither an existing path"):

@@ -541,7 +541,9 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,where", [
-    (["--tp", "2"], "slice 6"),
+    # its id kept from before --tp was ported (tests/test_torch_port_tp.py):
+    # in a world of one process --tp 2 raises the JAX CLI's ValueError
+    pytest.param(["--tp", "2"], "does not divide 1 devices", id="flags0-slice 6"),
     # its id kept from before --fsdp was ported (tests/test_torch_port_parallel.py):
     # in a world of one process --fsdp 2 raises the JAX CLI's ValueError
     pytest.param(["--fsdp", "2"], "does not divide 1 devices", id="flags1-slice 6"),
@@ -549,8 +551,8 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     # the ids of these two cases are kept stable; --quant_forwards is
     # ported, and with a multi-GPU flag the refusal names slice 6
     pytest.param(["--quant_forwards", "--sp", "2"], "slice 6", id="flags4-slice 4"),
-    pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"], "slice 6",
-                 id="flags5-slice 4"),
+    pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"],
+                 "does not divide 1 devices", id="flags5-slice 4"),
     # its id kept from before --moe_experts and --ep were ported
     # (tests/test_torch_port_moe.py): --ep without experts raises the JAX
     # CLI's ValueError
