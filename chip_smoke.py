@@ -76,8 +76,25 @@ Phases, one line each, and any failure exits non-zero:
      all-reduces, seconds, peaks); the same step in fp32 within
      TP_FP32_TOL of the one-process fp32 step, and its control (rank 1's
      f backward all-reduce dropped) beyond it; `train_tdm.main --tp 2
-     --device cuda:0` for one step at 28 blocks (launches, all-reduces,
-     the student written whole by rank 0 alone); the `--tp 2` server of
+     --device cuda:0` for one step at RANK_LAYERS blocks, seeded (launches, all-reduces,
+     the student written whole by rank 0 alone); then the --sp 2 checks
+     (`sp_rank_checks`, the ('data', 'sp') = (1, 2) mesh): the
+     CogVideoX pipeline with `sequence_parallel_mesh` (CogVideoX-2B at 30
+     blocks, seeded, 61 frames at 480x720: 16 latent frames, 10,800 video
+     rows a rank; batch 1, 4 NFE, latents) against the one-process
+     pipeline (relative L2 ≤ SP_SERVE_TOL), the sp dmd step at RANK_LAYERS
+     blocks with remat against the one-process step (the summed gradients
+     within SP_GRAD_TOL, the losses within DP_GRAD_TOL, the weights bit for
+     bit across ranks, the update reported), its fp32 witness (TF32 off, 2
+     blocks, 4 latent frames) within SP_FP32_TOL and its control (rank 1
+     keeps its own dK/dV on each backward's return hop) beyond it, and
+     `train_tdm.main --sp 2 --model_family cogvideox --num_frames 61` with
+     the recipe's flags (LoRA 64, 8-bit Adam, --gradient_checkpointing) for
+     one step at SP_MAIN_LAYERS blocks; each with kernels 1–3's launches
+     (the lse forward (n+1)x every attention call, dQ and dK/dV (n+1)x every
+     backward call, no forward without lse: checked), the permutes by
+     direction (checked) and their bytes, seconds and peak memory a rank
+     (the parent computes the references meanwhile); then the `--tp 2` server of
      the 28-block checkout (rank 0 by `build_server`, rank 1 by
      `serve.server.main`, the follower's path) against the one-process
      pipeline (relative L2 ≤ TP_SERVE_TOL), a served row with another
@@ -214,11 +231,18 @@ Phases, one line each, and any failure exits non-zero:
      step (checked, and by template arguments in the profiled step), and
      the rank-64 kohya LoRA loaded back into the checkout's pipeline, one
      4-NFE latent with it and one without.
-Phase `probe` (after reference): the TDM distill probe
+Phase 3 also holds the ring (`ops/ring_attention.py`, `phase_kernels_ring`)
+in a world of one: against the plain ring at a mid shape with an
+all-masked batch row (exact zeros, lse +1e30), and at the full hop shape of
+--sp 2 at 61 frames against one monolithic kernel 1/2/3 call; each hop shape
+timed in turns with SDPA, and SDPA over one rank's whole call.
+Phase `probe`: the TDM distill probe
 (`eval/distill_probe.run_probe`) at the JAX defaults on the card (700
 decoder steps, 3000 DSM steps, 500 TDM steps, n_eval 256): its gap
 closure, errors and losses, each stage's seconds, and the five bars of
-tests/test_tdm_image_e2e.py, checked (PROBE_BARS).
+tests/test_tdm_image_e2e.py, checked (PROBE_BARS). With the train phase it
+runs in this process while that phase's two rank processes run (its
+seconds then share the card and the host with them); else after reference.
 Each phase prints `[timing] <phase> <seconds>`. Phase 3 also holds kernel 1
 and kernel 4 at CogVideoX-2B's [1,30,17776,17776,64] and
 [2,30,17776,17776,64] (no mask) against the plain version computed head by
@@ -3676,7 +3700,8 @@ def kohya_pieces(torch, path: str, rank: int) -> int:
     return len(downs)
 
 
-def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict:
+def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False,
+                meanwhile=None) -> dict:
     """Full-width PixArt-α-512 TDM training through the CLI's main() at the
     JAX CLI's default flags but --export_lora_rank 0 (the rank-32 SVD export,
     ~22 s here, is held and timed in train_sd15), the teacher read from the
@@ -3692,7 +3717,8 @@ def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict
     one-process reference (`dp_reference`) and the collectives over its
     gradients (`nccl_collectives_check`); the --quant_forwards run; and the
     two data-parallel ranks (`dp_ranks`), which with `moe_ranks` then take
-    the --ep 2 step against `moe_ep_reference`'s."""
+    the --ep 2 step against `moe_ep_reference`'s; `meanwhile` runs in this
+    process while they do (`dp_ranks`)."""
     from tdm_tpu_torch.cli import train_tdm
     from tdm_tpu_torch.ops import attention as A
 
@@ -3766,7 +3792,7 @@ def phase_train(torch, seed: int, workdir: str, moe_ranks: bool = False) -> dict
     if moe_ranks:
         moe_path = os.path.join(workdir, "moe_ep_reference.pt")
         moe_ref = {**moe_ep_reference(torch, seed, moe_path), "path": moe_path}
-    dp = dp_ranks(torch, seed, workdir, teacher_dir, ref_path, reference, moe_ref)
+    dp = dp_ranks(torch, seed, workdir, teacher_dir, ref_path, reference, moe_ref, meanwhile)
     busy = steps[-1]["busy_ms"]
     span = steps[1]["event_ms"]
     idle = None if not busy else 1 - busy / span
@@ -4701,6 +4727,219 @@ def phase_kernels_train_cogvideox(torch, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {"kernels": recs, "dq_plus_dkv_ms": pair, "sdpa_bwd_ms": turns["sdpa_bwd"]["median"],
             "plain_s": plain_s}
+
+
+# CogVideoX-2B under --sp 2 at 61 frames, 480×720: 16 latent frames, 21,600
+# video tokens, 10,800 a rank; a rank's 226 + 10,800 query rows attend, per
+# attention call, the 226-row T5 prefix and the two 10,800-row shards (its
+# own and the other rank's): n + 1 = 3 hops of each kernel
+SP_N, SP_FRAMES = 2, 61
+SP_LAT_F = 1 + (SP_FRAMES - 1) // 4
+SP_SHARD = SP_LAT_F * 30 * 45 // SP_N
+SP_Q = COG_TXT + SP_SHARD
+SP_HOPS = SP_N + 1
+SP_MID = 2048  # the shard rows of the mid shape held against the plain ring
+
+
+def ring_launches(mono: dict) -> dict:
+    """A step's or a batch's launches under the ring at SP_N from the
+    monolithic ones: every attention call (with or without grad) takes
+    kernel 1 with its lse once per hop, every backward call kernels 2 and
+    3 once per hop, and nothing takes the forward without lse."""
+    calls = mono["flash_attention_fwd"] + mono["flash_attention_fwd_lse"]
+    return {"flash_attention_fwd": 0, "flash_attention_fwd_lse": SP_HOPS * calls,
+            "flash_attention_bwd_dq": SP_HOPS * mono["flash_attention_bwd_dq"],
+            "flash_attention_bwd_dkv": SP_HOPS * mono["flash_attention_bwd_dkv"],
+            "splash_attention_fwd": 0}
+
+
+def _ring_grads(torch, ring, ops, group, q, k, v, k_p, v_p, g, mask=None, prefix_mask=None):
+    """(out, lse, dq, dk, dv, dk_p, dv_p) of the ring over `ops` (the
+    kernels or the plain versions) in a world of one."""
+    from tdm_tpu_torch.ops import attention as A
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, k_p, v_p)]
+    bias = None if mask is None else A.key_bias(mask)
+    bias_p = None if prefix_mask is None else A.key_bias(prefix_mask)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out = ring.RingFlashAttention.apply(*leaves, bias, bias_p, group, scale, ops)
+    grads = torch.autograd.grad(out, leaves, g)
+    qs = (q.float() * scale).to(q.dtype)
+    with torch.no_grad():
+        _, lse = ring.ring_forward(ops, qs, k, v, bias, k_p, v_p, bias_p, group)
+    return (out.detach(), lse, *grads)
+
+
+def phase_kernels_ring(torch, seed: int) -> dict:
+    """The ring (`ops/ring_attention.py`, no kernel of its own) in a world
+    of one: with the prefix that is two hops, the prefix's and the local
+    shard's, so the lse merge and the merged-lse backward run with no
+    permute. Held (1) against the plain ring (the plain versions called on
+    the card) at a mid shape, q [2, 30, 226 + SP_MID, 64] over a SP_MID-row
+    shard and the 226-row prefix, batch row 1's keys and prefix all masked
+    (its output and gradients exactly 0), and (2) at the full hop shape of
+    --sp 2 at 61 frames, q [1, 30, 11026, 64] over the 226-row prefix and a
+    10,800-row shard, against one monolithic kernel 1/2/3 call over the
+    concatenated 11,026 keys: the output and dQ/dK/dV (compare()), the lse
+    (LSE_TOL). Then each hop shape of a rank's ring call, the prefix hop
+    [1, 30, 11026, 226, 64] and the shard hop [1, 30, 11026, 10800, 64],
+    timed in turns with SDPA at that shape (forward on inputs that require
+    grad, and its backward alone) for kernels 1 (lse), 2 and 3, with each
+    hop's plain time (head by head, once) and bound; and SDPA over one
+    rank's whole call, [1, 30, 11026, 21826, 64] (the prefix and both
+    shards: the function of a ring call), beside the call's kernel times
+    (the prefix hop plus SP_N shard hops)."""
+    import torch.nn.functional as F
+
+    from tdm_tpu_torch.ops import attention as A, ring_attention as ring
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    dev, bf = "cuda", torch.bfloat16
+    h, d = COG_H, COG_D
+    one = pmesh.AxisGroup(1, 0, None, (0,))
+    before = A.launch_counts()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    # (1) the mid shape, kernels against the plain ring
+    sq = COG_TXT + SP_MID
+    q, g = rnd(2, h, sq, d), rnd(2, h, sq, d)
+    k, v = rnd(2, h, SP_MID, d), rnd(2, h, SP_MID, d)
+    k_p, v_p = rnd(2, h, COG_TXT, d), rnd(2, h, COG_TXT, d)
+    mask = torch.ones(2, SP_MID, dtype=torch.int32, device=dev)
+    mask[1] = 0
+    pmask = torch.ones(2, COG_TXT, dtype=torch.int32, device=dev)
+    pmask[1] = 0
+    got = _ring_grads(torch, ring, ring.KERNELS, one, q, k, v, k_p, v_p, g, mask, pmask)
+    want = _ring_grads(torch, ring, ring.PLAIN, one, q, k, v, k_p, v_p, g, mask, pmask)
+    names = ("out", "lse", "dq", "dk", "dv", "dk_p", "dv_p")
+    mid_err = 0.0
+    for name, a, b in zip(names, got, want):
+        check(bool(torch.isfinite(a[0]).all()), f"ring mid {name}: non-finite")
+        if name == "lse":
+            err, bad = compare_lse(torch, a, b)
+            check(bool((a[1] == 1e30).all()), "ring mid: the all-masked row's lse is not +1e30")
+        else:
+            err, _, bad = compare(torch, a, b)
+            check(bool((a[1] == 0).all()), f"ring mid {name}: the all-masked row is not 0")
+        print(f"[kernels] ring mid [2,{h},{sq},{COG_TXT}+{SP_MID},{d}] bf16 {name}: kernels "
+              f"against the plain ring max_abs_err {err:.3e} (row 1 all masked: exactly "
+              f"{'+1e30' if name == 'lse' else '0'}, checked)", flush=True)
+        check(bad is None, f"ring mid {name}: {bad}")
+        mid_err = max(mid_err, err)
+    del q, g, k, v, k_p, v_p, got, want
+    # (2) the full hop shape against one monolithic call
+    q, g = rnd(1, h, SP_Q, d), rnd(1, h, SP_Q, d)
+    k, v = rnd(1, h, SP_SHARD, d), rnd(1, h, SP_SHARD, d)
+    k_p, v_p = rnd(1, h, COG_TXT, d), rnd(1, h, COG_TXT, d)
+    got = _ring_grads(torch, ring, ring.KERNELS, one, q, k, v, k_p, v_p, g)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, k_p, v_p)]
+    kk, vv = torch.cat([leaves[3], leaves[1]], 2), torch.cat([leaves[4], leaves[2]], 2)
+    mono = A.FlashAttention.apply(leaves[0], kk, vv, None, 1.0 / d ** 0.5)
+    dq, dk, dv, dk_p, dv_p = torch.autograd.grad(mono, leaves, g)
+    qs = (q.float() / d ** 0.5).to(bf)
+    _, lse = A.flash_attention_fwd_lse(qs, kk.detach(), vv.detach(), None)
+    want = (mono.detach(), lse, dq, dk, dv, dk_p, dv_p)
+    full_err = {}
+    for name, a, b in zip(names, got, want):
+        check(bool(torch.isfinite(a).all()), f"ring full {name}: non-finite")
+        if name == "lse":
+            err, bad = compare_lse(torch, a, b)
+        else:
+            err, _, bad = compare(torch, a, b)
+        full_err[name] = err
+        print(f"[kernels] ring hop shape [1,{h},{SP_Q},{COG_TXT}+{SP_SHARD},{d}] bf16 {name}: "
+              f"the ring's 2 hops against one monolithic kernel call over the {SP_Q} keys "
+              f"max_abs_err {err:.3e}", flush=True)
+        check(bad is None, f"ring full {name}: {bad}")
+    del got, want, leaves, kk, vv, mono, dq, dk, dv, dk_p, dv_p, lse
+    torch.cuda.empty_cache()
+    for w in A.WRAPPERS:  # comparison launches do not count
+        w.launches = before[w.__name__]
+    # (3) the hop shapes timed in turns with SDPA
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd, _ = A._entry("tdm_flash_fwd")
+    fdq, _ = A._entry("tdm_flash_bwd_dq")
+    fdkv, _ = A._entry("tdm_flash_bwd_dkv")
+    scale = 1.0 / d ** 0.5
+    hops, b = {}, 1
+    for hop, kk, vv in (("prefix", k_p, v_p), ("shard", k, v)):
+        sk = kk.shape[2]
+        out, lse_h = A.flash_attention_fwd_lse(qs, kk, vv, None)
+        dq, delta = A.flash_attention_bwd_dq(qs, kk, vv, None, g, out, lse_h, scale)
+        dk, dv = A.flash_attention_bwd_dkv(qs, kk, vv, None, g, lse_h, delta)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, kk, vv))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+        turns = time_turns(torch, {
+            "fwd_lse": lambda: fwd(qs.data_ptr(), kk.data_ptr(), vv.data_ptr(), None,
+                                   out.data_ptr(), lse_h.data_ptr(), b, h, SP_Q, sk, d, 1,
+                                   stream),
+            "dq": lambda: fdq(qs.data_ptr(), kk.data_ptr(), vv.data_ptr(), None, g.data_ptr(),
+                              out.data_ptr(), lse_h.data_ptr(), delta.data_ptr(),
+                              dq.data_ptr(), b, h, SP_Q, sk, d, scale, 1, stream),
+            "dkv": lambda: fdkv(qs.data_ptr(), kk.data_ptr(), vv.data_ptr(), None,
+                                g.data_ptr(), lse_h.data_ptr(), delta.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), b, h, SP_Q, sk, d, 1, stream),
+            "sdpa_fwd": lambda: F.scaled_dot_product_attention(qg, kg, vg),
+            "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), g,
+                                                    retain_graph=True)}, iters=10)
+        plain = {}
+        for name, fn in (
+                ("fwd_lse", lambda i: A.plain_attention_lse(qs[:, i], kk[:, i], vv[:, i], None)),
+                ("dq", lambda i: A.plain_attention_bwd_dq(qs[:, i], kk[:, i], vv[:, i], None,
+                                                          g[:, i], out[:, i], lse_h[:, i],
+                                                          scale)),
+                ("dkv", lambda i: A.plain_attention_bwd_dkv(qs[:, i], kk[:, i], vv[:, i], None,
+                                                            g[:, i], lse_h[:, i],
+                                                            delta[:, i]))):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for hh in range(h):
+                fn(slice(hh, hh + 1))
+            torch.cuda.synchronize()
+            plain[name] = (time.monotonic() - t0) * 1e3
+        rec = {"dims": [b, h, SP_Q, sk, d], "sdpa_fwd_ms": turns["sdpa_fwd"]["median"],
+               "sdpa_bwd_ms": turns["sdpa_bwd"]["median"]}
+        for name in ("fwd_lse", "dq", "dkv"):
+            nbytes, ops = attention_bwd_work(name, b, h, SP_Q, sk, d, 2, sk, bias=False)
+            bound, by = bound_ms(nbytes, ops)
+            ms = turns[name]["median"]
+            rec[name] = {"ms": ms, "ms_range": [turns[name]["min"], turns[name]["max"]],
+                         "plain_ms": plain[name], "bound_ms": bound, "bound_by": by,
+                         "bytes": nbytes, "ops": ops}
+            lib = "sdpa_fwd" if name == "fwd_lse" else "sdpa_bwd"
+            print(f"[kernels] ring {hop} hop [{b},{h},{SP_Q},{sk},{d}] {name} in turns: "
+                  f"{spread(turns[name])} ({ms / bound:.2f}x bound, {ops / ms / 1e9:.0f} "
+                  f"TFLOP/s) | {lib} {spread(turns[lib])} | plain_ms {plain[name]:.1f} (head "
+                  f"by head, once) | bound_ms {bound:.4f} ({by})", flush=True)
+        hops[hop] = rec
+        del out, lse_h, dq, delta, dk, dv, qg, kg, vg, sdpa_out
+        torch.cuda.empty_cache()
+    # one rank's whole ring call: SDPA over the prefix and both shards
+    k_all = torch.cat([k_p, k, k], 2)
+    v_all = torch.cat([v_p, v, v], 2)
+    call = time_turns(torch, {"sdpa_call": lambda: F.scaled_dot_product_attention(
+        q, k_all, v_all)}, iters=10)["sdpa_call"]
+    del q, g, k, v, k_p, v_p, k_all, v_all, qs
+    torch.cuda.empty_cache()
+    sk_all = COG_TXT + SP_N * SP_SHARD
+    calls = {}
+    for name in ("fwd_lse", "dq", "dkv"):
+        ms = hops["prefix"][name]["ms"] + SP_N * hops["shard"][name]["ms"]
+        plain_ms = hops["prefix"][name]["plain_ms"] + SP_N * hops["shard"][name]["plain_ms"]
+        nbytes, ops = attention_bwd_work(name, 1, h, SP_Q, sk_all, d, 2, sk_all, bias=False)
+        bound, by = bound_ms(nbytes, ops)
+        calls[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        sdpa = (f"; SDPA over the whole call {spread(call)} ({ms / call['median']:.2f}x)"
+                if name == "fwd_lse" else "")
+        print(f"[kernels] ring call of one rank at --sp {SP_N}, q [1,{h},{SP_Q},{d}] over "
+              f"{sk_all} keys ({SP_HOPS} hops): {name} {ms:.4f} ms ({ms / bound:.2f}x bound "
+              f"{bound:.4f} ms, {by}){sdpa}", flush=True)
+    return {"mid_max_abs_err": mid_err, "full_max_abs_err": full_err, "hops": hops,
+            "call": calls, "sdpa_call_ms": call["median"],
+            "sdpa_call_ms_range": [call["min"], call["max"]]}
 
 
 def tiny_cogvideox_pair(torch, seed: int, use_rotary: bool):
@@ -6243,7 +6482,7 @@ DP_LR = 2e-5
 # the 2-rank step's reduced gradients against the one-process step at batch 2:
 # relative L2, bf16 GEMMs at M of one row against two
 DP_GRAD_TOL = 2e-2
-DP_RANK_TIMEOUT_S = 480
+DP_RANK_TIMEOUT_S = 900
 
 
 def dp_serving_check(torch, pipe, cond, noise) -> dict:
@@ -6630,6 +6869,10 @@ def dp_rank_main(rank: int, spec: dict) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pmesh.barrier()
+    out["sp"] = sp_rank_checks(torch, rank, spec)  # the --sp 2 checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    pmesh.barrier()
     out["tp_serve"] = tp_serve_rank(torch, rank, spec)  # its close ends the world
     with open(spec["out"] % rank, "w") as f:
         json.dump(out, f)
@@ -6639,7 +6882,7 @@ def dp_rank_main(rank: int, spec: dict) -> int:
 
 
 def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
-             reference: dict, moe_ref: dict | None = None) -> dict:
+             reference: dict, moe_ref: dict | None = None, meanwhile=None) -> dict:
     """Two gloo ranks on cuda:0 (`dp_rank_main`), started together, each
     with a time limit, killed if either fails: their new student and critic
     equal bit for bit (checked); the reduced gradients within DP_GRAD_TOL
@@ -6652,7 +6895,9 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
     reduced gradients (each rank's experts) and rank 0's gathered update
     within DP_GRAD_TOL of the one-process step, the losses too, kernels
     1–3's launches per rank (checked); each rank's
-    step seconds and peak memory."""
+    step seconds and peak memory. `meanwhile()`, when given, runs in this
+    process after its references, while the ranks run (its result under
+    'meanwhile')."""
     gc.collect()
     torch.cuda.empty_cache()  # the card's memory to the two ranks
     print(f"[train] this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
@@ -6664,7 +6909,10 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
             "serve_model": cache_served_view(os.path.dirname(teacher_dir)),
             "serve_cache": pixart_cache(workdir, seed)[0],
             "serve_ref": os.path.join(workdir, "tp_serve_reference.pt"),
-            "ref32": os.path.join(workdir, "tp_fp32_reference.pt"), "workdir": workdir}
+            "ref32": os.path.join(workdir, "tp_fp32_reference.pt"), "workdir": workdir,
+            "sp_serve_ref": os.path.join(workdir, "sp_serve_reference.pt"),
+            "sp_ref": os.path.join(workdir, "sp_reference.pt"),
+            "sp_ref32": os.path.join(workdir, "sp_fp32_reference.pt")}
     here = os.path.abspath(__file__)
     t0 = time.monotonic()
     # each rank peaks about where the one-process step does (weights, AdamW
@@ -6683,6 +6931,10 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
         gc.collect()
         torch.cuda.empty_cache()
         generated = tp_generate(torch, spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_references(torch, spec)  # the --sp 2 checks' references
+        done_meanwhile = meanwhile() if meanwhile is not None else None
         for p in procs:
             logs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
     finally:
@@ -6697,10 +6949,11 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
     for r in range(2):
         with open(spec["out"] % r) as f:
             res.append(json.load(f))
-    os.remove(ref_path)
-    os.remove(spec["ref32"])
+    for path in (ref_path, spec["ref32"], spec["sp_serve_ref"], spec["sp_ref"],
+                 spec["sp_ref32"]):
+        os.remove(path)
     for d in os.listdir(workdir):
-        if d.startswith("tp_main"):
+        if d.startswith(("tp_main", "sp_main")):
             shutil.rmtree(os.path.join(workdir, d), ignore_errors=True)
     check(res[0]["checksums"] == res[1]["checksums"],
           f"the two ranks' weights differ after the step: {res[0]['checksums']} "
@@ -6732,6 +6985,8 @@ def dp_ranks(torch, seed: int, workdir: str, teacher_dir: str, ref_path: str,
     if moe_ref:
         out["moe_ep"] = moe_ep_check(res, moe_ref)
     out["tp"] = tp_check(res, reference, generated)
+    out["sp"] = sp_check(res)
+    out["meanwhile"] = done_meanwhile
     return out
 
 
@@ -7425,16 +7680,17 @@ def tp_rank_step(torch, rank: int, spec: dict) -> dict:
 def tp_main_rank(torch, rank: int, spec: dict) -> dict:
     """`train_tdm.main` with --tp 2 in the two rank processes' world (gloo,
     both on cuda:0): the CLI's own mesh, cut model, ZeRO3 layouts over the
-    tp plan and teacher slices, one dmd step of PixArt-α-512 at all 28
-    blocks from the checkout's transformer/ at batch 1 (the 'tp' ranks
-    share their row; gloo stages each of the step's all-reduces through
-    the host), the final gather on both ranks and the fp16 student written
-    by rank 0 alone (`write_student` recorded: each leaf's shape), no
-    final checkpoint, nor its gather of the whole state (student, critic
-    and their AdamW moments, ~15 GB through gloo: the CPU tests resume
-    such a checkpoint). Returns the step's record (launches, metrics,
-    seconds), the all-reduces of the run, main()'s seconds, peak memory
-    and the written leaves' shapes."""
+    tp plan and teacher slices, one dmd step of PixArt-α-512 at full width
+    and RANK_LAYERS blocks, seeded (cut from the checkout's 28 blocks for the
+    smoke's clock, `PERF.md` §4), at batch 1 (the
+    'tp' ranks share their row; gloo stages each of the step's all-reduces
+    through the host), the final gather on both ranks and the fp16 student
+    written by rank 0 alone (`write_student` recorded: each leaf's shape),
+    no final checkpoint, nor its gather of the whole state (student, critic
+    and their AdamW moments through gloo: the CPU tests resume such a
+    checkpoint). Returns the step's record (launches, metrics, seconds),
+    the all-reduces of the run, main()'s seconds, peak memory and the
+    written leaves' shapes."""
     from tdm_tpu_torch.cli import train_tdm
     from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
 
@@ -7455,11 +7711,10 @@ def tp_main_rank(torch, rank: int, spec: dict) -> dict:
     tp_lib.reset_counts()
     t0 = time.monotonic()
     try:
-        with no_final_checkpoint():
+        with no_final_checkpoint(), family_depth("pixart", RANK_LAYERS):
             train_tdm.main([
                 "--output_dir", out_dir, "--max_train_steps", "1", "--train_batch_size", "1",
                 "--mixed_precision", "bf16", "--loss_mode", "dmd", "--seed", str(spec["seed"]),
-                "--pretrained_model_name_or_path", spec["teacher_dir"],
                 "--export_lora_rank", "0", "--tp", "2", "--device", "cuda:0",
             ], step_hook=step_hook(torch, steps, 0, f"train --tp 2 rank {rank}"))
     finally:
@@ -7645,6 +7900,8 @@ def tp_check(res: list, reference: dict, generated: dict) -> dict:
     against the one-process int8 forward, train_tdm.main --tp 2, the
     served batch against the one-process pipeline, and `generate --tp 2`:
     printed, then each checked."""
+    import dataclasses
+
     from tdm_tpu_torch.models import pixart
 
     t = [r["tp"] for r in res]
@@ -7674,7 +7931,7 @@ def tp_check(res: list, reference: dict, generated: dict) -> dict:
           f"|diff| {t[0]['int8']['out_max_abs_diff']:.3g} / {t[1]['int8']['out_max_abs_diff']:.3g}, "
           f"{t[0]['int8']['all_reduces']} sum all-reduces a rank", flush=True)
     print(f"[train] train_tdm.main --tp 2 --device cuda:0 in the ranks' world, PixArt-α-512 at "
-          f"28 blocks, batch 1, one step: {m[0]['steps'][0]['host_s']:.3f} / "
+          f"{RANK_LAYERS} blocks, seeded, batch 1, one step: {m[0]['steps'][0]['host_s']:.3f} / "
           f"{m[1]['steps'][0]['host_s']:.3f} s, main() {m[0]['main_s']:.1f} / "
           f"{m[1]['main_s']:.1f} s, peak {m[0]['peak_gib']:.2f} / {m[1]['peak_gib']:.2f} GiB a "
           f"rank, all-reduces {m[0]['all_reduces']} forward + {m[0]['backward_all_reduces']} "
@@ -7716,15 +7973,18 @@ def tp_check(res: list, reference: dict, generated: dict) -> dict:
     check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
           f"--tp 2 losses against the one-process step: {loss_rel}")
     whole = {k: list(p.shape) for k, p in pixart.PixArtTransformer2D(
-        pixart.PixArtConfig(), device="meta").named_parameters()}
+        dataclasses.replace(pixart.PixArtConfig(), num_layers=RANK_LAYERS),
+        device="meta").named_parameters()}
+    per_fwd, per_bwd = 3 * RANK_LAYERS, 2 * 4 * RANK_LAYERS  # 3 a block; f 4 a block a backward
     for r, mr in enumerate(m):
-        check(len(mr["steps"]) == 1 and mr["steps"][0]["launches"] == TRAIN_LAUNCHES
+        check(len(mr["steps"]) == 1 and mr["steps"][0]["launches"] == RANK_LAUNCHES
               and all(math.isfinite(v) for v in mr["steps"][0]["metrics"].values()),
               f"train_tdm.main --tp 2 rank {r}: {mr['steps']}")
-        check(mr["backward_all_reduces"] == 224 and mr["all_reduces"] >= 756
-              and mr["all_reduces"] % 84 == 0,
+        check(mr["backward_all_reduces"] == per_bwd and mr["all_reduces"] >= 9 * per_fwd
+              and mr["all_reduces"] % per_fwd == 0,
               f"train_tdm.main --tp 2 rank {r} all-reduces {mr['all_reduces']} + "
-              f"{mr['backward_all_reduces']}, expected 84 a forward and 224 a step's backwards")
+              f"{mr['backward_all_reduces']}, expected {per_fwd} a forward and {per_bwd} a "
+              f"step's backwards")
     check(m[0]["written"] == [whole] and m[1]["written"] == [],
           "train_tdm.main --tp 2: the student is not written once, whole, by rank 0")
     check(s0["finite"] and s0["rel_l2"] <= TP_SERVE_TOL,
@@ -7743,6 +8003,560 @@ def tp_check(res: list, reference: dict, generated: dict) -> dict:
           f"generate --tp 2: {generated}")
     return {"step": t, "loss_rel": loss_rel, "main": m, "serve": [s0, s1],
             "generate": generated}
+
+
+# --sp 2 on [cuda:0, cuda:0] (the train phase's two gloo ranks): CogVideoX-2B
+# at full width, 61 frames at 480×720 (SP_LAT_F latent frames, SP_SHARD video
+# rows a rank); the training step at RANK_LAYERS blocks with remat, as the
+# recipe's --gradient_checkpointing; the fp32 witness at SP_WITNESS_FRAMES
+# latent frames (2 a rank) and SP_WITNESS_LAYERS blocks (the fp32 kernels are
+# scalar, gloo stages every permute through the host, and the witness tests
+# the wiring, which neither the frame count nor the depth changes)
+SP_WITNESS_FRAMES, SP_WITNESS_LAYERS = 4, 2
+SP_TEXT_LEN = 120  # the live rows of the seeded T5 conditioning (226 in all)
+COG_RANK_LAUNCHES = {k: v * RANK_LAYERS // 30 for k, v in COG_TRAIN_LAUNCHES.items()}
+# per attention call at SP_N with the T5 prefix: SP_N − 1 permutes of the K/V
+# shard forward, SP_N backward (the K/V with the fp32 dK/dV, then the
+# accumulators home)
+SP_FWD_PERMUTES, SP_BWD_PERMUTES = SP_N - 1, SP_N
+# the sp step's summed gradients against the one-process step (relative L2):
+# a bound on rounding (each hop's output rounds to bf16 before the fp32
+# merge), not a test of the wiring, which the fp32 witness carries within
+# SP_FP32_TOL, its control (rank 1 keeps its own accumulators on the return
+# hop) beyond it; the served latents against one process
+SP_GRAD_TOL = 5e-2
+SP_FP32_TOL = 1e-4
+SP_SERVE_TOL = 1e-2
+
+
+def seed_cogvideox(torch, model, seed: int) -> None:
+    """Every parameter N(0, 0.02) but the LayerNorms' scales, 1 + N(0,
+    0.02), drawn on the card from the seed, the same in every process. The
+    per-head qk norms at unit scale give logits of unit spread: at N(0,
+    0.02) every row's softmax is uniform, each key's dV the same and its dK
+    ~0, and a shard's gradients sent to the wrong rank would change
+    nothing: the sp control could not see its fault."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = 0.02 * torch.randn(p.shape, generator=gen, device="cuda")
+            p.copy_(noise + 1 if name.endswith(".scale") else noise)
+
+
+def sp_text(torch, seed: int, device, batch: int = 1):
+    """Seeded T5-shaped conditioning [B, 226, 4096] with SP_TEXT_LEN live
+    rows (the family's cond_of zeroes the rest), the same in every process."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    text = 0.2 * torch.randn((batch, COG_TXT, 4096), generator=gen, device="cuda")
+    text[:, SP_TEXT_LEN:] = 0
+    return text.to(device)
+
+
+@contextlib.contextmanager
+def recorded_permutes():
+    """Every `parallel.mesh.ppermute` call recorded: its tensors' count and
+    bytes, and its direction (backward when it carries an fp32 tensor: the
+    dK/dV accumulators; the bf16 forwards' K/V shards are bf16)."""
+    import torch
+
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    real, calls = pmesh.ppermute, []
+
+    def recorded(tensors, sp):
+        calls.append({"n": len(tensors), "bytes": sum(t.numel() * t.element_size()
+                                                      for t in tensors),
+                      "backward": any(t.dtype == torch.float32 for t in tensors)})
+        return real(tensors, sp)
+
+    pmesh.ppermute = recorded
+    try:
+        yield calls
+    finally:
+        pmesh.ppermute = real
+
+
+def permute_tally(calls: list) -> dict:
+    fwd = [c for c in calls if not c["backward"]]
+    bwd = [c for c in calls if c["backward"]]
+    return {"forward": len(fwd), "backward": len(bwd),
+            "forward_mb": sorted({round(c["bytes"] / 1e6, 1) for c in fwd}),
+            "backward_mb": sorted({round(c["bytes"] / 1e6, 1) for c in bwd}),
+            "gb": sum(c["bytes"] for c in calls) / 1e9}
+
+
+def sp_serve_model(torch, seed: int, device, sp: bool):
+    """CogVideoX-2B (30 blocks, 30×64 heads, bf16 serving weights, seeded),
+    its config naming 'sp' when `sp`."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import cogvideox as cog
+
+    cfg = dataclasses.replace(cog.CogVideoXConfig(),
+                              sequence_parallel_axis="sp" if sp else None)
+    model = cog.CogVideoXTransformer3D(cfg, device=device)
+    seed_cogvideox(torch, model, seed + 41)
+    return model
+
+
+def sp_serve_call(torch, seed: int, device) -> dict:
+    """The pipeline call of the sp serving check: batch 1, 4 NFE on the
+    trained grid, SP_FRAMES frames at 480×720, latents out, the seeded
+    conditioning and noise."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    noise = torch.randn((1, 16, SP_LAT_F, 60, 90), generator=gen, device="cuda")
+    return {"prompt_embeds": sp_text(torch, seed + 47, device), "latents": noise.to(device),
+            "num_frames": SP_FRAMES, "height": 480, "width": 720, "output_type": "latent"}
+
+
+def sp_serve_reference(torch, spec: dict) -> None:
+    """The one-process pipeline's latents for the sp serving check, written
+    to spec['sp_serve_ref'] (the parent, while the ranks run), with the
+    transformer's bit checksum."""
+    from tdm_tpu_torch.pipelines import CogVideoXPipeline
+
+    model = sp_serve_model(torch, spec["seed"], "cuda", sp=False)
+    pipe = CogVideoXPipeline(model, device="cuda")
+    latents = pipe(**sp_serve_call(torch, spec["seed"], "cuda")).latents
+    torch.save({"latents": latents.cpu(), "checksum": bit_checksum(torch, dict(
+        model.named_parameters()))}, spec["sp_serve_ref"] + ".tmp")
+    os.replace(spec["sp_serve_ref"] + ".tmp", spec["sp_serve_ref"])
+    del pipe, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cog_sp_setup(torch, seed: int, device, sync, mesh=None, frames: int = SP_LAT_F,
+                 dtype=None, layers: int = RANK_LAYERS):
+    """The sp checks' training step: CogVideoX-2B at full width and
+    `layers` blocks with remat, seeded (the teacher, the student and the
+    critic start equal), fp32 masters computing in bf16 (or `dtype`), dmd,
+    cfg 4.5, the CLI's TDM defaults, AdamW at DP_LR with the clip's norm
+    through `sync`, batch 1 of `frames` latent frames at 480×720, the
+    seeded conditioning, the CFG null branch zeros, and one seeded
+    generator's draws. With `mesh` the denoiser is
+    `sequence_parallel_apply` over its 'sp' axis (each rank its frames);
+    else the one-process forward. Returns (step, state, draws, cond,
+    uncond)."""
+    import dataclasses
+    import functools
+
+    from torch.func import functional_call
+
+    from tdm_tpu_torch.core import schedules as sched
+    from tdm_tpu_torch.models import cogvideox as cog
+    from tdm_tpu_torch.train import optim as topt, tdm
+
+    cfg = dataclasses.replace(cog.CogVideoXConfig(), num_layers=layers,
+                              sample_frames=frames, remat=True,
+                              dtype=dtype or torch.bfloat16,
+                              sequence_parallel_axis="sp" if mesh is not None else None)
+    model = cog.CogVideoXTransformer3D(cfg, device=device, param_dtype=torch.float32)
+    model.requires_grad_(False)
+    seed_cogvideox(torch, model, seed + 29)
+    full = {k: p.detach() for k, p in model.named_parameters()}
+    if mesh is not None:
+        fwd = cog.sequence_parallel_apply(model, mesh)
+
+        def denoise_fn(params, x, t, cond):
+            return fwd(x, t, cond, params=params)
+    else:
+        def denoise_fn(params, x, t, cond):
+            return functional_call(model, params, (x, t, cond))
+
+    tx_s, tx_c = (topt.make_optimizer(DP_LR, norm_fn=functools.partial(sync.norm, role))
+                  for role in ("student", "critic"))
+    config = tdm.TDMConfig(use_huber=False, use_separate=False)
+    shape = (16, frames, 60, 90)
+    step = tdm.build_train_step(denoise_fn, full, sched.cogvideox(device=device), config,
+                                tx_s, tx_c, sample_shape=shape, sync=sync)
+    state = tdm.init_state(full, full, tx_s, tx_c)
+    cond = sp_text(torch, seed + 37, device)
+    draws = tdm.make_draws(config, 1, shape, torch.Generator(device=device).manual_seed(seed + 3),
+                           device)
+    return step, state, draws, cond, torch.zeros_like(cond)
+
+
+def sp_step_reference(torch, seed: int, path: str, frames: int = SP_LAT_F, dtype=None,
+                      layers: int = RANK_LAYERS) -> None:
+    """The one-process step of the sp check (its gradients of each role,
+    the student before and after, the metrics) written to `path` for the
+    ranks (the parent, while they run). In fp32 with TF32 off for the
+    witness."""
+    if dtype == torch.float32:
+        from tdm_tpu_torch.device import set_fp32_precision
+
+        set_fp32_precision(False)
+    rec = _Recorder()
+    step, state, draws, cond, uncond = cog_sp_setup(torch, seed, "cuda", rec, frames=frames,
+                                                    dtype=dtype, layers=layers)
+    before = {k: v.to("cpu", copy=True) for k, v in state.student.items()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    new, metrics = step(state, draws, cond, uncond)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    metrics = {k: float(v) for k, v in metrics._asdict().items()}
+    torch.save({"grads": {role: {k: v.cpu() for k, v in g.items()}
+                          for role, g in rec.grads.items()}, "metrics": metrics,
+                "before": before, "student": {k: v.cpu() for k, v in new.student.items()},
+                "step_s": step_s}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    print(f"[train] the one-process CogVideoX-2B reference step at {layers} blocks, "
+          f"{frames} latent frames{' in fp32' if dtype == torch.float32 else ''}: "
+          f"{step_s:.3f} s, {metrics}", flush=True)
+    del step, state, new, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sp_references(torch, spec: dict) -> None:
+    """The parent's references of the sp checks, in the order the ranks
+    read them."""
+    sp_serve_reference(torch, spec)
+    sp_step_reference(torch, spec["seed"], spec["sp_ref"])
+    sp_step_reference(torch, spec["seed"], spec["sp_ref32"], frames=SP_WITNESS_FRAMES,
+                      dtype=torch.float32, layers=SP_WITNESS_LAYERS)
+
+
+def rel_l2_against(torch, got: dict, ref: dict, device) -> float:
+    num = den = 0.0
+    for k, g in got.items():
+        r = ref[k].to(device).float()
+        num += float((g.float() - r).square().sum())
+        den += float(r.square().sum())
+    return math.sqrt(num / den)
+
+
+def sp_rank_checks(torch, rank: int, spec: dict) -> dict:
+    """The --sp 2 checks of one of the two rank processes (`dp_rank_main`,
+    after the tp checks), on the ('data', 'sp') = (1, 2) mesh of their gloo
+    world, both on cuda:0:
+
+    * serving: `CogVideoXPipeline(..., sequence_parallel_mesh=mesh)` of the
+      seeded 30-block CogVideoX-2B (bf16), batch 1, 4 NFE, SP_FRAMES frames
+      at 480×720 (each rank 8 of 16 latent frames, 10,800 video rows),
+      latents out: against the one-process pipeline's (the parent's,
+      relative L2), its sampler's device ms (CUDA events), kernel 1's
+      launches and the permutes of the call, peak memory;
+    * the training step at RANK_LAYERS blocks (`cog_sp_setup`, remat),
+      batch 1, both ranks on the row and each on its frames: launches,
+      permutes by direction, seconds, peak memory, the new weights' bit
+      checksums, the summed gradients, losses and update against the
+      one-process step (the parent's);
+    * the fp32 witness (the same step in fp32, TF32 off, at
+      SP_WITNESS_FRAMES latent frames and SP_WITNESS_LAYERS blocks) against
+      the one-process fp32 step,
+      and its control from the witness's start: rank 1 keeps its own dK/dV
+      accumulators on each backward's return hop (it joins the exchange,
+      so rank 0's stay whole);
+    * `train_tdm.main --sp 2` (`sp_main_rank`)."""
+    import copy
+
+    from tdm_tpu_torch.device import set_fp32_precision
+    from tdm_tpu_torch.ops import attention as A, ring_attention as ring
+    from tdm_tpu_torch.parallel import mesh as pmesh
+    from tdm_tpu_torch.pipelines import CogVideoXPipeline
+
+    device = torch.device("cuda", 0)
+    mesh = pmesh.make_mesh(1, n_sp=SP_N)
+    check(mesh.sp.n == SP_N and mesh.sp.index == rank, f"sp axis {mesh.sp}")
+    out = {"seconds": {}}
+    t_part = time.monotonic()
+
+    def part_done(name):
+        nonlocal t_part
+        out["seconds"][name] = time.monotonic() - t_part
+        t_part = time.monotonic()
+
+    # serving
+    model = sp_serve_model(torch, spec["seed"], device, sp=True)
+    checksum = bit_checksum(torch, dict(model.named_parameters()))
+    pipe = CogVideoXPipeline(model, sequence_parallel_mesh=mesh, device=device)
+    call = sp_serve_call(torch, spec["seed"], device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.barrier()
+    A.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with recorded_permutes() as perms:
+        t0 = time.monotonic()
+        ev[0].record()
+        latents = pipe(**call).latents
+        ev[1].record()
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    wait_for(spec["sp_serve_ref"], "one-process sp serving reference")
+    ref = torch.load(spec["sp_serve_ref"])
+    rel = float((latents.float() - ref["latents"].to(device).float()).norm()
+                / ref["latents"].float().norm())
+    out["serve"] = {"rel_l2": rel, "finite": bool(torch.isfinite(latents.float()).all()),
+                    "shape": list(latents.shape), "device_ms": ev[0].elapsed_time(ev[1]),
+                    "wall_s": wall, "launches": A.launch_counts(),
+                    "permutes": permute_tally(perms),
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "checksum_equal": checksum == ref["checksum"]}
+    del pipe, model, latents, call, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("serve")
+
+    class Recording(pmesh.DataParallel):
+        def reduce(self, role, grads):
+            out_ = super().reduce(role, grads)
+            self.grads[role] = out_
+            return out_
+
+    def recording():
+        sync = Recording(mesh)
+        sync.grads = {}
+        return sync
+
+    # the bf16 step
+    sync = recording()
+    step, state, draws, cond, uncond = cog_sp_setup(torch, spec["seed"], device, sync, mesh)
+    before = {k: v.clone() for k, v in state.student.items()}
+    pmesh.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    with recorded_permutes() as perms:
+        t0 = time.monotonic()
+        new, metrics = step(state, draws, cond, uncond)
+        torch.cuda.synchronize()
+    rec = {"step_s": time.monotonic() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": A.launch_counts(), "permutes": permute_tally(perms),
+           "metrics": {k: float(v) for k, v in metrics._asdict().items()},
+           "checksums": {role: bit_checksum(torch, getattr(new, role))
+                         for role in ("student", "critic")}}
+    wait_for(spec["sp_ref"], "one-process sp reference step")
+    ref = torch.load(spec["sp_ref"], map_location="cpu", mmap=True)
+    rec["grad_rel_l2"] = {role: rel_l2_against(torch, g, ref["grads"][role], device)
+                          for role, g in sync.grads.items()}
+    rec["update_rel_l2"] = rel_l2_against(
+        torch, {k: v - ref["before"][k].to(device) for k, v in new.student.items()},
+        {k: ref["student"][k] - ref["before"][k] for k in ref["student"]}, device)
+    rec["ref_metrics"] = ref["metrics"]
+    rec["ref_step_s"] = ref["step_s"]
+    out["step"] = rec
+    del step, state, new, before, sync, ref, draws, cond, uncond
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("step")
+    # the fp32 witness and its control
+    set_fp32_precision(False)
+    sync = recording()
+    step, state, draws, cond, uncond = cog_sp_setup(torch, spec["seed"], device, sync, mesh,
+                                                    frames=SP_WITNESS_FRAMES,
+                                                    dtype=torch.float32,
+                                                    layers=SP_WITNESS_LAYERS)
+    start = copy.deepcopy(state)
+    t0 = time.monotonic()
+    step(state, draws, cond, uncond)
+    torch.cuda.synchronize()
+    out["fp32_step_s"] = time.monotonic() - t0
+    wait_for(spec["sp_ref32"], "one-process fp32 sp reference step")
+    ref = torch.load(spec["sp_ref32"], map_location="cpu", mmap=True)
+    out["fp32_grad_rel_l2"] = {role: rel_l2_against(torch, g, ref["grads"][role], device)
+                               for role, g in sync.grads.items()}
+    real_bwd, real_perm = ring.RingFlashAttention.backward, pmesh.ppermute
+    box = {"in": False, "seen_shard": False}
+
+    def backward(ctx, dout):
+        box.update({"in": True, "seen_shard": False})
+        try:
+            return real_bwd(ctx, dout)
+        finally:
+            box["in"] = False
+
+    def permute(tensors, sp):
+        got = real_perm(tensors, sp)
+        if box["in"] and len(tensors) == 4:
+            box["seen_shard"] = True
+        if box["in"] and box["seen_shard"] and len(tensors) == 2:
+            return list(tensors)  # the return hop: its own accumulators kept
+        return got
+
+    if rank == 1:
+        ring.RingFlashAttention.backward = staticmethod(backward)
+        pmesh.ppermute = permute
+    try:
+        step(start, draws, cond, uncond)
+    finally:
+        ring.RingFlashAttention.backward, pmesh.ppermute = real_bwd, real_perm
+    out["control_grad_rel_l2"] = {role: rel_l2_against(torch, g, ref["grads"][role], device)
+                                  for role, g in sync.grads.items()}
+    del step, state, start, sync, ref, draws, cond, uncond
+    gc.collect()
+    torch.cuda.empty_cache()
+    pmesh.barrier()
+    part_done("fp32_witness_and_control")
+    out["main"] = sp_main_rank(torch, rank, spec)
+    part_done("main")
+    return out
+
+
+@contextlib.contextmanager
+def family_depth(family: str, layers: int):
+    """main() on a family's full-width model cut to `layers` blocks: its
+    config class (`pixart.PixArtConfig` or `cogvideox.CogVideoXConfig`)
+    made with num_layers replaced, every width its own."""
+    import dataclasses
+    import importlib
+
+    mod = importlib.import_module(f"tdm_tpu_torch.models.{family}")
+    name = {"pixart": "PixArtConfig", "cogvideox": "CogVideoXConfig"}[family]
+    cls = getattr(mod, name)
+
+    def cut(*args, **kwargs):
+        return dataclasses.replace(cls(*args, **kwargs), num_layers=layers)
+
+    cut.tiny = cls.tiny
+    setattr(mod, name, cut)
+    try:
+        yield
+    finally:
+        setattr(mod, name, cls)
+
+
+# main() --sp 2's depth: two ranks fit on the card at all 30 blocks, but gloo
+# stages each permute through the host, and a 30-block step moves ~55 GB a
+# rank, more than the smoke's clock holds; 8 blocks run the same path
+SP_MAIN_LAYERS = RANK_LAYERS
+
+
+def sp_main_rank(torch, rank: int, spec: dict) -> dict:
+    """`train_tdm.main --sp 2 --model_family cogvideox --num_frames 61` in
+    the two rank processes' world (gloo, both on cuda:0) with the recipe's
+    flags (a rank-64 LoRA student, 8-bit Adam, --gradient_checkpointing),
+    batch 1, one step, CogVideoX-2B at full width and SP_MAIN_LAYERS blocks,
+    seeded (no teacher directory), hash prompt embeddings (no cache: the
+    train phase's holds PixArt's 120-token rows): the step's launches,
+    metrics and seconds, the permutes by direction, main()'s seconds and
+    peak memory; no final checkpoint and no fp16 student (the LoRA file is
+    written)."""
+    from tdm_tpu_torch.cli import train_tdm
+
+    out_dir = os.path.join(spec["workdir"], "sp_main")
+    steps = []
+    saved = {k: os.environ.pop(k, None) for k in ("TDM_EMBEDDING_CACHE", "TDM_TAESD_DIR")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    try:
+        with no_final_checkpoint(), no_student_export(), \
+                family_depth("cogvideox", SP_MAIN_LAYERS), recorded_permutes() as perms:
+            train_tdm.main([
+                "--output_dir", out_dir, "--max_train_steps", "1", "--train_batch_size", "1",
+                "--mixed_precision", "bf16", "--loss_mode", "dmd", "--seed", str(spec["seed"]),
+                "--model_family", "cogvideox", "--num_frames", str(SP_FRAMES),
+                "--train_lora_rank", str(COG_LORA_RANK), "--use_8bit_adam",
+                "--gradient_checkpointing", "--sp", str(SP_N), "--device", "cuda:0",
+            ], step_hook=step_hook(torch, steps, 0, f"train --sp {SP_N} rank {rank}"))
+    finally:
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    lora = os.path.join(out_dir + "_cfg4.5_steps900", "tdm_lora.safetensors")
+    return {"main_s": time.monotonic() - t0, "steps": steps, "permutes": permute_tally(perms),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "lora_written": os.path.exists(lora)}
+
+
+def sp_check(res: list) -> dict:
+    """The two ranks' --sp 2 results: printed, then each checked."""
+    sp = [r["sp"] for r in res]
+    sv, st, m = [r["serve"] for r in sp], [r["step"] for r in sp], [r["main"] for r in sp]
+    serve_launches = ring_launches({"flash_attention_fwd": 30 * 4, "flash_attention_fwd_lse": 0,
+                                    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0})
+    step_launches = ring_launches(COG_RANK_LAUNCHES)
+    main_mono = {k: v * SP_MAIN_LAYERS // 30 for k, v in COG_TRAIN_LAUNCHES.items()}
+    main_launches = ring_launches(main_mono)
+    attn_calls = COG_RANK_LAUNCHES["flash_attention_fwd"] + COG_RANK_LAUNCHES[
+        "flash_attention_fwd_lse"]
+    step_perms = (SP_FWD_PERMUTES * attn_calls,
+                  SP_BWD_PERMUTES * COG_RANK_LAUNCHES["flash_attention_bwd_dq"])
+    main_calls = main_mono["flash_attention_fwd"] + main_mono["flash_attention_fwd_lse"]
+    main_perms = (SP_FWD_PERMUTES * main_calls,
+                  SP_BWD_PERMUTES * main_mono["flash_attention_bwd_dq"])
+    g, w, c = st[0]["grad_rel_l2"], sp[0]["fp32_grad_rel_l2"], sp[0]["control_grad_rel_l2"]
+    loss_rel = {k: abs(st[0]["metrics"][k] - st[0]["ref_metrics"][k])
+                / abs(st[0]["ref_metrics"][k]) for k in ("loss_student", "loss_critic")}
+    print(f"[serve] --sp {SP_N} CogVideoX pipeline (sequence_parallel_mesh, gloo, both ranks on "
+          f"cuda:0), CogVideoX-2B 30 blocks seeded, {SP_FRAMES} frames 480x720 ({SP_LAT_F} "
+          f"latent frames, {SP_SHARD} video rows a rank), batch 1, 4 NFE, latents: relative L2 "
+          f"{sv[0]['rel_l2']:.3e} / {sv[1]['rel_l2']:.3e} against the one-process pipeline "
+          f"(limit {SP_SERVE_TOL}); sampler device ms (CUDA events) {sv[0]['device_ms']:.1f} / "
+          f"{sv[1]['device_ms']:.1f}, wall {sv[0]['wall_s']:.2f} / {sv[1]['wall_s']:.2f} s; "
+          f"launches a rank {sv[0]['launches']} (checked: {SP_HOPS} hops an attention call); "
+          f"permutes a rank {sv[0]['permutes']} (checked); peak {sv[0]['peak_gib']:.2f} / "
+          f"{sv[1]['peak_gib']:.2f} GiB", flush=True)
+    print(f"[train] --sp {SP_N} step on [cuda:0, cuda:0] (gloo), CogVideoX-2B at {RANK_LAYERS} "
+          f"blocks with remat, {SP_LAT_F} latent frames, batch 1 on both ranks: weights equal "
+          f"bit for bit across ranks (checked); summed gradients' relative L2 against the "
+          f"one-process step {g['student']:.3e} (student), {g['critic']:.3e} (critic) (limit "
+          f"{SP_GRAD_TOL}); the fp32 witness at {SP_WITNESS_LAYERS} blocks and "
+          f"{SP_WITNESS_FRAMES} latent frames "
+          f"{w['student']:.3e} / {w['critic']:.3e} (limit {SP_FP32_TOL}, step "
+          f"{sp[0]['fp32_step_s']:.3f} s), its control (rank 1 keeps its own dK/dV on the "
+          f"return hop) {c['student']:.3e} / {c['critic']:.3e} (must exceed the limit); losses "
+          f"{loss_rel['loss_student']:.3e} / {loss_rel['loss_critic']:.3e} (limit "
+          f"{DP_GRAD_TOL}); the update {st[0]['update_rel_l2']:.3e} from the one-process "
+          f"step's (not checked: Adam's first step is lr·sign(g)); step {st[0]['step_s']:.3f} "
+          f"/ {st[1]['step_s']:.3f} s (one process {st[0]['ref_step_s']:.3f} s), peak "
+          f"{st[0]['peak_gib']:.2f} / {st[1]['peak_gib']:.2f} GiB a rank; launches a rank "
+          f"{st[0]['launches']} (checked); permutes a rank {st[0]['permutes']} (checked: "
+          f"{SP_FWD_PERMUTES} forward and {SP_BWD_PERMUTES} backward an attention call)",
+          flush=True)
+    print(f"[train] train_tdm.main --sp {SP_N} --model_family cogvideox --num_frames "
+          f"{SP_FRAMES} (LoRA {COG_LORA_RANK}, 8-bit Adam, --gradient_checkpointing, "
+          f"{SP_MAIN_LAYERS} blocks, batch 1, one step): {m[0]['steps'][0]['host_s']:.3f} / "
+          f"{m[1]['steps'][0]['host_s']:.3f} s, main() {m[0]['main_s']:.1f} / "
+          f"{m[1]['main_s']:.1f} s, peak {m[0]['peak_gib']:.2f} / {m[1]['peak_gib']:.2f} GiB "
+          f"a rank, launches {m[0]['steps'][0]['launches']} (checked), permutes "
+          f"{m[0]['permutes']}, {m[0]['steps'][0]['metrics']}", flush=True)
+    print(f"[train] the --sp {SP_N} checks' seconds a rank: {sp[0]['seconds']} / "
+          f"{sp[1]['seconds']}", flush=True)
+    for r, s_ in enumerate(sv):
+        check(s_["finite"] and s_["rel_l2"] <= SP_SERVE_TOL and s_["checksum_equal"],
+              f"--sp {SP_N} served latents rank {r}: {s_}")
+        check(s_["launches"] == serve_launches,
+              f"--sp {SP_N} serving rank {r} launched {s_['launches']}, expected {serve_launches}")
+        check((s_["permutes"]["forward"], s_["permutes"]["backward"]) == (30 * 4, 0),
+              f"--sp {SP_N} serving rank {r} permutes {s_['permutes']}")
+    check(st[0]["checksums"] == st[1]["checksums"],
+          f"--sp {SP_N}: the ranks' weights differ after the step: {st[0]['checksums']} "
+          f"{st[1]['checksums']}")
+    for r in range(2):
+        check(all(v <= SP_GRAD_TOL for v in st[r]["grad_rel_l2"].values()),
+              f"--sp {SP_N} rank {r} summed gradients: {st[r]['grad_rel_l2']}")
+        check(all(v <= SP_FP32_TOL for v in sp[r]["fp32_grad_rel_l2"].values()),
+              f"--sp {SP_N} rank {r} fp32 witness: {sp[r]['fp32_grad_rel_l2']}")
+        check(min(sp[r]["control_grad_rel_l2"].values()) > SP_FP32_TOL,
+              f"--sp {SP_N} rank {r} fp32 control within the limit: "
+              f"{sp[r]['control_grad_rel_l2']}")
+        check(st[r]["launches"] == step_launches,
+              f"--sp {SP_N} step rank {r} launched {st[r]['launches']}, expected {step_launches}")
+        check((st[r]["permutes"]["forward"], st[r]["permutes"]["backward"]) == step_perms,
+              f"--sp {SP_N} step rank {r} permutes {st[r]['permutes']}, expected {step_perms}")
+        check(len(m[r]["steps"]) == 1 and m[r]["steps"][0]["launches"] == main_launches
+              and all(math.isfinite(v) for v in m[r]["steps"][0]["metrics"].values()),
+              f"train_tdm.main --sp {SP_N} rank {r}: {m[r]['steps']}, expected launches "
+              f"{main_launches}")
+        check((m[r]["permutes"]["forward"], m[r]["permutes"]["backward"]) == main_perms,
+              f"train_tdm.main --sp {SP_N} rank {r} permutes {m[r]['permutes']}, expected "
+              f"{main_perms}")
+    check(all(v <= DP_GRAD_TOL for v in loss_rel.values()),
+          f"--sp {SP_N} losses against the one-process step: {loss_rel}")
+    check(m[0]["lora_written"], f"train_tdm.main --sp {SP_N}: no tdm_lora.safetensors")
+    return {"serve": sv, "step": st, "loss_rel": loss_rel, "main": m,
+            "fp32_grad_rel_l2": [r["fp32_grad_rel_l2"] for r in sp],
+            "control_grad_rel_l2": [r["control_grad_rel_l2"] for r in sp],
+            "launches_expected": {"serve": serve_launches, "step": step_launches,
+                                  "main": main_launches},
+            "permutes_expected": {"step": step_perms, "main": main_perms}}
 
 
 SHAPE_KEYS = ("shape", "dims", "ms", "ms_range", "plain_ms", "library_ms", "library_ms_range",
@@ -7867,6 +8681,7 @@ def main(argv=None) -> int:
             ksplash = timed_phase(phase_kernels_splash, torch, args.seed)
             kcog = timed_phase(phase_kernels_cogvideox, torch, args.seed)
             kcog_train = timed_phase(phase_kernels_train_cogvideox, torch, args.seed)
+            kring = timed_phase(phase_kernels_ring, torch, args.seed)
         if "reference" in phases:
             timed_phase(phase_reference, torch, args.seed)
             timed_phase(phase_reference_train, torch, args.seed)
@@ -7876,12 +8691,19 @@ def main(argv=None) -> int:
             timed_phase(phase_reference_cogvideox, torch, args.seed)
             timed_phase(phase_reference_train_cogvideox, torch, args.seed)
             ref_new = timed_phase(phase_reference_eval, torch, args.seed)
-        if "probe" in phases:
+        # with the train phase the probe (host-bound) runs while that phase's
+        # two rank processes run (the smoke's clock)
+        if "probe" in phases and "train" not in phases:
             probe = timed_phase(phase_probe, torch)
         if "serve" in phases:
             serve = timed_phase(phase_serve, torch, args.seed, workdir)
         if "train" in phases:
-            train = timed_phase(phase_train, torch, args.seed, workdir, "moe" in phases)
+            train = timed_phase(
+                phase_train, torch, args.seed, workdir, "moe" in phases,
+                functools.partial(timed_phase, phase_probe, torch) if "probe" in phases
+                else None)
+            if "probe" in phases:
+                probe = train["data_parallel"]["two_ranks"]["meanwhile"]
         if "moe" in phases:
             moe = timed_phase(phase_moe, torch, args.seed, workdir)
         if "train_lora" in phases:
@@ -8009,6 +8831,36 @@ def main(argv=None) -> int:
               "max_abs_err": r["splash_max_abs_err"], "flash_ms": r["ms"]}
              for r in kcog["shapes"]]}},
     ]
+    spr = train["data_parallel"]["two_ranks"]["sp"]
+    sp_main = spr["main"][0]["steps"][0]["launches"]
+    ring_per = (f"one rank's ring attention call at --sp {SP_N} (CogVideoX-2B, {SP_FRAMES} "
+                f"frames at 480x720): q [1,{COG_H},{SP_Q},{COG_D}] over the {COG_TXT}-row T5 "
+                f"prefix and {SP_N} shards of {SP_SHARD} rows, {SP_HOPS} hops, bf16; ms, "
+                f"plain_ms and bound_ms the prefix hop plus {SP_N} shard hops (hops: each "
+                f"alone, in turns with SDPA at its shape); launches: train_tdm.main --sp "
+                f"{SP_N}'s step on rank 0")
+    for name, wrapper, kern, src, at in (
+            ("ring_fwd_lse", "flash_attention_fwd_lse", "fwd_lse", "flash_fwd.cu", ":223"),
+            ("ring_bwd_dq", "flash_attention_bwd_dq", "dq", "flash_bwd_dq.cu", ":302"),
+            ("ring_bwd_dkv", "flash_attention_bwd_dkv", "dkv", "flash_bwd_dkv.cu", ":302")):
+        call = kring["call"][kern]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"tdm_tpu_torch/csrc/{src}",
+            "ring": "tdm_tpu_torch/ops/ring_attention.py",
+            "replaces": f"tdm_tpu/ops/ring_attention.py{at}", "launches": sp_main[wrapper],
+            "max_abs_err": max(kring["full_max_abs_err"][x] for x in
+                               {"fwd_lse": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}[kern]),
+            "ms": call["ms"], "plain_ms": call["plain_ms"], "bound_ms": call["bound_ms"],
+            "bound_by": call["bound_by"],
+            # SDPA over the rank's whole call computes the forward's function;
+            # no one library call computes dQ or dK/dV alone
+            "library_ms": kring["sdpa_call_ms"] if kern == "fwd_lse" else None,
+            "per": ring_per,
+            "hops": {hop: {"dims": r["dims"], **r[kern],
+                           "sdpa_ms": r["sdpa_fwd_ms" if kern == "fwd_lse" else "sdpa_bwd_ms"]}
+                     for hop, r in kring["hops"].items()},
+            "launches_by_path": {"train_sp_step_per_rank": spr["step"][0]["launches"][wrapper],
+                                 "serve_sp_per_rank": spr["serve"][0]["launches"][wrapper]}})
     text_encoders = {
         "t5_xxl_pixart": serve["t5"], "clip_l_sd3": diffusers["sd3"]["encoders"]["clip_l"],
         "clip_g_sd3": diffusers["sd3"]["encoders"]["clip_g"],
@@ -8037,6 +8889,7 @@ def main(argv=None) -> int:
                       "train_sd15": train_sd15, "cogvideox": cogvideox,
                       "cogvideox_train_attention": {
                           k: kcog_train[k] for k in ("dq_plus_dkv_ms", "sdpa_bwd_ms")},
+                      "ring": kring,
                       "train_cogvideox": train_cogvideox}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """TDM distillation CLI of the port: `python -m tdm_tpu_torch.cli.train_tdm`.
 
 Port of `tdm_tpu/cli/train_tdm.py` (`main`, `:27-817`) on one GPU or on a
-('data', 'fsdp', 'ep', 'tp') mesh of processes, one per GPU, with its flag names and
+('data', 'fsdp', 'ep', 'sp', 'tp') mesh of processes, one per GPU, with its flag names and
 defaults (`utils/config.py`):
 
   schedule tables → student / critic / teacher parameters (the teacher
@@ -76,9 +76,18 @@ heads and feed-forward's width where K divides them, and holds those
 slices of the student, the critic, their optimizer states, the EMA and
 the teacher; a LoRA student's factors stay whole and each merge is cut),
 composed with --fsdp on the ('data', 'fsdp', 'tp') mesh, --quant_forwards,
---use_ema and the LoRA flags. Refused before the first step, each naming
-ROADMAP.md's queue 1, slice 6: --pp/--sp > 1, and expert or tensor
-parallelism with 8-bit Adam.
+--use_ema and the LoRA flags. --sp K (cogvideox only) cuts each video's
+latent frames over K processes that share their rows (`models/cogvideox.
+sequence_parallel_apply`: every attention a ring over the video K/V
+shards, `ops/ring_attention.py`), composed with --fsdp on the JAX CLI's
+('data', 'sp') or ('data', 'fsdp', 'sp') mesh, where the 'fsdp' ranks
+share their rows too: the global batch is N/(K·fsdp) times
+--train_batch_size; the JAX CLI's checks come first, in its order
+("cogvideox only", "composes with --fsdp only", "--quant_forwards", "does
+not divide N devices", then the latent frame count). Validation keeps the
+monolithic forward. Refused before the first step, each naming ROADMAP.md's
+queue 1, slice 6: --pp > 1, and expert or tensor parallelism with 8-bit
+Adam.
 """
 
 from __future__ import annotations
@@ -96,8 +105,8 @@ import torch
 
 
 def refuse_unported(cfg) -> None:
-    """The JAX CLI's --ep and --sp composition checks (ValueError, its
-    messages, `tdm_tpu/cli/train_tdm.py:71-95`), then NotImplementedError
+    """The JAX CLI's --ep and --sp checks (ValueError, its messages and
+    order, `tdm_tpu/cli/train_tdm.py:71-103`), then NotImplementedError
     for a flag whose path is not ported, before any model is built."""
     n_ep = max(cfg.ep, 1)
     if n_ep > 1:
@@ -107,14 +116,18 @@ def refuse_unported(cfg) -> None:
             raise ValueError("--ep composes with --fsdp only (tp/pp x ep is unsupported)")
         if cfg.moe_experts % n_ep:
             raise ValueError(f"--moe_experts {cfg.moe_experts} not divisible by --ep {n_ep}")
-    if cfg.sp > 1 and (cfg.tp > 1 or cfg.pp > 1 or n_ep > 1):
-        raise ValueError("--sp composes with --fsdp only (tp/pp/ep x sp is unsupported)")
-    for flag in ("pp", "sp"):
-        if getattr(cfg, flag) > 1:
-            raise NotImplementedError(
-                f"--{flag} {getattr(cfg, flag)}: multi-GPU training is not "
-                "ported yet: ROADMAP.md queue 1, slice 6"
-            )
+    if cfg.sp > 1:
+        if cfg.model_family != "cogvideox":
+            raise ValueError("--sp (frame-sharded sequence parallelism) supports "
+                             "--model_family cogvideox only")
+        if cfg.tp > 1 or cfg.pp > 1 or n_ep > 1:
+            raise ValueError("--sp composes with --fsdp only (tp/pp/ep x sp is unsupported)")
+        if cfg.quant_forwards:
+            raise ValueError("--sp with --quant_forwards is not supported")
+    if cfg.pp > 1:
+        raise NotImplementedError(
+            f"--pp {cfg.pp}: multi-GPU training is not ported yet: ROADMAP.md queue 1, "
+            "slice 6")
     for flag in ("ep", "tp"):
         if getattr(cfg, flag) > 1 and cfg.use_8bit_adam:
             raise NotImplementedError(
@@ -180,13 +193,15 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
     if cfg.max_devices > 0 and world > 1:
         raise ValueError("--max_devices is only supported in single-process runs")
     n_fsdp, n_ep, n_tp = max(cfg.fsdp, 1), max(cfg.ep, 1), max(cfg.tp, 1)
-    n_model = n_fsdp * n_ep * n_tp
+    n_sp = max(cfg.sp, 1)
+    n_model = n_fsdp * n_ep * n_tp * n_sp
     if world % n_model:
         raise ValueError(
             f"--fsdp {cfg.fsdp} x --tp {cfg.tp} x --pp {cfg.pp} x --ep "
             f"{cfg.ep} x --sp {cfg.sp} does not divide {world} devices"
         )
-    mesh = pmesh.make_mesh(world // n_model, n_fsdp, n_ep, n_tp) if world > 1 else None
+    mesh = (pmesh.make_mesh(world // n_model, n_fsdp, n_ep, n_tp, n_sp) if world > 1
+            else None)
     main_process = rank == 0
     # fp32 products in full fp32 unless --allow_tf32 (reference src/main.py:197-198)
     set_fp32_precision(cfg.allow_tf32)
@@ -197,13 +212,14 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
     # --train_batch_size is per data rank (the reference's "per device"):
     # every process is one ('fsdp' ones too) but the 'ep' and 'tp' ranks of
-    # a row index, which share its rows
+    # a row index, which share its rows; under --sp only the 'data' ranks
     local_batch = cfg.train_batch_size
     n_rows, row_index = (mesh.n_rows, mesh.row_index) if mesh is not None else (1, 0)
     global_batch = local_batch * n_rows
     if mesh is not None:
-        logger.info("mesh: %d data x %d fsdp x %d ep x %d tp processes, global batch %d",
-                    mesh.n_data, mesh.n_fsdp, mesh.n_ep, mesh.n_tp, global_batch)
+        logger.info("mesh: %d data x %d fsdp x %d ep x %d sp x %d tp processes, global batch "
+                    "%d", mesh.n_data, mesh.n_fsdp, mesh.n_ep, mesh.n_sp, mesh.n_tp,
+                    global_batch)
 
     tiny = os.environ.get("TDM_TINY_MODEL", "") == "1"
     seed = cfg.seed if cfg.seed is not None else 0
@@ -335,7 +351,26 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
         quant_forwards=cfg.quant_forwards, ema_decay=0.9999 ** (1.0 / accum),
     )
     schedule = bundle.schedule
-    denoise_fn = bundle.denoise_fn
+    # validation keeps the monolithic forward (the JAX CLI's plain_denoise_fn)
+    denoise_fn = plain_denoise_fn = bundle.denoise_fn
+    if n_sp > 1:
+        # the frames cut over 'sp', every attention a ring over the video
+        # K/V shards (`models/cogvideox.sequence_parallel_apply`), on the
+        # same parameter dicts
+        import dataclasses
+
+        from tdm_tpu_torch.models import cogvideox as cog
+
+        frames = bundle.sample_shape[1]
+        if frames % n_sp:
+            raise ValueError(f"--sp {n_sp} does not divide the latent frame count {frames}")
+        bundle.model.cfg = dataclasses.replace(bundle.model.cfg, sequence_parallel_axis="sp")
+        sp_fwd = cog.sequence_parallel_apply(bundle.model, mesh)
+
+        def denoise_fn(params, x, t, cond):
+            return sp_fwd(x, t, cond, params=params)
+
+        logger.info("sequence parallelism: %d-way frame sharding (ring attention)", n_sp)
     stacks = from_jax.layer_stacks(bundle.model.cfg)
     student_fn = lora_template = None
     student_init = teacher
@@ -531,7 +566,7 @@ def _train(argv, step_hook, closing: contextlib.ExitStack) -> None:
             # every rank runs the same rows; the experts stay split
             with contextlib.nullcontext() if sync is None else sync.moe_scope(None):
                 grids = validation.save_validation_images(
-                    denoise_fn, val_params, schedule,
+                    plain_denoise_fn, val_params, schedule,
                     val_cond, val_noise, decode_fn, output_dir=out_dir, step=global_step,
                     total_steps=cfg.total_steps, write=main_process,
                 )

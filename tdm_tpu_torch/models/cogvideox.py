@@ -37,8 +37,19 @@ recomputes each block in the backward when autograd records the forward
 (`layers.checkpoint_block`, policy 'full', as the JAX package's
 `nn.remat(CogVideoXBlock)`).
 
-Sequence parallelism (`sequence_parallel_axis`, ring attention) and
-`make_pp_forward` wait for ROADMAP.md queue 1, slice 6, and raise.
+Sequence parallelism (`sequence_parallel_apply`, the JAX package's
+`:490-531`): the latent's frames are cut over the mesh axis the config
+names (`sequence_parallel_axis`, 'sp'), and tokens are frame-major, so a
+rank's frames are a contiguous range of video rows. A forward called with
+`sp=` (this rank's `parallel.mesh.AxisGroup` on that axis) builds its
+position tables for the global frame count and slices them at its first
+row, row0 = index·s_vid (`:283-324`); every block's attention is
+`ops.ring_attention` over the video K/V shards, the 226 T5 rows of K/V
+the prefix attended once (`:226-238`), and each rank keeps its own copy
+of the text stream. Everything else in a block is per row. Under 'tp' as
+well (the pipeline's ('data', 'sp', 'tp') mesh) each sp shard runs its
+heads of the cut blocks. `make_pp_forward` waits for ROADMAP.md queue 1,
+slice 6, and raises.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ from torch import nn
 
 from tdm_tpu_torch.device import resolve_device
 from tdm_tpu_torch.models import layers as L
-from tdm_tpu_torch.parallel import tp as tp_lib
+from tdm_tpu_torch.ops import ring_attention as ring
+from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
 
 _SLICE6 = "ROADMAP.md queue 1, slice 6 (multi-GPU)"
 
@@ -79,7 +91,7 @@ class CogVideoXConfig:
     # always holds a ModuleList
     scan_layers: bool = True
     remat: bool = False
-    # ring attention over a mesh axis: slice 6, refused when set
+    # the mesh axis the frames are cut over under `sequence_parallel_apply`
     sequence_parallel_axis: Optional[str] = None
 
     @property
@@ -193,9 +205,10 @@ class CogVideoXBlock(nn.Module):
     def set_tp(self, tp) -> None:
         L.set_tp(self, tp, self._COLUMNS, self._ROWS, ("norm_q", "norm_k"))
 
-    def forward(self, x, ctx, temb, rotary=None):
+    def forward(self, x, ctx, temb, rotary=None, sp=None):
         """x [B, S_vid, D] video tokens, ctx [B, S_txt, D] text tokens;
-        rotary: the (cos, sin) tables of the video rows, or None."""
+        rotary: the (cos, sin) tables of the video rows, or None; sp: the
+        'sp' ring when x is this rank's frames (ring attention), or None."""
         c = self.cfg
         b, s_vid, inner = x.shape
         s_txt = ctx.shape[1]
@@ -215,7 +228,12 @@ class CogVideoXBlock(nn.Module):
         if rotary is not None:  # the video rows only; text keeps identity
             q = torch.cat([q[:, :, :s_txt], L.apply_rotary(q[:, :, s_txt:], rotary)], dim=2)
             k = torch.cat([k[:, :, :s_txt], L.apply_rotary(k[:, :, s_txt:], rotary)], dim=2)
-        out = L.fused_attention(q.contiguous(), k.contiguous(), v, None, impl=self.impl)
+        if sp is not None:  # the video K/V ride the ring; the text block is the prefix
+            out = ring.ring_attention(
+                q, k[:, :, s_txt:], v[:, :, s_txt:], group=sp,
+                prefix_kv=(k[:, :, :s_txt], v[:, :, :s_txt]), impl=c.attn_impl)
+        else:
+            out = L.fused_attention(q.contiguous(), k.contiguous(), v, None, impl=self.impl)
         out = self.to_out(out.transpose(1, 2).reshape(b, s_txt + s_vid, heads * c.head_dim))
         ctx = ctx + c_gate * out[:, :s_txt]
         x = x + gate * out[:, s_txt:]
@@ -238,10 +256,6 @@ class CogVideoXTransformer3D(nn.Module):
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = self.cfg = cfg if cfg is not None else CogVideoXConfig()
-        if c.sequence_parallel_axis is not None:
-            raise NotImplementedError(
-                "CogVideoX sequence parallelism (ring attention over "
-                f"sequence_parallel_axis) is not ported yet: {_SLICE6}")
         L.attn_route(c.attn_impl)
         dev = resolve_device(device)
         inner, p = c.hidden, c.patch_size
@@ -282,7 +296,10 @@ class CogVideoXTransformer3D(nn.Module):
         return F.linear(x, conv.weight.to(self.cfg.dtype).reshape(conv.out_channels, -1),
                         conv.bias.to(self.cfg.dtype))
 
-    def forward(self, latent, t, text):
+    def forward(self, latent, t, text, sp: Optional[pmesh.AxisGroup] = None):
+        """`sp`: under sequence parallelism (`sequence_parallel_apply`),
+        this rank's place on the ring; latent then holds this rank's F/n
+        frames of the video, and so does the output."""
         c = self.cfg
         b, _, f, h, w = latent.shape
         p = c.patch_size
@@ -292,19 +309,25 @@ class CogVideoXTransformer3D(nn.Module):
             t = t.expand(b)
         x = self.patchify(latent)
         ctx = self.text_proj(text.to(c.dtype))
+        # under sp the tables are built for the global frame count and cut
+        # at this shard's first row (tokens are frame-major)
+        s_vid = f * gh * gw
+        f_all, rows = f, slice(None)
+        if sp is not None:
+            f_all, rows = f * sp.n, slice(sp.index * s_vid, (sp.index + 1) * s_vid)
         rotary = None
         if c.use_rotary:
-            rotary = self._table("rope", f, gh, gw, latent.device)
+            rotary = tuple(t_[rows] for t_ in self._table("rope", f_all, gh, gw, latent.device))
         else:  # the 2B's fixed positions, on the video tokens only
-            x = x + self._table("sincos", f, gh, gw, latent.device)[None]
+            x = x + self._table("sincos", f_all, gh, gw, latent.device)[rows][None]
         t_base = L.sinusoidal_timestep_embedding(t, c.hidden)
         temb = self.time_embedding(t_base.to(c.dtype))
         remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                x, ctx = L.checkpoint_block(block, x, ctx, temb, rotary)
+                x, ctx = L.checkpoint_block(block, x, ctx, temb, rotary, sp)
             else:
-                x, ctx = block(x, ctx, temb, rotary)
+                x, ctx = block(x, ctx, temb, rotary, sp)
         # norm_final of the JAX model runs over [ctx; x] and keeps the video
         # rows; a LayerNorm is per row, so the text rows are left out
         x = self.norm_final(x).to(c.dtype)
@@ -331,5 +354,87 @@ def make_pp_forward(*args, **kwargs):
     raise NotImplementedError(f"pipeline-parallel CogVideoX is not ported yet: {_SLICE6}")
 
 
-def sequence_parallel_apply(*args, **kwargs):
-    raise NotImplementedError(f"CogVideoX sequence parallelism is not ported yet: {_SLICE6}")
+def _all_gather(x: torch.Tensor, dim: int, axis: pmesh.AxisGroup) -> torch.Tensor:
+    """The ranks' slices of `dim` concatenated in rank order (one
+    all_gather)."""
+    moved = x.movedim(dim, 0).contiguous()
+    flat = pmesh.all_gather_flat(moved.reshape(-1), axis.group)
+    return flat.view(axis.n * moved.shape[0], *moved.shape[1:]).movedim(0, dim).contiguous()
+
+
+class _GatherSlices(torch.autograd.Function):
+    """`_all_gather`, whose backward keeps this rank's slice of the
+    gradient (the loss after the gather is computed alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _all_gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.axis.n, ctx.dim)[ctx.axis.index], None, None
+
+
+def _gather(x: torch.Tensor, dim: int, axis: pmesh.AxisGroup) -> torch.Tensor:
+    if axis.n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSlices.apply(x, dim, axis)
+    return _all_gather(x, dim, axis)
+
+
+def sequence_parallel_apply(model: CogVideoXTransformer3D, mesh, *, data_axis=None):
+    """Sequence-parallel execution of `model` over `mesh` (a
+    `parallel.mesh.Mesh`; every rank of the world calls it, and then the
+    returned function, with the same arguments): the latent's frames cut
+    over the mesh axis named by the config's `sequence_parallel_axis`
+    and, with `data_axis` ('data'), its rows over that axis. Returns
+    fn(latent [B, C, F, H, W], t [B], text [B, L, Dt], params=None) → the
+    full output [B, C, F, H, W]: this rank's frames (and rows) go in, the
+    output's are all-gathered, and in the backward each rank keeps its
+    slice of the gradient, so a rank's parameter gradients are its share
+    of the sum over 'sp' (the reducers' `sp` rule, `parallel/mesh.py`).
+    `params`, when given, is the dict the forward runs on
+    (`torch.func.functional_call`, as the training families call their
+    module). Raises the JAX ValueErrors: no axis in the config; F not a
+    multiple of the axis size (at the call)."""
+    from torch.func import functional_call
+
+    ax = model.cfg.sequence_parallel_axis
+    if ax is None:
+        raise ValueError(
+            "model.cfg.sequence_parallel_axis is None — construct the model "
+            "with the sp axis name to use sequence_parallel_apply"
+        )
+    sp = mesh.axis(ax)
+    rows_axis = mesh.axis(data_axis) if data_axis is not None else None
+
+    def fn(latent, t, text, params=None):
+        t = torch.as_tensor(t, device=latent.device)
+        if t.dim() == 0:
+            t = t.expand(latent.shape[0])
+        if rows_axis is not None and rows_axis.n > 1:
+            b = latent.shape[0]
+            if b % rows_axis.n:
+                raise ValueError(
+                    f"batch {b} does not divide the '{data_axis}' axis size {rows_axis.n}")
+            per = b // rows_axis.n
+            mine = slice(rows_axis.index * per, (rows_axis.index + 1) * per)
+            latent, t, text = latent[mine], t[mine], text[mine]
+        f = latent.shape[2]
+        if f % sp.n:
+            raise ValueError(
+                f"latent frame count {f} does not divide by the '{ax}' axis size {sp.n}")
+        per_f = f // sp.n
+        local = latent[:, :, sp.index * per_f:(sp.index + 1) * per_f]
+        if params is None:
+            out = model(local, t, text, sp=sp)
+        else:
+            out = functional_call(model, params, (local, t, text), {"sp": sp})
+        out = _gather(out, 2, sp)
+        if rows_axis is not None:
+            out = _gather(out, 0, rows_axis)
+        return out
+
+    return fn

@@ -1,5 +1,6 @@
-"""Process groups, the ('data', 'fsdp', 'ep', 'tp') mesh, the gradient
-mean, ZeRO-3, expert parallelism and the state under tensor parallelism.
+"""Process groups, the ('data', 'fsdp', 'ep', 'sp', 'tp') mesh, the
+gradient mean, ZeRO-3, expert parallelism, the state under tensor
+parallelism and the ring permute of sequence parallelism.
 
 Port of `tdm_tpu/parallel/mesh.py`. The reference's distributed surface is
 data parallelism over N GPUs (accelerate process groups over NCCL, the DDP
@@ -58,6 +59,21 @@ process per GPU (a JAX process drives every local device instead):
   * Under --fsdp the shared adaLN heads (`t_block`, `norm_out`) stay
     replicated, as the JAX CLI's `tp_fsdp_spec` keeps them with or without
     'tp'.
+  * Sequence parallelism (`--sp`, CogVideoX only): 'sp' sits between 'ep'
+    and 'tp', rank = (((d·n_fsdp + f)·n_ep + e)·n_sp + s)·n_tp + t, so it
+    is innermost on the training meshes ('data', 'sp') and ('data', 'fsdp',
+    'sp') and 'tp' is innermost on the pipeline's ('data', 'sp', 'tp'), as
+    in the JAX package (`tdm_tpu/cli/train_tdm.py:151-175`,
+    `tests/test_cogvideox_sp.py:98-140`). Under 'sp' only 'data' splits
+    rows (`batch_sharding`, `tdm_tpu/parallel/mesh.py:152-165`): the sp and
+    fsdp ranks of one data index read the same prompts, take the same
+    draws and hold one video's frames each (`models/cogvideox.py`). A
+    rank's parameter gradient is then its frames' share of its rows', so
+    the reducers sum over the world and divide by the ranks that hold
+    distinct rows' whole gradients, world / n_sp: the mean over 'data' of
+    the sum over 'sp' (under --fsdp the 'fsdp' ranks' copies are equal, and
+    their reduce-scatter sum is divided out too). `ppermute` moves tensors
+    to the next rank of the 'sp' ring (`ops/ring_attention.py`).
 
 At world 1 nothing here runs: the training CLI passes the step no reducer,
 so the single-GPU step issues no collective and makes no copy.
@@ -166,16 +182,33 @@ def local_device(device: torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
-AXES = ("data", "fsdp", "ep", "tp")
+AXES = ("data", "fsdp", "ep", "sp", "tp")
+
+
+@dataclass(frozen=True)
+class AxisGroup(tp_lib.TPGroup):
+    """One mesh axis as a rank sees it (`tp.TPGroup`: its size, this
+    rank's index on it, the process group over it) and the global ranks of
+    its members in index order (point-to-point calls name global ranks)."""
+
+    ranks: tuple = ()
+
+    @property
+    def next_rank(self) -> int:
+        return self.ranks[(self.index + 1) % self.n]
+
+    @property
+    def prev_rank(self) -> int:
+        return self.ranks[(self.index - 1) % self.n]
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ('data', 'fsdp', 'ep', 'tp') mesh over the world: rank =
-    ((d·n_fsdp + f)·n_ep + e)·n_tp + t. `groups` maps a tuple of axes to
-    this rank's process group over them (the ranks that differ only along
-    those axes): None where it has one rank (no collective over it),
-    `dist.group.WORLD` where it spans the world."""
+    """The ('data', 'fsdp', 'ep', 'sp', 'tp') mesh over the world: rank =
+    (((d·n_fsdp + f)·n_ep + e)·n_sp + s)·n_tp + t. `groups` maps a tuple
+    of axes to this rank's process group over them (the ranks that differ
+    only along those axes): None where it has one rank (no collective over
+    it), `dist.group.WORLD` where it spans the world."""
 
     n_data: int
     n_fsdp: int
@@ -183,32 +216,53 @@ class Mesh:
     n_ep: int = 1
     groups: Any = None
     n_tp: int = 1
+    n_sp: int = 1
 
     @property
     def world(self) -> int:
-        return self.n_data * self.n_fsdp * self.n_ep * self.n_tp
+        return self.n_data * self.n_fsdp * self.n_ep * self.n_sp * self.n_tp
 
     @property
     def n_rows(self) -> int:
-        """The ranks that hold rows of their own (data x fsdp)."""
-        return self.n_data * self.n_fsdp
+        """The ranks that hold rows of their own: data x fsdp, or 'data'
+        alone under 'sp' (its fsdp ranks cooperate on the same rows, as
+        `batch_sharding` drops 'fsdp' on an 'sp' mesh)."""
+        return self.n_data if self.n_sp > 1 else self.n_data * self.n_fsdp
 
     @property
     def row_index(self) -> int:
-        return self.rank // (self.n_ep * self.n_tp)
+        if self.n_sp > 1:
+            return self.axis("data").index
+        return self.rank // (self.n_ep * self.n_sp * self.n_tp)
 
     @property
     def fsdp_index(self) -> int:
-        return self.row_index % self.n_fsdp
+        return self.axis("fsdp").index
 
     @property
     def ep_index(self) -> int:
-        return (self.rank // self.n_tp) % self.n_ep
+        return self.axis("ep").index
 
     @property
-    def tp(self) -> tp_lib.TPGroup:
+    def tp(self) -> AxisGroup:
         """This rank's place on the 'tp' axis."""
-        return tp_lib.TPGroup(self.n_tp, self.rank % self.n_tp, self.group("tp"))
+        return self.axis("tp")
+
+    def axis(self, name: str) -> AxisGroup:
+        """This rank's place on one axis, with its members' global ranks."""
+        if name not in AXES:
+            raise ValueError(f"the mesh has no axis {name!r} (its axes: {AXES})")
+        sizes = dict(zip(AXES, (self.n_data, self.n_fsdp, self.n_ep, self.n_sp, self.n_tp)))
+        stride = math.prod(sizes[a] for a in AXES[AXES.index(name) + 1:])
+        index = (self.rank // stride) % sizes[name]
+        base = self.rank - index * stride
+        return AxisGroup(sizes[name], index, self.group(name),
+                         tuple(base + i * stride for i in range(sizes[name])))
+
+    @property
+    def sp(self) -> AxisGroup:
+        """This rank's place on the 'sp' ring."""
+        return self.axis("sp")
 
     def group(self, *axes: str):
         return self.groups[tuple(a for a in AXES if a in axes)]
@@ -224,7 +278,8 @@ class Mesh:
     def batch_rows(self, local_batch: int) -> slice:
         """This rank's rows of the global batch: every 'data' and 'fsdp'
         rank holds rows of its own (as `batch_sharding` shards rows over
-        both); the 'ep' and 'tp' ranks of one row index share them."""
+        both), but under 'sp' only 'data' does; the 'ep', 'sp' and 'tp'
+        ranks of one row index share them."""
         i = self.row_index
         return slice(i * local_batch, (i + 1) * local_batch)
 
@@ -241,27 +296,30 @@ class Mesh:
 
 
 def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1,
-              n_tp: int = 1) -> Mesh:
-    """('data', 'fsdp', 'ep', 'tp') mesh over the world (all of it on 'data'
-    by default, the reference's topology). Every rank calls it, in the same
-    order, since it forms the axes' process groups."""
+              n_tp: int = 1, n_sp: int = 1) -> Mesh:
+    """('data', 'fsdp', 'ep', 'sp', 'tp') mesh over the world (all of it on
+    'data' by default, the reference's topology). Every rank calls it, in
+    the same order, since it forms the axes' process groups."""
     world, me = world_size(), rank()
-    inner = n_fsdp * n_ep * n_tp
-    if n_fsdp < 1 or n_ep < 1 or n_tp < 1 or world % inner:
+    inner = n_fsdp * n_ep * n_sp * n_tp
+    if n_fsdp < 1 or n_ep < 1 or n_sp < 1 or n_tp < 1 or world % inner:
         raise ValueError(
-            f"fsdp {n_fsdp} x ep {n_ep} x tp {n_tp} does not divide the world of "
-            f"{world} processes")
+            f"fsdp {n_fsdp} x ep {n_ep} x sp {n_sp} x tp {n_tp} does not divide the world "
+            f"of {world} processes")
     if n_data is None:
         n_data = world // inner
     if n_data * inner != world:
         raise ValueError(
-            f"mesh {n_data}x{n_fsdp}x{n_ep}x{n_tp} does not divide the world of {world} "
-            "processes")
-    sizes = dict(zip(AXES, (n_data, n_fsdp, n_ep, n_tp)))
+            f"mesh {n_data}x{n_fsdp}x{n_ep}x{n_sp}x{n_tp} does not divide the world of "
+            f"{world} processes")
+    sizes = dict(zip(AXES, (n_data, n_fsdp, n_ep, n_sp, n_tp)))
 
     def coords(r: int) -> dict:
-        return {"data": r // inner, "fsdp": (r // (n_ep * n_tp)) % n_fsdp,
-                "ep": (r // n_tp) % n_ep, "tp": r % n_tp}
+        out, rest = {}, r
+        for a in reversed(AXES):
+            out[a] = rest % sizes[a]
+            rest //= sizes[a]
+        return out
 
     groups, made = {}, {}
     subsets = [tuple(a for i, a in enumerate(AXES) if m >> i & 1)
@@ -284,7 +342,68 @@ def make_mesh(n_data: Optional[int] = None, n_fsdp: int = 1, n_ep: int = 1,
                 made[ranks] = dist.new_group(list(ranks))
             if me in ranks:
                 groups[axes] = made[ranks]
-    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, n_ep=n_ep, groups=groups, n_tp=n_tp)
+    return Mesh(n_data=n_data, n_fsdp=n_fsdp, rank=me, n_ep=n_ep, groups=groups, n_tp=n_tp,
+                n_sp=n_sp)
+
+
+def ppermute(tensors: list, sp: AxisGroup) -> list:
+    """Each tensor sent to the next rank of the ring `sp` and its
+    counterpart received from the previous one (JAX's `lax.ppermute` with
+    perm i → i+1), in one message: the tensors packed byte by byte into one
+    buffer (each at a 256-byte boundary, so a received tensor is aligned as
+    the kernels' TMA reads want it), returned as views of the received
+    buffer. The route follows the group's backend: NCCL sends device
+    memory (`batch_isend_irecv`: an isend to rank+1 and an irecv from
+    rank−1); gloo sends no CUDA tensor, so a CUDA buffer is staged through
+    host memory and back, and a CPU buffer is sent as it is. Counted in
+    `ppermute.calls` and `ppermute.bytes` (the bytes sent). A failed
+    transfer raises."""
+    if sp.n == 1:
+        return list(tensors)
+    dev = tensors[0].device
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    send = torch.empty(total, dtype=torch.uint8, device=dev)
+    for t, off, n in zip(tensors, offsets, sizes):
+        send[off:off + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+    backend = dist.get_backend(sp.group)
+    if backend == "nccl":
+        recv = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, sp.next_rank, sp.group),
+            dist.P2POp(dist.irecv, recv, sp.prev_rank, sp.group)])
+    elif backend == "gloo":  # a CUDA buffer through pinned host memory
+        host = send
+        if dev.type == "cuda":
+            host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            host.copy_(send)
+        recv_host = torch.empty(total, dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        reqs = [dist.isend(host, sp.next_rank, group=sp.group),
+                dist.irecv(recv_host, sp.prev_rank, group=sp.group)]
+    else:
+        raise ValueError(f"no ppermute route for the {backend!r} backend")
+    for req in reqs:
+        req.wait()
+    if backend == "gloo":
+        recv = recv_host.to(dev) if dev.type == "cuda" else recv_host
+    _COUNTED.calls += 1
+    _COUNTED.bytes += total
+    return [recv[off:off + n].view(t.dtype).view(t.shape)
+            for t, off, n in zip(tensors, offsets, sizes)]
+
+
+# the counts live on the function itself (a caller may wrap the module's name)
+_COUNTED = ppermute
+ppermute.calls = 0
+ppermute.bytes = 0
+
+
+def reset_ppermute_counts() -> None:
+    _COUNTED.calls = 0
+    _COUNTED.bytes = 0
 
 
 def _allreduce_sum(tree: dict, group) -> dict:
@@ -431,7 +550,8 @@ class ShardLayout:
         chunk over 'fsdp', then summed over the rest of its ranks; an
         expert leaf or a tp slice over the data x fsdp ranks that hold it,
         every other leaf over the world (the 'ep' and 'tp' ranks' copies
-        are equal); one flattened all_reduce per group and dtype."""
+        are equal; the 'sp' ranks' are the parts of one sum); one flattened
+        all_reduce per group and dtype."""
         m = self.mesh
         rep, shards = {}, {}
         for k, g in grads.items():
@@ -444,7 +564,7 @@ class ShardLayout:
         out = {}
         for tree, split_group, dense_group in (
                 (rep, m.group("data", "fsdp"), dist.group.WORLD),
-                (shards, m.group("data"), m.group("data", "ep", "tp"))):
+                (shards, m.group("data"), m.group("data", "ep", "sp", "tp"))):
             split = {k: g for k, g in tree.items() if self._split(k)}
             dense = {k: g for k, g in tree.items() if not self._split(k)}
             out.update(_allreduce_sum(split, split_group)
@@ -454,7 +574,7 @@ class ShardLayout:
         split = [out[k] for k in grads if self._split(k)]
         dense = [out[k] for k in grads if not self._split(k)]
         if dense:
-            torch._foreach_div_(dense, m.world)
+            torch._foreach_div_(dense, m.world // m.n_sp)
         if split and m.n_rows > 1:
             torch._foreach_div_(split, m.n_rows)
         return {k: out[k] for k in grads}
@@ -560,8 +680,9 @@ def _map_opt(node, leaves_fn, q8_fn):
 class DataParallel:
     """The step's reducer under plain data parallelism: the compute copy is
     the master weights, gradients are averaged over the world (one
-    flattened all_reduce per dict) and the metrics too. Every rank holds
-    the whole state, so the state's full form is the state itself."""
+    flattened all_reduce per dict; under 'sp' summed over the world and
+    divided by its data ranks) and the metrics too. Every rank holds the
+    whole state, so the state's full form is the state itself."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -590,7 +711,11 @@ class DataParallel:
         return self.mesh.moe_scope(rows)
 
     def reduce(self, role: str, grads: dict) -> dict:
-        return allreduce_mean(grads)
+        if self.mesh.n_sp == 1:
+            return allreduce_mean(grads)
+        out = _allreduce_sum(grads, None)
+        torch._foreach_div_(list(out.values()), self.mesh.world // self.mesh.n_sp)
+        return out
 
     def norm(self, role: str, grads: dict) -> torch.Tensor:
         return topt.global_norm(grads)

@@ -99,8 +99,12 @@ class DiffusionPipelineBase:
         self._active: tuple = ()  # ((name, scale), ...)
         self.quant: Optional[str] = None  # None or 'int8': the sampler's products
         self._replicas: list = []  # one pipeline per data_parallel_devices entry
-        self._tp: Optional[tp_lib.TPGroup] = None
-        self._tp_plan: dict = {}  # the denoiser's tp leaves (parallel/tp.plan)
+        self._tp: Optional[tp_lib.TPGroup] = None  # the served 'tp' world this rank leads
+        # the 'tp' cut of the denoiser (`tensor_parallel`, or the 'tp' axis of
+        # a sequence-parallel mesh) and its leaves (parallel/tp.plan)
+        self._tp_cut: Optional[tp_lib.TPGroup] = None
+        self._tp_plan: dict = {}
+        self.sp_mesh = None  # CogVideoX's sequence_parallel_mesh
 
     def sampler_scope(self):
         """The scope the sampler runs under: `quant_scope(self.quant)`
@@ -121,6 +125,8 @@ class DiffusionPipelineBase:
     def data_parallel_devices(self, devices: Optional[Sequence]) -> None:
         if devices and self._tp is not None:
             raise ValueError(_EXCLUSIVE)
+        if devices and self.sp_mesh is not None:
+            raise ValueError(SP_DP_EXCLUSIVE)
         if len(devices or ()) > 1 and any(
                 isinstance(m, moe.MoEFeedForward) for m in self.denoiser.modules()):
             raise NotImplementedError(
@@ -147,13 +153,21 @@ class DiffusionPipelineBase:
     def tensor_parallel(self, tp: Optional[tp_lib.TPGroup]) -> None:
         if tp is not None and self._replicas:
             raise ValueError(_EXCLUSIVE)
-        if self._tp is not None:
+        if tp is not None and self.sp_mesh is not None:
+            raise ValueError(SP_TP_EXCLUSIVE)
+        if self._tp_cut is not None:
             raise ValueError("the denoiser is already cut for tensor parallelism")
         if tp is None:
             return
+        self._cut_for_tp(tp)
+        self._tp = tp
+
+    def _cut_for_tp(self, tp: tp_lib.TPGroup) -> None:
+        """Cut the denoiser for this rank of 'tp' (its modules run their
+        share of the heads) and the pristine LoRA weights with it."""
         plan = tp_lib.parallelize(self.denoiser, tp)
         self._base = tp_lib.shard_params_tp(self._base, plan, tp)
-        self._tp, self._tp_plan = tp, plan
+        self._tp_cut, self._tp_plan = tp, plan
 
     def _replica(self, device: torch.device) -> "DiffusionPipelineBase":
         """This pipeline with its denoiser, decoder and schedule copied to
@@ -256,7 +270,7 @@ class DiffusionPipelineBase:
         model = self.denoiser
         stacks = from_jax.layer_stacks(model.cfg)
         merged = dict(self._base)
-        cut = tp_lib.lora_cutter(self._tp_plan, self._tp) if self._tp_plan else None
+        cut = tp_lib.lora_cutter(self._tp_plan, self._tp_cut) if self._tp_plan else None
         for name, scale in zip(names, scales):
             if scale != 0.0:
                 merged = lora_lib.merge(merged, self._loras[name], scale, stacks, cut)
@@ -271,6 +285,21 @@ _EXCLUSIVE = (
     "data_parallel_mesh and tensor_parallel_mesh are mutually "
     "exclusive — a ('data','tp') tensor_parallel_mesh already "
     "carries the batch axis"
+)
+# a sequence-parallel CogVideoX pipeline against the other two (the JAX
+# package's messages, `tdm_tpu/pipelines/cogvideox.py:169-183`)
+SP_DP_EXCLUSIVE = (
+    "sequence_parallel_mesh and data_parallel_mesh are mutually "
+    "exclusive on one pipeline — use a single ('data','sp') "
+    "mesh via sequence_parallel_mesh (its 'data' axis already "
+    "shards the batch)"
+)
+SP_TP_EXCLUSIVE = (
+    "sequence_parallel_mesh and tensor_parallel_mesh are "
+    "mutually exclusive as separate knobs — to COMPOSE them, "
+    "pass ONE ('data','sp','tp') mesh as sequence_parallel_mesh: "
+    "the 'tp' axis stays automatic inside the shard_map and the "
+    "params are megatron-sharded over it"
 )
 
 

@@ -18,7 +18,20 @@ transformer's `max_text_len` (`encode_prompt`), or precomputed
 (`prompt_embeds=embeds`). CFG (only above 1) takes `negative_embeds`, else
 encodes the negative prompt ("" by default) as diffusers'
 `CogVideoXPipeline` does, else, with no encoder attached, zeros.
-Sequence parallelism waits for slice 6.
+
+Sequence parallelism (`sequence_parallel_mesh`, the JAX package's
+`:44-78, 158-190, 227-245`): a `parallel.mesh.Mesh` over the world whose
+'sp' axis (the one the transformer's config names) cuts the latent frames,
+through `models/cogvideox.sequence_parallel_apply` with the batch over its
+'data' axis; every rank of the world builds the pipeline and calls it with
+the same arguments, each rank's sampler runs its frames (ring attention)
+and ends with the whole latents, and the decode runs on rank 0 alone (the
+other ranks return latents only). A ('data', 'sp', 'tp') mesh composes
+'tp': the transformer is cut for this rank's 'tp' slice (`parallel/tp.py`)
+inside each sequence shard. The JAX package's ValueErrors: the mesh and
+the config's axis come together, the mesh excludes `data_parallel_devices`
+and `tensor_parallel`, and the latent frame count must be a multiple of
+the 'sp' size.
 """
 
 from __future__ import annotations
@@ -62,10 +75,14 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         device: Optional[Union[str, torch.device]] = None,
     ):
         super().__init__()
-        if sequence_parallel_mesh is not None:
-            raise NotImplementedError(
-                "CogVideoX sequence parallelism is not ported yet: ROADMAP.md queue 1, "
-                "slice 6 (multi-GPU)")
+        ax = transformer.cfg.sequence_parallel_axis
+        if (sequence_parallel_mesh is None) != (ax is None):
+            raise ValueError(
+                "sequence_parallel_mesh and the transformer cfg's "
+                "sequence_parallel_axis must be set together "
+                f"(mesh={sequence_parallel_mesh}, axis={ax!r})"
+            )
+        self.sp_mesh = sequence_parallel_mesh
         self.device = resolve_device(device)
         self.transformer = transformer.to(self.device).eval()
         self.vae_decoder = (
@@ -83,6 +100,12 @@ class CogVideoXPipeline(DiffusionPipelineBase):
         self.vae_tile = vae_tile
         self.vae_tile_overlap = vae_tile_overlap
         self.vae_temporal_chunk = vae_temporal_chunk
+        self._sp_fn = None
+        if sequence_parallel_mesh is not None:
+            if sequence_parallel_mesh.n_tp > 1:  # sp+tp: each sp shard runs its heads
+                self._cut_for_tp(sequence_parallel_mesh.tp)
+            self._sp_fn = cog.sequence_parallel_apply(
+                self.transformer, sequence_parallel_mesh, data_axis="data")
 
     @torch.inference_mode()
     def encode_prompt(self, prompts: list[str]) -> torch.Tensor:
@@ -154,9 +177,17 @@ class CogVideoXPipeline(DiffusionPipelineBase):
                 uncond = torch.zeros_like(cond)
         cond = repeat_per_prompt(cond, num_videos_per_prompt)
         uncond = repeat_per_prompt(uncond, num_videos_per_prompt)
-        noise = initial_noise(
-            latents, generator_for(seed, generator),
-            self.latent_shape(cond.shape[0], num_frames, height, width), self.device)
+        shape = self.latent_shape(cond.shape[0], num_frames, height, width)
+        if self.sp_mesh is not None:
+            ax = self.transformer.cfg.sequence_parallel_axis
+            n_sp = self.sp_mesh.axis(ax).n
+            if shape[2] % n_sp:
+                raise ValueError(
+                    f"latent frame count {shape[2]} does not divide by the "
+                    f"'{ax}' axis size {n_sp} — pick num_frames so that "
+                    f"1 + (num_frames-1)/temporal_factor is a multiple"
+                )
+        noise = initial_noise(latents, generator_for(seed, generator), shape, self.device)
         if timesteps is None:
             timesteps = (TDM_TRAINED_GRID if num_inference_steps == 4 else
                          sched.fewstep_grid(1000, num_inference_steps).tolist())
@@ -164,13 +195,17 @@ class CogVideoXPipeline(DiffusionPipelineBase):
                              timesteps=timesteps, output_type=output_type)
 
     def _run(self, noise, cond, uncond, *, cfg, timesteps, output_type) -> PipelineOutput:
-        """The sampler and the decode of a call's rows (`run_rows`)."""
+        """The sampler and the decode of a call's rows (`run_rows`); under
+        sequence parallelism every rank samples (its frames) and rank 0
+        alone decodes."""
+        denoise = self._sp_fn or cog.make_denoise_fn(self.transformer)
         with self.sampler_scope():
             out = sampling.sample_fewstep(
-                cog.make_denoise_fn(self.transformer), self.schedule, noise, cond,
+                denoise, self.schedule, noise, cond,
                 timestep_grid=sched.grid_from_list(timesteps), uncond=uncond, cfg=cfg,
             )
-        if output_type == "latent" or self.vae_decoder is None:
+        decodes = self.sp_mesh is None or self.sp_mesh.rank == 0
+        if output_type == "latent" or self.vae_decoder is None or not decodes:
             return PipelineOutput(images=None, latents=out)
         return PipelineOutput(images=to_images(self.decode(out), value_range="pm1"),
                               latents=out)

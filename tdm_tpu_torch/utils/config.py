@@ -5,7 +5,7 @@ flag names and defaults (the reference's `src/args.py:20-339` plus the JAX
 package's extensions), so a launch command of the JAX CLI parses here too.
 One flag is the port's own: `--device` (CUDA unless `cpu` is given; under
 a world of processes each one's `cuda:LOCAL_RANK`). Flags whose path is not
-ported yet (--pp/--sp) are accepted by the parser and refused by the
+ported yet (--pp) are accepted by the parser and refused by the
 CLI before the first step (`cli/train_tdm.py`); `--compilation_cache`
 configures XLA and is accepted and ignored. The JAX-only helpers
 (`apply_platform_env`, `enable_compilation_cache`) are not ported.
@@ -97,8 +97,9 @@ class TrainConfig:
     prediction_type: Optional[str] = None
 
     # the JAX package's mesh and parallelism extensions: --fsdp, --ep,
-    # --moe_experts and --tp are ported (parallel/mesh.py, models/moe.py,
-    # parallel/tp.py); --pp/--sp wait for slice 6
+    # --moe_experts, --tp and --sp are ported (parallel/mesh.py,
+    # models/moe.py, parallel/tp.py, models/cogvideox.py); --pp waits for
+    # slice 6
     fsdp: int = 1
     tp: int = 1
     pp: int = 1

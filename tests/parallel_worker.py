@@ -335,7 +335,9 @@ def job_tp(args: dict) -> None:
 
 def job_cli_runs(args: dict) -> None:
     """The training CLI's main() once per argv of args['argvs'], in one
-    world formed here (main() leaves a world it did not form standing)."""
+    world formed here (main() leaves a world it did not form standing);
+    then once per [argv, message] of args['refused'], each of which must
+    raise ValueError with that message on every rank."""
     from tdm_tpu_torch.parallel import mesh as pmesh
 
     _lower_gates(args)
@@ -345,14 +347,193 @@ def job_cli_runs(args: dict) -> None:
     for argv in args["argvs"]:
         train_tdm.main(argv)
         pmesh.barrier()
+    for argv, message in args.get("refused", ()):
+        try:
+            train_tdm.main(argv)
+        except ValueError as e:
+            assert message in str(e), str(e)
+        else:
+            raise AssertionError(f"{argv} was not refused")
+        pmesh.barrier()
     torch.distributed.destroy_process_group()
+
+
+def job_ring(args: dict) -> None:
+    """`ops.ring_attention` in a world of 4 against the JAX flash-hop
+    ring's outputs and gradients (args['inputs'], each case with its ring
+    size n: a mesh of 4/n 'data' ranks by n 'sp' ranks, every data index
+    running the case on its n ranks): this rank's shard of the output and
+    of dQ/dK/dV, and the prefix's dK/dV summed over the ring (JAX's
+    shard_map sums a replicated input's cotangent); the permutes each
+    direction makes, counted."""
+    from tdm_tpu_torch.ops import ring_attention as ring
+    from tdm_tpu_torch.parallel import mesh as pmesh
+
+    inp = torch.load(args["inputs"], weights_only=False)
+    assert pmesh.maybe_initialize_distributed("cpu")
+    for name, case in inp["cases"].items():
+        n = case["n"]
+        mesh = pmesh.make_mesh(pmesh.world_size() // n, n_sp=n)
+        sp = mesh.sp
+        assert sp.n == n and sp.ranks[sp.index] == mesh.rank
+
+        def mine(t, dim):
+            per = t.shape[dim] // n
+            return t.narrow(dim, sp.index * per, per).clone()
+
+        q, k, v, g = (mine(case[x], 2) for x in ("q", "k", "v", "g"))
+        leaves = [q, k, v]
+        kw = {}
+        if case.get("mask") is not None:
+            kw["key_mask"] = mine(case["mask"], 1)
+        if case.get("k_p") is not None:
+            k_p, v_p = case["k_p"].clone(), case["v_p"].clone()
+            leaves += [k_p, v_p]
+            kw["prefix_kv"] = (k_p, v_p)
+            kw["prefix_mask"] = case.get("prefix_mask")
+        for t in leaves:
+            t.requires_grad_(True)
+        pmesh.reset_ppermute_counts()
+        out = ring.ring_attention(q, k, v, group=sp, impl=case["impl"], **kw)
+        fwd = pmesh.ppermute.calls
+        grads = torch.autograd.grad((out * g).sum(), leaves)
+        bwd = pmesh.ppermute.calls - fwd
+        assert (fwd, bwd) == (n - 1, n if n > 1 else 0), (name, fwd, bwd)
+        tol = case["tol"]
+        np.testing.assert_allclose(out.detach().numpy(), mine(case["out"], 2).numpy(),
+                                   atol=tol, rtol=tol, err_msg=f"{name} out")
+        if case.get("zero_rows"):
+            assert float(out[case["zero_rows"]].abs().max()) == 0.0, name
+        refs = [mine(case["grads"][i], 2) for i in range(3)] + list(case["grads"][3:])
+        for i, (got, ref) in enumerate(zip(grads, refs)):
+            if i >= 3 and n > 1:  # the prefix's partials, summed over the ring
+                got = got.clone()
+                torch.distributed.all_reduce(got, group=sp.group)
+            np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=tol, rtol=tol,
+                                       err_msg=f"{name} grad {i}")
+        print(f"ring {name} ok {mesh.rank}: permutes {fwd} + {bwd}", flush=True)
+
+
+def _sp_model(cfg_kw: dict):
+    """The tiny CogVideoX with the frames cut over 'sp'."""
+    import dataclasses
+
+    from tdm_tpu_torch.models import cogvideox as cog
+
+    cfg = dataclasses.replace(cog.CogVideoXConfig.tiny(cfg_kw.get("use_rotary", False)),
+                              sample_frames=cfg_kw["frames"], sequence_parallel_axis="sp")
+    return cog.CogVideoXTransformer3D(cfg, device="cpu")
+
+
+def job_sp(args: dict) -> None:
+    """CogVideoX sequence parallelism in a world of 4 (args['inputs']):
+
+    * each forward case on its ('data', 'sp', 'tp') mesh through
+      `sequence_parallel_apply(..., data_axis='data')` (the model cut for
+      'tp' where the case asks), the full output against JAX's
+      `sequence_parallel_apply`; with a cotangent, every parameter's
+      gradient of sum(out·g) summed over the world against JAX's;
+    * one TDM step on the ('data', 'sp') = (2, 2) mesh through the
+      family's sp denoiser and the DataParallel reducer (each data rank on
+      its row, its sp ranks on its frames); rank 0 saves the new state and
+      the metrics to args['out'], and every rank its student's bit
+      checksum (the sp ranks of one row must agree bit for bit)."""
+    import functools
+
+    from tdm_tpu_torch.models import cogvideox as cog
+    from tdm_tpu_torch.parallel import mesh as pmesh, tp as tp_lib
+    from tdm_tpu_torch.train import families, optim as topt, tdm
+
+    inp = torch.load(args["inputs"], weights_only=False)
+    assert pmesh.maybe_initialize_distributed("cpu")
+    for name, case in inp["forward"].items():
+        n_data, n_sp, n_tp = case["mesh"]
+        mesh = pmesh.make_mesh(n_data, n_tp=n_tp, n_sp=n_sp)
+        model = _sp_model(case)
+        model.load_state_dict(case["params"])
+        params = case["params"]
+        plan = {}
+        if n_tp > 1:
+            plan = tp_lib.parallelize(model, mesh.tp)
+            assert plan
+            params = tp_lib.shard_params_tp(params, plan, mesh.tp)
+        fn = cog.sequence_parallel_apply(model, mesh, data_axis="data")
+        latent, t, text = case["inputs"]
+        if "g" not in case:
+            with torch.no_grad():
+                out = fn(latent, t, text)
+        else:
+            leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+            out = fn(latent, t, text, params=leaves)
+            grads = dict(zip(leaves, torch.autograd.grad((out * case["g"]).sum(),
+                                                         list(leaves.values()))))
+        np.testing.assert_allclose(out.detach().numpy(), case["out"], atol=3e-5, rtol=3e-5,
+                                   err_msg=name)
+        if "g" in case:
+            for k, ref in case["grads"].items():
+                g = grads[k].clone()
+                torch.distributed.all_reduce(g)
+                np.testing.assert_allclose(g.numpy(), ref.numpy(), atol=2e-4, rtol=2e-4,
+                                           err_msg=f"{name} {k}")
+        print(f"sp {name} ok {mesh.rank}", flush=True)
+
+    from tdm_tpu_torch.models import vae3d
+    from tdm_tpu_torch.pipelines import CogVideoXPipeline
+
+    for name, case in inp["pipeline"].items():
+        n_data, n_sp, n_tp = case["mesh"]
+        mesh = pmesh.make_mesh(n_data, n_tp=n_tp, n_sp=n_sp)
+        model = _sp_model(case)
+        model.load_state_dict(case["params"])
+        pipe = CogVideoXPipeline(model, vae_cfg=vae3d.VAE3DConfig.tiny(),
+                                 sequence_parallel_mesh=mesh, device="cpu")
+        pmesh.reset_ppermute_counts()
+        out = pipe(**case["call"]).latents
+        assert pmesh.ppermute.calls > 0
+        np.testing.assert_allclose(out.float().numpy(), case["ref"], **case["tol"], err_msg=name)
+        try:  # 3 latent frames over 2 'sp' ranks
+            pipe(**dict(case["call"], num_frames=5, latents=None))
+        except ValueError as e:
+            assert "latent frame count 3 does not divide by the 'sp' axis size 2" in str(e)
+        else:
+            raise AssertionError("an odd frame count was not refused")
+        print(f"sp {name} ok {mesh.rank}", flush=True)
+
+    step = inp["step"]
+    mesh = pmesh.make_mesh(2, n_sp=2)
+    bundle = families.build("cogvideox", tiny=True, num_frames=step["num_frames"], device="cpu")
+    sp_model = _sp_model({"frames": bundle.sample_shape[1]})
+    fn = cog.sequence_parallel_apply(sp_model, mesh)
+    sync = pmesh.DataParallel(mesh)
+    tx_s, tx_c = (topt.make_optimizer(step["lr"], eps=step["eps"],
+                                      norm_fn=functools.partial(sync.norm, role))
+                  for role in ("student", "critic"))
+    train_step = tdm.build_train_step(
+        lambda p, x, t, c: fn(x, t, c, params=p), step["teacher"], bundle.schedule,
+        tdm.TDMConfig(**step["config"]), tx_s, tx_c, sample_shape=bundle.sample_shape,
+        sync=sync)
+    rows = mesh.batch_rows(1)
+    pmesh.reset_ppermute_counts()
+    new, metrics = train_step(step["state"], tdm.draw_rows(step["draws"], rows),
+                              step["cond"][rows], step["uncond"][rows])
+    assert pmesh.ppermute.calls > 0
+    sums = torch.stack([torch.stack([v.double().sum(), v.double().square().sum()])
+                        for v in new.student.values()])
+    others = [torch.empty_like(sums) for _ in range(mesh.world)]
+    torch.distributed.all_gather(others, sums)
+    assert all(torch.equal(o, sums) for o in others), "the ranks' students differ"
+    if mesh.rank == 0:
+        torch.save({"state": new, "metrics": {k: float(v) for k, v in metrics._asdict().items()}},
+                   args["out"])
+    print(f"sp step ok {mesh.rank}: {pmesh.ppermute.calls} permutes", flush=True)
 
 
 if __name__ == "__main__":
     torch.set_num_threads(1)
     try:
         {"cli": job_cli, "step": job_step, "collectives": job_collectives, "tp": job_tp,
-         "cli_runs": job_cli_runs}[sys.argv[1]](json.loads(sys.argv[2]))
+         "cli_runs": job_cli_runs, "ring": job_ring, "sp": job_sp}[sys.argv[1]](
+            json.loads(sys.argv[2]))
     finally:
         # a group left standing at exit can abort the process in gloo's teardown
         if torch.distributed.is_initialized():

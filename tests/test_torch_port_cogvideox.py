@@ -198,19 +198,40 @@ def test_tiny_cogvideox_4nfe_matches_the_golden(golden_tuple):
 
 
 def test_slice6_options_raise():
-    """Ring attention and pipeline parallelism wait for slice 6."""
-    for fn in (tcog.make_pp_forward, tcog.sequence_parallel_apply):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fn(None, None)
+    """Pipeline parallelism waits for slice 6. Sequence parallelism is
+    ported (tests/test_torch_port_sp.py): its misuses raise the JAX
+    package's ValueErrors, word for word — sequence_parallel_apply on a
+    model whose config names no axis, and the pipeline's mesh without the
+    config's axis or the axis without a mesh; a data-parallel or a separate
+    tensor-parallel knob on a sequence-parallel pipeline."""
+    from tdm_tpu_torch.parallel import mesh as pmesh
+    from tdm_tpu_torch.parallel import tp as ttp
+
     with pytest.raises(NotImplementedError, match="slice 6"):
-        tcog.CogVideoXTransformer3D(
-            dataclasses.replace(tcog.CogVideoXConfig.tiny(), sequence_parallel_axis="sp"),
-            device="cpu")
-    model = tcog.CogVideoXTransformer3D(tcog.CogVideoXConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CogVideoXPipeline(model, sequence_parallel_mesh=object(), device="cpu")
+        tcog.make_pp_forward(None, None)
+    mono = tcog.CogVideoXTransformer3D(tcog.CogVideoXConfig.tiny(), device="cpu")
+    jmono = jcog.CogVideoXTransformer3D(cfg=jcog.CogVideoXConfig.tiny())
+    with pytest.raises(ValueError) as terr:
+        tcog.sequence_parallel_apply(mono, pmesh.make_mesh())
+    with pytest.raises(ValueError) as jerr:
+        jcog.sequence_parallel_apply(jmono, None)
+    assert str(terr.value) == str(jerr.value)
+    spm = tcog.CogVideoXTransformer3D(
+        dataclasses.replace(tcog.CogVideoXConfig.tiny(), sequence_parallel_axis="sp"),
+        device="cpu")
+    with pytest.raises(ValueError, match="must be set together"):
+        CogVideoXPipeline(mono, sequence_parallel_mesh=pmesh.make_mesh(), device="cpu")
+    with pytest.raises(ValueError, match="must be set together"):
+        CogVideoXPipeline(spm, device="cpu")
+    pipe = CogVideoXPipeline(spm, sequence_parallel_mesh=pmesh.make_mesh(), device="cpu")
+    with pytest.raises(ValueError, match="sequence_parallel_mesh and data_parallel_mesh are "
+                                         "mutually exclusive"):
+        pipe.data_parallel_devices = ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="sequence_parallel_mesh and tensor_parallel_mesh are "
+                                         "mutually exclusive"):
+        pipe.tensor_parallel = ttp.TPGroup(1)
     with pytest.raises(ValueError, match="no tokenizer/text_encoder"):
-        CogVideoXPipeline(model, device="cpu")(["a cat"])
+        CogVideoXPipeline(mono, device="cpu")(["a cat"])
 
 
 def test_full_width_2b_parameters_and_attention_shape():

@@ -40,6 +40,7 @@ def _port_files():
     files = sorted((REPO / "tdm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert REPO / "tdm_tpu_torch" / "parallel" / "mesh.py" in files
+    assert REPO / "tdm_tpu_torch" / "ops" / "ring_attention.py" in files
     return files
 
 

@@ -547,10 +547,13 @@ def test_cli_reads_an_embedding_cache(tmp_path, monkeypatch):
     # its id kept from before --fsdp was ported (tests/test_torch_port_parallel.py):
     # in a world of one process --fsdp 2 raises the JAX CLI's ValueError
     pytest.param(["--fsdp", "2"], "does not divide 1 devices", id="flags1-slice 6"),
-    (["--sp", "2"], "slice 6"),
+    # its id kept from before --sp was ported (tests/test_torch_port_sp.py):
+    # --sp on the default pixart family raises the JAX CLI's ValueError
+    pytest.param(["--sp", "2"], "--model_family cogvideox only", id="flags2-slice 6"),
     # the ids of these two cases are kept stable; --quant_forwards is
-    # ported, and with a multi-GPU flag the refusal names slice 6
-    pytest.param(["--quant_forwards", "--sp", "2"], "slice 6", id="flags4-slice 4"),
+    # ported, and with --sp on pixart the JAX CLI's family check comes first
+    pytest.param(["--quant_forwards", "--sp", "2"], "--model_family cogvideox only",
+                 id="flags4-slice 4"),
     pytest.param(["--model_family", "sd15", "--quant_forwards", "--tp", "2"],
                  "does not divide 1 devices", id="flags5-slice 4"),
     # its id kept from before --moe_experts and --ep were ported
@@ -563,7 +566,7 @@ def test_cli_refuses_unported_flags_before_the_first_step(tmp_path, monkeypatch,
 
     monkeypatch.setenv("TDM_TINY_MODEL", "1")
     argv = ["--device", "cpu", "--output_dir", str(tmp_path / "run"), *flags]
-    error = (ValueError if where.startswith(("does not divide", "--ep requires"))
+    error = (ValueError if where.startswith(("does not divide", "--ep requires", "--model"))
              else NotImplementedError)
     with pytest.raises(error, match=where):
         train_tdm.main(argv)
